@@ -9,40 +9,62 @@ NVIDIA H100:
 Phases, one JSON object per line:
 
 1. card: the card's name and power limit, the torch/CUDA versions, and the
-   seconds to build both CUDA kernels from ``ctranslate2_tpu_torch/csrc``.
-2. main path: the full-width Transformer-base model (6+6 layers, d_model
-   512, ffn 2048, 8 heads, 32,000 words; random weights from seed 7),
-   ``Translator(..., compute_type="int8").translate_batch`` on batches of
-   64 sentences of 20-30 tokens, beam 2, exactly 32 target tokens; then one
-   call with ``CT2TPU_BEAM_CHAIN=0`` (the fused-gather beam reorder). The
-   launch counters are zeroed just before and read just after; each
-   kernel must have launched, and the shapes it was called with are
-   logged over the same calls.
-3. kernels: each kernel at every shape the main path gave it, against its
-   plain PyTorch version on the same inputs (W8A8 must be bit-equal; the
-   gather must be equal), with its time, the plain version's, the library
-   call's (``torch._int_mm`` + epilogue; ``index_select``) and the bound.
-4. float16: the same translation run on a float model with
-   ``compute_type="float16"`` (W8A8 is not on that path; the gather is).
-   In both runs the chain-off hypotheses must match the chain run's (see
-   ``CHAIN_SAME_SHARE``); a float32 chain/chain-off pair on the same batch
-   must match on every sentence.
-5. card against CPU, 4 sentences, first decode step's log-probs: float32
-   within ``LOGPROB_TOL``. ``int8_float32`` is run twice on the card: once
-   free, reported only, and once fed the CPU's int8 activations at every
-   linear, which must then agree within the float32 tolerance; the card's
-   own quantization of each linear's input must land at most one int8
-   step from the CPU's, on under ``QUANT_DIFF_SHARE`` of the entries.
+   seconds to build the five CUDA kernels from ``ctranslate2_tpu_torch/csrc``.
+2. Translator main path: the full-width Transformer-base model (6+6 layers,
+   d_model 512, ffn 2048, 8 heads, 32,000 words; random weights from seed
+   7), ``Translator(..., compute_type="int8").translate_batch`` on batches
+   of 64 sentences of 20-30 tokens, beam 2, exactly 32 target tokens; then
+   one call with ``CT2TPU_BEAM_CHAIN=0`` (the fused-gather beam reorder).
+3. Generator main path: the Llama-3-8B geometry (``LLAMA``: 32 layers,
+   d_model 4096, 32 query / 8 KV heads of 128, ffn 14336, 128,256 words,
+   rotary base 500000, RMSNorm, SwiGLU) fabricated as int8 payloads from
+   seeds, ``Generator(..., compute_type="int8").generate_batch`` on 4
+   prompts of 2,049 tokens, ``include_prompt_in_result=False``, greedy,
+   exactly 64 new tokens, with ``CT2TPU_KV_CACHE=int8``: the prefill of
+   2,048 takes the flash kernel, every decode step the int8-KV decode
+   kernel, every RMSNorm the norm kernel, every linear W8A8. One more call
+   with the float16 KV cache. Then the flash kernel against
+   ``CT2TPU_FLASH=0`` and the decode kernel against
+   ``CT2TPU_DECODE_KERNEL=0`` at full depth (a prefill and one step): a
+   random-weight model of this depth amplifies any rounding difference under
+   W8A8, so the switch-off run is fed the kernel run's int8 activations at
+   every linear. Each layer's attention then gets the kernel run's inputs,
+   and its output is compared where the output projection quantizes it: at
+   most one int8 step apart, on at most ``FED_STEP_SHARE`` of the entries.
+   On both main paths the launch counters are zeroed just before and read
+   just after; each kernel of the path must have launched, and the shapes
+   it was called with are logged over the same calls.
+4. kernels: each of the five kernels at every shape a main path gave it,
+   against its plain PyTorch version on the same inputs, with its time, the
+   plain version's, the one library call's where there is one and the
+   bound; then small shapes for every feature the paths do not use.
+   Tolerances: W8A8 bit-equal, gather equal, ``FLASH_TOL``, ``DECODE_TOL``,
+   ``NORM_F32_TOL`` / one ulp of the half type.
+5. float16 Translator run, float32 chain/chain-off pair, Translator card
+   against CPU (as before).
+6. Generator A/B at the same widths and 2 layers, no activation
+   quantization: flash against ``CT2TPU_FLASH=0`` and the int8-KV decode
+   kernel against ``CT2TPU_DECODE_KERNEL=0``. In float32 the first-step
+   log-probs must agree within ``LOGPROB_TOL``; in float16 within
+   ``OWN_ERROR_FACTOR`` times float16's own error on the same path (its
+   plain run against the float32 plain run); the first 8 tokens must be the
+   same on every row in both. Then the card against the port on the CPU
+   (float32, prompts of 513 with ``flash_attention=True``): within
+   ``LOGPROB_TOL`` with the float KV cache; with the int8 KV cache (a cached
+   vector at a rounding tie may land one step apart) within
+   ``INT8_KV_LOGPROB_TOL``.
 
 The line before the last is ``{"kernels": [...]}`` (times are sums over
-the ``launches`` counted on the main path), the last
+the ``launches`` counted on the two main paths), the last
 ``{"ok": true, "device": {...}}``. The script exits non-zero, without
 those lines, if CUDA is unavailable, any call raises or any check fails.
 """
 
 import contextlib
 import json
+import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -50,6 +72,8 @@ import tempfile
 import time
 
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
+PEAK_HALF_FLOPS = 989e12  # H100 SXM dense f16/bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
 BATCH = 64
 BEAM = 2
@@ -71,8 +95,42 @@ LOGPROB_TOL = 1e-3
 # half-step tie by one int8 step (2 in 65,536 at the worst linear on the
 # H100 when the runs are left free).
 QUANT_DIFF_SHARE = 1e-3
+# Card against CPU with the int8 KV cache (float32, 2 layers): a cached
+# vector at a rounding tie lands one int8 step apart (7.6e-3 on the H100;
+# the int8 cache's own effect on these log-probs is 0.26).
+INT8_KV_LOGPROB_TOL = 5e-2
+# A float16 attention kernel against the plain float16 path on the same
+# inputs, read after int8 quantization at the output projection: the share
+# of one linear's entries that may land one step apart (on the H100 0.023
+# for the flash kernel and 0.039 for the decode kernel at the worst layer).
+FED_STEP_SHARE = 0.08
 MODEL = dict(vocab_size=32000, num_layers=6, num_heads=8, d_model=512,
              d_ff=2048, seed=7)
+# The Generator's model: Llama-3-8B's geometry at full width and depth.
+LLAMA = dict(layers=32, d_model=4096, heads=32, heads_kv=8, d_ff=14336,
+             vocab=128256, rotary_base=500000.0)
+GEN_BATCH = 4
+GEN_PROMPT = 2049  # the prefill is 2,048 long: the flash kernel's threshold
+GEN_NEW = 64
+AB_NEW = 8
+AB_LAYERS = 2
+CPU_PROMPT = 513
+# Kernel against plain version on the card. float32: the sums run in another
+# order. Half types: the plain version is computed in float32 from the same
+# half inputs; the kernel rounds P to the half type before P.V and its
+# output once more (bfloat16 has 8 bits of mantissa).
+FLASH_TOL = {"float32": dict(atol=2e-5, rtol=1e-4),
+             "float16": dict(atol=2e-3, rtol=0.0),
+             "bfloat16": dict(atol=1.6e-2, rtol=0.0)}
+DECODE_TOL = dict(atol=1e-4, rtol=1e-4)
+NORM_F32_TOL = dict(atol=1e-5, rtol=1e-5)
+# Two correct runs that each carry a rounding error independently part by
+# up to about 1.4 times that error (sqrt(2) for two independent errors of
+# one size). Where a switch changes the summation order upstream of a
+# rounding step (float16 activations), the two runs are held to this
+# multiple of the rounding's own error, measured in the same run on the same
+# inputs.
+OWN_ERROR_FACTOR = 1.5
 
 
 def emit(obj):
@@ -115,12 +173,58 @@ def chain_off():
 def shape_log(counts, key):
     """A ``patched`` wrapper that counts the calls per ``key(*args)``."""
     def wrap(orig):
-        def wrapped(*args):
-            k = key(*args)
+        def wrapped(*args, **kwargs):
+            k = key(*args, **kwargs)
             counts[k] = counts.get(k, 0) + 1
-            return orig(*args)
+            return orig(*args, **kwargs)
         return wrapped
     return wrap
+
+
+def _dt(t):
+    return str(t.dtype).split(".")[1]
+
+
+# What identifies a call shape of each kernel's wrapper.
+SHAPE_KEYS = {
+    "matmul_w8a8": lambda q, wq, a, w: (q.shape[0], q.shape[1], wq.shape[0]),
+    "gather_rows_fused": lambda arrays, rows: (
+        tuple((tuple(a.shape), str(a.dtype)) for a in arrays), rows.shape[0]),
+    "flash_attention": lambda q, k, v, **kw: (
+        tuple(q.shape), k.shape[1], k.shape[2], _dt(q), bool(kw.get("causal")),
+        kw.get("lengths") is not None, kw.get("window", 0)),
+    "decode_attention_int8": lambda q, k8, ks, v8, vs, lengths, **kw: (
+        tuple(q.shape), k8.shape[1], k8.shape[2], _dt(q),
+        kw.get("k_new8") is not None, kw.get("window", 0)),
+    "fused_norm": lambda x, gamma, beta=None, **kw: (
+        x.numel() // x.shape[-1], x.shape[-1], _dt(x), beta is not None),
+}
+
+
+@contextlib.contextmanager
+def kernel_shape_logs(logs):
+    """Logs, per kernel, the call shapes its wrapper is given (where the
+    model code looks the wrapper up) into ``logs[name][shape] += 1``."""
+    import ctranslate2_tpu_torch.models.transformer as T
+    import ctranslate2_tpu_torch.ops.linear as L
+    import ctranslate2_tpu_torch.ops.norms as N
+
+    homes = {"matmul_w8a8": L, "gather_rows_fused": T, "flash_attention": T,
+             "decode_attention_int8": T, "fused_norm": N}
+    with contextlib.ExitStack() as stack:
+        for name, module in homes.items():
+            stack.enter_context(patched(
+                module, name, shape_log(logs.setdefault(name, {}), SHAPE_KEYS[name])))
+        yield logs
+
+
+def check_logs_cover(counts, logs, logs_before, label, checks):
+    """The shape logs must account for every counted launch."""
+    for name, n in counts.items():
+        logged = sum(logs.get(name, {}).values()) - logs_before.get(name, 0)
+        checks(logged == n,
+               f"{label}: the shape log of {name} covers every counted launch "
+               f"({logged} logged, {n} counted)")
 
 
 def cuda_time_ms(fn, iters):
@@ -192,8 +296,8 @@ def check_chain(cmp, label, checks):
            f"best-score diff {cmp['best_score_max_abs_diff']})")
 
 
-def profile_call(translator, batch, label):
-    """One translate_batch call under torch.profiler: the device's busy
+def profile_call(call, label):
+    """One call of the entry point under torch.profiler: the device's busy
     time (sum of kernel times) against the call's wall time, and the
     kernels that took the most device time."""
     import torch
@@ -202,7 +306,7 @@ def profile_call(translator, batch, label):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        translator.translate_batch(batch, **OPTS)
+        call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     rows = []
@@ -217,28 +321,23 @@ def profile_call(translator, batch, label):
     emit({"phase": f"profile_{label}", "wall_ms_profiled": wall_ms,
           "device_busy_ms": device_ms,
           "device_busy_share": device_ms / wall_ms,
+          "kernel_launches_profiled": sum(r[1] for r in rows),
           "top_device_ms": [[name[:60], ms, n] for ms, n, name in rows[:8]]})
 
 
-def main_path(tt, model_dir, compute_type, batches, checks, label):
+def main_path(tt, model_dir, compute_type, batches, checks, label, logs):
     """Timed chain-on calls plus one chain-off call, with the launch
     counters zeroed before and read after, and each kernel's call shapes
     logged over the same calls."""
     import torch
-    import ctranslate2_tpu_torch.models.transformer as T
-    import ctranslate2_tpu_torch.ops.linear as L
 
     translator = tt.Translator(model_dir, compute_type=compute_type)
     translator.translate_batch(batches[0], **OPTS)  # warm-up, both paths
     with chain_off():
         translator.translate_batch(batches[0], **OPTS)
 
-    w8_shapes, gather_shapes = {}, {}
-    w8_key = lambda q, wq, a, w: (q.shape[0], q.shape[1], wq.shape[0])  # noqa: E731
-    gather_key = lambda arrays, rows: (  # noqa: E731
-        tuple((tuple(a.shape), str(a.dtype)) for a in arrays), rows.shape[0])
-    with patched(L, "matmul_w8a8", shape_log(w8_shapes, w8_key)), \
-            patched(T, "gather_rows_fused", shape_log(gather_shapes, gather_key)):
+    logged_before = {name: sum(d.values()) for name, d in logs.items()}
+    with kernel_shape_logs(logs):
         torch.cuda.reset_peak_memory_stats()
         tt.reset_launches()
         results, seconds, tokens = translate_run(translator, batches[1:1 + ITERS])
@@ -247,17 +346,21 @@ def main_path(tt, model_dir, compute_type, batches, checks, label):
             off, off_seconds, _ = translate_run(translator, batches[1:2])
         counts = tt.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    profile_call(translator, batches[1], label)
+    profile_call(lambda: translator.translate_batch(batches[1], **OPTS), label)
+    # The same call with the plain norm functions (the port's state before
+    # the norm kernel), for its launch count beside the above.
+    with environ(CT2TPU_PALLAS_NORMS="0"):
+        profile_call(lambda: translator.translate_batch(batches[1], **OPTS),
+                     f"{label}_plain_norms")
 
     cmp = compare_chain(results[0], off[0])
     lengths_ok = all(len(r.hypotheses[0]) == MAX_DEC for res in results for r in res)
     checks(lengths_ok, f"{label}: every hypothesis has {MAX_DEC} tokens")
     checks(counts["gather_rows_fused"] > chain_counts["gather_rows_fused"],
            f"{label}: the chain-off call launched the gather kernel")
-    checks(sum(w8_shapes.values()) == counts["matmul_w8a8"]
-           and sum(gather_shapes.values()) == counts["gather_rows_fused"],
-           f"{label}: the shape logs cover every counted launch")
+    check_logs_cover(counts, logs, logged_before, label, checks)
     check_chain(cmp, label, checks)
+    steps = (ITERS + 1) * MAX_DEC
     emit({"phase": f"main_{label}", "compute_type": translator.compute_type,
           "calls": ITERS, "sentences_per_call": BATCH, "beam": BEAM,
           "target_tokens": tokens, "seconds": seconds,
@@ -266,11 +369,14 @@ def main_path(tt, model_dir, compute_type, batches, checks, label):
           "launches_chain_calls": chain_counts,
           "launches_total": counts,
           "w8a8_launches_per_call": chain_counts["matmul_w8a8"] / ITERS,
+          "fused_norm_launches_per_call": chain_counts["fused_norm"] / ITERS,
+          "fused_norm_launches_per_decode_step": (
+              counts["fused_norm"] - (ITERS + 1) * 13) / steps,
           "gather_launches_chain_off_call": counts["gather_rows_fused"]
           - chain_counts["gather_rows_fused"],
           "chain_off_vs_chain": cmp,
           "peak_memory_bytes": peak})
-    return counts, w8_shapes, gather_shapes
+    return counts
 
 
 def chain_float32(tt, model_dir, batch, checks):
@@ -315,8 +421,11 @@ def bench_w8a8(shapes, checks):
         plain_ms = cuda_time_ms(lambda: matmul_w8a8_plain(q, wq, a_s, w_s), iters)
         try:
             wt = wq.t()
+            # torch._int_mm wants more than 16 rows: the decode shapes are
+            # padded to 32 rows of zeros for it (timed only).
+            ql = q if M >= 32 else torch.cat([q, q.new_zeros((32 - M, K))])
             lib_ms = cuda_time_ms(
-                lambda: torch._int_mm(q, wt).float() / (a_s[:, None] * w_s[None, :]),
+                lambda: torch._int_mm(ql, wt)[:M].float() / (a_s[:, None] * w_s[None, :]),
                 iters)
         except RuntimeError as e:  # torch._int_mm refuses some shapes
             lib_ms, library_ok = None, False
@@ -377,6 +486,646 @@ def bench_gather(shapes, checks):
     return tot
 
 
+def _flash_inputs(g, B, Hq, Hkv, Tq, Tk, D, dtype):
+    import torch
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    return t(B, Hq, Tq, D), t(B, Hkv, Tk, D), t(B, Hkv, Tk, D)
+
+
+def bench_flash(shapes, checks):
+    """The flash kernel at every main-path shape against its plain version
+    (computed in float32 from the same inputs) and, timed only,
+    ``F.scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+    from ctranslate2_tpu_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+               max_abs_err=0.0)
+    for key, n in sorted(shapes.items()):
+        (B, Hq, Tq, D), Hkv, Tk, dt, causal, has_lengths, window = key
+        dtype = getattr(torch, dt)
+        q, k, v = _flash_inputs(g, B, Hq, Hkv, Tq, Tk, D, dtype)
+        lengths = (torch.randint(Tk // 2, Tk + 1, (B,), generator=g, device="cuda",
+                                 dtype=torch.int32) if has_lengths else None)
+        kw = dict(scale=D ** -0.5, causal=causal, lengths=lengths, window=window)
+        out = flash_attention(q, k, v, **kw)
+        ref = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        checks(torch.allclose(out.float(), ref, **FLASH_TOL[dt]),
+               f"flash within {FLASH_TOL[dt]} of plain at {key} (max abs err {err})")
+        del ref
+        ms = cuda_time_ms(lambda: flash_attention(q, k, v, **kw), 5)
+        plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v, **kw), 3)
+        lib_ms = None
+        if lengths is None and not window:
+            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, scale=D ** -0.5,
+                enable_gqa=Hq != Hkv), 5)
+        share = 0.5 if causal and Tq == Tk and not window else 1.0
+        ops = 4.0 * B * Hq * Tq * Tk * D * share
+        peak = PEAK_F32_FLOPS if dt == "float32" else PEAK_HALF_FLOPS
+        ops_ms = ops / peak * 1e3
+        bytes_ms = (2 * q.numel() + 2 * k.numel()) * q.element_size() / PEAK_BYTES * 1e3
+        emit({"phase": "kernel_flash", "q": [B, Hq, Tq, D], "kv": [B, Hkv, Tk, D],
+              "dtype": dt, "causal": causal, "lengths": has_lengths, "window": window,
+              "launches": n, "max_abs_err": err, "tolerance": FLASH_TOL[dt],
+              "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+              "library": "F.scaled_dot_product_attention",
+              "flops": ops, "tflops": ops / ms / 1e9,
+              "bound_ms": max(ops_ms, bytes_ms),
+              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
+        tot["ms"] += n * ms
+        tot["plain_ms"] += n * plain_ms
+        tot["library_ms"] = (None if lib_ms is None or tot["library_ms"] is None
+                             else tot["library_ms"] + n * lib_ms)
+        tot["bytes_ms"] += n * bytes_ms
+        tot["ops_ms"] += n * ops_ms
+    return tot
+
+
+def _decode_inputs(g, B, Hq, Hkv, C, D, dtype, fresh, lengths):
+    import torch
+    from ctranslate2_tpu_torch.kernels.decode_attention import quantize_kv
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    k8, ks = quantize_kv(t(B, Hkv, C, D))
+    v8, vs = quantize_kv(t(B, Hkv, C, D))
+    kw = {}
+    if fresh:
+        kw["k_new8"], kw["kn_scale"] = quantize_kv(t(B, Hkv, 1, D))
+        kw["v_new8"], kw["vn_scale"] = quantize_kv(t(B, Hkv, 1, D))
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return (t(B, Hq, 1, D).to(dtype), k8, ks, v8, vs, lengths), kw
+
+
+def bench_decode(shapes, first_length, steps, checks):
+    """The int8-KV decode kernel at every main-path shape, with cache
+    lengths spread over those of the run's steps. No single PyTorch call
+    computes this function, so there is no library time."""
+    import torch
+    from ctranslate2_tpu_torch.kernels.decode_attention import (
+        decode_attention_int8, decode_attention_int8_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tot = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0)
+    for key, n in sorted(shapes.items()):
+        (B, Hq, _, D), Hkv, C, dt, fresh, window = key
+        # Lengths from the first step's to the last step's: their mean is
+        # the mean over the run.
+        lengths = [first_length + round(i * (steps - 1) / max(B - 1, 1))
+                   for i in range(B)]
+        args, kw = _decode_inputs(g, B, Hq, Hkv, C, D, getattr(torch, dt),
+                                  fresh, lengths)
+        kw.update(scale=D ** -0.5, window=window)
+        out = decode_attention_int8(*args, **kw)
+        ref = decode_attention_int8_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        checks(torch.allclose(out, ref, **DECODE_TOL),
+               f"decode within {DECODE_TOL} of plain at {key} (max abs err {err})")
+        ms = cuda_time_ms(lambda: decode_attention_int8(*args, **kw), 50)
+        plain_ms = cuda_time_ms(lambda: decode_attention_int8_plain(*args, **kw), 20)
+        # The wrapper's rule: with a fresh key the window shows window - 1
+        # cache keys, and none when it is 1.
+        shown = window - 1 if fresh and window else window
+        keys = sum(0 if fresh and window == 1 else (min(lng, shown) if shown else lng)
+                   for lng in lengths)
+        nbytes = keys * Hkv * (2 * D + 8) + (2 * Hkv * (D + 4) * B if fresh else 0) \
+            + B * Hq * D * (args[0].element_size() + 4)
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        ops_ms = 4.0 * keys * Hq * D / PEAK_F32_FLOPS * 1e3
+        emit({"phase": "kernel_decode", "q": [B, Hq, 1, D], "cache": [B, Hkv, C, D],
+              "dtype": dt, "fresh": fresh, "window": window, "lengths": lengths,
+              "launches": n, "max_abs_err": err, "tolerance": DECODE_TOL,
+              "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+              "bytes_moved": nbytes, "gbytes_per_s": nbytes / ms / 1e6,
+              "bound_ms": max(bytes_ms, ops_ms),
+              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+        tot["ms"] += n * ms
+        tot["plain_ms"] += n * plain_ms
+        tot["bytes_ms"] += n * bytes_ms
+        tot["ops_ms"] += n * ops_ms
+    return tot
+
+
+def norm_close(out, ref, beta):
+    """float32: ``NORM_F32_TOL``. Half types: one ulp of the output type,
+    taken at the scale of the terms where beta cancels the scaled value."""
+    import torch
+
+    if out.dtype == torch.float32:
+        return torch.allclose(out, ref, **NORM_F32_TOL)
+    ulp = 2.0 ** (-10 if out.dtype == torch.float16 else -7)
+    scale = ref.float().abs().clamp_min(2.0 ** -14)
+    if beta is not None:
+        scale = torch.maximum(scale, beta.abs().expand_as(scale))
+    return bool(((out.float() - ref.float()).abs() <= ulp * scale).all())
+
+
+def bench_norm(shapes, checks):
+    """The norm kernel at every main-path shape against its plain version
+    and, timed only, ``F.rms_norm`` / ``F.layer_norm``."""
+    import torch
+    import torch.nn.functional as F
+    from ctranslate2_tpu_torch.kernels.norms import fused_norm, fused_norm_plain
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0, max_abs_err=0.0)
+    for key, n in sorted(shapes.items()):
+        rows, D, dt, has_beta = key
+        dtype = getattr(torch, dt)
+        x = (torch.randn((rows, D), generator=g, device="cuda") * 2 + 0.5).to(dtype)
+        gamma = torch.randn(D, generator=g, device="cuda")
+        beta = torch.randn(D, generator=g, device="cuda") if has_beta else None
+        out = fused_norm(x, gamma, beta, eps=1e-5)
+        ref = fused_norm_plain(x, gamma, beta, eps=1e-5)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        checks(norm_close(out, ref, beta),
+               f"norm within one ulp of plain at {key} (max abs err {err})")
+        iters = 100 if rows * D < 2**22 else 20
+        ms = cuda_time_ms(lambda: fused_norm(x, gamma, beta, eps=1e-5), iters)
+        plain_ms = cuda_time_ms(lambda: fused_norm_plain(x, gamma, beta, eps=1e-5), iters)
+        gx = gamma.to(dtype)
+        if has_beta:
+            bx = beta.to(dtype)
+            lib_ms = cuda_time_ms(lambda: F.layer_norm(x, (D,), gx, bx, 1e-5), iters)
+        else:
+            lib_ms = cuda_time_ms(lambda: F.rms_norm(x, (D,), gx, 1e-5), iters)
+        nbytes = 2 * rows * D * x.element_size() + 4 * D * (2 if has_beta else 1)
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        emit({"phase": "kernel_norm", "rows": rows, "D": D, "dtype": dt,
+              "layer_norm": has_beta, "launches": n, "max_abs_err": err,
+              "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+              "library": "F.layer_norm" if has_beta else "F.rms_norm",
+              "bytes_moved": nbytes, "bound_ms": bytes_ms, "bound_by": "bytes"})
+        tot["ms"] += n * ms
+        tot["plain_ms"] += n * plain_ms
+        tot["library_ms"] += n * lib_ms
+        tot["bytes_ms"] += n * bytes_ms
+    return tot
+
+
+def feature_checks(checks):
+    """Small shapes on the card for every feature the main paths do not
+    use: each kernel against its plain version."""
+    import torch
+    from ctranslate2_tpu_torch.kernels.decode_attention import (
+        decode_attention_int8, decode_attention_int8_plain)
+    from ctranslate2_tpu_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from ctranslate2_tpu_torch.kernels.norms import fused_norm, fused_norm_plain
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    B, T = 2, 150
+
+    def i32(values):
+        return torch.tensor(values, dtype=torch.int32, device="cuda")
+
+    def slopes(h):
+        return torch.tensor([0.5 ** (i + 1) for i in range(h)], device="cuda")
+
+    def table(h):
+        return torch.randn((12, h), generator=g, device="cuda")
+
+    segments = torch.sort(torch.randint(0, 3, (B, T), generator=g, device="cuda",
+                                        dtype=torch.int32), dim=1).values
+    flash_cases = [
+        ("non_causal_lengths", "float16", 128, 4, 2, T, T, dict(lengths=i32([37, T]))),
+        ("window", "float16", 64, 4, 4, T, T, dict(causal=True, window=17)),
+        ("segment_ids", "float16", 128, 4, 2, T, T, dict(causal=True, segment_ids=segments)),
+        ("alibi_negative", "bfloat16", 64, 4, 2, T, T,
+         dict(causal=True, alibi_slopes=slopes(4), alibi_positive=False)),
+        ("alibi_positive", "float16", 64, 4, 4, T, T,
+         dict(causal=True, alibi_slopes=slopes(4), alibi_positive=True)),
+        ("t5_causal", "float16", 64, 4, 4, T, T,
+         dict(causal=True, rel_bias_table=table(4), rel_max_distance=50,
+              rel_bidirectional=False)),
+        ("t5_bidirectional", "float32", 64, 4, 2, T, T,
+         dict(rel_bias_table=table(4), rel_max_distance=50, rel_bidirectional=True)),
+        ("q_offset", "float16", 128, 4, 2, 60, T, dict(causal=True, q_offset=5)),
+        ("bf16_mqa", "bfloat16", 128, 4, 1, T, T, dict(causal=True)),
+        ("f32_head_dim_128", "float32", 128, 2, 2, T, T, dict(causal=True, lengths=i32([T, 9]))),
+        ("masked_rows", "float16", 64, 2, 2, T, T, dict(lengths=i32([0, T]))),
+    ]
+    worst = {}
+    for name, dt, D, Hq, Hkv, Tq, Tk, kw in flash_cases:
+        q, k, v = _flash_inputs(g, B, Hq, Hkv, Tq, Tk, D, getattr(torch, dt))
+        out = flash_attention(q, k, v, scale=D ** -0.5, **kw)
+        ref = flash_attention_plain(q.float(), k.float(), v.float(), scale=D ** -0.5, **kw)
+        torch.cuda.synchronize()
+        worst[f"flash_{name}"] = err = (out.float() - ref).abs().max().item()
+        checks(torch.allclose(out.float(), ref, **FLASH_TOL[dt]),
+               f"flash feature {name} ({dt}, D={D}) within {FLASH_TOL[dt]} (got {err})")
+    try:
+        flash_attention(*_flash_inputs(g, 1, 2, 2, 8, 8, 32, torch.float16))
+        refused = False
+    except NotImplementedError as e:
+        refused = "32" in str(e)
+    checks(refused, "flash refuses a head dim of 32 with a message that names it")
+
+    decode_cases = [
+        ("window_fresh", "float16", 8, 2, 300, 64, True, 9, [300, 17, 0]),
+        ("window_one", "float32", 8, 2, 300, 64, True, 1, [300, 17, 0]),
+        ("no_fresh", "float16", 32, 8, 2176, 128, False, 0, [2048, 2111, 1]),
+        ("no_fresh_window", "bfloat16", 6, 1, 130, 32, False, 7, [130, 64, 5]),
+        ("head_dim_256", "float32", 4, 2, 70, 256, True, 0, [70, 33, 2]),
+    ]
+    for name, dt, Hq, Hkv, C, D, fresh, window, lengths in decode_cases:
+        args, kw = _decode_inputs(g, len(lengths), Hq, Hkv, C, D, getattr(torch, dt),
+                                  fresh, lengths)
+        kw.update(scale=D ** -0.5, window=window)
+        out = decode_attention_int8(*args, **kw)
+        ref = decode_attention_int8_plain(*args, **kw)
+        torch.cuda.synchronize()
+        worst[f"decode_{name}"] = err = (out - ref).abs().max().item()
+        checks(torch.allclose(out, ref, **DECODE_TOL),
+               f"decode feature {name} within {DECODE_TOL} (got {err})")
+
+    for name, dt, shape, has_beta in [
+            ("layer_norm_beta", "float16", (3, 5, 512), True),
+            ("layer_norm_f32", "float32", (7, 24), True),
+            ("rms_bf16_long_row", "bfloat16", (2, 17000), False)]:
+        x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(getattr(torch, dt))
+        gamma = torch.randn(shape[-1], generator=g, device="cuda")
+        beta = torch.randn(shape[-1], generator=g, device="cuda") if has_beta else None
+        out = fused_norm(x, gamma, beta, eps=1e-5)
+        ref = fused_norm_plain(x, gamma, beta, eps=1e-5)
+        torch.cuda.synchronize()
+        worst[f"norm_{name}"] = (out.float() - ref.float()).abs().max().item()
+        checks(norm_close(out, ref, beta), f"norm feature {name} within one ulp of plain")
+    emit({"phase": "kernel_features", "max_abs_err": worst})
+
+
+# ---------------------------------------------------------------------------
+# Generator: the Llama-3-8B geometry.
+# ---------------------------------------------------------------------------
+
+def build_llama_modelfile(layers):
+    """The Llama-3-8B geometry fabricated directly as int8 payloads and
+    scales, in memory (no float intermediates): every linear's payload is
+    drawn from its own seed, several at a time on a thread pool (numpy
+    releases the interpreter lock while it draws)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from ctranslate2_tpu_torch.formats.model_file import ModelFile, make_variable
+
+    cfg = LLAMA
+    d, heads, heads_kv = cfg["d_model"], cfg["heads"], cfg["heads_kv"]
+    head_dim = d // heads
+    mf = ModelFile(spec_name="TransformerDecoderSpec", spec_revision=8,
+                   binary_version=6)
+    mf.config = {"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>",
+                 "layer_norm_epsilon": 1e-5}
+
+    def add(name, value, dtype=None):
+        mf.variables[name] = make_variable(name, value, dtype)
+
+    payloads = []  # (scope, rows, cols, seed)
+
+    def lin(scope, out_dim, in_dim, seed):
+        payloads.append((scope, out_dim, in_dim, seed))
+        add(f"{scope}/weight_scale", np.full((out_dim,), 127.0 / 0.05, np.float32))
+
+    sc = "decoder"
+    add(f"{sc}/num_heads", heads, "int16")
+    add(f"{sc}/pre_norm", 1, "int8")
+    add(f"{sc}/activation", 2, "int8")  # swish
+    add(f"{sc}/scale_embeddings", 0, "int8")
+    lin(f"{sc}/embeddings", cfg["vocab"], d, 0)
+    add(f"{sc}/layer_norm/gamma", np.ones(d, np.float32))
+    lin(f"{sc}/projection", cfg["vocab"], d, 1)
+    for i in range(layers):
+        ls = f"{sc}/layer_{i}"
+        asc = f"{ls}/self_attention"
+        lin(f"{asc}/linear_0", (heads + 2 * heads_kv) * head_dim, d, 10 + i)
+        lin(f"{asc}/linear_1", d, heads * head_dim, 1000 + i)
+        add(f"{asc}/layer_norm/gamma", np.ones(d, np.float32))
+        add(f"{asc}/num_heads_kv", heads_kv, "int32")
+        add(f"{asc}/rotary_dim", 0, "int32")
+        add(f"{asc}/rotary_interleave", 0, "int8")
+        add(f"{asc}/rotary_base", cfg["rotary_base"], "float32")
+        lin(f"{ls}/ffn/linear_0", cfg["d_ff"], d, 2000 + i)
+        lin(f"{ls}/ffn/linear_0_noact", cfg["d_ff"], d, 3000 + i)
+        lin(f"{ls}/ffn/linear_1", d, cfg["d_ff"], 4000 + i)
+        add(f"{ls}/ffn/layer_norm/gamma", np.ones(d, np.float32))
+
+    def draw(job):
+        scope, rows, cols, seed = job
+        return scope, np.random.default_rng(seed).integers(
+            -127, 128, (rows, cols), dtype=np.int8)
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        for scope, q in pool.map(draw, payloads):
+            add(f"{scope}/weight", q, "int8")
+    return mf
+
+
+def llama_subset(mf, layers):
+    """The first ``layers`` layers of a fabricated model, sharing its arrays."""
+    from ctranslate2_tpu_torch.formats.model_file import ModelFile
+
+    sub = ModelFile(spec_name=mf.spec_name, spec_revision=mf.spec_revision,
+                    binary_version=mf.binary_version)
+    sub.config = dict(mf.config)
+    for name, var in mf.variables.items():
+        layer = re.match(r"decoder/layer_(\d+)/", name)
+        if layer and int(layer.group(1)) >= layers:
+            continue
+        sub.variables[name] = var
+    return sub
+
+
+def make_generator(tt, mf, vocab, **kwargs):
+    """A Generator on an in-memory model, which carries no vocabulary file:
+    the vocabulary is handed to the loaded model."""
+    gen = tt.Generator(mf, **kwargs)
+    gen.model.target_vocabulary = vocab
+    return gen
+
+
+def make_prompts(vocab, length, seed):
+    import numpy as np
+
+    r = np.random.default_rng(2000 + seed)
+    return [[vocab.to_token(int(t)) for t in r.integers(10, LLAMA["vocab"] - 10, length)]
+            for _ in range(GEN_BATCH)]
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Sets environment variables for one block."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def generate_run(gen, prompts, new_tokens=GEN_NEW):
+    """One timed generate_batch call; returns (results, seconds, prefill
+    seconds). The prefill is timed with a device sync on either side."""
+    import torch
+
+    prefill = []
+
+    def timed(orig):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            prefill.append(time.perf_counter() - start)
+            return out
+        return wrapped
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with patched(gen, "_prefill", timed):
+        results = gen.generate_batch(
+            prompts, include_prompt_in_result=False, beam_size=1,
+            min_length=new_tokens, max_length=new_tokens, return_scores=True)
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - start, sum(prefill)
+
+
+def generator_first_step_logprobs(gen, prompts, quantize_wrap=None,
+                                  on_prefilled=None):
+    """Prefill all but the last prompt token, then one decode step: its
+    log-probs (float32, on the CPU). With ``quantize_wrap``,
+    ``ops.linear.quantize_per_row`` is patched by it over both;
+    ``on_prefilled`` is called between the two."""
+    import torch
+    import ctranslate2_tpu_torch.ops.linear as L
+    from ctranslate2_tpu_torch.models import transformer as T
+
+    m = gen.model
+    if quantize_wrap is not None:
+        with patched(L, "quantize_per_row", quantize_wrap):
+            return generator_first_step_logprobs(gen, prompts,
+                                                 on_prefilled=on_prefilled)
+    ids = [[gen._vocab.to_id(t) for t in p] for p in prompts]
+    length = len(ids[0])
+    capacity = (length + GEN_NEW + 64) // 64 * 64
+    m.ensure_consts(capacity)
+    cache = T.init_self_cache(m.arch, len(ids), capacity, dtype=m.kv_dtype,
+                              device=m.device)
+    gen._prefill([row[:-1] for row in ids], cache, 0)
+    if on_prefilled is not None:
+        on_prefilled()
+    last = torch.tensor([[row[-1]] for row in ids], dtype=torch.long, device=m.device)
+    logits, _ = T.decoder_forward(
+        m.arch, m.params, m.consts, last, length - 1, cache,
+        quantize_acts=m.policy.quantize_activations, out_dtype=m.out_dtype)
+    return torch.log_softmax(logits[:, -1].float(), -1).cpu()
+
+
+def same_prefix_rows(a, b, n):
+    return sum(x.sequences_ids[0][:n] == y.sequences_ids[0][:n] for x, y in zip(a, b))
+
+
+def generator_main_path(tt, mf, vocab, checks, logs):
+    """The Generator at full width and depth, int8 weights, int8 KV cache:
+    timed calls with the launch counters zeroed before and read after, the
+    profiler's busy share, the flash-off and decode-kernel-off runs fed the
+    kernel run's int8 activations, then the float16-KV call."""
+    import torch
+
+    t0 = time.perf_counter()
+    with environ(CT2TPU_KV_CACHE="int8"):
+        gen = make_generator(tt, mf, vocab, compute_type="int8")
+    torch.cuda.synchronize()
+    load_seconds = time.perf_counter() - t0
+    prompts = [make_prompts(vocab, GEN_PROMPT, i) for i in range(3)]
+    calls = 2
+
+    with environ(CT2TPU_KV_CACHE="int8"):
+        generate_run(gen, prompts[0])  # warm-up
+        logged_before = {name: sum(d.values()) for name, d in logs.items()}
+        with kernel_shape_logs(logs):
+            torch.cuda.reset_peak_memory_stats()
+            tt.reset_launches()
+            runs = [generate_run(gen, p) for p in prompts[1:1 + calls]]
+            counts = tt.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check_logs_cover(counts, logs, logged_before, "generator", checks)
+        profile_call(lambda: generate_run(gen, prompts[1]), "generator_int8")
+        layers = len(gen.model.arch.decoder.layers)
+        recorded = []
+        logp = generator_first_step_logprobs(gen, prompts[1],
+                                             record_quantized(recorded))
+        fed = {}
+        for name, switch, kernel in (
+                ("flash_off", "CT2TPU_FLASH", "flash_attention"),
+                ("decode_kernel_off", "CT2TPU_DECODE_KERNEL", "decode_attention_int8")):
+            replay = ReplayQuantized(recorded)
+            # The decode kernel runs in the step only: the prefill before it
+            # is the same run again and is left out of its reading.
+            on_prefilled = replay.reset_stats if kernel == "decode_attention_int8" else None
+            with environ(**{switch: "0"}):
+                before = tt.launch_counts()[kernel]
+                logp_fed = generator_first_step_logprobs(gen, prompts[1], replay,
+                                                         on_prefilled)
+                checks(tt.launch_counts()[kernel] == before,
+                       f"generator: {switch}=0 launches no {kernel} kernel")
+            fed[name] = check_fed(replay, len(recorded), logp_fed, logp, layers,
+                                  f"generator int8, {name}", checks)
+        del recorded, replay
+    # The float16 KV cache: the same call without the int8-KV kernel.
+    tt.reset_launches()
+    f16_results, f16_seconds, f16_prefill = generate_run(gen, prompts[1])
+    f16_counts = tt.launch_counts()
+
+    results = [r for run in runs for r in run[0]]
+    seconds = sum(run[1] for run in runs)
+    prefill = sum(run[2] for run in runs)
+    tokens = sum(len(r.sequences_ids[0]) for r in results)
+    checks(all(len(r.sequences_ids[0]) == GEN_NEW for r in results + f16_results),
+           f"generator: every hypothesis has {GEN_NEW} tokens")
+    checks(all(math.isfinite(r.scores[0]) for r in results + f16_results)
+           and bool(torch.isfinite(logp).all()),
+           "generator: scores and log-probs are finite")
+    checks(tuple(logp.shape) == (GEN_BATCH, LLAMA["vocab"]),
+           "generator: first-step log-probs have the vocabulary's width")
+    checks(f16_counts["decode_attention_int8"] == 0 and f16_counts["flash_attention"] > 0,
+           "generator: the float16 KV cache runs flash and no int8-KV kernel")
+    emit({"phase": "main_generator", "compute_type": gen.compute_type,
+          "kv_cache": "int8", "model": dict(LLAMA, layers=layers),
+          "load_seconds": load_seconds, "calls": calls, "prompts_per_call": GEN_BATCH,
+          "prompt_tokens": GEN_PROMPT, "new_tokens_per_prompt": GEN_NEW,
+          "target_tokens": tokens, "seconds": seconds,
+          "target_tokens_per_s": tokens / seconds,
+          "prefill_ms_per_call": prefill / calls * 1e3,
+          "prefill_tokens_per_s": calls * GEN_BATCH * (GEN_PROMPT - 1) / prefill,
+          "decode_ms_per_step": (seconds - prefill) / calls / GEN_NEW * 1e3,
+          "launches": counts,
+          "launches_per_call": {k: v / calls for k, v in counts.items()},
+          "peak_memory_bytes": peak,
+          "float16_kv_call": {"seconds": f16_seconds,
+                              "prefill_ms": f16_prefill * 1e3,
+                              "decode_ms_per_step":
+                                  (f16_seconds - f16_prefill) / GEN_NEW * 1e3,
+                              "launches": f16_counts},
+          "fed_kernel_runs_int8_activations": fed,
+          "fed_tolerances": {"max_step": 1, "worst_linear_share": FED_STEP_SHARE,
+                             "first_step_logprob": LOGPROB_TOL}})
+    return counts
+
+
+def generator_ab(tt, mf, vocab, checks):
+    """Same widths, 2 layers, no activation quantization: each attention
+    kernel against the plain path it replaces, in float32 and in float16."""
+    prompts = make_prompts(vocab, GEN_PROMPT, 7)
+    arms = {  # environment of each arm
+        "plain": dict(CT2TPU_FLASH="0"),
+        "flash": {},
+        "kv_plain": dict(CT2TPU_KV_CACHE="int8", CT2TPU_DECODE_KERNEL="0"),
+        "kv_kernel": dict(CT2TPU_KV_CACHE="int8"),
+    }
+    pairs = {"flash": ("flash", "plain", "flash_attention"),
+             "decode_kernel": ("kv_kernel", "kv_plain", "decode_attention_int8")}
+    runs = {}
+    for compute_type in ("float32", "float16"):
+        gen = make_generator(tt, mf, vocab, compute_type=compute_type)
+        for arm, env in arms.items():
+            with environ(**env):
+                tt.reset_launches()
+                results = generate_run(gen, prompts, AB_NEW)[0]
+                logp = generator_first_step_logprobs(gen, prompts)
+                runs[compute_type, arm] = (results, logp, tt.launch_counts())
+        del gen
+    out = {"phase": "generator_ab", "layers": AB_LAYERS,
+           "prompt_tokens": GEN_PROMPT, "own_error_factor": OWN_ERROR_FACTOR}
+    for compute_type in ("float32", "float16"):
+        for name, (on_arm, off_arm, kernel) in pairs.items():
+            on, logp_on, counts_on = runs[compute_type, on_arm]
+            off, logp_off, counts_off = runs[compute_type, off_arm]
+            diff = (logp_on - logp_off).abs().max().item()
+            same = same_prefix_rows(on, off, AB_NEW)
+            entry = {"first_step_logprob_max_abs_diff": diff,
+                     f"rows_with_same_first_{AB_NEW}_tokens": f"{same}/{GEN_BATCH}",
+                     "launches_on": counts_on[kernel]}
+            if compute_type == "float32":
+                tol = LOGPROB_TOL
+            else:
+                # float16's own error on the plain path of this pair.
+                own = (logp_off - runs["float32", off_arm][1]).abs().max().item()
+                entry["float16_own_error"] = own
+                tol = OWN_ERROR_FACTOR * own
+            entry["tolerance"] = tol
+            label = f"{compute_type} A/B, {name} kernel on/off"
+            checks(counts_on[kernel] > 0 and counts_off[kernel] == 0,
+                   f"{label}: the switch turns the kernel off "
+                   f"({counts_on[kernel]} launches on, {counts_off[kernel]} off)")
+            checks(diff <= tol,
+                   f"{label}: first-step log-probs within {tol} (got {diff})")
+            checks(same == GEN_BATCH,
+                   f"{label}: the same first {AB_NEW} tokens on every row "
+                   f"({same}/{GEN_BATCH})")
+            out[f"{compute_type}_{name}"] = entry
+    emit(out)
+
+
+def generator_card_vs_cpu(tt, mf, vocab, checks):
+    """The port on the card against the port on the CPU: 2 layers, same
+    widths, float32, ``flash_attention=True`` so that the shorter prompts
+    still take the (float32) flash kernel on the card; with the float KV
+    cache and with the int8 one."""
+    prompts = make_prompts(vocab, CPU_PROMPT, 9)
+    card = make_generator(tt, mf, vocab, compute_type="float32", flash_attention=True)
+    cpu = make_generator(tt, mf, vocab, device="cpu", compute_type="float32",
+                         flash_attention=True)
+    logp, counts = {}, {}
+    t0 = time.perf_counter()
+    for kv in ("", "int8"):
+        with environ(CT2TPU_KV_CACHE=kv):
+            tt.reset_launches()
+            logp["card", kv] = generator_first_step_logprobs(card, prompts)
+            counts[kv] = tt.launch_counts()
+            logp["cpu", kv] = generator_first_step_logprobs(cpu, prompts)
+    seconds = time.perf_counter() - t0
+    norms = 2 * (2 * AB_LAYERS + 1)
+    checks(counts[""]["flash_attention"] == AB_LAYERS
+           and counts[""]["fused_norm"] == norms
+           and counts["int8"]["decode_attention_int8"] == AB_LAYERS
+           and counts["int8"]["flash_attention"] == AB_LAYERS,
+           f"generator card vs CPU: the card ran the kernels ({counts})")
+    diff = (logp["card", ""] - logp["cpu", ""]).abs().max().item()
+    checks(diff <= LOGPROB_TOL,
+           f"generator card vs CPU (float32, float KV, {AB_LAYERS} layers) "
+           f"first-step log-probs within {LOGPROB_TOL} (got {diff})")
+    diff8 = (logp["card", "int8"] - logp["cpu", "int8"]).abs().max().item()
+    own8 = (logp["cpu", "int8"] - logp["cpu", ""]).abs().max().item()
+    checks(diff8 <= INT8_KV_LOGPROB_TOL,
+           f"generator card vs CPU (float32, int8 KV): first-step log-probs "
+           f"within {INT8_KV_LOGPROB_TOL} (got {diff8})")
+    emit({"phase": "generator_card_vs_cpu", "layers": AB_LAYERS,
+          "compute_type": "float32", "prompt_tokens": CPU_PROMPT,
+          "float_kv_first_step_logprob_max_abs_diff": diff, "tolerance": LOGPROB_TOL,
+          "int8_kv_first_step_logprob_max_abs_diff": diff8,
+          "int8_kv_own_error_cpu": own8,
+          "int8_kv_tolerance": INT8_KV_LOGPROB_TOL,
+          "card_launches": counts["int8"], "seconds": seconds})
+
+
 def record_quantized(out):
     """A ``patched`` wrapper for ``quantize_per_row`` that appends every
     (q, scale) it returns to ``out``."""
@@ -390,28 +1139,63 @@ def record_quantized(out):
 
 
 class ReplayQuantized:
-    """A ``patched`` wrapper for ``quantize_per_row`` on the card: it
-    quantizes as the card does, counts where that lands apart from the
-    CPU's int8 activations for the same linear, and returns the CPU's
-    (q, scale), so that every W8A8 product gets the same int8 inputs on
-    both devices. A card path that quantizes fewer or other activations
-    than the CPU's leaves recorded pairs unused or raises."""
+    """A ``patched`` wrapper for ``quantize_per_row``: it quantizes as this
+    run does, counts where that lands apart from the recorded run's int8
+    activations for the same linear, and returns the recorded (q, scale),
+    so that every W8A8 product gets the same int8 inputs in both runs (card
+    and CPU, or a kernel and the plain path it replaces). A run that
+    quantizes fewer or other activations than the recorded one leaves
+    recorded pairs unused or raises."""
 
     def __init__(self, recorded):
         self.recorded = recorded
-        self.calls = self.entries = self.differing = self.max_step = 0
+        self.calls = 0
+        self.reset_stats()
+
+    def reset_stats(self):
+        self.entries = self.differing = self.max_step = self.calls_differing = 0
+        self.worst_share = 0.0  # of one linear's entries
 
     def __call__(self, orig):
         def wrapped(x, *args, **kwargs):
             q, _ = orig(x, *args, **kwargs)
-            q_cpu, scale_cpu = self.recorded[self.calls]
+            q_rec, scale_rec = self.recorded[self.calls]
             self.calls += 1
-            step = (q.cpu().int() - q_cpu.int()).abs()
+            q_rec, scale_rec = q_rec.to(x.device), scale_rec.to(x.device)
+            step = (q.int() - q_rec.int()).abs()
+            differing = int((step > 0).sum().item())
             self.entries += step.numel()
-            self.differing += int((step > 0).sum().item())
+            self.differing += differing
+            self.calls_differing += differing > 0
+            self.worst_share = max(self.worst_share, differing / step.numel())
             self.max_step = max(self.max_step, int(step.max().item()))
-            return q_cpu.to(x.device), scale_cpu.to(x.device)
+            return q_rec, scale_rec
         return wrapped
+
+
+def check_fed(replay, recorded, logp_fed, logp, layers, label, checks):
+    """A switch-off run fed the kernel run's int8 activations: every layer's
+    attention then sees the kernel run's inputs, and its own output is read
+    where the next linear (the output projection) quantizes it. No other
+    linear's input can differ, the two attentions' outputs may round an
+    entry at a half step one int8 step apart, and the log-probs agree."""
+    diff = (logp_fed - logp).abs().max().item()
+    checks(replay.calls == recorded > 0,
+           f"{label}: the same {recorded} linears quantize (got {replay.calls})")
+    checks(0 < replay.calls_differing <= layers,
+           f"{label}: only the {layers} attention outputs differ "
+           f"({replay.calls_differing} linears with differing inputs)")
+    checks(replay.max_step <= 1 and replay.worst_share <= FED_STEP_SHARE,
+           f"{label}: attention outputs at most one int8 step apart on at "
+           f"most {FED_STEP_SHARE} of a linear's entries (max step "
+           f"{replay.max_step}, worst share {replay.worst_share})")
+    checks(diff <= LOGPROB_TOL,
+           f"{label}: first-step log-probs within {LOGPROB_TOL} (got {diff})")
+    return {"linears_with_differing_inputs": replay.calls_differing,
+            "int8_max_step": replay.max_step,
+            "worst_linear_share_differing": replay.worst_share,
+            "entries": replay.entries, "entries_differing": replay.differing,
+            "first_step_logprob_max_abs_diff": diff}
 
 
 def first_step_logprobs(tr, sentences, quantize_wrap=None):
@@ -504,12 +1288,13 @@ def main():
         return 2
     import ctranslate2_tpu_torch as tt
     from ctranslate2_tpu_torch.converters.builder import build_seq2seq_model
-    from ctranslate2_tpu_torch.formats.vocabulary import Vocabulary
+    from ctranslate2_tpu_torch.formats.vocabulary import Vocabulary, VocabularyInfo
     from ctranslate2_tpu_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     checks = Checks()
+    started = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
@@ -517,7 +1302,8 @@ def main():
     build_seconds = build.build()
     emit({"phase": "card", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": smi[0] if smi else None, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "kernel_build_seconds": build_seconds})
+          "cuda": torch.version.cuda, "kernels_built": list(build.KERNEL_SOURCES),
+          "kernel_build_seconds": build_seconds})
 
     work = tempfile.mkdtemp(prefix="smoke_", dir=build.build_dir())
     try:
@@ -526,45 +1312,87 @@ def main():
         float_dir = build_seq2seq_model(os.path.join(work, "float"), **MODEL)
         emit({"phase": "models", "config": MODEL, "seconds": time.perf_counter() - t0})
 
+        # ---- main path 1: Translator ----
+        logs = {}
         vocab = Vocabulary.load(int8_dir, "shared_vocabulary")
         batches = [make_batch(vocab, i) for i in range(1 + ITERS)]
-        counts, w8_shapes, gather_shapes = main_path(
-            tt, int8_dir, "int8", batches, checks, "int8")
-        for name, n in counts.items():
-            checks(n > 0, f"{name} launched on the main path ({n})")
+        tr_counts = main_path(tt, int8_dir, "int8", batches, checks, "int8", logs)
+        for name in ("matmul_w8a8", "gather_rows_fused", "fused_norm"):
+            checks(tr_counts[name] > 0,
+                   f"{name} launched on the Translator main path ({tr_counts[name]})")
         torch.cuda.empty_cache()
 
-        w8 = bench_w8a8(w8_shapes, checks)
-        ga = bench_gather(gather_shapes, checks)
+        # ---- main path 2: Generator ----
+        t0 = time.perf_counter()
+        llama = build_llama_modelfile(LLAMA["layers"])
+        llama_vocab = Vocabulary(
+            ["<unk>", "<s>", "</s>"] + [f"t{i}" for i in range(LLAMA["vocab"] - 3)],
+            VocabularyInfo(unk_token="<unk>", bos_token="<s>", eos_token="</s>"))
+        emit({"phase": "llama_model", "config": LLAMA,
+              "int8_weight_bytes": sum(v.array.nbytes for n, v in llama.variables.items()
+                                       if n.endswith("/weight")),
+              "seconds": time.perf_counter() - t0})
+        gen_counts = generator_main_path(tt, llama, llama_vocab, checks, logs)
+        for name in ("matmul_w8a8", "flash_attention", "decode_attention_int8",
+                     "fused_norm"):
+            checks(gen_counts[name] > 0,
+                   f"{name} launched on the Generator main path ({gen_counts[name]})")
+        small_llama = llama_subset(llama, AB_LAYERS)
+        del llama
+        torch.cuda.empty_cache()
 
-        f16_counts, _, _ = main_path(
-            tt, float_dir, "float16", batches, checks, "float16")
+        # ---- every kernel against its plain version ----
+        w8 = bench_w8a8(logs["matmul_w8a8"], checks)
+        ga = bench_gather(logs["gather_rows_fused"], checks)
+        fl = bench_flash(logs["flash_attention"], checks)
+        torch.cuda.empty_cache()
+        de = bench_decode(logs["decode_attention_int8"], GEN_PROMPT - 1, GEN_NEW, checks)
+        no = bench_norm(logs["fused_norm"], checks)
+        feature_checks(checks)
+        torch.cuda.empty_cache()
+
+        # ---- the other Translator runs ----
+        f16_counts = main_path(tt, float_dir, "float16", batches, checks, "float16", {})
         checks(f16_counts["matmul_w8a8"] == 0, "float16 runs no W8A8 launch")
         chain_float32(tt, float_dir, batches[1], checks)
         torch.cuda.empty_cache()
-
         card_vs_cpu(tt, int8_dir, batches[1], checks)
 
+        # ---- the other Generator runs ----
+        generator_ab(tt, small_llama, llama_vocab, checks)
+        torch.cuda.empty_cache()
+        generator_card_vs_cpu(tt, small_llama, llama_vocab, checks)
+
+        def entry(name, source, replaces, tot, library_ms):
+            bytes_ms, ops_ms = tot["bytes_ms"], tot.get("ops_ms", 0.0)
+            launches = tr_counts[name] + gen_counts[name]
+            return {"name": name, "route": "cuda",
+                    "source": f"ctranslate2_tpu_torch/csrc/{source}",
+                    "replaces": f"ctranslate2_tpu/kernels/{replaces}",
+                    "launches": launches, "max_abs_err": tot["max_abs_err"],
+                    "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                    "library_ms": library_ms, "ms_summed_over": "launches",
+                    "launches_translator_path": tr_counts[name],
+                    "launches_generator_path": gen_counts[name]}
+
         kernels = [
-            {"name": "matmul_w8a8", "route": "cuda",
-             "source": "ctranslate2_tpu_torch/csrc/w8a8_gemm.cu",
-             "replaces": "ctranslate2_tpu/kernels/quant_matmul.py:238",
-             "launches": counts["matmul_w8a8"], "max_abs_err": w8["max_abs_err"],
-             "ms": w8["ms"], "plain_ms": w8["plain_ms"],
-             "bound_ms": max(w8["bytes_ms"], w8["ops_ms"]),
-             "bound_by": "bytes" if w8["bytes_ms"] >= w8["ops_ms"] else "operations",
-             "library_ms": w8["library_ms"], "ms_summed_over": "launches"},
-            {"name": "gather_rows_fused", "route": "cuda",
-             "source": "ctranslate2_tpu_torch/csrc/gather_rows.cu",
-             "replaces": "ctranslate2_tpu/kernels/gather_rows.py:27",
-             "launches": counts["gather_rows_fused"], "max_abs_err": ga["max_abs_err"],
-             "ms": ga["ms"], "plain_ms": ga["plain_ms"], "bound_ms": ga["bytes_ms"],
-             "bound_by": "bytes", "library_ms": ga["plain_ms"],
-             "ms_summed_over": "launches"},
+            entry("matmul_w8a8", "w8a8_gemm.cu", "quant_matmul.py:238", w8,
+                  w8["library_ms"]),
+            entry("gather_rows_fused", "gather_rows.cu", "gather_rows.py:27", ga,
+                  ga["plain_ms"]),
+            entry("flash_attention", "flash_attention.cu", "flash_attention.py:185",
+                  fl, fl["library_ms"]),
+            entry("decode_attention_int8", "decode_attention_int8.cu",
+                  "decode_attention.py:135", de, None),
+            entry("fused_norm", "fused_norm.cu", "norms.py:37", no, no["library_ms"]),
         ]
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    emit({"phase": "done", "seconds": time.perf_counter() - started,
+          "checks_failed": len(checks.failed)})
     if checks.failed:
         print(f"chip_smoke: {len(checks.failed)} check(s) failed: {checks.failed}",
               file=sys.stderr)

@@ -1,9 +1,9 @@
 """Programmatic model-directory builder (numpy only).
 
-A copy of the encoder-decoder part of
-``ctranslate2_tpu/converters/builder.py``: it writes the same
+A copy of the encoder-decoder builder and of the decoder-only builder of
+``ctranslate2_tpu/converters/builder.py``: each writes the same
 CTranslate2-format model directory, byte for byte, from the same seed, so
-a full-width model can be fabricated without importing the JAX package.
+a model can be fabricated without importing the JAX package.
 """
 
 from __future__ import annotations
@@ -70,7 +70,13 @@ class SpecBuilder:
         self.mf.dedupe_aliases()
         self.mf.save(directory)
         if vocabulary is not None:
-            with open(os.path.join(directory, "shared_vocabulary.json"), "w",
+            # Decoder-only specs name their single vocabulary "vocabulary"
+            # (reference: src/models/language_model.cc:33); shared seq2seq
+            # vocabularies use "shared_vocabulary".
+            name = ("vocabulary.json"
+                    if self.mf.spec_name == "TransformerDecoderSpec"
+                    else "shared_vocabulary.json")
+            with open(os.path.join(directory, name), "w",
                       encoding="utf-8") as f:
                 json.dump(list(vocabulary), f)
 
@@ -80,12 +86,17 @@ def _rand(rng, *shape):
 
 
 def _add_attention(b: SpecBuilder, scope: str, rng, d_model: int,
-                   num_heads: int, self_attention: bool):
+                   num_heads: int, self_attention: bool,
+                   num_heads_kv: Optional[int] = None,
+                   rotary_dim: Optional[int] = None,
+                   rms_norm: bool = False):
     hd = d_model // num_heads
+    hkv = num_heads_kv if num_heads_kv is not None else num_heads
     b.add(f"{scope}/layer_norm/gamma", np.ones(d_model, np.float32))
-    b.add(f"{scope}/layer_norm/beta", np.zeros(d_model, np.float32))
+    if not rms_norm:
+        b.add(f"{scope}/layer_norm/beta", np.zeros(d_model, np.float32))
     if self_attention:
-        qkv_out = 3 * num_heads * hd
+        qkv_out = num_heads * hd + 2 * hkv * hd
         b.add(f"{scope}/linear_0/weight", _rand(rng, qkv_out, d_model))
         b.add(f"{scope}/linear_0/bias", _rand(rng, qkv_out))
         b.add(f"{scope}/linear_1/weight", _rand(rng, d_model, num_heads * hd))
@@ -93,19 +104,90 @@ def _add_attention(b: SpecBuilder, scope: str, rng, d_model: int,
     else:
         b.add(f"{scope}/linear_0/weight", _rand(rng, num_heads * hd, d_model))
         b.add(f"{scope}/linear_0/bias", _rand(rng, num_heads * hd))
-        b.add(f"{scope}/linear_1/weight", _rand(rng, 2 * num_heads * hd, d_model))
-        b.add(f"{scope}/linear_1/bias", _rand(rng, 2 * num_heads * hd))
+        b.add(f"{scope}/linear_1/weight", _rand(rng, 2 * hkv * hd, d_model))
+        b.add(f"{scope}/linear_1/bias", _rand(rng, 2 * hkv * hd))
         b.add(f"{scope}/linear_2/weight", _rand(rng, d_model, num_heads * hd))
         b.add(f"{scope}/linear_2/bias", _rand(rng, d_model))
+    if hkv != num_heads:
+        b.add_attr(f"{scope}/num_heads_kv", hkv, "int32")
+    if rotary_dim is not None:
+        b.add_attr(f"{scope}/rotary_dim", rotary_dim, "int32")
+        b.add_attr(f"{scope}/rotary_interleave", 1, "int8")
 
 
-def _add_ffn(b: SpecBuilder, scope: str, rng, d_model: int, d_ff: int):
+def _add_ffn(b: SpecBuilder, scope: str, rng, d_model: int, d_ff: int,
+             glu: bool = False, rms_norm: bool = False):
     b.add(f"{scope}/layer_norm/gamma", np.ones(d_model, np.float32))
-    b.add(f"{scope}/layer_norm/beta", np.zeros(d_model, np.float32))
+    if not rms_norm:
+        b.add(f"{scope}/layer_norm/beta", np.zeros(d_model, np.float32))
     b.add(f"{scope}/linear_0/weight", _rand(rng, d_ff, d_model))
     b.add(f"{scope}/linear_0/bias", _rand(rng, d_ff))
+    if glu:
+        b.add(f"{scope}/linear_0_noact/weight", _rand(rng, d_ff, d_model))
+        b.add(f"{scope}/linear_0_noact/bias", _rand(rng, d_ff))
     b.add(f"{scope}/linear_1/weight", _rand(rng, d_model, d_ff))
     b.add(f"{scope}/linear_1/bias", _rand(rng, d_model))
+
+
+def build_decoder_only_model(
+    directory: str,
+    *,
+    vocab_size: int = 64,
+    num_layers: int = 2,
+    num_heads: int = 4,
+    d_model: int = 32,
+    d_ff: int = 64,
+    num_heads_kv: Optional[int] = None,
+    rotary_dim: Optional[int] = None,
+    glu: bool = False,
+    rms_norm: bool = False,
+    activation: str = "relu",
+    seed: int = 1234,
+    quantization: Optional[str] = None,
+    vocabulary: Optional[Sequence[str]] = None,
+    tied_projection: bool = False,
+    **unported,
+):
+    """Fabricate a TransformerDecoderSpec model directory (GPT-style) with
+    random weights from ``seed``. Without ``rotary_dim`` the model gets
+    learned position embeddings. The JAX package's other arguments (ALiBi,
+    parallel residual, sliding windows, relative positions) raise."""
+    if any(unported.values()):
+        raise NotImplementedError(
+            "not ported yet: " + ", ".join(sorted(k for k, v in unported.items() if v)))
+    rng = np.random.default_rng(seed)
+    b = SpecBuilder("TransformerDecoderSpec", 8)
+    sc = "decoder"
+
+    b.add_attr(f"{sc}/num_heads", num_heads, "int16")
+    b.add_attr(f"{sc}/pre_norm", 1, "int8")
+    b.add_attr(f"{sc}/activation", ACTIVATION_IDS[activation], "int8")
+    b.add_attr(f"{sc}/scale_embeddings", 0, "int8")
+
+    emb = _rand(rng, vocab_size, d_model)
+    b.add(f"{sc}/embeddings/weight", emb)
+    if rotary_dim is None:
+        # Learned position embeddings.
+        b.add(f"{sc}/position_encodings/encodings", _rand(rng, 512, d_model))
+    b.add(f"{sc}/layer_norm/gamma", np.ones(d_model, np.float32))
+    if not rms_norm:
+        b.add(f"{sc}/layer_norm/beta", np.zeros(d_model, np.float32))
+    b.add(f"{sc}/projection/weight",
+          emb.copy() if tied_projection else _rand(rng, vocab_size, d_model))
+
+    for i in range(num_layers):
+        ls = f"{sc}/layer_{i}"
+        _add_attention(b, f"{ls}/self_attention", rng, d_model, num_heads,
+                       self_attention=True, num_heads_kv=num_heads_kv,
+                       rotary_dim=rotary_dim, rms_norm=rms_norm)
+        _add_ffn(b, f"{ls}/ffn", rng, d_model, d_ff, glu=glu, rms_norm=rms_norm)
+
+    b.quantize(quantization)
+    b.save(directory,
+           config={"unk_token": "<unk>", "bos_token": "<s>",
+                   "eos_token": "</s>"},
+           vocabulary=vocabulary or default_vocab(vocab_size))
+    return directory
 
 
 def build_seq2seq_model(

@@ -24,19 +24,34 @@ SYNC_EVERY = 8
 NEG = -1e10
 
 
-def use_beam_chain(arch, beam_size: int) -> bool:
+def use_beam_chain(arch, beam_size: int, kv_dtype, prefilled: bool) -> bool:
     """Chain-mask beam attention (no physical cache reorder) applies to a
-    float per-layer cache without relative biases; CT2TPU_BEAM_CHAIN=0
-    turns it off, and the loop then reorders the cache with the fused
+    float per-layer cache that the loop creates itself, without relative
+    biases; CT2TPU_BEAM_CHAIN=0 turns it off. Otherwise (and with a
+    prefilled or int8 cache) the loop reorders the cache with the fused
     gather kernel each step."""
     return (beam_size > 1
             and os.environ.get("CT2TPU_BEAM_CHAIN", "1") != "0"
+            and not prefilled and kv_dtype != torch.int8
             and not any(
                 l.self_attention.has_rel_position_keys
                 or l.self_attention.has_rel_attention_bias
                 or l.self_attention.has_rel_asymmetric_keys
                 or l.self_attention.has_memory_kv
                 for l in arch.decoder.layers))
+
+
+def _self_cache(model, cache, rows: int, capacity: int):
+    """The loop's self-attention cache: a new one, or the caller's prefilled
+    one, which must already have ``rows`` rows and ``capacity`` slots."""
+    if cache is None:
+        return T.init_self_cache(model.arch, rows, capacity,
+                                 dtype=model.kv_dtype, device=model.device)
+    shape = tuple(cache[0]["k"].shape)
+    if shape[0] != rows or shape[2] != capacity:
+        raise ValueError(f"the prefilled cache has {shape[0]} rows of "
+                         f"{shape[2]} slots; the loop needs {rows} of {capacity}")
+    return cache
 
 
 def _apply_processors(sig, l, step: int, min_steps_rows, alive_flat):
@@ -56,7 +71,10 @@ def _apply_processors(sig, l, step: int, min_steps_rows, alive_flat):
 
 
 def _encode(model, params, consts, encoder_ids, encoder_lengths):
-    """Fused encode + cross-KV projection for one request."""
+    """Fused encode + cross-KV projection for one request; (None, None) for
+    a decoder-only model, which has no encoder inputs."""
+    if encoder_ids is None:
+        return None, None
     qa = model.policy.quantize_activations
     memory = T.encoder_forward(model.arch, params, consts, encoder_ids,
                                encoder_lengths, quantize_acts=qa,
@@ -71,14 +89,16 @@ def beam_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
               length_penalty: float, return_prefix: bool, include_eos: bool,
               count_eos: bool, max_length: int, allow_early_exit: bool,
               has_prefix: bool, control, start_pos: int,
-              encoder_ids, encoder_lengths):
+              encoder_ids=None, encoder_lengths=None, cache=None):
     """Whole-generation beam search with the reference's candidate
     bookkeeping (2*beam candidates, EOS harvesting with secondary
     promotion, hard-prefix override — reference: src/decoding.cc:411-720).
     Hypotheses land in a fixed [B, num_hyp] best-score store.
 
     ``control`` [B, 3 + K + P]: prefix_len | min_steps | pad | start tokens
-    (per beam) | prefix rows. Returns the store as host tensors
+    (per beam) | prefix rows. ``cache`` is a prefilled self-attention cache
+    of B*beam rows (a decoder-only prompt), or None to start an empty one.
+    Returns the store as host tensors
     (seqs [B, M, L], lens [B, M], scores [B, M]).
     """
     device = model.device
@@ -103,10 +123,10 @@ def beam_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
     B = control.shape[0]
     N = B * K
     P = prefix.shape[1]
-    use_chain = use_beam_chain(arch, K)
+    use_chain = use_beam_chain(arch, K, model.kv_dtype, cache is not None)
 
     mem_kv, mem_bias = _encode(model, params, consts, encoder_ids, encoder_lengths)
-    cache = T.init_self_cache(arch, N, capacity, dtype=model.kv_dtype, device=device)
+    cache = _self_cache(model, cache, N, capacity)
 
     rows_b = torch.arange(B, device=device)
     alive = torch.zeros((B, K, L), dtype=torch.long, device=device)
@@ -222,11 +242,12 @@ def beam_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
 
 def greedy_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
                 has_prefix: bool, control, start_pos: int,
-                encoder_ids, encoder_lengths):
+                encoder_ids=None, encoder_lengths=None, cache=None):
     """Whole-generation greedy loop (argmax; random sampling is not ported
     yet). ``control`` [N, 3 + P]: prefix_len | min_steps | start_token |
-    prefix. Returns host tensors (tokens [N, max_steps], num_steps [N],
-    scores [N])."""
+    prefix. ``cache`` is a prefilled self-attention cache holding positions
+    [0, start_pos), or None to start an empty one. Returns host tensors
+    (tokens [N, max_steps], num_steps [N], scores [N])."""
     device = model.device
     arch = model.arch
     end_ids = torch.as_tensor(sig.end_ids or (0,), dtype=torch.long, device=device)
@@ -241,7 +262,7 @@ def greedy_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
     P = prefix.shape[1] if has_prefix else 0
 
     mem_kv, mem_bias = _encode(model, params, consts, encoder_ids, encoder_lengths)
-    cache = T.init_self_cache(arch, N, capacity, dtype=model.kv_dtype, device=device)
+    cache = _self_cache(model, cache, N, capacity)
 
     out_buf = torch.zeros((N, max_steps), dtype=torch.long, device=device)
     scores = torch.zeros(N, dtype=torch.float32, device=device)

@@ -49,10 +49,13 @@ class DecodingEngine:
         start_ids: Sequence[int],
         options: DecodingOptions,
         *,
-        encoder_inputs,  # (src_ids [B, S], src_lengths [B]): fused encode
+        encoder_inputs=None,  # (src_ids [B, S], src_lengths [B]): fused
+        # encode; None for a decoder-only model
+        cache=None,  # prefilled self cache (generator prompt prefill)
+        start_step: int = 0,
         prefix_ids: Optional[Sequence[Optional[Sequence[int]]]] = None,
         end_ids: Sequence[int] = (),
-        start_step: int = 0,
+        capacity: Optional[int] = None,
         params=None,
     ) -> List[DecodingResult]:
         if params is None:
@@ -62,21 +65,21 @@ class DecodingEngine:
                              "the maximum decoding length")
         if options.max_length == 0:
             raise ValueError("The maximum decoding length must be > 0")
-        if options.beam_size > 1:
-            return self._beam_search(start_ids, options, encoder_inputs,
-                                     prefix_ids, end_ids, start_step, params)
-        return self._greedy_search(start_ids, options, encoder_inputs,
-                                   prefix_ids, end_ids, start_step, params)
+        search = (self._beam_search if options.beam_size > 1
+                  else self._greedy_search)
+        return search(start_ids, options, encoder_inputs or (None, None),
+                      prefix_ids, end_ids, start_step, params, cache, capacity)
 
     # ------------------------------------------------------------------
 
-    def _setup(self, options, prefix_ids, start_step):
+    def _setup(self, options, prefix_ids, start_step, capacity):
         max_prefix = 0
         if prefix_ids is not None:
             max_prefix = max((len(p) if p else 0) for p in prefix_ids)
         max_step = options.max_length + (
             max_prefix if not options.return_prefix else 0)
-        capacity = _round_up(max(start_step + max_step, 16), 64)
+        if capacity is None:
+            capacity = _round_up(max(start_step + max_step, 16), 64)
         consts = self.model.ensure_consts(capacity)
         return max_step, capacity, consts
 
@@ -127,10 +130,11 @@ class DecodingEngine:
     # ------------------------------------------------------------------
 
     def _beam_search(self, start_ids, options, encoder_inputs, prefix_ids,
-                     end_ids, start_step, params):
+                     end_ids, start_step, params, cache, capacity):
         B = len(start_ids)
         K = options.beam_size
-        max_step, capacity, consts = self._setup(options, prefix_ids, start_step)
+        max_step, capacity, consts = self._setup(
+            options, prefix_ids, start_step, capacity)
         sig = self._make_sig(options, end_ids)
         prefix_lengths, _, prefix_arr = self._prefix_rows(prefix_ids, B)
         min_steps = [(prefix_lengths[i] if not options.return_prefix else 0)
@@ -154,7 +158,8 @@ class DecodingEngine:
             allow_early_exit=options.length_penalty == 0,
             has_prefix=prefix_ids is not None,
             control=torch.from_numpy(control), start_pos=start_step,
-            encoder_ids=encoder_inputs[0], encoder_lengths=encoder_inputs[1])
+            encoder_ids=encoder_inputs[0], encoder_lengths=encoder_inputs[1],
+            cache=cache)
         seqs, lens, scores = seqs.numpy(), lens.numpy(), scores.numpy()
 
         results = []
@@ -176,10 +181,11 @@ class DecodingEngine:
     # ------------------------------------------------------------------
 
     def _greedy_search(self, start_ids, options, encoder_inputs, prefix_ids,
-                       end_ids, start_step, params):
+                       end_ids, start_step, params, cache, capacity):
         B = len(start_ids)
         end_set = set(end_ids)
-        max_step, capacity, consts = self._setup(options, prefix_ids, start_step)
+        max_step, capacity, consts = self._setup(
+            options, prefix_ids, start_step, capacity)
         sig = self._make_sig(options, end_ids)
         prefix_lengths, P, prefix_arr = self._prefix_rows(prefix_ids, B)
         min_steps = [(prefix_lengths[i] if not options.return_prefix else 0)
@@ -194,7 +200,8 @@ class DecodingEngine:
             self.model, params, consts, sig, max_steps=max_step,
             capacity=capacity, has_prefix=P > 0,
             control=torch.from_numpy(control), start_pos=start_step,
-            encoder_ids=encoder_inputs[0], encoder_lengths=encoder_inputs[1])
+            encoder_ids=encoder_inputs[0], encoder_lengths=encoder_inputs[1],
+            cache=cache)
         buf, num_steps, scores = buf.numpy(), num_steps.numpy(), scores.numpy()
 
         results = []

@@ -12,7 +12,9 @@ from __future__ import annotations
 import threading
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"matmul_w8a8": 0, "gather_rows_fused": 0}
+LAUNCHES: Dict[str, int] = {
+    "matmul_w8a8": 0, "gather_rows_fused": 0, "flash_attention": 0,
+    "decode_attention_int8": 0, "fused_norm": 0}
 _lock = threading.Lock()
 
 

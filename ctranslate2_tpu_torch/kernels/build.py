@@ -21,7 +21,8 @@ from typing import Dict, Iterable
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
-KERNEL_SOURCES = ("w8a8_gemm", "gather_rows")
+KERNEL_SOURCES = ("w8a8_gemm", "gather_rows", "flash_attention",
+                  "decode_attention_int8", "fused_norm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -50,14 +50,20 @@ class LoadedModel:
         return self.arch.encoder is not None and self.arch.decoder is not None
 
     @property
+    def is_decoder_only(self) -> bool:
+        return self.arch.encoder is None and self.arch.decoder is not None
+
+    @property
     def out_dtype(self) -> torch.dtype:
         return self.policy.activation_torch
 
     @property
     def kv_dtype(self) -> torch.dtype:
-        """Self-attention KV-cache dtype (the activation dtype)."""
+        """Self-attention KV-cache dtype: ``torch.int8`` selects the
+        quantized cache layout (``CT2TPU_KV_CACHE=int8``); the default is
+        the activation dtype."""
         if os.environ.get("CT2TPU_KV_CACHE", "").lower() == "int8":
-            raise NotImplementedError("the int8 KV cache is not ported yet")
+            return torch.int8
         return self.policy.activation_torch
 
     def ensure_consts(self, max_positions: int) -> dict:

@@ -16,7 +16,7 @@ tensors on one device:
 
 ``params_from_numpy`` converts the JAX package's parameter tree (as numpy
 arrays) into the same layout, so both packages can run on identical
-weights.
+weights; ``cache_from_numpy`` does the same for a self-attention KV cache.
 """
 
 from __future__ import annotations
@@ -161,6 +161,11 @@ class ParamsBuilder:
             n = self.norm(f"{scope}/{name}")
             if n is not None:
                 out[name] = n
+        if spec.rotary is not None and spec.rotary.has_long_short_factors:
+            out["rotary_long_factor"] = self.array(
+                f"{scope}/rotary_scaling_long_factor", torch.float32)
+            out["rotary_short_factor"] = self.array(
+                f"{scope}/rotary_scaling_short_factor", torch.float32)
         return out
 
     def ffn(self, scope: str) -> dict:
@@ -281,3 +286,17 @@ def params_from_numpy(jax_params, arch: ArchSpec, *, device="cpu",
                     (torch.float32 if arr.dtype.kind == "f" else None))
 
     return convert(jax_params)
+
+
+def cache_from_numpy(jax_cache, device="cpu"):
+    """The JAX package's self cache, float or int8 layout, with its leaves as
+    numpy arrays, as the port's per-layer list on ``device``. The stacked
+    layout ({"k": [L, N, ...], ...}) is split by layer."""
+    def leaf(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    if isinstance(jax_cache, dict):
+        num_layers = next(iter(jax_cache.values())).shape[0]
+        jax_cache = [{name: a[i] for name, a in jax_cache.items()}
+                     for i in range(num_layers)]
+    return [{name: leaf(a) for name, a in layer.items()} for layer in jax_cache]

@@ -12,9 +12,12 @@ main path (reference: src/layers/transformer.cc, src/layers/attention.cc):
 - GQA keeps KV heads un-replicated.
 
 Beam reorder goes through the fused gather kernel (``cache_gather_rows``).
-Rotary, ALiBi, relative positions, sliding windows, parallel-residual and
-sandwich-norm layers, merged attention, the int8 KV cache and the flash
-kernel raise ``NotImplementedError`` until their slice.
+Decoder-only models run with rotary positions, an optional int8 KV cache
+(``CT2TPU_KV_CACHE=int8``: int8 payloads plus one scale per cached vector,
+read by the int8 decode kernel) and, for a long prompt's first prefill, the
+flash kernel. ALiBi, relative positions, sliding windows, parallel-residual
+and sandwich-norm layers and merged attention raise ``NotImplementedError``
+until their slice.
 """
 
 from __future__ import annotations
@@ -22,14 +25,18 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ..kernels.decode_attention import decode_attention_int8, quantize_kv
+from ..kernels.flash_attention import flash_attention
 from ..kernels.gather_rows import gather_rows_fused
 from ..ops import attention as attn_ops
 from ..ops.activations import get_activation
 from ..ops.linear import linear
 from ..ops.norms import apply_norm
-from ..ops.positions import sinusoidal_position_encoding
+from ..ops.positions import (apply_rotary, rotary_tables,
+                             sinusoidal_position_encoding)
 from .spec import ArchSpec, AttentionSpec
 
 
@@ -39,8 +46,6 @@ from .spec import ArchSpec, AttentionSpec
 
 
 def _check_attention(spec: AttentionSpec) -> None:
-    if spec.rotary is not None:
-        raise NotImplementedError("rotary position embeddings are not ported yet")
     if (spec.has_rel_position_keys or spec.has_rel_asymmetric_keys
             or spec.has_rel_attention_bias):
         raise NotImplementedError("relative position attention is not ported yet")
@@ -76,9 +81,36 @@ def check_supported(arch: ArchSpec) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _rotary_consts(spec: AttentionSpec, attn_params: dict, max_positions: int,
+                   device):
+    r = spec.rotary
+    dim = r.dim if r.dim else spec.head_dim
+    long_factor = attn_params.get("rotary_long_factor")
+    short_factor = attn_params.get("rotary_short_factor")
+    sin, cos = rotary_tables(
+        max_positions,
+        dim,
+        base=r.base,
+        interleave=r.interleave,
+        scaling_type=r.scaling_type,
+        scaling_factor=r.scaling_factor,
+        long_factor=(long_factor.cpu().numpy()
+                     if long_factor is not None else None),
+        short_factor=(short_factor.cpu().numpy()
+                      if short_factor is not None else None),
+        low_freq_factor=r.low_freq_factor,
+        high_freq_factor=r.high_freq_factor,
+        original_max_position_embeddings=r.original_max_position_embeddings,
+        max_position_embeddings=r.max_position_embeddings,
+    )
+    return {"sin": torch.from_numpy(np.ascontiguousarray(sin)).to(device),
+            "cos": torch.from_numpy(np.ascontiguousarray(cos)).to(device)}
+
+
 def make_consts(arch: ArchSpec, params: dict, max_positions: int = 4096,
                 device="cpu") -> dict:
-    """Precompute the sinusoidal position tables on ``device``."""
+    """Precompute the sinusoidal and rotary position tables on ``device``.
+    Layers with the same rotary spec share one pair of tables."""
     consts: dict = {"max_positions": max_positions}
     for side, spec in (("encoder", arch.encoder), ("decoder", arch.decoder)):
         if spec is None:
@@ -91,6 +123,22 @@ def make_consts(arch: ArchSpec, params: dict, max_positions: int = 4096,
                 dim = sum(e.get("w", e.get("wq")).shape[-1] for e in embs)
             side_consts["sinusoidal"] = torch.from_numpy(
                 sinusoidal_position_encoding(max_positions, dim)).to(device)
+        rotary_layers: dict = {}
+        shared: dict = {}
+        for i, layer in enumerate(spec.layers):
+            a = layer.self_attention
+            if a.rotary is None:
+                continue
+            ap = params[side]["layers"][i]["self_attention"]
+            if "rotary_long_factor" in ap:
+                rotary_layers[str(i)] = _rotary_consts(a, ap, max_positions, device)
+                continue
+            key = (a.rotary, a.head_dim)
+            if key not in shared:
+                shared[key] = _rotary_consts(a, ap, max_positions, device)
+            rotary_layers[str(i)] = shared[key]
+        if rotary_layers:
+            side_consts["rotary"] = rotary_layers
         consts[side] = side_consts
     return consts
 
@@ -172,6 +220,18 @@ def _project_qkv(arch, ap: dict, spec: AttentionSpec, x, quantize_acts: bool):
     return q, k, v
 
 
+def _maybe_rotary(spec: AttentionSpec, rot_consts, q, k, offset: int):
+    if spec.rotary is None:
+        return q, k
+    T = q.shape[2]
+    dim = spec.rotary.dim if spec.rotary.dim else spec.head_dim
+    sin = rot_consts["sin"][offset:offset + T]
+    cos = rot_consts["cos"][offset:offset + T]
+    q = apply_rotary(q, sin, cos, spec.rotary.interleave, dim)
+    k = apply_rotary(k, sin, cos, spec.rotary.interleave, dim)
+    return q, k
+
+
 def _decode_chunk() -> int:
     """Chunk size for length-adaptive decode attention (0 disables)."""
     return int(os.environ.get("CT2TPU_DECODE_CHUNK", "128"))
@@ -186,19 +246,21 @@ def _chunked(causal_only: bool, capacity: int) -> int:
     return 0
 
 
-def _check_flash(q, k) -> None:
-    """The JAX package sends uncached self-attention of T, S >= 2048 on its
-    accelerator to the flash kernel (its ``_flash_eligible``); that kernel
-    is not ported yet, so the same call on the card raises instead of
-    taking the plain path. ``CT2TPU_FLASH=0`` opts out, as there."""
-    if not q.is_cuda or os.environ.get("CT2TPU_FLASH", "1") == "0":
-        return
-    threshold = int(os.environ.get("CT2TPU_FLASH_MIN_LEN", "2048"))
-    if q.shape[2] >= threshold and k.shape[2] >= threshold:
-        raise NotImplementedError(
-            "flash attention is not ported yet (sequence of "
-            f"{q.shape[2]} >= CT2TPU_FLASH_MIN_LEN={threshold}; "
-            "CT2TPU_FLASH=0 takes the plain attention)")
+def _flash_eligible(q, k, min_len=None) -> bool:
+    """Static dispatch decision for the flash-attention kernel: on the card,
+    for an uncached attention whose query and key lengths both reach the
+    threshold (``arch.flash_min_len`` when the ``flash_attention=True``
+    constructor flag set it, else ``CT2TPU_FLASH_MIN_LEN``, default 2048).
+    ``CT2TPU_FLASH=0`` turns it off. Shaw and T5 relative positions and
+    ALiBi, which the JAX package also weighs here, raise before this point
+    in the port."""
+    if os.environ.get("CT2TPU_FLASH", "1") == "0":
+        return False
+    if not q.is_cuda:
+        return False
+    threshold = (min_len if min_len is not None
+                 else int(os.environ.get("CT2TPU_FLASH_MIN_LEN", "2048")))
+    return q.shape[2] >= threshold and k.shape[2] >= threshold
 
 
 def _cache_write(buf, new, offset: int):
@@ -208,6 +270,36 @@ def _cache_write(buf, new, offset: int):
     return buf
 
 
+def _append_int8_cache(cache: dict, k8, ks, v8, vs, offset: int):
+    """Write quantized K/V [B, H, T, D] and their scales [B, H, T] into the
+    int8 cache at time slot ``offset``, in place."""
+    T = k8.shape[2]
+    cache["k"][:, :, offset:offset + T] = k8
+    cache["v"][:, :, offset:offset + T] = v8
+    cache["k_scale"][:, :, 0, offset:offset + T] = ks
+    cache["v_scale"][:, :, 0, offset:offset + T] = vs
+    return cache
+
+
+def _update_int8_cache(cache: dict, k, v, offset: int):
+    """Quantize and append new K/V vectors at ``offset``."""
+    k8, ks = quantize_kv(k)
+    v8, vs = quantize_kv(v)
+    return _append_int8_cache(cache, k8, ks, v8, vs, offset)
+
+
+def _dequantize_cache(cache: dict, dtype):
+    k = cache["k"].float() / cache["k_scale"].transpose(2, 3)
+    v = cache["v"].float() / cache["v_scale"].transpose(2, 3)
+    return k.to(dtype), v.to(dtype)
+
+
+def _use_decode_kernel(q) -> bool:
+    """The int8 decode kernel serves single-token steps on the card;
+    ``CT2TPU_DECODE_KERNEL=0`` dequantizes the whole cache instead."""
+    return q.is_cuda and bool(int(os.environ.get("CT2TPU_DECODE_KERNEL", "1")))
+
+
 def self_attention_block(
     arch: ArchSpec,
     spec: AttentionSpec,
@@ -215,19 +307,26 @@ def self_attention_block(
     x,
     *,
     bias,
+    rot_consts=None,
     offset: int = 0,
     cache: Optional[dict] = None,
     pre_norm: bool = True,
     quantize_acts: bool = True,
+    causal: bool = False,
+    flash_lengths=None,  # [B] valid lengths, given to the flash kernel
     causal_only: bool = False,  # ``bias`` is exactly the T == 1 causal mask
     beam_chain=None,  # [N, C] origin chain (chain-mask beam attention)
     beam_chain_size: int = 1,
+    fresh_prefill: bool = False,  # the cache is empty and this call writes
+    # its first T positions: attend over the fresh tensors only (O(T^2),
+    # flash-eligible); ``bias`` must then cover [*, T, T]
+    kv_lengths=None,  # int32 [B] filled with ``offset`` (int8 decode kernel)
 ):
     """Self-attention with an optional fixed-capacity KV cache.
 
     Returns (output, cache). ``cache`` holds {"k","v"} of shape
-    [B, Hkv, C, D]; this call's keys/values are written at ``offset``, in
-    place.
+    [B, Hkv, C, D] (plus {"k_scale","v_scale"} [B, Hkv, 1, C] in the int8
+    layout); this call's keys/values are written at ``offset``, in place.
     """
     residual = x
     h = x
@@ -235,9 +334,43 @@ def self_attention_block(
         h = _norm(arch, ap.get("layer_norm"), h)
 
     q, k, v = _project_qkv(arch, ap, spec, h, quantize_acts)
+    q, k = _maybe_rotary(spec, rot_consts, q, k, offset)
     T = q.shape[2]
 
-    if cache is not None and T == 1:
+    attn_cache = cache
+    if cache is not None and fresh_prefill and T > 1:
+        # First-chunk prefill: write the cache, then attend over the fresh
+        # Q/K/V as if cache-less.
+        if "k_scale" in cache:
+            _update_int8_cache(cache, k, v, offset)
+        else:
+            _cache_write(cache["k"], k, offset)
+            _cache_write(cache["v"], v, offset)
+        attn_cache = None
+
+    if attn_cache is not None and "k_scale" in attn_cache:
+        if T == 1 and _use_decode_kernel(q):
+            # Attend over [pre-append cache | fresh K/V], then append.
+            k8, ks = quantize_kv(k)
+            v8, vs = quantize_kv(v)
+            if kv_lengths is None:
+                kv_lengths = torch.full((q.shape[0],), offset, dtype=torch.int32,
+                                        device=q.device)
+            ctx = decode_attention_int8(
+                q, cache["k"], cache["k_scale"][:, :, 0, :],
+                cache["v"], cache["v_scale"][:, :, 0, :], kv_lengths,
+                k_new8=k8, kn_scale=ks, v_new8=v8, vn_scale=vs,
+                scale=spec.queries_scale, window=spec.sliding_window)
+            _append_int8_cache(cache, k8, ks, v8, vs, offset)
+            ctx = ctx.to(x.dtype)
+        else:
+            # Prefill into a filled cache, or the CPU: dequantize the whole
+            # cache for the masked attention.
+            _update_int8_cache(cache, k, v, offset)
+            kd, vd = _dequantize_cache(cache, q.dtype)
+            ctx = attn_ops.dot_product_attention(
+                q, kd, vd, bias=bias, queries_scale=spec.queries_scale)
+    elif attn_cache is not None and T == 1:
         ck, cv = cache["k"], cache["v"]
         k_new, v_new = k.to(ck.dtype), v.to(cv.dtype)
         chunk = _chunked(causal_only, ck.shape[2])
@@ -265,13 +398,18 @@ def self_attention_block(
         _cache_write(ck, k_new, offset)
         _cache_write(cv, v_new, offset)
     else:
-        if cache is not None:
+        if attn_cache is not None:
             k = _cache_write(cache["k"], k, offset)
             v = _cache_write(cache["v"], v, offset)
+        if attn_cache is None and _flash_eligible(q, k, arch.flash_min_len):
+            ctx = flash_attention(
+                q, k, v, scale=spec.queries_scale, causal=causal,
+                lengths=(None if flash_lengths is None
+                         else flash_lengths.to(torch.int32)),
+                window=spec.sliding_window)
         else:
-            _check_flash(q, k)
-        ctx = attn_ops.dot_product_attention(
-            q, k, v, bias=bias, queries_scale=spec.queries_scale)
+            ctx = attn_ops.dot_product_attention(
+                q, k, v, bias=bias, queries_scale=spec.queries_scale)
 
     out = attn_ops.combine_heads(ctx)
     res = residual if spec.has_layer_norm else None
@@ -383,7 +521,9 @@ def encoder_forward(arch: ArchSpec, params: dict, consts: dict, ids, lengths,
         lp = ep["layers"][i]
         x, _ = self_attention_block(
             arch, layer.self_attention, lp["self_attention"], x,
-            bias=bias, pre_norm=spec.pre_norm, quantize_acts=quantize_acts)
+            bias=bias, rot_consts=ec.get("rotary", {}).get(str(i)),
+            pre_norm=spec.pre_norm, quantize_acts=quantize_acts,
+            causal=False, flash_lengths=lengths)
         x = ffn_block(arch, layer.ffn, lp["ffn"], x, spec.pre_norm, quantize_acts)
 
     if spec.has_output_norm:
@@ -398,25 +538,45 @@ def encoder_forward(arch: ArchSpec, params: dict, consts: dict, ids, lengths,
 
 def init_self_cache(arch: ArchSpec, batch: int, capacity: int,
                     dtype=torch.float32, device="cpu"):
-    """Fixed-capacity self-attention KV cache: one {"k","v"} dict of
-    [batch, Hkv, capacity, D] per decoder layer."""
+    """Fixed-capacity self-attention KV cache: one dict per decoder layer
+    with "k" and "v" of [batch, Hkv, capacity, D]. ``dtype=torch.int8``
+    selects the quantized layout: int8 payloads plus "k_scale" and
+    "v_scale" of [batch, Hkv, 1, capacity], one float scale per cached
+    vector (ones where nothing is written, so dequantizing stays finite)."""
     out = []
     for layer in arch.decoder.layers:
         a = layer.self_attention
         shape = (batch, a.num_heads_kv, capacity, a.head_dim)
-        out.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                    "v": torch.zeros(shape, dtype=dtype, device=device)})
+        layer_cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                       "v": torch.zeros(shape, dtype=dtype, device=device)}
+        if dtype == torch.int8:
+            sshape = (batch, a.num_heads_kv, 1, capacity)
+            layer_cache["k_scale"] = torch.ones(sshape, dtype=torch.float32,
+                                                device=device)
+            layer_cache["v_scale"] = torch.ones(sshape, dtype=torch.float32,
+                                                device=device)
+        out.append(layer_cache)
     return out
 
 
 def cache_gather_rows(cache, rows):
     """Reorder/select cache batch rows (beam reorder) in one fused gather
-    over every cache array; returns a new cache."""
+    over every cache array (the scales too, in the int8 layout); returns a
+    new cache."""
     if cache is None:
         return None
-    leaves = [a for layer in cache for a in (layer["k"], layer["v"])]
-    out = gather_rows_fused(leaves, rows)
-    return [{"k": out[2 * i], "v": out[2 * i + 1]} for i in range(len(cache))]
+    names = [list(layer) for layer in cache]
+    out = iter(gather_rows_fused(
+        [layer[n] for layer, ns in zip(cache, names) for n in ns], rows))
+    return [{n: next(out) for n in ns} for ns in names]
+
+
+def cache_repeat_rows(cache, n: int):
+    """Tile every batch row ``n`` times (beam/hypothesis replication)."""
+    if cache is None:
+        return None
+    return [{name: a.repeat_interleave(n, dim=0) for name, a in layer.items()}
+            for layer in cache]
 
 
 def precompute_memory(arch: ArchSpec, params: dict, memory, quantize_acts: bool = True):
@@ -454,6 +614,9 @@ def decoder_forward(
     out_dtype=torch.float32,
     return_logits: bool = True,
     beam_chain=None,  # [N, C] origin chain: beam attention by mask
+    fresh_prefill: bool = False,  # the cache is empty and ``ids`` are its
+    # first positions: prefill attention runs over the fresh tensors only
+    # (O(T^2), flash-eligible) while still writing the cache
 ):
     """Decoder pass covering both modes:
 
@@ -461,10 +624,14 @@ def decoder_forward(
       and this call's keys are written in place;
     - full sequence (scoring): ``self_cache=None``; plain causal masking.
 
-    Returns (logits [B*beam, T, V] (or the hidden states when
-    ``return_logits`` is False), self_cache).
+    ``mem_kv`` is None for a decoder-only model. Returns (logits
+    [B*beam, T, V] (or the hidden states when ``return_logits`` is False),
+    self_cache).
     """
     check_supported(arch)
+    if getattr(pos, "ndim", 0) > 0:
+        raise NotImplementedError(
+            "per-row positions (continuous batching) are not ported yet")
     spec = arch.decoder
     dp = params["decoder"]
     dc = consts.get("decoder", {})
@@ -485,27 +652,36 @@ def decoder_forward(
     if spec.has_layernorm_embedding:
         x = _norm(arch, dp.get("layernorm_embedding"), x)
 
-    if self_cache is not None:
+    fresh = fresh_prefill and self_cache is not None and T > 1
+    kv_lengths = None
+    if self_cache is not None and not fresh:
         C = self_cache[0]["k"].shape[2]
         bias = attn_ops.causal_mask_bias(T, C, offset=pos, device=device)
         if lengths is not None:
             bias = bias + attn_ops.length_mask_bias(lengths, C)
         causal_only = T == 1 and lengths is None
+        if T == 1 and "k_scale" in self_cache[0]:
+            kv_lengths = torch.full((x.shape[0],), pos, dtype=torch.int32,
+                                    device=device)
     else:
+        # No cache, or an empty one: attention sees the T fresh positions.
         bias = attn_ops.causal_mask_bias(T, T, device=device)
         if lengths is not None:
             bias = bias + attn_ops.length_mask_bias(lengths, T)
         causal_only = False
 
+    rotary = dc.get("rotary", {})
     for i, layer in enumerate(spec.layers):
         lp = dp["layers"][i]
         x, _ = self_attention_block(
             arch, layer.self_attention, lp["self_attention"], x,
-            bias=bias, offset=pos,
+            bias=bias, rot_consts=rotary.get(str(i)), offset=pos,
             cache=self_cache[i] if self_cache is not None else None,
             pre_norm=spec.pre_norm, quantize_acts=quantize_acts,
+            causal=True, flash_lengths=lengths,
             causal_only=causal_only,
-            beam_chain=beam_chain, beam_chain_size=beam_size)
+            beam_chain=beam_chain, beam_chain_size=beam_size,
+            fresh_prefill=fresh, kv_lengths=kv_lengths)
         if layer.cross_attention is not None:
             x = cross_attention_block(
                 arch, layer.cross_attention, lp["attention"], x, mem_kv[i],

@@ -5,10 +5,23 @@ Tensor parallelism and data-parallel replicas are not ported yet."""
 
 from __future__ import annotations
 
+import dataclasses
+
 
 class TaskAPIMixin:
     """Mixin for classes owning ``self.model`` (LoadedModel) and
     ``self._pool`` (WorkerPool)."""
+
+    def _apply_flash_flag(self, kwargs) -> None:
+        """Honor the reference's ``flash_attention`` constructor flag.
+
+        The reference opts INTO FA2 with it (python/cpp/translator.cc:295);
+        here the flash kernel is dispatched automatically above a length
+        threshold, so True removes the threshold FOR THIS MODEL and False
+        keeps automatic dispatch."""
+        if kwargs.get("flash_attention"):
+            self.model.arch = dataclasses.replace(
+                self.model.arch, flash_min_len=0)
 
     @property
     def compute_type(self) -> str:

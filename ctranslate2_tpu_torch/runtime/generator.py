@@ -1,0 +1,259 @@
+"""Generator: the decoder-only LM task API
+(parity with reference: include/ctranslate2/generator.h:10-39,
+src/models/language_model.cc:105-300).
+
+Runs on one CUDA card by default, or on the CPU when ``device="cpu"``.
+``static_prompt``, ``callback``, ``return_alternatives``, ``speculation_k``,
+random sampling, ``return_logits_vocab``, ``score_batch``, ``forward_batch``
+and the streaming helpers are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import torch
+
+from ..decoding.engine import DecodingEngine, _round_up
+from ..decoding.options import DecodingOptions
+from ..models import transformer as T
+from ..models.loader import LoadedModel, load_model, resolve_device
+from .base import TaskAPIMixin
+from .batching import rebatch_input
+from .pool import WorkerPool, resolve_max_queued_batches
+from .results import AsyncResult, GenerationResult
+
+
+class Generator(TaskAPIMixin):
+    """Text generation with a decoder-only model on one device.
+
+    ``device`` is ``"cuda"`` (the default; raises without CUDA) or
+    ``"cpu"``. ``flash_attention=True`` sends every uncached prefill to the
+    flash kernel on the card, whatever its length.
+    """
+
+    def __init__(
+        self,
+        model_path: str,
+        device: Optional[str] = None,
+        compute_type: str = "default",
+        device_index=0,
+        inter_threads: int = 1,
+        intra_threads: int = 0,
+        max_queued_batches: int = 0,
+        **kwargs,
+    ):
+        if kwargs.get("tensor_parallel"):
+            raise NotImplementedError("tensor parallelism is not ported yet")
+        self.model: LoadedModel = load_model(
+            model_path, compute_type=compute_type, files=kwargs.get("files"),
+            device=resolve_device(device, device_index))
+        if not self.model.is_decoder_only:
+            raise ValueError(
+                f"The model at {model_path} is not a decoder-only model "
+                "that can be used with Generator")
+        T.check_supported(self.model.arch)
+        self._apply_flash_flag(kwargs)
+        self._pool = WorkerPool(
+            num_workers=max(1, inter_threads),
+            max_queued_batches=resolve_max_queued_batches(
+                kwargs, max_queued_batches))
+        self.engine = DecodingEngine(self.model)
+
+    @property
+    def num_generators(self) -> int:
+        return self._pool.num_workers
+
+    @property
+    def _vocab(self):
+        return self.model.target_vocabulary
+
+    # ------------------------------------------------------------------
+
+    def generate_batch(
+        self,
+        start_tokens: Sequence[Sequence[str]],
+        *,
+        max_batch_size: int = 0,
+        batch_type: str = "examples",
+        asynchronous: bool = False,
+        beam_size: int = 1,
+        patience: float = 1.0,
+        num_hypotheses: int = 1,
+        length_penalty: float = 1.0,
+        repetition_penalty: float = 1.0,
+        no_repeat_ngram_size: int = 0,
+        disable_unk: bool = False,
+        suppress_sequences: Sequence[Sequence[str]] = (),
+        end_token=None,
+        return_end_token: bool = False,
+        max_length: int = 512,
+        min_length: int = 0,
+        sampling_topk: int = 1,
+        sampling_topp: float = 1.0,
+        sampling_temperature: float = 1.0,
+        return_scores: bool = False,
+        return_logits_vocab: bool = False,
+        return_alternatives: bool = False,
+        min_alternative_expansion_prob: float = 0.0,
+        static_prompt: Optional[Sequence[str]] = None,
+        cache_static_prompt: bool = True,
+        include_prompt_in_result: bool = True,
+        callback=None,
+        seed: int = 0,
+        speculation_k: int = 0,
+    ) -> List[GenerationResult]:
+        if len(start_tokens) == 0:
+            return []
+        if any(len(s) == 0 for s in start_tokens):
+            raise ValueError("Generator expects at least one start token per example")
+        unported = [name for name, on in (
+            ("static_prompt", bool(static_prompt)),
+            ("callback", callback is not None),
+            ("return_alternatives", return_alternatives),
+            ("return_logits_vocab", return_logits_vocab),
+            ("speculation_k", speculation_k > 1),
+            ("random sampling", sampling_topk != 1 or sampling_topp < 1.0),
+        ) if on]
+        if unported:
+            raise NotImplementedError("not ported yet: " + ", ".join(unported))
+
+        v = self._vocab
+        end_ids = self._resolve_end_token(end_token)
+        options = DecodingOptions(
+            beam_size=beam_size,
+            patience=patience,
+            length_penalty=length_penalty,
+            repetition_penalty=repetition_penalty,
+            no_repeat_ngram_size=no_repeat_ngram_size,
+            suppress_tokens=((v.unk_id,) if disable_unk else ()),
+            suppress_sequences=tuple(
+                tuple(v.to_id(t, allow_unk=False) for t in seq)
+                for seq in suppress_sequences
+            ),
+            return_end_token=return_end_token,
+            max_length=max_length,
+            min_length=min_length,
+            num_hypotheses=num_hypotheses,
+            return_scores=return_scores,
+            return_prefix=True,
+        )
+
+        results: List[Optional[GenerationResult]] = [None] * len(start_tokens)
+        batches = rebatch_input(
+            [len(s) for s in start_tokens], max_batch_size, batch_type)
+        if not batches:
+            batches = [list(range(len(start_tokens)))]
+        async_results: List[Optional[AsyncResult]] = [None] * len(start_tokens)
+        futures = []
+        for batch in batches:
+            future = self._pool.submit(
+                self._generate, [start_tokens[i] for i in batch], options,
+                end_ids, include_prompt_in_result)
+            futures.append((batch, future))
+            for pos, i in enumerate(batch):
+                async_results[i] = AsyncResult(future, pos)
+        if asynchronous:
+            return async_results
+        for batch, future in futures:
+            out = future.result()
+            for pos, i in enumerate(batch):
+                results[i] = out[pos]
+        return results
+
+    def _resolve_end_token(self, end_token) -> tuple:
+        v = self._vocab
+        if end_token is None or end_token == "":
+            return (v.eos_id,)
+        if isinstance(end_token, str):
+            return (v.to_id(end_token, allow_unk=False),)
+        ids = [t if isinstance(t, int) else v.to_id(t, allow_unk=False)
+               for t in end_token]
+        return tuple(ids) if ids else (v.eos_id,)
+
+    # ------------------------------------------------------------------
+
+    def _prefill(self, ids_list: List[List[int]], cache, start_step: int):
+        """Forward a uniform-length prompt chunk into the cache, in place.
+        (The JAX package splits the chunk at sliding-window boundaries;
+        windows are not ported, so it is always one chunk.)"""
+        model = self.model
+        ids = torch.tensor(ids_list, dtype=torch.long, device=model.device)
+        T.decoder_forward(
+            model.arch, model.params, model.consts, ids, start_step, cache,
+            quantize_acts=model.policy.quantize_activations,
+            out_dtype=model.out_dtype, return_logits=False,
+            # The first chunk of an empty cache attends only its own T
+            # positions (O(T^2) prefill, flash-eligible).
+            fresh_prefill=(start_step == 0))
+        return cache
+
+    def _generate(self, start_tokens, options, end_ids,
+                  include_prompt_in_result):
+        model = self.model
+        v = self._vocab
+        B = len(start_tokens)
+        start_ids = [[v.to_id(t) for t in tokens] for tokens in start_tokens]
+
+        start_step = 0
+        max_prompt = max(len(s) for s in start_ids)
+        capacity = _round_up(max_prompt + options.max_length + 1, 64)
+        model.ensure_consts(capacity)
+
+        # When nothing is prefilled the decode loop creates the cache
+        # itself (which enables the chain-mask beam attention).
+        cache = None
+        return_prefix = options.return_prefix
+        if not include_prompt_in_result:
+            forward_length = min(len(s) for s in start_ids) - 1
+            if forward_length > 0:
+                prompt_chunk = [s[:forward_length] for s in start_ids]
+                start_ids = [s[forward_length:] for s in start_ids]
+                # Prefill the un-replicated rows, then tile them per beam.
+                cache = self._prefill(
+                    prompt_chunk,
+                    T.init_self_cache(model.arch, B, capacity,
+                                      dtype=model.kv_dtype, device=model.device),
+                    start_step)
+                if options.beam_size > 1:
+                    cache = T.cache_repeat_rows(cache, options.beam_size)
+                start_step += forward_length
+                return_prefix = False
+
+        options = dataclasses.replace(options, return_prefix=return_prefix)
+        first_ids = [s[0] for s in start_ids]
+        prefix_ids = [s[1:] for s in start_ids]
+        if not any(prefix_ids):
+            prefix_ids = None
+
+        dec_results = self.engine.decode(
+            first_ids, options, cache=cache, start_step=start_step,
+            prefix_ids=prefix_ids, end_ids=end_ids, capacity=capacity)
+
+        out = []
+        for i, dr in enumerate(dec_results):
+            hyps = dr.hypotheses
+            # Forward the start token to the output when it is not BOS
+            # (reference: src/models/language_model.cc:258-263).
+            if include_prompt_in_result and start_ids[i][0] != v.bos_id:
+                hyps = [[start_ids[i][0]] + h for h in hyps]
+            out.append(GenerationResult(
+                sequences=[[v.to_token(t) for t in h] for h in hyps],
+                sequences_ids=[list(h) for h in hyps],
+                scores=dr.scores))
+        return out
+
+    # ------------------------------------------------------------------
+
+    def score_batch(self, *args, **kwargs):
+        raise NotImplementedError("Generator.score_batch is not ported yet")
+
+    def forward_batch(self, *args, **kwargs):
+        raise NotImplementedError("Generator.forward_batch is not ported yet")
+
+    def generate_tokens(self, *args, **kwargs):
+        raise NotImplementedError("Generator.generate_tokens is not ported yet")
+
+    def generate_iterable(self, *args, **kwargs):
+        raise NotImplementedError("Generator.generate_iterable is not ported yet")

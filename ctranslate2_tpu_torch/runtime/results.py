@@ -1,6 +1,7 @@
 """User-facing result types (parity with reference:
-include/ctranslate2/translation.h:88-130). The generation and scoring
-results come with their slices."""
+include/ctranslate2/translation.h:88-130,
+include/ctranslate2/generation.h). The scoring result comes with its
+slice."""
 
 from __future__ import annotations
 
@@ -44,6 +45,25 @@ class TranslationResult:
 
     def __repr__(self):
         return (f"TranslationResult(hypotheses={self.hypotheses!r}, "
+                f"scores={self.scores!r})")
+
+
+@dataclass
+class GenerationResult:
+    sequences: List[List[str]] = field(default_factory=list)
+    sequences_ids: List[List[int]] = field(default_factory=list)
+    scores: List[float] = field(default_factory=list)
+
+    @property
+    def num_sequences(self) -> int:
+        return len(self.sequences)
+
+    @property
+    def has_scores(self) -> bool:
+        return bool(self.scores)
+
+    def __repr__(self):
+        return (f"GenerationResult(sequences={self.sequences!r}, "
                 f"scores={self.scores!r})")
 
 

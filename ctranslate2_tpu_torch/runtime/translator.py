@@ -79,6 +79,7 @@ class Translator(TaskAPIMixin):
                 f"The model at {model_path} is not an encoder-decoder model "
                 "that can be used with Translator")
         T.check_supported(self.model.arch)
+        self._apply_flash_flag(kwargs)
         self._pool = WorkerPool(
             num_workers=max(1, inter_threads),
             max_queued_batches=resolve_max_queued_batches(

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card, and
+the Generator on the card against the Generator on the CPU.
 
 These tests import neither JAX nor the JAX package, so they run where only
 PyTorch with CUDA is installed. On a machine with an H100, from the
@@ -9,16 +10,25 @@ repository root:
 (``--noconftest`` skips tests/conftest.py, which imports JAX.) Without a
 card every test skips. W8A8 must be bit-equal to its plain version (the
 int32 sum is exact and the epilogue is the same two IEEE f32 operations);
-the gather must be equal.
+the gather must be equal. The flash, int8-KV decode and norm kernels sum
+floats in another order than their plain versions and are held to the
+tolerances below.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import ctranslate2_tpu_torch as tt
 from ctranslate2_tpu_torch import kernels
+from ctranslate2_tpu_torch.converters.builder import build_decoder_only_model
+from ctranslate2_tpu_torch.kernels.decode_attention import (
+    decode_attention_int8, decode_attention_int8_plain, quantize_kv)
+from ctranslate2_tpu_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_plain)
 from ctranslate2_tpu_torch.kernels.gather_rows import (
     gather_rows_fused, gather_rows_plain)
+from ctranslate2_tpu_torch.kernels.norms import fused_norm, fused_norm_plain
 from ctranslate2_tpu_torch.kernels.quant_matmul import (
     matmul_w8a8, matmul_w8a8_plain)
 
@@ -77,3 +87,228 @@ def test_gather_kernel_equal_to_plain_on_card():
     torch.cuda.synchronize()
     for o, r in zip(out, gather_rows_plain(arrays, rows)):
         assert torch.equal(o, r)
+
+
+# float32: the sums run in another order. Half types: the plain version is
+# computed in float32 from the same half inputs, and the kernel rounds P to
+# the half type before P.V and its output once more.
+FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
+             torch.float16: dict(atol=2e-3, rtol=0),
+             torch.bfloat16: dict(atol=1.6e-2, rtol=0)}
+
+FLASH_CASES = {
+    "causal": dict(causal=True),
+    "plain_lengths": dict(lengths=[37, 150]),
+    "causal_offset": dict(causal=True, q_offset=5, Tq=60, Tk=150),
+    "window": dict(causal=True, window=17),
+    "segments": dict(causal=True, segments=True),
+    "alibi_negative": dict(causal=True, alibi=True, alibi_positive=False),
+    "alibi_positive": dict(causal=True, alibi=True, alibi_positive=True),
+    "t5_causal": dict(causal=True, rel=True, rel_bidirectional=False),
+    "t5_bidirectional": dict(rel=True, rel_bidirectional=True),
+    "masked_rows": dict(lengths=[0, 150]),
+}
+
+
+def _flash_inputs(dev, dtype, D, Hq, Hkv, case, seed=0):
+    rng = np.random.default_rng(seed)
+    B = 2
+    Tq, Tk = case.get("Tq", 150), case.get("Tk", 150)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            device=dev, dtype=dtype)
+
+    q, k, v = t(B, Hq, Tq, D), t(B, Hkv, Tk, D), t(B, Hkv, Tk, D)
+    kw = dict(scale=D ** -0.5, causal=case.get("causal", False),
+              q_offset=case.get("q_offset", 0), window=case.get("window", 0))
+    if "lengths" in case:
+        kw["lengths"] = torch.tensor(case["lengths"], dtype=torch.int32, device=dev)
+    if case.get("segments"):
+        seg = np.sort(rng.integers(0, 3, (B, Tk)), axis=1).astype(np.int32)
+        kw["segment_ids"] = torch.from_numpy(seg).to(dev)
+    if case.get("alibi"):
+        kw["alibi_slopes"] = torch.from_numpy(
+            (0.5 ** np.arange(1, Hq + 1)).astype(np.float32)).to(dev)
+        kw["alibi_positive"] = case["alibi_positive"]
+    if case.get("rel"):
+        kw["rel_bias_table"] = torch.from_numpy(
+            rng.standard_normal((12, Hq)).astype(np.float32)).to(dev)
+        kw["rel_max_distance"] = 50
+        kw["rel_bidirectional"] = case["rel_bidirectional"]
+    return q, k, v, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+@pytest.mark.parametrize("dtype,D,Hq,Hkv", [
+    (torch.float16, 128, 4, 2), (torch.bfloat16, 64, 4, 1),
+    (torch.float32, 64, 4, 2), (torch.float32, 128, 2, 2),
+    (torch.float16, 64, 2, 2)])
+def test_flash_kernel_close_to_plain_on_card(case, dtype, D, Hq, Hkv):
+    dev = _card()
+    q, k, v, kw = _flash_inputs(dev, dtype, D, Hq, Hkv, FLASH_CASES[case])
+    before = kernels.launch_counts()["flash_attention"]
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    assert out.shape == q.shape and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref, **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_views_on_card():
+    dev = _card()
+    B, T, Hq, Hkv, D = 2, 100, 4, 2, 64
+    fused = torch.randn(B, T, (Hq + 2 * Hkv) * D, device=dev, dtype=torch.float16)
+    split = lambda x, h: x.reshape(B, T, h, D).transpose(1, 2)  # noqa: E731
+    q = split(fused[..., :Hq * D], Hq)
+    k = split(fused[..., Hq * D:(Hq + Hkv) * D], Hkv)
+    v = split(fused[..., (Hq + Hkv) * D:], Hkv)
+    out = flash_attention(q, k, v, scale=D ** -0.5, causal=True)
+    ref = flash_attention_plain(q.float(), k.float(), v.float(),
+                                scale=D ** -0.5, causal=True)
+    torch.testing.assert_close(out.float(), ref, atol=2e-3, rtol=0)
+    # Heads merge without a copy.
+    assert out.transpose(1, 2).reshape(B, T, Hq * D).data_ptr() == out.data_ptr()
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_other_head_dims_on_card():
+    dev = _card()
+    q = torch.randn(1, 2, 8, 32, device=dev, dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="32"):
+        flash_attention(q, q, q)
+
+
+def _decode_inputs(dev, qdtype, B, Hq, Hkv, C, D, lengths, fresh, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    q = t(B, Hq, 1, D).to(qdtype)
+    k8, ks = quantize_kv(t(B, Hkv, C, D))
+    v8, vs = quantize_kv(t(B, Hkv, C, D))
+    kw = {}
+    if fresh:
+        kw["k_new8"], kw["kn_scale"] = quantize_kv(t(B, Hkv, 1, D))
+        kw["v_new8"], kw["vn_scale"] = quantize_kv(t(B, Hkv, 1, D))
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return (q, k8, ks, v8, vs, lengths), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fresh", [True, False])
+@pytest.mark.parametrize("window", [0, 1, 9])
+@pytest.mark.parametrize("qdtype,Hq,Hkv,C,D,lengths", [
+    (torch.float32, 8, 2, 300, 64, [300, 17, 0]),
+    (torch.float16, 32, 8, 2176, 128, [2048, 2111, 1]),
+    (torch.bfloat16, 6, 1, 130, 32, [130, 64, 5]),
+    (torch.float32, 4, 2, 70, 256, [70, 33, 2]),
+])
+def test_decode_kernel_close_to_plain_on_card(fresh, window, qdtype, Hq, Hkv,
+                                              C, D, lengths):
+    dev = _card()
+    args, kw = _decode_inputs(dev, qdtype, len(lengths), Hq, Hkv, C, D,
+                              lengths, fresh)
+    before = kernels.launch_counts()["decode_attention_int8"]
+    out = decode_attention_int8(*args, scale=D ** -0.5, window=window, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_attention_int8"] == before + 1
+    ref = decode_attention_int8_plain(*args, scale=D ** -0.5, window=window, **kw)
+    assert out.dtype == torch.float32 and out.shape == args[0].shape
+    # Sums in another order, fast exponentials.
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer_norm", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8192, 4096), (4, 1, 4096), (3, 5, 512),
+                                   (7, 24), (2, 17000 // 8 * 8)])
+def test_norm_kernel_close_to_plain_on_card(layer_norm, dtype, shape):
+    dev = _card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    gamma = torch.randn(shape[-1], generator=g, device=dev)
+    beta = torch.randn(shape[-1], generator=g, device=dev) if layer_norm else None
+    before = kernels.launch_counts()["fused_norm"]
+    out = fused_norm(x, gamma, beta, eps=1e-5)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_norm"] == before + 1
+    ref = fused_norm_plain(x, gamma, beta, eps=1e-5)
+    assert out.shape == x.shape and out.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    else:
+        # One ulp of the output type: the float32 results differ in their
+        # last bits and may round to neighbouring half values. Where beta
+        # cancels the scaled value the ulp is that of the terms, not of the
+        # small sum.
+        ulp = 2.0 ** (-10 if dtype == torch.float16 else -7)
+        scale = ref.float().abs().clamp_min(2.0 ** -14)
+        if beta is not None:
+            scale = torch.maximum(scale, beta.abs().expand_as(scale))
+        diff = (out.float() - ref.float()).abs()
+        assert bool((diff <= ulp * scale).all())
+
+
+@pytest.mark.cuda
+def test_apply_norm_raises_on_a_width_the_kernel_cannot_take():
+    """On the card a norm never gives way to the plain function because of
+    its shape: a width off the kernel's vector width raises."""
+    from ctranslate2_tpu_torch.ops.norms import apply_norm
+
+    dev = _card()
+    x = torch.randn(3, 12, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        apply_norm({"gamma": torch.ones(12, device=dev)}, x, 1e-5)
+    # On the CPU the same call is the plain function.
+    out = apply_norm({"gamma": torch.ones(12)}, x.cpu(), 1e-5)
+    assert out.shape == (3, 12)
+
+
+@pytest.fixture(scope="module")
+def small_decoder(tmp_path_factory):
+    """A builder model whose head dim (64) the flash kernel takes."""
+    path = str(tmp_path_factory.mktemp("decoder_cuda"))
+    return build_decoder_only_model(
+        path, vocab_size=200, num_layers=2, num_heads=4, d_model=256, d_ff=512,
+        num_heads_kv=2, rotary_dim=0, glu=True, rms_norm=True, activation="swish")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam_size", [1, 2])
+@pytest.mark.parametrize("kv", ["float", "int8"])
+def test_generator_on_card_matches_cpu(small_decoder, monkeypatch, kv, beam_size):
+    """float32 end to end on a small model: the card (flash prefill through
+    ``flash_attention=True``, the int8-KV decode kernel, the norm kernel, the
+    gather reorder of a prefilled cache under beam search) against the CPU."""
+    _card()
+    if kv == "int8":
+        monkeypatch.setenv("CT2TPU_KV_CACHE", "int8")
+    rng = np.random.default_rng(5)
+    prompts = [[f"tok{int(t)}" for t in rng.integers(0, 190, n)] for n in (40, 33, 37)]
+    opts = dict(max_length=12, min_length=12, include_prompt_in_result=False,
+                beam_size=beam_size, return_scores=True)
+    card = tt.Generator(small_decoder, compute_type="float32", flash_attention=True)
+    cpu = tt.Generator(small_decoder, device="cpu", compute_type="float32")
+    kernels.reset_launches()
+    out = card.generate_batch(prompts, **opts)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    ref = cpu.generate_batch(prompts, **opts)
+    assert counts["flash_attention"] == 2 and counts["fused_norm"] > 0
+    assert (counts["decode_attention_int8"] > 0) == (kv == "int8")
+    assert (counts["gather_rows_fused"] > 0) == (beam_size > 1)
+    for o, r in zip(out, ref):
+        assert len(o.sequences_ids[0]) == 12
+        if kv == "float":
+            # float32 on both sides: only the summation order differs.
+            assert o.sequences_ids == r.sequences_ids
+            np.testing.assert_allclose(o.scores, r.scores, atol=1e-3)
+        else:
+            # A cached vector at a rounding tie may land one int8 step apart.
+            np.testing.assert_allclose(o.scores[0], r.scores[0], atol=5e-2)

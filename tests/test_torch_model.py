@@ -138,19 +138,25 @@ def test_cache_gather_rows_matches(models):
 
 
 def test_unported_flash_length_raises_on_card(monkeypatch):
-    """Where the JAX package would take its flash kernel (uncached
+    """Where the JAX package takes its flash kernel (uncached
     self-attention of T, S >= CT2TPU_FLASH_MIN_LEN on its accelerator), the
-    port on the card raises; the CPU and CT2TPU_FLASH=0 take the plain
-    attention."""
+    port on the card used to raise; it now dispatches to its own flash
+    kernel under the same static conditions. The CPU and CT2TPU_FLASH=0
+    take the plain attention, and ``flash_min_len`` (the
+    ``flash_attention=True`` constructor flag) replaces the threshold."""
     class Card:  # stands in for a CUDA tensor: only is_cuda and shape are read
         is_cuda = True
         shape = (1, 8, 2048, 64)
 
-    with pytest.raises(NotImplementedError, match="flash"):
-        TT._check_flash(Card(), Card())
+    assert TT._flash_eligible(Card(), Card())
     short = Card()
     short.shape = (1, 8, 2047, 64)
-    TT._check_flash(short, Card())
-    TT._check_flash(torch.zeros(1, 1, 2048, 4), torch.zeros(1, 1, 2048, 4))
+    assert not TT._flash_eligible(short, Card())
+    assert not TT._flash_eligible(Card(), short)
+    assert TT._flash_eligible(short, short, min_len=0)
+    assert not TT._flash_eligible(torch.zeros(1, 1, 2048, 4), torch.zeros(1, 1, 2048, 4))
+    monkeypatch.setenv("CT2TPU_FLASH_MIN_LEN", "1024")
+    assert TT._flash_eligible(short, short)
     monkeypatch.setenv("CT2TPU_FLASH", "0")
-    TT._check_flash(Card(), Card())
+    assert not TT._flash_eligible(Card(), Card())
+    assert not hasattr(TT, "_check_flash")
