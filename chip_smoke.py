@@ -9,7 +9,7 @@ NVIDIA H100:
 Phases, one JSON object per line:
 
 1. card: the card's name and power limit, the torch/CUDA versions, and the
-   seconds to build the five CUDA kernels from ``ctranslate2_tpu_torch/csrc``.
+   seconds to build the six CUDA sources from ``ctranslate2_tpu_torch/csrc``.
 2. Translator main path: the full-width Transformer-base model (6+6 layers,
    d_model 512, ffn 2048, 8 heads, 32,000 words; random weights from seed
    7), ``Translator(..., compute_type="int8").translate_batch`` on batches
@@ -31,18 +31,28 @@ Phases, one JSON object per line:
    every linear. Each layer's attention then gets the kernel run's inputs,
    and its output is compared where the output projection quantizes it: at
    most one int8 step apart, on at most ``FED_STEP_SHARE`` of the entries.
-   On both main paths the launch counters are zeroed just before and read
+4. AWQ Generator main path: the same geometry in AutoAWQ's GEMM layout
+   (group 128, zero points; float16 embeddings and projection), fabricated
+   in memory; ``Generator(...).generate_batch`` with the card's defaults
+   (float16 activations, packed W4) and ``CT2TPU_KV_CACHE=int8``, the same
+   prompts and lengths: every layer linear goes through ``matmul_w4p``; then
+   one call with ``CT2TPU_W4_PACKED=0`` (``matmul_w4a16``). The launch
+   counts are checked against the expected ones, and no W4 plain version may
+   run on the card.
+   On every main path the launch counters are zeroed just before and read
    just after; each kernel of the path must have launched, and the shapes
    it was called with are logged over the same calls.
-4. kernels: each of the five kernels at every shape a main path gave it,
-   against its plain PyTorch version on the same inputs, with its time, the
-   plain version's, the one library call's where there is one and the
-   bound; then small shapes for every feature the paths do not use.
-   Tolerances: W8A8 bit-equal, gather equal, ``FLASH_TOL``, ``DECODE_TOL``,
-   ``NORM_F32_TOL`` / one ulp of the half type.
-5. float16 Translator run, float32 chain/chain-off pair, Translator card
+5. kernels: each of the nine kernels at every shape a main path gave it
+   (the two folded W4 forms, which ``linear()`` never dispatches, at their
+   counterpart's shapes), against its plain PyTorch version on the same
+   inputs, with its time, the plain version's, the one library call's
+   where there is one and the bound; then small shapes for every feature
+   the paths do not use. Tolerances: W8A8 bit-equal, gather equal,
+   ``FLASH_TOL``, ``DECODE_TOL``, ``NORM_F32_TOL`` / one ulp of the half
+   type, ``w4_error_bound`` for the W4 products.
+6. float16 Translator run, float32 chain/chain-off pair, Translator card
    against CPU (as before).
-6. Generator A/B at the same widths and 2 layers, no activation
+7. Generator A/B at the same widths and 2 layers, no activation
    quantization: flash against ``CT2TPU_FLASH=0`` and the int8-KV decode
    kernel against ``CT2TPU_DECODE_KERNEL=0``. In float32 the first-step
    log-probs must agree within ``LOGPROB_TOL``; in float16 within
@@ -53,14 +63,21 @@ Phases, one JSON object per line:
    ``LOGPROB_TOL`` with the float KV cache; with the int8 KV cache (a cached
    vector at a rounding tie may land one step apart) within
    ``INT8_KV_LOGPROB_TOL``.
+8. AWQ checks at 2 layers of the same AWQ weights: the card in float32 (the
+   W4 kernels' FMA path) against the port on the CPU (the plain versions),
+   packed and unpacked, within ``LOGPROB_TOL``; the card in float16 (the
+   ``mma`` path), each W4 kernel against its plain version patched in its
+   place, within ``OWN_ERROR_FACTOR`` times float16's own error and with
+   the same first 8 tokens.
 
 The line before the last is ``{"kernels": [...]}`` (times are sums over
-the ``launches`` counted on the two main paths), the last
+the ``launches`` counted on the main paths), the last
 ``{"ok": true, "device": {...}}``. The script exits non-zero, without
 those lines, if CUDA is unavailable, any call raises or any check fails.
 """
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -131,10 +148,34 @@ NORM_F32_TOL = dict(atol=1e-5, rtol=1e-5)
 # multiple of the rounding's own error, measured in the same run on the same
 # inputs.
 OWN_ERROR_FACTOR = 1.5
+# The AWQ model: AutoAWQ's GEMM layout, group 128, the same geometry.
+AWQ_GROUP = 128
+AWQ_CPU_PROMPT = 129
+# Expected launches of one AWQ generate_batch call (4 prompts of 2,049, 64
+# new tokens): 5 W4 linears in each of 32 layers, for the prefill and each
+# of the 64 steps; 64 x 32 decode-kernel launches; 65 norms a forward pass.
+AWQ_LAUNCHES_PER_CALL = {"w4": 32 * 5 * (1 + GEN_NEW), "flash_attention": 32,
+                         "decode_attention_int8": GEN_NEW * 32,
+                         "fused_norm": 65 * (1 + GEN_NEW), "matmul_w8a8": 0}
+
+
+STARTED = time.perf_counter()
 
 
 def emit(obj):
+    """Prints one JSON line; phase lines carry the script's elapsed seconds."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=round(time.perf_counter() - STARTED, 1))
     print(json.dumps(obj), flush=True)
+
+
+def free_card():
+    """Frees what the last phase left: cyclic garbage first (a loaded model
+    can sit in a reference cycle), then the allocator's cached blocks."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 class Checks:
@@ -198,6 +239,8 @@ SHAPE_KEYS = {
         kw.get("k_new8") is not None, kw.get("window", 0)),
     "fused_norm": lambda x, gamma, beta=None, **kw: (
         x.numel() // x.shape[-1], x.shape[-1], _dt(x), beta is not None),
+    "matmul_w4p": lambda x, w4p, gs, zs: (x.shape[0], x.shape[1], w4p.shape[1], _dt(x)),
+    "matmul_w4a16": lambda x, w4, gs: (x.shape[0], x.shape[1], w4.shape[1], _dt(x)),
 }
 
 
@@ -210,7 +253,8 @@ def kernel_shape_logs(logs):
     import ctranslate2_tpu_torch.ops.norms as N
 
     homes = {"matmul_w8a8": L, "gather_rows_fused": T, "flash_attention": T,
-             "decode_attention_int8": T, "fused_norm": N}
+             "decode_attention_int8": T, "fused_norm": N, "matmul_w4p": L,
+             "matmul_w4a16": L}
     with contextlib.ExitStack() as stack:
         for name, module in homes.items():
             stack.enter_context(patched(
@@ -773,13 +817,10 @@ def feature_checks(checks):
 # Generator: the Llama-3-8B geometry.
 # ---------------------------------------------------------------------------
 
-def build_llama_modelfile(layers):
-    """The Llama-3-8B geometry fabricated directly as int8 payloads and
-    scales, in memory (no float intermediates): every linear's payload is
-    drawn from its own seed, several at a time on a thread pool (numpy
-    releases the interpreter lock while it draws)."""
-    from concurrent.futures import ThreadPoolExecutor
-
+def _llama_file(layers, **config):
+    """The Llama-3-8B geometry's attributes and norms in a new in-memory
+    ModelFile (``config`` added to its config), and its weight matrices as
+    (scope, out_dim, in_dim, seed) jobs, embeddings and projection first."""
     import numpy as np
     from ctranslate2_tpu_torch.formats.model_file import ModelFile, make_variable
 
@@ -789,49 +830,102 @@ def build_llama_modelfile(layers):
     mf = ModelFile(spec_name="TransformerDecoderSpec", spec_revision=8,
                    binary_version=6)
     mf.config = {"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>",
-                 "layer_norm_epsilon": 1e-5}
+                 "layer_norm_epsilon": 1e-5, **config}
 
     def add(name, value, dtype=None):
         mf.variables[name] = make_variable(name, value, dtype)
-
-    payloads = []  # (scope, rows, cols, seed)
-
-    def lin(scope, out_dim, in_dim, seed):
-        payloads.append((scope, out_dim, in_dim, seed))
-        add(f"{scope}/weight_scale", np.full((out_dim,), 127.0 / 0.05, np.float32))
 
     sc = "decoder"
     add(f"{sc}/num_heads", heads, "int16")
     add(f"{sc}/pre_norm", 1, "int8")
     add(f"{sc}/activation", 2, "int8")  # swish
     add(f"{sc}/scale_embeddings", 0, "int8")
-    lin(f"{sc}/embeddings", cfg["vocab"], d, 0)
     add(f"{sc}/layer_norm/gamma", np.ones(d, np.float32))
-    lin(f"{sc}/projection", cfg["vocab"], d, 1)
+    jobs = [(f"{sc}/embeddings", cfg["vocab"], d, 0),
+            (f"{sc}/projection", cfg["vocab"], d, 1)]
     for i in range(layers):
         ls = f"{sc}/layer_{i}"
         asc = f"{ls}/self_attention"
-        lin(f"{asc}/linear_0", (heads + 2 * heads_kv) * head_dim, d, 10 + i)
-        lin(f"{asc}/linear_1", d, heads * head_dim, 1000 + i)
+        jobs.append((f"{asc}/linear_0", (heads + 2 * heads_kv) * head_dim, d, 10 + i))
+        jobs.append((f"{asc}/linear_1", d, heads * head_dim, 1000 + i))
         add(f"{asc}/layer_norm/gamma", np.ones(d, np.float32))
         add(f"{asc}/num_heads_kv", heads_kv, "int32")
         add(f"{asc}/rotary_dim", 0, "int32")
         add(f"{asc}/rotary_interleave", 0, "int8")
         add(f"{asc}/rotary_base", cfg["rotary_base"], "float32")
-        lin(f"{ls}/ffn/linear_0", cfg["d_ff"], d, 2000 + i)
-        lin(f"{ls}/ffn/linear_0_noact", cfg["d_ff"], d, 3000 + i)
-        lin(f"{ls}/ffn/linear_1", d, cfg["d_ff"], 4000 + i)
+        jobs.append((f"{ls}/ffn/linear_0", cfg["d_ff"], d, 2000 + i))
+        jobs.append((f"{ls}/ffn/linear_0_noact", cfg["d_ff"], d, 3000 + i))
+        jobs.append((f"{ls}/ffn/linear_1", d, cfg["d_ff"], 4000 + i))
         add(f"{ls}/ffn/layer_norm/gamma", np.ones(d, np.float32))
+    return mf, jobs
+
+
+def _draw_into(mf, jobs, draw):
+    """Adds the variables ``draw(job)`` returns for every job, several jobs at
+    a time on a thread pool (numpy releases the interpreter lock while it
+    draws). ``draw`` returns (scope, {suffix: array})."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ctranslate2_tpu_torch.formats.model_file import make_variable
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        for scope, arrays in pool.map(draw, jobs):
+            for suffix, value in arrays.items():
+                name = f"{scope}/{suffix}"
+                mf.variables[name] = make_variable(name, value)
+    return mf
+
+
+def build_llama_modelfile(layers):
+    """The Llama-3-8B geometry fabricated directly as int8 payloads and
+    scales, in memory (no float intermediates): every linear's payload is
+    drawn from its own seed."""
+    import numpy as np
+
+    mf, jobs = _llama_file(layers)
 
     def draw(job):
         scope, rows, cols, seed = job
-        return scope, np.random.default_rng(seed).integers(
-            -127, 128, (rows, cols), dtype=np.int8)
+        q = np.random.default_rng(seed).integers(-127, 128, (rows, cols), dtype=np.int8)
+        return scope, {"weight": q,
+                       "weight_scale": np.full((rows,), 127.0 / 0.05, np.float32)}
 
-    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
-        for scope, q in pool.map(draw, payloads):
-            add(f"{scope}/weight", q, "int8")
-    return mf
+    return _draw_into(mf, jobs, draw)
+
+
+def build_awq_llama_modelfile(layers):
+    """The same geometry as AutoAWQ's GEMM checkpoints store it (group 128,
+    zero points; ``quantization_type`` 1), fabricated in memory: each layer
+    linear's ``weight`` int32 [in, out/8] of random nibbles, ``weight_scale``
+    f32 [in/128, out] in [0.005, 0.0075] and ``weight_zero`` int32
+    [in/128, out/8] of zero points 7 and 8, so that (q - z) * s is centred
+    and about as wide as the int8 model's weights; float16 embeddings and
+    projection, as the reference's converter leaves them."""
+    import numpy as np
+    from ctranslate2_tpu_torch.ops.awq import AWQ_GEMM, pack_awq_gemm
+
+    G = AWQ_GROUP
+    mf, jobs = _llama_file(layers, quantization_type=AWQ_GEMM,
+                           quantization_bits=4, quantization_group_size=G)
+
+    def draw(job):
+        scope, out_dim, in_dim, seed = job
+        rng = np.random.default_rng(seed)
+        if not re.search(r"/layer_\d+/", scope):  # embeddings, projection
+            w = np.empty((out_dim, in_dim), np.float16)
+            for r in range(0, out_dim, 16384):
+                rows = min(16384, out_dim - r)
+                w[r:r + rows] = rng.random((rows, in_dim), dtype=np.float32) * 0.1 - 0.05
+            return scope, {"weight": w}
+        return scope, {
+            "weight": rng.integers(0, 2 ** 32, (in_dim, out_dim // 8),
+                                   dtype=np.uint32).view(np.int32),
+            "weight_scale": rng.random((in_dim // G, out_dim), dtype=np.float32)
+                            * 0.0025 + 0.005,
+            "weight_zero": pack_awq_gemm(
+                rng.integers(7, 9, (in_dim // G, out_dim), dtype=np.uint8))}
+
+    return _draw_into(mf, jobs, draw)
 
 
 def llama_subset(mf, layers):
@@ -954,8 +1048,8 @@ def generator_main_path(tt, mf, vocab, checks, logs):
         gen = make_generator(tt, mf, vocab, compute_type="int8")
     torch.cuda.synchronize()
     load_seconds = time.perf_counter() - t0
-    prompts = [make_prompts(vocab, GEN_PROMPT, i) for i in range(3)]
-    calls = 2
+    prompts = [make_prompts(vocab, GEN_PROMPT, i) for i in range(2)]
+    calls = 1  # one timed call: the AWQ path below takes the time of a second
 
     with environ(CT2TPU_KV_CACHE="int8"):
         generate_run(gen, prompts[0])  # warm-up
@@ -1124,6 +1218,295 @@ def generator_card_vs_cpu(tt, mf, vocab, checks):
           "int8_kv_own_error_cpu": own8,
           "int8_kv_tolerance": INT8_KV_LOGPROB_TOL,
           "card_launches": counts["int8"], "seconds": seconds})
+
+
+# ---------------------------------------------------------------------------
+# Generator on AWQ-W4 weights.
+# ---------------------------------------------------------------------------
+
+W4_PLAIN = ("matmul_w4a16_plain", "matmul_w4p_plain", "matmul_w4a16_fold_plain",
+            "matmul_w4p_fold_plain")
+
+
+@contextlib.contextmanager
+def w4_plain_calls_on_card(counter):
+    """Counts, in ``counter[0]``, the calls of the four W4 plain versions
+    with CUDA activations; on the main path there must be none."""
+    from ctranslate2_tpu_torch.kernels import quant_matmul as Q
+
+    def wrap(orig):
+        def wrapped(x, *args):
+            counter[0] += x.is_cuda
+            return orig(x, *args)
+        return wrapped
+
+    with contextlib.ExitStack() as stack:
+        for name in W4_PLAIN:
+            stack.enter_context(patched(Q, name, wrap))
+        yield counter
+
+
+def generator_awq_main_path(tt, mf, vocab, checks, logs):
+    """The Generator on the AWQ model at full width and depth: float16
+    activations (the default for an AWQ model on the card), int8 KV cache,
+    the packed W4 layout (the card's default). Timed calls with the launch
+    counters zeroed before and read after, the profiler's busy share; then
+    one call with ``CT2TPU_W4_PACKED=0`` (the unpacked layout)."""
+    import torch
+
+    prompts = [make_prompts(vocab, GEN_PROMPT, 20 + i) for i in range(3)]
+    calls = 2
+    on_card = [0]
+    with environ(CT2TPU_KV_CACHE="int8"), w4_plain_calls_on_card(on_card):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = make_generator(tt, mf, vocab)
+        torch.cuda.synchronize()
+        load_seconds = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated()
+        ffn = gen.model.params["decoder"]["layers"][0]["ffn"]["linear_0"]
+        checks(gen.compute_type == "float16" and "w4p" in ffn,
+               f"awq generator: float16 activations and packed W4 on the card "
+               f"({gen.compute_type}, {sorted(ffn)})")
+        generate_run(gen, prompts[0])  # warm-up
+        logged_before = {name: sum(d.values()) for name, d in logs.items()}
+        with kernel_shape_logs(logs):
+            torch.cuda.reset_peak_memory_stats()
+            tt.reset_launches()
+            runs = [generate_run(gen, p) for p in prompts[1:1 + calls]]
+            counts = tt.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check_logs_cover(counts, logs, logged_before, "awq generator", checks)
+        profile_call(lambda: generate_run(gen, prompts[1]), "generator_awq")
+        del gen
+        free_card()
+        with environ(CT2TPU_W4_PACKED="0"):
+            gen = make_generator(tt, mf, vocab)
+            ffn = gen.model.params["decoder"]["layers"][0]["ffn"]["linear_0"]
+            checks("w4" in ffn, f"CT2TPU_W4_PACKED=0 loads the unpacked layout ({sorted(ffn)})")
+            logged_before = {name: sum(d.values()) for name, d in logs.items()}
+            with kernel_shape_logs(logs):
+                tt.reset_launches()
+                unpacked = generate_run(gen, prompts[1])
+                u_counts = tt.launch_counts()
+            check_logs_cover(u_counts, logs, logged_before, "awq generator unpacked", checks)
+        del gen
+        free_card()
+
+    expected = {k: v * calls for k, v in AWQ_LAUNCHES_PER_CALL.items() if k != "w4"}
+    expected.update(matmul_w4p=AWQ_LAUNCHES_PER_CALL["w4"] * calls, matmul_w4a16=0)
+    checks(all(counts[k] == v for k, v in expected.items()),
+           f"awq generator: launches {counts}, expected {expected}")
+    u_expected = {k: v for k, v in AWQ_LAUNCHES_PER_CALL.items() if k != "w4"}
+    u_expected.update(matmul_w4a16=AWQ_LAUNCHES_PER_CALL["w4"], matmul_w4p=0)
+    checks(all(u_counts[k] == v for k, v in u_expected.items()),
+           f"awq generator unpacked: launches {u_counts}, expected {u_expected}")
+    checks(on_card[0] == 0, f"awq generator: no W4 plain version ran on the card "
+           f"({on_card[0]} calls)")
+    results = [r for run in runs for r in run[0]] + unpacked[0]
+    checks(all(len(r.sequences_ids[0]) == GEN_NEW for r in results),
+           f"awq generator: every hypothesis has {GEN_NEW} tokens")
+    checks(all(math.isfinite(r.scores[0]) for r in results),
+           "awq generator: scores are finite")
+    seconds = sum(run[1] for run in runs)
+    prefill = sum(run[2] for run in runs)
+    tokens = sum(len(r.sequences_ids[0]) for run in runs for r in run[0])
+    emit({"phase": "main_generator_awq", "compute_type": "float16",
+          "kv_cache": "int8", "w4_layout": "packed (w4p)",
+          "model": dict(LLAMA, awq_group=AWQ_GROUP),
+          "load_seconds": load_seconds, "load_peak_memory_bytes": load_peak,
+          "calls": calls, "prompts_per_call": GEN_BATCH, "prompt_tokens": GEN_PROMPT,
+          "new_tokens_per_prompt": GEN_NEW, "target_tokens": tokens,
+          "seconds": seconds, "target_tokens_per_s": tokens / seconds,
+          "prefill_ms_per_call": prefill / calls * 1e3,
+          "prefill_tokens_per_s": calls * GEN_BATCH * (GEN_PROMPT - 1) / prefill,
+          "decode_ms_per_step": (seconds - prefill) / calls / GEN_NEW * 1e3,
+          "launches": counts, "launches_per_call": {k: v / calls for k, v in counts.items()},
+          "peak_memory_bytes": peak,
+          "unpacked_call": {"seconds": unpacked[1], "prefill_ms": unpacked[2] * 1e3,
+                            "decode_ms_per_step": (unpacked[1] - unpacked[2]) / GEN_NEW * 1e3,
+                            "note": "one call, no warm-up", "launches": u_counts}})
+    return counts, u_counts
+
+
+def w4_library(x, q, s, z, ref):
+    """(name, fn) of one PyTorch call that computes ``x @ ((q - z) * s)``:
+    ``torch._weight_int4pack_mm`` (bfloat16 activations, its own packed
+    layout, ``w = (q - 8) * s + zero'``, so zero' = (8 - z) * s), checked
+    against ``ref``; where that call is missing or refuses the shape,
+    unpack + dequantize + ``torch.matmul``."""
+    import torch
+    from ctranslate2_tpu_torch.kernels.quant_matmul import _w4p_values
+
+    K, N = q.shape
+    G = K // s.shape[0]
+    try:
+        qt = q.t().contiguous().to(torch.int32)
+        w = torch._convert_weight_to_int4pack((qt[:, ::2] << 4 | qt[:, 1::2]).to(torch.uint8), 8)
+        sz = torch.stack([s, (8 - z) * s], -1).to(torch.bfloat16).contiguous()
+        xb = x.to(torch.bfloat16)
+        y = torch._weight_int4pack_mm(xb, w, G, sz).float()
+        rel = ((y - ref).norm() / ref.norm()).item()
+        if rel < 2e-2:  # bfloat16 activations and scales
+            return "torch._weight_int4pack_mm", lambda: torch._weight_int4pack_mm(xb, w, G, sz)
+        emit({"library_disagrees": [x.shape[0], K, N], "relative_error": rel})
+    except (AttributeError, RuntimeError, TypeError) as e:
+        emit({"library_refused": [x.shape[0], K, N], "error": str(e)[:200]})
+    w4p = (q[:K // 2] | (q[K // 2:] << 4)).view(torch.int8)
+    s_rows, zs_rows = s.repeat_interleave(G, 0), (z * s).repeat_interleave(G, 0)
+    return "unpack + dequantize + torch.matmul", lambda: torch.matmul(
+        x, (_w4p_values(w4p) * s_rows - zs_rows).to(x.dtype))
+
+
+def bench_w4(shapes, checks):
+    """The four W4 kernels at every main-path shape, against their plain
+    versions within ``w4_error_bound``, with the plain version's time, the
+    library call's and the bound. ``shapes`` holds the shape logs of
+    ``matmul_w4p`` (packed calls) and ``matmul_w4a16`` (the unpacked call);
+    the two folded forms are not on the path and run at their counterpart's
+    shapes, their sums weighted by its launches. Returns the sums."""
+    import torch
+    from ctranslate2_tpu_torch.kernels import quant_matmul as Q
+
+    kinds = {  # name: (packed, fold, the path's kernel at these shapes)
+        "matmul_w4p": (True, False, "matmul_w4p"),
+        "matmul_w4p_fold": (True, True, "matmul_w4p"),
+        "matmul_w4a16": (False, False, "matmul_w4a16"),
+        "matmul_w4a16_fold": (False, True, "matmul_w4a16"),
+    }
+    g = torch.Generator(device="cuda").manual_seed(6)
+    G = AWQ_GROUP
+    tots = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+                       max_abs_err=0.0, libraries=set()) for name in kinds}
+    for key in sorted(set(shapes["matmul_w4p"]) | set(shapes["matmul_w4a16"])):
+        M, K, N, dt = key
+        x = torch.randn((M, K), generator=g, device="cuda").to(getattr(torch, dt))
+        q = torch.randint(0, 16, (K, N), generator=g, device="cuda", dtype=torch.uint8)
+        s = torch.rand((K // G, N), generator=g, device="cuda") * 0.0025 + 0.005
+        z = torch.randint(7, 9, (K // G, N), generator=g, device="cuda").float()
+        operands = {True: (x, (q[:K // 2] | (q[K // 2:] << 4)).view(torch.int8), s, z * s),
+                    False: (x, (q.to(torch.int16) - z.to(torch.int16).repeat_interleave(G, 0))
+                            .to(torch.int8), s)}
+        small = M * K * N < 2 ** 32
+        iters, plain_iters = (50, 10) if small else (3, 2)
+        library, lib_fn = w4_library(x, q, s, z, Q.matmul_w4a16_plain(*operands[False]))
+        lib_ms = cuda_time_ms(lib_fn, iters)
+        for name, (packed, fold, base) in kinds.items():
+            n = shapes[base].get(key, 0)
+            fn, plain = getattr(Q, name), getattr(Q, name + "_plain")
+            args = operands[packed]
+            out = fn(*args)
+            ref = plain(*args)
+            torch.cuda.synchronize()
+            diff = (out - ref).abs()
+            bound = Q.w4_error_bound(*args[:3], args[3] if packed else None, fold)
+            err = diff.max().item()
+            worst = (diff / bound).max().item()
+            checks(bool((diff <= bound).all()),
+                   f"{name} within its error bound of plain at {key} "
+                   f"(max abs err {err}, worst share of the bound {worst})")
+            del out, ref, diff, bound
+            ms = cuda_time_ms(lambda: fn(*args), iters)
+            plain_ms = cuda_time_ms(lambda: plain(*args), plain_iters)
+            nbytes = ((K * N // 2 + 8 * (K // G) * N) if packed else (K * N + 4 * (K // G) * N)) \
+                + M * K * x.element_size() + 4 * M * N
+            bytes_ms = nbytes / PEAK_BYTES * 1e3
+            ops_ms = 2 * M * N * K / (PEAK_F32_FLOPS if dt == "float32" else PEAK_HALF_FLOPS) * 1e3
+            emit({"phase": "kernel_w4", "kernel": name, "M": M, "K": K, "N": N, "dtype": dt,
+                  "group": G, "launches": n if name == base else 0,
+                  "weighted_by_launches_of": base, "weight": n,
+                  "max_abs_err": err, "worst_share_of_error_bound": worst,
+                  "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                  "library": library, "bytes_moved": nbytes,
+                  "tflops": 2 * M * N * K / ms / 1e9, "gbytes_per_s": nbytes / ms / 1e6,
+                  "bound_ms": max(bytes_ms, ops_ms),
+                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+            tot = tots[name]
+            tot["ms"] += n * ms
+            tot["plain_ms"] += n * plain_ms
+            tot["library_ms"] += n * lib_ms
+            tot["bytes_ms"] += n * bytes_ms
+            tot["ops_ms"] += n * ops_ms
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["libraries"].add(library)
+        del x, q, operands
+        free_card()
+    for tot in tots.values():
+        tot["libraries"] = sorted(tot["libraries"])
+    return tots
+
+
+def generator_awq_checks(tt, mf, vocab, checks):
+    """2 layers of the AWQ model, packed and unpacked. The card in float32
+    (the W4 kernels' FMA path) against the port on the CPU (their plain
+    versions): first-step log-probs within ``LOGPROB_TOL``. Then the card in
+    float16 (the ``mma`` path), the W4 kernel against its plain version
+    patched in its place: first-step log-probs within ``OWN_ERROR_FACTOR``
+    times float16's own error on the same path (its plain run against the
+    float32 plain run), and the same first 8 tokens on every row."""
+    import torch
+    import ctranslate2_tpu_torch.ops.linear as L
+    from ctranslate2_tpu_torch.kernels import quant_matmul as Q
+
+    out = {"phase": "generator_awq_checks", "layers": AB_LAYERS,
+           "cpu_prompt_tokens": AWQ_CPU_PROMPT, "float16_prompt_tokens": GEN_PROMPT,
+           "own_error_factor": OWN_ERROR_FACTOR}
+    cpu_prompts = make_prompts(vocab, AWQ_CPU_PROMPT, 11)
+    prompts = make_prompts(vocab, GEN_PROMPT, 12)
+    for packed, kernel, other in (("1", "matmul_w4p", "matmul_w4a16"),
+                                  ("0", "matmul_w4a16", "matmul_w4p")):
+        plain = getattr(Q, kernel + "_plain")
+        def as_plain():
+            return patched(L, kernel, lambda orig: plain)
+
+        with environ(CT2TPU_W4_PACKED=packed):
+            card = make_generator(tt, mf, vocab, compute_type="float32", flash_attention=True)
+            tt.reset_launches()
+            logp_card = generator_first_step_logprobs(card, cpu_prompts)
+            counts = tt.launch_counts()
+            cpu = make_generator(tt, mf, vocab, device="cpu", compute_type="float32",
+                                 flash_attention=True)
+            logp_cpu = generator_first_step_logprobs(cpu, cpu_prompts)
+            del cpu
+            with as_plain():  # the float32 reference of float16's own error
+                logp32 = generator_first_step_logprobs(card, prompts)
+            del card
+            free_card()
+            gen = make_generator(tt, mf, vocab, compute_type="float16")
+            runs = {}
+            for arm in ("kernel", "plain"):
+                with as_plain() if arm == "plain" else contextlib.nullcontext():
+                    tt.reset_launches()
+                    results = generate_run(gen, prompts, AB_NEW)[0]
+                    logp = generator_first_step_logprobs(gen, prompts)
+                    runs[arm] = (results, logp, tt.launch_counts()[kernel])
+            del gen
+            free_card()
+        diff = (logp_card - logp_cpu).abs().max().item()
+        label = f"awq card vs CPU (float32, {kernel}, {AB_LAYERS} layers)"
+        checks(counts[kernel] == 2 * 5 * AB_LAYERS and counts[other] == 0,
+               f"{label}: every W4 linear launched {kernel} ({counts})")
+        checks(bool(torch.isfinite(logp_card).all()) and diff <= LOGPROB_TOL,
+               f"{label}: first-step log-probs within {LOGPROB_TOL} (got {diff})")
+        (k_res, k_logp, k_n), (p_res, p_logp, p_n) = runs["kernel"], runs["plain"]
+        own = (p_logp - logp32).abs().max().item()
+        diff16 = (k_logp - p_logp).abs().max().item()
+        same = same_prefix_rows(k_res, p_res, AB_NEW)
+        tol = OWN_ERROR_FACTOR * own
+        label = f"awq float16, {kernel} against its plain version ({AB_LAYERS} layers)"
+        checks(k_n > 0 and p_n == 0,
+               f"{label}: the kernel run launched it, the plain run did not ({k_n}, {p_n})")
+        checks(diff16 <= tol, f"{label}: first-step log-probs within {tol} (got {diff16})")
+        checks(same == GEN_BATCH, f"{label}: the same first {AB_NEW} tokens on every row "
+               f"({same}/{GEN_BATCH})")
+        out[f"float32_card_vs_cpu_{kernel}"] = {
+            "first_step_logprob_max_abs_diff": diff, "tolerance": LOGPROB_TOL,
+            "launches": counts[kernel]}
+        out[f"float16_kernel_vs_plain_{kernel}"] = {
+            "first_step_logprob_max_abs_diff": diff16, "float16_own_error": own,
+            "tolerance": tol, f"rows_with_same_first_{AB_NEW}_tokens": f"{same}/{GEN_BATCH}",
+            "launches": k_n}
+    emit(out)
 
 
 def record_quantized(out):
@@ -1320,7 +1703,7 @@ def main():
         for name in ("matmul_w8a8", "gather_rows_fused", "fused_norm"):
             checks(tr_counts[name] > 0,
                    f"{name} launched on the Translator main path ({tr_counts[name]})")
-        torch.cuda.empty_cache()
+        free_card()
 
         # ---- main path 2: Generator ----
         t0 = time.perf_counter()
@@ -1339,33 +1722,63 @@ def main():
                    f"{name} launched on the Generator main path ({gen_counts[name]})")
         small_llama = llama_subset(llama, AB_LAYERS)
         del llama
-        torch.cuda.empty_cache()
+        free_card()
+
+        # ---- main path 3: Generator on AWQ-W4 weights ----
+        t0 = time.perf_counter()
+        awq = build_awq_llama_modelfile(LLAMA["layers"])
+        emit({"phase": "awq_model", "config": LLAMA, "group": AWQ_GROUP,
+              "layout": "AutoAWQ GEMM (quantization_type 1)",
+              "host_bytes": sum(v.array.nbytes for v in awq.variables.values()),
+              "seconds": time.perf_counter() - t0})
+        awq_logs = {}
+        awq_counts, awq_unpacked_counts = generator_awq_main_path(
+            tt, awq, llama_vocab, checks, awq_logs)
+        for name in ("matmul_w4p", "flash_attention", "decode_attention_int8",
+                     "fused_norm"):
+            checks(awq_counts[name] > 0,
+                   f"{name} launched on the AWQ Generator main path ({awq_counts[name]})")
+        checks(awq_unpacked_counts["matmul_w4a16"] > 0,
+               "matmul_w4a16 launched on the unpacked AWQ call "
+               f"({awq_unpacked_counts['matmul_w4a16']})")
+        small_awq = llama_subset(awq, AB_LAYERS)
+        del awq
+        free_card()
 
         # ---- every kernel against its plain version ----
         w8 = bench_w8a8(logs["matmul_w8a8"], checks)
         ga = bench_gather(logs["gather_rows_fused"], checks)
         fl = bench_flash(logs["flash_attention"], checks)
-        torch.cuda.empty_cache()
+        free_card()
         de = bench_decode(logs["decode_attention_int8"], GEN_PROMPT - 1, GEN_NEW, checks)
         no = bench_norm(logs["fused_norm"], checks)
         feature_checks(checks)
-        torch.cuda.empty_cache()
+        w4 = bench_w4(awq_logs, checks)
+        free_card()
 
         # ---- the other Translator runs ----
         f16_counts = main_path(tt, float_dir, "float16", batches, checks, "float16", {})
         checks(f16_counts["matmul_w8a8"] == 0, "float16 runs no W8A8 launch")
         chain_float32(tt, float_dir, batches[1], checks)
-        torch.cuda.empty_cache()
+        free_card()
         card_vs_cpu(tt, int8_dir, batches[1], checks)
 
         # ---- the other Generator runs ----
         generator_ab(tt, small_llama, llama_vocab, checks)
-        torch.cuda.empty_cache()
+        free_card()
         generator_card_vs_cpu(tt, small_llama, llama_vocab, checks)
+        free_card()
+        generator_awq_checks(tt, small_awq, llama_vocab, checks)
 
-        def entry(name, source, replaces, tot, library_ms):
+        def entry(name, source, replaces, tot, library_ms, launches=None, **extra):
+            """One kernel's line; ``launches`` defaults to the Translator and
+            int8 Generator paths' counts, over which its times are summed."""
             bytes_ms, ops_ms = tot["bytes_ms"], tot.get("ops_ms", 0.0)
-            launches = tr_counts[name] + gen_counts[name]
+            if launches is None:
+                launches = tr_counts[name] + gen_counts[name]
+                extra = dict(launches_translator_path=tr_counts[name],
+                             launches_generator_path=gen_counts[name],
+                             launches_awq_generator_path_not_summed=awq_counts[name])
             return {"name": name, "route": "cuda",
                     "source": f"ctranslate2_tpu_torch/csrc/{source}",
                     "replaces": f"ctranslate2_tpu/kernels/{replaces}",
@@ -1373,9 +1786,11 @@ def main():
                     "ms": tot["ms"], "plain_ms": tot["plain_ms"],
                     "bound_ms": max(bytes_ms, ops_ms),
                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                    "library_ms": library_ms, "ms_summed_over": "launches",
-                    "launches_translator_path": tr_counts[name],
-                    "launches_generator_path": gen_counts[name]}
+                    "library_ms": library_ms, "ms_summed_over": "launches", **extra}
+
+        def w4_entry(name, replaces, launches, **extra):
+            return entry(name, "w4_gemm.cu", replaces, w4[name], w4[name]["library_ms"],
+                         launches, library=w4[name]["libraries"], **extra)
 
         kernels = [
             entry("matmul_w8a8", "w8a8_gemm.cu", "quant_matmul.py:238", w8,
@@ -1387,6 +1802,17 @@ def main():
             entry("decode_attention_int8", "decode_attention_int8.cu",
                   "decode_attention.py:135", de, None),
             entry("fused_norm", "fused_norm.cu", "norms.py:37", no, no["library_ms"]),
+            w4_entry("matmul_w4a16", "quant_matmul.py:77",
+                     awq_unpacked_counts["matmul_w4a16"],
+                     launches_awq_unpacked_call=awq_unpacked_counts["matmul_w4a16"]),
+            w4_entry("matmul_w4p", "quant_matmul.py:333", awq_counts["matmul_w4p"],
+                     launches_awq_generator_path=awq_counts["matmul_w4p"]),
+            w4_entry("matmul_w4a16_fold", "quant_matmul.py:157", 0,
+                     ms_summed_over="the launches of matmul_w4a16 at the same shapes "
+                                    "(linear() never dispatches the folded form)"),
+            w4_entry("matmul_w4p_fold", "quant_matmul.py:431", 0,
+                     ms_summed_over="the launches of matmul_w4p at the same shapes "
+                                    "(linear() never dispatches the folded form)"),
         ]
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -3,9 +3,9 @@
 It reads the same CTranslate2 model directories and runs
 ``Translator.translate_batch`` and ``Generator.generate_batch`` on one
 NVIDIA Hopper card (or on the CPU when asked), with hand-written CUDA
-kernels for the int8 matmul, the beam reorder, flash-attention prefill,
-decode attention over an int8 KV cache and the norms. It imports neither
-JAX nor the JAX package.
+kernels for the int8 matmul, the AWQ 4-bit matmuls, the beam reorder,
+flash-attention prefill, decode attention over an int8 KV cache and the
+norms. It imports neither JAX nor the JAX package.
 """
 
 __version__ = "0.1.0"

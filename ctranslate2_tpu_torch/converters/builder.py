@@ -35,7 +35,7 @@ class SpecBuilder:
     def add_attr(self, name: str, value, dtype: str):
         self.add(name, value, dtype)
 
-    def quantize(self, quantization: Optional[str]):
+    def quantize(self, quantization: Optional[str], group_size: int = 32):
         """Quantize linear/embedding weights in place
         (reference: python/ctranslate2/specs/model_spec.py:191-260)."""
         if quantization in (None, "float32"):
@@ -46,6 +46,25 @@ class SpecBuilder:
                     or var.dtype_name != "float32":
                 continue
             w = var.array
+            if quantization in ("awq_gemm", "awq_gemv"):
+                # AWQ applies to the layers' linears only; embeddings and
+                # the logits projection stay float (reference:
+                # python/ctranslate2/converters/transformers.py:1752-1754).
+                if "/layer_" not in name or "embeddings" in name:
+                    continue
+                from ..ops.awq import AWQ_GEMM, AWQ_GEMV, quantize_awq
+
+                qt = AWQ_GEMM if quantization == "awq_gemm" else AWQ_GEMV
+                qw, scales, qz = quantize_awq(w, group_size, qt)
+                new_vars[name] = make_variable(name, qw, "int32")
+                new_vars[name + "_scale"] = make_variable(name + "_scale", scales)
+                new_vars[name + "_zero"] = make_variable(name + "_zero", qz, "int32")
+                self._awq_config = {
+                    "quantization_type": qt,
+                    "quantization_bits": 4,
+                    "quantization_group_size": group_size,
+                }
+                continue
             if quantization in ("int8", "int8_float32", "int8_float16",
                                 "int8_bfloat16"):
                 amax = np.amax(np.abs(w), axis=tuple(range(1, w.ndim)))
@@ -67,6 +86,7 @@ class SpecBuilder:
     def save(self, directory: str, config: Optional[dict] = None,
              vocabulary: Optional[Sequence[str]] = None):
         self.mf.config = config or {}
+        self.mf.config.update(getattr(self, "_awq_config", {}))
         self.mf.dedupe_aliases()
         self.mf.save(directory)
         if vocabulary is not None:

@@ -14,7 +14,8 @@ from typing import Dict
 
 LAUNCHES: Dict[str, int] = {
     "matmul_w8a8": 0, "gather_rows_fused": 0, "flash_attention": 0,
-    "decode_attention_int8": 0, "fused_norm": 0}
+    "decode_attention_int8": 0, "fused_norm": 0, "matmul_w4a16": 0,
+    "matmul_w4p": 0, "matmul_w4a16_fold": 0, "matmul_w4p_fold": 0}
 _lock = threading.Lock()
 
 

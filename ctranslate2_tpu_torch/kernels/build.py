@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 KERNEL_SOURCES = ("w8a8_gemm", "gather_rows", "flash_attention",
-                  "decode_attention_int8", "fused_norm")
+                  "decode_attention_int8", "fused_norm", "w4_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,9 +1,20 @@
-"""W8A8 matmul: int8 activations x int8 weights, f32 dequant epilogue.
+"""Quantized matmuls: W8A8 and the four AWQ-W4 products.
 
-Counterpart of ``ctranslate2_tpu/kernels/quant_matmul.py::matmul_w8a8``.
-The CUDA kernel is ``csrc/w8a8_gemm.cu``. Weights keep the model.bin
-layout, ``wq`` int8 [N, K] (out, in), which is what ``mma.sync``'s s8 form
-takes for its B operand.
+Counterparts of ``ctranslate2_tpu/kernels/quant_matmul.py``:
+
+- ``matmul_w8a8``: int8 activations x int8 weights, f32 dequant epilogue.
+  The CUDA kernel is ``csrc/w8a8_gemm.cu``. Weights keep the model.bin
+  layout, ``wq`` int8 [N, K] (out, in), which is what ``mma.sync``'s s8
+  form takes for its B operand.
+- ``matmul_w4a16`` / ``matmul_w4a16_fold``: float activations x ``w4``
+  int8 (q - z) [K, N] x f32 group scales [K/G, N].
+- ``matmul_w4p`` / ``matmul_w4p_fold``: float activations x ``w4p`` bytes
+  [K/2, N] (low nibble row r, high nibble row r + K/2) x group scales and
+  zero * scale terms [K/G, N].
+
+The four W4 products share one CUDA source, ``csrc/w4_gemm.cu``, and keep
+the JAX layouts. The ``_fold`` forms are not dispatched by ``linear()``
+(as in the JAX package); they are held by the tests and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -80,3 +91,226 @@ def matmul_w8a8(q, wq, a_scale, w_scale):
         raise RuntimeError(f"w8a8_gemm launch failed with CUDA error {err}")
     count_launch("matmul_w8a8")
     return out
+
+
+# ---------------------------------------------------------------------------
+# AWQ W4: group-quantized weights, float activations.
+# ---------------------------------------------------------------------------
+
+W4_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+W4_MAX_ROWS = 65535 * 64  # gridDim.y of the kernels' 64-row tiles
+
+
+def _w4_lib() -> ctypes.CDLL:
+    lib = build.load("w4_gemm")
+    if not lib.ct2_w4_gemm.argtypes:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ct2_w4_gemm.restype = i
+        lib.ct2_w4_gemm.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    return lib
+
+
+def _w4_check(name, x, w, g_scale, g_zs, packed):
+    """Types, shapes and devices every W4 product takes (CPU and card)."""
+    if x.dtype not in W4_DTYPE_CODES:
+        raise TypeError(f"{name} takes float32/float16/bfloat16 activations, got {x.dtype}")
+    if w.dtype != torch.int8:
+        raise TypeError(f"{name} takes an int8 payload, got {w.dtype}")
+    scales = [g_scale] + ([g_zs] if packed else [])
+    if any(t.dtype != torch.float32 for t in scales):
+        raise TypeError(f"{name} takes float32 group scales")
+    if x.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"{name} takes x [M, K] and a 2-D payload, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    K, N = x.shape[1], w.shape[1]
+    rows = K // 2 if packed else K
+    ng = g_scale.shape[0] if g_scale.dim() == 2 else 0
+    if (w.shape[0] != rows or (packed and K % 2) or ng == 0 or K % ng
+            or any(tuple(t.shape) != (ng, N) for t in scales)):
+        raise ValueError(
+            f"{name}: x {tuple(x.shape)}, payload {tuple(w.shape)} and scales "
+            f"{[tuple(t.shape) for t in scales]} do not fit together (payload "
+            f"[{'K/2' if packed else 'K'}, N], scales [K/G, N])")
+    devices = {t.device for t in [x, w] + scales}
+    if len(devices) != 1:
+        raise ValueError(f"{name} operands lie on {sorted(map(str, devices))}")
+
+
+def _w4_limit(x_shape, w_shape, g_scale_shape, packed) -> str:
+    """Why the CUDA kernel cannot take these shapes ("" when it can): G
+    divides K and is a multiple of 16 (one mma k-step stays in one group);
+    packed, (K/2) % G == 0 too; M at most ``W4_MAX_ROWS``."""
+    M, K = x_shape
+    G = K // g_scale_shape[0]
+    if G % 16:
+        return f"group size {G} is not a multiple of 16"
+    if packed and (K // 2) % G:
+        return f"K/2 = {K // 2} is not a multiple of the group size {G}"
+    if M > W4_MAX_ROWS:
+        return f"M = {M} exceeds {W4_MAX_ROWS} rows"
+    return ""
+
+
+def w4a16_supported(x_shape, w4_shape, g_scale_shape) -> bool:
+    K = w4_shape[0]
+    if not g_scale_shape[0] or K % g_scale_shape[0]:
+        return False
+    return not _w4_limit(x_shape, w4_shape, g_scale_shape, packed=False)
+
+
+def w4p_supported(x_shape, w4p_shape, g_scale_shape) -> bool:
+    K = x_shape[-1]
+    if K != 2 * w4p_shape[0] or not g_scale_shape[0] or K % g_scale_shape[0]:
+        return False
+    return not _w4_limit(x_shape, w4p_shape, g_scale_shape, packed=True)
+
+
+def _w4p_values(w4p):
+    """[K/2, N] packed bytes -> [K, N] float32 nibble values (read unsigned)."""
+    u = w4p.view(torch.uint8)
+    return torch.cat([u & 0xF, u >> 4]).float()
+
+
+def matmul_w4a16_plain(x, w4, g_scale):
+    """Plain PyTorch version of the TPU kernel's arithmetic: per group g, a
+    float32 partial dot times the group's scale row, summed in float32."""
+    M, K = x.shape
+    ng = g_scale.shape[0]
+    G = K // ng
+    x32 = x.float()
+    acc = x32.new_zeros((M, w4.shape[1]))
+    for g in range(ng):
+        sl = slice(g * G, (g + 1) * G)
+        acc = acc + (x32[:, sl] @ w4[sl].float()) * g_scale[g]
+    return acc
+
+
+def matmul_w4p_plain(x, w4p, g_scale, g_zs):
+    """Plain PyTorch version: per group g,
+    ``acc += (x_g @ q_g) * s[g] - rowsum(x_g) * zs[g]`` in float32."""
+    M, K = x.shape
+    ng = g_scale.shape[0]
+    G = K // ng
+    x32 = x.float()
+    q = _w4p_values(w4p)
+    acc = x32.new_zeros((M, w4p.shape[1]))
+    for g in range(ng):
+        sl = slice(g * G, (g + 1) * G)
+        xg = x32[:, sl]
+        acc = acc + (xg @ q[sl]) * g_scale[g] - xg.sum(1, keepdim=True) * g_zs[g]
+    return acc
+
+
+def matmul_w4a16_fold_plain(x, w4, g_scale):
+    """Plain PyTorch version of the scale-folded form: one float32 dot with
+    the scales folded into the weights."""
+    G = x.shape[1] // g_scale.shape[0]
+    return x.float() @ (w4.float() * g_scale.repeat_interleave(G, dim=0))
+
+
+def _w4p_zero_term(x, g_zs):
+    """``rowsum_g(x) @ g_zs``: the zero-point term of the folded packed form,
+    outside the kernel (the JAX package leaves it to XLA)."""
+    M, K = x.shape
+    ng = g_zs.shape[0]
+    return x.float().reshape(M, ng, K // ng).sum(-1) @ g_zs
+
+
+def matmul_w4p_fold_plain(x, w4p, g_scale, g_zs):
+    """Plain PyTorch version of the scale-folded packed form:
+    ``x @ (q * s) - rowsum_g(x) @ zs`` in float32."""
+    G = x.shape[1] // g_scale.shape[0]
+    w = _w4p_values(w4p) * g_scale.repeat_interleave(G, dim=0)
+    return x.float() @ w - _w4p_zero_term(x, g_zs)
+
+
+def w4_error_bound(x, payload, g_scale, g_zs, fold):
+    """Elementwise bound on |kernel - plain| for one W4 product (the
+    tolerance the tests and ``chip_smoke.py`` hold the kernels to), from the
+    sum of the absolute terms of each output: 2**-16 of it for float32 sums
+    taken in another order (the tensor cores' included), plus, for a folded
+    kernel with half activations, one rounding of ``payload * scale`` to the
+    activation type (2**-11 float16, 2**-8 bfloat16) on each term. A wrong
+    group, nibble half or zero term moves an output by about its own size,
+    far above this bound. ``g_zs`` is None for the unpacked payload."""
+    G = x.shape[1] // g_scale.shape[0]
+    values = payload.float() if g_zs is None else _w4p_values(payload)
+    scaled = values.abs() * g_scale.repeat_interleave(G, 0)
+    ax = x.float().abs()
+    terms = ax @ scaled
+    if g_zs is not None:
+        terms = terms + ax @ g_zs.repeat_interleave(G, 0)
+    half_u = {torch.float16: 2.0 ** -11, torch.bfloat16: 2.0 ** -8}.get(x.dtype, 0.0)
+    return 2.0 ** -16 * terms + (half_u * (ax @ scaled) if fold else 0.0)
+
+
+def _w4_launch(name, x, w, g_scale, g_zs, packed, fold):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} has no kernel for {x.device}")
+    why = _w4_limit(tuple(x.shape), tuple(w.shape), tuple(g_scale.shape), packed)
+    if why:
+        raise ValueError(f"{name}: the CUDA kernel does not take x "
+                         f"{tuple(x.shape)} x payload {tuple(w.shape)} with "
+                         f"scales {tuple(g_scale.shape)}: {why}")
+    for t in (w, g_scale, g_zs):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} takes a contiguous payload and scales")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()  # a view that starts off the kernel's 16-byte loads
+    M, K = x.shape
+    N = w.shape[1]
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    if M == 0 or N == 0:
+        return out
+    vec = int(N % 16 == 0 and w.data_ptr() % 16 == 0)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _w4_lib().ct2_w4_gemm(
+            x.data_ptr(), w.data_ptr(), g_scale.data_ptr(),
+            None if g_zs is None else g_zs.data_ptr(), out.data_ptr(),
+            M, N, K, K // g_scale.shape[0], W4_DTYPE_CODES[x.dtype],
+            int(packed), int(fold), vec, stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    count_launch(name)
+    return out
+
+
+def matmul_w4a16(x, w4, g_scale):
+    """``x`` [M, K] float, ``w4`` int8 (q - z) [K, N], ``g_scale`` f32
+    [K/G, N] -> f32 [M, N] = ``x @ (w4 * expand(g_scale))``."""
+    _w4_check("matmul_w4a16", x, w4, g_scale, None, packed=False)
+    if x.device.type == "cpu":
+        return matmul_w4a16_plain(x, w4, g_scale)
+    return _w4_launch("matmul_w4a16", x, w4, g_scale, None, False, False)
+
+
+def matmul_w4a16_fold(x, w4, g_scale):
+    """``matmul_w4a16`` with the scales folded into the weight tile (one
+    product per k-step; the kernel rounds ``(q - z) * s`` to x's type)."""
+    _w4_check("matmul_w4a16_fold", x, w4, g_scale, None, packed=False)
+    if x.device.type == "cpu":
+        return matmul_w4a16_fold_plain(x, w4, g_scale)
+    return _w4_launch("matmul_w4a16_fold", x, w4, g_scale, None, False, True)
+
+
+def matmul_w4p(x, w4p, g_scale, g_zs):
+    """``x`` [M, K] float, ``w4p`` int8 bytes [K/2, N] (low nibble row r,
+    high nibble row r + K/2, read unsigned), ``g_scale``/``g_zs`` f32
+    [K/G, N] -> f32 [M, N] = ``x @ (q * s - zs)`` per group."""
+    _w4_check("matmul_w4p", x, w4p, g_scale, g_zs, packed=True)
+    if x.device.type == "cpu":
+        return matmul_w4p_plain(x, w4p, g_scale, g_zs)
+    return _w4_launch("matmul_w4p", x, w4p, g_scale, g_zs, True, False)
+
+
+def matmul_w4p_fold(x, w4p, g_scale, g_zs):
+    """``matmul_w4p`` with the scales folded into the weight tile; the
+    zero-point term ``rowsum_g(x) @ g_zs`` is one float32 matmul outside
+    the kernel."""
+    _w4_check("matmul_w4p_fold", x, w4p, g_scale, g_zs, packed=True)
+    if x.device.type == "cpu":
+        return matmul_w4p_fold_plain(x, w4p, g_scale, g_zs)
+    out = _w4_launch("matmul_w4p_fold", x, w4p, g_scale, None, True, True)
+    return out - _w4p_zero_term(x, g_zs)

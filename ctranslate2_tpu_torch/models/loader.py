@@ -20,12 +20,17 @@ from .spec import ArchSpec, extract_arch
 
 def _weights_dtype(mf: ModelFile) -> str:
     """Dtype of the model's linear weights on disk."""
-    for name, var in mf.variables.items():
-        if name.endswith("/weight") and len(var.shape) == 2 and "embeddings" not in name:
-            if var.dtype_name == "int32" and (name + "_zero") in mf.variables:
-                return "float16"  # AWQ payload (not ported yet)
-            return var.dtype_name
-    return "float32"
+    weights = [(name, var) for name, var in mf.variables.items()
+               if name.endswith("/weight") and len(var.shape) == 2
+               and "embeddings" not in name]
+    if any(var.dtype_name == "int32" and name + "_zero" in mf.variables
+           for name, var in weights):
+        # AWQ 4-bit payloads stay W4 whatever the compute type; the policy
+        # only picks the activation float, float16 as the reference forces
+        # it, whatever type the float projection is stored in (float32 on
+        # the CPU, as every float type there).
+        return "float16"
+    return weights[0][1].dtype_name if weights else "float32"
 
 
 @dataclass

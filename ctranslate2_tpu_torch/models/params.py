@@ -9,6 +9,9 @@ tensors on one device:
   channel scales: K-major, the operand layout of the W8A8 kernel. Float
   weights are quantized per row on load when the policy asks for int8
   (reference: src/models/model.cc:304-369);
+- AWQ 4-bit weights become ``w4`` int8 (q - z) [in, out] or packed ``w4p``
+  bytes [in/2, out], with f32 group scales ``g_scale`` (and ``g_zs``,
+  zero * scale, for ``w4p``) [in/G, out]: the JAX package's layouts;
 - self-attention keeps the artifact's fused QKV projection as one linear
   (``qkv``); cross-attention K/V are split into ``k`` and ``v``;
 - embeddings stay in gather layout ``(vocab, dim)``; int8 embeddings keep
@@ -21,12 +24,14 @@ weights; ``cache_from_numpy`` does the same for a self-attention KV cache.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..formats.model_file import ModelFile, Variable
+from ..ops.awq import AWQ_GEMM, build_awq_linear_lazy
 from ..utils.dtypes import DTypePolicy
 from .spec import ArchSpec, AttentionSpec, DecoderSpec, EncoderSpec
 
@@ -66,21 +71,32 @@ class ParamsBuilder:
         t = torch.from_numpy(np.ascontiguousarray(array))
         return t.to(device=self.device, dtype=dtype or t.dtype)
 
+    def float_tensor(self, var: Variable, dtype, transpose: bool = False) -> torch.Tensor:
+        """A float variable in ``dtype`` on the device. float16 and float32
+        payloads travel as they are stored and are converted (and
+        transposed) there, not on the host: an 8B model's float16
+        embeddings and projection are 1 GB each. bfloat16, stored as raw
+        bits, goes through float32 on the host."""
+        t = self.tensor(var.as_float32() if var.dtype_name == "bfloat16" else var.array)
+        t = t.to(dtype)
+        return t.t().contiguous() if transpose else t
+
     def array(self, name: str, dtype=None) -> Optional[torch.Tensor]:
         var = self.mf.get(name)
         if var is None:
             return None
-        return self.tensor(var.as_float32(), dtype or self.float_dtype)
+        return self.float_tensor(var, dtype or self.float_dtype)
 
     def linear(self, scope: str) -> Optional[dict]:
         var = self.mf.get(scope + "/weight")
         if var is None:
             return None
-        if self.mf.get(scope + "/weight_zero") is not None:
-            raise NotImplementedError("AWQ 4-bit weights are not ported yet")
         scale = self.mf.get(scope + "/weight_scale")
+        zero = self.mf.get(scope + "/weight_zero")
         out: dict = {}
-        if self.policy.weight_dtype == "int8":
+        if zero is not None:
+            out = self.awq_linear(var, scale, zero)
+        elif self.policy.weight_dtype == "int8":
             if var.dtype_name == "int8":
                 q = var.array
                 s = scale.as_float32().reshape(-1)
@@ -91,14 +107,31 @@ class ParamsBuilder:
                 q, s = _quantize_per_row(w)
             out["wq"] = self.tensor(q)
             out["scale"] = self.tensor(s, torch.float32)
+        elif var.dtype_name in ("int8", "int16"):
+            out["w"] = self.tensor(_dequantize(var, scale).T, self.float_dtype)
         else:
-            w = (_dequantize(var, scale) if var.dtype_name in ("int8", "int16")
-                 else var.as_float32())
-            out["w"] = self.tensor(w.T, self.float_dtype)
+            out["w"] = self.float_tensor(var, self.float_dtype, transpose=True)
         bias = self.mf.get(scope + "/bias")
         if bias is not None:
             out["b"] = self.tensor(bias.as_float32(), torch.float32)
         return out
+
+    def awq_linear(self, var: Variable, scale: Variable, zero: Variable) -> dict:
+        """AWQ 4-bit group quantization (reference:
+        python/ctranslate2/converters/transformers.py:237-248), kept W4
+        whatever the compute type asks, as in the reference. The payload
+        is unpacked on the model's device into the packed ``w4p`` layout
+        when ``CT2TPU_W4_PACKED=1``, or when it is unset and the device is
+        a CUDA card; otherwise into the unpacked ``w4`` layout."""
+        quant_type = int(self.mf.config.get("quantization_type", AWQ_GEMM))
+        packed_env = os.environ.get("CT2TPU_W4_PACKED")
+        use_packed = (packed_env == "1" if packed_env is not None
+                      else self.device.type == "cuda")
+        # Packed rows split the in-dim in half: it must be even.
+        payload_in = var.shape[0] if quant_type == AWQ_GEMM else var.shape[1] * 8
+        return build_awq_linear_lazy(
+            var.array, scale.as_float32(), zero.array, quant_type,
+            packed=use_packed and payload_in % 2 == 0, device=self.device)
 
     def norm(self, scope: str) -> Optional[dict]:
         gamma = self.mf.get(scope + "/gamma")
@@ -127,7 +160,7 @@ class ParamsBuilder:
                     "scale": self.tensor(s, torch.float32)}
         if var.dtype_name == "int16":
             return {"w": self.tensor(_dequantize(var, scale), self.float_dtype)}
-        return {"w": self.tensor(var.as_float32(), self.float_dtype)}
+        return {"w": self.float_tensor(var, self.float_dtype)}
 
     def _split_linear(self, lin: dict, sizes) -> list:
         """Split a fused linear along the output axis."""
@@ -139,7 +172,10 @@ class ParamsBuilder:
                 part["wq"] = lin["wq"][offset:offset + size].contiguous()
                 part["scale"] = lin["scale"][offset:offset + size].contiguous()
             else:
-                part["w"] = lin["w"][:, offset:offset + size].contiguous()
+                # float (in, out) and both W4 layouts: the output axis is last.
+                for key in ("w", "w4", "w4p", "g_scale", "g_zs"):
+                    if key in lin:
+                        part[key] = lin[key][:, offset:offset + size].contiguous()
             if "b" in lin:
                 part["b"] = lin["b"][offset:offset + size].contiguous()
             outs.append(part)
@@ -253,7 +289,8 @@ def params_from_numpy(jax_params, arch: ArchSpec, *, device="cpu",
     numpy arrays, float QKV fused, unstacked layers) into the port's
     params: int8 ``wq`` goes from (in, out) back to (out, in); float
     weights keep (in, out) and take ``float_dtype``; scales, biases and
-    norms stay float32."""
+    norms stay float32. AWQ leaves (``w4``, ``w4p``, ``g_scale``,
+    ``g_zs``) keep their layouts and types."""
     device = torch.device(device)
 
     def leaf(a, dtype=None):

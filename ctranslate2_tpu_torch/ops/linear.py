@@ -11,13 +11,22 @@ Capability parity with the reference Dense layer
   then bias + activation + residual.
 - int8 weight-only: weights dequantized to float32 on the fly
   (``w = q / scale``), used when activation quantization is disabled.
+- AWQ W4 (``w4`` or ``w4p``): float activations times the 4-bit payload,
+  dequantized per group inside the kernel (``matmul_w4a16``,
+  ``matmul_w4p``, CUDA kernels on the card) at every number of rows; the
+  activations are not quantized.
 
 Param dict keys:
-  ``w``      float weight (in, out)
-  ``wq``     int8 weight (out, in): the model.bin layout, K-major for the
-             kernel
-  ``scale``  per-output-channel scale (out,)
-  ``b``      optional bias (out,)
+  ``w``        float weight (in, out)
+  ``wq``       int8 weight (out, in): the model.bin layout, K-major for the
+               kernel
+  ``scale``    per-output-channel scale (out,)
+  ``w4``       AWQ int8 (q - zero) values (in, out)
+  ``w4p``      AWQ packed nibbles (in/2, out): low nibble row r, high
+               nibble row r + in/2
+  ``g_scale``  AWQ per-group scales (in/G, out)
+  ``g_zs``     AWQ per-group zero * scale (in/G, out), with ``w4p``
+  ``b``        optional bias (out,)
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..kernels.quant_matmul import matmul_w8a8
+from ..kernels.quant_matmul import matmul_w4a16, matmul_w4p, matmul_w8a8
 
 
 def quantize_per_row(x, round_before_cast: bool = True):
@@ -56,12 +65,20 @@ def linear(
     quantize_activations: bool = True,
 ):
     """Apply a dense layer. ``x``: (..., in) -> (..., out)."""
-    if "w4" in params or "w4p" in params:
-        raise NotImplementedError("AWQ 4-bit weights are not ported yet")
     out_dtype = x.dtype
     bias = params.get("b")
 
-    if "wq" in params:
+    if "w4p" in params:
+        w4p = params["w4p"]  # [K/2, N]
+        K, N = 2 * w4p.shape[0], w4p.shape[1]
+        y = matmul_w4p(x.reshape(-1, K), w4p, params["g_scale"],
+                       params["g_zs"]).reshape(*x.shape[:-1], N)
+    elif "w4" in params:
+        w4 = params["w4"]  # [K, N]
+        K, N = w4.shape
+        y = matmul_w4a16(x.reshape(-1, K), w4,
+                         params["g_scale"]).reshape(*x.shape[:-1], N)
+    elif "wq" in params:
         wq = params["wq"]  # [N, K]
         w_scale = params["scale"].float()
         if quantize_activations:

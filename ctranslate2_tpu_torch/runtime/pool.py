@@ -99,15 +99,21 @@ class WorkerPool:
                 continue
             if job is None:
                 return
-            future, fn, args, kwargs = job
-            if not future.set_running_or_notify_cancel():
-                continue
+            self._execute(*job)
+            # A job's function is a bound method of its Translator or
+            # Generator: held in this frame while the thread waits, it would
+            # keep that model, and its weights on the card, alive.
+            del job
+
+    def _execute(self, future: Future, fn: Callable, args, kwargs):
+        if not future.set_running_or_notify_cancel():
+            return
+        with self._lock:
+            self._active += 1
+        try:
+            future.set_result(fn(*args, **kwargs))
+        except BaseException as e:  # noqa: BLE001
+            future.set_exception(e)
+        finally:
             with self._lock:
-                self._active += 1
-            try:
-                future.set_result(fn(*args, **kwargs))
-            except BaseException as e:  # noqa: BLE001
-                future.set_exception(e)
-            finally:
-                with self._lock:
-                    self._active -= 1
+                self._active -= 1

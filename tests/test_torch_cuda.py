@@ -10,8 +10,8 @@ repository root:
 (``--noconftest`` skips tests/conftest.py, which imports JAX.) Without a
 card every test skips. W8A8 must be bit-equal to its plain version (the
 int32 sum is exact and the epilogue is the same two IEEE f32 operations);
-the gather must be equal. The flash, int8-KV decode and norm kernels sum
-floats in another order than their plain versions and are held to the
+the gather must be equal. The flash, int8-KV decode, norm and W4 kernels
+sum floats in another order than their plain versions and are held to the
 tolerances below.
 """
 
@@ -29,6 +29,7 @@ from ctranslate2_tpu_torch.kernels.flash_attention import (
 from ctranslate2_tpu_torch.kernels.gather_rows import (
     gather_rows_fused, gather_rows_plain)
 from ctranslate2_tpu_torch.kernels.norms import fused_norm, fused_norm_plain
+from ctranslate2_tpu_torch.kernels import quant_matmul as qm
 from ctranslate2_tpu_torch.kernels.quant_matmul import (
     matmul_w8a8, matmul_w8a8_plain)
 
@@ -55,6 +56,29 @@ def _gather_inputs(seed=0):
     ]
     rows = np.array([2, 2, 0, 5, 1, 2], np.int32)
     return arrays, rows
+
+
+W4_KERNELS = {  # name: (wrapper, plain version, packed payload, folded scale)
+    "matmul_w4a16": (qm.matmul_w4a16, qm.matmul_w4a16_plain, False, False),
+    "matmul_w4a16_fold": (qm.matmul_w4a16_fold, qm.matmul_w4a16_fold_plain, False, True),
+    "matmul_w4p": (qm.matmul_w4p, qm.matmul_w4p_plain, True, False),
+    "matmul_w4p_fold": (qm.matmul_w4p_fold, qm.matmul_w4p_fold_plain, True, True),
+}
+
+
+def _w4_inputs(M, K, N, G, packed, seed=0):
+    """x float32 [M, K]; the payload (``w4`` q - z in [-15, 15] [K, N], or
+    ``w4p`` nibbles [K/2, N]); f32 group scales and, packed, zero * scale
+    terms [K/G, N] (None unpacked)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    gs = (rng.random((K // G, N)) * 0.1 + 0.01).astype(np.float32)
+    if not packed:
+        return x, rng.integers(-15, 16, (K, N)).astype(np.int8), gs, None
+    q = rng.integers(0, 16, (K, N)).astype(np.uint8)
+    w4p = (q[:K // 2] | (q[K // 2:] << 4)).view(np.int8)
+    zs = (rng.integers(0, 16, (K // G, N)) * gs).astype(np.float32)
+    return x, w4p, gs, zs
 
 
 def _card():
@@ -312,3 +336,105 @@ def test_generator_on_card_matches_cpu(small_decoder, monkeypatch, kv, beam_size
         else:
             # A cached vector at a rounding tie may land one int8 step apart.
             np.testing.assert_allclose(o.scores[0], r.scores[0], atol=5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 300])
+@pytest.mark.parametrize("G", [32, 128])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(W4_KERNELS))
+def test_w4_kernel_close_to_plain_on_card(name, dtype, G, M):
+    dev = _card()
+    fn, plain, packed, fold = W4_KERNELS[name]
+    x, w, gs, zs = _w4_inputs(M, 512, 384, G, packed)
+    args = [torch.from_numpy(x).to(dev, dtype)] + [
+        torch.from_numpy(a).to(dev) for a in (w, gs, zs) if a is not None]
+    before = kernels.launch_counts()[name]
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    assert out.dtype == torch.float32 and out.shape == (M, 384)
+    ref = plain(*args)
+    bound = qm.w4_error_bound(args[0], args[1], args[2], args[3] if packed else None, fold)
+    assert bool(((out - ref).abs() <= bound).all()), (out - ref).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(W4_KERNELS))
+def test_w4_kernel_ragged_width_and_view_on_card(name):
+    """N off a multiple of 16 (scalar payload loads) and an activation view
+    that starts off 16 bytes (the wrapper copies it)."""
+    dev = _card()
+    fn, plain, packed, fold = W4_KERNELS[name]
+    x, w, gs, zs = _w4_inputs(37, 256, 200, 32, packed, seed=1)
+    xs = torch.from_numpy(np.concatenate([x, x], 1)).to(dev, torch.float16)[:, 3:3 + 256]
+    args = [xs] + [torch.from_numpy(a).to(dev) for a in (w, gs, zs) if a is not None]
+    out = fn(*args)
+    ref = plain(*args)
+    bound = qm.w4_error_bound(xs, args[1], args[2], args[3] if packed else None, fold)
+    assert bool(((out - ref).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(W4_KERNELS))
+@pytest.mark.parametrize("case", ["group_8", "half_off_group", "too_many_rows"])
+def test_w4_kernel_refuses_shapes_outside_its_limits_on_card(name, case):
+    """A shape the kernel cannot take raises and names it; it never takes
+    the plain path on the card."""
+    dev = _card()
+    fn, _, packed, _ = W4_KERNELS[name]
+    M, K, G = {"group_8": (4, 64, 8), "half_off_group": (4, 96, 32),
+               "too_many_rows": (qm.W4_MAX_ROWS + 1, 64, 32)}[case]
+    x, w, gs, zs = _w4_inputs(4, K, 32, G, packed)
+    x = torch.empty((M, K), device=dev, dtype=torch.float16)  # no work is done
+    args = [x] + [torch.from_numpy(a).to(dev) for a in (w, gs, zs) if a is not None]
+    before = kernels.launch_counts()[name]
+    if case == "half_off_group" and not packed:  # (K/2) % G binds only w4p
+        fn(*args)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()[name] == before + 1
+        return
+    with pytest.raises(ValueError, match=str(tuple(x.shape))):
+        fn(*args)
+    assert kernels.launch_counts()[name] == before
+
+
+@pytest.fixture(scope="module")
+def awq_decoder(tmp_path_factory):
+    """The small decoder with AWQ-GEMM linears (group 32)."""
+    path = str(tmp_path_factory.mktemp("awq_decoder_cuda"))
+    return build_decoder_only_model(
+        path, vocab_size=200, num_layers=2, num_heads=4, d_model=256, d_ff=512,
+        num_heads_kv=2, rotary_dim=0, glu=True, rms_norm=True, activation="swish",
+        quantization="awq_gemm")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam_size", [1, 2])
+@pytest.mark.parametrize("packed", ["1", "0"])
+def test_awq_generator_on_card_matches_cpu(awq_decoder, monkeypatch, packed, beam_size):
+    """float32 end to end: every AWQ linear on the card goes through its W4
+    kernel (the FMA path), against the port on the CPU (the plain
+    versions); only the summation order differs."""
+    _card()
+    monkeypatch.setenv("CT2TPU_W4_PACKED", packed)
+    rng = np.random.default_rng(6)
+    prompts = [[f"tok{int(t)}" for t in rng.integers(0, 190, n)] for n in (40, 33, 37)]
+    opts = dict(max_length=12, min_length=12, include_prompt_in_result=False,
+                beam_size=beam_size, return_scores=True)
+    card = tt.Generator(awq_decoder, compute_type="float32")
+    cpu = tt.Generator(awq_decoder, device="cpu", compute_type="float32")
+    kernel, other, key = (("matmul_w4p", "matmul_w4a16", "w4p") if packed == "1"
+                          else ("matmul_w4a16", "matmul_w4p", "w4"))
+    assert key in card.model.params["decoder"]["layers"][0]["ffn"]["linear_1"]
+    kernels.reset_launches()
+    out = card.generate_batch(prompts, **opts)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    ref = cpu.generate_batch(prompts, **opts)
+    # 5 W4 linears a layer, 2 layers, one launch each a forward pass.
+    assert counts[kernel] > 0 and counts[kernel] % 10 == 0
+    assert counts[other] == 0 and counts["matmul_w8a8"] == 0
+    for o, r in zip(out, ref):
+        assert o.sequences_ids == r.sequences_ids
+        np.testing.assert_allclose(o.scores, r.scores, atol=1e-3)

@@ -439,3 +439,18 @@ def test_generator_entry_checks(model_dirs, tmp_path):
         tt.Translator(model_dirs["float32"], device="cpu")
     futures = tg.generate_batch(_prompts(), max_length=4, asynchronous=True)
     assert all(len(f.result().sequences[0]) >= 4 for f in futures)
+
+
+def test_generator_is_freed_after_use(model_dirs):
+    """A Generator that has run a call is freed once dropped: its worker
+    thread keeps no reference to the last job, whose function is a bound
+    method of the Generator (its model's weights would stay on the card)."""
+    import gc
+    import weakref
+
+    tg = tt.Generator(model_dirs["float32"], device="cpu")
+    tg.generate_batch(_prompts(), max_length=4)
+    model = weakref.ref(tg.model)
+    del tg
+    gc.collect()
+    assert model() is None

@@ -78,8 +78,19 @@ def test_linear_matches(kind, quantize, epilogue):
 
 
 def test_linear_awq_raises():
-    with pytest.raises(NotImplementedError):
-        tlin.linear({"w4": torch.zeros(4, 4)}, torch.zeros(1, 4))
+    """AWQ linears are ported (tests/test_torch_awq.py holds them against the
+    JAX package); ``linear`` raises on W4 operands that do not fit together
+    instead of computing something else."""
+    w4 = torch.randint(-15, 16, (64, 8), dtype=torch.int8)
+    x = torch.randn(2, 64)
+    good = {"w4": w4, "g_scale": torch.rand(2, 8)}
+    ref = x @ (w4.float() * good["g_scale"].repeat_interleave(32, 0))
+    torch.testing.assert_close(tlin.linear(good, x), ref, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        tlin.linear({"w4": w4, "g_scale": torch.rand(3, 8)}, x)  # 3 groups of 64
+    with pytest.raises(ValueError):
+        tlin.linear({"w4p": w4[:32], "g_scale": torch.rand(2, 8),
+                     "g_zs": torch.rand(2, 4)}, x)
 
 
 @pytest.mark.parametrize("beta", [True, False])
