@@ -9,7 +9,9 @@ NVIDIA H100:
 Phases, one JSON object per line:
 
 1. card: the card's name and power limit, the torch/CUDA versions, and the
-   seconds to build the six CUDA sources from ``ctranslate2_tpu_torch/csrc``.
+   seconds to build the six CUDA sources from ``ctranslate2_tpu_torch/csrc``;
+   before it a ``ptxas`` line with the registers, spills and static shared
+   memory of every kernel of the two wgmma sources (``PTXAS_REPORT``).
 2. Translator main path: the full-width Transformer-base model (6+6 layers,
    d_model 512, ffn 2048, 8 heads, 32,000 words; random weights from seed
    7), ``Translator(..., compute_type="int8").translate_batch`` on batches
@@ -46,8 +48,10 @@ Phases, one JSON object per line:
    (the two folded W4 forms, which ``linear()`` never dispatches, at their
    counterpart's shapes), against its plain PyTorch version on the same
    inputs, with its time, the plain version's, the one library call's
-   where there is one and the bound; then small shapes for every feature
-   the paths do not use. Tolerances: W8A8 bit-equal, gather equal,
+   where there is one and the bound (W8A8 also with its plan from
+   ``w8a8_plan`` and the time of the path the plan did not pick; causal
+   flash also with its query tiles in launch order); then small shapes for
+   every feature the paths do not use. Tolerances: W8A8 bit-equal, gather equal,
    ``FLASH_TOL``, ``DECODE_TOL``, ``NORM_F32_TOL`` / one ulp of the half
    type, ``w4_error_bound`` for the W4 products.
 6. float16 Translator run, float32 chain/chain-off pair, Translator card
@@ -96,6 +100,9 @@ BATCH = 64
 BEAM = 2
 MAX_DEC = 32
 ITERS = 3
+# The sources whose registers, shared memory and spills the card phase
+# reports (nvcc -Xptxas -v).
+PTXAS_REPORT = ("w8a8_gemm", "flash_attention")
 OPTS = dict(beam_size=BEAM, max_decoding_length=MAX_DEC,
             min_decoding_length=MAX_DEC, return_scores=True)
 # Chain-off vs chain run: the share of identical hypotheses, and the largest
@@ -296,6 +303,21 @@ def cuda_time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def ptxas_summary(log):
+    """Per kernel entry of an ``-Xptxas -v`` log: its registers, spill
+    stores and loads, and static shared memory, as one short string."""
+    out = {}
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = re.sub(r"_ZN\d+_GLOBAL__N__\w+?_\d+_\w+?_cu_\w{8}\d+", "", m.group(1))
+            out[entry] = ""
+        elif entry and ("registers" in line or "spill" in line):
+            out[entry] += line.split(":", 1)[-1].strip() + "; "
+    return out
+
+
 def make_batch(vocab, seed):
     import numpy as np
 
@@ -436,10 +458,26 @@ def chain_float32(tt, model_dir, batch, checks):
     emit({"phase": "chain_float32", "chain_off_vs_chain": cmp})
 
 
+def w8a8_other_plan(qm, M, K, N):
+    """The plan of the path ``w8a8_plan`` does not pick for (M, K, N), where
+    the other path takes the shape (None where it does not)."""
+    chosen = qm.w8a8_plan(M, N, K)
+    saved = qm.WGMMA_MIN_M
+    qm.WGMMA_MIN_M = 1 << 40 if chosen.path == "wgmma" else 1
+    try:
+        other = qm.w8a8_plan(M, N, K)
+    finally:
+        qm.WGMMA_MIN_M = saved
+    return other if other.path != chosen.path else None
+
+
 def bench_w8a8(shapes, checks):
     """Kernel vs plain vs library at each (M, K, N), weighted by its
-    launches on the main path; returns the sums over those launches."""
+    launches on the main path; returns the sums over those launches. Each
+    line also carries the plan (path, split count, tile) and the time of
+    the path the plan did not pick, the evidence for the crossover."""
     import torch
+    from ctranslate2_tpu_torch.kernels import quant_matmul as qm
     from ctranslate2_tpu_torch.kernels.quant_matmul import (
         matmul_w8a8, matmul_w8a8_plain)
 
@@ -454,14 +492,21 @@ def bench_w8a8(shapes, checks):
                            dtype=torch.int8)
         a_s = torch.rand(M, generator=g, device="cuda") * 5 + 0.5
         w_s = torch.rand(N, generator=g, device="cuda") * 5 + 0.5
+        plan = qm.w8a8_plan(M, N, K)
+        other = w8a8_other_plan(qm, M, K, N)
         out = matmul_w8a8(q, wq, a_s, w_s)
         ref = matmul_w8a8_plain(q, wq, a_s, w_s)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         max_err = max(max_err, err)
-        checks(torch.equal(out, ref), f"w8a8 bit-equal to plain at {(M, K, N)}")
+        checks(torch.equal(out, ref), f"w8a8 bit-equal to plain at {(M, K, N)} ({plan.path})")
+        if other is not None:
+            checks(torch.equal(qm._w8a8_launch(q, wq, a_s, w_s, other), ref),
+                   f"w8a8 {other.path} path bit-equal to plain at {(M, K, N)}")
         iters = 50 if M * N * K < 2**32 else 10
         ms = cuda_time_ms(lambda: matmul_w8a8(q, wq, a_s, w_s), iters)
+        other_ms = (None if other is None else cuda_time_ms(
+            lambda: qm._w8a8_launch(q, wq, a_s, w_s, other), iters))
         plain_ms = cuda_time_ms(lambda: matmul_w8a8_plain(q, wq, a_s, w_s), iters)
         try:
             wt = wq.t()
@@ -476,10 +521,16 @@ def bench_w8a8(shapes, checks):
             emit({"library_refused": [M, K, N], "error": str(e)[:200]})
         bytes_ms = (M * K + N * K + 4 * M * N + 4 * M + 4 * N) / PEAK_BYTES * 1e3
         ops_ms = 2 * M * N * K / PEAK_INT8_OPS * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
         emit({"phase": "kernel_w8a8", "M": M, "K": K, "N": N,
+              "path": plan.path, "splits": plan.splits, "tile": list(plan.tile),
               "launches": n, "max_abs_err": err, "kernel_ms": ms,
+              "tops": 2 * M * N * K / ms / 1e9, "share_of_bound": bound_ms / ms,
+              "other_path": None if other is None else other.path,
+              "other_path_splits": None if other is None else other.splits,
+              "other_path_ms": other_ms,
               "plain_ms": plain_ms, "library_ms": lib_ms,
-              "bound_ms": max(bytes_ms, ops_ms),
+              "bound_ms": bound_ms,
               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
         tot["ms"] += n * ms
         tot["plain_ms"] += n * plain_ms
@@ -545,6 +596,7 @@ def bench_flash(shapes, checks):
     ``F.scaled_dot_product_attention``."""
     import torch
     import torch.nn.functional as F
+    from ctranslate2_tpu_torch.kernels import flash_attention as fa
     from ctranslate2_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
 
@@ -567,6 +619,13 @@ def bench_flash(shapes, checks):
                f"flash within {FLASH_TOL[dt]} of plain at {key} (max abs err {err})")
         del ref
         ms = cuda_time_ms(lambda: flash_attention(q, k, v, **kw), 5)
+        launch_order_ms = None
+        if causal:  # the causal query tiles in launch order instead
+            fa.HEAVIEST_FIRST = False
+            try:
+                launch_order_ms = cuda_time_ms(lambda: flash_attention(q, k, v, **kw), 5)
+            finally:
+                fa.HEAVIEST_FIRST = True
         plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v, **kw), 3)
         lib_ms = None
         if lengths is None and not window:
@@ -584,6 +643,8 @@ def bench_flash(shapes, checks):
               "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
               "library": "F.scaled_dot_product_attention",
               "flops": ops, "tflops": ops / ms / 1e9,
+              "share_of_bound": max(ops_ms, bytes_ms) / ms,
+              "heaviest_first": causal, "launch_order_ms": launch_order_ms,
               "bound_ms": max(ops_ms, bytes_ms),
               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
         tot["ms"] += n * ms
@@ -1682,7 +1743,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
-    build_seconds = build.build()
+    build_seconds = build.build(ptxas_report=PTXAS_REPORT)
+    emit({"phase": "ptxas", "report": {
+        name: ptxas_summary(build.PTXAS_LOG.get(name, "")) for name in PTXAS_REPORT}})
     emit({"phase": "card", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": smi[0] if smi else None, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernels_built": list(build.KERNEL_SOURCES),

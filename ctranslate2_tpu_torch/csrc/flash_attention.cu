@@ -13,35 +13,51 @@
 // j <= position (causal), j > position - window (window > 0) and, with
 // segment ids, seg[i] == seg[j]. The ALiBi term is slope[hq] * (j - offs);
 // the T5 bias is table[hq, bucket(j - position)], the bucket recomputed per
-// score. Softmax statistics and the accumulator are float32; P is cast to
+// score. Softmax statistics and the accumulator are float32; P is rounded to
 // V's type before P.V, as on the TPU.
 //
 // What bounds it on the H100: operations. 4 * B * Hq * Tq * Tk * D (half of
 // it under a causal mask) against the tensor cores' 989 TFLOP/s in f16/bf16;
 // q, k, v and out are each moved once.
 //
-// Design (f16/bf16): one 128-thread block per (query tile of 64, query
-// head, batch row); each of the four warps owns 16 query rows, whose Q
-// fragments stay in registers. K and V tiles of 64 keys pass through shared
-// memory (rows padded by 16 bytes so fragment loads spread over the banks);
-// Q.K^T and P.V run on mma.sync.m16n8k16 with float32 accumulators, the P
-// fragment being built in registers from the score fragment (the C layout of
-// the first mma is the A layout of the second), V fragments read with
-// ldmatrix.trans. Running max, sum and output accumulator live in registers.
-// Tiles that the causal mask, the window or lengths[b] rule out are skipped;
-// ragged Tq/Tk edges are masked in the kernel. The tensors are addressed by
-// their strides, so the head-split views of a fused QKV projection are read
-// in place. float32 inputs take a plain-FMA kernel of the same arithmetic
-// (8 lanes per query row, one key at a time): slow and right. Left for later
-// work: cp.async/TMA pipelining, wgmma, a persistent schedule that balances
-// the causal tiles.
+// Design (f16/bf16, flash_wgmma_kernel): one 384-thread block per (query
+// tile of 128 rows, query head, batch row): two consumer warpgroups of 64
+// query rows each and a producer warpgroup of which one thread works. The
+// producer loads the Q tile once and then K and V tiles of 64 keys into a
+// 3-stage ring, all by TMA (4-D tensor maps built per call from the
+// tensors' strides, so the head-split views of a fused QKV projection are
+// read in place; ragged Tq/Tk edges are TMA's zero fill), 128B-swizzled, and
+// signals each stage on an mbarrier; the consumers release a stage on a
+// second mbarrier when both have read it. Each consumer computes
+// S = Q.K^T with wgmma.m64n64k16 (Q and K K-major from shared-memory
+// descriptors), the online softmax in registers, and O += P.V with
+// wgmma.m64n{D}k16, P as the register A operand (rounded from the S
+// accumulator, whose layout is the A fragment's) and V as the MN-major
+// ("transposed") shared-memory B operand. Masks cost nothing where nothing
+// is masked: a key tile that every row of the warpgroup sees in full gets no
+// per-score test; the others (the causal diagonal, lengths[b], the window
+// start, the ragged Tk) get the test. Segment ids, ALiBi and the T5 bias are
+// a compile-time flag (EXTRA): the main path's instance (causal, optionally
+// lengths) carries none of their code; with EXTRA every tile takes the
+// per-score path. Key tiles that the causal mask, the window or lengths[b]
+// rule out are never loaded. Under a causal mask the grid's slowest
+// dimension runs the query tiles last-first, so the heaviest tiles start
+// first. float32 inputs take a plain-FMA kernel of the same arithmetic
+// (flash_fma_kernel: 8 lanes per query row, one key at a time): slow and
+// right. ptxas (nvcc 12.8, sm_90a, -Xptxas -v): 148-149 registers at
+// D = 128, 104-120 at D = 64 (without / with EXTRA), no spills, no stack;
+// dynamic shared memory 132,152 bytes at D = 128 (Q 32 KB, three K/V
+// stages of 32 KB) and 66,616 at D = 64. Left for later work: FP8,
+// overlapping one warpgroup's softmax with
+// the next wgmma (FA3's ping-pong / intra-warpgroup pipelining), a
+// persistent longest-first schedule, a TMA store of the output, and head
+// dims other than 64 and 128.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr float NEG_INF = -1e30f;
 
@@ -113,162 +129,227 @@ __device__ __forceinline__ void tile_range(const FlashParams& p, int kv_len,
 }
 
 // ---------------------------------------------------------------------------
-// f16 / bf16: tensor-core kernel.
+// f16 / bf16: wgmma + TMA, warp-specialized.
 // ---------------------------------------------------------------------------
 
+constexpr int FL_BQ = 128;  // query rows a block (two warpgroups of 64)
+constexpr int FL_BK = 64;   // keys a tile
+constexpr int FL_STAGES = 3;
+constexpr int FL_THREADS = 384;
+
+template <int D>
+struct FlashSmem {
+  static constexpr int CHUNKS = D / 64;  // 128-byte column chunks of a row
+  static constexpr int Q_BYTES = FL_BQ * D * 2;
+  static constexpr int KV_BYTES = FL_BK * D * 2;  // one K or V tile
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int BARS = Q_BYTES + FL_STAGES * STAGE_BYTES;
+  static constexpr int BYTES = 1024 + BARS + (1 + 2 * FL_STAGES) * 8;
+};
+
+// Where each of (time, head, batch) sits among the 4-D tensor map's outer
+// dimensions (1..3): the map orders them by stride.
+struct MapOrder {
+  int t, h, b;
+};
+
+struct FlashMaps {
+  MapOrder q, k, v;
+};
+
+__device__ __forceinline__ int map_coord(int dim, const MapOrder& o, int t, int h, int b) {
+  return dim == o.t ? t : (dim == o.h ? h : b);
+}
+
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, const MapOrder& o, int col,
+                                         int t, int h, int b) {
+  tma_load_4d(dst, map, bar, col, map_coord(1, o, t, h, b), map_coord(2, o, t, h, b),
+              map_coord(3, o, t, h, b));
+}
+
 template <typename T>
-struct Mma;
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
 
 template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&d)[4], const unsigned (&a)[4],
-                                             unsigned b0, unsigned b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ unsigned pack(float lo, float hi) {
-    const __half2 h = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<const unsigned*>(&h);
-  }
-};
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
 
 template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float (&d)[4], const unsigned (&a)[4],
-                                             unsigned b0, unsigned b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ unsigned pack(float lo, float hi) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const unsigned*>(&h);
-  }
-};
-
-__device__ __forceinline__ unsigned ld32(const unsigned short* p) {
-  return *reinterpret_cast<const unsigned*>(p);
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-__device__ __forceinline__ void ldmatrix_x2_trans(unsigned& r0, unsigned& r1,
-                                                  const unsigned short* row) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(row);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr)
-               : "memory");
+// The score (already scaled) after the mask and, with EXTRA, the segment
+// test and the bias terms.
+template <bool EXTRA>
+__device__ __forceinline__ float edge_score(const FlashParams& p, float s, int q_pos,
+                                            int k_pos, int kv_len, float slope,
+                                            const float* tab, int q_seg,
+                                            const int* seg_row) {
+  if (k_pos >= kv_len) return NEG_INF;
+  if (p.causal && k_pos > q_pos) return NEG_INF;
+  if (p.window > 0 && k_pos <= q_pos - p.window) return NEG_INF;
+  if (EXTRA) {
+    if (seg_row != nullptr && seg_row[k_pos] != q_seg) return NEG_INF;
+    if (p.slopes != nullptr) s += slope * (float)(k_pos - p.alibi_offs);
+    if (tab != nullptr) s += tab[rel_bucket(p, k_pos - q_pos)];
+  }
+  return s;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(128) flash_mma_kernel(const FlashParams p) {
-  constexpr int BQ = 64;
-  constexpr int BK = 64;
-  constexpr int LD = D + 8;  // shared row stride in elements
-  constexpr int KS = D / 16;  // k-steps of Q.K^T
-  constexpr int ND = D / 8;   // n-tiles of P.V
-  __shared__ __align__(16) unsigned short Ks[BK * LD];
-  __shared__ __align__(16) unsigned short Vs[BK * LD];
+template <typename T, int D, bool EXTRA>
+__global__ void __launch_bounds__(FL_THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
+                   const __grid_constant__ CUtensorMap tmap_k,
+                   const __grid_constant__ CUtensorMap tmap_v, const FlashParams p,
+                   const FlashMaps order, int heaviest_first) {
+  using S = FlashSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_smem = base;
+  const uint32_t bars = base + S::BARS;
+  const uint32_t q_full = bars;
+  auto kv_smem = [&](int s) { return base + S::Q_BYTES + s * S::STAGE_BYTES; };
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + FL_STAGES + s); };
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  const int hq = blockIdx.x;
+  const int b = blockIdx.y;
+  const int qt = heaviest_first ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int hkv = hq / (p.Hq / p.Hkv);
+  const int kv_len = p.lengths != nullptr ? min(p.lengths[b], p.Tk) : p.Tk;
+
+  // Key tiles [lo, lo + n_tiles) that hold a visible key for some row.
+  int lo, hi;
+  tile_range(p, kv_len, qt * FL_BQ + p.q_offset,
+             min(qt * FL_BQ + FL_BQ - 1, p.Tq - 1) + p.q_offset, FL_BK, lo, hi);
+  const int n_tiles = max(hi - lo, 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < FL_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    if (threadIdx.x == 256) {
+      tma_prefetch(&tmap_q);
+      tma_prefetch(&tmap_k);
+      tma_prefetch(&tmap_v);
+      mbar_arrive_expect_tx(q_full, S::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < S::CHUNKS; ++c) {
+        tma_rows(q_smem + c * FL_BQ * 128, &tmap_q, q_full, order.q, c * 64,
+                 qt * FL_BQ, hq, b);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % FL_STAGES;
+        if (i >= FL_STAGES) mbar_wait(empty(s), ((i / FL_STAGES) - 1) & 1);
+        const int row = (lo + i) * FL_BK;
+        mbar_arrive_expect_tx(full(s), S::STAGE_BYTES);
+#pragma unroll
+        for (int c = 0; c < S::CHUNKS; ++c) {
+          tma_rows(kv_smem(s) + c * FL_BK * 128, &tmap_k, full(s), order.k, c * 64, row,
+                   hkv, b);
+          tma_rows(kv_smem(s) + S::KV_BYTES + c * FL_BK * 128, &tmap_v, full(s), order.v,
+                   c * 64, row, hkv, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup `wg`: query rows qt * 128 + wg * 64 + [0, 64) ----
+  const int lane = threadIdx.x & 31;
+  const int warp = (threadIdx.x & 127) >> 5;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int qt = blockIdx.x;
-  const int hq = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hkv = hq / (p.Hq / p.Hkv);
-
-  const unsigned short* qb = static_cast<const unsigned short*>(p.q) + b * p.q_sb + hq * p.q_sh;
-  const unsigned short* kb = static_cast<const unsigned short*>(p.k) + b * p.k_sb + hkv * p.k_sh;
-  const unsigned short* vb = static_cast<const unsigned short*>(p.v) + b * p.v_sb + hkv * p.v_sh;
-  unsigned short* ob = static_cast<unsigned short*>(p.out) + b * p.o_sb + hq * p.o_sh;
-
-  const int r0 = qt * BQ + warp * 16 + g;  // this thread's query rows
+  const int wg_row = qt * FL_BQ + wg * 64;
+  const int r0 = wg_row + warp * 16 + g;  // this thread's two query rows
   const int r1 = r0 + 8;
   const int qpos0 = r0 + p.q_offset;
   const int qpos1 = r1 + p.q_offset;
+  const int wg_first = wg_row + p.q_offset;
+  const int wg_last = wg_first + 63;
 
-  unsigned qf[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const int col = ks * 16 + 2 * t;
-    qf[ks][0] = r0 < p.Tq ? ld32(qb + r0 * p.q_st + col) : 0u;
-    qf[ks][1] = r1 < p.Tq ? ld32(qb + r1 * p.q_st + col) : 0u;
-    qf[ks][2] = r0 < p.Tq ? ld32(qb + r0 * p.q_st + col + 8) : 0u;
-    qf[ks][3] = r1 < p.Tq ? ld32(qb + r1 * p.q_st + col + 8) : 0u;
+  float slope = 0.f;
+  const float* tab = nullptr;
+  const int* seg_row = nullptr;
+  int qseg0 = 0, qseg1 = 0;
+  if (EXTRA) {
+    slope = p.slopes != nullptr ? p.slopes[hq] : 0.f;
+    tab = p.rel_table != nullptr ? p.rel_table + (size_t)hq * p.rel_nb : nullptr;
+    seg_row = p.segments != nullptr ? p.segments + (size_t)b * p.Tk : nullptr;
+    qseg0 = (seg_row != nullptr && r0 < p.Tq) ? seg_row[r0] : 0;
+    qseg1 = (seg_row != nullptr && r1 < p.Tq) ? seg_row[r1] : 0;
   }
 
-  const int kv_len = p.lengths != nullptr ? min(p.lengths[b], p.Tk) : p.Tk;
-  const float slope = p.slopes != nullptr ? p.slopes[hq] : 0.f;
-  const float* tab = p.rel_table != nullptr ? p.rel_table + (size_t)hq * p.rel_nb : nullptr;
-  const int* seg_row = p.segments != nullptr ? p.segments + (size_t)b * p.Tk : nullptr;
-  const int qseg0 = (seg_row != nullptr && r0 < p.Tq) ? seg_row[r0] : 0;
-  const int qseg1 = (seg_row != nullptr && r1 < p.Tq) ? seg_row[r1] : 0;
-
-  float o[ND][4];
+  float o[D / 2];
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[nd][i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF;
   float l0 = 0.f, l1 = 0.f;  // this thread's share of the row sums
 
-  int kt_lo, kt_hi;
-  tile_range(p, kv_len, qt * BQ + p.q_offset, qt * BQ + BQ - 1 + p.q_offset, BK,
-             kt_lo, kt_hi);
+  mbar_wait(q_full, 0);
+  const uint32_t q_rows = q_smem + wg * 64 * 128;
 
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k_start = kt * BK;
-    __syncthreads();  // the previous tile has been read
-    for (int c = tid; c < BK * (D / 8); c += 128) {
-      const int r = c / (D / 8);
-      const int col = (c % (D / 8)) * 8;
-      int4 kv4 = make_int4(0, 0, 0, 0);
-      int4 vv4 = make_int4(0, 0, 0, 0);
-      if (k_start + r < p.Tk) {
-        kv4 = *reinterpret_cast<const int4*>(kb + (long long)(k_start + r) * p.k_st + col);
-        vv4 = *reinterpret_cast<const int4*>(vb + (long long)(k_start + r) * p.v_st + col);
-      }
-      *reinterpret_cast<int4*>(Ks + r * LD + col) = kv4;
-      *reinterpret_cast<int4*>(Vs + r * LD + col) = vv4;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % FL_STAGES;
+    const int k0 = (lo + i) * FL_BK;
+    mbar_wait(full(s), (i / FL_STAGES) & 1);
+
+    // S = Q.K^T: 64 rows x 64 keys; sc[4j + e] is (row r0, key k0 + 8j + 2t
+    // + e), sc[4j + 2 + e] the same key for row r1.
+    float sc[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sc[j] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      Wgmma<T>::ss_m64n64k16(
+          sc, desc_sw128(q_rows + (kk / 4) * FL_BQ * 128 + off),
+          desc_sw128(kv_smem(s) + (kk / 4) * FL_BK * 128 + off), kk > 0);
     }
-    __syncthreads();
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(sc);
 
-    // S = Q.K^T for this warp's 16 rows x 64 keys.
-    float s[BK / 8][4];
+    const bool interior = !EXTRA && k0 + FL_BK <= kv_len &&
+                          (!p.causal || k0 + FL_BK - 1 <= wg_first) &&
+                          (p.window <= 0 || k0 > wg_last - p.window);
+    if (interior) {
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
+      for (int j = 0; j < 32; ++j) sc[j] *= p.scale;
+    } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        const unsigned short* kp = Ks + (nt * 8 + g) * LD + ks * 16 + 2 * t;
-        Mma<T>::run(s[nt], qf[ks], ld32(kp), ld32(kp + 8));
+        for (int e = 0; e < 2; ++e) {
+          const int k_pos = k0 + 8 * j + 2 * t + e;
+          sc[4 * j + e] = edge_score<EXTRA>(p, sc[4 * j + e] * p.scale, qpos0, k_pos,
+                                            kv_len, slope, tab, qseg0, seg_row);
+          sc[4 * j + 2 + e] = edge_score<EXTRA>(p, sc[4 * j + 2 + e] * p.scale, qpos1,
+                                                k_pos, kv_len, slope, tab, qseg1, seg_row);
+        }
       }
     }
 
-    // Bias terms, mask, running max.
+    // Online softmax; the four threads of a quad share a row.
     float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int k_pos = k_start + nt * 8 + 2 * t + i;
-        s[nt][i] = score_terms(p, s[nt][i] * p.scale, qpos0, k_pos, kv_len,
-                               slope, tab, qseg0, seg_row);
-        s[nt][2 + i] = score_terms(p, s[nt][2 + i] * p.scale, qpos1, k_pos,
-                                   kv_len, slope, tab, qseg1, seg_row);
-        mx0 = fmaxf(mx0, s[nt][i]);
-        mx1 = fmaxf(mx1, s[nt][2 + i]);
-      }
+    for (int j = 0; j < 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
@@ -283,13 +364,13 @@ __global__ void __launch_bounds__(128) flash_mma_kernel(const FlashParams p) {
     const bool live1 = mn1 > NEG_INF / 2;
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float p0 = live0 ? __expf(s[nt][i] - mn0) : 0.f;
-        const float p1 = live1 ? __expf(s[nt][2 + i] - mn1) : 0.f;
-        s[nt][i] = p0;
-        s[nt][2 + i] = p1;
+      for (int e = 0; e < 2; ++e) {
+        const float p0 = live0 ? __expf(sc[4 * j + e] - mn0) : 0.f;
+        const float p1 = live1 ? __expf(sc[4 * j + 2 + e] - mn1) : 0.f;
+        sc[4 * j + e] = p0;
+        sc[4 * j + 2 + e] = p1;
         sum0 += p0;
         sum1 += p1;
       }
@@ -299,29 +380,41 @@ __global__ void __launch_bounds__(128) flash_mma_kernel(const FlashParams p) {
     m0 = mn0;
     m1 = mn1;
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      o[nd][0] *= corr0;
-      o[nd][1] *= corr0;
-      o[nd][2] *= corr1;
-      o[nd][3] *= corr1;
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= corr0;
+      o[4 * j + 1] *= corr0;
+      o[4 * j + 2] *= corr1;
+      o[4 * j + 3] *= corr1;
     }
 
-    // O += P.V: the score fragments of key tiles 2kk and 2kk+1 are the A
-    // fragment of k-step kk.
+    // O += P.V, 16 keys a step: the S accumulator of key blocks 2kk and
+    // 2kk + 1 is the register A fragment of step kk.
+    uint32_t pa[4][4];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      unsigned a[4];
-      a[0] = Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack2<T>(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack2<T>(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack2<T>(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack2<T>(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+    reg_fence(o);
+    wgmma_fence();
 #pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        unsigned b0, b1;
-        ldmatrix_x2_trans(b0, b1, Vs + (kk * 16 + (lane & 15)) * LD + nd * 8);
-        Mma<T>::run(o[nd], a, b0, b1);
+    for (int kk = 0; kk < 4; ++kk) {
+      // V MN-major: 8-key groups 1024 bytes apart, 64-column chunks one
+      // K/V tile's chunk (64 keys x 128 bytes) apart.
+      const uint64_t dv =
+          desc_sw128(kv_smem(s) + S::KV_BYTES + kk * 16 * 128, FL_BK * 128, 1024);
+      if constexpr (D == 128) {
+        Wgmma<T>::rs_m64n128k16(o, pa[kk], dv);
+      } else {
+        Wgmma<T>::rs_m64n64k16(o, pa[kk], dv);
       }
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(o);
+    mbar_arrive(empty(s));
   }
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -330,16 +423,17 @@ __global__ void __launch_bounds__(128) flash_mma_kernel(const FlashParams p) {
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float d0 = fmaxf(l0, 1e-20f);
   const float d1 = fmaxf(l1, 1e-20f);
+  T* ob = static_cast<T*>(p.out) + b * p.o_sb + hq * p.o_sh;
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
-    const int col = nd * 8 + 2 * t;
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
     if (r0 < p.Tq) {
-      *reinterpret_cast<unsigned*>(ob + r0 * p.o_st + col) =
-          Mma<T>::pack(o[nd][0] / d0, o[nd][1] / d0);
+      *reinterpret_cast<uint32_t*>(ob + r0 * p.o_st + col) =
+          pack2<T>(o[4 * j] / d0, o[4 * j + 1] / d0);
     }
     if (r1 < p.Tq) {
-      *reinterpret_cast<unsigned*>(ob + r1 * p.o_st + col) =
-          Mma<T>::pack(o[nd][2] / d1, o[nd][3] / d1);
+      *reinterpret_cast<uint32_t*>(ob + r1 * p.o_st + col) =
+          pack2<T>(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
     }
   }
 }
@@ -458,19 +552,6 @@ __global__ void __launch_bounds__(128) flash_fma_kernel(const FlashParams p) {
   }
 }
 
-template <typename T>
-int launch_mma(const FlashParams& p, int D, cudaStream_t stream) {
-  dim3 grid((p.Tq + 63) / 64, p.Hq, p.B);
-  if (D == 64) {
-    flash_mma_kernel<T, 64><<<grid, 128, 0, stream>>>(p);
-  } else if (D == 128) {
-    flash_mma_kernel<T, 128><<<grid, 128, 0, stream>>>(p);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 int launch_fma(const FlashParams& p, int D, cudaStream_t stream) {
   dim3 grid((p.Tq + 15) / 16, p.Hq, p.B);
   if (D == 64) {
@@ -483,6 +564,95 @@ int launch_fma(const FlashParams& p, int D, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// A 4-D tensor map over a [B, H, T, D] tensor of 16-bit elements addressed
+// by its (batch, head, time) strides in elements: D innermost, the other
+// three ordered by stride; a box of 64 columns x `rows` time steps.
+int encode_bhtd(CUtensorMap* map, MapOrder* order, const void* ptr, int dtype,
+                long long sb, long long sh, long long st, int B, int H, int T, int D,
+                int rows) {
+  ct2_encode_tiled_fn encode = ct2_encode_tiled();
+  if (encode == nullptr) return CT2_ERR_NO_ENCODER;
+  struct Outer {
+    long long stride;
+    int size;
+    int which;  // 0 time, 1 head, 2 batch
+  } outer[3] = {{st, max(T, 1), 0}, {sh, H, 1}, {sb, B, 2}};
+  for (int i = 1; i < 3; ++i) {
+    for (int j = i; j > 0 && outer[j].stride < outer[j - 1].stride; --j) {
+      const Outer tmp = outer[j];
+      outer[j] = outer[j - 1];
+      outer[j - 1] = tmp;
+    }
+  }
+  cuuint64_t dims[4] = {(cuuint64_t)D, 0, 0, 0};
+  cuuint64_t strides[3];
+  cuuint32_t box[4] = {64u, 1u, 1u, 1u};
+  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = (cuuint64_t)outer[i].size;
+    strides[i] = (cuuint64_t)outer[i].stride * 2;
+    if (outer[i].which == 0) {
+      box[i + 1] = (cuuint32_t)rows;
+      order->t = i + 1;
+    } else if (outer[i].which == 1) {
+      order->h = i + 1;
+    } else {
+      order->b = i + 1;
+    }
+  }
+  const CUresult r = encode(
+      map, dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : CT2_ERR_ENCODE + static_cast<int>(r);
+}
+
+template <typename T, int D, bool EXTRA>
+int launch_wgmma_instance(const FlashParams& p, const CUtensorMap& tq,
+                          const CUtensorMap& tk, const CUtensorMap& tv,
+                          const FlashMaps& order, int heaviest_first,
+                          cudaStream_t stream) {
+  constexpr int SMEM = FlashSmem<D>::BYTES;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaFuncSetAttribute(flash_wgmma_kernel<T, D, EXTRA>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    attr_set = true;
+  }
+  dim3 grid(p.Hq, p.B, (p.Tq + FL_BQ - 1) / FL_BQ);
+  flash_wgmma_kernel<T, D, EXTRA>
+      <<<grid, FL_THREADS, SMEM, stream>>>(tq, tk, tv, p, order, heaviest_first);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_wgmma(const FlashParams& p, int D, int dtype, int heaviest_first,
+                 cudaStream_t stream) {
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  FlashMaps order;
+  int err = encode_bhtd(&tq, &order.q, p.q, dtype, p.q_sb, p.q_sh, p.q_st, p.B, p.Hq,
+                        p.Tq, D, FL_BQ);
+  if (err == 0) {
+    err = encode_bhtd(&tk, &order.k, p.k, dtype, p.k_sb, p.k_sh, p.k_st, p.B, p.Hkv,
+                      p.Tk, D, FL_BK);
+  }
+  if (err == 0) {
+    err = encode_bhtd(&tv, &order.v, p.v, dtype, p.v_sb, p.v_sh, p.v_st, p.B, p.Hkv,
+                      p.Tk, D, FL_BK);
+  }
+  if (err != 0) return err;
+  const bool extra = p.segments != nullptr || p.slopes != nullptr || p.rel_table != nullptr;
+  if (D == 64) {
+    return extra ? launch_wgmma_instance<T, 64, true>(p, tq, tk, tv, order, heaviest_first, stream)
+                 : launch_wgmma_instance<T, 64, false>(p, tq, tk, tv, order, heaviest_first, stream);
+  }
+  return extra ? launch_wgmma_instance<T, 128, true>(p, tq, tk, tv, order, heaviest_first, stream)
+               : launch_wgmma_instance<T, 128, false>(p, tq, tk, tv, order, heaviest_first, stream);
+}
+
 }  // namespace
 
 // q, k, v, out: tensors of `dtype` (0 float32, 1 float16, 2 bfloat16) with a
@@ -490,15 +660,19 @@ int launch_fma(const FlashParams& p, int D, cudaStream_t stream) {
 // (batch, head, time) strides in `strides` (12 values, in elements: q, k, v,
 // out). lengths: int32 [B] or null; segments: int32 [B, Tk] or null;
 // slopes: f32 [Hq] or null; rel_table: f32 [Hq, rel_nb] or null.
-// Returns cudaGetLastError() after the launch.
+// heaviest_first (f16/bf16): run the query tiles last-first (the causal
+// mask's heaviest first) instead of in launch order. Returns
+// cudaGetLastError() after the launch, or CT2_ERR_* (hopper.cuh) if a
+// tensor map could not be made.
 extern "C" int ct2_flash_attention(
     const void* q, const void* k, const void* v, void* out,
     const long long* strides, const void* lengths, const void* segments,
     const void* slopes, const void* rel_table, int B, int Hq, int Hkv, int Tq,
     int Tk, int D, float scale, int causal, int q_offset, int window,
     int alibi_offs, int rel_bidirectional, int rel_nb, float rel_log_ratio,
-    int dtype, void* stream) {
-  if (Hkv < 1 || Hq % Hkv != 0 || Hq > 65535 || B > 65535) {
+    int dtype, int heaviest_first, void* stream) {
+  if (Hkv < 1 || Hq % Hkv != 0 || Hq > 65535 || B > 65535 ||
+      (Tq + FL_BQ - 1) / FL_BQ > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0 || Tq == 0) return static_cast<int>(cudaGetLastError());
@@ -523,7 +697,7 @@ extern "C" int ct2_flash_attention(
   p.rel_log_ratio = rel_log_ratio;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_fma(p, D, s);
-  if (dtype == 1) return launch_mma<__half>(p, D, s);
-  if (dtype == 2) return launch_mma<__nv_bfloat16>(p, D, s);
+  if (dtype == 1) return launch_wgmma<__half>(p, D, dtype, heaviest_first, s);
+  if (dtype == 2) return launch_wgmma<__nv_bfloat16>(p, D, dtype, heaviest_first, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,9 @@
 """Builds the CUDA sources under ``csrc/`` with nvcc and loads them.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
-first use into ``lib<name>-<hash>.so`` (the hash covers the source and the
-flags, so an edited source is rebuilt), then loaded with ``ctypes``. The
+first use into ``lib<name>-<hash>.so`` (the hash covers the source, every
+shared header ``csrc/*.cuh`` and the full nvcc command line, so an edited
+source or header is rebuilt), then loaded with ``ctypes``. The
 build directory is ``_build/`` inside the package unless
 ``CT2TPU_TORCH_BUILD_DIR`` names another. Nothing is built or imported
 when this module is imported.
@@ -11,13 +12,14 @@ when this module is imported.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -25,6 +27,10 @@ KERNEL_SOURCES = ("w8a8_gemm", "gather_rows", "flash_attention",
                   "decode_attention_int8", "fused_norm", "w4_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# ptxas's report (registers, shared memory, spills) of each source built
+# with ``ptxas_report`` naming it.
+PTXAS_LOG: Dict[str, str] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -45,16 +51,28 @@ def _nvcc() -> str:
         f"{CSRC_DIR} on first use (set NVCC or put nvcc on PATH)")
 
 
+def _command(name: str, out: str) -> list:
+    return [*NVCC_FLAGS, "-o", out, os.path.join(CSRC_DIR, name + ".cu")]
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1()
+    paths = [os.path.join(CSRC_DIR, name + ".cu")]
+    paths += sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for path in paths:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+    digest.update("\0".join(_command(name, "")).encode())
     return os.path.join(build_dir(), f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
-def build(names: Iterable[str] = KERNEL_SOURCES) -> float:
+def build(names: Iterable[str] = KERNEL_SOURCES,
+          ptxas_report: Sequence[str] = ()) -> float:
     """Compile every missing library, one nvcc per source, all started
     together. Returns the wall seconds spent; raises with the compiler's
-    output if a build fails."""
+    output if a build fails. Sources named in ``ptxas_report`` are compiled
+    with ``-Xptxas -v`` (which changes no code) and their report is kept in
+    ``PTXAS_LOG``."""
     start = time.perf_counter()
     os.makedirs(build_dir(), exist_ok=True)
     jobs = []
@@ -63,8 +81,9 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> float:
         if os.path.isfile(out):
             continue
         tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, name + ".cu")]
+        cmd = [_nvcc(), *_command(name, tmp)]
+        if name in ptxas_report:
+            cmd[1:1] = ["-Xptxas", "-v"]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((name, out, tmp, proc))
@@ -74,6 +93,8 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> float:
         if proc.returncode != 0:
             failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        if name in ptxas_report:
+            PTXAS_LOG[name] = log
         os.replace(tmp, out)
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))

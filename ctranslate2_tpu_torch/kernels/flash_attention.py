@@ -5,7 +5,8 @@ online-softmax attention that never materializes the [Tq, Tk] score matrix,
 with GQA/MQA, causal masking with a query offset, per-batch KV lengths,
 sliding windows, segment ids, ALiBi in both conventions and the T5
 relative-position bias recomputed from its bucket table. The CUDA kernel is
-``csrc/flash_attention.cu``.
+``csrc/flash_attention.cu`` (wgmma fed by TMA for float16/bfloat16, plain
+FMAs for float32).
 """
 
 from __future__ import annotations
@@ -20,6 +21,10 @@ from .norms import DTYPE_CODES
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
+# Under a causal mask the f16/bf16 kernel runs its query tiles last-first,
+# the heaviest first, so the short ones fill the tail of the grid
+# (chip_smoke.py times both orders at the prefill shape).
+HEAVIEST_FIRST = True
 
 
 def _lib() -> ctypes.CDLL:
@@ -28,7 +33,7 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.ct2_flash_attention.restype = i
         lib.ct2_flash_attention.argtypes = (
-            [p] * 9 + [i] * 6 + [f] + [i] * 6 + [f, i, p])
+            [p] * 9 + [i] * 6 + [f] + [i] * 6 + [f, i, i, p])
     return lib
 
 
@@ -150,10 +155,12 @@ def flash_attention(q, k, v, *, scale: float = 1.0, causal: bool = False,
             f"flash_attention has kernels for head dims {HEAD_DIMS}, got {D}")
 
     def strided(t):
-        # The kernel addresses (batch, head, time) by strides; it wants a
-        # dense last dim and 16-byte aligned rows.
+        # The kernel addresses (batch, head, time) by strides (TMA tensor
+        # maps for f16/bf16); it wants a dense last dim, 16-byte aligned rows
+        # and a nonzero stride on every dimension longer than 1.
         vec = 16 // t.element_size()
         if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) \
+                or any(s == 0 and n > 1 for s, n in zip(t.stride(), t.shape)) \
                 or t.data_ptr() % 16:
             t = t.contiguous()
         return t
@@ -185,8 +192,10 @@ def flash_attention(q, k, v, *, scale: float = 1.0, causal: bool = False,
             ptr(lengths), ptr(segment_ids), ptr(slopes), ptr(table),
             B, Hq, Hkv, Tq, Tk, D, scale, int(causal), q_offset, window,
             _alibi_offs(alibi_positive, q_offset, Tq), int(rel_bidirectional),
-            rel_nb, log_ratio, DTYPE_CODES[q.dtype], stream)
+            rel_nb, log_ratio, DTYPE_CODES[q.dtype],
+            int(causal and HEAVIEST_FIRST), stream)
     if err:
-        raise RuntimeError(f"flash_attention launch failed with CUDA error {err}")
+        raise RuntimeError(f"flash_attention launch failed with error {err} "
+                           "(a CUDA error, or 9000 and up: no TMA tensor map)")
     count_launch("flash_attention")
     return out

@@ -3,9 +3,10 @@
 Counterparts of ``ctranslate2_tpu/kernels/quant_matmul.py``:
 
 - ``matmul_w8a8``: int8 activations x int8 weights, f32 dequant epilogue.
-  The CUDA kernel is ``csrc/w8a8_gemm.cu``. Weights keep the model.bin
-  layout, ``wq`` int8 [N, K] (out, in), which is what ``mma.sync``'s s8
-  form takes for its B operand.
+  The CUDA kernels are ``csrc/w8a8_gemm.cu``: a split-K ``mma.sync`` path
+  for small M and a TMA-fed ``wgmma`` path for large M, chosen by
+  ``w8a8_plan``. Weights keep the model.bin layout, ``wq`` int8 [N, K]
+  (out, in): K-major, what both paths take.
 - ``matmul_w4a16`` / ``matmul_w4a16_fold``: float activations x ``w4``
   int8 (q - z) [K, N] x f32 group scales [K/G, N].
 - ``matmul_w4p`` / ``matmul_w4p_fold``: float activations x ``w4p`` bytes
@@ -20,6 +21,7 @@ the JAX layouts. The ``_fold`` forms are not dispatched by ``linear()``
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -27,14 +29,78 @@ from . import count_launch
 from . import build
 
 
+CARD_SMS = 132  # streaming multiprocessors of the H100 SXM
+GRID_Y_MAX = 65535
+# Split-K path: a block owns SPLITK_BN output columns x ``mt`` rows and
+# streams K in stages of SPLITK_BK bytes; K is split until the grid holds
+# about SPLITK_BLOCKS_PER_SM blocks an SM.
+SPLITK_BN = 64
+SPLITK_BK = 128
+SPLITK_MTS = (8, 16, 32, 64)
+SPLITK_BLOCKS_PER_SM = 4
+# wgmma path: 128 x 128 output tiles, K in 128-byte stages, taken from
+# WGMMA_MIN_M rows on: at M = 128 and 2,048 it measured faster than split-K
+# at every main-path (K, N), at M = 4 slower (chip_smoke.py times both).
+WGMMA_TILE = 128
+WGMMA_MIN_M = 128
+
+
+class W8A8Plan(NamedTuple):
+    """How ``matmul_w8a8`` runs one (M, N, K) on the card.
+
+    ``path``: "wgmma" (TMA-fed s8 wgmma, large M), "splitk" (cp.async
+    ring, mma.sync with the weights as the A operand, K split across
+    blocks) or "ragged" (the split-K kernel with byte-wise loads, for K off
+    a multiple of 16 or unaligned operands). ``k_chunk`` bytes of K a
+    slice, ``splits`` slices; ``tile`` (rows, columns, K bytes a stage);
+    ``grid`` the CUDA grid; ``workspace`` int32 entries to zero (0: none).
+    """
+    path: str
+    mt: int
+    splits: int
+    k_chunk: int
+    tile: Tuple[int, int, int]
+    grid: Tuple[int, int, int]
+    workspace: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def w8a8_plan(M: int, N: int, K: int, aligned: bool = True) -> W8A8Plan:
+    """The path, split and grid of ``matmul_w8a8`` for q [M, K] x wq [N, K].
+
+    ``aligned``: both int8 operands start on 16 bytes. Raises ValueError for
+    an M beyond the grid of the ragged path."""
+    vec = aligned and K % 16 == 0
+    if vec and M >= WGMMA_MIN_M and N >= WGMMA_TILE and K >= WGMMA_TILE:
+        tiles = _cdiv(M, WGMMA_TILE) * _cdiv(N, WGMMA_TILE)
+        return W8A8Plan("wgmma", WGMMA_TILE, 1, K,
+                        (WGMMA_TILE, WGMMA_TILE, WGMMA_TILE), (tiles, 1, 1), 0)
+    mt = next((m for m in SPLITK_MTS if M <= m), SPLITK_MTS[-1])
+    tiles_n, tiles_m = _cdiv(N, SPLITK_BN), _cdiv(M, mt)
+    if tiles_m > GRID_Y_MAX:
+        raise ValueError(f"matmul_w8a8: M={M} exceeds the kernel's grid "
+                         f"({GRID_Y_MAX} x {mt} rows)")
+    steps = max(1, _cdiv(K, SPLITK_BK))
+    want = _cdiv(SPLITK_BLOCKS_PER_SM * CARD_SMS, max(1, tiles_n * tiles_m))
+    per = _cdiv(steps, max(1, min(steps, want)))
+    splits = _cdiv(steps, per)
+    workspace = M * N + tiles_n * tiles_m if splits > 1 else 0
+    return W8A8Plan("splitk" if vec else "ragged", mt, splits, per * SPLITK_BK,
+                    (mt, SPLITK_BN, SPLITK_BK), (tiles_n, tiles_m, splits),
+                    workspace)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("w8a8_gemm")
-    if not lib.ct2_w8a8_gemm.argtypes:
-        p = ctypes.c_void_p
-        lib.ct2_w8a8_gemm.restype = ctypes.c_int
-        lib.ct2_w8a8_gemm.argtypes = [p, p, p, p, p, ctypes.c_int,
-                                      ctypes.c_int, ctypes.c_int,
-                                      ctypes.c_int, p]
+    if not lib.ct2_w8a8_gemm_splitk.argtypes:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ct2_w8a8_gemm_splitk.restype = i
+        lib.ct2_w8a8_gemm_splitk.argtypes = [p] * 6 + [i] * 7 + [p]
+        lib.ct2_w8a8_gemm_wgmma.restype = i
+        lib.ct2_w8a8_gemm_wgmma.argtypes = [p] * 5 + [i] * 3 + [p]
     return lib
 
 
@@ -63,6 +129,29 @@ def matmul_w8a8_plain(q, wq, a_scale, w_scale):
     return acc.to(torch.float32) / (a[:, None] * w_scale[None, :])
 
 
+def _w8a8_launch(q, wq, a_scale, w_scale, plan: W8A8Plan):
+    """Runs ``plan`` on the card (the wrapper's body, without its checks)."""
+    M, K = q.shape
+    N = wq.shape[0]
+    out = torch.empty((M, N), dtype=torch.float32, device=q.device)
+    ws = (torch.zeros(plan.workspace, dtype=torch.int32, device=q.device)
+          if plan.workspace else None)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        args = (q.data_ptr(), wq.data_ptr(), a_scale.data_ptr(),
+                w_scale.data_ptr(), out.data_ptr())
+        if plan.path == "wgmma":
+            err = _lib().ct2_w8a8_gemm_wgmma(*args, M, N, K, stream)
+        else:
+            err = _lib().ct2_w8a8_gemm_splitk(
+                *args, None if ws is None else ws.data_ptr(), M, N, K, plan.mt,
+                plan.k_chunk, plan.splits, int(plan.path == "splitk"), stream)
+    if err:
+        raise RuntimeError(f"w8a8_gemm ({plan.path}) launch failed with error {err} "
+                           "(a CUDA error, or 9000 and up: no TMA tensor map)")
+    return out
+
+
 def matmul_w8a8(q, wq, a_scale, w_scale):
     """``q`` int8 [M, K], ``wq`` int8 [N, K], ``a_scale`` f32 [M],
     ``w_scale`` f32 [N] -> f32 [M, N] = (q @ wq.T) / (a_scale ⊗ w_scale),
@@ -76,19 +165,9 @@ def matmul_w8a8(q, wq, a_scale, w_scale):
         if not t.is_contiguous():
             raise ValueError("matmul_w8a8 takes contiguous tensors")
     M, K = q.shape
-    N = wq.shape[0]
-    if (M + 63) // 64 > 65535:
-        raise ValueError(f"matmul_w8a8: M={M} exceeds the kernel's grid")
-    out = torch.empty((M, N), dtype=torch.float32, device=q.device)
-    vec = int(K % 16 == 0 and q.data_ptr() % 16 == 0
-              and wq.data_ptr() % 16 == 0)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib().ct2_w8a8_gemm(
-            q.data_ptr(), wq.data_ptr(), a_scale.data_ptr(),
-            w_scale.data_ptr(), out.data_ptr(), M, N, K, vec, stream)
-    if err:
-        raise RuntimeError(f"w8a8_gemm launch failed with CUDA error {err}")
+    aligned = q.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
+    out = _w8a8_launch(q, wq, a_scale, w_scale,
+                       w8a8_plan(M, wq.shape[0], K, aligned))
     count_launch("matmul_w8a8")
     return out
 

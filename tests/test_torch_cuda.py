@@ -8,8 +8,9 @@ repository root:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 (``--noconftest`` skips tests/conftest.py, which imports JAX.) Without a
-card every test skips. W8A8 must be bit-equal to its plain version (the
-int32 sum is exact and the epilogue is the same two IEEE f32 operations);
+card every test skips. W8A8 must be bit-equal to its plain version on both
+of its paths (split-K and wgmma; the int32 sum is exact in any order and the
+epilogue is the same two IEEE f32 operations);
 the gather must be equal. The flash, int8-KV decode, norm and W4 kernels
 sum floats in another order than their plain versions and are held to the
 tolerances below.
@@ -100,6 +101,68 @@ def test_w8a8_kernel_bit_equal_to_plain_on_card(M, K, N):
     assert torch.equal(out, matmul_w8a8_plain(*args))
 
 
+# (K, N) of the int8 linears on the main paths: the Generator at
+# Llama-3-8B's widths and the Translator at Transformer-base's.
+W8A8_MAIN_KN = [(4096, 6144), (4096, 4096), (4096, 14336), (14336, 4096),
+                (4096, 128256), (512, 1536), (512, 512), (512, 2048),
+                (2048, 512), (512, 32000)]
+W8A8_MS = [1, 4, 8, 9, 16, 64, 65, 128, 300, 2048, 8192]
+# Both paths at every main-path (K, N), every M; the vocabulary projection
+# only where a main path runs it (decode rows).
+W8A8_CASES = [(M, K, N) for M in W8A8_MS for K, N in W8A8_MAIN_KN
+              if N != 128256 or M <= 300]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", W8A8_CASES)
+def test_w8a8_paths_bit_equal_to_plain_on_card(M, K, N):
+    """The split-K and wgmma paths, each at the split count ``w8a8_plan``
+    gives this shape, bit-equal to the plain version."""
+    dev = _card()
+    args = [torch.from_numpy(a).to(dev) for a in _w8a8_inputs(M, K, N, seed=M + K + N)]
+    plan = qm.w8a8_plan(M, N, K)
+    before = kernels.launch_counts()["matmul_w8a8"]
+    out = matmul_w8a8(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["matmul_w8a8"] == before + 1
+    assert torch.equal(out, matmul_w8a8_plain(*args)), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(4, 14336, 4096), (8192, 14336, 4096),
+                                   (9, 14336, 6144), (300, 14336, 512)])
+def test_w8a8_saturated_sums_bit_equal_on_card(M, K, N):
+    """q = -128 and w = -127 throughout: every int32 partial sum reaches
+    K * 16,256 (2.3e8 at K = 14,336), on both paths and across K splits."""
+    dev = _card()
+    q = torch.full((M, K), -128, dtype=torch.int8, device=dev)
+    wq = torch.full((N, K), -127, dtype=torch.int8, device=dev)
+    a_s = torch.full((M,), 0.75, device=dev)
+    w_s = torch.full((N,), 1.5, device=dev)
+    out = matmul_w8a8(q, wq, a_s, w_s)
+    torch.cuda.synchronize()
+    assert torch.equal(out, matmul_w8a8_plain(q, wq, a_s, w_s))
+    assert abs(out[0, 0].item() / (K * 16256 / 1.125) - 1) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(4, 100, 300), (300, 520, 200), (65, 100, 50),
+                                   (2048, 520, 512)])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_w8a8_ragged_path_bit_equal_on_card(M, K, N, offset):
+    """K off a multiple of 16, or an activation that starts off 16 bytes:
+    the ragged path (byte-wise loads)."""
+    dev = _card()
+    q, wq, a_s, w_s = [torch.from_numpy(a).to(dev) for a in _w8a8_inputs(M, K, N)]
+    buf = torch.empty(M * K + 16, dtype=torch.int8, device=dev)
+    qv = buf[offset:offset + M * K].view(M, K)
+    qv.copy_(q)
+    assert qm.w8a8_plan(M, N, K, qv.data_ptr() % 16 == 0).path == "ragged"
+    out = matmul_w8a8(qv, wq, a_s, w_s)
+    torch.cuda.synchronize()
+    assert torch.equal(out, matmul_w8a8_plain(qv, wq, a_s, w_s))
+
+
 @pytest.mark.cuda
 def test_gather_kernel_equal_to_plain_on_card():
     dev = _card()
@@ -178,6 +241,33 @@ def test_flash_kernel_close_to_plain_on_card(case, dtype, D, Hq, Hkv):
     assert kernels.launch_counts()["flash_attention"] == before + 1
     ref = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
     assert out.shape == q.shape and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref, **FLASH_TOL[dtype])
+
+
+# Ragged and aligned tile edges (the kernel's query tile is 128 rows, its
+# key tile 64), chunked prefill, GQA 4 and an empty row.
+FLASH_EDGE_CASES = {
+    "t127": dict(causal=True, Tq=127, Tk=127),
+    "t128": dict(causal=True, Tq=128, Tk=128),
+    "t129": dict(causal=True, Tq=129, Tk=129),
+    "t2048": dict(causal=True, Tq=2048, Tk=2048),
+    "q127_k129": dict(Tq=127, Tk=129),
+    "q129_k2048_lengths": dict(Tq=129, Tk=2048, lengths=[2048, 1000]),
+    "chunked_prefill": dict(causal=True, q_offset=1000, Tq=129, Tk=1129),
+    "row_of_length_0": dict(causal=True, lengths=[0, 129], Tq=129, Tk=129),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_EDGE_CASES))
+@pytest.mark.parametrize("dtype,D", [(torch.float16, 128), (torch.bfloat16, 64),
+                                     (torch.float16, 64), (torch.bfloat16, 128)])
+def test_flash_kernel_edges_close_to_plain_on_card(case, dtype, D):
+    dev = _card()
+    q, k, v, kw = _flash_inputs(dev, dtype, D, 8, 2, FLASH_EDGE_CASES[case])
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
     torch.testing.assert_close(out.float(), ref, **FLASH_TOL[dtype])
 
 
