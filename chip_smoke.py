@@ -11,7 +11,8 @@ Phases, one JSON object per line:
 1. card: the card's name and power limit, the torch/CUDA versions, and the
    seconds to build the six CUDA sources from ``ctranslate2_tpu_torch/csrc``;
    before it a ``ptxas`` line with the registers, spills and static shared
-   memory of every kernel of the two wgmma sources (``PTXAS_REPORT``).
+   memory of every kernel of the two wgmma sources and the W4 source
+   (``PTXAS_REPORT``).
 2. Translator main path: the full-width Transformer-base model (6+6 layers,
    d_model 512, ffn 2048, 8 heads, 32,000 words; random weights from seed
    7), ``Translator(..., compute_type="int8").translate_batch`` on batches
@@ -48,10 +49,12 @@ Phases, one JSON object per line:
    (the two folded W4 forms, which ``linear()`` never dispatches, at their
    counterpart's shapes), against its plain PyTorch version on the same
    inputs, with its time, the plain version's, the one library call's
-   where there is one and the bound (W8A8 also with its plan from
-   ``w8a8_plan`` and the time of the path the plan did not pick; causal
-   flash also with its query tiles in launch order); then small shapes for
-   every feature the paths do not use. Tolerances: W8A8 bit-equal, gather equal,
+   where there is one and the bound (W8A8 and the two dispatched W4 forms
+   also with their plan from ``w8a8_plan`` / ``w4_plan`` and the time of
+   the path the plan did not pick; causal flash also with its query tiles in
+   launch order); then small shapes for every feature the paths do not use
+   (flash at head dims 32, 80 and 96, zero-padded to the kernel's 64 / 128;
+   the norm at widths off a multiple of 8). Tolerances: W8A8 bit-equal, gather equal,
    ``FLASH_TOL``, ``DECODE_TOL``, ``NORM_F32_TOL`` / one ulp of the half
    type, ``w4_error_bound`` for the W4 products.
 6. float16 Translator run, float32 chain/chain-off pair, Translator card
@@ -102,7 +105,7 @@ MAX_DEC = 32
 ITERS = 3
 # The sources whose registers, shared memory and spills the card phase
 # reports (nvcc -Xptxas -v).
-PTXAS_REPORT = ("w8a8_gemm", "flash_attention")
+PTXAS_REPORT = ("w8a8_gemm", "flash_attention", "w4_gemm")
 OPTS = dict(beam_size=BEAM, max_decoding_length=MAX_DEC,
             min_decoding_length=MAX_DEC, return_scores=True)
 # Chain-off vs chain run: the share of identical hypotheses, and the largest
@@ -278,6 +281,9 @@ def check_logs_cover(counts, logs, logs_before, label, checks):
                f"({logged} logged, {n} counted)")
 
 
+_CAPTURE_STREAM = None
+
+
 def cuda_time_ms(fn, iters):
     """Mean device time of ``fn()`` over ``iters`` calls, after a warm-up.
 
@@ -286,10 +292,17 @@ def cuda_time_ms(fn, iters):
     for kernels of tens of microseconds is slower than the card."""
     import torch
 
-    fn()
+    global _CAPTURE_STREAM
+    if _CAPTURE_STREAM is None:
+        _CAPTURE_STREAM = torch.cuda.Stream()
+    stream = _CAPTURE_STREAM
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()  # the warm-up runs on the capture stream: per-stream state
+        # (the W4 split-K counters) is then made outside the capture
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -824,6 +837,10 @@ def feature_checks(checks):
         ("bf16_mqa", "bfloat16", 128, 4, 1, T, T, dict(causal=True)),
         ("f32_head_dim_128", "float32", 128, 2, 2, T, T, dict(causal=True, lengths=i32([T, 9]))),
         ("masked_rows", "float16", 64, 2, 2, T, T, dict(lengths=i32([0, T]))),
+        # Head dims off 64/128 run zero-padded to the next instance.
+        ("head_dim_80", "float16", 80, 4, 2, T, T, dict(causal=True, lengths=i32([T, 101]))),
+        ("head_dim_96", "bfloat16", 96, 4, 2, T, T, dict(lengths=i32([37, T]))),
+        ("head_dim_32_f32", "float32", 32, 4, 1, T, T, dict(causal=True)),
     ]
     worst = {}
     for name, dt, D, Hq, Hkv, Tq, Tk, kw in flash_cases:
@@ -835,11 +852,11 @@ def feature_checks(checks):
         checks(torch.allclose(out.float(), ref, **FLASH_TOL[dt]),
                f"flash feature {name} ({dt}, D={D}) within {FLASH_TOL[dt]} (got {err})")
     try:
-        flash_attention(*_flash_inputs(g, 1, 2, 2, 8, 8, 32, torch.float16))
+        flash_attention(*_flash_inputs(g, 1, 2, 2, 8, 8, 256, torch.float16))
         refused = False
     except NotImplementedError as e:
-        refused = "32" in str(e)
-    checks(refused, "flash refuses a head dim of 32 with a message that names it")
+        refused = "256" in str(e)
+    checks(refused, "flash refuses a head dim of 256 with a message that names it")
 
     decode_cases = [
         ("window_fresh", "float16", 8, 2, 300, 64, True, 9, [300, 17, 0]),
@@ -862,7 +879,11 @@ def feature_checks(checks):
     for name, dt, shape, has_beta in [
             ("layer_norm_beta", "float16", (3, 5, 512), True),
             ("layer_norm_f32", "float32", (7, 24), True),
-            ("rms_bf16_long_row", "bfloat16", (2, 17000), False)]:
+            ("rms_bf16_long_row", "bfloat16", (2, 17000), False),
+            # Widths off a multiple of 8 take the scalar-load instance.
+            ("layer_norm_odd_width", "float16", (5, 4097), True),
+            ("rms_width_100", "bfloat16", (9, 100), False),
+            ("layer_norm_width_12_f32", "float32", (3, 12), True)]:
         x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(getattr(torch, dt))
         gamma = torch.randn(shape[-1], generator=g, device="cuda")
         beta = torch.randn(shape[-1], generator=g, device="cuda") if has_beta else None
@@ -1419,13 +1440,30 @@ def w4_library(x, q, s, z, ref):
         x, (_w4p_values(w4p) * s_rows - zs_rows).to(x.dtype))
 
 
+def w4_other_plan(Q, args, packed):
+    """The plan of the path ``w4_plan`` does not pick for these operands of
+    ``matmul_w4p`` / ``matmul_w4a16`` (split-K below its M limit, the tile
+    above)."""
+    chosen = Q.w4_wrapper_plan(args[0], args[1], args[2], packed, False)
+    saved = Q.W4_SPLITK_MAX_M
+    Q.W4_SPLITK_MAX_M = 0 if chosen.path == "splitk" else 1 << 40
+    try:
+        other = Q.w4_wrapper_plan(args[0], args[1], args[2], packed, False)
+    finally:
+        Q.W4_SPLITK_MAX_M = saved
+    return chosen, (other if other.path != chosen.path else None)
+
+
 def bench_w4(shapes, checks):
     """The four W4 kernels at every main-path shape, against their plain
     versions within ``w4_error_bound``, with the plain version's time, the
     library call's and the bound. ``shapes`` holds the shape logs of
     ``matmul_w4p`` (packed calls) and ``matmul_w4a16`` (the unpacked call);
     the two folded forms are not on the path and run at their counterpart's
-    shapes, their sums weighted by its launches. Returns the sums."""
+    shapes, their sums weighted by its launches. The two dispatched forms'
+    lines also carry their plan (path, split count) and the time of the
+    path the plan did not pick, held to the same bound: the crossover's
+    evidence. Returns the sums."""
     import torch
     from ctranslate2_tpu_torch.kernels import quant_matmul as Q
 
@@ -1456,16 +1494,27 @@ def bench_w4(shapes, checks):
             n = shapes[base].get(key, 0)
             fn, plain = getattr(Q, name), getattr(Q, name + "_plain")
             args = operands[packed]
+            zs = args[3] if packed else None
             out = fn(*args)
             ref = plain(*args)
+            bound = Q.w4_error_bound(*args[:3], zs, fold)
             torch.cuda.synchronize()
             diff = (out - ref).abs()
-            bound = Q.w4_error_bound(*args[:3], args[3] if packed else None, fold)
             err = diff.max().item()
             worst = (diff / bound).max().item()
             checks(bool((diff <= bound).all()),
                    f"{name} within its error bound of plain at {key} "
                    f"(max abs err {err}, worst share of the bound {worst})")
+            plan, other = ((Q.w4_wrapper_plan(x, args[1], s, packed, True), None) if fold
+                           else w4_other_plan(Q, args, packed))
+            other_ms = None
+            if other is not None:
+                diff = (Q._w4_run(*args[:3], zs, packed, False, other) - ref).abs()
+                checks(bool((diff <= bound).all()),
+                       f"{name} {other.path} path within its error bound of plain at "
+                       f"{key} (worst share of the bound {(diff / bound).max().item()})")
+                other_ms = cuda_time_ms(
+                    lambda: Q._w4_run(*args[:3], zs, packed, False, other), iters)
             del out, ref, diff, bound
             ms = cuda_time_ms(lambda: fn(*args), iters)
             plain_ms = cuda_time_ms(lambda: plain(*args), plain_iters)
@@ -1476,11 +1525,15 @@ def bench_w4(shapes, checks):
             emit({"phase": "kernel_w4", "kernel": name, "M": M, "K": K, "N": N, "dtype": dt,
                   "group": G, "launches": n if name == base else 0,
                   "weighted_by_launches_of": base, "weight": n,
+                  "path": plan.path, "splits": plan.splits, "k_chunk": plan.k_chunk,
+                  "other_path": None if other is None else other.path,
+                  "other_path_splits": None if other is None else other.splits,
+                  "other_path_ms": other_ms,
                   "max_abs_err": err, "worst_share_of_error_bound": worst,
                   "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                   "library": library, "bytes_moved": nbytes,
                   "tflops": 2 * M * N * K / ms / 1e9, "gbytes_per_s": nbytes / ms / 1e6,
-                  "bound_ms": max(bytes_ms, ops_ms),
+                  "bound_ms": max(bytes_ms, ops_ms), "share_of_bound": max(bytes_ms, ops_ms) / ms,
                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
             tot = tots[name]
             tot["ms"] += n * ms

@@ -19,11 +19,14 @@
 //
 // Design: a group of threads owns one row and keeps it in registers between
 // the passes: a warp per row where D <= 1024 (four rows per 128-thread
-// block), a 256-thread block per row otherwise. Loads and stores are 16
-// bytes wide for the half types (8 elements) and 2 x 16 bytes for float32.
-// A row longer than the register budget (D > 16384) is read again from
-// device memory (in practice from L2) in each pass instead. D must be a
-// multiple of 8; rows need no padding.
+// block), a 256-thread block per row otherwise. Where D is a multiple of 8,
+// loads and stores are 16 bytes wide for the half types (8 elements) and
+// 2 x 16 bytes for float32; any other D takes a scalar instance (V = 1:
+// one element a load, since such rows start off 16 bytes), with the same
+// arithmetic. A row longer than the register budget (64 elements a thread)
+// is read again from device memory (in practice from L2) in each pass
+// instead. Rows need no padding: zero padding would enter LayerNorm's
+// centred variance.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -32,8 +35,8 @@
 
 namespace {
 
-constexpr int VEC = 8;       // elements per thread per step
-constexpr int MAX_STEPS = 8;  // register-resident steps per thread
+constexpr int VEC = 8;       // elements a load where D % 8 == 0
+constexpr int MAX_ELEMS = 64;  // register-resident elements a thread
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
@@ -42,24 +45,24 @@ __device__ __forceinline__ void from_f32(float& o, float v) { o = v; }
 __device__ __forceinline__ void from_f32(__half& o, float v) { o = __float2half_rn(v); }
 __device__ __forceinline__ void from_f32(__nv_bfloat16& o, float v) { o = __float2bfloat16_rn(v); }
 
-template <typename T>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
 };
 
-template <typename T>
-__device__ __forceinline__ void load8(const T* p, float (&out)[VEC]) {
-  const Pack<T> pk = *reinterpret_cast<const Pack<T>*>(p);
+template <typename T, int V>
+__device__ __forceinline__ void load_v(const T* p, float (&out)[V]) {
+  const Pack<T, V> pk = *reinterpret_cast<const Pack<T, V>*>(p);
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) out[i] = to_f32(pk.v[i]);
+  for (int i = 0; i < V; ++i) out[i] = to_f32(pk.v[i]);
 }
 
-template <typename T>
-__device__ __forceinline__ void store8(T* p, const float (&in)[VEC]) {
-  Pack<T> pk;
+template <typename T, int V>
+__device__ __forceinline__ void store_v(T* p, const float (&in)[V]) {
+  Pack<T, V> pk;
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) from_f32(pk.v[i], in[i]);
-  *reinterpret_cast<Pack<T>*>(p) = pk;
+  for (int i = 0; i < V; ++i) from_f32(pk.v[i], in[i]);
+  *reinterpret_cast<Pack<T, V>*>(p) = pk;
 }
 
 // Sum over the TPR threads that share a row (TPR == 32: one warp; else the
@@ -80,11 +83,13 @@ __device__ __forceinline__ float group_sum(float v, float* scratch) {
   return total;
 }
 
-template <typename T, int TPR, bool CACHED>
+// V elements a load (8, or 1 for D off a multiple of 8).
+template <typename T, int V, int TPR, bool CACHED>
 __global__ void __launch_bounds__(TPR == 32 ? 128 : TPR)
 fused_norm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                   const float* __restrict__ beta, T* __restrict__ out,
                   long long rows, int D, float eps) {
+  constexpr int MAX_STEPS = MAX_ELEMS / V;
   __shared__ float scratch[32];
   const int rows_per_block = (TPR == 32) ? 4 : 1;
   const long long row = (long long)blockIdx.x * rows_per_block +
@@ -98,23 +103,23 @@ fused_norm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   const bool rms = beta == nullptr;
   const float inv_d = 1.0f / (float)D;
 
-  float vals[CACHED ? MAX_STEPS : 1][VEC];
+  float vals[CACHED ? MAX_STEPS : 1][V];
   float sum = 0.f;
   if (CACHED) {
 #pragma unroll
     for (int s = 0; s < MAX_STEPS; ++s) {
-      const int col = (s * TPR + t) * VEC;
+      const int col = (s * TPR + t) * V;
       if (col < D) {
-        load8(xr + col, vals[s]);
+        load_v<T, V>(xr + col, vals[s]);
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) sum += rms ? vals[s][i] * vals[s][i] : vals[s][i];
+        for (int i = 0; i < V; ++i) sum += rms ? vals[s][i] * vals[s][i] : vals[s][i];
       }
     }
   } else {
-    for (int col = t * VEC; col < D; col += TPR * VEC) {
-      load8(xr + col, vals[0]);
+    for (int col = t * V; col < D; col += TPR * V) {
+      load_v<T, V>(xr + col, vals[0]);
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) sum += rms ? vals[0][i] * vals[0][i] : vals[0][i];
+      for (int i = 0; i < V; ++i) sum += rms ? vals[0][i] * vals[0][i] : vals[0][i];
     }
   }
   sum = group_sum<TPR>(sum, scratch);
@@ -129,20 +134,20 @@ fused_norm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
     if (CACHED) {
 #pragma unroll
       for (int s = 0; s < MAX_STEPS; ++s) {
-        const int col = (s * TPR + t) * VEC;
+        const int col = (s * TPR + t) * V;
         if (col < D) {
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) {
+          for (int i = 0; i < V; ++i) {
             const float c = vals[s][i] - mu;
             sq += c * c;
           }
         }
       }
     } else {
-      for (int col = t * VEC; col < D; col += TPR * VEC) {
-        load8(xr + col, vals[0]);
+      for (int col = t * V; col < D; col += TPR * V) {
+        load_v<T, V>(xr + col, vals[0]);
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) {
+        for (int i = 0; i < V; ++i) {
           const float c = vals[0][i] - mu;
           sq += c * c;
         }
@@ -152,36 +157,36 @@ fused_norm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
   const float inv = 1.0f / sqrtf(ms + eps);
 
-  auto finish = [&](int col, float (&v)[VEC]) {
-    float g[VEC];
-    load8(gamma + col, g);
-    float y[VEC];
+  auto finish = [&](int col, float (&v)[V]) {
+    float g[V];
+    load_v<float, V>(gamma + col, g);
+    float y[V];
     if (rms) {
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) y[i] = v[i] * inv * g[i];
+      for (int i = 0; i < V; ++i) y[i] = v[i] * inv * g[i];
     } else {
-      float b[VEC];
-      load8(beta + col, b);
+      float b[V];
+      load_v<float, V>(beta + col, b);
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) y[i] = (v[i] - mu) * inv * g[i] + b[i];
+      for (int i = 0; i < V; ++i) y[i] = (v[i] - mu) * inv * g[i] + b[i];
     }
-    store8(outr + col, y);
+    store_v<T, V>(outr + col, y);
   };
   if (CACHED) {
 #pragma unroll
     for (int s = 0; s < MAX_STEPS; ++s) {
-      const int col = (s * TPR + t) * VEC;
+      const int col = (s * TPR + t) * V;
       if (col < D) finish(col, vals[s]);
     }
   } else {
-    for (int col = t * VEC; col < D; col += TPR * VEC) {
-      load8(xr + col, vals[0]);
+    for (int col = t * V; col < D; col += TPR * V) {
+      load_v<T, V>(xr + col, vals[0]);
       finish(col, vals[0]);
     }
   }
 }
 
-template <typename T>
+template <typename T, int V>
 void launch(const void* x, const void* gamma, const void* beta, void* out,
             long long rows, int D, float eps, cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x);
@@ -190,23 +195,31 @@ void launch(const void* x, const void* gamma, const void* beta, void* out,
   T* op = static_cast<T*>(out);
   if (D <= 1024) {
     const unsigned blocks = (unsigned)((rows + 3) / 4);
-    fused_norm_kernel<T, 32, true><<<blocks, 128, 0, stream>>>(xp, gp, bp, op, rows, D, eps);
-  } else if (D <= 256 * VEC * MAX_STEPS) {
-    fused_norm_kernel<T, 256, true><<<(unsigned)rows, 256, 0, stream>>>(xp, gp, bp, op, rows, D, eps);
+    fused_norm_kernel<T, V, 32, true><<<blocks, 128, 0, stream>>>(xp, gp, bp, op, rows, D, eps);
+  } else if (D <= 256 * MAX_ELEMS) {
+    fused_norm_kernel<T, V, 256, true><<<(unsigned)rows, 256, 0, stream>>>(xp, gp, bp, op, rows, D, eps);
   } else {
-    fused_norm_kernel<T, 256, false><<<(unsigned)rows, 256, 0, stream>>>(xp, gp, bp, op, rows, D, eps);
+    fused_norm_kernel<T, V, 256, false><<<(unsigned)rows, 256, 0, stream>>>(xp, gp, bp, op, rows, D, eps);
   }
+}
+
+template <typename T>
+void launch(const void* x, const void* gamma, const void* beta, void* out,
+            long long rows, int D, float eps, cudaStream_t stream) {
+  if (D % VEC == 0) launch<T, VEC>(x, gamma, beta, out, rows, D, eps, stream);
+  else launch<T, 1>(x, gamma, beta, out, rows, D, eps, stream);
 }
 
 }  // namespace
 
 // x, out: [rows, D] of `dtype` (0 float32, 1 float16, 2 bfloat16), 16-byte
-// aligned; gamma, beta: float32 [D], beta null for RMSNorm; D % 8 == 0.
+// aligned where D % 8 == 0 (any D > 0 is taken; other widths load one
+// element at a time); gamma, beta: float32 [D], beta null for RMSNorm.
 // Returns cudaGetLastError() after the launch.
 extern "C" int ct2_fused_norm(const void* x, const void* gamma, const void* beta,
                               void* out, long long rows, int D, float eps,
                               int dtype, void* stream) {
-  if (D <= 0 || D % VEC != 0 || rows < 0 || rows > 2147483647LL) {
+  if (D <= 0 || rows < 0 || rows > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (rows == 0) return static_cast<int>(cudaGetLastError());

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks shared by the wgmma/TMA kernels of this
-// directory: shared-memory addresses, mbarriers, TMA tensor loads, wgmma
+// Hopper (sm_90a) building blocks shared by the kernels of this directory:
+// shared-memory addresses, cp.async copies, mbarriers, TMA tensor loads, wgmma
 // fences and shared-memory matrix descriptors, and cuTensorMapEncodeTiled
 // reached through the CUDA runtime (so that nothing links -lcuda).
 //
@@ -23,6 +23,24 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- cp.async --------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  // Copies `bytes` (0 or 16) and zero-fills the rest of the 16.
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- mbarriers -------------------------------------------------------------

@@ -2,7 +2,7 @@
 // weights, f32 output.
 //
 // Replaces four Pallas kernels of ctranslate2_tpu/kernels/quant_matmul.py,
-// one entry point with two compile-time axes:
+// one source with two compile-time axes:
 //
 //   payload   int8 (q - z) [K, N]            |  packed nibbles [K/2, N]
 //   scale     per group, f32 accumulate       |  folded into the weight tile
@@ -20,32 +20,73 @@
 // too, so the two halves of a byte row reach their group ends together.
 //
 // What bounds it on the H100: at the decode shapes (M = 4) the weight bytes
-// (half a byte a weight packed, one unpacked, plus the scales) over
-// 3.35 TB/s; at the prefill shapes (M = 8,192) the 2*M*N*K operations over
-// the tensor cores' 989 TFLOP/s in f16/bf16.
+// (half a byte a weight packed, one unpacked, plus the f32 scales) over
+// 3.35 TB/s: 2.8 / 4.3 / 9.9 / 9.9 us packed at (K, N) = (4096, 4096) /
+// (4096, 6144) / (4096, 14336) / (14336, 4096); at the prefill shapes
+// (M = 8,192) the 2*M*N*K operations over the tensor cores' 989 TFLOP/s in
+// f16/bf16. The wrapper picks one of two paths per shape with
+// quant_matmul.w4_plan:
 //
-// Design (f16/bf16): a plain, right-first kernel. Each 128-thread block
-// computes a 64 x 64 output tile, each of its four warps a 32 x 32 sub-tile
-// with mma.sync.m16n8k16 and f32 accumulators. Per stage of 32 payload rows
-// the block loads x's tiles (two for the packed payload: columns r and
-// r + K/2) and one 16-byte chunk of payload per thread, unpacks it with
-// shifts and masks into f16/bf16 tiles in shared memory (exact: |q - z| and
-// q are at most 15), and the warps read the B fragments with
-// ldmatrix.trans. The non-folded forms keep a partial accumulator per half
-// and fold it into the output accumulator at each group's end with the f32
-// scale (and, packed, the f32 row sums of the same x tile times zs). Warps
-// whose rows lie past M skip their products. float32 activations take a
-// plain-FMA kernel of the same arithmetic (no rounding to a half type).
-// Left for later work: cp.async/TMA pipelining, wgmma, split-K or a
-// narrower tile for the decode shapes, where 64-row tiles waste most of each
-// mma and a 4,096-wide output gives only 64 blocks.
+// 1. Split-K, swap-AB, for M <= 64 (ct2_w4_gemm_splitk; matmul_w4a16 and
+//    matmul_w4p in f16/bf16). At M = 4 a 64-row output tile wastes 15/16 of
+//    each mma and N = 4,096 gives 64 blocks for 132 SMs. Here the weights are
+//    the A operand of mma.sync.m16n8k16 (16 output columns a warp) and x its B
+//    operand (8 rows an n-tile, XR / 8 n-tiles for XR = 8..64 rows a block), so
+//    M = 4 uses half of each mma. A 128-thread block owns 64 output columns x
+//    XR rows x one slice of the payload rows; the plan splits K until the grid
+//    holds about eight blocks an SM, on group boundaries (a slice is a multiple
+//    of G payload rows; packed, rows [r0, r1) also carry k in [r0 + K/2, r1 +
+//    K/2), on group boundaries since (K/2) % G == 0). The block streams 64-row
+//    payload stages and the matching x stages (both halves' columns, packed)
+//    through a 3-stage cp.async ring: at the M = 4 shapes, 3 stages and eight
+//    blocks an SM ran faster on the card than 4 stages and four blocks, and
+//    128-column blocks or deeper rings were no faster for matmul_w4p. Each
+//    thread copies the same chunks of every stage, and a group's end is counted
+//    down, so the loop holds no integer division. A warp reads its 16 x 16
+//    payload bytes of a k-step with one ldmatrix.x2.trans, which hands each
+//    thread the bytes of columns 2g and 2g + 1 at rows 2t, 2t + 1 (+ 8):
+//    exactly the A fragment of mma rows g and g + 8 if mma row i < 8 stands for
+//    column 2i and row i + 8 for column 2i + 1. The bytes become f16/bf16 pairs
+//    in registers with the magic-number trick (a nibble or a biased byte OR-ed
+//    into the mantissa of 1024.0 or 128.0, then one subtract; exact for every
+//    nibble and every int8); the unpacked payload in bf16 goes through f32 the
+//    same way, since bf16's 7-bit mantissa cannot hold a biased byte. Each
+//    group keeps a partial sum, folded into the output accumulator at the
+//    group's end with the f32 scale s[g, n] and, packed, minus rowsum(x_g) *
+//    zs[g, n]; the row sums come from the x fragments the warp already holds:
+//    one more mma a k-step with an A of ones (up to 16 rows), else f32 adds and
+//    four shuffles a group (32 and 64 rows, where the mma's accumulators would
+//    cost too many registers). Slices meet in a deterministic sum: each writes
+//    its f32 partial tile into a workspace [splits, M, N]; a per-tile counter
+//    finds the last block, which adds the splits in slice order and writes out,
+//    then re-zeroes its counter (zeroed once when the buffer is made, so a call
+//    is one launch and no memset). The fixed order makes two calls on the same
+//    inputs bit-equal, so the AWQ decode is the same run to run (float atomics
+//    would add in arrival order).
+// 2. The tile kernel (ct2_w4_gemm; every form, every M): a plain, right-first
+//    kernel. Each 128-thread block computes a 64 x 64 output tile, each of
+//    its four warps a 32 x 32 sub-tile with mma.sync.m16n8k16 and f32
+//    accumulators. Per stage of 32 payload rows the block loads x's tiles
+//    (two for the packed payload: columns r and r + K/2) and one 16-byte
+//    chunk of payload per thread, unpacks it with shifts and masks into
+//    f16/bf16 tiles in shared memory, and the warps read the B fragments
+//    with ldmatrix.trans. The non-folded forms keep a partial accumulator
+//    per half and fold it into the output accumulator at each group's end
+//    with the f32 scale (and, packed, the f32 row sums of the same x tile
+//    times zs). Warps whose rows lie past M skip their products. float32
+//    activations take a plain-FMA kernel of the same arithmetic (no rounding
+//    to a half type) on both paths' shapes.
+// Left for later work: the prefill shapes (M = 8,192) stay on the tile, at
+// 70-78 TFLOP/s, though the split-K kernel (one split) ran them 1.6-3.5x
+// faster on the card; then wgmma and TMA there.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 struct W4Params {
   const unsigned short* x16;  // [M, K] f16/bf16 bits (or null)
@@ -102,8 +143,8 @@ __device__ __forceinline__ unsigned ld32(const unsigned short* p) {
 }
 
 __device__ __forceinline__ void ldmatrix_x2_trans(unsigned& r0, unsigned& r1,
-                                                  const unsigned short* row) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(row);
+                                                  const void* row) {
+  const unsigned addr = smem_u32(row);
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r0), "=r"(r1)
                : "r"(addr)
@@ -413,6 +454,345 @@ __global__ void __launch_bounds__(FTHREADS) w4_fma_kernel(const W4Params p) {
     }
 }
 
+
+// ---------------------------------------------------------------------------
+// Split-K, swap-AB (f16/bf16, M <= 64, not folded).
+// ---------------------------------------------------------------------------
+
+constexpr int SK_BN = 64;           // output columns a block: 4 warps x 16
+constexpr int SK_BK = 64;           // payload rows a stage
+constexpr int SK_LDW = SK_BN + 16;  // payload stage row stride (bytes): conflict-free ldmatrix
+constexpr int SK_LDX = SK_BK + 8;   // x stage row stride (elements): conflict-free fragments
+constexpr int SK_STAGES = 3;
+constexpr int SK_THREADS = 128;
+
+__device__ __forceinline__ unsigned sub_f16x2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("sub.f16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// a * 1 - b, exact here (fma.rn.bf16x2: sm_80 and up).
+__device__ __forceinline__ unsigned sub_bf16x2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(0x3F803F80u), "r"(b ^ 0x80008000u));
+  return d;
+}
+
+// Two payload values (bits 0-7 and 16-23 of `v`, already biased to be
+// unsigned) as a bf16 pair, through f32: 2^23 + u - (2^23 + bias) is exact.
+__device__ __forceinline__ unsigned bf16x2_of_bytes(unsigned v, float bias) {
+  const float lo = __uint_as_float(0x4B000000u | (v & 0xFFu)) - (8388608.f + bias);
+  const float hi = __uint_as_float(0x4B000000u | ((v >> 16) & 0xFFu)) - (8388608.f + bias);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&b);
+}
+
+// The A fragment (16 output columns x 16 k) of half `h` from the two
+// registers of ldmatrix.x2.trans over 16 payload rows x 16 bytes: p0 holds
+// rows 2t, 2t + 1 and p1 rows 2t + 8, 2t + 9, each at columns 2g (bytes 0,
+// 2) and 2g + 1 (bytes 1, 3). Registers 0 / 2 are mma row g (column 2g),
+// 1 / 3 mma row g + 8 (column 2g + 1), low half the lower k.
+template <typename T, bool PACKED>
+__device__ __forceinline__ void dequant_frag(unsigned (&a)[4], unsigned p0, unsigned p1,
+                                             int h) {
+  constexpr bool F16 = std::is_same<T, __half>::value;
+  const unsigned src[4] = {p0, p0 >> 8, p1, p1 >> 8};
+  if (PACKED) {
+    // Nibble h of bytes 0 and 2: q in the mantissa of 1024.0 (f16) or 128.0
+    // (bf16), minus that number.
+    const unsigned magic = F16 ? 0x64006400u : 0x43004300u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned v = ((src[i] >> (4 * h)) & 0x000F000Fu) | magic;
+      a[i] = F16 ? sub_f16x2(v, magic) : sub_bf16x2(v, magic);
+    }
+  } else if (F16) {
+    // Signed bytes biased by 128 into the mantissa of 1024.0, minus 1152.0.
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = sub_f16x2(((src[i] ^ 0x00800080u) & 0x00FF00FFu) | 0x64006400u, 0x64806480u);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = bf16x2_of_bytes(src[i] ^ 0x00800080u, 128.f);
+  }
+}
+
+// An A fragment of ones: mma(d, ONES, b0, b1) adds each x row's 16 values
+// of the k-step to d (d[0] row 2t, d[1] row 2t + 1).
+template <typename T>
+__device__ __forceinline__ unsigned ones2() {
+  return std::is_same<T, __half>::value ? 0x3C003C00u : 0x3F803F80u;
+}
+
+// Sum, in f32, of the four half values of a B fragment (b0, b1).
+template <typename T>
+__device__ __forceinline__ float frag_sum(unsigned b0, unsigned b1) {
+  return (Half<T>::value(b0 & 0xFFFF) + Half<T>::value(b0 >> 16)) +
+         (Half<T>::value(b1 & 0xFFFF) + Half<T>::value(b1 >> 16));
+}
+
+// Grid: (ceil(N / 64), ceil(M / XR), splits); slice z covers payload rows
+// [z * k_chunk, min(rows, (z + 1) * k_chunk)), rows = K/2 packed or K;
+// k_chunk is a multiple of G. With splits > 1, `part` is the f32 workspace
+// [splits, M, N] (no zeroing needed) and `counters` one int per (x, y) tile,
+// zero on entry and left zero. Needs N % 16 == 0, 16-byte aligned x and
+// payload.
+template <typename T, int XR, bool PACKED>
+__global__ void __launch_bounds__(SK_THREADS)
+w4_splitk_kernel(const unsigned short* __restrict__ x, const uint8_t* __restrict__ w,
+                 const float* __restrict__ scale, const float* __restrict__ zs,
+                 float* __restrict__ out, float* __restrict__ part,
+                 int* __restrict__ counters, int M, int N, int K, int G, int k_chunk,
+                 int splits) {
+  constexpr int H = PACKED ? 2 : 1;
+  constexpr int JT = XR / 8;
+  // Packed, the zero-point term needs rowsum(x_g): on the tensor cores (one
+  // mma with an A of ones) where registers allow, else from the B
+  // fragments with shuffles at each group's end.
+  constexpr bool RS_MMA = PACKED && JT <= 2;
+  constexpr int W_BYTES = SK_BK * SK_LDW;
+  constexpr int STAGE = W_BYTES + H * XR * SK_LDX * 2;
+  constexpr int W_CHUNKS = SK_BK * (SK_BN / 16);
+  constexpr int X_CHUNKS = H * XR * (SK_BK / 8);
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int is_last;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n0 = blockIdx.x * SK_BN;
+  const int m0 = blockIdx.y * XR;
+  const int rows = PACKED ? K / 2 : K;
+  const int kbeg = blockIdx.z * k_chunk;
+  const int kend = min(rows, kbeg + k_chunk);
+  const int nsteps = kend > kbeg ? (kend - kbeg + SK_BK - 1) / SK_BK : 0;
+
+  // kend - kbeg and every stage start are multiples of 16, so a 16-byte
+  // payload chunk (one row) or x chunk (8 columns) is all in or all out.
+  // Each thread copies the same chunks of every stage (fixed rows, columns
+  // and shared offsets), so the copies are straight-line code.
+  constexpr int W_ROW_CHUNKS = SK_BN / 16;
+  constexpr int X_ROW_CHUNKS = SK_BK / 8;
+  constexpr int W_PER = W_CHUNKS / SK_THREADS;
+  constexpr int X_PER = (X_CHUNKS + SK_THREADS - 1) / SK_THREADS;
+  static_assert(W_CHUNKS % SK_THREADS == 0, "whole payload chunks a thread");
+  const int wrow = tid / W_ROW_CHUNKS;
+  const int wcol = (tid % W_ROW_CHUNKS) * 16;
+  const bool wcol_in = n0 + wcol < N;
+  const uint8_t* wsrc = w + (size_t)wrow * N + n0 + wcol;
+  const int xcol = (tid % X_ROW_CHUNKS) * 8;
+  auto load_stage = [&](int slot, int step) {
+    uint8_t* base = smem + slot * STAGE;
+    const int r0 = kbeg + step * SK_BK;
+#pragma unroll
+    for (int i = 0; i < W_PER; ++i) {
+      const int r = wrow + i * (SK_THREADS / W_ROW_CHUNKS);
+      const bool ok = wcol_in && r0 + r < kend;
+      cp_async16(smem_u32(base + r * SK_LDW + wcol),
+                 ok ? wsrc + (size_t)(r0 + i * (SK_THREADS / W_ROW_CHUNKS)) * N : w,
+                 ok ? 16 : 0);
+    }
+    unsigned short* xs = reinterpret_cast<unsigned short*>(base + W_BYTES);
+#pragma unroll
+    for (int i = 0; i < X_PER; ++i) {
+      const int hr = tid / X_ROW_CHUNKS + i * (SK_THREADS / X_ROW_CHUNKS);  // h * XR + row
+      if (X_CHUNKS % SK_THREADS == 0 || hr < H * XR) {
+        const int h = hr / XR;
+        const int row = hr % XR;
+        const bool ok = m0 + row < M && r0 + xcol < kend;
+        cp_async16(smem_u32(xs + hr * SK_LDX + xcol),
+                   ok ? x + (size_t)(m0 + row) * K + h * rows + r0 + xcol : x, ok ? 16 : 0);
+      }
+    }
+  };
+
+  float acc[JT][4], prt[H][JT][4], rs[H][JT], rsm[H][JT][4];
+#pragma unroll
+  for (int j = 0; j < JT; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      acc[j][r] = 0.f;
+#pragma unroll
+      for (int h = 0; h < H; ++h) prt[h][j][r] = rsm[h][j][r] = 0.f;
+    }
+  const unsigned ones[4] = {ones2<T>(), ones2<T>(), ones2<T>(), ones2<T>()};
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int j = 0; j < JT; ++j) rs[h][j] = 0.f;
+
+  // This thread's two output columns (mma rows g and g + 8), and the scale
+  // (and zero-term) row of its first group: the slice starts on a group
+  // boundary, and each group end steps to the next row; half 1's groups lie
+  // rows / G rows further.
+  const int n = n0 + warp * 16 + 2 * g;
+  const bool n_in = n < N;
+  const int gsteps = G / 16;  // k-steps a group
+  int gleft = gsteps;
+  const size_t half_rows = (size_t)(rows / G) * N;
+  const float* srow = scale + (size_t)(kbeg / G) * N + n;
+  const float* zrow = PACKED ? zs + (size_t)(kbeg / G) * N + n : nullptr;
+
+#pragma unroll
+  for (int s = 0; s < SK_STAGES - 1; ++s) {
+    if (s < nsteps) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < nsteps; ++it) {
+    cp_async_wait<SK_STAGES - 2>();
+    __syncthreads();  // stage `it` has landed; stage `it - 1` has been read
+    const int next = it + SK_STAGES - 1;
+    if (next < nsteps) load_stage(next % SK_STAGES, next);
+    cp_async_commit();
+    const uint8_t* Ws = smem + (it % SK_STAGES) * STAGE;
+    const unsigned short* Xs = reinterpret_cast<const unsigned short*>(Ws + W_BYTES);
+    const int r0 = kbeg + it * SK_BK;
+#pragma unroll
+    for (int kk = 0; kk < SK_BK / 16; ++kk) {
+      const int r = r0 + kk * 16;
+      if (r >= kend) break;  // block-uniform: the slice's last, short stage
+      unsigned p0, p1;
+      ldmatrix_x2_trans(p0, p1, Ws + (kk * 16 + (lane & 15)) * SK_LDW + warp * 16);
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        unsigned a[4];
+        dequant_frag<T, PACKED>(a, p0, p1, h);
+#pragma unroll
+        for (int j = 0; j < JT; ++j) {
+          const unsigned short* xp = Xs + (h * XR + j * 8 + g) * SK_LDX + kk * 16 + 2 * t;
+          const unsigned b0 = ld32(xp);
+          const unsigned b1 = ld32(xp + 8);
+          Half<T>::mma(prt[h][j], a, b0, b1);
+          if (RS_MMA) Half<T>::mma(rsm[h][j], ones, b0, b1);
+          else if (PACKED) rs[h][j] += frag_sum<T>(b0, b1);
+        }
+      }
+      if (--gleft == 0) {
+        // A group ends (in both halves): scale the partial sums into acc.
+        gleft = gsteps;
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          const float2 s2 = n_in ? __ldg(reinterpret_cast<const float2*>(srow + h * half_rows))
+                                 : make_float2(0.f, 0.f);
+          const float2 z2 = (PACKED && n_in)
+              ? __ldg(reinterpret_cast<const float2*>(zrow + h * half_rows))
+              : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int j = 0; j < JT; ++j) {
+            float x0 = 0.f, x1 = 0.f;  // rowsum(x_g) of rows 2t and 2t + 1
+            if (RS_MMA) {
+              x0 = rsm[h][j][0];
+              x1 = rsm[h][j][1];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) rsm[h][j][e] = 0.f;
+            } else if (PACKED) {
+              float v = rs[h][j];
+              v += __shfl_xor_sync(0xffffffffu, v, 1);
+              v += __shfl_xor_sync(0xffffffffu, v, 2);  // row g of this n-tile
+              x0 = __shfl_sync(0xffffffffu, v, 8 * t);
+              x1 = __shfl_sync(0xffffffffu, v, 8 * t + 4);
+              rs[h][j] = 0.f;
+            }
+            // prt[h][j][r]: row 2t + (r & 1), column n + (r >> 1).
+            acc[j][0] += prt[h][j][0] * s2.x - x0 * z2.x;
+            acc[j][1] += prt[h][j][1] * s2.x - x1 * z2.x;
+            acc[j][2] += prt[h][j][2] * s2.y - x0 * z2.y;
+            acc[j][3] += prt[h][j][3] * s2.y - x1 * z2.y;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) prt[h][j][e] = 0.f;
+          }
+        }
+        srow += N;
+        if (PACKED) zrow += N;
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // acc[j][e + 2c] is out[m0 + 8j + 2t + e][n + c].
+  float* dst = splits == 1 ? out : part + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int j = 0; j < JT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + j * 8 + 2 * t + e;
+      if (m < M && n_in)
+        *reinterpret_cast<float2*>(dst + (size_t)m * N + n) = make_float2(acc[j][e], acc[j][2 + e]);
+    }
+  if (splits == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* counter = counters + blockIdx.y * gridDim.x + blockIdx.x;
+    const int last = atomicAdd(counter, 1) == splits - 1;
+    if (last) *counter = 0;  // every slice of this tile has arrived
+    is_last = last;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  // The last slice of this tile: every slice's partial tile is in `part`;
+  // add them in slice order.
+#pragma unroll
+  for (int j = 0; j < JT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + j * 8 + 2 * t + e;
+      if (m < M && n < N) {
+        float2 sum = make_float2(0.f, 0.f);
+        for (int z = 0; z < splits; ++z) {
+          const float2 v = __ldcg(reinterpret_cast<const float2*>(
+              part + ((size_t)z * M + m) * N + n));
+          sum.x += v.x;
+          sum.y += v.y;
+        }
+        *reinterpret_cast<float2*>(out + (size_t)m * N + n) = sum;
+      }
+    }
+}
+
+template <typename T, int XR, bool PACKED>
+int launch_splitk(const void* x, const void* w, const void* scale, const void* zs,
+                  void* out, void* part, void* counters, int M, int N, int K, int G,
+                  int k_chunk, int splits, cudaStream_t stream) {
+  constexpr int H = PACKED ? 2 : 1;
+  constexpr int smem = SK_STAGES * (SK_BK * SK_LDW + H * XR * SK_LDX * 2);
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaFuncSetAttribute(w4_splitk_kernel<T, XR, PACKED>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    // Several blocks an SM (about eight by the plan) need their rings at
+    // once: ask for the largest shared-memory share of the SM.
+    cudaFuncSetAttribute(w4_splitk_kernel<T, XR, PACKED>,
+                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+    attr_set = true;
+  }
+  dim3 grid((N + SK_BN - 1) / SK_BN, (M + XR - 1) / XR, splits);
+  w4_splitk_kernel<T, XR, PACKED><<<grid, SK_THREADS, smem, stream>>>(
+      static_cast<const unsigned short*>(x), static_cast<const uint8_t*>(w),
+      static_cast<const float*>(scale), static_cast<const float*>(zs),
+      static_cast<float*>(out), static_cast<float*>(part), static_cast<int*>(counters),
+      M, N, K, G, k_chunk, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool PACKED>
+int dispatch_splitk(int mt, const void* x, const void* w, const void* scale,
+                    const void* zs, void* out, void* part, void* counters, int M, int N,
+                    int K, int G, int k_chunk, int splits, cudaStream_t s) {
+  switch (mt) {
+    case 8: return launch_splitk<T, 8, PACKED>(x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s);
+    case 16: return launch_splitk<T, 16, PACKED>(x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s);
+    case 32: return launch_splitk<T, 32, PACKED>(x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s);
+    case 64: return launch_splitk<T, 64, PACKED>(x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <bool PACKED, bool FOLD>
 void launch(const W4Params& p, int dtype, cudaStream_t stream) {
   if (dtype == 0) {
@@ -429,7 +809,7 @@ void launch(const W4Params& p, int dtype, cudaStream_t stream) {
 
 }  // namespace
 
-// Launches one W4 product on `stream`: x [M, K] (dtype 0 f32, 1 f16,
+// Path 2. Launches one W4 product on `stream`: x [M, K] (dtype 0 f32, 1 f16,
 // 2 bf16), payload `w` ([K, N] int8 (q - z), or [K/2, N] nibbles when
 // `packed`), f32 `scale` [K/G, N], f32 `zs` [K/G, N] for the packed,
 // non-folded form (else null), f32 `out` [M, N]. The caller checks the
@@ -460,4 +840,25 @@ extern "C" int ct2_w4_gemm(const void* x, const void* w, const void* scale,
     else launch<false, false>(p, dtype, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Path 1 (see the note at the top): x [M, K] f16 (dtype 1) or bf16 (2),
+// payload as for ct2_w4_gemm (not folded), f32 `out` [M, N]. `part`: f32
+// [splits, M, N] and `counters`: int32 [ceil(N / 64) * ceil(M / mt)], zero,
+// when splits > 1 (else unused). `mt` (x rows a block) is 8, 16, 32 or 64; k_chunk a
+// multiple of G (payload rows a slice). Needs N % 16 == 0 and 16-byte
+// aligned x and payload. Returns cudaGetLastError() after the launch.
+extern "C" int ct2_w4_gemm_splitk(const void* x, const void* w, const void* scale,
+                                  const void* zs, void* out, void* part, void* counters,
+                                  int M, int N, int K, int G, int dtype, int packed,
+                                  int mt, int k_chunk, int splits, void* stream) {
+  if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return packed ? dispatch_splitk<__half, true>(mt, x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s)
+                  : dispatch_splitk<__half, false>(mt, x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s);
+  if (dtype == 2)
+    return packed ? dispatch_splitk<__nv_bfloat16, true>(mt, x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s)
+                  : dispatch_splitk<__nv_bfloat16, false>(mt, x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

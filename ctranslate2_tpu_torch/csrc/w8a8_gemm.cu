@@ -89,22 +89,6 @@ __device__ __forceinline__ unsigned lds32(const int8_t* p) {
   return *reinterpret_cast<const unsigned*>(p);
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  // Copies `bytes` (0 or 16) and zero-fills the rest of the 16.
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Grid: (ceil(N / 64), ceil(M / MT), splits); slice z covers K bytes
 // [z * k_chunk, min(K, (z + 1) * k_chunk)). With splits > 1, `ws` holds the
 // int32 sums [M, N] (zeroed) and then one counter per (x, y) tile.

@@ -6,7 +6,9 @@ with GQA/MQA, causal masking with a query offset, per-batch KV lengths,
 sliding windows, segment ids, ALiBi in both conventions and the T5
 relative-position bias recomputed from its bucket table. The CUDA kernel is
 ``csrc/flash_attention.cu`` (wgmma fed by TMA for float16/bfloat16, plain
-FMAs for float32).
+FMAs for float32), built for head dims 64 and 128; a smaller head dim is
+zero-padded to the next of the two (``flash_head_dim``), as the JAX kernel
+pads to 128.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from . import build, count_launch
 from .norms import DTYPE_CODES
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128)  # the kernel's instances; smaller D is padded up
 # Under a causal mask the f16/bf16 kernel runs its query tiles last-first,
 # the heaviest first, so the short ones fill the tail of the grid
 # (chip_smoke.py times both orders at the prefill shape).
@@ -35,6 +37,19 @@ def _lib() -> ctypes.CDLL:
         lib.ct2_flash_attention.argtypes = (
             [p] * 9 + [i] * 6 + [f] + [i] * 6 + [f, i, i, p])
     return lib
+
+
+def flash_head_dim(D: int) -> int:
+    """The head dim the kernel runs for a head dim ``D``: the smallest of
+    ``HEAD_DIMS`` that holds it (q, k and v are zero-padded up to it, which
+    adds nothing to Q.K^T, and the output is sliced back). Raises
+    NotImplementedError above 128: a D = 256 instance needs its own register
+    plan (its output accumulators alone take 128 registers a thread)."""
+    for width in HEAD_DIMS:
+        if D <= width:
+            return width
+    raise NotImplementedError(
+        f"flash_attention on the card takes head dims up to {HEAD_DIMS[-1]}, got {D}")
 
 
 def relative_position_bucket(relp, num_buckets: int, max_distance: int,
@@ -118,9 +133,12 @@ def flash_attention(q, k, v, *, scale: float = 1.0, causal: bool = False,
     ``q`` [B, Hq, Tq, D]; ``k``/``v`` [B, Hkv, Tk, D]; ``lengths`` int32 [B]
     valid KV lengths; ``segment_ids`` int32 [B, T] (self-attention, Tq ==
     Tk); ``alibi_slopes`` f32 [Hq]; ``rel_bias_table`` [num_buckets, Hq], the
-    learned T5 table as stored. On the card the result comes back as a
-    [B, Tq, Hq, D] buffer viewed as [B, Hq, Tq, D], so merging the heads
-    afterwards copies nothing.
+    learned T5 table as stored. ``scale`` is the caller's; the padding of
+    a head dim off 64/128 never changes it. On the card the result comes back
+    as a [B, Tq, Hq, D] buffer viewed as [B, Hq, Tq, D], so merging the heads
+    afterwards copies nothing, for D in ``HEAD_DIMS``; any other D <= 128
+    runs on zero-padded copies of q, k and v and returns a slice of the
+    padded output, which a merge of the heads copies.
     """
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("flash_attention takes q [B, Hq, Tq, D] and k, v [B, Hkv, Tk, D]")
@@ -150,9 +168,9 @@ def flash_attention(q, k, v, *, scale: float = 1.0, causal: bool = False,
         raise ValueError(f"flash_attention has no kernel for {q.device}")
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"flash_attention takes float32/float16/bfloat16, got {q.dtype}")
-    if D not in HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention has kernels for head dims {HEAD_DIMS}, got {D}")
+    Dk = flash_head_dim(D)
+    if Dk != D:
+        q, k, v = (torch.nn.functional.pad(t, (0, Dk - D)) for t in (q, k, v))
 
     def strided(t):
         # The kernel addresses (batch, head, time) by strides (TMA tensor
@@ -166,7 +184,7 @@ def flash_attention(q, k, v, *, scale: float = 1.0, causal: bool = False,
         return t
 
     q, k, v = strided(q), strided(k), strided(v)
-    out = torch.empty((B, Tq, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    out = torch.empty((B, Tq, Hq, Dk), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
 
@@ -190,7 +208,7 @@ def flash_attention(q, k, v, *, scale: float = 1.0, causal: bool = False,
         err = _lib().ct2_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
             ptr(lengths), ptr(segment_ids), ptr(slopes), ptr(table),
-            B, Hq, Hkv, Tq, Tk, D, scale, int(causal), q_offset, window,
+            B, Hq, Hkv, Tq, Tk, Dk, scale, int(causal), q_offset, window,
             _alibi_offs(alibi_positive, q_offset, Tq), int(rel_bidirectional),
             rel_nb, log_ratio, DTYPE_CODES[q.dtype],
             int(causal and HEAVIEST_FIRST), stream)
@@ -198,4 +216,4 @@ def flash_attention(q, k, v, *, scale: float = 1.0, causal: bool = False,
         raise RuntimeError(f"flash_attention launch failed with error {err} "
                            "(a CUDA error, or 9000 and up: no TMA tensor map)")
     count_launch("flash_attention")
-    return out
+    return out if Dk == D else out[..., :D]

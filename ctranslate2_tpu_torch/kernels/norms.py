@@ -2,7 +2,8 @@
 
 Counterpart of ``ctranslate2_tpu/kernels/norms.py::fused_norm``. The CUDA
 kernel is ``csrc/fused_norm.cu``: one launch per norm where eager PyTorch
-spends six or seven.
+spends six or seven. It takes any width: 16-byte loads where the width is a
+multiple of 8, one element a load otherwise.
 """
 
 from __future__ import annotations
@@ -57,13 +58,11 @@ def fused_norm(x, gamma, beta=None, *, eps: float = 1e-5):
         raise ValueError(f"fused_norm has no kernel for {x.device}")
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"fused_norm takes float32/float16/bfloat16, got {x.dtype}")
-    if D % 8:
-        raise ValueError(f"fused_norm takes a last dim that is a multiple of 8, got {D}")
     x2 = x.reshape(-1, D)
     if not x2.is_contiguous():
         x2 = x2.contiguous()
     if x2.data_ptr() % 32:
-        x2 = x2.clone()  # a view that starts off the kernel's load alignment
+        x2 = x2.clone()  # a view that starts off the kernel's 16-byte loads
     gamma = gamma.float().contiguous()
     beta = None if beta is None else beta.float().contiguous()
     out = torch.empty_like(x2)

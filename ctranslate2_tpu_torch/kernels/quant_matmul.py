@@ -14,14 +14,19 @@ Counterparts of ``ctranslate2_tpu/kernels/quant_matmul.py``:
   zero * scale terms [K/G, N].
 
 The four W4 products share one CUDA source, ``csrc/w4_gemm.cu``, and keep
-the JAX layouts. The ``_fold`` forms are not dispatched by ``linear()``
-(as in the JAX package); they are held by the tests and ``chip_smoke.py``.
+the JAX layouts: a split-K ``mma.sync`` path for ``matmul_w4a16`` and
+``matmul_w4p`` at M <= 64 in float16/bfloat16, and a 64 x 64 tile for
+everything else, chosen by ``w4_plan``. The ``_fold`` forms are not
+dispatched by ``linear()`` (as in the JAX package); they are held by the
+tests and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+import math
+import threading
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -178,6 +183,88 @@ def matmul_w8a8(q, wq, a_scale, w_scale):
 
 W4_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 W4_MAX_ROWS = 65535 * 64  # gridDim.y of the kernels' 64-row tiles
+# Split-K path (``matmul_w4a16`` / ``matmul_w4p``, float16/bfloat16, M up to
+# W4_SPLITK_MAX_M): a block owns W4_SPLITK_BN output columns x ``mt`` rows
+# and streams its slice of the payload rows in stages of W4_SPLITK_BK; K is
+# split on group boundaries until the grid holds about
+# W4_SPLITK_BLOCKS_PER_SM blocks an SM (eight ran faster than four at the
+# decode shapes on the card). Above it, and for the
+# folded forms and float32, the tile kernel: W4_TILE (rows, columns, payload
+# rows a stage).
+W4_SPLITK_BN = 64
+W4_SPLITK_BK = 64
+W4_SPLITK_MTS = (8, 16, 32, 64)
+W4_SPLITK_MAX_M = 64
+W4_SPLITK_BLOCKS_PER_SM = 8
+W4_TILE = (64, 64, 32)
+# Per-tile counters of the split-K path's last-block sum. A split count
+# above 1 needs fewer tiles than blocks wanted, so this many always suffice.
+W4_COUNTERS = W4_SPLITK_BLOCKS_PER_SM * CARD_SMS
+
+
+class W4Plan(NamedTuple):
+    """How a W4 product runs one shape on the card.
+
+    ``path``: "splitk" (swap-AB ``mma.sync`` over a ``cp.async`` ring, K
+    split across blocks, deterministic cross-block sum) or "tile" (a
+    64 x 64 output tile, one block for the whole K). ``k_chunk`` payload rows a
+    slice (a multiple of G), ``splits`` slices; ``tile`` (rows, columns,
+    payload rows a stage); ``grid`` the CUDA grid; ``counters`` the per-tile
+    counters the split-K sum needs (0: none, the f32 partials then skip the
+    workspace).
+    """
+    path: str
+    mt: int
+    splits: int
+    k_chunk: int
+    tile: Tuple[int, int, int]
+    grid: Tuple[int, int, int]
+    counters: int
+
+
+def w4_plan(M: int, N: int, K: int, G: int, packed: bool, aligned: bool = True,
+            half: bool = True) -> W4Plan:
+    """The path, split and grid of ``matmul_w4a16`` (``packed`` False) or
+    ``matmul_w4p`` for x [M, K] and a group size G.
+
+    ``aligned``: the payload starts on 16 bytes; ``half``: float16/bfloat16
+    activations. The split-K path takes M up to ``W4_SPLITK_MAX_M`` with
+    16-byte payload loads (N % 16 == 0, aligned) in a half type; every other
+    shape takes the tile."""
+    rows = K // 2 if packed else K
+    if not (half and aligned and N % 16 == 0 and M <= W4_SPLITK_MAX_M):
+        return W4Plan("tile", W4_TILE[0], 1, rows, W4_TILE,
+                      (_cdiv(N, W4_TILE[1]), _cdiv(M, W4_TILE[0]), 1), 0)
+    mt = next((m for m in W4_SPLITK_MTS if M <= m), W4_SPLITK_MTS[-1])
+    tiles_n, tiles_m = _cdiv(N, W4_SPLITK_BN), _cdiv(M, mt)
+    unit = G * W4_SPLITK_BK // math.gcd(G, W4_SPLITK_BK)  # whole groups and stages
+    units = max(1, _cdiv(rows, unit))
+    want = _cdiv(W4_SPLITK_BLOCKS_PER_SM * CARD_SMS, max(1, tiles_n * tiles_m))
+    per = _cdiv(units, max(1, min(units, want)))
+    splits = _cdiv(units, per)
+    return W4Plan("splitk", mt, splits, per * unit, (mt, W4_SPLITK_BN, W4_SPLITK_BK),
+                  (tiles_n, tiles_m, splits), tiles_n * tiles_m if splits > 1 else 0)
+
+
+_w4_counter_cache: Dict[Tuple[int, int], torch.Tensor] = {}
+_w4_counter_lock = threading.Lock()
+
+
+def _w4_counters(device, stream: int) -> torch.Tensor:
+    """The split-K path's per-tile counters for (device, stream): zeroed
+    once when made; each last block re-zeroes its own, so a call needs no
+    memset. Keyed by stream, so that kernels of two streams never share a
+    counter. While a CUDA graph is being captured, a buffer that the stream
+    does not have yet is made for that call alone: its zeroing becomes a
+    node of the graph, and nothing made inside a capture is kept."""
+    key = (device.index, stream)
+    with _w4_counter_lock:
+        buf = _w4_counter_cache.get(key)
+        if buf is None:
+            buf = torch.zeros(W4_COUNTERS, dtype=torch.int32, device=device)
+            if not torch.cuda.is_current_stream_capturing():
+                _w4_counter_cache[key] = buf
+        return buf
 
 
 def _w4_lib() -> ctypes.CDLL:
@@ -186,6 +273,8 @@ def _w4_lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ct2_w4_gemm.restype = i
         lib.ct2_w4_gemm.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.ct2_w4_gemm_splitk.restype = i
+        lib.ct2_w4_gemm_splitk.argtypes = [p] * 7 + [i] * 9 + [p]
     return lib
 
 
@@ -323,6 +412,57 @@ def w4_error_bound(x, payload, g_scale, g_zs, fold):
     return 2.0 ** -16 * terms + (half_u * (ax @ scaled) if fold else 0.0)
 
 
+def w4_wrapper_plan(x, w, g_scale, packed, fold) -> W4Plan:
+    """The plan the wrapper runs for these operands: ``w4_plan``'s for
+    ``matmul_w4a16`` / ``matmul_w4p``; the folded forms always take the
+    tile."""
+    M, K = x.shape
+    N = w.shape[1]
+    G = K // g_scale.shape[0]
+    if fold:
+        return w4_plan(M, N, K, G, packed, half=False)
+    return w4_plan(M, N, K, G, packed, w.data_ptr() % 16 == 0,
+                   x.dtype != torch.float32)
+
+
+def _w4_run(x, w, g_scale, g_zs, packed, fold, plan: W4Plan):
+    """Runs ``plan`` on the card (the wrapper's body, after its checks; x
+    contiguous and 16-byte aligned). Returns f32 [M, N]."""
+    M, K = x.shape
+    N = w.shape[1]
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    if M == 0 or N == 0:
+        return out
+    G = K // g_scale.shape[0]
+    zs_ptr = None if g_zs is None else g_zs.data_ptr()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if plan.path == "splitk":
+            part = counters = None
+            if plan.splits > 1:
+                part = torch.empty((plan.splits, M, N), dtype=torch.float32,
+                                   device=x.device)
+                counters = _w4_counters(x.device, stream)
+                if plan.counters > counters.numel():
+                    raise ValueError(f"w4_gemm: {plan.counters} tiles exceed the "
+                                     f"{counters.numel()} split-K counters")
+            err = _w4_lib().ct2_w4_gemm_splitk(
+                x.data_ptr(), w.data_ptr(), g_scale.data_ptr(), zs_ptr,
+                out.data_ptr(), None if part is None else part.data_ptr(),
+                None if counters is None else counters.data_ptr(), M, N, K, G,
+                W4_DTYPE_CODES[x.dtype], int(packed), plan.mt, plan.k_chunk,
+                plan.splits, stream)
+        else:
+            vec = int(N % 16 == 0 and w.data_ptr() % 16 == 0)
+            err = _w4_lib().ct2_w4_gemm(
+                x.data_ptr(), w.data_ptr(), g_scale.data_ptr(), zs_ptr,
+                out.data_ptr(), M, N, K, G, W4_DTYPE_CODES[x.dtype], int(packed),
+                int(fold), vec, stream)
+    if err:
+        raise RuntimeError(f"w4_gemm ({plan.path}) launch failed with CUDA error {err}")
+    return out
+
+
 def _w4_launch(name, x, w, g_scale, g_zs, packed, fold):
     if x.device.type != "cuda":
         raise ValueError(f"{name} has no kernel for {x.device}")
@@ -337,22 +477,10 @@ def _w4_launch(name, x, w, g_scale, g_zs, packed, fold):
     x = x.contiguous()
     if x.data_ptr() % 16:
         x = x.clone()  # a view that starts off the kernel's 16-byte loads
-    M, K = x.shape
-    N = w.shape[1]
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    if M == 0 or N == 0:
-        return out
-    vec = int(N % 16 == 0 and w.data_ptr() % 16 == 0)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _w4_lib().ct2_w4_gemm(
-            x.data_ptr(), w.data_ptr(), g_scale.data_ptr(),
-            None if g_zs is None else g_zs.data_ptr(), out.data_ptr(),
-            M, N, K, K // g_scale.shape[0], W4_DTYPE_CODES[x.dtype],
-            int(packed), int(fold), vec, stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    count_launch(name)
+    out = _w4_run(x, w, g_scale, g_zs, packed, fold,
+                  w4_wrapper_plan(x, w, g_scale, packed, fold))
+    if out.numel():
+        count_launch(name)
     return out
 
 

@@ -7,9 +7,9 @@ accumulated in float32 regardless of the activation dtype.
 
 On a CUDA tensor every norm without ``use_residual`` runs the fused kernel
 (``kernels/norms.py``): eager PyTorch spends a dozen launches on a norm and
-the decode step is bound by launches. The kernel takes widths that are a
-multiple of 8 (its vector width) and raises on any other; it never gives way
-to the plain functions. ``CT2TPU_PALLAS_NORMS=0`` (the JAX package's switch,
+the decode step is bound by launches. The kernel takes any width (16-byte
+loads where it is a multiple of 8, scalar loads otherwise); it never gives
+way to the plain functions. ``CT2TPU_PALLAS_NORMS=0`` (the JAX package's switch,
 whose default there is off) takes the plain functions instead.
 """
 

@@ -26,7 +26,8 @@ from ctranslate2_tpu_torch import kernels
 from ctranslate2_tpu_torch.kernels.decode_attention import (
     decode_attention_int8, decode_attention_int8_plain, quantize_kv)
 from ctranslate2_tpu_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_plain, flash_head_dim)
+from ctranslate2_tpu_torch.models import transformer as TT
 from ctranslate2_tpu_torch.kernels.norms import fused_norm, fused_norm_plain
 
 FLASH_CASES = {
@@ -105,6 +106,73 @@ def test_flash_plain_rounds_weights_to_values_dtype():
     ref = flash_attention_plain(*[a.float() for a in t], **kw)
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(), ref.numpy(), atol=3e-2)
+
+
+@pytest.mark.parametrize("D,expected", [(16, 64), (32, 64), (64, 64), (80, 128),
+                                        (96, 128), (112, 128), (128, 128)])
+def test_flash_head_dim_pads_to_the_next_instance(D, expected):
+    assert flash_head_dim(D) == expected
+
+
+@pytest.mark.parametrize("D", [160, 256])
+def test_flash_head_dim_raises_above_128(D):
+    with pytest.raises(NotImplementedError, match="up to 128"):
+        flash_head_dim(D)
+
+
+def _padded_plain(q, k, v, **kw):
+    """What the card runs for a head dim off 64/128: q, k and v zero-padded
+    to ``flash_head_dim``, the caller's scale, the output sliced back."""
+    D = q.shape[-1]
+    Dk = flash_head_dim(D)
+    pad = [torch.nn.functional.pad(t, (0, Dk - D)) for t in (q, k, v)]
+    return flash_attention_plain(*pad, **kw)[..., :D]
+
+
+@pytest.mark.parametrize("case", [dict(D=80, causal=True),
+                                  dict(D=96, Hq=4, Hkv=2, lengths=[54, 64]),
+                                  dict(D=32, Hq=4, Hkv=1, causal=True, window=16),
+                                  dict(D=112, Tq=50, Tk=77, lengths=[77, 31])])
+def test_flash_plain_on_padded_head_dim_equals_unpadded(case):
+    """Zero columns add exact zeros to Q.K^T and produce zero output columns;
+    the CPU matmul may block a longer sum differently, hence 1e-6."""
+    (q, k, v), kw, arrays = _flash_inputs(case)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    extra = {n: torch.from_numpy(a) for n, a in arrays.items()}
+    out = _padded_plain(*t, **kw, **extra)
+    ref = flash_attention_plain(*t, **kw, **extra)
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_padded_head_dim_80_matches_pallas_interpret(causal):
+    """The padded plain version at D = 80 against the JAX kernel (which pads
+    to 128 itself) in interpret mode; tolerance as the other flash cases."""
+    (q, k, v), kw, arrays = _flash_inputs(dict(D=80, Hq=4, Hkv=2, causal=causal,
+                                               lengths=[54, 64]))
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=32, block_k=32,
+            **kw, **{n: jnp.asarray(a) for n, a in arrays.items()})
+    out = _padded_plain(*[torch.from_numpy(a) for a in (q, k, v)], **kw,
+                        **{n: torch.from_numpy(a) for n, a in arrays.items()})
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-4)
+
+
+def test_flash_eligibility_does_not_depend_on_head_dim():
+    """``_flash_eligible`` decides from the lengths and switches alone: a
+    head dim the kernel pads (or, above 128, refuses) changes nothing."""
+    class Card:  # stands in for a CUDA tensor: only is_cuda and shape are read
+        is_cuda = True
+
+        def __init__(self, T, D):
+            self.shape = (1, 8, T, D)
+
+    for T in (2047, 2048, 4096):
+        decisions = {TT._flash_eligible(Card(T, D), Card(T, D))
+                     for D in (16, 32, 64, 80, 96, 128, 256)}
+        assert decisions == {T >= 2048}
 
 
 DECODE_CASES = {

@@ -289,11 +289,33 @@ def test_flash_kernel_reads_strided_views_on_card():
 
 
 @pytest.mark.cuda
-def test_flash_kernel_refuses_other_head_dims_on_card():
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [32, 80, 96])
+def test_flash_kernel_pads_other_head_dims_on_card(D, dtype, causal):
+    """A head dim up to 128 off 64/128 runs on zero-padded q, k and v with
+    the caller's scale; the output is sliced back to D."""
     dev = _card()
-    q = torch.randn(1, 2, 8, 32, device=dev, dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="32"):
+    case = dict(causal=causal, lengths=[150, 101], Tq=150, Tk=150)
+    q, k, v, kw = _flash_inputs(dev, dtype, D, 4, 2, case)
+    before = kernels.launch_counts()["flash_attention"]
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    assert out.shape == q.shape and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref, **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_other_head_dims_on_card():
+    """Above 128 there is no instance (D = 256 needs its own register plan)."""
+    dev = _card()
+    q = torch.randn(1, 2, 8, 256, device=dev, dtype=torch.float16)
+    before = kernels.launch_counts()["flash_attention"]
+    with pytest.raises(NotImplementedError, match="256"):
         flash_attention(q, q, q)
+    assert kernels.launch_counts()["flash_attention"] == before
 
 
 def _decode_inputs(dev, qdtype, B, Hq, Hkv, C, D, lengths, fresh, seed=0):
@@ -354,34 +376,50 @@ def test_norm_kernel_close_to_plain_on_card(layer_norm, dtype, shape):
     assert kernels.launch_counts()["fused_norm"] == before + 1
     ref = fused_norm_plain(x, gamma, beta, eps=1e-5)
     assert out.shape == x.shape and out.dtype == dtype
-    if dtype == torch.float32:
+    _assert_norm_close(out, ref, beta)
+
+
+def _assert_norm_close(out, ref, beta):
+    if out.dtype == torch.float32:
         torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
-    else:
-        # One ulp of the output type: the float32 results differ in their
-        # last bits and may round to neighbouring half values. Where beta
-        # cancels the scaled value the ulp is that of the terms, not of the
-        # small sum.
-        ulp = 2.0 ** (-10 if dtype == torch.float16 else -7)
-        scale = ref.float().abs().clamp_min(2.0 ** -14)
-        if beta is not None:
-            scale = torch.maximum(scale, beta.abs().expand_as(scale))
-        diff = (out.float() - ref.float()).abs()
-        assert bool((diff <= ulp * scale).all())
+        return
+    # One ulp of the output type: the float32 results differ in their last
+    # bits and may round to neighbouring half values. Where beta cancels the
+    # scaled value the ulp is that of the terms, not of the small sum.
+    ulp = 2.0 ** (-10 if out.dtype == torch.float16 else -7)
+    scale = ref.float().abs().clamp_min(2.0 ** -14)
+    if beta is not None:
+        scale = torch.maximum(scale, beta.abs().expand_as(scale))
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= ulp * scale).all())
 
 
 @pytest.mark.cuda
-def test_apply_norm_raises_on_a_width_the_kernel_cannot_take():
-    """On the card a norm never gives way to the plain function because of
-    its shape: a width off the kernel's vector width raises."""
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("layer_norm", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("D", [12, 100, 4097])
+def test_apply_norm_takes_any_width_on_card(D, dtype, layer_norm, offset):
+    """On the card every norm without use_residual goes through the kernel
+    at any width (scalar loads off a multiple of 8), also from a view that
+    starts off 16 bytes, and matches the plain version."""
     from ctranslate2_tpu_torch.ops.norms import apply_norm
 
     dev = _card()
-    x = torch.randn(3, 12, device=dev)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        apply_norm({"gamma": torch.ones(12, device=dev)}, x, 1e-5)
-    # On the CPU the same call is the plain function.
-    out = apply_norm({"gamma": torch.ones(12)}, x.cpu(), 1e-5)
-    assert out.shape == (3, 12)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rows = 37
+    flat = (torch.randn(rows * D + 1, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    x = flat[offset:offset + rows * D].view(rows, D)
+    params = {"gamma": torch.randn(D, generator=g, device=dev)}
+    if layer_norm:
+        params["beta"] = torch.randn(D, generator=g, device=dev)
+    before = kernels.launch_counts()["fused_norm"]
+    out = apply_norm(params, x, 1e-5)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_norm"] == before + 1
+    ref = fused_norm_plain(x, params["gamma"], params.get("beta"), eps=1e-5)
+    assert out.shape == x.shape and out.dtype == dtype
+    _assert_norm_close(out, ref, params.get("beta"))
 
 
 @pytest.fixture(scope="module")
@@ -487,6 +525,76 @@ def test_w4_kernel_refuses_shapes_outside_its_limits_on_card(name, case):
     with pytest.raises(ValueError, match=str(tuple(x.shape))):
         fn(*args)
     assert kernels.launch_counts()[name] == before
+
+
+W4_MAIN_KN = [(4096, 4096), (4096, 6144), (4096, 14336), (14336, 4096)]
+
+
+def _w4_card_args(M, K, N, G, packed, dtype, seed=0):
+    """The W4 operands on the card: x in ``dtype``, the payload and scales
+    as ``_w4_inputs`` makes them (x drawn on the card: M x K can be large)."""
+    dev = _card()
+    _, w, gs, zs = _w4_inputs(1, K, N, G, packed, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    return [x] + [torch.from_numpy(a).to(dev) for a in (w, gs, zs) if a is not None]
+
+
+def _w4_within_bound(out, args, packed):
+    ref = (qm.matmul_w4p_plain if packed else qm.matmul_w4a16_plain)(*args)
+    bound = qm.w4_error_bound(args[0], args[1], args[2], args[3] if packed else None, False)
+    diff = (out - ref).abs()
+    return bool((diff <= bound).all()), (diff / bound).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("K,N", W4_MAIN_KN + [(256, 4096)])
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 33, 64, 65, 128])
+@pytest.mark.parametrize("name", ["matmul_w4p", "matmul_w4a16"])
+def test_w4_both_paths_within_bound_across_the_crossover_on_card(
+        name, M, K, N, dtype, monkeypatch):
+    """The wrapper's path (split-K up to M = 64, the tile above) and the
+    path the plan did not pick, each within ``w4_error_bound`` of the plain
+    version at the main-path (K, N), G = 128, and K = 256 (packed: K/2 is
+    one group)."""
+    fn, _, packed, _ = W4_KERNELS[name]
+    args = _w4_card_args(M, K, N, 128, packed, dtype)
+    plan = qm.w4_wrapper_plan(args[0], args[1], args[2], packed, False)
+    assert plan.path == ("splitk" if M <= 64 else "tile")
+    before = kernels.launch_counts()[name]
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    ok, worst = _w4_within_bound(out, args, packed)
+    assert ok, (plan.path, worst)
+    monkeypatch.setattr(qm, "W4_SPLITK_MAX_M", 0 if plan.path == "splitk" else 1 << 40)
+    other = qm.w4_wrapper_plan(args[0], args[1], args[2], packed, False)
+    assert other.path != plan.path
+    out = qm._w4_run(*args[:3], args[3] if packed else None, packed, False, other)
+    torch.cuda.synchronize()
+    ok, worst = _w4_within_bound(out, args, packed)
+    assert ok, (other.path, worst)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(4, 4096, 4096), (4, 14336, 4096), (33, 4096, 14336),
+                                   (64, 4096, 6144)])
+@pytest.mark.parametrize("name", ["matmul_w4p", "matmul_w4a16"])
+def test_w4_splitk_is_the_same_run_to_run_on_card(name, M, K, N):
+    """The split-K sum adds the slices in a fixed order: two calls on the
+    same inputs are bit-equal (and the counters are left zero for the
+    next)."""
+    fn, _, packed, _ = W4_KERNELS[name]
+    args = _w4_card_args(M, K, N, 128, packed, torch.float16, seed=2)
+    plan = qm.w4_wrapper_plan(args[0], args[1], args[2], packed, False)
+    assert plan.path == "splitk" and plan.splits > 1
+    first = fn(*args)
+    second = fn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert int(qm._w4_counters(args[0].device, stream).abs().sum()) == 0
 
 
 @pytest.fixture(scope="module")
