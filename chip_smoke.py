@@ -11,8 +11,8 @@ Phases, one JSON object per line:
 1. card: the card's name and power limit, the torch/CUDA versions, and the
    seconds to build the six CUDA sources from ``ctranslate2_tpu_torch/csrc``;
    before it a ``ptxas`` line with the registers, spills and static shared
-   memory of every kernel of the two wgmma sources and the W4 source
-   (``PTXAS_REPORT``).
+   memory of every kernel of the two wgmma sources, the decode source and
+   the W4 source (``PTXAS_REPORT``).
 2. Translator main path: the full-width Transformer-base model (6+6 layers,
    d_model 512, ffn 2048, 8 heads, 32,000 words; random weights from seed
    7), ``Translator(..., compute_type="int8").translate_batch`` on batches
@@ -52,9 +52,14 @@ Phases, one JSON object per line:
    where there is one and the bound (W8A8 and the two dispatched W4 forms
    also with their plan from ``w8a8_plan`` / ``w4_plan`` and the time of
    the path the plan did not pick; causal flash also with its query tiles in
-   launch order); then small shapes for every feature the paths do not use
-   (flash at head dims 32, 80 and 96, zero-padded to the kernel's 64 / 128;
-   the norm at widths off a multiple of 8). Tolerances: W8A8 bit-equal, gather equal,
+   launch order; the decode kernel also with its ``decode_plan``); timed
+   rows at Gemma-2-9B's attention widths (``GEMMA2_ATTENTION``: flash at
+   q [4, 16, 2048, 256] causal against SDPA, decode over a [4, 8, 2176, 256]
+   cache), not summed into the totals; then small shapes for every feature
+   the paths do not use (flash at head dim 256 and at 32, 80, 96, 160 and
+   192, zero-padded to the kernel's 64 / 128 / 256; the decode kernel at
+   head dims 72, 200 and 256 with windows, a window of 1 and rows of length
+   0; the norm at widths off a multiple of 8). Tolerances: W8A8 bit-equal, gather equal,
    ``FLASH_TOL``, ``DECODE_TOL``, ``NORM_F32_TOL`` / one ulp of the half
    type, ``w4_error_bound`` for the W4 products.
 6. float16 Translator run, float32 chain/chain-off pair, Translator card
@@ -105,7 +110,7 @@ MAX_DEC = 32
 ITERS = 3
 # The sources whose registers, shared memory and spills the card phase
 # reports (nvcc -Xptxas -v).
-PTXAS_REPORT = ("w8a8_gemm", "flash_attention", "w4_gemm")
+PTXAS_REPORT = ("w8a8_gemm", "flash_attention", "decode_attention_int8", "w4_gemm")
 OPTS = dict(beam_size=BEAM, max_decoding_length=MAX_DEC,
             min_decoding_length=MAX_DEC, return_scores=True)
 # Chain-off vs chain run: the share of identical hypotheses, and the largest
@@ -137,6 +142,9 @@ MODEL = dict(vocab_size=32000, num_layers=6, num_heads=8, d_model=512,
 LLAMA = dict(layers=32, d_model=4096, heads=32, heads_kv=8, d_ff=14336,
              vocab=128256, rotary_base=500000.0)
 GEN_BATCH = 4
+# Gemma-2-9B's attention (google/gemma-2-9b config.json: num_attention_heads
+# 16, num_key_value_heads 8, head_dim 256) at the Generator's batch.
+GEMMA2_ATTENTION = dict(batch=4, heads=16, heads_kv=8, head_dim=256)
 GEN_PROMPT = 2049  # the prefill is 2,048 long: the flash kernel's threshold
 GEN_NEW = 64
 AB_NEW = 8
@@ -603,10 +611,10 @@ def _flash_inputs(g, B, Hq, Hkv, Tq, Tk, D, dtype):
     return t(B, Hq, Tq, D), t(B, Hkv, Tk, D), t(B, Hkv, Tk, D)
 
 
-def bench_flash(shapes, checks):
+def bench_flash(shapes, checks, **extra):
     """The flash kernel at every main-path shape against its plain version
     (computed in float32 from the same inputs) and, timed only,
-    ``F.scaled_dot_product_attention``."""
+    ``F.scaled_dot_product_attention``; ``extra`` goes into each line."""
     import torch
     import torch.nn.functional as F
     from ctranslate2_tpu_torch.kernels import flash_attention as fa
@@ -659,7 +667,7 @@ def bench_flash(shapes, checks):
               "share_of_bound": max(ops_ms, bytes_ms) / ms,
               "heaviest_first": causal, "launch_order_ms": launch_order_ms,
               "bound_ms": max(ops_ms, bytes_ms),
-              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
+              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", **extra})
         tot["ms"] += n * ms
         tot["plain_ms"] += n * plain_ms
         tot["library_ms"] = (None if lib_ms is None or tot["library_ms"] is None
@@ -686,13 +694,14 @@ def _decode_inputs(g, B, Hq, Hkv, C, D, dtype, fresh, lengths):
     return (t(B, Hq, 1, D).to(dtype), k8, ks, v8, vs, lengths), kw
 
 
-def bench_decode(shapes, first_length, steps, checks):
+def bench_decode(shapes, first_length, steps, checks, **extra):
     """The int8-KV decode kernel at every main-path shape, with cache
     lengths spread over those of the run's steps. No single PyTorch call
-    computes this function, so there is no library time."""
+    computes this function, so there is no library time. ``extra`` goes
+    into each line."""
     import torch
     from ctranslate2_tpu_torch.kernels.decode_attention import (
-        decode_attention_int8, decode_attention_int8_plain)
+        decode_attention_int8, decode_attention_int8_plain, decode_plan)
 
     g = torch.Generator(device="cuda").manual_seed(3)
     tot = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0)
@@ -713,6 +722,9 @@ def bench_decode(shapes, first_length, steps, checks):
         checks(torch.allclose(out, ref, **DECODE_TOL),
                f"decode within {DECODE_TOL} of plain at {key} (max abs err {err})")
         ms = cuda_time_ms(lambda: decode_attention_int8(*args, **kw), 50)
+        # The launch's fixed cost: the same call with every row at length 1.
+        ones = (*args[:5], torch.ones_like(args[5]))
+        fixed_ms = cuda_time_ms(lambda: decode_attention_int8(*ones, **kw), 50)
         plain_ms = cuda_time_ms(lambda: decode_attention_int8_plain(*args, **kw), 20)
         # The wrapper's rule: with a fresh key the window shows window - 1
         # cache keys, and none when it is 1.
@@ -723,18 +735,36 @@ def bench_decode(shapes, first_length, steps, checks):
             + B * Hq * D * (args[0].element_size() + 4)
         bytes_ms = nbytes / PEAK_BYTES * 1e3
         ops_ms = 4.0 * keys * Hq * D / PEAK_F32_FLOPS * 1e3
+        plan = decode_plan(B, Hkv, Hq // Hkv, C, D,
+                           torch.cuda.get_device_properties(0).multi_processor_count)
         emit({"phase": "kernel_decode", "q": [B, Hq, 1, D], "cache": [B, Hkv, C, D],
               "dtype": dt, "fresh": fresh, "window": window, "lengths": lengths,
+              "plan": plan._asdict(),
               "launches": n, "max_abs_err": err, "tolerance": DECODE_TOL,
-              "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+              "kernel_ms": ms, "fixed_ms_at_length_1": fixed_ms,
+              "plain_ms": plain_ms, "library_ms": None,
               "bytes_moved": nbytes, "gbytes_per_s": nbytes / ms / 1e6,
               "bound_ms": max(bytes_ms, ops_ms),
-              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **extra})
         tot["ms"] += n * ms
         tot["plain_ms"] += n * plain_ms
         tot["bytes_ms"] += n * bytes_ms
         tot["ops_ms"] += n * ops_ms
     return tot
+
+
+def bench_gemma2_attention(checks):
+    """Timed rows, not summed into the main paths' totals, at Gemma-2-9B's
+    attention widths (``GEMMA2_ATTENTION``: 16 query and 8 KV heads of 256)
+    and the Generator's batch and lengths: the prefill's flash call (float16,
+    causal) and the int8-KV decode call."""
+    B, Hq, Hkv, D = (GEMMA2_ATTENTION[k] for k in ("batch", "heads", "heads_kv", "head_dim"))
+    T = GEN_PROMPT - 1
+    extra = dict(config="gemma-2-9b attention widths", summed=False)
+    bench_flash({((B, Hq, T, D), Hkv, T, "float16", True, False, 0): 0}, checks, **extra)
+    free_card()
+    bench_decode({((B, Hq, 1, D), Hkv, T + GEN_NEW + 64, "float16", True, 0): 0},
+                 T, GEN_NEW, checks, **extra)
 
 
 def norm_close(out, ref, beta):
@@ -841,6 +871,17 @@ def feature_checks(checks):
         ("head_dim_80", "float16", 80, 4, 2, T, T, dict(causal=True, lengths=i32([T, 101]))),
         ("head_dim_96", "bfloat16", 96, 4, 2, T, T, dict(lengths=i32([37, T]))),
         ("head_dim_32_f32", "float32", 32, 4, 1, T, T, dict(causal=True)),
+        # D = 256 (one consumer warpgroup; float32 16-key tiles), and 160 /
+        # 192 zero-padded to it.
+        ("head_dim_256_gqa", "float16", 256, 4, 2, T, T, dict(causal=True)),
+        ("head_dim_256_lengths", "bfloat16", 256, 4, 2, T, T, dict(lengths=i32([37, T]))),
+        ("head_dim_256_window", "float16", 256, 4, 4, T, T, dict(causal=True, window=17)),
+        ("head_dim_256_segments", "float16", 256, 4, 2, T, T,
+         dict(causal=True, segment_ids=segments)),
+        ("head_dim_256_f32", "float32", 256, 4, 2, T, T,
+         dict(causal=True, lengths=i32([T, 9]))),
+        ("head_dim_192", "bfloat16", 192, 4, 2, T, T, dict(causal=True, lengths=i32([T, 101]))),
+        ("head_dim_160_f32", "float32", 160, 4, 1, T, T, dict(alibi_slopes=slopes(4))),
     ]
     worst = {}
     for name, dt, D, Hq, Hkv, Tq, Tk, kw in flash_cases:
@@ -851,12 +892,6 @@ def feature_checks(checks):
         worst[f"flash_{name}"] = err = (out.float() - ref).abs().max().item()
         checks(torch.allclose(out.float(), ref, **FLASH_TOL[dt]),
                f"flash feature {name} ({dt}, D={D}) within {FLASH_TOL[dt]} (got {err})")
-    try:
-        flash_attention(*_flash_inputs(g, 1, 2, 2, 8, 8, 256, torch.float16))
-        refused = False
-    except NotImplementedError as e:
-        refused = "256" in str(e)
-    checks(refused, "flash refuses a head dim of 256 with a message that names it")
 
     decode_cases = [
         ("window_fresh", "float16", 8, 2, 300, 64, True, 9, [300, 17, 0]),
@@ -864,6 +899,13 @@ def feature_checks(checks):
         ("no_fresh", "float16", 32, 8, 2176, 128, False, 0, [2048, 2111, 1]),
         ("no_fresh_window", "bfloat16", 6, 1, 130, 32, False, 7, [130, 64, 5]),
         ("head_dim_256", "float32", 4, 2, 70, 256, True, 0, [70, 33, 2]),
+        ("head_dim_256_gemma2", "float16", 16, 8, 2176, 256, True, 0, [2048, 0, 1, 2111]),
+        # Head dims off a multiple of 16: rows start anywhere in a chunk.
+        ("head_dim_72", "float16", 8, 2, 300, 72, True, 0, [300, 17, 0]),
+        ("head_dim_72_window", "bfloat16", 8, 2, 300, 72, True, 9, [300, 17, 1]),
+        ("head_dim_72_window_one", "float32", 8, 2, 300, 72, True, 1, [300, 17, 0]),
+        ("head_dim_72_no_fresh", "float16", 12, 4, 130, 72, False, 0, [0, 130, 65]),
+        ("head_dim_200", "float32", 5, 1, 70, 200, True, 7, [0, 70, 9]),
     ]
     for name, dt, Hq, Hkv, C, D, fresh, window, lengths in decode_cases:
         args, kw = _decode_inputs(g, len(lengths), Hq, Hkv, C, D, getattr(torch, dt),
@@ -1183,6 +1225,9 @@ def generator_main_path(tt, mf, vocab, checks, logs):
            "generator: first-step log-probs have the vocabulary's width")
     checks(f16_counts["decode_attention_int8"] == 0 and f16_counts["flash_attention"] > 0,
            "generator: the float16 KV cache runs flash and no int8-KV kernel")
+    checks(counts["decode_attention_int8"] == calls * GEN_NEW * layers,
+           "generator: one decode launch a layer and step "
+           f"({counts['decode_attention_int8']})")
     emit({"phase": "main_generator", "compute_type": gen.compute_type,
           "kv_cache": "int8", "model": dict(LLAMA, layers=layers),
           "load_seconds": load_seconds, "calls": calls, "prompts_per_call": GEN_BATCH,
@@ -1867,6 +1912,7 @@ def main():
         fl = bench_flash(logs["flash_attention"], checks)
         free_card()
         de = bench_decode(logs["decode_attention_int8"], GEN_PROMPT - 1, GEN_NEW, checks)
+        bench_gemma2_attention(checks)
         no = bench_norm(logs["fused_norm"], checks)
         feature_checks(checks)
         w4 = bench_w4(awq_logs, checks)

@@ -20,15 +20,18 @@
 // it under a causal mask) against the tensor cores' 989 TFLOP/s in f16/bf16;
 // q, k, v and out are each moved once.
 //
-// Design (f16/bf16, flash_wgmma_kernel): one 384-thread block per (query
-// tile of 128 rows, query head, batch row): two consumer warpgroups of 64
-// query rows each and a producer warpgroup of which one thread works. The
+// Design (f16/bf16, flash_wgmma_kernel): one block per (query tile, query
+// head, batch row). At D = 64 and 128 a block has 384 threads: two consumer
+// warpgroups of 64 query rows each (a tile of 128) and a producer warpgroup
+// of which one thread works. At D = 256 it has 256 threads: one consumer
+// warpgroup (a tile of 64 rows), since the O accumulator of 64 x 256 f32
+// alone takes 128 registers a thread, and the producer. The
 // producer loads the Q tile once and then K and V tiles of 64 keys into a
 // 3-stage ring, all by TMA (4-D tensor maps built per call from the
 // tensors' strides, so the head-split views of a fused QKV projection are
 // read in place; ragged Tq/Tk edges are TMA's zero fill), 128B-swizzled, and
 // signals each stage on an mbarrier; the consumers release a stage on a
-// second mbarrier when both have read it. Each consumer computes
+// second mbarrier when all have read it. Each consumer computes
 // S = Q.K^T with wgmma.m64n64k16 (Q and K K-major from shared-memory
 // descriptors), the online softmax in registers, and O += P.V with
 // wgmma.m64n{D}k16, P as the register A operand (rounded from the S
@@ -44,14 +47,17 @@
 // dimension runs the query tiles last-first, so the heaviest tiles start
 // first. float32 inputs take a plain-FMA kernel of the same arithmetic
 // (flash_fma_kernel: 8 lanes per query row, one key at a time): slow and
-// right. ptxas (nvcc 12.8, sm_90a, -Xptxas -v): 148-149 registers at
+// right (D / 32 dims a lane at 8 lanes a row; at D = 256 key tiles of 16).
+// ptxas (nvcc 12.8, sm_90a, -Xptxas -v): 148-149 registers at
 // D = 128, 104-120 at D = 64 (without / with EXTRA), no spills, no stack;
 // dynamic shared memory 132,152 bytes at D = 128 (Q 32 KB, three K/V
-// stages of 32 KB) and 66,616 at D = 64. Left for later work: FP8,
-// overlapping one warpgroup's softmax with
-// the next wgmma (FA3's ping-pong / intra-warpgroup pipelining), a
-// persistent longest-first schedule, a TMA store of the output, and head
-// dims other than 64 and 128.
+// stages of 32 KB) and 66,616 at D = 64. D = 256: 206-214 registers, no
+// spills, 230,456 bytes of dynamic shared memory (Q 32 KB, three K/V
+// stages of 64 KB). Other head dims are zero-padded by the wrapper to the
+// next of 64, 128 and 256. Left for later work: FP8, overlapping one warpgroup's
+// softmax with the next wgmma (FA3's ping-pong / intra-warpgroup
+// pipelining), two consumer warpgroups with setmaxnreg at D = 256, a
+// persistent longest-first schedule and a TMA store of the output.
 
 #include "hopper.cuh"
 
@@ -132,15 +138,26 @@ __device__ __forceinline__ void tile_range(const FlashParams& p, int kv_len,
 // f16 / bf16: wgmma + TMA, warp-specialized.
 // ---------------------------------------------------------------------------
 
-constexpr int FL_BQ = 128;  // query rows a block (two warpgroups of 64)
 constexpr int FL_BK = 64;   // keys a tile
 constexpr int FL_STAGES = 3;
-constexpr int FL_THREADS = 384;
+
+// D = 64 and 128: two consumer warpgroups of 64 query rows (384 threads,
+// a 168-register cap). D = 256: one consumer warpgroup (256 threads, a
+// 255-register cap), since its O accumulator alone is 128 registers a thread.
+template <int D>
+struct FlashShape {
+  static constexpr int CONSUMERS = D == 256 ? 1 : 2;
+  static constexpr int BQ = 64 * CONSUMERS;  // query rows a block
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);
+};
+
+constexpr int FL_BQ_MIN = 64;  // the smallest query tile of any instance
 
 template <int D>
 struct FlashSmem {
+  static constexpr int BQ = FlashShape<D>::BQ;
   static constexpr int CHUNKS = D / 64;  // 128-byte column chunks of a row
-  static constexpr int Q_BYTES = FL_BQ * D * 2;
+  static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = FL_BK * D * 2;  // one K or V tile
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   static constexpr int BARS = Q_BYTES + FL_STAGES * STAGE_BYTES;
@@ -202,12 +219,14 @@ __device__ __forceinline__ float edge_score(const FlashParams& p, float s, int q
 }
 
 template <typename T, int D, bool EXTRA>
-__global__ void __launch_bounds__(FL_THREADS, 1)
+__global__ void __launch_bounds__(FlashShape<D>::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
                    const __grid_constant__ CUtensorMap tmap_k,
                    const __grid_constant__ CUtensorMap tmap_v, const FlashParams p,
                    const FlashMaps order, int heaviest_first) {
   using S = FlashSmem<D>;
+  constexpr int NC = FlashShape<D>::CONSUMERS;
+  constexpr int BQ = S::BQ;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_smem = base;
@@ -225,31 +244,31 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
 
   // Key tiles [lo, lo + n_tiles) that hold a visible key for some row.
   int lo, hi;
-  tile_range(p, kv_len, qt * FL_BQ + p.q_offset,
-             min(qt * FL_BQ + FL_BQ - 1, p.Tq - 1) + p.q_offset, FL_BK, lo, hi);
+  tile_range(p, kv_len, qt * BQ + p.q_offset,
+             min(qt * BQ + BQ - 1, p.Tq - 1) + p.q_offset, FL_BK, lo, hi);
   const int n_tiles = max(hi - lo, 0);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < FL_STAGES; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), 256);
+      mbar_init(empty(s), 128 * NC);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == 2) {
-    if (threadIdx.x == 256) {
+  if (wg == NC) {
+    if (threadIdx.x == 128 * NC) {
       tma_prefetch(&tmap_q);
       tma_prefetch(&tmap_k);
       tma_prefetch(&tmap_v);
       mbar_arrive_expect_tx(q_full, S::Q_BYTES);
 #pragma unroll
       for (int c = 0; c < S::CHUNKS; ++c) {
-        tma_rows(q_smem + c * FL_BQ * 128, &tmap_q, q_full, order.q, c * 64,
-                 qt * FL_BQ, hq, b);
+        tma_rows(q_smem + c * BQ * 128, &tmap_q, q_full, order.q, c * 64,
+                 qt * BQ, hq, b);
       }
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % FL_STAGES;
@@ -268,12 +287,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
     return;
   }
 
-  // ---- consumer warpgroup `wg`: query rows qt * 128 + wg * 64 + [0, 64) ----
+  // ---- consumer warpgroup `wg`: query rows qt * BQ + wg * 64 + [0, 64) ----
   const int lane = threadIdx.x & 31;
   const int warp = (threadIdx.x & 127) >> 5;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int wg_row = qt * FL_BQ + wg * 64;
+  const int wg_row = qt * BQ + wg * 64;
   const int r0 = wg_row + warp * 16 + g;  // this thread's two query rows
   const int r1 = r0 + 8;
   const int qpos0 = r0 + p.q_offset;
@@ -317,7 +336,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;
       Wgmma<T>::ss_m64n64k16(
-          sc, desc_sw128(q_rows + (kk / 4) * FL_BQ * 128 + off),
+          sc, desc_sw128(q_rows + (kk / 4) * BQ * 128 + off),
           desc_sw128(kv_smem(s) + (kk / 4) * FL_BK * 128 + off), kk > 0);
     }
     wgmma_commit();
@@ -405,7 +424,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
       // K/V tile's chunk (64 keys x 128 bytes) apart.
       const uint64_t dv =
           desc_sw128(kv_smem(s) + S::KV_BYTES + kk * 16 * 128, FL_BK * 128, 1024);
-      if constexpr (D == 128) {
+      if constexpr (D == 256) {
+        Wgmma<T>::rs_m64n256k16(o, pa[kk], dv);
+      } else if constexpr (D == 128) {
         Wgmma<T>::rs_m64n128k16(o, pa[kk], dv);
       } else {
         Wgmma<T>::rs_m64n64k16(o, pa[kk], dv);
@@ -440,13 +461,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
 
 // ---------------------------------------------------------------------------
 // float32: plain-FMA kernel. 8 lanes per query row, 16 rows per block, one
-// key at a time; lane `l` owns the float4 groups l, l + 8, ... of the head.
+// key at a time; lane `l` owns the float4 groups l, l + 8, ... of the head
+// (D / 32 dims a lane). Key tiles of 32 (16 at D = 256: 32 KB of static
+// shared memory for K and V).
 // ---------------------------------------------------------------------------
 
 template <int D>
 __global__ void __launch_bounds__(128) flash_fma_kernel(const FlashParams p) {
   constexpr int BQ = 16;
-  constexpr int BK = 32;
+  constexpr int BK = D == 256 ? 16 : 32;
   constexpr int NV = D / 32;  // float4 groups per lane
   __shared__ __align__(16) float Ks[BK * D];
   __shared__ __align__(16) float Vs[BK * D];
@@ -558,6 +581,8 @@ int launch_fma(const FlashParams& p, int D, cudaStream_t stream) {
     flash_fma_kernel<64><<<grid, 128, 0, stream>>>(p);
   } else if (D == 128) {
     flash_fma_kernel<128><<<grid, 128, 0, stream>>>(p);
+  } else if (D == 256) {
+    flash_fma_kernel<256><<<grid, 128, 0, stream>>>(p);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -615,26 +640,26 @@ int launch_wgmma_instance(const FlashParams& p, const CUtensorMap& tq,
                           const FlashMaps& order, int heaviest_first,
                           cudaStream_t stream) {
   constexpr int SMEM = FlashSmem<D>::BYTES;
+  constexpr int BQ = FlashShape<D>::BQ;
   static bool attr_set = false;
   if (!attr_set) {
     cudaFuncSetAttribute(flash_wgmma_kernel<T, D, EXTRA>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     attr_set = true;
   }
-  dim3 grid(p.Hq, p.B, (p.Tq + FL_BQ - 1) / FL_BQ);
-  flash_wgmma_kernel<T, D, EXTRA>
-      <<<grid, FL_THREADS, SMEM, stream>>>(tq, tk, tv, p, order, heaviest_first);
+  dim3 grid(p.Hq, p.B, (p.Tq + BQ - 1) / BQ);
+  flash_wgmma_kernel<T, D, EXTRA><<<grid, FlashShape<D>::THREADS, SMEM, stream>>>(
+      tq, tk, tv, p, order, heaviest_first);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_wgmma(const FlashParams& p, int D, int dtype, int heaviest_first,
-                 cudaStream_t stream) {
-  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+template <typename T, int D>
+int launch_wgmma_dim(const FlashParams& p, int dtype, int heaviest_first,
+                     cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   FlashMaps order;
   int err = encode_bhtd(&tq, &order.q, p.q, dtype, p.q_sb, p.q_sh, p.q_st, p.B, p.Hq,
-                        p.Tq, D, FL_BQ);
+                        p.Tq, D, FlashShape<D>::BQ);
   if (err == 0) {
     err = encode_bhtd(&tk, &order.k, p.k, dtype, p.k_sb, p.k_sh, p.k_st, p.B, p.Hkv,
                       p.Tk, D, FL_BK);
@@ -645,18 +670,23 @@ int launch_wgmma(const FlashParams& p, int D, int dtype, int heaviest_first,
   }
   if (err != 0) return err;
   const bool extra = p.segments != nullptr || p.slopes != nullptr || p.rel_table != nullptr;
-  if (D == 64) {
-    return extra ? launch_wgmma_instance<T, 64, true>(p, tq, tk, tv, order, heaviest_first, stream)
-                 : launch_wgmma_instance<T, 64, false>(p, tq, tk, tv, order, heaviest_first, stream);
-  }
-  return extra ? launch_wgmma_instance<T, 128, true>(p, tq, tk, tv, order, heaviest_first, stream)
-               : launch_wgmma_instance<T, 128, false>(p, tq, tk, tv, order, heaviest_first, stream);
+  return extra ? launch_wgmma_instance<T, D, true>(p, tq, tk, tv, order, heaviest_first, stream)
+               : launch_wgmma_instance<T, D, false>(p, tq, tk, tv, order, heaviest_first, stream);
+}
+
+template <typename T>
+int launch_wgmma(const FlashParams& p, int D, int dtype, int heaviest_first,
+                 cudaStream_t stream) {
+  if (D == 64) return launch_wgmma_dim<T, 64>(p, dtype, heaviest_first, stream);
+  if (D == 128) return launch_wgmma_dim<T, 128>(p, dtype, heaviest_first, stream);
+  if (D == 256) return launch_wgmma_dim<T, 256>(p, dtype, heaviest_first, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // q, k, v, out: tensors of `dtype` (0 float32, 1 float16, 2 bfloat16) with a
-// dense last dim of D (64 or 128), 16-byte aligned, addressed by the
+// dense last dim of D (64, 128 or 256), 16-byte aligned, addressed by the
 // (batch, head, time) strides in `strides` (12 values, in elements: q, k, v,
 // out). lengths: int32 [B] or null; segments: int32 [B, Tk] or null;
 // slopes: f32 [Hq] or null; rel_table: f32 [Hq, rel_nb] or null.
@@ -672,7 +702,7 @@ extern "C" int ct2_flash_attention(
     int alibi_offs, int rel_bidirectional, int rel_nb, float rel_log_ratio,
     int dtype, int heaviest_first, void* stream) {
   if (Hkv < 1 || Hq % Hkv != 0 || Hq > 65535 || B > 65535 ||
-      (Tq + FL_BQ - 1) / FL_BQ > 65535) {
+      (Tq + FL_BQ_MIN - 1) / FL_BQ_MIN > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0 || Tq == 0) return static_cast<int>(cudaGetLastError());

@@ -3,12 +3,15 @@
 Counterpart of ``ctranslate2_tpu/kernels/decode_attention.py``: keys and
 values are cached as int8 with one float scale per (batch, head, position)
 vector, which halves the cache bytes a decode step must read. The CUDA
-kernel is ``csrc/decode_attention_int8.cu``.
+kernel is ``csrc/decode_attention_int8.cu``: one launch a call, for any
+head dim up to 256, its grid from ``decode_plan``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -16,7 +19,80 @@ from . import build, count_launch
 from .norms import DTYPE_CODES
 
 NEG_INF = -1e30
-MAX_SPLITS = 64
+CARD_SMS = 132  # streaming multiprocessors of the H100 SXM
+DECODE_MAX_D = 256
+DECODE_TILE = 64  # keys a ring stage (and the unit the splits deal out)
+DECODE_BLOCKS_PER_SM = 2  # blocks an SM holds (registers): the grid's bound
+DECODE_MAX_SPLITS = 64
+DECODE_COUNTERS = 4096  # row-group counters a (device, stream) keeps
+
+
+class DecodePlan(NamedTuple):
+    lanes: int   # FMA path: lanes a key (each owns 16 dims), 8 for D <= 128, else 16
+    gt: int      # query rows a block (1, 2 or 4)
+    tile: int    # keys a ring stage
+    splits: int  # slices of each row's visible keys, one block each
+    grid: Tuple[int, int, int]  # (splits, Hkv x query tiles, B)
+    counters: int  # row-group counters the cross-block merge uses (0: none)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def decode_plan(B: int, Hkv: int, G: int, C: int, D: int,
+                sms: int = CARD_SMS) -> DecodePlan:
+    """The decode kernel's launch for q [B, Hkv * G, 1, D] over a cache of
+    capacity C on a card of ``sms`` SMs. It reads no length, so one plan
+    serves every step of a generation and a CUDA graph can hold the launch:
+    the kernel cuts each row's visible keys into ``splits`` slices of whole
+    tiles (``decode_split_range``), as many as keep the grid within
+    ``DECODE_BLOCKS_PER_SM`` blocks an SM (one wave), no more than the
+    capacity has tiles."""
+    if not 1 <= D <= DECODE_MAX_D:
+        raise ValueError(f"decode_attention_int8 takes head dims 1-{DECODE_MAX_D}, got {D}")
+    lanes = 8 if D <= 128 else 16
+    gt = 1 if G == 1 else 2 if G == 2 else 4
+    tile = DECODE_TILE
+    gtiles = _cdiv(G, gt)
+    groups = B * Hkv * gtiles
+    want = DECODE_BLOCKS_PER_SM * sms // max(groups, 1)
+    splits = max(1, min(want, _cdiv(C, tile), DECODE_MAX_SPLITS))
+    return DecodePlan(lanes, gt, tile, splits, (splits, Hkv * gtiles, B),
+                      groups if splits > 1 else 0)
+
+
+def decode_split_range(length: int, C: int, window: int, splits: int,
+                       tile: int, split: int) -> Tuple[int, int]:
+    """The cache keys [c0, c1) that block ``split`` of a row reads: the
+    kernel's own rule (``decode_kernel`` in the CUDA source). The tiles of
+    the visible keys [lo, hi) are dealt out evenly over the splits, the
+    last tile ragged; an empty slice has c1 <= c0."""
+    hi = min(max(length, 0), C)
+    lo = max(hi - window, 0) if window > 0 else 0
+    tiles = _cdiv(hi - lo, tile)
+    return (lo + split * tiles // splits * tile,
+            min(lo + (split + 1) * tiles // splits * tile, hi))
+
+
+_counter_cache: Dict[Tuple[int, int], torch.Tensor] = {}
+_counter_lock = threading.Lock()
+
+
+def _counters(device, stream: int) -> torch.Tensor:
+    """The cross-block merge's row-group counters for (device, stream):
+    zeroed once when made; the last block of each group re-zeroes its own,
+    so a call needs no memset. While a CUDA graph is being captured, a
+    buffer that the stream does not have yet is made for that call alone
+    (its zeroing becomes a node of the graph)."""
+    key = (device.index, stream)
+    with _counter_lock:
+        buf = _counter_cache.get(key)
+        if buf is None:
+            buf = torch.zeros(DECODE_COUNTERS, dtype=torch.int32, device=device)
+            if not torch.cuda.is_current_stream_capturing():
+                _counter_cache[key] = buf
+        return buf
 
 
 def _lib() -> ctypes.CDLL:
@@ -25,7 +101,7 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ct2_decode_attention_int8.restype = i
         lib.ct2_decode_attention_int8.argtypes = (
-            [p] * 14 + [i] * 5 + [ctypes.c_float, i, i, i, p])
+            [p] * 13 + [i] * 5 + [ctypes.c_float] + [i] * 5 + [p])
     return lib
 
 
@@ -99,7 +175,8 @@ def decode_attention_int8(q, k8, k_scale, v8, v_scale, lengths, *,
     lengths. When ``k_new8``/``v_new8`` (int8 [B, Hkv, 1, D], scales f32
     [B, Hkv, 1]) are given, ``lengths`` are the lengths BEFORE the append
     and the fresh token is merged in the kernel, so the caller can append
-    to the cache after the attention.
+    to the cache after the attention. On the card the head dim may be any
+    up to 256 (``DECODE_MAX_D``); above it the kernel raises.
     """
     if q.dim() != 4 or q.shape[2] != 1:
         raise ValueError(f"decode_attention_int8 takes q [B, Hq, 1, D], got {tuple(q.shape)}")
@@ -130,9 +207,9 @@ def decode_attention_int8(q, k8, k_scale, v8, v_scale, lengths, *,
         raise ValueError(f"decode_attention_int8 has no kernel for {q.device}")
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"decode_attention_int8 takes a float q, got {q.dtype}")
-    if D % 16 or D > 256:
-        raise ValueError("decode_attention_int8 takes a head dim that is a "
-                         f"multiple of 16 and at most 256, got {D}")
+    G = Hq // Hkv
+    plan = decode_plan(B, Hkv, G, C, D,
+                       torch.cuda.get_device_properties(q.device).multi_processor_count)
     lengths, window = _fresh_window(lengths, window, has_fresh)
     q = q.contiguous()
     k_scale = k_scale.float()
@@ -142,6 +219,9 @@ def decode_attention_int8(q, k8, k_scale, v8, v_scale, lengths, *,
             raise ValueError("decode_attention_int8 takes a contiguous cache")
     if k8.data_ptr() % 16 or v8.data_ptr() % 16:
         raise ValueError("decode_attention_int8 takes a 16-byte aligned cache")
+    # The kernel copies the scale rows by aligned 16-byte chunks.
+    k_scale, v_scale = (t if t.data_ptr() % 16 == 0 else t.clone()
+                        for t in (k_scale, v_scale))
     ptrs = [None] * 4
     if has_fresh:
         if k_new8.dtype != torch.int8 or v_new8.dtype != torch.int8 \
@@ -151,25 +231,25 @@ def decode_attention_int8(q, k8, k_scale, v8, v_scale, lengths, *,
                  v_new8.contiguous(), vn_scale.float().reshape(B, Hkv).contiguous()]
         ptrs = [t.data_ptr() for t in fresh]
 
-    # Enough blocks for about two per SM, each with at least 128 keys.
-    G = Hq // Hkv
-    gt = 4 if D <= 128 else 2
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    blocks = B * Hkv * ((G + gt - 1) // gt)
-    splits = max(1, min((2 * sms + blocks - 1) // max(blocks, 1),
-                        (C + 127) // 128, MAX_SPLITS))
-    part_m = torch.empty((B, Hq, splits), dtype=torch.float32, device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, Hq, splits, D), dtype=torch.float32, device=q.device)
     out = torch.empty((B, Hq, 1, D), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        part = counters = None
+        if plan.splits > 1:
+            if plan.counters > DECODE_COUNTERS:
+                raise ValueError(f"decode_attention_int8: {plan.counters} row groups "
+                                 f"exceed the {DECODE_COUNTERS} counters")
+            # Each split's (max, sum, accumulator) for every query row.
+            part = torch.empty((B * Hq, plan.splits, D + 2), dtype=torch.float32,
+                               device=q.device)
+            counters = _counters(q.device, stream)
         err = _lib().ct2_decode_attention_int8(
             q.data_ptr(), k8.data_ptr(), k_scale.data_ptr(), v8.data_ptr(),
             v_scale.data_ptr(), lengths.data_ptr(), *ptrs,
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-            out.data_ptr(), B, Hkv, G, C, D, scale, window, splits,
-            DTYPE_CODES[q.dtype], stream)
+            None if part is None else part.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            out.data_ptr(), B, Hkv, G, C, D, scale, window, plan.lanes, plan.gt,
+            plan.splits, DTYPE_CODES[q.dtype], stream)
     if err:
         raise RuntimeError(
             f"decode_attention_int8 launch failed with CUDA error {err}")

@@ -6,9 +6,9 @@ with GQA/MQA, causal masking with a query offset, per-batch KV lengths,
 sliding windows, segment ids, ALiBi in both conventions and the T5
 relative-position bias recomputed from its bucket table. The CUDA kernel is
 ``csrc/flash_attention.cu`` (wgmma fed by TMA for float16/bfloat16, plain
-FMAs for float32), built for head dims 64 and 128; a smaller head dim is
-zero-padded to the next of the two (``flash_head_dim``), as the JAX kernel
-pads to 128.
+FMAs for float32), built for head dims 64, 128 and 256; any other head dim
+up to 256 is zero-padded to the next of the three (``flash_head_dim``), as
+the JAX kernel pads to a multiple of 128.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from . import build, count_launch
 from .norms import DTYPE_CODES
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)  # the kernel's instances; smaller D is padded up
+HEAD_DIMS = (64, 128, 256)  # the kernel's instances; other D is padded up
 # Under a causal mask the f16/bf16 kernel runs its query tiles last-first,
 # the heaviest first, so the short ones fill the tail of the grid
 # (chip_smoke.py times both orders at the prefill shape).
@@ -43,8 +43,8 @@ def flash_head_dim(D: int) -> int:
     """The head dim the kernel runs for a head dim ``D``: the smallest of
     ``HEAD_DIMS`` that holds it (q, k and v are zero-padded up to it, which
     adds nothing to Q.K^T, and the output is sliced back). Raises
-    NotImplementedError above 128: a D = 256 instance needs its own register
-    plan (its output accumulators alone take 128 registers a thread)."""
+    NotImplementedError above 256, a head width no model family of the
+    repository has."""
     for width in HEAD_DIMS:
         if D <= width:
             return width
@@ -134,9 +134,9 @@ def flash_attention(q, k, v, *, scale: float = 1.0, causal: bool = False,
     valid KV lengths; ``segment_ids`` int32 [B, T] (self-attention, Tq ==
     Tk); ``alibi_slopes`` f32 [Hq]; ``rel_bias_table`` [num_buckets, Hq], the
     learned T5 table as stored. ``scale`` is the caller's; the padding of
-    a head dim off 64/128 never changes it. On the card the result comes back
+    a head dim off 64/128/256 never changes it. On the card the result comes back
     as a [B, Tq, Hq, D] buffer viewed as [B, Hq, Tq, D], so merging the heads
-    afterwards copies nothing, for D in ``HEAD_DIMS``; any other D <= 128
+    afterwards copies nothing, for D in ``HEAD_DIMS``; any other D <= 256
     runs on zero-padded copies of q, k and v and returns a slice of the
     padded output, which a merge of the heads copies.
     """

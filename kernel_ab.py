@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""Times this checkout's W8A8, flash-attention and dispatched AWQ-W4
-(``matmul_w4p``, ``matmul_w4a16``) kernels against another checkout's, on
-one card, in turns.
+"""Times this checkout's W8A8, flash-attention, int8-KV decode-attention and
+dispatched AWQ-W4 (``matmul_w4p``, ``matmul_w4a16``) kernels against another
+checkout's, on one card, in turns.
 
     python3 kernel_ab.py OTHER_TREE [SMOKE_LOG]
 
 OTHER_TREE is an unpacked ``git archive`` of an earlier commit (its
 ``ctranslate2_tpu_torch`` is imported from there and builds its kernels
 into its own ``_build``). The shapes and their launches are read from the
-``kernel_w8a8``, ``kernel_flash`` and ``kernel_w4`` lines of a
-``chip_smoke.py`` log when one is given, else the Generator's main-path
-shapes at Llama-3-8B's widths (M = 4 and 8,192; the AWQ path's two packed
-calls and one unpacked call) are taken. Each tree runs in a worker process,
-in the order other, this, this, other; each worker builds the three sources,
+``kernel_w8a8``, ``kernel_flash``, ``kernel_decode`` and ``kernel_w4`` lines
+of a ``chip_smoke.py`` log when one is given (those with main-path
+launches), else the Generator's main-path shapes at Llama-3-8B's widths
+(M = 4 and 8,192; the AWQ path's two packed calls and one unpacked call; the
+int8 Generator's 2,048 decode launches) are taken. Each tree runs in a
+worker process, in the order other, this, this, other; each worker builds
+the four sources,
 times every shape in a CUDA graph (this checkout's
 ``chip_smoke.cuda_time_ms`` for both trees) and prints one JSON line a
 shape. The last line gives, per tree, the least of its two runs at each
@@ -31,6 +33,8 @@ DEFAULT_W8A8 = {(4, 4096, 6144): 2048, (4, 4096, 4096): 2048, (4, 4096, 14336): 
                 (8192, 4096, 6144): 32, (8192, 4096, 4096): 32,
                 (8192, 4096, 14336): 64, (8192, 14336, 4096): 32}
 DEFAULT_FLASH = {((4, 32, 2048, 128), 8, 2048, "float16", True, False, 0): 32}
+DEFAULT_DECODE = {((4, 32, 1, 128), 8, 2176, "float16", True, 0, (2048, 2069, 2090, 2111)):
+                  2048}
 W4_KN_LAUNCHES = {(4096, 6144): 1, (4096, 4096): 1, (4096, 14336): 2, (14336, 4096): 1}
 DEFAULT_W4 = {(name, M, K, N, "float16"): per * calls * (32 * 64 if M == 4 else 32)
               for name, calls in (("matmul_w4p", 2), ("matmul_w4a16", 1))
@@ -39,7 +43,7 @@ AWQ_GROUP = 128
 
 
 def shapes_from_log(path):
-    w8a8, flash, w4 = {}, {}, {}
+    w8a8, flash, decode, w4 = {}, {}, {}, {}
     with open(path) as f:
         for line in f:
             if not line.startswith("{"):
@@ -47,13 +51,17 @@ def shapes_from_log(path):
             row = json.loads(line)
             if row.get("phase") == "kernel_w8a8":
                 w8a8[(row["M"], row["K"], row["N"])] = row["launches"]
-            elif row.get("phase") == "kernel_flash":
+            elif row.get("phase") == "kernel_flash" and row["launches"]:
                 key = (tuple(row["q"]), row["kv"][1], row["kv"][2], row["dtype"],
                        row["causal"], row["lengths"], row["window"])
                 flash[key] = row["launches"]
+            elif row.get("phase") == "kernel_decode" and row["launches"]:
+                key = (tuple(row["q"]), row["cache"][1], row["cache"][2], row["dtype"],
+                       row["fresh"], row["window"], tuple(row["lengths"]))
+                decode[key] = row["launches"]
             elif row.get("phase") == "kernel_w4" and row["launches"]:
                 w4[(row["kernel"], row["M"], row["K"], row["N"], row["dtype"])] = row["launches"]
-    return w8a8, flash, w4
+    return w8a8, flash, decode, w4
 
 
 def worker(tree, spec):
@@ -62,6 +70,8 @@ def worker(tree, spec):
     import torch
     from ctranslate2_tpu_torch.kernels import build
     from ctranslate2_tpu_torch.kernels import quant_matmul as Q
+    from ctranslate2_tpu_torch.kernels.decode_attention import (
+        decode_attention_int8, quantize_kv)
     from ctranslate2_tpu_torch.kernels.flash_attention import flash_attention
     from ctranslate2_tpu_torch.kernels.quant_matmul import matmul_w8a8
 
@@ -72,7 +82,7 @@ def worker(tree, spec):
     smoke.loader.exec_module(cuda_time_ms)
     cuda_time_ms = cuda_time_ms.cuda_time_ms
     assert os.path.dirname(os.path.dirname(build.__file__)).startswith(tree)
-    build.build(["w8a8_gemm", "flash_attention", "w4_gemm"])
+    build.build(["w8a8_gemm", "flash_attention", "decode_attention_int8", "w4_gemm"])
     g = torch.Generator(device="cuda").manual_seed(0)
     for (M, K, N), n in spec["w8a8"]:
         q = torch.randint(-128, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
@@ -98,6 +108,25 @@ def worker(tree, spec):
                           "shape": [list(qs), hkv, tk, dt, causal, has_lengths, window],
                           "launches": n, "ms": ms}), flush=True)
         del q, k, v
+    for (qs, hkv, C, dt, fresh, window, lengths), n in spec["decode"]:
+        B, Hq, _, D = qs
+
+        def t(*shape):
+            return torch.randn(shape, generator=g, device="cuda")
+
+        k8, ks = quantize_kv(t(B, hkv, C, D))
+        v8, vs = quantize_kv(t(B, hkv, C, D))
+        kw = dict(scale=D ** -0.5, window=window)
+        if fresh:
+            kw["k_new8"], kw["kn_scale"] = quantize_kv(t(B, hkv, 1, D))
+            kw["v_new8"], kw["vn_scale"] = quantize_kv(t(B, hkv, 1, D))
+        args = (t(B, Hq, 1, D).to(getattr(torch, dt)), k8, ks, v8, vs,
+                torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+        ms = cuda_time_ms(lambda: decode_attention_int8(*args, **kw), 50)
+        print(json.dumps({"kernel": "decode_attention_int8",
+                          "shape": [list(qs), hkv, C, dt, fresh, window, list(lengths)],
+                          "launches": n, "ms": ms}), flush=True)
+        del k8, v8, args
     G = AWQ_GROUP
     for (name, M, K, N, dt), n in spec["w4"]:
         x = torch.randn((M, K), generator=g, device="cuda").to(getattr(torch, dt))
@@ -122,10 +151,11 @@ def main():
         worker(sys.argv[2], json.loads(sys.argv[3]))
         return 0
     other = os.path.abspath(sys.argv[1])
-    w8a8, flash, w4 = (shapes_from_log(sys.argv[2]) if len(sys.argv) > 2
-                       else (DEFAULT_W8A8, DEFAULT_FLASH, DEFAULT_W4))
+    w8a8, flash, decode, w4 = (
+        shapes_from_log(sys.argv[2]) if len(sys.argv) > 2
+        else (DEFAULT_W8A8, DEFAULT_FLASH, DEFAULT_DECODE, DEFAULT_W4))
     spec = json.dumps({"w8a8": sorted(w8a8.items()), "flash": sorted(flash.items()),
-                       "w4": sorted(w4.items())})
+                       "decode": sorted(decode.items()), "w4": sorted(w4.items())})
     best = {}
     for label, tree in (("other", other), ("this", HERE), ("this", HERE), ("other", other)):
         proc = subprocess.run([sys.executable, __file__, "--worker", tree, spec],
@@ -142,7 +172,10 @@ def main():
     for (label, kernel, shape), ms in best.items():
         n = dict(matmul_w8a8=dict((json.dumps(list(k)), v) for k, v in w8a8.items()),
                  flash_attention=dict((json.dumps([list(k[0]), *k[1:]]), v)
-                                      for k, v in flash.items()))
+                                      for k, v in flash.items()),
+                 decode_attention_int8=dict(
+                     (json.dumps([list(k[0]), *k[1:-1], list(k[-1])]), v)
+                     for k, v in decode.items()))
         for k, v in w4.items():
             n.setdefault(k[0], {})[json.dumps(list(k[1:]))] = v
         launches = n[kernel][shape]

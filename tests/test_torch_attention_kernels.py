@@ -48,6 +48,7 @@ FLASH_CASES = {
     "t5_causal": dict(Hq=4, Hkv=4, causal=True, rel=True,
                       rel_bidirectional=False),
     "head_dim_64": dict(D=64, causal=True),  # unpadded here, padded in Pallas
+    "head_dim_256": dict(D=256, Hq=4, Hkv=2, causal=True, lengths=[54, 64]),
     "masked_row": dict(lengths=[0, 64]),
 }
 
@@ -109,19 +110,20 @@ def test_flash_plain_rounds_weights_to_values_dtype():
 
 
 @pytest.mark.parametrize("D,expected", [(16, 64), (32, 64), (64, 64), (80, 128),
-                                        (96, 128), (112, 128), (128, 128)])
+                                        (96, 128), (112, 128), (128, 128),
+                                        (160, 256), (192, 256), (256, 256)])
 def test_flash_head_dim_pads_to_the_next_instance(D, expected):
     assert flash_head_dim(D) == expected
 
 
-@pytest.mark.parametrize("D", [160, 256])
-def test_flash_head_dim_raises_above_128(D):
-    with pytest.raises(NotImplementedError, match="up to 128"):
+@pytest.mark.parametrize("D", [257, 320, 512])
+def test_flash_head_dim_raises_above_256(D):
+    with pytest.raises(NotImplementedError, match="up to 256"):
         flash_head_dim(D)
 
 
 def _padded_plain(q, k, v, **kw):
-    """What the card runs for a head dim off 64/128: q, k and v zero-padded
+    """What the card runs for a head dim off 64/128/256: q, k and v zero-padded
     to ``flash_head_dim``, the caller's scale, the output sliced back."""
     D = q.shape[-1]
     Dk = flash_head_dim(D)
@@ -132,7 +134,9 @@ def _padded_plain(q, k, v, **kw):
 @pytest.mark.parametrize("case", [dict(D=80, causal=True),
                                   dict(D=96, Hq=4, Hkv=2, lengths=[54, 64]),
                                   dict(D=32, Hq=4, Hkv=1, causal=True, window=16),
-                                  dict(D=112, Tq=50, Tk=77, lengths=[77, 31])])
+                                  dict(D=112, Tq=50, Tk=77, lengths=[77, 31]),
+                                  dict(D=160, causal=True, window=16),
+                                  dict(D=192, Hq=4, Hkv=2, lengths=[54, 64])])
 def test_flash_plain_on_padded_head_dim_equals_unpadded(case):
     """Zero columns add exact zeros to Q.K^T and produce zero output columns;
     the CPU matmul may block a longer sum differently, hence 1e-6."""
@@ -149,7 +153,18 @@ def test_flash_plain_on_padded_head_dim_equals_unpadded(case):
 def test_flash_padded_head_dim_80_matches_pallas_interpret(causal):
     """The padded plain version at D = 80 against the JAX kernel (which pads
     to 128 itself) in interpret mode; tolerance as the other flash cases."""
-    (q, k, v), kw, arrays = _flash_inputs(dict(D=80, Hq=4, Hkv=2, causal=causal,
+    _check_padded_against_pallas(80, causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_padded_head_dim_192_matches_pallas_interpret(causal):
+    """D = 192 runs padded to the 256 instance on the card; the JAX kernel
+    pads it to 256 as well."""
+    _check_padded_against_pallas(192, causal)
+
+
+def _check_padded_against_pallas(D, causal):
+    (q, k, v), kw, arrays = _flash_inputs(dict(D=D, Hq=4, Hkv=2, causal=causal,
                                                lengths=[54, 64]))
     with pltpu.force_tpu_interpret_mode():
         ref = jax_flash_attention(
@@ -162,7 +177,7 @@ def test_flash_padded_head_dim_80_matches_pallas_interpret(causal):
 
 def test_flash_eligibility_does_not_depend_on_head_dim():
     """``_flash_eligible`` decides from the lengths and switches alone: a
-    head dim the kernel pads (or, above 128, refuses) changes nothing."""
+    head dim the kernel pads (or, above 256, refuses) changes nothing."""
     class Card:  # stands in for a CUDA tensor: only is_cuda and shape are read
         is_cuda = True
 
@@ -180,6 +195,11 @@ DECODE_CASES = {
     "gqa_c_not_block_multiple": dict(Hq=8, Hkv=2, C=70, lengths=[70, 33, 5]),
     "mqa": dict(Hq=4, Hkv=1, lengths=[64, 40, 9]),
     "head_dim_64": dict(D=64, lengths=[96, 50, 2]),
+    # The card's kernel takes any D up to 256: 256 (16 lanes a key), and
+    # widths off a multiple of 16, whose rows start anywhere in a chunk.
+    "head_dim_256": dict(D=256, lengths=[96, 41, 0]),
+    "head_dim_72": dict(Hq=8, Hkv=2, C=70, D=72, lengths=[70, 33, 5]),
+    "head_dim_200": dict(Hq=4, Hkv=1, D=200, lengths=[64, 0, 9]),
 }
 
 

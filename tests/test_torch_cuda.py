@@ -261,7 +261,8 @@ FLASH_EDGE_CASES = {
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(FLASH_EDGE_CASES))
 @pytest.mark.parametrize("dtype,D", [(torch.float16, 128), (torch.bfloat16, 64),
-                                     (torch.float16, 64), (torch.bfloat16, 128)])
+                                     (torch.float16, 64), (torch.bfloat16, 128),
+                                     (torch.float16, 256), (torch.bfloat16, 256)])
 def test_flash_kernel_edges_close_to_plain_on_card(case, dtype, D):
     dev = _card()
     q, k, v, kw = _flash_inputs(dev, dtype, D, 8, 2, FLASH_EDGE_CASES[case])
@@ -307,13 +308,41 @@ def test_flash_kernel_pads_other_head_dims_on_card(D, dtype, causal):
     torch.testing.assert_close(out.float(), ref, **FLASH_TOL[dtype])
 
 
+WIDE_HEAD_CASES = {
+    "causal": dict(causal=True),
+    "not_causal_lengths": dict(lengths=[37, 150]),
+    "causal_lengths": dict(causal=True, lengths=[150, 101]),
+    "window": dict(causal=True, window=17),
+    "alibi": dict(causal=True, alibi=True, alibi_positive=False),
+    "segments": dict(causal=True, segments=True),
+}
+
+
 @pytest.mark.cuda
-def test_flash_kernel_refuses_other_head_dims_on_card():
-    """Above 128 there is no instance (D = 256 needs its own register plan)."""
+@pytest.mark.parametrize("case", sorted(WIDE_HEAD_CASES))
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [256, 192])
+def test_flash_kernel_head_dim_256_on_card(D, dtype, case):
+    """The D = 256 instance (one consumer warpgroup, 64-row query tiles; the
+    float32 kernel with 16-key tiles), and D = 192 zero-padded to it, with
+    GQA, lengths, a window, ALiBi and segment ids."""
     dev = _card()
-    q = torch.randn(1, 2, 8, 256, device=dev, dtype=torch.float16)
+    q, k, v, kw = _flash_inputs(dev, dtype, D, 4, 2, WIDE_HEAD_CASES[case])
     before = kernels.launch_counts()["flash_attention"]
-    with pytest.raises(NotImplementedError, match="256"):
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    assert out.shape == q.shape and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref, **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_head_dims_above_256_on_card():
+    dev = _card()
+    q = torch.randn(1, 2, 8, 320, device=dev, dtype=torch.float16)
+    before = kernels.launch_counts()["flash_attention"]
+    with pytest.raises(NotImplementedError, match="up to 256"):
         flash_attention(q, q, q)
     assert kernels.launch_counts()["flash_attention"] == before
 
@@ -343,6 +372,12 @@ def _decode_inputs(dev, qdtype, B, Hq, Hkv, C, D, lengths, fresh, seed=0):
     (torch.float16, 32, 8, 2176, 128, [2048, 2111, 1]),
     (torch.bfloat16, 6, 1, 130, 32, [130, 64, 5]),
     (torch.float32, 4, 2, 70, 256, [70, 33, 2]),
+    # Gemma-2-9B's attention widths; head dims off a multiple of 16; rows
+    # of length 0.
+    (torch.float16, 16, 8, 2176, 256, [2048, 2111, 0, 1500]),
+    (torch.bfloat16, 8, 2, 300, 72, [300, 0, 17]),
+    (torch.float32, 5, 1, 70, 200, [0, 70, 9]),
+    (torch.float16, 12, 4, 129, 37, [129, 64, 0, 1]),
 ])
 def test_decode_kernel_close_to_plain_on_card(fresh, window, qdtype, Hq, Hkv,
                                               C, D, lengths):
@@ -357,6 +392,58 @@ def test_decode_kernel_close_to_plain_on_card(fresh, window, qdtype, Hq, Hkv,
     assert out.dtype == torch.float32 and out.shape == args[0].shape
     # Sums in another order, fast exponentials.
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 9])
+@pytest.mark.parametrize("Hq,Hkv,C,D,lengths", [
+    (32, 8, 2176, 128, [2048, 2111, 2070, 2100]),  # the main path's shape
+    (16, 8, 2176, 256, [2048, 0, 1, 2111]),
+    (8, 2, 300, 72, [300, 17, 0]),
+])
+def test_decode_kernel_is_deterministic_and_capturable_on_card(Hq, Hkv, C, D,
+                                                               lengths, window):
+    """Splits merged in split order by the last block: two calls are
+    bit-equal, a CUDA-graph replay equals the eager call, and the counters
+    are left zero."""
+    from ctranslate2_tpu_torch.kernels import decode_attention as da
+
+    dev = _card()
+    args, kw = _decode_inputs(dev, torch.float16, len(lengths), Hq, Hkv, C, D,
+                              lengths, True, seed=3)
+    kw.update(scale=D ** -0.5, window=window)
+    plan = da.decode_plan(len(lengths), Hkv, Hq // Hkv, C, D,
+                          torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert plan.splits > 1
+    first = decode_attention_int8(*args, **kw)
+    second = decode_attention_int8(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        decode_attention_int8(*args, **kw)  # makes the stream's counters
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = decode_attention_int8(*args, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+    ref = decode_attention_int8_plain(*args, **kw)
+    torch.testing.assert_close(first, ref, atol=1e-4, rtol=1e-4)
+    for s in (torch.cuda.current_stream(), stream):
+        assert int(da._counters(dev, s.cuda_stream).abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_decode_kernel_refuses_head_dims_above_256_on_card():
+    dev = _card()
+    args, kw = _decode_inputs(dev, torch.float16, 2, 4, 2, 16, 320, [16, 3], False)
+    before = kernels.launch_counts()["decode_attention_int8"]
+    with pytest.raises(ValueError, match="head dims 1-256"):
+        decode_attention_int8(*args)
+    assert kernels.launch_counts()["decode_attention_int8"] == before
 
 
 @pytest.mark.cuda
@@ -464,6 +551,48 @@ def test_generator_on_card_matches_cpu(small_decoder, monkeypatch, kv, beam_size
         else:
             # A cached vector at a rounding tie may land one int8 step apart.
             np.testing.assert_allclose(o.scores[0], r.scores[0], atol=5e-2)
+
+
+@pytest.fixture(scope="module")
+def wide_head_decoder(tmp_path_factory):
+    """Gemma-style 256-wide heads: 4 query / 2 KV heads, d_model 1024."""
+    path = str(tmp_path_factory.mktemp("decoder_head_dim_256_cuda"))
+    return build_decoder_only_model(
+        path, vocab_size=200, num_layers=2, num_heads=4, d_model=1024, d_ff=512,
+        num_heads_kv=2, rotary_dim=0, glu=True, rms_norm=True, activation="swish")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam_size", [1, 2])
+def test_generator_head_dim_256_kernels_on_and_off_on_card(wide_head_decoder,
+                                                          monkeypatch, beam_size):
+    """float32, int8 KV cache: flash (``flash_attention=True``) and the
+    decode kernel at D = 256 give the tokens of the same model with both
+    switched off (the plain attention over the dequantized cache)."""
+    _card()
+    monkeypatch.setenv("CT2TPU_KV_CACHE", "int8")
+    rng = np.random.default_rng(7)
+    prompts = [[f"tok{int(t)}" for t in rng.integers(0, 190, n)] for n in (40, 33, 37)]
+    opts = dict(max_length=12, min_length=12, include_prompt_in_result=False,
+                beam_size=beam_size, return_scores=True)
+    gen = tt.Generator(wide_head_decoder, compute_type="float32", flash_attention=True)
+    kernels.reset_launches()
+    out = gen.generate_batch(prompts, **opts)
+    torch.cuda.synchronize()
+    on = kernels.launch_counts()
+    monkeypatch.setenv("CT2TPU_FLASH", "0")
+    monkeypatch.setenv("CT2TPU_DECODE_KERNEL", "0")
+    kernels.reset_launches()
+    ref = gen.generate_batch(prompts, **opts)
+    torch.cuda.synchronize()
+    off = kernels.launch_counts()
+    assert on["flash_attention"] == 2 and on["decode_attention_int8"] > 0
+    assert off["flash_attention"] == 0 and off["decode_attention_int8"] == 0
+    for o, r in zip(out, ref):
+        assert o.sequences_ids == r.sequences_ids
+        # A K/V entry at a rounding tie of the int8 grid may land one step
+        # apart (see tests/test_torch_generator.py).
+        np.testing.assert_allclose(o.scores, r.scores, atol=1e-3)
 
 
 @pytest.mark.cuda

@@ -342,6 +342,42 @@ def test_generate_batch_beam_token_identical(model_dirs, monkeypatch,
              beam_size=2, num_hypotheses=2)
 
 
+# Gemma-style 256-wide heads (4 query / 2 KV heads of 256, d_model 1024).
+WIDE_HEADS = dict(MODEL, d_model=1024, d_ff=128)
+
+
+@pytest.fixture(scope="module")
+def wide_head_dir(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("decoder_head_dim_256"))
+    tbuilder.build_decoder_only_model(path, **WIDE_HEADS)
+    return path
+
+
+@pytest.mark.parametrize("beam_size", [1, 2])
+@pytest.mark.parametrize("include_prompt", [True, False])
+def test_generate_batch_head_dim_256_int8_kv_token_identical(
+        wide_head_dir, monkeypatch, include_prompt, beam_size):
+    """The slice at a head dim of 256 with the int8 KV cache: greedy and
+    beam tokens identical to the JAX package's. Scores within 1e-3: at
+    d_model 1024 the two frameworks' float32 sums put some K/V entries within
+    6e-6 of a half step of the int8 grid, where the cache may round one step
+    apart; one such step moves a row's score by 3.4e-4 here (the float
+    cache agrees to 2e-6)."""
+    monkeypatch.setenv("CT2TPU_KV_CACHE", "int8")
+    jg = ct.Generator(wide_head_dir, device="cpu")
+    tg = tt.Generator(wide_head_dir, device="cpu")
+    assert tg.model.kv_dtype == torch.int8
+    assert tg.model.arch.decoder.layers[0].self_attention.head_dim == 256
+    opts = dict(max_length=12, return_scores=True, beam_size=beam_size,
+                include_prompt_in_result=include_prompt)
+    ref = jg.generate_batch(_prompts(3), **opts)
+    out = tg.generate_batch(_prompts(3), **opts)
+    assert len(out) == len(ref) == 4
+    for o, r in zip(out, ref):
+        assert o.sequences_ids == r.sequences_ids and o.sequences == r.sequences
+        np.testing.assert_allclose(o.scores, r.scores, atol=1e-3, rtol=0)
+
+
 @pytest.mark.parametrize("opts", [
     dict(end_token="tok11", include_prompt_in_result=False),
     dict(end_token=["tok11", "tok40"], return_end_token=True),

@@ -3,10 +3,12 @@
 ``w8a8_plan`` decides, from (M, N, K) alone, which W8A8 kernel runs, how K
 is split across blocks, the grid and the int32 workspace; these tests hold
 it to what the kernels in ``csrc/w8a8_gemm.cu`` assume. ``w4_plan`` does the
-same for the two dispatched AWQ-W4 products and ``csrc/w4_gemm.cu``.
+same for the two dispatched AWQ-W4 products and ``csrc/w4_gemm.cu``, and
+``decode_plan`` for the int8-KV decode kernel (``csrc/decode_attention_int8.cu``).
 ``build`` hashes what a library is built from.
 """
 
+import inspect
 import math
 import os
 
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from ctranslate2_tpu_torch.kernels import build
+from ctranslate2_tpu_torch.kernels import decode_attention as da
 from ctranslate2_tpu_torch.kernels import quant_matmul as qm
 
 # (K, N) of every int8 linear on the main paths: the Generator at Llama-3-8B's
@@ -217,6 +220,87 @@ def test_w4_wrapper_plan_sends_folded_forms_to_the_tile():
     assert qm.w4_wrapper_plan(x, w, gs, True, False).path == "splitk"
     assert qm.w4_wrapper_plan(x, w, gs, True, True).path == "tile"
     assert qm.w4_wrapper_plan(x.float(), w, gs, True, False).path == "tile"
+
+
+# The int8-KV decode kernel: (B, Hkv, G, C) of the Generator's main paths
+# (Llama-3-8B and Gemma-2-9B widths at batch 4), a long batch, MHA and MQA,
+# and capacities below one tile.
+DECODE_BHGC = [(4, 8, 4, 2176), (4, 8, 2, 2176), (64, 8, 4, 4096), (1, 32, 1, 300),
+               (3, 1, 8, 70), (2, 2, 5, 20), (1, 1, 1, 1), (1, 2, 3, 33)]
+DECODE_DS = [32, 64, 72, 128, 200, 256]
+DECODE_SMS = [132, 78]
+
+
+def _decode_lengths(C):
+    return sorted({0, 1, 2, C // 3, C // 2, C - 1, C, C + 5})
+
+
+@pytest.mark.parametrize("sms", DECODE_SMS)
+@pytest.mark.parametrize("D", DECODE_DS)
+@pytest.mark.parametrize("B,Hkv,G,C", DECODE_BHGC)
+def test_decode_plan_slices_cover_every_visible_key_once(B, Hkv, G, C, D, sms):
+    plan = da.decode_plan(B, Hkv, G, C, D, sms)
+    for length in _decode_lengths(C):
+        for window in (0, 1, 7, C + 3):
+            hi = min(length, C)
+            lo = max(hi - window, 0) if window else 0
+            seen = np.zeros(C + 1, np.int32)
+            for z in range(plan.splits):
+                c0, c1 = da.decode_split_range(length, C, window, plan.splits,
+                                               plan.tile, z)
+                if c1 > c0:
+                    assert lo <= c0 and c1 <= hi
+                    # Whole tiles, dealt out evenly, but the row's last.
+                    assert (c0 - lo) % plan.tile == 0
+                    assert c1 - c0 <= math.ceil(math.ceil((hi - lo) / plan.tile)
+                                                / plan.splits) * plan.tile
+                    seen[c0:c1] += 1
+            assert (seen[lo:hi] == 1).all() and seen.sum() == hi - lo
+
+
+@pytest.mark.parametrize("sms", DECODE_SMS)
+@pytest.mark.parametrize("D", DECODE_DS)
+@pytest.mark.parametrize("B,Hkv,G,C", DECODE_BHGC)
+def test_decode_plan_fits_the_kernel(B, Hkv, G, C, D, sms):
+    """What ``csrc/decode_attention_int8.cu`` assumes: 16 dims a lane on
+    its FMA path, tiles of 64 keys, 1-64 splits (never more than the
+    capacity has tiles), a grid that fits, counters only with a cross-block
+    merge."""
+    plan = da.decode_plan(B, Hkv, G, C, D, sms)
+    assert plan.lanes in (8, 16) and plan.lanes * 16 >= D
+    assert plan.lanes == 8 or D > 128
+    assert plan.tile == da.DECODE_TILE == 64
+    assert plan.gt in (1, 2, 4) and (plan.gt >= G or plan.gt == 4)
+    assert 1 <= plan.splits <= min(da.DECODE_MAX_SPLITS, math.ceil(C / plan.tile))
+    gtiles = math.ceil(G / plan.gt)
+    assert plan.grid == (plan.splits, Hkv * gtiles, B)
+    assert plan.grid[1] <= 65535 and plan.grid[2] <= 65535
+    groups = B * Hkv * gtiles
+    assert plan.counters == (groups if plan.splits > 1 else 0)
+    assert plan.counters <= da.DECODE_COUNTERS
+    # As many splits as keep the grid in one wave of the blocks an SM
+    # holds, as far as the capacity has tiles.
+    resident = da.DECODE_BLOCKS_PER_SM * sms
+    assert plan.splits == 1 or plan.splits * groups <= resident
+    assert ((plan.splits + 1) * groups > resident
+            or plan.splits == min(da.DECODE_MAX_SPLITS, math.ceil(C / plan.tile)))
+
+
+def test_decode_plan_reads_shapes_only():
+    """No length enters the plan, so every step of a generation launches the
+    same grid (a CUDA graph can hold it)."""
+    assert list(inspect.signature(da.decode_plan).parameters) == [
+        "B", "Hkv", "G", "C", "D", "sms"]
+    # The main path's shape: 8 splits, 256 blocks on 132 SMs.
+    plan = da.decode_plan(4, 8, 4, 2176, 128)
+    assert (plan.lanes, plan.gt, plan.tile, plan.splits) == (8, 4, 64, 8)
+    assert da.decode_plan(4, 8, 2, 2176, 256)[:3] == (16, 2, 64)
+
+
+@pytest.mark.parametrize("D", [0, 257, 512])
+def test_decode_plan_raises_outside_its_head_dims(D):
+    with pytest.raises(ValueError, match="head dims 1-256"):
+        da.decode_plan(1, 1, 1, 16, D)
 
 
 @pytest.fixture
