@@ -42,6 +42,9 @@ Phases, one JSON object per line:
    one call with ``CT2TPU_W4_PACKED=0`` (``matmul_w4a16``). The launch
    counts are checked against the expected ones, and no W4 plain version may
    run on the card.
+   The W4 plan's path of every launch is logged too (``w4_paths``): the
+   prefill's four products must take the wgmma path, the decode steps
+   split-K.
    On every main path the launch counters are zeroed just before and read
    just after; each kernel of the path must have launched, and the shapes
    it was called with are logged over the same calls.
@@ -51,8 +54,10 @@ Phases, one JSON object per line:
    inputs, with its time, the plain version's, the one library call's
    where there is one and the bound (W8A8 and the two dispatched W4 forms
    also with their plan from ``w8a8_plan`` / ``w4_plan`` and the time of
-   the path the plan did not pick; causal flash also with its query tiles in
-   launch order; the decode kernel also with its ``decode_plan``); timed
+   each path the plan did not pick, held to the same tolerance; causal flash
+   also with its query tiles in launch order; the decode kernel also with
+   its ``decode_plan``); the W4 crossover rows (``w4_crossover``: every W4
+   path of both forms at M = 65-8,192 over the four Llama (K, N)); timed
    rows at Gemma-2-9B's attention widths (``GEMMA2_ATTENTION``: flash at
    q [4, 16, 2048, 256] causal against SDPA, decode over a [4, 8, 2176, 256]
    cache), not summed into the totals; then small shapes for every feature
@@ -169,6 +174,12 @@ OWN_ERROR_FACTOR = 1.5
 # The AWQ model: AutoAWQ's GEMM layout, group 128, the same geometry.
 AWQ_GROUP = 128
 AWQ_CPU_PROMPT = 129
+# The crossover rows of ``w4_plan``: every path of the two dispatched forms
+# at these M over the four Llama (K, N), float16 (not summed: no main path
+# runs the M between 4 and 8,192). ``W4_SPLITK_MAX_M`` is set from
+# them; the four (K, N) are the AWQ path's linears.
+W4_CROSSOVER_MS = (65, 128, 256, 512, 1024, 2048, 8192)
+W4_CROSSOVER_KN = ((4096, 4096), (4096, 6144), (4096, 14336), (14336, 4096))
 # Expected launches of one AWQ generate_batch call (4 prompts of 2,049, 64
 # new tokens): 5 W4 linears in each of 32 layers, for the prefill and each
 # of the 64 steps; 64 x 32 decode-kernel launches; 65 norms a forward pass.
@@ -1178,7 +1189,8 @@ def generator_main_path(tt, mf, vocab, checks, logs):
     with environ(CT2TPU_KV_CACHE="int8"):
         generate_run(gen, prompts[0])  # warm-up
         logged_before = {name: sum(d.values()) for name, d in logs.items()}
-        with kernel_shape_logs(logs):
+        paths, u_paths = {}, {}
+        with kernel_shape_logs(logs), w4_paths_log(paths):
             torch.cuda.reset_peak_memory_stats()
             tt.reset_launches()
             runs = [generate_run(gen, p) for p in prompts[1:1 + calls]]
@@ -1373,6 +1385,43 @@ def w4_plain_calls_on_card(counter):
         yield counter
 
 
+@contextlib.contextmanager
+def w4_paths_log(log):
+    """Counts, in ``log``, the W4 kernel launches per (form, M, K, N, path
+    of the plan that ran)."""
+    from ctranslate2_tpu_torch.kernels import quant_matmul as Q
+
+    def wrap(orig):
+        def wrapped(x, w, g_scale, g_zs, packed, fold, plan):
+            name = ("matmul_w4p" if packed else "matmul_w4a16") + ("_fold" if fold else "")
+            key = (name, x.shape[0], x.shape[1], w.shape[1], plan.path)
+            log[key] = log.get(key, 0) + 1
+            return orig(x, w, g_scale, g_zs, packed, fold, plan)
+        return wrapped
+
+    with patched(Q, "_w4_run", wrap):
+        yield log
+
+
+def check_w4_paths(log, name, checks):
+    """The prefill's W4 products (M = batch x prompt) ran the wgmma path at
+    the four Llama (K, N), the decode's (M = batch) split-K."""
+    prefill_m = GEN_BATCH * (GEN_PROMPT - 1)
+    paths = {f"{n} M {M} K {K} N {N}": path for (n, M, K, N, path) in sorted(log)}
+    emit({"phase": "w4_paths", "kernel": name, "paths": paths,
+          "launches": {f"{n} M {M} K {K} N {N} {path}": c
+                       for (n, M, K, N, path), c in sorted(log.items())}})
+    prefill = {}
+    for (n, M, K, N, path) in log:
+        if n == name and M == prefill_m:
+            prefill.setdefault((K, N), set()).add(path)
+    checks(set(prefill) == set(W4_CROSSOVER_KN)
+           and all(p == {"wgmma"} for p in prefill.values()),
+           f"{name}: the prefill's four shapes ran the wgmma path ({prefill})")
+    decode = {path for (n, M, K, N, path) in log if n == name and M == GEN_BATCH}
+    checks(decode == {"splitk"}, f"{name}: the decode steps ran split-K ({decode})")
+
+
 def generator_awq_main_path(tt, mf, vocab, checks, logs):
     """The Generator on the AWQ model at full width and depth: float16
     activations (the default for an AWQ model on the card), int8 KV cache,
@@ -1397,7 +1446,8 @@ def generator_awq_main_path(tt, mf, vocab, checks, logs):
                f"({gen.compute_type}, {sorted(ffn)})")
         generate_run(gen, prompts[0])  # warm-up
         logged_before = {name: sum(d.values()) for name, d in logs.items()}
-        with kernel_shape_logs(logs):
+        paths, u_paths = {}, {}
+        with kernel_shape_logs(logs), w4_paths_log(paths):
             torch.cuda.reset_peak_memory_stats()
             tt.reset_launches()
             runs = [generate_run(gen, p) for p in prompts[1:1 + calls]]
@@ -1412,7 +1462,7 @@ def generator_awq_main_path(tt, mf, vocab, checks, logs):
             ffn = gen.model.params["decoder"]["layers"][0]["ffn"]["linear_0"]
             checks("w4" in ffn, f"CT2TPU_W4_PACKED=0 loads the unpacked layout ({sorted(ffn)})")
             logged_before = {name: sum(d.values()) for name, d in logs.items()}
-            with kernel_shape_logs(logs):
+            with kernel_shape_logs(logs), w4_paths_log(u_paths):
                 tt.reset_launches()
                 unpacked = generate_run(gen, prompts[1])
                 u_counts = tt.launch_counts()
@@ -1430,6 +1480,8 @@ def generator_awq_main_path(tt, mf, vocab, checks, logs):
            f"awq generator unpacked: launches {u_counts}, expected {u_expected}")
     checks(on_card[0] == 0, f"awq generator: no W4 plain version ran on the card "
            f"({on_card[0]} calls)")
+    check_w4_paths(paths, "matmul_w4p", checks)
+    check_w4_paths(u_paths, "matmul_w4a16", checks)
     results = [r for run in runs for r in run[0]] + unpacked[0]
     checks(all(len(r.sequences_ids[0]) == GEN_NEW for r in results),
            f"awq generator: every hypothesis has {GEN_NEW} tokens")
@@ -1485,18 +1537,61 @@ def w4_library(x, q, s, z, ref):
         x, (_w4p_values(w4p) * s_rows - zs_rows).to(x.dtype))
 
 
-def w4_other_plan(Q, args, packed):
-    """The plan of the path ``w4_plan`` does not pick for these operands of
-    ``matmul_w4p`` / ``matmul_w4a16`` (split-K below its M limit, the tile
-    above)."""
-    chosen = Q.w4_wrapper_plan(args[0], args[1], args[2], packed, False)
-    saved = Q.W4_SPLITK_MAX_M
-    Q.W4_SPLITK_MAX_M = 0 if chosen.path == "splitk" else 1 << 40
-    try:
-        other = Q.w4_wrapper_plan(args[0], args[1], args[2], packed, False)
-    finally:
-        Q.W4_SPLITK_MAX_M = saved
-    return chosen, (other if other.path != chosen.path else None)
+def w4_path_plans(Q, args, packed):
+    """The plan ``w4_plan`` picks for these operands of ``matmul_w4p`` /
+    ``matmul_w4a16``, and the plans of every path that can run them
+    (``Q.W4_PATHS``: split-K and wgmma in a half type with an aligned
+    payload and N % 16 == 0, the tile always)."""
+    import torch
+
+    x, w, s = args[:3]
+    chosen = Q.w4_wrapper_plan(x, w, s, packed, False)
+    M, K = x.shape
+    N = w.shape[1]
+    fast = x.dtype != torch.float32 and w.data_ptr() % 16 == 0 and N % 16 == 0
+    plans = {path: Q.w4_path_plan(path, M, N, K, K // s.shape[0], packed)
+             for path in Q.W4_PATHS if fast or path == "tile"}
+    return chosen, plans
+
+
+def w4_operands(g, M, K, N, dt):
+    """Random W4 operands on the card (AutoAWQ-like: nibbles, scales in
+    [0.005, 0.0075], zero points 7-8): q [K, N] and z as drawn, and the
+    packed and unpacked payloads made from them."""
+    import torch
+
+    G = AWQ_GROUP
+    x = torch.randn((M, K), generator=g, device="cuda").to(getattr(torch, dt))
+    q = torch.randint(0, 16, (K, N), generator=g, device="cuda", dtype=torch.uint8)
+    s = torch.rand((K // G, N), generator=g, device="cuda") * 0.0025 + 0.005
+    z = torch.randint(7, 9, (K // G, N), generator=g, device="cuda").float()
+    operands = {True: (x, (q[:K // 2] | (q[K // 2:] << 4)).view(torch.int8), s, z * s),
+                False: (x, (q.to(torch.int16) - z.to(torch.int16).repeat_interleave(G, 0))
+                        .to(torch.int8), s)}
+    return x, q, s, z, operands
+
+
+def w4_paths_ms(Q, name, args, packed, ref, bound, iters, checks, skip=()):
+    """Every path that can run these operands (``w4_path_plans``), except
+    those in ``skip``: each held to ``bound`` against ``ref`` and timed.
+    Returns the chosen plan and {path: ms}, {path: worst share of the
+    bound}."""
+    chosen, plans = w4_path_plans(Q, args, packed)
+    zs = args[3] if packed else None
+    times, worst = {}, {}
+    for path, plan in plans.items():
+        if path in skip:
+            continue
+        diff = (Q._w4_run(*args[:3], zs, packed, False, plan) - ref).abs()
+        worst[path] = (diff / bound).max().item()
+        checks(bool((diff <= bound).all()),
+               f"{name} {path} path within its error bound of plain at "
+               f"{tuple(args[0].shape)} x {tuple(args[1].shape)} "
+               f"(worst share of the bound {worst[path]})")
+        del diff
+        times[path] = cuda_time_ms(
+            lambda: Q._w4_run(*args[:3], zs, packed, False, plan), iters)
+    return chosen, times, worst
 
 
 def bench_w4(shapes, checks):
@@ -1506,9 +1601,9 @@ def bench_w4(shapes, checks):
     ``matmul_w4p`` (packed calls) and ``matmul_w4a16`` (the unpacked call);
     the two folded forms are not on the path and run at their counterpart's
     shapes, their sums weighted by its launches. The two dispatched forms'
-    lines also carry their plan (path, split count) and the time of the
-    path the plan did not pick, held to the same bound: the crossover's
-    evidence. Returns the sums."""
+    lines also carry their plan (path, split count) and the times of the
+    paths the plan did not pick, each held to the same bound: the
+    crossover's evidence. Returns the sums."""
     import torch
     from ctranslate2_tpu_torch.kernels import quant_matmul as Q
 
@@ -1524,13 +1619,7 @@ def bench_w4(shapes, checks):
                        max_abs_err=0.0, libraries=set()) for name in kinds}
     for key in sorted(set(shapes["matmul_w4p"]) | set(shapes["matmul_w4a16"])):
         M, K, N, dt = key
-        x = torch.randn((M, K), generator=g, device="cuda").to(getattr(torch, dt))
-        q = torch.randint(0, 16, (K, N), generator=g, device="cuda", dtype=torch.uint8)
-        s = torch.rand((K // G, N), generator=g, device="cuda") * 0.0025 + 0.005
-        z = torch.randint(7, 9, (K // G, N), generator=g, device="cuda").float()
-        operands = {True: (x, (q[:K // 2] | (q[K // 2:] << 4)).view(torch.int8), s, z * s),
-                    False: (x, (q.to(torch.int16) - z.to(torch.int16).repeat_interleave(G, 0))
-                            .to(torch.int8), s)}
+        x, q, s, z, operands = w4_operands(g, M, K, N, dt)
         small = M * K * N < 2 ** 32
         iters, plain_iters = (50, 10) if small else (3, 2)
         library, lib_fn = w4_library(x, q, s, z, Q.matmul_w4a16_plain(*operands[False]))
@@ -1550,16 +1639,14 @@ def bench_w4(shapes, checks):
             checks(bool((diff <= bound).all()),
                    f"{name} within its error bound of plain at {key} "
                    f"(max abs err {err}, worst share of the bound {worst})")
-            plan, other = ((Q.w4_wrapper_plan(x, args[1], s, packed, True), None) if fold
-                           else w4_other_plan(Q, args, packed))
-            other_ms = None
-            if other is not None:
-                diff = (Q._w4_run(*args[:3], zs, packed, False, other) - ref).abs()
-                checks(bool((diff <= bound).all()),
-                       f"{name} {other.path} path within its error bound of plain at "
-                       f"{key} (worst share of the bound {(diff / bound).max().item()})")
-                other_ms = cuda_time_ms(
-                    lambda: Q._w4_run(*args[:3], zs, packed, False, other), iters)
+            if fold:
+                plan, paths_ms, paths_worst = Q.w4_wrapper_plan(x, args[1], s, packed, True), {}, {}
+            else:
+                # The other paths at the same shape, held to the same bound:
+                # the crossover's evidence.
+                plan, paths_ms, paths_worst = w4_paths_ms(
+                    Q, name, args, packed, ref, bound, iters, checks,
+                    skip=(Q.w4_wrapper_plan(x, args[1], s, packed, False).path,))
             del out, ref, diff, bound
             ms = cuda_time_ms(lambda: fn(*args), iters)
             plain_ms = cuda_time_ms(lambda: plain(*args), plain_iters)
@@ -1571,9 +1658,8 @@ def bench_w4(shapes, checks):
                   "group": G, "launches": n if name == base else 0,
                   "weighted_by_launches_of": base, "weight": n,
                   "path": plan.path, "splits": plan.splits, "k_chunk": plan.k_chunk,
-                  "other_path": None if other is None else other.path,
-                  "other_path_splits": None if other is None else other.splits,
-                  "other_path_ms": other_ms,
+                  "other_paths_ms": paths_ms,
+                  "other_paths_worst_share_of_error_bound": paths_worst,
                   "max_abs_err": err, "worst_share_of_error_bound": worst,
                   "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                   "library": library, "bytes_moved": nbytes,
@@ -1593,6 +1679,41 @@ def bench_w4(shapes, checks):
     for tot in tots.values():
         tot["libraries"] = sorted(tot["libraries"])
     return tots
+
+
+def bench_w4_crossover(checks):
+    """Each path of ``matmul_w4p`` and ``matmul_w4a16`` at every
+    (M, K, N) of ``W4_CROSSOVER_MS`` x ``W4_CROSSOVER_KN`` in float16, held
+    to ``w4_error_bound`` and timed; one line a shape with the plan's path
+    and the fastest path."""
+    import torch
+    from ctranslate2_tpu_torch.kernels import quant_matmul as Q
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for K, N in W4_CROSSOVER_KN:
+        for M in W4_CROSSOVER_MS:
+            x, q, s, z, operands = w4_operands(g, M, K, N, "float16")
+            iters = 20 if M * K * N < 2 ** 33 else 3
+            for name, packed in (("matmul_w4p", True), ("matmul_w4a16", False)):
+                args = operands[packed]
+                zs = args[3] if packed else None
+                ref = getattr(Q, name + "_plain")(*args)
+                bound = Q.w4_error_bound(*args[:3], zs, False)
+                plan, times, worst = w4_paths_ms(Q, name, args, packed, ref, bound, iters,
+                                                 checks)
+                del ref, bound
+                fastest = min(times, key=times.get)
+                ops_ms = 2 * M * N * K / PEAK_HALF_FLOPS * 1e3
+                emit({"phase": "w4_crossover", "kernel": name, "M": M, "K": K, "N": N,
+                      "dtype": "float16", "group": AWQ_GROUP, "plan_path": plan.path,
+                      "fastest_path": fastest, "paths_ms": times,
+                      "worst_share_of_error_bound": worst, "ops_bound_ms": ops_ms,
+                      "tflops": {p: 2 * M * N * K / ms / 1e9 for p, ms in times.items()}})
+                rows.append((name, M, K, N, plan.path, fastest))
+            del x, q, operands
+            free_card()
+    return rows
 
 
 def generator_awq_checks(tt, mf, vocab, checks):
@@ -1916,6 +2037,8 @@ def main():
         no = bench_norm(logs["fused_norm"], checks)
         feature_checks(checks)
         w4 = bench_w4(awq_logs, checks)
+        free_card()
+        bench_w4_crossover(checks)
         free_card()
 
         # ---- the other Translator runs ----

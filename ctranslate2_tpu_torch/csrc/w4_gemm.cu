@@ -24,10 +24,10 @@
 // 3.35 TB/s: 2.8 / 4.3 / 9.9 / 9.9 us packed at (K, N) = (4096, 4096) /
 // (4096, 6144) / (4096, 14336) / (14336, 4096); at the prefill shapes
 // (M = 8,192) the 2*M*N*K operations over the tensor cores' 989 TFLOP/s in
-// f16/bf16. The wrapper picks one of two paths per shape with
+// f16/bf16. The wrapper picks one of three paths per shape with
 // quant_matmul.w4_plan:
 //
-// 1. Split-K, swap-AB, for M <= 64 (ct2_w4_gemm_splitk; matmul_w4a16 and
+// 1. Split-K, swap-AB, for small M (ct2_w4_gemm_splitk; matmul_w4a16 and
 //    matmul_w4p in f16/bf16). At M = 4 a 64-row output tile wastes 15/16 of
 //    each mma and N = 4,096 gives 64 blocks for 132 SMs. Here the weights are
 //    the A operand of mma.sync.m16n8k16 (16 output columns a warp) and x its B
@@ -63,7 +63,39 @@
 //    is one launch and no memset). The fixed order makes two calls on the same
 //    inputs bit-equal, so the AWQ decode is the same run to run (float atomics
 //    would add in arrival order).
-// 2. The tile kernel (ct2_w4_gemm; every form, every M): a plain, right-first
+// 2. wgmma + TMA, swap-AB, for large M (ct2_w4_gemm_wgmma; the same two
+//    forms and types). At the prefill shapes the product is bound by the
+//    tensor cores, and the tile below ran at 70-78 TFLOP/s. One block owns
+//    128 weight columns x 128 x rows over the whole K (a grouped raster of 8
+//    x-row tiles, so the blocks in flight share their x panels in L2): one
+//    producer warp issues the TMA loads of an 8-stage ring signalled by
+//    mbarriers (a stage: the 128B-swizzled x box [128 rows x 64 k] of one
+//    half and the payload box [64 rows x 128 columns]); two consumer
+//    warpgroups run wgmma.mma_async.m64n128k16 with the weights as the A
+//    operand from registers (64 columns each: warp w's A fragment of a k-step
+//    is the split-K kernel's, one ldmatrix.x2.trans and the magic-number
+//    conversion, so no dequantized weight goes through shared memory) and x as
+//    the K-major B operand. setmaxnreg moves registers from the producer
+//    warpgroup (40) to the consumers (232). Packed, the stages run half 0's
+//    payload rows, then half 1's (each payload box is read twice), which
+//    keeps one group partial a thread; the nibble half is a compile-time
+//    constant, and in f16 the high nibble takes one AND and one HFMA2. Each
+//    thread keeps an f32 partial (64 registers) and an f32 accumulator (64):
+//    at each group end it waits for the group's wgmmas and folds acc +=
+//    part * s[g, n] (- rowsum(x_g) * zs[g, n]); n is an accumulator row, so
+//    a thread needs two scales and zero terms a group, loaded a group ahead.
+//    The row sums come from a first launch (w4_rowsum_kernel: f32 sums of
+//    x over each group into a workspace [K/G, M]) and reach each stage by
+//    TMA, a [4 groups x 128 rows] slice beside the stage. For G % 64 == 0 a
+//    stage's four wgmmas issue as one batch, committed before any branch
+//    (in the SASS a branch between two wgmmas closes the batch, and a
+//    commit after one opens an empty group that the wait then waits behind:
+//    both measured slower); other G fold wherever their groups end. The
+//    accumulator holds out^T: each thread stores two adjacent columns of 32
+//    x rows as float2 (full 32-byte sectors), no workspace, no atomics, so
+//    two calls are bit-equal and a CUDA graph can hold the launches. It
+//    needs N % 16 == 0 and 16-byte aligned x and payload (TMA's rules).
+// 3. The tile kernel (ct2_w4_gemm; every form, every M): a plain, right-first
 //    kernel. Each 128-thread block computes a 64 x 64 output tile, each of
 //    its four warps a 32 x 32 sub-tile with mma.sync.m16n8k16 and f32
 //    accumulators. Per stage of 32 payload rows the block loads x's tiles
@@ -75,10 +107,14 @@
 //    with the f32 scale (and, packed, the f32 row sums of the same x tile
 //    times zs). Warps whose rows lie past M skip their products. float32
 //    activations take a plain-FMA kernel of the same arithmetic (no rounding
-//    to a half type) on both paths' shapes.
-// Left for later work: the prefill shapes (M = 8,192) stay on the tile, at
-// 70-78 TFLOP/s, though the split-K kernel (one split) ran them 1.6-3.5x
-// faster on the card; then wgmma and TMA there.
+//    to a half type) on both paths' shapes. The plan keeps it for float32,
+//    unaligned payloads, N off a multiple of 16 and the two folded forms.
+// Left for later work: the wgmma path waits for each group's last batch
+// before its fold, and both consumer warpgroups fold at once, so the tensor
+// cores idle there; two partials would let the next group's wgmmas run
+// during the fold, but with 128 x rows a block they leave too few registers
+// for the A fragments (ptxas then issues each wgmma alone). The folded forms
+// still run on the tile.
 
 #include <type_traits>
 
@@ -518,6 +554,25 @@ __device__ __forceinline__ void dequant_frag(unsigned (&a)[4], unsigned p0, unsi
   }
 }
 
+// dequant_frag for a half known at compile time. float16 packed, half 1:
+// the high nibble stays in place, 16q in the mantissa of 1024.0 (exact),
+// and one HFMA2 gives (1024 + 16q) / 16 - 64 = q, saving the shifts.
+template <typename T, bool PACKED, int HALF>
+__device__ __forceinline__ void dequant_half(unsigned (&a)[4], unsigned p0, unsigned p1) {
+  if (PACKED && HALF == 1 && std::is_same<T, __half>::value) {
+    const unsigned src[4] = {p0, p0 >> 8, p1, p1 >> 8};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned v = (src[i] & 0x00F000F0u) | 0x64006400u;
+      asm("fma.rn.f16x2 %0, %1, %2, %3;\n"
+          : "=r"(a[i])
+          : "r"(v), "r"(0x2C002C00u), "r"(0xD400D400u));  // x 1/16, - 64
+    }
+  } else {
+    dequant_frag<T, PACKED>(a, p0, p1, HALF);
+  }
+}
+
 // An A fragment of ones: mma(d, ONES, b0, b1) adds each x row's 16 values
 // of the k-step to d (d[0] row 2t, d[1] row 2t + 1).
 template <typename T>
@@ -793,6 +848,334 @@ int dispatch_splitk(int mt, const void* x, const void* w, const void* scale,
   }
 }
 
+// ---------------------------------------------------------------------------
+// wgmma + TMA, swap-AB (f16/bf16, large M, not folded).
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BN = 128;  // weight columns a block: two consumer warpgroups x 64
+constexpr int WG_BM = 128;  // x rows a block: wgmma's N
+constexpr int WG_BK = 64;   // payload rows (k of one half) a stage: one 128B x row
+constexpr int WG_STAGES = 8;
+constexpr int WG_GROUP = 8;  // x-row tiles a raster group
+constexpr int WG_RS_GROUPS = 4;  // row-sum groups a stage carries (64 rows, G >= 16)
+constexpr int WG_X_BYTES = WG_BM * WG_BK * 2;
+constexpr int WG_W_BYTES = WG_BK * WG_BN;
+constexpr int WG_RS_BYTES = WG_RS_GROUPS * WG_BM * 4;
+__host__ __device__ constexpr int wg_stage_bytes(bool packed) {
+  return WG_X_BYTES + WG_W_BYTES + (packed ? 1024 * ((WG_RS_BYTES + 1023) / 1024) : 0);
+}
+__host__ __device__ constexpr int wg_smem(bool packed) {
+  return 1024 + WG_STAGES * wg_stage_bytes(packed) + 2 * WG_STAGES * 8;
+}
+constexpr int WG_CONSUMERS = 256;  // warpgroups 0-1; warpgroup 2 is the producer
+constexpr int WG_THREADS = WG_CONSUMERS + 128;
+// Registers a thread after setmaxnreg: 384 threads start at 168; the
+// producer warpgroup gives up 128 a thread, the consumers take 64 more.
+constexpr int WG_PRODUCER_REGS = 40;
+constexpr int WG_CONSUMER_REGS = 232;
+static_assert(WG_PRODUCER_REGS * 128 + WG_CONSUMER_REGS * WG_CONSUMERS <= 168 * WG_THREADS,
+              "the register moves fit the block's allocation");
+
+__device__ __forceinline__ void ldmatrix_x2_trans_at(unsigned& r0, unsigned& r1, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr)
+               : "memory");
+}
+
+// rowsum(x_g) for the packed form's zero-point term, in f32: rs[g, m] for
+// every group g of K (both halves), m < M; rs has `ld` >= M columns.
+__global__ void __launch_bounds__(256)
+w4_rowsum_kernel(const unsigned short* __restrict__ x, float* __restrict__ rs, int M, int K,
+                 int G, int ld, bool bf16) {
+  const int m = blockIdx.x * 32 + (threadIdx.x & 31);
+  const int grp = blockIdx.y * 8 + (threadIdx.x >> 5);
+  if (m >= M || grp >= K / G) return;
+  const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)m * K + (size_t)grp * G);
+  float sum = 0.f;
+  for (int c = 0; c < G / 8; ++c) {
+    const uint4 v = __ldg(src + c);
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (bf16) {
+        sum += __uint_as_float(w[i] << 16);
+        sum += __uint_as_float(w[i] & 0xFFFF0000u);
+      } else {
+        sum += __half2float(__ushort_as_half(w[i] & 0xFFFF));
+        sum += __half2float(__ushort_as_half(w[i] >> 16));
+      }
+    }
+  }
+  rs[(size_t)grp * ld + m] = sum;
+}
+
+// One block: weight columns [tn * 128, + 128) x x rows [tm * 128, + 128),
+// the whole K. The stages run half 0's payload rows, then (packed) half 1's,
+// 64 rows a stage: a stage is the x box [128 rows x 64 k] of one half, the
+// payload box [64 rows x 128 columns] and, packed, the row sums of the x
+// rows for the stage's first four groups; packed, every payload box is read
+// twice (once a half), which keeps one group partial a thread. Warp w of
+// consumer warpgroup c owns weight columns c * 64 + 16 w .. + 16 as wgmma
+// rows; its A fragment of a k-step is the split-K kernel's (ldmatrix.x2.trans
+// on the payload bytes, dequant_frag), so dequantized weights never go
+// through shared memory. x is B, K-major from the swizzled TMA box.
+template <typename T, bool PACKED, int GS>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+w4_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                const __grid_constant__ CUtensorMap tmap_w,
+                const __grid_constant__ CUtensorMap tmap_rs, const float* __restrict__ scale,
+                const float* __restrict__ zs, float* __restrict__ out, int M, int N, int K,
+                int G) {
+  constexpr int H = PACKED ? 2 : 1;
+  constexpr int STAGE = wg_stage_bytes(PACKED);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bars = base + WG_STAGES * STAGE;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (WG_STAGES + s); };
+
+  const int rows = PACKED ? K / 2 : K;
+  const int cps = (rows + WG_BK - 1) / WG_BK;  // stages a half
+  const int nst = H * cps;
+  const int tiles_m = (M + WG_BM - 1) / WG_BM;
+  const int tiles_n = (N + WG_BN - 1) / WG_BN;
+  const int id = blockIdx.x;
+  const int first_m = (id / (WG_GROUP * tiles_n)) * WG_GROUP;
+  const int group_m = min(tiles_m - first_m, WG_GROUP);
+  const int tm = first_m + (id % group_m);
+  const int tn = (id % (WG_GROUP * tiles_n)) / group_m;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), WG_CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= WG_CONSUMERS) {
+    setmaxnreg_dec<WG_PRODUCER_REGS>();
+    if (threadIdx.x == WG_CONSUMERS) {
+      tma_prefetch(&tmap_x);
+      tma_prefetch(&tmap_w);
+      if (PACKED) tma_prefetch(&tmap_rs);
+      for (int i = 0; i < nst; ++i) {
+        const int s = i % WG_STAGES;
+        if (i >= WG_STAGES) mbar_wait(empty(s), ((i / WG_STAGES) - 1) & 1);
+        const int h = (PACKED && i >= cps) ? 1 : 0;
+        const int r0 = (i - h * cps) * WG_BK;
+        const uint32_t dst = base + s * STAGE;
+        mbar_arrive_expect_tx(full(s), PACKED ? WG_X_BYTES + WG_W_BYTES + WG_RS_BYTES
+                                              : WG_X_BYTES + WG_W_BYTES);
+        tma_load_2d(dst, &tmap_x, full(s), h * rows + r0, tm * WG_BM);
+        tma_load_2d(dst + WG_X_BYTES, &tmap_w, full(s), tn * WG_BN, r0);
+        if (PACKED)  // the row sums of the groups from the stage's first on
+          tma_load_2d(dst + WG_X_BYTES + WG_W_BYTES, &tmap_rs, full(s), tm * WG_BM,
+                      (h * rows + r0) / G);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<WG_CONSUMER_REGS>();
+
+  const int cw = threadIdx.x >> 5;  // consumer warp 0-7
+  const int wg = cw >> 2;
+  const int warp = cw & 3;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // wgmma rows g and g + 8 of this warp are weight columns n and n + 1 (the
+  // fragment's column order, see dequant_frag); accumulator register
+  // 4j + 2hh + e is column n + hh, x row 8j + 2t + e of the block.
+  const int n = tn * WG_BN + wg * 64 + warp * 16 + 2 * g;
+  const bool n_in = n < N;
+  const int chunk = wg * 4 + warp;  // this warp's 16-byte payload chunk of a row
+  const int gsteps = G / 16;
+  const int groups = K / G;
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  auto scales = [&](int grp, float2& s2, float2& z2) {
+    s2 = make_float2(0.f, 0.f);
+    z2 = make_float2(0.f, 0.f);
+    if (n_in && grp < groups) {
+      s2 = __ldg(reinterpret_cast<const float2*>(scale + (size_t)grp * N + n));
+      if (PACKED) z2 = __ldg(reinterpret_cast<const float2*>(zs + (size_t)grp * N + n));
+    }
+  };
+  float2 s2, z2;  // the next fold's scale and zero term, loaded a group ahead
+  scales(0, s2, z2);
+  // The stage's A fragments: k-step kk of payload rows from `wt`, payload
+  // half HALF.
+  unsigned a[WG_BK / 16][4];
+  auto dequant = [&](auto half, uint32_t wt, int nk) {
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk) {
+      if (kk < nk) {
+        const int r = kk * 16 + (lane & 15);
+        unsigned p0, p1;
+        ldmatrix_x2_trans_at(p0, p1, wt + r * 128 + ((chunk ^ (r & 7)) << 4));
+        dequant_half<T, PACKED, decltype(half)::value>(a[kk], p0, p1);
+      }
+    }
+  };
+  auto slice = [&](uint32_t xt) {  // the stage's row sums (packed)
+    return reinterpret_cast<const float*>(smem_raw + (xt - raw) + WG_X_BYTES + WG_W_BYTES);
+  };
+
+  // One partial a thread, folded at each group end. Where G % 64 == 0
+  // (GS == 4) groups end only on stage ends, and a stage's wgmmas issue as
+  // one straight batch, committed before any branch: a branch between two
+  // wgmmas, or a commit after one, makes ptxas close the batch early (each
+  // wgmma then runs alone, or the wait below waits for the batch just
+  // issued). Any other G folds wherever in a stage its groups end.
+  float part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) part[i] = 0.f;
+  int gleft = gsteps;
+  int grp = 0;
+  int accumulate = 0;
+  // A group ends, its wgmmas committed: acc += part * s (packed: minus
+  // rowsum(x_g) * zs, the row sums from the stage's slice, whose first
+  // group is g_first), then the next group's scales.
+  auto fold_group = [&](const float* rsm, int g_first) {
+    wgmma_wait<0>();
+    reg_fence(part);
+    const float* rb = rsm + (grp - g_first) * WG_BM;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float2 r2 = make_float2(0.f, 0.f);
+      if (PACKED) r2 = *reinterpret_cast<const float2*>(rb + 8 * j + 2 * t);
+      acc[4 * j + 0] = fmaf(part[4 * j + 0], s2.x, acc[4 * j + 0]);
+      acc[4 * j + 1] = fmaf(part[4 * j + 1], s2.x, acc[4 * j + 1]);
+      acc[4 * j + 2] = fmaf(part[4 * j + 2], s2.y, acc[4 * j + 2]);
+      acc[4 * j + 3] = fmaf(part[4 * j + 3], s2.y, acc[4 * j + 3]);
+      if (PACKED) {
+        acc[4 * j + 0] = fmaf(-r2.x, z2.x, acc[4 * j + 0]);
+        acc[4 * j + 1] = fmaf(-r2.y, z2.x, acc[4 * j + 1]);
+        acc[4 * j + 2] = fmaf(-r2.x, z2.y, acc[4 * j + 2]);
+        acc[4 * j + 3] = fmaf(-r2.y, z2.y, acc[4 * j + 3]);
+      }
+    }
+    scales(++grp, s2, z2);
+    gleft = gsteps;
+    accumulate = 0;
+    reg_fence(part);
+  };
+  // Stage i of half HALF (packed: half 0's stages, then half 1's).
+  auto stage = [&](auto hbuf, int i) {
+    constexpr int h = decltype(hbuf)::value;
+    const int s = i % WG_STAGES;
+    const int r0 = (i - h * cps) * WG_BK;
+    const int nk = min(WG_BK, rows - r0) >> 4;  // k-steps here
+    const int g_first = (h * rows + r0) / G;   // the row-sum slice's first group
+    const uint32_t xt = base + s * STAGE;
+    mbar_wait(full(s), (i / WG_STAGES) & 1);
+    dequant(hbuf, xt + WG_X_BYTES, nk);
+    reg_fence(part);
+    wgmma_fence();
+    if (GS == WG_BK / 16) {
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk)
+        Wgmma<T>::rs_m64n128k16_kb(part, a[kk], desc_sw128(xt + kk * 32),
+                                   kk == 0 ? accumulate : 1);
+      wgmma_commit();
+      accumulate = 1;
+      gleft -= WG_BK / 16;
+      if (gleft == 0) fold_group(slice(xt), g_first);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk) {
+        if (kk >= nk) break;  // block-uniform: a half's last, short stage
+        Wgmma<T>::rs_m64n128k16_kb(part, a[kk], desc_sw128(xt + kk * 32), accumulate);
+        accumulate = 1;
+        if (--gleft == 0) {
+          wgmma_commit();
+          fold_group(slice(xt), g_first);
+          wgmma_fence();
+        }
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<1>();  // the previous stage's wgmmas are done: release it
+    reg_fence(part);
+    if (i > 0) mbar_arrive(empty((i - 1) % WG_STAGES));
+  };
+  for (int i = 0; i < cps; ++i) stage(std::integral_constant<int, 0>(), i);
+  if (PACKED)
+    for (int i = cps; i < nst; ++i) stage(std::integral_constant<int, 1>(), i);
+  wgmma_wait<0>();
+  reg_fence(part);
+
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = tm * WG_BM + 8 * j + 2 * t + e;
+      if (m < M && n_in)
+        *reinterpret_cast<float2*>(out + (size_t)m * N + n) =
+            make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
+    }
+}
+
+// A 2-D tensor map of [outer, inner] elements of `elem_bytes` (row stride
+// inner * elem_bytes), box box_outer x box_inner, 128B swizzle by default.
+int encode_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int elem_bytes,
+              int inner, int outer, int box_inner, int box_outer,
+              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  ct2_encode_tiled_fn encode = ct2_encode_tiled();
+  if (encode == nullptr) return CT2_ERR_NO_ENCODER;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t elem[2] = {1u, 1u};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : CT2_ERR_ENCODE + static_cast<int>(r);
+}
+
+template <typename T, bool PACKED>
+int launch_wgmma(const void* x, const void* w, const void* scale, const void* zs, void* out,
+                 void* rs, int M, int N, int K, int G, cudaStream_t stream) {
+  const int rows = PACKED ? K / 2 : K;
+  const int ld = (M + 3) & ~3;  // row-sum columns: a 16-byte row stride
+  CUtensorMap tx, tw, trs;
+  int err = encode_2d(&tx, x, CU_TENSOR_MAP_DATA_TYPE_UINT16, 2, K, M, WG_BK, WG_BM);
+  if (err == 0) err = encode_2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, rows, WG_BN, WG_BK);
+  if (err == 0 && PACKED)
+    err = encode_2d(&trs, rs, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ld, K / G, WG_BM,
+                    WG_RS_GROUPS, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != 0) return err;
+  if (PACKED) {
+    dim3 grid((M + 31) / 32, (K / G + 7) / 8);
+    w4_rowsum_kernel<<<grid, 256, 0, stream>>>(static_cast<const unsigned short*>(x),
+                                               static_cast<float*>(rs), M, K, G, ld,
+                                               std::is_same<T, __nv_bfloat16>::value);
+  }
+  const long long tiles = (long long)((M + WG_BM - 1) / WG_BM) * ((N + WG_BN - 1) / WG_BN);
+  auto run = [&](auto kernel, bool& attr_set) {
+    if (!attr_set) {
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg_smem(PACKED));
+      attr_set = true;
+    }
+    kernel<<<(unsigned)tiles, WG_THREADS, wg_smem(PACKED), stream>>>(
+        tx, tw, PACKED ? trs : tx, static_cast<const float*>(scale),
+        static_cast<const float*>(zs), static_cast<float*>(out), M, N, K, G);
+  };
+  static bool batched_set = false, single_set = false;
+  if (G % (16 * (WG_BK / 16)) == 0)
+    run(w4_wgmma_kernel<T, PACKED, WG_BK / 16>, batched_set);
+  else
+    run(w4_wgmma_kernel<T, PACKED, 1>, single_set);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool PACKED, bool FOLD>
 void launch(const W4Params& p, int dtype, cudaStream_t stream) {
   if (dtype == 0) {
@@ -809,7 +1192,7 @@ void launch(const W4Params& p, int dtype, cudaStream_t stream) {
 
 }  // namespace
 
-// Path 2. Launches one W4 product on `stream`: x [M, K] (dtype 0 f32, 1 f16,
+// Path 3. Launches one W4 product on `stream`: x [M, K] (dtype 0 f32, 1 f16,
 // 2 bf16), payload `w` ([K, N] int8 (q - z), or [K/2, N] nibbles when
 // `packed`), f32 `scale` [K/G, N], f32 `zs` [K/G, N] for the packed,
 // non-folded form (else null), f32 `out` [M, N]. The caller checks the
@@ -860,5 +1243,26 @@ extern "C" int ct2_w4_gemm_splitk(const void* x, const void* w, const void* scal
   if (dtype == 2)
     return packed ? dispatch_splitk<__nv_bfloat16, true>(mt, x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s)
                   : dispatch_splitk<__nv_bfloat16, false>(mt, x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Path 2 (see the note at the top): x [M, K] f16 (dtype 1) or bf16 (2),
+// payload as for ct2_w4_gemm (not folded), f32 `out` [M, N]; packed, `rs`
+// an f32 workspace [K/G, (M + 3) / 4 * 4] for the row sums (else unused).
+// Needs N % 16 == 0 and 16-byte aligned x and payload (TMA's stride and
+// address rules). Packed, two launches: the row sums, then the product.
+// Returns cudaGetLastError() after the launches, or CT2_ERR_* if a tensor
+// map could not be made.
+extern "C" int ct2_w4_gemm_wgmma(const void* x, const void* w, const void* scale,
+                                 const void* zs, void* out, void* rs, int M, int N, int K,
+                                 int G, int dtype, int packed, void* stream) {
+  if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return packed ? launch_wgmma<__half, true>(x, w, scale, zs, out, rs, M, N, K, G, s)
+                  : launch_wgmma<__half, false>(x, w, scale, zs, out, rs, M, N, K, G, s);
+  if (dtype == 2)
+    return packed ? launch_wgmma<__nv_bfloat16, true>(x, w, scale, zs, out, rs, M, N, K, G, s)
+                  : launch_wgmma<__nv_bfloat16, false>(x, w, scale, zs, out, rs, M, N, K, G, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,9 +14,10 @@ Counterparts of ``ctranslate2_tpu/kernels/quant_matmul.py``:
   zero * scale terms [K/G, N].
 
 The four W4 products share one CUDA source, ``csrc/w4_gemm.cu``, and keep
-the JAX layouts: a split-K ``mma.sync`` path for ``matmul_w4a16`` and
-``matmul_w4p`` at M <= 64 in float16/bfloat16, and a 64 x 64 tile for
-everything else, chosen by ``w4_plan``. The ``_fold`` forms are not
+the JAX layouts: for ``matmul_w4a16`` and ``matmul_w4p`` in
+float16/bfloat16 a split-K ``mma.sync`` path at small M and a TMA-fed
+``wgmma`` path above it, and a 64 x 64 tile for everything else, chosen by
+``w4_plan``. The ``_fold`` forms are not
 dispatched by ``linear()`` (as in the JAX package); they are held by the
 tests and ``chip_smoke.py``.
 """
@@ -183,20 +184,35 @@ def matmul_w8a8(q, wq, a_scale, w_scale):
 
 W4_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 W4_MAX_ROWS = 65535 * 64  # gridDim.y of the kernels' 64-row tiles
-# Split-K path (``matmul_w4a16`` / ``matmul_w4p``, float16/bfloat16, M up to
-# W4_SPLITK_MAX_M): a block owns W4_SPLITK_BN output columns x ``mt`` rows
-# and streams its slice of the payload rows in stages of W4_SPLITK_BK; K is
-# split on group boundaries until the grid holds about
-# W4_SPLITK_BLOCKS_PER_SM blocks an SM (eight ran faster than four at the
-# decode shapes on the card). Above it, and for the
-# folded forms and float32, the tile kernel: W4_TILE (rows, columns, payload
+# Split-K path (``matmul_w4a16`` / ``matmul_w4p``, float16/bfloat16): a
+# block owns W4_SPLITK_BN output columns x ``mt`` rows and streams its slice
+# of the payload rows in stages of W4_SPLITK_BK; K is split on group
+# boundaries until the grid holds about W4_SPLITK_BLOCKS_PER_SM blocks an SM
+# (eight ran faster than four at the decode shapes on the card). wgmma
+# path: one block a W4_WGMMA_TILE (x rows, weight columns, payload rows a
+# stage), the whole K. The folded forms, float32, an unaligned payload and N
+# off a multiple of 16 take the tile kernel: W4_TILE (rows, columns, payload
 # rows a stage).
 W4_SPLITK_BN = 64
 W4_SPLITK_BK = 64
 W4_SPLITK_MTS = (8, 16, 32, 64)
-W4_SPLITK_MAX_M = 64
 W4_SPLITK_BLOCKS_PER_SM = 8
+W4_WGMMA_TILE = (128, 128, 64)
+# The crossover (chip_smoke.py's kernel_w4 and w4_crossover rows: both
+# forms, float16, the four Llama (K, N); H100 80GB HBM3, 700 W). At M = 4
+# split-K takes 9.4-33.2 us, wgmma 40.3-173.1: split-K up to W4_SPLITK_MAX_M
+# rows. From M = 65 wgmma: where its grid has 48 tiles or more it takes
+# 41.5-58.2 us at M = 65-128 against split-K's 56.2-176.0, over 32 tiles
+# with K = 4,096 the two are within 7% either way, and from M = 256 on it
+# is faster at every shape (2.1-2.9x at M = 8,192). Over fewer than
+# W4_WGMMA_MIN_TILES tiles with K of W4_SPLITK_LONG_K or more (K 14,336,
+# N 4,096 at M <= 128: 32 blocks, each over the whole K) split-K, whose K
+# split fills the card, stays 8-29% faster.
+W4_SPLITK_MAX_M = 64
+W4_WGMMA_MIN_TILES = 33
+W4_SPLITK_LONG_K = 8192
 W4_TILE = (64, 64, 32)
+W4_PATHS = ("splitk", "wgmma", "tile")
 # Per-tile counters of the split-K path's last-block sum. A split count
 # above 1 needs fewer tiles than blocks wanted, so this many always suffice.
 W4_COUNTERS = W4_SPLITK_BLOCKS_PER_SM * CARD_SMS
@@ -206,12 +222,14 @@ class W4Plan(NamedTuple):
     """How a W4 product runs one shape on the card.
 
     ``path``: "splitk" (swap-AB ``mma.sync`` over a ``cp.async`` ring, K
-    split across blocks, deterministic cross-block sum) or "tile" (a
-    64 x 64 output tile, one block for the whole K). ``k_chunk`` payload rows a
-    slice (a multiple of G), ``splits`` slices; ``tile`` (rows, columns,
-    payload rows a stage); ``grid`` the CUDA grid; ``counters`` the per-tile
-    counters the split-K sum needs (0: none, the f32 partials then skip the
-    workspace).
+    split across blocks, deterministic cross-block sum), "wgmma" (swap-AB
+    ``wgmma`` with the weights as register A fragments, x by TMA, one block
+    a 128 x 128 output tile; ``grid`` counts the tiles, laid out in a
+    grouped raster by the kernel) or "tile" (a 64 x 64 output tile, one
+    block for the whole K). ``k_chunk`` payload rows a slice (a multiple of
+    G), ``splits`` slices; ``tile`` (rows, columns, payload rows a stage);
+    ``grid`` the CUDA grid; ``counters`` the per-tile counters the split-K
+    sum needs (0: none, the f32 partials then skip the workspace).
     """
     path: str
     mt: int
@@ -228,13 +246,32 @@ def w4_plan(M: int, N: int, K: int, G: int, packed: bool, aligned: bool = True,
     ``matmul_w4p`` for x [M, K] and a group size G.
 
     ``aligned``: the payload starts on 16 bytes; ``half``: float16/bfloat16
-    activations. The split-K path takes M up to ``W4_SPLITK_MAX_M`` with
-    16-byte payload loads (N % 16 == 0, aligned) in a half type; every other
-    shape takes the tile."""
+    activations. In a half type with an aligned payload and N % 16 == 0,
+    the split-K path takes M up to ``W4_SPLITK_MAX_M`` and a long K on a
+    wgmma grid of few tiles (``W4_WGMMA_MIN_TILES``, ``W4_SPLITK_LONG_K``),
+    the wgmma path every other M; every other shape takes the tile."""
+    if not (half and aligned and N % 16 == 0):
+        return w4_path_plan("tile", M, N, K, G, packed)
+    bm, bn, _ = W4_WGMMA_TILE
+    few_tiles = _cdiv(M, bm) * _cdiv(N, bn) < W4_WGMMA_MIN_TILES
+    splitk = M <= W4_SPLITK_MAX_M or (few_tiles and K >= W4_SPLITK_LONG_K)
+    return w4_path_plan("splitk" if splitk else "wgmma", M, N, K, G, packed)
+
+
+def w4_path_plan(path: str, M: int, N: int, K: int, G: int, packed: bool) -> W4Plan:
+    """The plan of ``path`` (one of ``W4_PATHS``) for this shape, whichever
+    path ``w4_plan`` picks: the split-K and wgmma paths need a half type, an
+    aligned payload and N % 16 == 0; the tile takes every shape."""
     rows = K // 2 if packed else K
-    if not (half and aligned and N % 16 == 0 and M <= W4_SPLITK_MAX_M):
+    if path == "tile":
         return W4Plan("tile", W4_TILE[0], 1, rows, W4_TILE,
                       (_cdiv(N, W4_TILE[1]), _cdiv(M, W4_TILE[0]), 1), 0)
+    if path == "wgmma":
+        bm, bn, _ = W4_WGMMA_TILE
+        return W4Plan("wgmma", bm, 1, rows, W4_WGMMA_TILE,
+                      (_cdiv(M, bm) * _cdiv(N, bn), 1, 1), 0)
+    if path != "splitk":
+        raise ValueError(f"w4_path_plan: no path {path!r} (one of {W4_PATHS})")
     mt = next((m for m in W4_SPLITK_MTS if M <= m), W4_SPLITK_MTS[-1])
     tiles_n, tiles_m = _cdiv(N, W4_SPLITK_BN), _cdiv(M, mt)
     unit = G * W4_SPLITK_BK // math.gcd(G, W4_SPLITK_BK)  # whole groups and stages
@@ -244,6 +281,23 @@ def w4_plan(M: int, N: int, K: int, G: int, packed: bool, aligned: bool = True,
     splits = _cdiv(units, per)
     return W4Plan("splitk", mt, splits, per * unit, (mt, W4_SPLITK_BN, W4_SPLITK_BK),
                   (tiles_n, tiles_m, splits), tiles_n * tiles_m if splits > 1 else 0)
+
+
+W4_WGMMA_RASTER = 8  # x-row tiles of a raster group (the kernel's WG_GROUP)
+
+
+def w4_wgmma_tile(block: int, M: int, N: int) -> Tuple[int, int]:
+    """The (x-row tile, weight-column tile) that block ``block`` of the
+    wgmma path computes: the kernel's own rule (``w4_wgmma_kernel`` in the
+    CUDA source). Blocks walk groups of ``W4_WGMMA_RASTER`` row tiles, each
+    group over every column tile, so that the blocks in flight share their
+    x panels and payload columns in L2."""
+    bm, bn, _ = W4_WGMMA_TILE
+    tiles_m, tiles_n = _cdiv(M, bm), _cdiv(N, bn)
+    first_m = block // (W4_WGMMA_RASTER * tiles_n) * W4_WGMMA_RASTER
+    group_m = min(tiles_m - first_m, W4_WGMMA_RASTER)
+    return (first_m + block % group_m,
+            block % (W4_WGMMA_RASTER * tiles_n) // group_m)
 
 
 _w4_counter_cache: Dict[Tuple[int, int], torch.Tensor] = {}
@@ -275,6 +329,8 @@ def _w4_lib() -> ctypes.CDLL:
         lib.ct2_w4_gemm.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.ct2_w4_gemm_splitk.restype = i
         lib.ct2_w4_gemm_splitk.argtypes = [p] * 7 + [i] * 9 + [p]
+        lib.ct2_w4_gemm_wgmma.restype = i
+        lib.ct2_w4_gemm_wgmma.argtypes = [p] * 6 + [i] * 6 + [p]
     return lib
 
 
@@ -452,6 +508,15 @@ def _w4_run(x, w, g_scale, g_zs, packed, fold, plan: W4Plan):
                 None if counters is None else counters.data_ptr(), M, N, K, G,
                 W4_DTYPE_CODES[x.dtype], int(packed), plan.mt, plan.k_chunk,
                 plan.splits, stream)
+        elif plan.path == "wgmma":
+            # Packed: rowsum(x_g) [K/G, M rounded up to 4] for the zero term,
+            # made by the kernel's first launch.
+            rs = (torch.empty((K // G, _cdiv(M, 4) * 4), dtype=torch.float32,
+                              device=x.device) if packed else None)
+            err = _w4_lib().ct2_w4_gemm_wgmma(
+                x.data_ptr(), w.data_ptr(), g_scale.data_ptr(), zs_ptr,
+                out.data_ptr(), None if rs is None else rs.data_ptr(), M, N, K, G,
+                W4_DTYPE_CODES[x.dtype], int(packed), stream)
         else:
             vec = int(N % 16 == 0 and w.data_ptr() % 16 == 0)
             err = _w4_lib().ct2_w4_gemm(
@@ -459,7 +524,8 @@ def _w4_run(x, w, g_scale, g_zs, packed, fold, plan: W4Plan):
                 out.data_ptr(), M, N, K, G, W4_DTYPE_CODES[x.dtype], int(packed),
                 int(fold), vec, stream)
     if err:
-        raise RuntimeError(f"w4_gemm ({plan.path}) launch failed with CUDA error {err}")
+        raise RuntimeError(f"w4_gemm ({plan.path}) launch failed with error {err} "
+                           "(a CUDA error, or 9000 and up: no TMA tensor map)")
     return out
 
 

@@ -28,8 +28,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..kernels.decode_attention import decode_attention_int8, quantize_kv
-from ..kernels.flash_attention import flash_attention
+from ..kernels.decode_attention import (DECODE_MAX_D, decode_attention_int8,
+                                        quantize_kv)
+from ..kernels.flash_attention import HEAD_DIMS, flash_attention
 from ..kernels.gather_rows import gather_rows_fused
 from ..ops import attention as attn_ops
 from ..ops.activations import get_activation
@@ -250,13 +251,16 @@ def _flash_eligible(q, k, min_len=None) -> bool:
     """Static dispatch decision for the flash-attention kernel: on the card,
     for an uncached attention whose query and key lengths both reach the
     threshold (``arch.flash_min_len`` when the ``flash_attention=True``
-    constructor flag set it, else ``CT2TPU_FLASH_MIN_LEN``, default 2048).
+    constructor flag set it, else ``CT2TPU_FLASH_MIN_LEN``, default 2048)
+    and whose head dim the kernel takes (up to its widest instance,
+    ``HEAD_DIMS[-1]``; wider heads take the plain attention, as the JAX
+    package declines its kernels for shapes they do not serve).
     ``CT2TPU_FLASH=0`` turns it off. Shaw and T5 relative positions and
     ALiBi, which the JAX package also weighs here, raise before this point
     in the port."""
     if os.environ.get("CT2TPU_FLASH", "1") == "0":
         return False
-    if not q.is_cuda:
+    if not q.is_cuda or q.shape[-1] > HEAD_DIMS[-1]:
         return False
     threshold = (min_len if min_len is not None
                  else int(os.environ.get("CT2TPU_FLASH_MIN_LEN", "2048")))
@@ -295,9 +299,12 @@ def _dequantize_cache(cache: dict, dtype):
 
 
 def _use_decode_kernel(q) -> bool:
-    """The int8 decode kernel serves single-token steps on the card;
-    ``CT2TPU_DECODE_KERNEL=0`` dequantizes the whole cache instead."""
-    return q.is_cuda and bool(int(os.environ.get("CT2TPU_DECODE_KERNEL", "1")))
+    """The int8 decode kernel serves single-token steps on the card for the
+    head dims it takes (up to ``DECODE_MAX_D``; wider heads dequantize the
+    cache for the plain attention); ``CT2TPU_DECODE_KERNEL=0`` dequantizes
+    the whole cache instead."""
+    return (q.is_cuda and q.shape[-1] <= DECODE_MAX_D
+            and bool(int(os.environ.get("CT2TPU_DECODE_KERNEL", "1"))))
 
 
 def self_attention_block(

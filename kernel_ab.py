@@ -3,7 +3,7 @@
 dispatched AWQ-W4 (``matmul_w4p``, ``matmul_w4a16``) kernels against another
 checkout's, on one card, in turns.
 
-    python3 kernel_ab.py OTHER_TREE [SMOKE_LOG]
+    python3 kernel_ab.py OTHER_TREE [SMOKE_LOG] [--w4-prefill]
 
 OTHER_TREE is an unpacked ``git archive`` of an earlier commit (its
 ``ctranslate2_tpu_torch`` is imported from there and builds its kernels
@@ -12,9 +12,10 @@ into its own ``_build``). The shapes and their launches are read from the
 of a ``chip_smoke.py`` log when one is given (those with main-path
 launches), else the Generator's main-path shapes at Llama-3-8B's widths
 (M = 4 and 8,192; the AWQ path's two packed calls and one unpacked call; the
-int8 Generator's 2,048 decode launches) are taken. Each tree runs in a
+int8 Generator's 2,048 decode launches) are taken. ``--w4-prefill`` keeps
+only the W4 shapes above 64 rows (the AWQ prefill). Each tree runs in a
 worker process, in the order other, this, this, other; each worker builds
-the four sources,
+the sources of the kernels it times,
 times every shape in a CUDA graph (this checkout's
 ``chip_smoke.cuda_time_ms`` for both trees) and prints one JSON line a
 shape. The last line gives, per tree, the least of its two runs at each
@@ -82,7 +83,9 @@ def worker(tree, spec):
     smoke.loader.exec_module(cuda_time_ms)
     cuda_time_ms = cuda_time_ms.cuda_time_ms
     assert os.path.dirname(os.path.dirname(build.__file__)).startswith(tree)
-    build.build(["w8a8_gemm", "flash_attention", "decode_attention_int8", "w4_gemm"])
+    build.build([source for source, key in (
+        ("w8a8_gemm", "w8a8"), ("flash_attention", "flash"),
+        ("decode_attention_int8", "decode"), ("w4_gemm", "w4")) if spec[key]])
     g = torch.Generator(device="cuda").manual_seed(0)
     for (M, K, N), n in spec["w8a8"]:
         q = torch.randint(-128, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
@@ -150,10 +153,14 @@ def main():
     if sys.argv[1] == "--worker":
         worker(sys.argv[2], json.loads(sys.argv[3]))
         return 0
-    other = os.path.abspath(sys.argv[1])
+    args = [a for a in sys.argv[1:] if a != "--w4-prefill"]
+    other = os.path.abspath(args[0])
     w8a8, flash, decode, w4 = (
-        shapes_from_log(sys.argv[2]) if len(sys.argv) > 2
+        shapes_from_log(args[1]) if len(args) > 1
         else (DEFAULT_W8A8, DEFAULT_FLASH, DEFAULT_DECODE, DEFAULT_W4))
+    if "--w4-prefill" in sys.argv:
+        w8a8, flash, decode = {}, {}, {}
+        w4 = {k: v for k, v in w4.items() if k[1] > 64}
     spec = json.dumps({"w8a8": sorted(w8a8.items()), "flash": sorted(flash.items()),
                        "decode": sorted(decode.items()), "w4": sorted(w4.items())})
     best = {}

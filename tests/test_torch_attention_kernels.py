@@ -176,8 +176,10 @@ def _check_padded_against_pallas(D, causal):
 
 
 def test_flash_eligibility_does_not_depend_on_head_dim():
-    """``_flash_eligible`` decides from the lengths and switches alone: a
-    head dim the kernel pads (or, above 256, refuses) changes nothing."""
+    """Up to the kernel's widest instance, ``_flash_eligible`` decides from
+    the lengths and switches alone: a head dim the kernel pads changes
+    nothing (wider heads take the plain attention:
+    tests/test_torch_kernel_plans.py)."""
     class Card:  # stands in for a CUDA tensor: only is_cuda and shape are read
         is_cuda = True
 

@@ -16,6 +16,8 @@ sum floats in another order than their plain versions and are held to the
 tolerances below.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -595,6 +597,51 @@ def test_generator_head_dim_256_kernels_on_and_off_on_card(wide_head_decoder,
         np.testing.assert_allclose(o.scores, r.scores, atol=1e-3)
 
 
+@pytest.fixture(scope="module")
+def wider_head_decoder(tmp_path_factory):
+    """Heads of 320, wider than the flash and decode kernels take: 4 query
+    / 2 KV heads, d_model 1280."""
+    path = str(tmp_path_factory.mktemp("decoder_head_dim_320_cuda"))
+    return build_decoder_only_model(
+        path, vocab_size=200, num_layers=2, num_heads=4, d_model=1280, d_ff=512,
+        num_heads_kv=2, rotary_dim=0, glu=True, rms_norm=True, activation="swish")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam_size", [1, 2])
+@pytest.mark.parametrize("kv", ["float", "int8"])
+def test_generator_head_dim_320_runs_on_card(wider_head_decoder, monkeypatch, kv,
+                                             beam_size):
+    """float32, ``flash_attention=True`` (every prompt past the flash
+    threshold): heads wider than the kernels take run through the plain
+    attention on the card, launch neither kernel, and give the CPU's
+    tokens. Scores: with the float cache within the 1e-3 of the head-dim-256
+    test (only the summation order differs); with the int8 cache within the
+    5e-2 that test_generator_on_card_matches_cpu states for it (a K/V entry
+    at a rounding tie may land one int8 step apart on the two devices)."""
+    _card()
+    if kv == "int8":
+        monkeypatch.setenv("CT2TPU_KV_CACHE", "int8")
+    rng = np.random.default_rng(8)
+    prompts = [[f"tok{int(t)}" for t in rng.integers(0, 190, n)] for n in (40, 33, 37)]
+    opts = dict(max_length=12, min_length=12, include_prompt_in_result=False,
+                beam_size=beam_size, return_scores=True)
+    card = tt.Generator(wider_head_decoder, compute_type="float32", flash_attention=True)
+    cpu = tt.Generator(wider_head_decoder, device="cpu", compute_type="float32")
+    assert card.model.arch.decoder.layers[0].self_attention.head_dim == 320
+    kernels.reset_launches()
+    out = card.generate_batch(prompts, **opts)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    ref = cpu.generate_batch(prompts, **opts)
+    assert counts["flash_attention"] == 0 and counts["decode_attention_int8"] == 0
+    assert counts["fused_norm"] > 0
+    for o, r in zip(out, ref):
+        assert len(o.sequences_ids[0]) == 12
+        assert o.sequences_ids == r.sequences_ids
+        np.testing.assert_allclose(o.scores, r.scores, atol=1e-3 if kv == "float" else 5e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [1, 4, 300])
 @pytest.mark.parametrize("G", [32, 128])
@@ -682,28 +729,108 @@ def _w4_within_bound(out, args, packed):
 @pytest.mark.parametrize("M", [1, 4, 8, 16, 33, 64, 65, 128])
 @pytest.mark.parametrize("name", ["matmul_w4p", "matmul_w4a16"])
 def test_w4_both_paths_within_bound_across_the_crossover_on_card(
-        name, M, K, N, dtype, monkeypatch):
-    """The wrapper's path (split-K up to M = 64, the tile above) and the
-    path the plan did not pick, each within ``w4_error_bound`` of the plain
-    version at the main-path (K, N), G = 128, and K = 256 (packed: K/2 is
-    one group)."""
+        name, M, K, N, dtype):
+    """The wrapper's path (split-K up to M = 64 and for K = 14,336 over 32
+    wgmma tiles, wgmma otherwise) and every other path, each within
+    ``w4_error_bound`` of the plain version at the main-path (K, N),
+    G = 128, and K = 256 (packed: K/2 is one group)."""
     fn, _, packed, _ = W4_KERNELS[name]
     args = _w4_card_args(M, K, N, 128, packed, dtype)
     plan = qm.w4_wrapper_plan(args[0], args[1], args[2], packed, False)
-    assert plan.path == ("splitk" if M <= 64 else "tile")
+    few = math.ceil(M / 128) * math.ceil(N / 128) < qm.W4_WGMMA_MIN_TILES
+    assert plan.path == ("splitk" if M <= 64 or (few and K >= qm.W4_SPLITK_LONG_K)
+                         else "wgmma")
     before = kernels.launch_counts()[name]
     out = fn(*args)
     torch.cuda.synchronize()
     assert kernels.launch_counts()[name] == before + 1
     ok, worst = _w4_within_bound(out, args, packed)
     assert ok, (plan.path, worst)
-    monkeypatch.setattr(qm, "W4_SPLITK_MAX_M", 0 if plan.path == "splitk" else 1 << 40)
-    other = qm.w4_wrapper_plan(args[0], args[1], args[2], packed, False)
-    assert other.path != plan.path
-    out = qm._w4_run(*args[:3], args[3] if packed else None, packed, False, other)
+    for path in qm.W4_PATHS:
+        other = qm.w4_path_plan(path, M, N, K, 128, packed)
+        out = qm._w4_run(*args[:3], args[3] if packed else None, packed, False, other)
+        torch.cuda.synchronize()
+        ok, worst = _w4_within_bound(out, args, packed)
+        assert ok, (other.path, worst)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [128, 400])
+@pytest.mark.parametrize("M", [65, 128, 200, 1000])
+@pytest.mark.parametrize("G", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("name", ["matmul_w4p", "matmul_w4a16"])
+def test_w4_wgmma_path_within_bound_on_card(name, dtype, G, M, N):
+    """The wgmma path: both forms and half types, group sizes whose ends
+    fall on stage ends (64, 128) or inside one (32), M off a multiple of
+    128 and a ragged last column tile (N = 400), within ``w4_error_bound``
+    through the wrapper, which takes that path at these shapes."""
+    fn, _, packed, _ = W4_KERNELS[name]
+    args = _w4_card_args(M, 512, N, G, packed, dtype, seed=3)
+    assert qm.w4_wrapper_plan(args[0], args[1], args[2], packed, False).path == "wgmma"
+    before = kernels.launch_counts()[name]
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    assert out.shape == (M, N) and out.dtype == torch.float32
+    ok, worst = _w4_within_bound(out, args, packed)
+    assert ok, worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [32, 48])
+@pytest.mark.parametrize("name", ["matmul_w4p", "matmul_w4a16"])
+def test_w4_wgmma_path_short_last_stage_on_card(name, G):
+    """96 payload rows: the last 64-row stage of each half is short, and at
+    G = 48 groups end inside stages."""
+    fn, _, packed, _ = W4_KERNELS[name]
+    K = 192 if packed else 96
+    args = _w4_card_args(130, K, 48, G, packed, torch.float16, seed=6)
+    plan = qm.w4_path_plan("wgmma", 130, 48, K, G, packed)
+    out = qm._w4_run(*args[:3], args[3] if packed else None, packed, False, plan)
     torch.cuda.synchronize()
     ok, worst = _w4_within_bound(out, args, packed)
-    assert ok, (other.path, worst)
+    assert ok, worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["matmul_w4p", "matmul_w4a16"])
+def test_w4_wgmma_path_at_full_width_on_card(name):
+    """The AWQ prefill's shape: M = 8,192 (4 prompts of 2,048), K = N =
+    4,096, G = 128."""
+    fn, _, packed, _ = W4_KERNELS[name]
+    args = _w4_card_args(8192, 4096, 4096, 128, packed, torch.float16, seed=4)
+    assert qm.w4_wrapper_plan(args[0], args[1], args[2], packed, False).path == "wgmma"
+    out = fn(*args)
+    torch.cuda.synchronize()
+    ok, worst = _w4_within_bound(out, args, packed)
+    assert ok, worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["matmul_w4p", "matmul_w4a16"])
+def test_w4_wgmma_path_is_the_same_run_to_run_and_in_a_graph_on_card(name):
+    """Each output has one owner block and a fixed order of sums: two
+    calls are bit-equal, and a CUDA-graph replay (the row-sum workspace
+    made inside the capture) equals the eager call."""
+    fn, _, packed, _ = W4_KERNELS[name]
+    args = _w4_card_args(1000, 4096, 1040, 128, packed, torch.float16, seed=5)
+    assert qm.w4_wrapper_plan(args[0], args[1], args[2], packed, False).path == "wgmma"
+    first = fn(*args)
+    second = fn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = fn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
 
 
 @pytest.mark.cuda

@@ -378,6 +378,44 @@ def test_generate_batch_head_dim_256_int8_kv_token_identical(
         np.testing.assert_allclose(o.scores, r.scores, atol=1e-3, rtol=0)
 
 
+# Heads wider than the card's attention kernels take (4 query / 2 KV heads of
+# 320, d_model 1280): on the card they take the plain attention.
+WIDER_HEADS = dict(MODEL, d_model=1280, d_ff=128)
+
+
+@pytest.fixture(scope="module")
+def wider_head_dir(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("decoder_head_dim_320"))
+    tbuilder.build_decoder_only_model(path, **WIDER_HEADS)
+    return path
+
+
+@pytest.mark.parametrize("beam_size", [1, 2])
+@pytest.mark.parametrize("kv", ["float", "int8"])
+def test_generate_batch_head_dim_320_token_identical(wider_head_dir, monkeypatch, kv,
+                                                     beam_size):
+    """The slice at a head dim of 320, above every attention kernel's
+    widest instance: greedy and beam tokens identical to the JAX package's.
+    Scores within 1e-4 with the float cache; within 1e-3 with the int8
+    cache, where a K/V entry at a half step of the int8 grid may round one
+    step apart (see the head-dim-256 test)."""
+    if kv == "int8":
+        monkeypatch.setenv("CT2TPU_KV_CACHE", "int8")
+    jg = ct.Generator(wider_head_dir, device="cpu")
+    tg = tt.Generator(wider_head_dir, device="cpu")
+    assert tg.model.arch.decoder.layers[0].self_attention.head_dim == 320
+    assert tg.model.kv_dtype == (torch.int8 if kv == "int8" else torch.float32)
+    opts = dict(max_length=12, return_scores=True, beam_size=beam_size,
+                include_prompt_in_result=False)
+    ref = jg.generate_batch(_prompts(4), **opts)
+    out = tg.generate_batch(_prompts(4), **opts)
+    assert len(out) == len(ref) == 4
+    for o, r in zip(out, ref):
+        assert o.sequences_ids == r.sequences_ids and o.sequences == r.sequences
+        np.testing.assert_allclose(o.scores, r.scores, rtol=0,
+                                   atol=1e-3 if kv == "int8" else 1e-4)
+
+
 @pytest.mark.parametrize("opts", [
     dict(end_token="tok11", include_prompt_in_result=False),
     dict(end_token=["tok11", "tok40"], return_end_token=True),

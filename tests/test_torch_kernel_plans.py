@@ -5,6 +5,7 @@ is split across blocks, the grid and the int32 workspace; these tests hold
 it to what the kernels in ``csrc/w8a8_gemm.cu`` assume. ``w4_plan`` does the
 same for the two dispatched AWQ-W4 products and ``csrc/w4_gemm.cu``, and
 ``decode_plan`` for the int8-KV decode kernel (``csrc/decode_attention_int8.cu``).
+The attention dispatch sends only the head dims those kernels take to them.
 ``build`` hashes what a library is built from.
 """
 
@@ -19,6 +20,8 @@ import torch
 from ctranslate2_tpu_torch.kernels import build
 from ctranslate2_tpu_torch.kernels import decode_attention as da
 from ctranslate2_tpu_torch.kernels import quant_matmul as qm
+from ctranslate2_tpu_torch.kernels.flash_attention import HEAD_DIMS
+from ctranslate2_tpu_torch.models import transformer as TT
 
 # (K, N) of every int8 linear on the main paths: the Generator at Llama-3-8B's
 # widths (qkv, o, gate/up, down, the vocabulary projection) and the
@@ -130,17 +133,35 @@ W4_EDGES = [(4, 256, 64, 128), (1, 32, 16, 16), (64, 14336, 4096, 32),
 W4_SHAPES = sorted({(M, K, N, 128) for M in W4_MS for K, N in W4_KN} | set(W4_EDGES))
 
 
+def _w4_expected_path(M, K, N, aligned=True, half=True):
+    """``w4_plan``'s rule, written out: the tile off the fast paths' limits;
+    split-K up to ``W4_SPLITK_MAX_M`` rows, or for a long K over a wgmma
+    grid of few tiles; wgmma everywhere else."""
+    if not (half and aligned and N % 16 == 0):
+        return "tile"
+    tiles = math.ceil(M / 128) * math.ceil(N / 128)
+    if M <= qm.W4_SPLITK_MAX_M or (tiles < qm.W4_WGMMA_MIN_TILES
+                                   and K >= qm.W4_SPLITK_LONG_K):
+        return "splitk"
+    return "wgmma"
+
+
 def _check_w4_plan(M, K, N, G, packed, aligned=True, half=True):
     plan = qm.w4_plan(M, N, K, G, packed, aligned, half)
     rows = K // 2 if packed else K
-    splitk = half and aligned and N % 16 == 0 and M <= qm.W4_SPLITK_MAX_M
+    assert plan.path == _w4_expected_path(M, K, N, aligned, half)
     if plan.path == "tile":
-        assert not splitk
         assert plan.splits == 1 and plan.k_chunk == rows and plan.counters == 0
         assert plan.tile == qm.W4_TILE
         assert plan.grid == (math.ceil(N / 64), math.ceil(M / 64), 1)
         return plan
-    assert splitk and plan.path == "splitk"
+    if plan.path == "wgmma":
+        # One block a 128 x 128 output tile over the whole K.
+        assert plan.splits == 1 and plan.k_chunk == rows and plan.counters == 0
+        assert plan.tile == qm.W4_WGMMA_TILE and plan.mt == 128
+        assert plan.grid == (math.ceil(M / 128) * math.ceil(N / 128), 1, 1)
+        assert plan.grid[0] < 2 ** 31
+        return plan
     assert plan.mt in qm.W4_SPLITK_MTS and (M <= plan.mt or plan.mt == 64)
     # Slices of whole groups and whole stages, each non-empty, covering the
     # payload rows once.
@@ -187,13 +208,85 @@ def test_w4_plan_fills_the_card_at_small_m(K, N, M, packed):
 @pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("K,N", W4_KN)
 def test_w4_plan_takes_the_tile_above_64_rows(K, N, packed):
-    """Prefill M (8,192), M = 65 and float32 activations take the tile,
-    as do an unaligned payload and N off a multiple of 16."""
-    for M in (65, 8192):
-        assert qm.w4_plan(M, N, K, 128, packed).path == "tile"
-    assert qm.w4_plan(4, N, K, 128, packed, half=False).path == "tile"
-    assert qm.w4_plan(4, N, K, 128, packed, aligned=False).path == "tile"
-    assert qm.w4_plan(4, N + 8, K, 128, packed).path == "tile"
+    """Above 64 rows, and at decode M, a float16/bfloat16 product with an
+    aligned payload and N % 16 == 0 takes split-K or wgmma, never the tile;
+    the tile stays for float32 activations, an unaligned payload and N off
+    a multiple of 16, at every M."""
+    for M in (65, 128, 2048, 8192):
+        assert qm.w4_plan(M, N, K, 128, packed).path in ("splitk", "wgmma")
+    assert qm.w4_plan(8192, N, K, 128, packed).path == "wgmma"
+    for M in (4, 65, 8192):
+        assert qm.w4_plan(M, N, K, 128, packed, half=False).path == "tile"
+        assert qm.w4_plan(M, N, K, 128, packed, aligned=False).path == "tile"
+        assert qm.w4_plan(M, N + 8, K, 128, packed).path == "tile"
+
+
+# The plan's path at each M range over the four Llama (K, N): split-K up to
+# 64 rows; above, wgmma, except over 32 wgmma tiles with K = 14,336.
+W4_PATH_CASES = [(M, K, N) for M in (1, 33, 64, 65, 100, 128, 129, 256, 512, 2048, 8192)
+                 for K, N in W4_KN]
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("M,K,N", W4_PATH_CASES)
+def test_w4_plan_sends_each_m_range_to_its_path(M, K, N, packed):
+    plan = _check_w4_plan(M, K, N, 128, packed)
+    if M <= 64:
+        assert plan.path == "splitk"
+    elif M > 128 or N > 4096 or K == 4096:
+        assert plan.path == "wgmma"
+    else:  # K 14,336, N 4,096, M 65-128: 32 wgmma blocks over the whole K
+        assert plan.path == "splitk"
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("K,N", W4_KN)
+def test_w4_plan_prefill_shapes_take_wgmma(K, N, packed):
+    """The AWQ prefill's four products (4 prompts of 2,048 tokens)."""
+    plan = _check_w4_plan(8192, K, N, 128, packed)
+    assert plan.path == "wgmma" and plan.grid[0] == 64 * N // 128
+
+
+@pytest.mark.parametrize("M,N", [(65, 4096), (128, 128), (200, 400), (1000, 14336),
+                                 (8192, 4096), (8192, 6144), (300, 16), (4097, 1040),
+                                 (130, 128256)])
+def test_w4_wgmma_grid_covers_m_and_n_once(M, N):
+    """The wgmma grid's blocks, laid out by the kernel's raster
+    (``w4_wgmma_tile``), cover every 128 x 128 output tile once, and the
+    consecutive blocks of a raster group share at most 8 x-row tiles."""
+    plan = qm.w4_path_plan("wgmma", M, N, 4096, 128, True)
+    tiles_m, tiles_n = math.ceil(M / 128), math.ceil(N / 128)
+    seen = np.zeros((tiles_m, tiles_n), np.int32)
+    for block in range(plan.grid[0]):
+        tm, tn = qm.w4_wgmma_tile(block, M, N)
+        assert 0 <= tm < tiles_m and 0 <= tn < tiles_n
+        seen[tm, tn] += 1
+    assert (seen == 1).all()
+    span = qm.W4_WGMMA_RASTER * tiles_n  # the blocks of one raster group
+    for start in range(0, plan.grid[0], span):
+        rows = {qm.w4_wgmma_tile(b, M, N)[0]
+                for b in range(start, min(start + span, plan.grid[0]))}
+        assert len(rows) <= qm.W4_WGMMA_RASTER
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("M", [4, 65, 8192])
+def test_w4_plan_keeps_the_tile_off_the_fast_paths(M, packed):
+    """float32, an unaligned payload, N off a multiple of 16 and the two
+    folded forms take the tile at every M."""
+    for kw in (dict(half=False), dict(aligned=False)):
+        _check_w4_plan(M, 4096, 4096, 128, packed, **kw)
+    _check_w4_plan(M, 4096, 4104, 128, packed)
+    x = torch.zeros((M, 256), dtype=torch.float16)
+    w = torch.zeros((128 if packed else 256, 4096), dtype=torch.int8)
+    gs = torch.zeros((2, 4096))
+    assert qm.w4_wrapper_plan(x, w, gs, packed, True).path == "tile"
+    assert qm.w4_wrapper_plan(x.float(), w, gs, packed, False).path == "tile"
+
+
+def test_w4_path_plan_refuses_an_unknown_path():
+    with pytest.raises(ValueError, match="no path"):
+        qm.w4_path_plan("mma", 4, 64, 256, 128, True)
 
 
 def test_w4_plan_packed_half_is_one_group():
@@ -218,6 +311,8 @@ def test_w4_wrapper_plan_sends_folded_forms_to_the_tile():
     w = torch.zeros((128, 64), dtype=torch.int8)
     gs = torch.zeros((2, 64))
     assert qm.w4_wrapper_plan(x, w, gs, True, False).path == "splitk"
+    assert qm.w4_wrapper_plan(torch.zeros((512, 256), dtype=torch.float16), w, gs,
+                              True, False).path == "wgmma"
     assert qm.w4_wrapper_plan(x, w, gs, True, True).path == "tile"
     assert qm.w4_wrapper_plan(x.float(), w, gs, True, False).path == "tile"
 
@@ -301,6 +396,39 @@ def test_decode_plan_reads_shapes_only():
 def test_decode_plan_raises_outside_its_head_dims(D):
     with pytest.raises(ValueError, match="head dims 1-256"):
         da.decode_plan(1, 1, 1, 16, D)
+
+
+class _CardTensor:
+    """Stands in for a CUDA tensor [B, H, T, D]: the dispatch rules read
+    only ``is_cuda`` and ``shape``."""
+    is_cuda = True
+
+    def __init__(self, T, D):
+        self.shape = (2, 4, T, D)
+
+
+@pytest.mark.parametrize("D", [64, 128, 200, 256, 257, 288, 320, 512])
+@pytest.mark.parametrize("T", [2047, 2048, 4096])
+def test_flash_dispatch_declines_heads_wider_than_the_kernel(T, D):
+    """``_flash_eligible`` sends a head dim to the flash kernel only up to
+    its widest instance (``HEAD_DIMS[-1]``, 256); wider heads take the plain
+    attention, whatever the lengths and switches."""
+    q = _CardTensor(T, D)
+    assert TT._flash_eligible(q, q) == (T >= 2048 and D <= HEAD_DIMS[-1])
+    assert TT._flash_eligible(q, q, min_len=0) == (D <= HEAD_DIMS[-1])
+
+
+@pytest.mark.parametrize("D", [1, 72, 128, 256, 257, 320, 512])
+def test_decode_dispatch_declines_heads_wider_than_the_kernel(D, monkeypatch):
+    """``_use_decode_kernel`` sends a single-token step to the int8-KV
+    decode kernel only for head dims up to ``DECODE_MAX_D`` (256); wider
+    heads dequantize the cache for the plain attention. The CPU and
+    ``CT2TPU_DECODE_KERNEL=0`` never take the kernel."""
+    q = _CardTensor(1, D)
+    assert TT._use_decode_kernel(q) == (D <= da.DECODE_MAX_D)
+    assert not TT._use_decode_kernel(torch.zeros(2, 4, 1, D))
+    monkeypatch.setenv("CT2TPU_DECODE_KERNEL", "0")
+    assert not TT._use_decode_kernel(q)
 
 
 @pytest.fixture
