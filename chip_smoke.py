@@ -54,10 +54,12 @@ Phases, one JSON object per line:
    inputs, with its time, the plain version's, the one library call's
    where there is one and the bound (W8A8 and the two dispatched W4 forms
    also with their plan from ``w8a8_plan`` / ``w4_plan`` and the time of
-   each path the plan did not pick, held to the same tolerance; causal flash
-   also with its query tiles in launch order; the decode kernel also with
-   its ``decode_plan``); the W4 crossover rows (``w4_crossover``: every W4
-   path of both forms at M = 65-8,192 over the four Llama (K, N)); timed
+   each path the plan did not pick, held to the same tolerance, the folded
+   W4 forms too, ``matmul_w4p_fold`` with the time of its zero-point term;
+   causal flash also with its query tiles in launch order; the decode kernel
+   also with its ``decode_plan``); the W4 crossover rows (``w4_crossover``:
+   every W4 path of the four forms at M = 65-8,192 over the four Llama
+   (K, N)); timed
    rows at Gemma-2-9B's attention widths (``GEMMA2_ATTENTION``: flash at
    q [4, 16, 2048, 256] causal against SDPA, decode over a [4, 8, 2176, 256]
    cache), not summed into the totals; then small shapes for every feature
@@ -174,11 +176,14 @@ OWN_ERROR_FACTOR = 1.5
 # The AWQ model: AutoAWQ's GEMM layout, group 128, the same geometry.
 AWQ_GROUP = 128
 AWQ_CPU_PROMPT = 129
-# The crossover rows of ``w4_plan``: every path of the two dispatched forms
-# at these M over the four Llama (K, N), float16 (not summed: no main path
-# runs the M between 4 and 8,192). ``W4_SPLITK_MAX_M`` is set from
-# them; the four (K, N) are the AWQ path's linears.
+# The crossover rows of ``w4_plan``: every path of the four W4 forms at
+# these M over the four Llama (K, N), float16 (not summed: no main path
+# runs the M between 4 and 8,192). ``W4_SPLITK_MAX_M`` and the folded
+# forms' constants are set from them; the four (K, N) are the AWQ path's
+# linears.
 W4_CROSSOVER_MS = (65, 128, 256, 512, 1024, 2048, 8192)
+W4_FORMS = (("matmul_w4p", True, False), ("matmul_w4p_fold", True, True),
+            ("matmul_w4a16", False, False), ("matmul_w4a16_fold", False, True))
 W4_CROSSOVER_KN = ((4096, 4096), (4096, 6144), (4096, 14336), (14336, 4096))
 # Expected launches of one AWQ generate_batch call (4 prompts of 2,049, 64
 # new tokens): 5 W4 linears in each of 32 layers, for the prefill and each
@@ -1537,21 +1542,36 @@ def w4_library(x, q, s, z, ref):
         x, (_w4p_values(w4p) * s_rows - zs_rows).to(x.dtype))
 
 
-def w4_path_plans(Q, args, packed):
-    """The plan ``w4_plan`` picks for these operands of ``matmul_w4p`` /
-    ``matmul_w4a16``, and the plans of every path that can run them
-    (``Q.W4_PATHS``: split-K and wgmma in a half type with an aligned
-    payload and N % 16 == 0, the tile always)."""
+def w4_path_plans(Q, args, packed, fold):
+    """The plan ``w4_plan`` picks for these operands of a W4 form
+    (``matmul_w4p`` / ``matmul_w4a16``, or with ``fold`` their folded
+    forms), and the plans of every path that can run them (``Q.W4_PATHS``:
+    split-K and wgmma in a half type with an aligned payload and N % 16 ==
+    0, the tile always); folded, also the wgmma block of the x rows the
+    plan's rule does not pick (``wgmma_<rows>``: the wide block's
+    evidence)."""
     import torch
 
     x, w, s = args[:3]
-    chosen = Q.w4_wrapper_plan(x, w, s, packed, False)
+    chosen = Q.w4_wrapper_plan(x, w, s, packed, fold)
     M, K = x.shape
     N = w.shape[1]
     fast = x.dtype != torch.float32 and w.data_ptr() % 16 == 0 and N % 16 == 0
-    plans = {path: Q.w4_path_plan(path, M, N, K, K // s.shape[0], packed)
+    G = K // s.shape[0]
+    plans = {path: Q.w4_path_plan(path, M, N, K, G, packed, fold)
              for path in Q.W4_PATHS if fast or path == "tile"}
+    if fold and fast:
+        rows = Q.W4_WGMMA_WIDE_ROWS + Q.W4_WGMMA_TILE[0] - plans["wgmma"].mt
+        plans[f"wgmma_{rows}"] = Q.w4_path_plan("wgmma", M, N, K, G, packed, fold, rows)
     return chosen, plans
+
+
+def w4_run_form(Q, args, packed, fold, plan):
+    """One W4 form on ``plan``'s path, as its wrapper computes it: for
+    ``matmul_w4p_fold`` the product, then its zero-point term."""
+    if not (packed and fold):
+        return Q._w4_run(*args[:3], args[3] if packed else None, packed, fold, plan)
+    return Q._w4p_sub_zero_term(Q._w4_run(*args[:3], None, True, True, plan), args[0], args[3])
 
 
 def w4_operands(g, M, K, N, dt):
@@ -1571,26 +1591,24 @@ def w4_operands(g, M, K, N, dt):
     return x, q, s, z, operands
 
 
-def w4_paths_ms(Q, name, args, packed, ref, bound, iters, checks, skip=()):
+def w4_paths_ms(Q, name, args, packed, fold, ref, bound, iters, checks, skip=()):
     """Every path that can run these operands (``w4_path_plans``), except
     those in ``skip``: each held to ``bound`` against ``ref`` and timed.
     Returns the chosen plan and {path: ms}, {path: worst share of the
     bound}."""
-    chosen, plans = w4_path_plans(Q, args, packed)
-    zs = args[3] if packed else None
+    chosen, plans = w4_path_plans(Q, args, packed, fold)
     times, worst = {}, {}
     for path, plan in plans.items():
         if path in skip:
             continue
-        diff = (Q._w4_run(*args[:3], zs, packed, False, plan) - ref).abs()
+        diff = (w4_run_form(Q, args, packed, fold, plan) - ref).abs()
         worst[path] = (diff / bound).max().item()
         checks(bool((diff <= bound).all()),
                f"{name} {path} path within its error bound of plain at "
                f"{tuple(args[0].shape)} x {tuple(args[1].shape)} "
                f"(worst share of the bound {worst[path]})")
         del diff
-        times[path] = cuda_time_ms(
-            lambda: Q._w4_run(*args[:3], zs, packed, False, plan), iters)
+        times[path] = cuda_time_ms(lambda: w4_run_form(Q, args, packed, fold, plan), iters)
     return chosen, times, worst
 
 
@@ -1600,19 +1618,16 @@ def bench_w4(shapes, checks):
     library call's and the bound. ``shapes`` holds the shape logs of
     ``matmul_w4p`` (packed calls) and ``matmul_w4a16`` (the unpacked call);
     the two folded forms are not on the path and run at their counterpart's
-    shapes, their sums weighted by its launches. The two dispatched forms'
-    lines also carry their plan (path, split count) and the times of the
-    paths the plan did not pick, each held to the same bound: the
-    crossover's evidence. Returns the sums."""
+    shapes, their sums weighted by its launches. Each line also carries its
+    plan (path, split count) and the times of the paths the plan did not
+    pick, each held to the same bound: the crossover's evidence;
+    ``matmul_w4p_fold``'s also the time of its zero-point term alone (its
+    ``kernel_ms`` holds the product and the term). Returns the sums."""
     import torch
     from ctranslate2_tpu_torch.kernels import quant_matmul as Q
 
-    kinds = {  # name: (packed, fold, the path's kernel at these shapes)
-        "matmul_w4p": (True, False, "matmul_w4p"),
-        "matmul_w4p_fold": (True, True, "matmul_w4p"),
-        "matmul_w4a16": (False, False, "matmul_w4a16"),
-        "matmul_w4a16_fold": (False, True, "matmul_w4a16"),
-    }
+    kinds = {name: (packed, fold, name.replace("_fold", ""))  # the path's kernel
+             for name, packed, fold in W4_FORMS}
     g = torch.Generator(device="cuda").manual_seed(6)
     G = AWQ_GROUP
     tots = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
@@ -1639,16 +1654,19 @@ def bench_w4(shapes, checks):
             checks(bool((diff <= bound).all()),
                    f"{name} within its error bound of plain at {key} "
                    f"(max abs err {err}, worst share of the bound {worst})")
-            if fold:
-                plan, paths_ms, paths_worst = Q.w4_wrapper_plan(x, args[1], s, packed, True), {}, {}
-            else:
-                # The other paths at the same shape, held to the same bound:
-                # the crossover's evidence.
-                plan, paths_ms, paths_worst = w4_paths_ms(
-                    Q, name, args, packed, ref, bound, iters, checks,
-                    skip=(Q.w4_wrapper_plan(x, args[1], s, packed, False).path,))
+            # The other paths at the same shape, held to the same bound: the
+            # crossover's evidence.
+            plan, paths_ms, paths_worst = w4_paths_ms(
+                Q, name, args, packed, fold, ref, bound, iters, checks,
+                skip=(Q.w4_wrapper_plan(x, args[1], s, packed, fold).path,))
             del out, ref, diff, bound
             ms = cuda_time_ms(lambda: fn(*args), iters)
+            extra = {}
+            if packed and fold:
+                part = torch.empty((M, N), dtype=torch.float32, device="cuda")
+                extra["zero_term_ms"] = cuda_time_ms(
+                    lambda: Q._w4p_sub_zero_term(part, x, args[3]), iters)
+                del part
             plain_ms = cuda_time_ms(lambda: plain(*args), plain_iters)
             nbytes = ((K * N // 2 + 8 * (K // G) * N) if packed else (K * N + 4 * (K // G) * N)) \
                 + M * K * x.element_size() + 4 * M * N
@@ -1657,7 +1675,8 @@ def bench_w4(shapes, checks):
             emit({"phase": "kernel_w4", "kernel": name, "M": M, "K": K, "N": N, "dtype": dt,
                   "group": G, "launches": n if name == base else 0,
                   "weighted_by_launches_of": base, "weight": n,
-                  "path": plan.path, "splits": plan.splits, "k_chunk": plan.k_chunk,
+                  "path": plan.path, "rows": plan.mt, "splits": plan.splits,
+                  "k_chunk": plan.k_chunk,
                   "other_paths_ms": paths_ms,
                   "other_paths_worst_share_of_error_bound": paths_worst,
                   "max_abs_err": err, "worst_share_of_error_bound": worst,
@@ -1665,7 +1684,7 @@ def bench_w4(shapes, checks):
                   "library": library, "bytes_moved": nbytes,
                   "tflops": 2 * M * N * K / ms / 1e9, "gbytes_per_s": nbytes / ms / 1e6,
                   "bound_ms": max(bytes_ms, ops_ms), "share_of_bound": max(bytes_ms, ops_ms) / ms,
-                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **extra})
             tot = tots[name]
             tot["ms"] += n * ms
             tot["plain_ms"] += n * plain_ms
@@ -1682,10 +1701,10 @@ def bench_w4(shapes, checks):
 
 
 def bench_w4_crossover(checks):
-    """Each path of ``matmul_w4p`` and ``matmul_w4a16`` at every
-    (M, K, N) of ``W4_CROSSOVER_MS`` x ``W4_CROSSOVER_KN`` in float16, held
-    to ``w4_error_bound`` and timed; one line a shape with the plan's path
-    and the fastest path."""
+    """Each path of the four W4 forms at every (M, K, N) of
+    ``W4_CROSSOVER_MS`` x ``W4_CROSSOVER_KN`` in float16, held to
+    ``w4_error_bound`` and timed; one line a shape with the plan's path and
+    the fastest path."""
     import torch
     from ctranslate2_tpu_torch.kernels import quant_matmul as Q
 
@@ -1695,18 +1714,19 @@ def bench_w4_crossover(checks):
         for M in W4_CROSSOVER_MS:
             x, q, s, z, operands = w4_operands(g, M, K, N, "float16")
             iters = 20 if M * K * N < 2 ** 33 else 3
-            for name, packed in (("matmul_w4p", True), ("matmul_w4a16", False)):
+            for name, packed, fold in W4_FORMS:
                 args = operands[packed]
                 zs = args[3] if packed else None
                 ref = getattr(Q, name + "_plain")(*args)
-                bound = Q.w4_error_bound(*args[:3], zs, False)
-                plan, times, worst = w4_paths_ms(Q, name, args, packed, ref, bound, iters,
-                                                 checks)
+                bound = Q.w4_error_bound(*args[:3], zs, fold)
+                plan, times, worst = w4_paths_ms(Q, name, args, packed, fold, ref, bound,
+                                                 iters, checks)
                 del ref, bound
                 fastest = min(times, key=times.get)
                 ops_ms = 2 * M * N * K / PEAK_HALF_FLOPS * 1e3
                 emit({"phase": "w4_crossover", "kernel": name, "M": M, "K": K, "N": N,
                       "dtype": "float16", "group": AWQ_GROUP, "plan_path": plan.path,
+                      "plan_rows": plan.mt,
                       "fastest_path": fastest, "paths_ms": times,
                       "worst_share_of_error_bound": worst, "ops_bound_ms": ops_ms,
                       "tflops": {p: 2 * M * N * K / ms / 1e9 for p, ms in times.items()}})

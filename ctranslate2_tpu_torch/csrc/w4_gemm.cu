@@ -27,8 +27,8 @@
 // f16/bf16. The wrapper picks one of three paths per shape with
 // quant_matmul.w4_plan:
 //
-// 1. Split-K, swap-AB, for small M (ct2_w4_gemm_splitk; matmul_w4a16 and
-//    matmul_w4p in f16/bf16). At M = 4 a 64-row output tile wastes 15/16 of
+// 1. Split-K, swap-AB, for small M (ct2_w4_gemm_splitk; the four forms in
+//    f16/bf16). At M = 4 a 64-row output tile wastes 15/16 of
 //    each mma and N = 4,096 gives 64 blocks for 132 SMs. Here the weights are
 //    the A operand of mma.sync.m16n8k16 (16 output columns a warp) and x its B
 //    operand (8 rows an n-tile, XR / 8 n-tiles for XR = 8..64 rows a block), so
@@ -62,9 +62,15 @@
 //    then re-zeroes its counter (zeroed once when the buffer is made, so a call
 //    is one launch and no memset). The fixed order makes two calls on the same
 //    inputs bit-equal, so the AWQ decode is the same run to run (float atomics
-//    would add in arrival order).
-// 2. wgmma + TMA, swap-AB, for large M (ct2_w4_gemm_wgmma; the same two
-//    forms and types). At the prefill shapes the product is bound by the
+//    would add in arrival order). The folded forms (FOLD) keep the ring, the
+//    fragments and the sum; dequant_fold multiplies each weight of the A
+//    fragment by its column's f32 scale and rounds the product once to the
+//    half type (as the tile does; rounding the scale first would round
+//    twice), so each mma adds straight into the output accumulator: no group
+//    partial, no group-end fold, no row sums. A group's scales are loaded a
+//    group ahead.
+// 2. wgmma + TMA, swap-AB, for large M (ct2_w4_gemm_wgmma; the four forms
+//    in the same types). At the prefill shapes the product is bound by the
 //    tensor cores, and the tile below ran at 70-78 TFLOP/s. One block owns
 //    128 weight columns x 128 x rows over the whole K (a grouped raster of 8
 //    x-row tiles, so the blocks in flight share their x panels in L2): one
@@ -95,6 +101,21 @@
 //    x rows as float2 (full 32-byte sectors), no workspace, no atomics, so
 //    two calls are bit-equal and a CUDA graph can hold the launches. It
 //    needs N % 16 == 0 and 16-byte aligned x and payload (TMA's rules).
+//    The folded forms have a kernel of their own (w4_wgmma_fold_kernel):
+//    the same producer, raster, fragments (dequant_fold) and stores, but
+//    with the scale in the fragment one accumulator runs over the whole K,
+//    so there is no partial, no group-end wait, no row sums and no first
+//    launch. A half's four wgmmas of a stage issue back to back as one
+//    commit group; groups alternate between two fragment buffers, and the
+//    only wait retires the group before, freeing its fragments and, at a
+//    stage's end, the ring slot. Packed, one pass over the payload: a stage
+//    holds the payload box and both halves' x boxes (columns r and
+//    r + K/2). The partial's 64 registers buy a wider x tile: 256 x rows a
+//    block (m64n256k16, 128 accumulators a thread) where the 128-row grid
+//    needs more than one wave of blocks, which halves the fragment
+//    conversions per operation; the ring then holds 3 (packed) or 5 stages.
+//    The zero-point term of matmul_w4p_fold stays outside, as in the JAX
+//    package (the wrapper: f32 group sums of x, then one product).
 // 3. The tile kernel (ct2_w4_gemm; every form, every M): a plain, right-first
 //    kernel. Each 128-thread block computes a 64 x 64 output tile, each of
 //    its four warps a 32 x 32 sub-tile with mma.sync.m16n8k16 and f32
@@ -108,13 +129,12 @@
 //    times zs). Warps whose rows lie past M skip their products. float32
 //    activations take a plain-FMA kernel of the same arithmetic (no rounding
 //    to a half type) on both paths' shapes. The plan keeps it for float32,
-//    unaligned payloads, N off a multiple of 16 and the two folded forms.
-// Left for later work: the wgmma path waits for each group's last batch
-// before its fold, and both consumer warpgroups fold at once, so the tensor
-// cores idle there; two partials would let the next group's wgmmas run
-// during the fold, but with 128 x rows a block they leave too few registers
-// for the A fragments (ptxas then issues each wgmma alone). The folded forms
-// still run on the tile.
+//    unaligned payloads and N off a multiple of 16, in every form.
+// Left for later work: the exact forms' wgmma path waits for each group's
+// last batch before its fold, and both consumer warpgroups fold at once, so
+// the tensor cores idle there; two partials would let the next group's
+// wgmmas run during the fold, but with 128 x rows a block they leave too
+// few registers for the A fragments (ptxas then issues each wgmma alone).
 
 #include <type_traits>
 
@@ -492,7 +512,7 @@ __global__ void __launch_bounds__(FTHREADS) w4_fma_kernel(const W4Params p) {
 
 
 // ---------------------------------------------------------------------------
-// Split-K, swap-AB (f16/bf16, M <= 64, not folded).
+// Split-K, swap-AB (f16/bf16, small M).
 // ---------------------------------------------------------------------------
 
 constexpr int SK_BN = 64;           // output columns a block: 4 warps x 16
@@ -573,6 +593,47 @@ __device__ __forceinline__ void dequant_half(unsigned (&a)[4], unsigned p0, unsi
   }
 }
 
+// Two f32 values as a T pair (`lo` in the low half), each rounded once.
+template <typename T>
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&v);
+  }
+}
+
+// The folded forms' A fragment: dequant_frag's weights, each times the f32
+// scale of its column (s.x for column 2g: registers 0 and 2; s.y for column
+// 2g + 1: registers 1 and 3) and rounded once to T, as the tile rounds
+// half((q - z) * s). The payload value comes exactly as an f32 from the
+// mantissa of 2^23. Packed, one FFMA then gives (2^23 + q) * s - 2^23 * s
+// = q * s with its single rounding (2^23 * s is exact); unpacked, the
+// subtract of 2^23 + 128 is exact and the product rounds once.
+template <typename T, bool PACKED>
+__device__ __forceinline__ void dequant_fold(unsigned (&a)[4], unsigned p0, unsigned p1, int h,
+                                             float2 s) {
+  const unsigned src[4] = {p0, p0 >> 8, p1, p1 >> 8};
+  const float c[2] = {8388608.f * s.x, 8388608.f * s.y};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float sc = (i & 1) ? s.y : s.x;
+    float lo, hi;
+    if (PACKED) {
+      const unsigned v = (src[i] >> (4 * h)) & 0x000F000Fu;
+      lo = fmaf(__uint_as_float(0x4B000000u | (v & 0xFFFFu)), sc, -c[i & 1]);
+      hi = fmaf(__uint_as_float(0x4B000000u | (v >> 16)), sc, -c[i & 1]);
+    } else {
+      const unsigned v = src[i] ^ 0x00800080u;  // signed bytes biased by 128
+      lo = (__uint_as_float(0x4B000000u | (v & 0xFFu)) - 8388736.f) * sc;
+      hi = (__uint_as_float(0x4B000000u | ((v >> 16) & 0xFFu)) - 8388736.f) * sc;
+    }
+    a[i] = pack2<T>(lo, hi);
+  }
+}
+
 // An A fragment of ones: mma(d, ONES, b0, b1) adds each x row's 16 values
 // of the k-step to d (d[0] row 2t, d[1] row 2t + 1).
 template <typename T>
@@ -592,8 +653,10 @@ __device__ __forceinline__ float frag_sum(unsigned b0, unsigned b1) {
 // k_chunk is a multiple of G. With splits > 1, `part` is the f32 workspace
 // [splits, M, N] (no zeroing needed) and `counters` one int per (x, y) tile,
 // zero on entry and left zero. Needs N % 16 == 0, 16-byte aligned x and
-// payload.
-template <typename T, int XR, bool PACKED>
+// payload. FOLD: the scale rides in the A fragment (dequant_fold) and each
+// mma adds straight into the output accumulator: no group partial, no
+// group-end fold, no row sums (zs unused).
+template <typename T, int XR, bool PACKED, bool FOLD>
 __global__ void __launch_bounds__(SK_THREADS)
 w4_splitk_kernel(const unsigned short* __restrict__ x, const uint8_t* __restrict__ w,
                  const float* __restrict__ scale, const float* __restrict__ zs,
@@ -605,7 +668,7 @@ w4_splitk_kernel(const unsigned short* __restrict__ x, const uint8_t* __restrict
   // Packed, the zero-point term needs rowsum(x_g): on the tensor cores (one
   // mma with an A of ones) where registers allow, else from the B
   // fragments with shuffles at each group's end.
-  constexpr bool RS_MMA = PACKED && JT <= 2;
+  constexpr bool RS_MMA = PACKED && !FOLD && JT <= 2;
   constexpr int W_BYTES = SK_BK * SK_LDW;
   constexpr int STAGE = W_BYTES + H * XR * SK_LDX * 2;
   constexpr int W_CHUNKS = SK_BK * (SK_BN / 16);
@@ -689,7 +752,21 @@ w4_splitk_kernel(const unsigned short* __restrict__ x, const uint8_t* __restrict
   int gleft = gsteps;
   const size_t half_rows = (size_t)(rows / G) * N;
   const float* srow = scale + (size_t)(kbeg / G) * N + n;
-  const float* zrow = PACKED ? zs + (size_t)(kbeg / G) * N + n : nullptr;
+  const float* zrow = PACKED && !FOLD ? zs + (size_t)(kbeg / G) * N + n : nullptr;
+  // FOLD: the scales of the current group (sf) and of the next (sn), loaded
+  // a group ahead; past the slice's last group they are not read.
+  const float* send = scale + (size_t)(kend / G) * N + n;
+  float2 sf[H], sn[H];
+  auto fold_scales = [&](float2 (&dst)[H], const float* row) {
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      dst[h] = n_in && row < send ? __ldg(reinterpret_cast<const float2*>(row + h * half_rows))
+                                  : make_float2(0.f, 0.f);
+  };
+  if (FOLD) {
+    fold_scales(sf, srow);
+    fold_scales(sn, srow + N);
+  }
 
 #pragma unroll
   for (int s = 0; s < SK_STAGES - 1; ++s) {
@@ -714,18 +791,29 @@ w4_splitk_kernel(const unsigned short* __restrict__ x, const uint8_t* __restrict
 #pragma unroll
       for (int h = 0; h < H; ++h) {
         unsigned a[4];
-        dequant_frag<T, PACKED>(a, p0, p1, h);
+        if (FOLD) dequant_fold<T, PACKED>(a, p0, p1, h, sf[h]);
+        else dequant_frag<T, PACKED>(a, p0, p1, h);
 #pragma unroll
         for (int j = 0; j < JT; ++j) {
           const unsigned short* xp = Xs + (h * XR + j * 8 + g) * SK_LDX + kk * 16 + 2 * t;
           const unsigned b0 = ld32(xp);
           const unsigned b1 = ld32(xp + 8);
+          if (FOLD) {
+            Half<T>::mma(acc[j], a, b0, b1);
+            continue;
+          }
           Half<T>::mma(prt[h][j], a, b0, b1);
           if (RS_MMA) Half<T>::mma(rsm[h][j], ones, b0, b1);
           else if (PACKED) rs[h][j] += frag_sum<T>(b0, b1);
         }
       }
-      if (--gleft == 0) {
+      if (--gleft == 0 && FOLD) {
+        gleft = gsteps;
+        srow += N;
+#pragma unroll
+        for (int h = 0; h < H; ++h) sf[h] = sn[h];
+        fold_scales(sn, srow + N);
+      } else if (gleft == 0) {
         // A group ends (in both halves): scale the partial sums into acc.
         gleft = gsteps;
 #pragma unroll
@@ -809,7 +897,7 @@ w4_splitk_kernel(const unsigned short* __restrict__ x, const uint8_t* __restrict
     }
 }
 
-template <typename T, int XR, bool PACKED>
+template <typename T, int XR, bool PACKED, bool FOLD>
 int launch_splitk(const void* x, const void* w, const void* scale, const void* zs,
                   void* out, void* part, void* counters, int M, int N, int K, int G,
                   int k_chunk, int splits, cudaStream_t stream) {
@@ -817,17 +905,17 @@ int launch_splitk(const void* x, const void* w, const void* scale, const void* z
   constexpr int smem = SK_STAGES * (SK_BK * SK_LDW + H * XR * SK_LDX * 2);
   static bool attr_set = false;
   if (!attr_set) {
-    cudaFuncSetAttribute(w4_splitk_kernel<T, XR, PACKED>,
+    cudaFuncSetAttribute(w4_splitk_kernel<T, XR, PACKED, FOLD>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     // Several blocks an SM (about eight by the plan) need their rings at
     // once: ask for the largest shared-memory share of the SM.
-    cudaFuncSetAttribute(w4_splitk_kernel<T, XR, PACKED>,
+    cudaFuncSetAttribute(w4_splitk_kernel<T, XR, PACKED, FOLD>,
                          cudaFuncAttributePreferredSharedMemoryCarveout,
                          cudaSharedmemCarveoutMaxShared);
     attr_set = true;
   }
   dim3 grid((N + SK_BN - 1) / SK_BN, (M + XR - 1) / XR, splits);
-  w4_splitk_kernel<T, XR, PACKED><<<grid, SK_THREADS, smem, stream>>>(
+  w4_splitk_kernel<T, XR, PACKED, FOLD><<<grid, SK_THREADS, smem, stream>>>(
       static_cast<const unsigned short*>(x), static_cast<const uint8_t*>(w),
       static_cast<const float*>(scale), static_cast<const float*>(zs),
       static_cast<float*>(out), static_cast<float*>(part), static_cast<int*>(counters),
@@ -835,17 +923,29 @@ int launch_splitk(const void* x, const void* w, const void* scale, const void* z
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool PACKED>
+template <typename T, bool PACKED, bool FOLD>
 int dispatch_splitk(int mt, const void* x, const void* w, const void* scale,
                     const void* zs, void* out, void* part, void* counters, int M, int N,
                     int K, int G, int k_chunk, int splits, cudaStream_t s) {
   switch (mt) {
-    case 8: return launch_splitk<T, 8, PACKED>(x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s);
-    case 16: return launch_splitk<T, 16, PACKED>(x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s);
-    case 32: return launch_splitk<T, 32, PACKED>(x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s);
-    case 64: return launch_splitk<T, 64, PACKED>(x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s);
+    case 8: return launch_splitk<T, 8, PACKED, FOLD>(x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s);
+    case 16: return launch_splitk<T, 16, PACKED, FOLD>(x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s);
+    case 32: return launch_splitk<T, 32, PACKED, FOLD>(x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s);
+    case 64: return launch_splitk<T, 64, PACKED, FOLD>(x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <typename T>
+int dispatch_splitk_form(int packed, int fold, int mt, const void* x, const void* w,
+                         const void* scale, const void* zs, void* out, void* part,
+                         void* counters, int M, int N, int K, int G, int k_chunk, int splits,
+                         cudaStream_t s) {
+  auto run = [&](auto kernel_of) {
+    return kernel_of(mt, x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s);
+  };
+  if (packed) return fold ? run(dispatch_splitk<T, true, true>) : run(dispatch_splitk<T, true, false>);
+  return fold ? run(dispatch_splitk<T, false, true>) : run(dispatch_splitk<T, false, false>);
 }
 
 // ---------------------------------------------------------------------------
@@ -1122,6 +1222,196 @@ w4_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
     }
 }
 
+// ---------------------------------------------------------------------------
+// wgmma + TMA, swap-AB, folded forms (f16/bf16, large M).
+// ---------------------------------------------------------------------------
+
+// One block: weight columns [tn * 128, + 128) x x rows [tm * BM, + BM), the
+// whole K, in the raster of w4_wgmma_kernel. A stage is the payload box
+// [64 rows x 128 columns] and the x box [BM rows x 64 k] of each half
+// (packed: columns r0 and r0 + K/2 of the same payload rows), so the
+// payload goes through the ring once. Warp w of consumer warpgroup c owns
+// weight columns c * 64 + 16 w .. + 16 as wgmma rows; its A fragment of a
+// k-step is dequant_fold's (the scale folded in, rounded once to T), and
+// every wgmma adds into the one accumulator: the stage's wgmmas of a half
+// issue back to back as one commit group, and the only wait is the one
+// that lets the ring slot (and the fragments of the group before) go.
+constexpr int WF_BLOCK_SMEM = 232448;  // a block's dynamic shared memory on the H100
+__host__ __device__ constexpr int wf_x_bytes(int bm) { return bm * WG_BK * 2; }
+__host__ __device__ constexpr int wf_stage_bytes(int bm, bool packed) {
+  return WG_W_BYTES + (packed ? 2 : 1) * wf_x_bytes(bm);
+}
+__host__ __device__ constexpr int wf_stages(int bm, bool packed) {
+  const int fit = (WF_BLOCK_SMEM - 1024 - 16 * WG_STAGES) / wf_stage_bytes(bm, packed);
+  return fit < WG_STAGES ? fit : WG_STAGES;  // 3 packed, 5 unpacked at 256 rows
+}
+__host__ __device__ constexpr int wf_smem(int bm, bool packed) {
+  return 1024 + wf_stages(bm, packed) * wf_stage_bytes(bm, packed) +
+         2 * wf_stages(bm, packed) * 8;
+}
+static_assert(wf_stages(256, true) >= 3, "three stages of 256 x rows fit");
+
+template <typename T, int BM>
+__device__ __forceinline__ void wgmma_fold(float (&acc)[BM / 2], const unsigned (&a)[4],
+                                           uint64_t db) {
+  if constexpr (BM == 256) Wgmma<T>::rs_m64n256k16_kb(acc, a, db);
+  else Wgmma<T>::rs_m64n128k16_kb(acc, a, db, 1);
+}
+
+template <typename T, bool PACKED, int BM>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+w4_wgmma_fold_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                     const __grid_constant__ CUtensorMap tmap_w,
+                     const float* __restrict__ scale, float* __restrict__ out, int M, int N,
+                     int K, int G) {
+  constexpr int H = PACKED ? 2 : 1;
+  constexpr int STAGE = wf_stage_bytes(BM, PACKED);
+  constexpr int STAGES = wf_stages(BM, PACKED);
+  constexpr int X_BYTES = wf_x_bytes(BM);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + STAGES * STAGE;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (STAGES + s); };
+
+  const int rows = PACKED ? K / 2 : K;
+  // Stages; unpacked an even count (pairs of stages, below): a stage past
+  // the payload is all zero fill (TMA) and adds nothing.
+  const int nst = PACKED ? (rows + WG_BK - 1) / WG_BK : 2 * ((rows + 2 * WG_BK - 1) / (2 * WG_BK));
+  const int tiles_m = (M + BM - 1) / BM;
+  const int tiles_n = (N + WG_BN - 1) / WG_BN;
+  const int id = blockIdx.x;
+  const int first_m = (id / (WG_GROUP * tiles_n)) * WG_GROUP;
+  const int group_m = min(tiles_m - first_m, WG_GROUP);
+  const int tm = first_m + (id % group_m);
+  const int tn = (id % (WG_GROUP * tiles_n)) / group_m;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), WG_CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= WG_CONSUMERS) {
+    setmaxnreg_dec<WG_PRODUCER_REGS>();
+    if (threadIdx.x == WG_CONSUMERS) {
+      tma_prefetch(&tmap_x);
+      tma_prefetch(&tmap_w);
+      for (int i = 0; i < nst; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty(s), ((i / STAGES) - 1) & 1);
+        const uint32_t dst = base + s * STAGE;
+        mbar_arrive_expect_tx(full(s), WG_W_BYTES + H * X_BYTES);
+        tma_load_2d(dst, &tmap_w, full(s), tn * WG_BN, i * WG_BK);
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+          tma_load_2d(dst + WG_W_BYTES + h * X_BYTES, &tmap_x, full(s), h * rows + i * WG_BK,
+                      tm * BM);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<WG_CONSUMER_REGS>();
+
+  const int cw = threadIdx.x >> 5;  // consumer warp 0-7
+  const int wg = cw >> 2;
+  const int warp = cw & 3;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // wgmma rows g and g + 8 of this warp are weight columns n and n + 1;
+  // accumulator register 4j + 2hh + e is column n + hh, x row 8j + 2t + e.
+  const int n = tn * WG_BN + wg * 64 + warp * 16 + 2 * g;
+  const bool n_in = n < N;
+  const int chunk = wg * 4 + warp;  // this warp's 16-byte payload chunk of a row
+  const int gsteps = G / 16;
+  const int groups = rows / G;      // groups of a half
+
+  float acc[BM / 2];
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+
+  // The scales of a stage's four k-steps for each half, the group counted
+  // down a k-step at a time (no division in the loop); zero past the last
+  // group (a half's short last stage, whose payload rows TMA fills with 0).
+  int grp = 0, gleft = gsteps;
+  float2 sc[H][WG_BK / 16];
+  auto stage_scales = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk) {
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        sc[h][kk] = n_in && grp < groups
+            ? __ldg(reinterpret_cast<const float2*>(scale + (size_t)(h * groups + grp) * N + n))
+            : make_float2(0.f, 0.f);
+      if (--gleft == 0) {
+        ++grp;
+        gleft = gsteps;
+      }
+    }
+  };
+  // Commit groups run in pairs (u = 0, 1): packed, the two halves of a
+  // stage; unpacked, two stages. Group u's A fragments live in registers of
+  // their own, which a wgmma reads asynchronously: the next group to write
+  // them comes after the wait that retires this one. Nothing may branch out
+  // of the pair: ptxas then keeps one fragment set and issues each wgmma
+  // alone (its C7513 note).
+  stage_scales();
+  unsigned p[WG_BK / 16][2];
+  for (int q0 = 0; q0 < H * nst; q0 += 2) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = PACKED ? q0 / 2 : q0 + u;  // the stage
+      const int h = PACKED ? u : 0;            // its half
+      const uint32_t wt = base + (i % STAGES) * STAGE;
+      if (!PACKED || u == 0) {
+        mbar_wait(full(i % STAGES), (i / STAGES) & 1);
+#pragma unroll
+        for (int kk = 0; kk < WG_BK / 16; ++kk) {
+          const int r = kk * 16 + (lane & 15);
+          ldmatrix_x2_trans_at(p[kk][0], p[kk][1], wt + r * 128 + ((chunk ^ (r & 7)) << 4));
+        }
+      }
+      unsigned a[WG_BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk) {
+        dequant_fold<T, PACKED>(a[kk], p[kk][0], p[kk][1], h, sc[h][kk]);
+        // Made here, not sunk between the wgmmas (each would then need its
+        // own warpgroup arrive, and the batch would close).
+        reg_fence(a[kk]);
+      }
+      reg_fence(acc);
+      wgmma_fence();
+      const uint32_t xt = wt + WG_W_BYTES + h * X_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk)
+        wgmma_fold<T, BM>(acc, a[kk], desc_sw128(xt + kk * 32));
+      wgmma_commit();
+      if (h == H - 1) stage_scales();  // the next stage's, while these run
+      wgmma_wait<1>();  // the group before is done: its fragments (and slot) are free
+      reg_fence(acc);
+      // The group before was the last of stage i - 1 unless it was this
+      // stage's half 0 (packed, u == 1).
+      if (h == 0 && i > 0) mbar_arrive(empty((i - 1) % STAGES));
+    }
+  }
+  wgmma_wait<0>();
+  reg_fence(acc);
+
+#pragma unroll
+  for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = tm * BM + 8 * j + 2 * t + e;
+      if (m < M && n_in)
+        *reinterpret_cast<float2*>(out + (size_t)m * N + n) =
+            make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
+    }
+}
+
 // A 2-D tensor map of [outer, inner] elements of `elem_bytes` (row stride
 // inner * elem_bytes), box box_outer x box_inner, 128B swizzle by default.
 int encode_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int elem_bytes,
@@ -1176,6 +1466,43 @@ int launch_wgmma(const void* x, const void* w, const void* scale, const void* zs
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool PACKED, int BM>
+int launch_wgmma_fold(const void* x, const void* w, const void* scale, void* out, int M, int N,
+                      int K, int G, cudaStream_t stream) {
+  const int rows = PACKED ? K / 2 : K;
+  CUtensorMap tx, tw;
+  int err = encode_2d(&tx, x, CU_TENSOR_MAP_DATA_TYPE_UINT16, 2, K, M, WG_BK, BM);
+  if (err == 0) err = encode_2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, rows, WG_BN, WG_BK);
+  if (err != 0) return err;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaFuncSetAttribute(w4_wgmma_fold_kernel<T, PACKED, BM>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, wf_smem(BM, PACKED));
+    attr_set = true;
+  }
+  const long long tiles = (long long)((M + BM - 1) / BM) * ((N + WG_BN - 1) / WG_BN);
+  w4_wgmma_fold_kernel<T, PACKED, BM><<<(unsigned)tiles, WG_THREADS, wf_smem(BM, PACKED), stream>>>(
+      tx, tw, static_cast<const float*>(scale), static_cast<float*>(out), M, N, K, G);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_wgmma(int packed, int fold, int bm, const void* x, const void* w,
+                   const void* scale, const void* zs, void* out, void* rs, int M, int N, int K,
+                   int G, cudaStream_t s) {
+  if (!fold)
+    return bm != WG_BM ? static_cast<int>(cudaErrorInvalidValue)
+           : packed    ? launch_wgmma<T, true>(x, w, scale, zs, out, rs, M, N, K, G, s)
+                       : launch_wgmma<T, false>(x, w, scale, zs, out, rs, M, N, K, G, s);
+  if (bm == 128)
+    return packed ? launch_wgmma_fold<T, true, 128>(x, w, scale, out, M, N, K, G, s)
+                  : launch_wgmma_fold<T, false, 128>(x, w, scale, out, M, N, K, G, s);
+  if (bm == 256)
+    return packed ? launch_wgmma_fold<T, true, 256>(x, w, scale, out, M, N, K, G, s)
+                  : launch_wgmma_fold<T, false, 256>(x, w, scale, out, M, N, K, G, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <bool PACKED, bool FOLD>
 void launch(const W4Params& p, int dtype, cudaStream_t stream) {
   if (dtype == 0) {
@@ -1226,43 +1553,43 @@ extern "C" int ct2_w4_gemm(const void* x, const void* w, const void* scale,
 }
 
 // Path 1 (see the note at the top): x [M, K] f16 (dtype 1) or bf16 (2),
-// payload as for ct2_w4_gemm (not folded), f32 `out` [M, N]. `part`: f32
-// [splits, M, N] and `counters`: int32 [ceil(N / 64) * ceil(M / mt)], zero,
-// when splits > 1 (else unused). `mt` (x rows a block) is 8, 16, 32 or 64; k_chunk a
-// multiple of G (payload rows a slice). Needs N % 16 == 0 and 16-byte
-// aligned x and payload. Returns cudaGetLastError() after the launch.
+// payload as for ct2_w4_gemm, f32 `out` [M, N]; `fold` (0/1) the folded
+// form (zs unused). `part`: f32 [splits, M, N] and `counters`: int32
+// [ceil(N / 64) * ceil(M / mt)], zero, when splits > 1 (else unused). `mt`
+// (x rows a block) is 8, 16, 32 or 64; k_chunk a multiple of G (payload
+// rows a slice). Needs N % 16 == 0 and 16-byte aligned x and payload.
+// Returns cudaGetLastError() after the launch.
 extern "C" int ct2_w4_gemm_splitk(const void* x, const void* w, const void* scale,
                                   const void* zs, void* out, void* part, void* counters,
-                                  int M, int N, int K, int G, int dtype, int packed,
+                                  int M, int N, int K, int G, int dtype, int packed, int fold,
                                   int mt, int k_chunk, int splits, void* stream) {
   if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return packed ? dispatch_splitk<__half, true>(mt, x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s)
-                  : dispatch_splitk<__half, false>(mt, x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s);
+    return dispatch_splitk_form<__half>(packed, fold, mt, x, w, scale, zs, out, part, counters,
+                                        M, N, K, G, k_chunk, splits, s);
   if (dtype == 2)
-    return packed ? dispatch_splitk<__nv_bfloat16, true>(mt, x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s)
-                  : dispatch_splitk<__nv_bfloat16, false>(mt, x, w, scale, zs, out, part, counters, M, N, K, G, k_chunk, splits, s);
+    return dispatch_splitk_form<__nv_bfloat16>(packed, fold, mt, x, w, scale, zs, out, part,
+                                               counters, M, N, K, G, k_chunk, splits, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Path 2 (see the note at the top): x [M, K] f16 (dtype 1) or bf16 (2),
-// payload as for ct2_w4_gemm (not folded), f32 `out` [M, N]; packed, `rs`
-// an f32 workspace [K/G, (M + 3) / 4 * 4] for the row sums (else unused).
-// Needs N % 16 == 0 and 16-byte aligned x and payload (TMA's stride and
-// address rules). Packed, two launches: the row sums, then the product.
-// Returns cudaGetLastError() after the launches, or CT2_ERR_* if a tensor
-// map could not be made.
+// payload as for ct2_w4_gemm, f32 `out` [M, N]; `bm` x rows a block (128;
+// folded also 256). Not folded and packed, `rs` an f32 workspace [K/G,
+// (M + 3) / 4 * 4] for the row sums (else unused), and two launches: the
+// row sums, then the product; folded, one launch (zs and rs unused). Needs
+// N % 16 == 0 and 16-byte aligned x and payload (TMA's stride and address
+// rules). Returns cudaGetLastError() after the launches, or CT2_ERR_* if a
+// tensor map could not be made.
 extern "C" int ct2_w4_gemm_wgmma(const void* x, const void* w, const void* scale,
                                  const void* zs, void* out, void* rs, int M, int N, int K,
-                                 int G, int dtype, int packed, void* stream) {
+                                 int G, int dtype, int packed, int fold, int bm, void* stream) {
   if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return packed ? launch_wgmma<__half, true>(x, w, scale, zs, out, rs, M, N, K, G, s)
-                  : launch_wgmma<__half, false>(x, w, scale, zs, out, rs, M, N, K, G, s);
+    return dispatch_wgmma<__half>(packed, fold, bm, x, w, scale, zs, out, rs, M, N, K, G, s);
   if (dtype == 2)
-    return packed ? launch_wgmma<__nv_bfloat16, true>(x, w, scale, zs, out, rs, M, N, K, G, s)
-                  : launch_wgmma<__nv_bfloat16, false>(x, w, scale, zs, out, rs, M, N, K, G, s);
+    return dispatch_wgmma<__nv_bfloat16>(packed, fold, bm, x, w, scale, zs, out, rs, M, N, K, G, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,12 +14,12 @@ Counterparts of ``ctranslate2_tpu/kernels/quant_matmul.py``:
   zero * scale terms [K/G, N].
 
 The four W4 products share one CUDA source, ``csrc/w4_gemm.cu``, and keep
-the JAX layouts: for ``matmul_w4a16`` and ``matmul_w4p`` in
-float16/bfloat16 a split-K ``mma.sync`` path at small M and a TMA-fed
-``wgmma`` path above it, and a 64 x 64 tile for everything else, chosen by
-``w4_plan``. The ``_fold`` forms are not
-dispatched by ``linear()`` (as in the JAX package); they are held by the
-tests and ``chip_smoke.py``.
+the JAX layouts: in float16/bfloat16 a split-K ``mma.sync`` path at small M
+and a TMA-fed ``wgmma`` path above it, and a 64 x 64 tile for everything
+else, chosen by ``w4_plan``. The ``_fold`` forms fold the scale into the
+weight fragment (one rounding of ``payload * scale`` to the activation
+type); they are not dispatched by ``linear()`` (as in the JAX package) and
+are held by the tests and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -190,14 +190,20 @@ W4_MAX_ROWS = 65535 * 64  # gridDim.y of the kernels' 64-row tiles
 # boundaries until the grid holds about W4_SPLITK_BLOCKS_PER_SM blocks an SM
 # (eight ran faster than four at the decode shapes on the card). wgmma
 # path: one block a W4_WGMMA_TILE (x rows, weight columns, payload rows a
-# stage), the whole K. The folded forms, float32, an unaligned payload and N
-# off a multiple of 16 take the tile kernel: W4_TILE (rows, columns, payload
+# stage), the whole K. float32, an unaligned payload and N off a multiple of
+# 16 take the tile kernel in every form: W4_TILE (rows, columns, payload
 # rows a stage).
 W4_SPLITK_BN = 64
 W4_SPLITK_BK = 64
 W4_SPLITK_MTS = (8, 16, 32, 64)
 W4_SPLITK_BLOCKS_PER_SM = 8
 W4_WGMMA_TILE = (128, 128, 64)
+# The folded forms' wgmma path takes W4_WGMMA_WIDE_ROWS x rows a block where
+# the 128-row grid needs more than one wave of CARD_SMS blocks: there the
+# wider block is faster (its A fragments, the scales folded in, serve twice
+# the rows), within one wave slower (half the blocks, each twice as long).
+# chip_smoke.py's w4_crossover rows time both blocks of the folded forms.
+W4_WGMMA_WIDE_ROWS = 256
 # The crossover (chip_smoke.py's kernel_w4 and w4_crossover rows: both
 # forms, float16, the four Llama (K, N); H100 80GB HBM3, 700 W). At M = 4
 # split-K takes 9.4-33.2 us, wgmma 40.3-173.1: split-K up to W4_SPLITK_MAX_M
@@ -207,7 +213,8 @@ W4_WGMMA_TILE = (128, 128, 64)
 # is faster at every shape (2.1-2.9x at M = 8,192). Over fewer than
 # W4_WGMMA_MIN_TILES tiles with K of W4_SPLITK_LONG_K or more (K 14,336,
 # N 4,096 at M <= 128: 32 blocks, each over the whole K) split-K, whose K
-# split fills the card, stays 8-29% faster.
+# split fills the card, stays 8-29% faster. The folded forms take the same
+# rule (their w4_crossover rows).
 W4_SPLITK_MAX_M = 64
 W4_WGMMA_MIN_TILES = 33
 W4_SPLITK_LONG_K = 8192
@@ -241,9 +248,10 @@ class W4Plan(NamedTuple):
 
 
 def w4_plan(M: int, N: int, K: int, G: int, packed: bool, aligned: bool = True,
-            half: bool = True) -> W4Plan:
-    """The path, split and grid of ``matmul_w4a16`` (``packed`` False) or
-    ``matmul_w4p`` for x [M, K] and a group size G.
+            half: bool = True, fold: bool = False) -> W4Plan:
+    """The path, split and grid of a W4 product for x [M, K] and a group
+    size G: ``matmul_w4a16`` (``packed`` False) or ``matmul_w4p``, or with
+    ``fold`` their folded forms.
 
     ``aligned``: the payload starts on 16 bytes; ``half``: float16/bfloat16
     activations. In a half type with an aligned payload and N % 16 == 0,
@@ -251,31 +259,41 @@ def w4_plan(M: int, N: int, K: int, G: int, packed: bool, aligned: bool = True,
     wgmma grid of few tiles (``W4_WGMMA_MIN_TILES``, ``W4_SPLITK_LONG_K``),
     the wgmma path every other M; every other shape takes the tile."""
     if not (half and aligned and N % 16 == 0):
-        return w4_path_plan("tile", M, N, K, G, packed)
+        return w4_path_plan("tile", M, N, K, G, packed, fold)
     bm, bn, _ = W4_WGMMA_TILE
     few_tiles = _cdiv(M, bm) * _cdiv(N, bn) < W4_WGMMA_MIN_TILES
     splitk = M <= W4_SPLITK_MAX_M or (few_tiles and K >= W4_SPLITK_LONG_K)
-    return w4_path_plan("splitk" if splitk else "wgmma", M, N, K, G, packed)
+    return w4_path_plan("splitk" if splitk else "wgmma", M, N, K, G, packed, fold)
 
 
-def w4_path_plan(path: str, M: int, N: int, K: int, G: int, packed: bool) -> W4Plan:
+def w4_path_plan(path: str, M: int, N: int, K: int, G: int, packed: bool,
+                 fold: bool = False, rows: int = 0) -> W4Plan:
     """The plan of ``path`` (one of ``W4_PATHS``) for this shape, whichever
     path ``w4_plan`` picks: the split-K and wgmma paths need a half type, an
-    aligned payload and N % 16 == 0; the tile takes every shape."""
-    rows = K // 2 if packed else K
+    aligned payload and N % 16 == 0; the tile takes every shape. Only the
+    wgmma path's tile depends on ``fold``: 128 x rows a block, or for the
+    folded forms ``W4_WGMMA_WIDE_ROWS`` past one wave; ``rows`` (128 or,
+    folded, ``W4_WGMMA_WIDE_ROWS``) sets them instead, for timing."""
+    payload_rows = K // 2 if packed else K
     if path == "tile":
-        return W4Plan("tile", W4_TILE[0], 1, rows, W4_TILE,
+        return W4Plan("tile", W4_TILE[0], 1, payload_rows, W4_TILE,
                       (_cdiv(N, W4_TILE[1]), _cdiv(M, W4_TILE[0]), 1), 0)
     if path == "wgmma":
-        bm, bn, _ = W4_WGMMA_TILE
-        return W4Plan("wgmma", bm, 1, rows, W4_WGMMA_TILE,
+        bm, bn, bk = W4_WGMMA_TILE
+        if rows:
+            if rows not in ((bm, W4_WGMMA_WIDE_ROWS) if fold else (bm,)):
+                raise ValueError(f"w4_path_plan: no wgmma block of {rows} x rows")
+            bm = rows
+        elif fold and _cdiv(M, bm) * _cdiv(N, bn) > CARD_SMS:
+            bm = W4_WGMMA_WIDE_ROWS
+        return W4Plan("wgmma", bm, 1, payload_rows, (bm, bn, bk),
                       (_cdiv(M, bm) * _cdiv(N, bn), 1, 1), 0)
     if path != "splitk":
         raise ValueError(f"w4_path_plan: no path {path!r} (one of {W4_PATHS})")
     mt = next((m for m in W4_SPLITK_MTS if M <= m), W4_SPLITK_MTS[-1])
     tiles_n, tiles_m = _cdiv(N, W4_SPLITK_BN), _cdiv(M, mt)
     unit = G * W4_SPLITK_BK // math.gcd(G, W4_SPLITK_BK)  # whole groups and stages
-    units = max(1, _cdiv(rows, unit))
+    units = max(1, _cdiv(payload_rows, unit))
     want = _cdiv(W4_SPLITK_BLOCKS_PER_SM * CARD_SMS, max(1, tiles_n * tiles_m))
     per = _cdiv(units, max(1, min(units, want)))
     splits = _cdiv(units, per)
@@ -286,13 +304,14 @@ def w4_path_plan(path: str, M: int, N: int, K: int, G: int, packed: bool) -> W4P
 W4_WGMMA_RASTER = 8  # x-row tiles of a raster group (the kernel's WG_GROUP)
 
 
-def w4_wgmma_tile(block: int, M: int, N: int) -> Tuple[int, int]:
+def w4_wgmma_tile(block: int, M: int, N: int, bm: int = W4_WGMMA_TILE[0]) -> Tuple[int, int]:
     """The (x-row tile, weight-column tile) that block ``block`` of the
-    wgmma path computes: the kernel's own rule (``w4_wgmma_kernel`` in the
-    CUDA source). Blocks walk groups of ``W4_WGMMA_RASTER`` row tiles, each
-    group over every column tile, so that the blocks in flight share their
-    x panels and payload columns in L2."""
-    bm, bn, _ = W4_WGMMA_TILE
+    wgmma path computes for ``bm`` x rows a block: the kernels' own rule
+    (``w4_wgmma_kernel``, ``w4_wgmma_fold_kernel`` in the CUDA source).
+    Blocks walk groups of ``W4_WGMMA_RASTER`` row tiles, each group over
+    every column tile, so that the blocks in flight share their x panels and
+    payload columns in L2."""
+    bn = W4_WGMMA_TILE[1]
     tiles_m, tiles_n = _cdiv(M, bm), _cdiv(N, bn)
     first_m = block // (W4_WGMMA_RASTER * tiles_n) * W4_WGMMA_RASTER
     group_m = min(tiles_m - first_m, W4_WGMMA_RASTER)
@@ -328,9 +347,9 @@ def _w4_lib() -> ctypes.CDLL:
         lib.ct2_w4_gemm.restype = i
         lib.ct2_w4_gemm.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.ct2_w4_gemm_splitk.restype = i
-        lib.ct2_w4_gemm_splitk.argtypes = [p] * 7 + [i] * 9 + [p]
+        lib.ct2_w4_gemm_splitk.argtypes = [p] * 7 + [i] * 10 + [p]
         lib.ct2_w4_gemm_wgmma.restype = i
-        lib.ct2_w4_gemm_wgmma.argtypes = [p] * 6 + [i] * 6 + [p]
+        lib.ct2_w4_gemm_wgmma.argtypes = [p] * 6 + [i] * 8 + [p]
     return lib
 
 
@@ -440,6 +459,15 @@ def _w4p_zero_term(x, g_zs):
     return x.float().reshape(M, ng, K // ng).sum(-1) @ g_zs
 
 
+def _w4p_sub_zero_term(out, x, g_zs):
+    """``out -= rowsum_g(x) @ g_zs`` on the card: the group sums in float32
+    straight from x (no float32 copy of x), then one product into ``out``."""
+    M, K = x.shape
+    ng = g_zs.shape[0]
+    rs = x.reshape(M, ng, K // ng).sum(-1, dtype=torch.float32)
+    return out.addmm_(rs, g_zs, alpha=-1)
+
+
 def matmul_w4p_fold_plain(x, w4p, g_scale, g_zs):
     """Plain PyTorch version of the scale-folded packed form:
     ``x @ (q * s) - rowsum_g(x) @ zs`` in float32."""
@@ -469,16 +497,12 @@ def w4_error_bound(x, payload, g_scale, g_zs, fold):
 
 
 def w4_wrapper_plan(x, w, g_scale, packed, fold) -> W4Plan:
-    """The plan the wrapper runs for these operands: ``w4_plan``'s for
-    ``matmul_w4a16`` / ``matmul_w4p``; the folded forms always take the
-    tile."""
+    """The plan the wrapper runs for these operands (``w4_plan``'s)."""
     M, K = x.shape
     N = w.shape[1]
     G = K // g_scale.shape[0]
-    if fold:
-        return w4_plan(M, N, K, G, packed, half=False)
     return w4_plan(M, N, K, G, packed, w.data_ptr() % 16 == 0,
-                   x.dtype != torch.float32)
+                   x.dtype != torch.float32, fold)
 
 
 def _w4_run(x, w, g_scale, g_zs, packed, fold, plan: W4Plan):
@@ -506,17 +530,17 @@ def _w4_run(x, w, g_scale, g_zs, packed, fold, plan: W4Plan):
                 x.data_ptr(), w.data_ptr(), g_scale.data_ptr(), zs_ptr,
                 out.data_ptr(), None if part is None else part.data_ptr(),
                 None if counters is None else counters.data_ptr(), M, N, K, G,
-                W4_DTYPE_CODES[x.dtype], int(packed), plan.mt, plan.k_chunk,
+                W4_DTYPE_CODES[x.dtype], int(packed), int(fold), plan.mt, plan.k_chunk,
                 plan.splits, stream)
         elif plan.path == "wgmma":
-            # Packed: rowsum(x_g) [K/G, M rounded up to 4] for the zero term,
-            # made by the kernel's first launch.
+            # matmul_w4p: rowsum(x_g) [K/G, M rounded up to 4] for the zero
+            # term, made by the kernel's first launch.
             rs = (torch.empty((K // G, _cdiv(M, 4) * 4), dtype=torch.float32,
-                              device=x.device) if packed else None)
+                              device=x.device) if packed and not fold else None)
             err = _w4_lib().ct2_w4_gemm_wgmma(
                 x.data_ptr(), w.data_ptr(), g_scale.data_ptr(), zs_ptr,
                 out.data_ptr(), None if rs is None else rs.data_ptr(), M, N, K, G,
-                W4_DTYPE_CODES[x.dtype], int(packed), stream)
+                W4_DTYPE_CODES[x.dtype], int(packed), int(fold), plan.mt, stream)
         else:
             vec = int(N % 16 == 0 and w.data_ptr() % 16 == 0)
             err = _w4_lib().ct2_w4_gemm(
@@ -586,4 +610,4 @@ def matmul_w4p_fold(x, w4p, g_scale, g_zs):
     if x.device.type == "cpu":
         return matmul_w4p_fold_plain(x, w4p, g_scale, g_zs)
     out = _w4_launch("matmul_w4p_fold", x, w4p, g_scale, None, True, True)
-    return out - _w4p_zero_term(x, g_zs)
+    return _w4p_sub_zero_term(out, x, g_zs)

@@ -1,24 +1,25 @@
 #!/usr/bin/env python3
 """Times this checkout's W8A8, flash-attention, int8-KV decode-attention and
-dispatched AWQ-W4 (``matmul_w4p``, ``matmul_w4a16``) kernels against another
-checkout's, on one card, in turns.
+AWQ-W4 (``matmul_w4p``, ``matmul_w4a16`` and their folded forms) kernels
+against another checkout's, on one card, in turns.
 
-    python3 kernel_ab.py OTHER_TREE [SMOKE_LOG] [--w4-prefill]
+    python3 kernel_ab.py OTHER_TREE [SMOKE_LOG] [--w4 | --w4-prefill]
 
 OTHER_TREE is an unpacked ``git archive`` of an earlier commit (its
 ``ctranslate2_tpu_torch`` is imported from there and builds its kernels
 into its own ``_build``). The shapes and their launches are read from the
 ``kernel_w8a8``, ``kernel_flash``, ``kernel_decode`` and ``kernel_w4`` lines
 of a ``chip_smoke.py`` log when one is given (those with main-path
-launches), else the Generator's main-path shapes at Llama-3-8B's widths
-(M = 4 and 8,192; the AWQ path's two packed calls and one unpacked call; the
-int8 Generator's 2,048 decode launches) are taken. ``--w4-prefill`` keeps
-only the W4 shapes above 64 rows (the AWQ prefill). Each tree runs in a
-worker process, in the order other, this, this, other; each worker builds
-the sources of the kernels it times,
-times every shape in a CUDA graph (this checkout's
-``chip_smoke.cuda_time_ms`` for both trees) and prints one JSON line a
-shape. The last line gives, per tree, the least of its two runs at each
+launches; a folded W4 form's weighted by its counterpart's launches at the
+same shape, as the log does), else the Generator's main-path shapes at
+Llama-3-8B's widths (M = 4 and 8,192; the AWQ path's two packed calls and
+one unpacked call, the folded forms at their counterparts' shapes; the int8
+Generator's 2,048 decode launches) are taken. ``--w4`` keeps only the W4
+shapes, ``--w4-prefill`` only those above 64 rows (the AWQ prefill). Each
+tree runs in a worker process, in the order other, this, this, other; each
+worker builds the sources of the kernels it times, times every shape in a
+CUDA graph (this checkout's ``chip_smoke.cuda_time_ms`` for both trees) and
+prints one JSON line a shape. The last line gives, per tree, the least of its two runs at each
 shape and the sums over the launches.
 """
 
@@ -38,7 +39,8 @@ DEFAULT_DECODE = {((4, 32, 1, 128), 8, 2176, "float16", True, 0, (2048, 2069, 20
                   2048}
 W4_KN_LAUNCHES = {(4096, 6144): 1, (4096, 4096): 1, (4096, 14336): 2, (14336, 4096): 1}
 DEFAULT_W4 = {(name, M, K, N, "float16"): per * calls * (32 * 64 if M == 4 else 32)
-              for name, calls in (("matmul_w4p", 2), ("matmul_w4a16", 1))
+              for name, calls in (("matmul_w4p", 2), ("matmul_w4a16", 1),
+                                  ("matmul_w4p_fold", 2), ("matmul_w4a16_fold", 1))
               for M in (4, 8192) for (K, N), per in W4_KN_LAUNCHES.items()}
 AWQ_GROUP = 128
 
@@ -60,8 +62,8 @@ def shapes_from_log(path):
                 key = (tuple(row["q"]), row["cache"][1], row["cache"][2], row["dtype"],
                        row["fresh"], row["window"], tuple(row["lengths"]))
                 decode[key] = row["launches"]
-            elif row.get("phase") == "kernel_w4" and row["launches"]:
-                w4[(row["kernel"], row["M"], row["K"], row["N"], row["dtype"])] = row["launches"]
+            elif row.get("phase") == "kernel_w4" and row["weight"]:
+                w4[(row["kernel"], row["M"], row["K"], row["N"], row["dtype"])] = row["weight"]
     return w8a8, flash, decode, w4
 
 
@@ -136,7 +138,7 @@ def worker(tree, spec):
         q = torch.randint(0, 16, (K, N), generator=g, device="cuda", dtype=torch.uint8)
         s = torch.rand((K // G, N), generator=g, device="cuda") * 0.0025 + 0.005
         z = torch.randint(7, 9, (K // G, N), generator=g, device="cuda").float()
-        if name == "matmul_w4p":
+        if name.startswith("matmul_w4p"):
             args = (x, (q[:K // 2] | (q[K // 2:] << 4)).view(torch.int8), s, z * s)
         else:
             args = (x, (q.to(torch.int16) - z.to(torch.int16).repeat_interleave(G, 0))
@@ -153,13 +155,14 @@ def main():
     if sys.argv[1] == "--worker":
         worker(sys.argv[2], json.loads(sys.argv[3]))
         return 0
-    args = [a for a in sys.argv[1:] if a != "--w4-prefill"]
+    args = [a for a in sys.argv[1:] if a not in ("--w4", "--w4-prefill")]
     other = os.path.abspath(args[0])
     w8a8, flash, decode, w4 = (
         shapes_from_log(args[1]) if len(args) > 1
         else (DEFAULT_W8A8, DEFAULT_FLASH, DEFAULT_DECODE, DEFAULT_W4))
-    if "--w4-prefill" in sys.argv:
+    if "--w4" in sys.argv or "--w4-prefill" in sys.argv:
         w8a8, flash, decode = {}, {}, {}
+    if "--w4-prefill" in sys.argv:
         w4 = {k: v for k, v in w4.items() if k[1] > 64}
     spec = json.dumps({"w8a8": sorted(w8a8.items()), "flash": sorted(flash.items()),
                        "decode": sorted(decode.items()), "w4": sorted(w4.items())})

@@ -716,27 +716,47 @@ def _w4_card_args(M, K, N, G, packed, dtype, seed=0):
     return [x] + [torch.from_numpy(a).to(dev) for a in (w, gs, zs) if a is not None]
 
 
-def _w4_within_bound(out, args, packed):
-    ref = (qm.matmul_w4p_plain if packed else qm.matmul_w4a16_plain)(*args)
-    bound = qm.w4_error_bound(args[0], args[1], args[2], args[3] if packed else None, False)
+def _w4_within_bound(out, args, packed, fold=False):
+    ref = getattr(qm, ("matmul_w4p" if packed else "matmul_w4a16")
+                  + ("_fold" if fold else "") + "_plain")(*args)
+    bound = qm.w4_error_bound(args[0], args[1], args[2], args[3] if packed else None, fold)
     diff = (out - ref).abs()
     return bool((diff <= bound).all()), (diff / bound).max().item()
+
+
+def _w4_run_form(args, packed, fold, plan):
+    """One W4 form on ``plan``'s path, as its wrapper computes it (the
+    folded packed form also subtracts its zero-point term)."""
+    zs = args[3] if packed else None
+    out = qm._w4_run(*args[:3], None if fold else zs, packed, fold, plan)
+    return qm._w4p_sub_zero_term(out, args[0], zs) if packed and fold else out
+
+
+def _w4_wide_plan(M, N, K, packed):
+    """The folded forms' wgmma plan with ``W4_WGMMA_WIDE_ROWS`` x rows a
+    block at any M (the plan takes it only past one wave of blocks)."""
+    return qm.w4_path_plan("wgmma", M, N, K, 128, packed, True, qm.W4_WGMMA_WIDE_ROWS)
+
+
+W4_FORMS = ["matmul_w4p", "matmul_w4a16", "matmul_w4p_fold", "matmul_w4a16_fold"]
+W4_FOLDED = ["matmul_w4p_fold", "matmul_w4a16_fold"]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
 @pytest.mark.parametrize("K,N", W4_MAIN_KN + [(256, 4096)])
 @pytest.mark.parametrize("M", [1, 4, 8, 16, 33, 64, 65, 128])
-@pytest.mark.parametrize("name", ["matmul_w4p", "matmul_w4a16"])
+@pytest.mark.parametrize("name", W4_FORMS)
 def test_w4_both_paths_within_bound_across_the_crossover_on_card(
         name, M, K, N, dtype):
     """The wrapper's path (split-K up to M = 64 and for K = 14,336 over 32
     wgmma tiles, wgmma otherwise) and every other path, each within
     ``w4_error_bound`` of the plain version at the main-path (K, N),
-    G = 128, and K = 256 (packed: K/2 is one group)."""
-    fn, _, packed, _ = W4_KERNELS[name]
+    G = 128, and K = 256 (packed: K/2 is one group); the folded forms also
+    on the wide wgmma block."""
+    fn, _, packed, fold = W4_KERNELS[name]
     args = _w4_card_args(M, K, N, 128, packed, dtype)
-    plan = qm.w4_wrapper_plan(args[0], args[1], args[2], packed, False)
+    plan = qm.w4_wrapper_plan(args[0], args[1], args[2], packed, fold)
     few = math.ceil(M / 128) * math.ceil(N / 128) < qm.W4_WGMMA_MIN_TILES
     assert plan.path == ("splitk" if M <= 64 or (few and K >= qm.W4_SPLITK_LONG_K)
                          else "wgmma")
@@ -744,14 +764,14 @@ def test_w4_both_paths_within_bound_across_the_crossover_on_card(
     out = fn(*args)
     torch.cuda.synchronize()
     assert kernels.launch_counts()[name] == before + 1
-    ok, worst = _w4_within_bound(out, args, packed)
+    ok, worst = _w4_within_bound(out, args, packed, fold)
     assert ok, (plan.path, worst)
-    for path in qm.W4_PATHS:
-        other = qm.w4_path_plan(path, M, N, K, 128, packed)
-        out = qm._w4_run(*args[:3], args[3] if packed else None, packed, False, other)
+    others = [qm.w4_path_plan(path, M, N, K, 128, packed, fold) for path in qm.W4_PATHS]
+    for other in others + ([_w4_wide_plan(M, N, K, packed)] if fold else []):
+        out = _w4_run_form(args, packed, fold, other)
         torch.cuda.synchronize()
-        ok, worst = _w4_within_bound(out, args, packed)
-        assert ok, (other.path, worst)
+        ok, worst = _w4_within_bound(out, args, packed, fold)
+        assert ok, (other.path, other.mt, worst)
 
 
 @pytest.mark.cuda
@@ -759,67 +779,69 @@ def test_w4_both_paths_within_bound_across_the_crossover_on_card(
 @pytest.mark.parametrize("M", [65, 128, 200, 1000])
 @pytest.mark.parametrize("G", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("name", ["matmul_w4p", "matmul_w4a16"])
+@pytest.mark.parametrize("name", W4_FORMS)
 def test_w4_wgmma_path_within_bound_on_card(name, dtype, G, M, N):
-    """The wgmma path: both forms and half types, group sizes whose ends
+    """The wgmma path: every form and half type, group sizes whose ends
     fall on stage ends (64, 128) or inside one (32), M off a multiple of
     128 and a ragged last column tile (N = 400), within ``w4_error_bound``
-    through the wrapper, which takes that path at these shapes."""
-    fn, _, packed, _ = W4_KERNELS[name]
+    through the wrapper, which takes that path at these shapes; the folded
+    forms also on the wide block."""
+    fn, _, packed, fold = W4_KERNELS[name]
     args = _w4_card_args(M, 512, N, G, packed, dtype, seed=3)
-    assert qm.w4_wrapper_plan(args[0], args[1], args[2], packed, False).path == "wgmma"
+    assert qm.w4_wrapper_plan(args[0], args[1], args[2], packed, fold).path == "wgmma"
     before = kernels.launch_counts()[name]
     out = fn(*args)
     torch.cuda.synchronize()
     assert kernels.launch_counts()[name] == before + 1
     assert out.shape == (M, N) and out.dtype == torch.float32
-    ok, worst = _w4_within_bound(out, args, packed)
+    ok, worst = _w4_within_bound(out, args, packed, fold)
     assert ok, worst
+    if fold:
+        out = _w4_run_form(args, packed, fold, _w4_wide_plan(M, N, 512, packed))
+        torch.cuda.synchronize()
+        ok, worst = _w4_within_bound(out, args, packed, fold)
+        assert ok, ("wide", worst)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("G", [32, 48])
-@pytest.mark.parametrize("name", ["matmul_w4p", "matmul_w4a16"])
+@pytest.mark.parametrize("name", W4_FORMS)
 def test_w4_wgmma_path_short_last_stage_on_card(name, G):
     """96 payload rows: the last 64-row stage of each half is short, and at
-    G = 48 groups end inside stages."""
-    fn, _, packed, _ = W4_KERNELS[name]
-    K = 192 if packed else 96
-    args = _w4_card_args(130, K, 48, G, packed, torch.float16, seed=6)
-    plan = qm.w4_path_plan("wgmma", 130, 48, K, G, packed)
-    out = qm._w4_run(*args[:3], args[3] if packed else None, packed, False, plan)
-    torch.cuda.synchronize()
-    ok, worst = _w4_within_bound(out, args, packed)
-    assert ok, worst
+    G = 48 groups end inside stages (the folded forms also on the wide
+    block, and with an odd stage count: 3 stages a half, the last short at
+    G = 32)."""
+    fn, _, packed, fold = W4_KERNELS[name]
+    for rows in (96, 160 if G == 32 else 192) if fold else (96,):
+        K = 2 * rows if packed else rows
+        args = _w4_card_args(130, K, 48, G, packed, torch.float16, seed=6)
+        plans = [qm.w4_path_plan("wgmma", 130, 48, K, G, packed, fold)]
+        for plan in plans + ([_w4_wide_plan(130, 48, K, packed)] if fold else []):
+            out = _w4_run_form(args, packed, fold, plan)
+            torch.cuda.synchronize()
+            ok, worst = _w4_within_bound(out, args, packed, fold)
+            assert ok, (rows, plan.mt, worst)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["matmul_w4p", "matmul_w4a16"])
+@pytest.mark.parametrize("name", W4_FORMS)
 def test_w4_wgmma_path_at_full_width_on_card(name):
     """The AWQ prefill's shape: M = 8,192 (4 prompts of 2,048), K = N =
-    4,096, G = 128."""
-    fn, _, packed, _ = W4_KERNELS[name]
+    4,096, G = 128 (the folded forms on the wide block)."""
+    fn, _, packed, fold = W4_KERNELS[name]
     args = _w4_card_args(8192, 4096, 4096, 128, packed, torch.float16, seed=4)
-    assert qm.w4_wrapper_plan(args[0], args[1], args[2], packed, False).path == "wgmma"
+    plan = qm.w4_wrapper_plan(args[0], args[1], args[2], packed, fold)
+    assert plan.path == "wgmma" and plan.mt == (qm.W4_WGMMA_WIDE_ROWS if fold else 128)
     out = fn(*args)
     torch.cuda.synchronize()
-    ok, worst = _w4_within_bound(out, args, packed)
+    ok, worst = _w4_within_bound(out, args, packed, fold)
     assert ok, worst
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["matmul_w4p", "matmul_w4a16"])
-def test_w4_wgmma_path_is_the_same_run_to_run_and_in_a_graph_on_card(name):
-    """Each output has one owner block and a fixed order of sums: two
-    calls are bit-equal, and a CUDA-graph replay (the row-sum workspace
-    made inside the capture) equals the eager call."""
-    fn, _, packed, _ = W4_KERNELS[name]
-    args = _w4_card_args(1000, 4096, 1040, 128, packed, torch.float16, seed=5)
-    assert qm.w4_wrapper_plan(args[0], args[1], args[2], packed, False).path == "wgmma"
-    first = fn(*args)
-    second = fn(*args)
-    torch.cuda.synchronize()
-    assert torch.equal(first, second)
+def _same_in_a_graph(fn, args, first):
+    """A CUDA-graph replay of ``fn(*args)`` equals ``first`` (a warm-up on
+    the capture stream first: per-stream state is made outside the
+    capture)."""
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
@@ -830,20 +852,52 @@ def test_w4_wgmma_path_is_the_same_run_to_run_and_in_a_graph_on_card(name):
         captured = fn(*args)
     graph.replay()
     torch.cuda.synchronize()
-    assert torch.equal(captured, first)
+    return torch.equal(captured, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", W4_FORMS)
+def test_w4_wgmma_path_is_the_same_run_to_run_and_in_a_graph_on_card(name):
+    """Each output has one owner block and a fixed order of sums: two
+    calls are bit-equal, and a CUDA-graph replay (the row-sum workspace
+    made inside the capture) equals the eager call."""
+    fn, _, packed, fold = W4_KERNELS[name]
+    args = _w4_card_args(1000, 4096, 1040, 128, packed, torch.float16, seed=5)
+    assert qm.w4_wrapper_plan(args[0], args[1], args[2], packed, fold).path == "wgmma"
+    first = fn(*args)
+    second = fn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert _same_in_a_graph(fn, args, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", W4_FOLDED)
+def test_w4_fold_wide_wgmma_is_the_same_run_to_run_and_in_a_graph_on_card(name):
+    """The same on the folded forms' wide block (M = 4,352: 34 x 32
+    128-row tiles, past one wave)."""
+    fn, _, packed, fold = W4_KERNELS[name]
+    args = _w4_card_args(4352, 4096, 4096, 128, packed, torch.float16, seed=7)
+    plan = qm.w4_wrapper_plan(args[0], args[1], args[2], packed, fold)
+    assert plan.path == "wgmma" and plan.mt == qm.W4_WGMMA_WIDE_ROWS
+    first = fn(*args)
+    second = fn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert _same_in_a_graph(fn, args, first)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N", [(4, 4096, 4096), (4, 14336, 4096), (33, 4096, 14336),
                                    (64, 4096, 6144)])
-@pytest.mark.parametrize("name", ["matmul_w4p", "matmul_w4a16"])
+@pytest.mark.parametrize("name", W4_FORMS)
 def test_w4_splitk_is_the_same_run_to_run_on_card(name, M, K, N):
     """The split-K sum adds the slices in a fixed order: two calls on the
     same inputs are bit-equal (and the counters are left zero for the
-    next)."""
-    fn, _, packed, _ = W4_KERNELS[name]
+    next), and a CUDA-graph replay equals the eager call."""
+    fn, _, packed, fold = W4_KERNELS[name]
     args = _w4_card_args(M, K, N, 128, packed, torch.float16, seed=2)
-    plan = qm.w4_wrapper_plan(args[0], args[1], args[2], packed, False)
+    plan = qm.w4_wrapper_plan(args[0], args[1], args[2], packed, fold)
     assert plan.path == "splitk" and plan.splits > 1
     first = fn(*args)
     second = fn(*args)
@@ -851,6 +905,7 @@ def test_w4_splitk_is_the_same_run_to_run_on_card(name, M, K, N):
     assert torch.equal(first, second)
     stream = torch.cuda.current_stream().cuda_stream
     assert int(qm._w4_counters(args[0].device, stream).abs().sum()) == 0
+    assert _same_in_a_graph(fn, args, first)
 
 
 @pytest.fixture(scope="module")

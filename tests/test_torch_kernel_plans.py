@@ -146,8 +146,15 @@ def _w4_expected_path(M, K, N, aligned=True, half=True):
     return "wgmma"
 
 
-def _check_w4_plan(M, K, N, G, packed, aligned=True, half=True):
-    plan = qm.w4_plan(M, N, K, G, packed, aligned, half)
+def _w4_wgmma_rows(M, N, fold):
+    """x rows a wgmma block: 128; for the folded forms 256 where the
+    128-row grid needs more than one wave of the card's SMs."""
+    wide = fold and math.ceil(M / 128) * math.ceil(N / 128) > qm.CARD_SMS
+    return qm.W4_WGMMA_WIDE_ROWS if wide else 128
+
+
+def _check_w4_plan(M, K, N, G, packed, aligned=True, half=True, fold=False):
+    plan = qm.w4_plan(M, N, K, G, packed, aligned, half, fold)
     rows = K // 2 if packed else K
     assert plan.path == _w4_expected_path(M, K, N, aligned, half)
     if plan.path == "tile":
@@ -156,10 +163,11 @@ def _check_w4_plan(M, K, N, G, packed, aligned=True, half=True):
         assert plan.grid == (math.ceil(N / 64), math.ceil(M / 64), 1)
         return plan
     if plan.path == "wgmma":
-        # One block a 128 x 128 output tile over the whole K.
+        # One block a bm x 128 output tile over the whole K.
+        bm = _w4_wgmma_rows(M, N, fold)
         assert plan.splits == 1 and plan.k_chunk == rows and plan.counters == 0
-        assert plan.tile == qm.W4_WGMMA_TILE and plan.mt == 128
-        assert plan.grid == (math.ceil(M / 128) * math.ceil(N / 128), 1, 1)
+        assert plan.tile == (bm, 128, 64) and plan.mt == bm
+        assert plan.grid == (math.ceil(M / bm) * math.ceil(N / 128), 1, 1)
         assert plan.grid[0] < 2 ** 31
         return plan
     assert plan.mt in qm.W4_SPLITK_MTS and (M <= plan.mt or plan.mt == 64)
@@ -272,21 +280,38 @@ def test_w4_wgmma_grid_covers_m_and_n_once(M, N):
 @pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("M", [4, 65, 8192])
 def test_w4_plan_keeps_the_tile_off_the_fast_paths(M, packed):
-    """float32, an unaligned payload, N off a multiple of 16 and the two
-    folded forms take the tile at every M."""
-    for kw in (dict(half=False), dict(aligned=False)):
-        _check_w4_plan(M, 4096, 4096, 128, packed, **kw)
-    _check_w4_plan(M, 4096, 4104, 128, packed)
+    """float32, an unaligned payload and N off a multiple of 16 take the
+    tile at every M, in every form; in a half type the folded forms take
+    split-K or wgmma as the exact forms do."""
+    for fold in (False, True):
+        for kw in (dict(half=False), dict(aligned=False)):
+            assert _check_w4_plan(M, 4096, 4096, 128, packed, fold=fold, **kw).path == "tile"
+        assert _check_w4_plan(M, 4096, 4104, 128, packed, fold=fold).path == "tile"
     x = torch.zeros((M, 256), dtype=torch.float16)
     w = torch.zeros((128 if packed else 256, 4096), dtype=torch.int8)
     gs = torch.zeros((2, 4096))
-    assert qm.w4_wrapper_plan(x, w, gs, packed, True).path == "tile"
+    fast = "splitk" if M <= qm.W4_SPLITK_MAX_M else "wgmma"
+    assert qm.w4_wrapper_plan(x, w, gs, packed, True).path == fast
+    assert qm.w4_wrapper_plan(x.float(), w, gs, packed, True).path == "tile"
     assert qm.w4_wrapper_plan(x.float(), w, gs, packed, False).path == "tile"
 
 
 def test_w4_path_plan_refuses_an_unknown_path():
     with pytest.raises(ValueError, match="no path"):
         qm.w4_path_plan("mma", 4, 64, 256, 128, True)
+
+
+@pytest.mark.parametrize("fold,rows", [(False, 256), (False, 64), (True, 64), (True, 512)])
+def test_w4_path_plan_refuses_a_wgmma_block_it_has_no_kernel_for(fold, rows):
+    """The wgmma kernels take 128 x rows a block, the folded forms' also
+    ``W4_WGMMA_WIDE_ROWS``."""
+    for M in (300, 8192):  # the rule's block: 128 rows, folded 256 at 8,192
+        with pytest.raises(ValueError, match="no wgmma block"):
+            qm.w4_path_plan("wgmma", M, 4096, 4096, 128, True, fold, rows)
+        assert qm.w4_path_plan("wgmma", M, 4096, 4096, 128, True, fold, 128).mt == 128
+        if fold:
+            wide = qm.W4_WGMMA_WIDE_ROWS
+            assert qm.w4_path_plan("wgmma", M, 4096, 4096, 128, True, fold, wide).mt == wide
 
 
 def test_w4_plan_packed_half_is_one_group():
@@ -307,14 +332,74 @@ def test_w4_plan_every_accepted_shape_has_a_path():
 
 
 def test_w4_wrapper_plan_sends_folded_forms_to_the_tile():
+    """The folded forms take the tile where the exact forms do (float32
+    activations, a payload off 16 bytes), and split-K or wgmma elsewhere."""
     x = torch.zeros((4, 256), dtype=torch.float16)
     w = torch.zeros((128, 64), dtype=torch.int8)
     gs = torch.zeros((2, 64))
-    assert qm.w4_wrapper_plan(x, w, gs, True, False).path == "splitk"
-    assert qm.w4_wrapper_plan(torch.zeros((512, 256), dtype=torch.float16), w, gs,
-                              True, False).path == "wgmma"
-    assert qm.w4_wrapper_plan(x, w, gs, True, True).path == "tile"
-    assert qm.w4_wrapper_plan(x.float(), w, gs, True, False).path == "tile"
+    big = torch.zeros((512, 256), dtype=torch.float16)
+    for fold in (False, True):
+        assert qm.w4_wrapper_plan(x, w, gs, True, fold).path == "splitk"
+        assert qm.w4_wrapper_plan(big, w, gs, True, fold).path == "wgmma"
+        assert qm.w4_wrapper_plan(x.float(), w, gs, True, fold).path == "tile"
+        off = torch.zeros(128 * 64 + 1, dtype=torch.int8)[1:].view(128, 64)
+        assert qm.w4_wrapper_plan(x, off, gs, True, fold).path == "tile"
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("M,K,N,G", W4_SHAPES)
+def test_w4_fold_plan_covers_k_once_on_group_boundaries(M, K, N, G, packed):
+    """The folded forms' plans: the exact forms' paths and split-K slices;
+    only the wgmma block's x rows differ."""
+    plan = _check_w4_plan(M, K, N, G, packed, fold=True)
+    exact = qm.w4_plan(M, N, K, G, packed)
+    assert plan.path == exact.path
+    if plan.path != "wgmma":
+        assert plan == exact
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("K,N", W4_KN)
+def test_w4_fold_plan_prefill_shapes_take_the_wide_wgmma_block(K, N, packed):
+    """The AWQ prefill's four products (M = 8,192): 256 x rows a block."""
+    plan = _check_w4_plan(8192, K, N, 128, packed, fold=True)
+    assert plan.path == "wgmma" and plan.mt == 256 and plan.grid[0] == 32 * N // 128
+
+
+@pytest.mark.parametrize("M,N,bm", [(512, 4096, 128), (512, 6144, 256), (256, 14336, 256),
+                                    (256, 4096, 128), (1024, 4096, 256), (65, 14336, 128),
+                                    (16896, 16, 128), (17024, 16, 256)])
+def test_w4_fold_wgmma_block_widens_past_one_wave(M, N, bm):
+    """256 x rows a block once the 128-row grid has more than 132 tiles."""
+    assert qm.w4_path_plan("wgmma", M, N, 4096, 128, True, fold=True).mt == bm
+    assert qm.w4_path_plan("wgmma", M, N, 4096, 128, True).mt == 128
+
+
+def test_w4_fold_plan_every_accepted_shape_has_a_path():
+    rng = np.random.default_rng(2)
+    for _ in range(2000):
+        G = 16 * int(rng.integers(1, 17))
+        packed = bool(rng.integers(2))
+        K = G * int(rng.integers(1, 64)) * (2 if packed else 1)
+        M, N = int(rng.integers(1, 3000)), 16 * int(rng.integers(1, 2000))
+        _check_w4_plan(M, K, N, G, packed, bool(rng.integers(4)), bool(rng.integers(4)), True)
+
+
+@pytest.mark.parametrize("M,N", [(8192, 4096), (8192, 14336), (1000, 14336), (4097, 1040),
+                                 (257, 16), (2048, 6144)])
+def test_w4_fold_wgmma_grid_covers_m_and_n_once(M, N):
+    """The wide block's grid, in the kernel's raster (``w4_wgmma_tile``
+    with its x rows), covers every 256 x 128 output tile once."""
+    bm = qm.W4_WGMMA_WIDE_ROWS
+    plan = qm.w4_path_plan("wgmma", M, N, 4096, 128, True, True, bm)
+    assert plan.mt == bm and plan.tile == (bm, 128, 64)
+    tiles_m, tiles_n = math.ceil(M / bm), math.ceil(N / 128)
+    seen = np.zeros((tiles_m, tiles_n), np.int32)
+    for block in range(plan.grid[0]):
+        tm, tn = qm.w4_wgmma_tile(block, M, N, bm)
+        assert 0 <= tm < tiles_m and 0 <= tn < tiles_n
+        seen[tm, tn] += 1
+    assert (seen == 1).all()
 
 
 # The int8-KV decode kernel: (B, Hkv, G, C) of the Generator's main paths
