@@ -11,13 +11,20 @@ Phases, one JSON object per line:
 1. card: the card's name and power limit, the torch/CUDA versions, and the
    seconds to build the six CUDA sources from ``ctranslate2_tpu_torch/csrc``;
    before it a ``ptxas`` line with the registers, spills and static shared
-   memory of every kernel of the two wgmma sources, the decode source and
-   the W4 source (``PTXAS_REPORT``).
+   memory of every kernel of the two wgmma sources, the decode source, the
+   W4 source and the norm source (``PTXAS_REPORT``).
 2. Translator main path: the full-width Transformer-base model (6+6 layers,
    d_model 512, ffn 2048, 8 heads, 32,000 words; random weights from seed
    7), ``Translator(..., compute_type="int8").translate_batch`` on batches
    of 64 sentences of 20-30 tokens, beam 2, exactly 32 target tokens; then
    one call with ``CT2TPU_BEAM_CHAIN=0`` (the fused-gather beam reorder).
+   Every pre-norm layer's residual add runs inside the next norm's launch,
+   and every norm before int8 linears quantizes for them in that launch
+   (the fused forms of ``csrc/fused_norm.cu``). On every main path the
+   profiler counts the launches a call and a decode step (the whole call
+   against the call cut to its first token), with the busy share, once with
+   the fused forms and once with ``CT2TPU_PALLAS_NORMS=0`` (``launches_*``
+   lines).
 3. Generator main path: the Llama-3-8B geometry (``LLAMA``: 32 layers,
    d_model 4096, 32 query / 8 KV heads of 128, ffn 14336, 128,256 words,
    rotary base 500000, RMSNorm, SwiGLU) fabricated as int8 payloads from
@@ -25,13 +32,17 @@ Phases, one JSON object per line:
    prompts of 2,049 tokens, ``include_prompt_in_result=False``, greedy,
    exactly 64 new tokens, with ``CT2TPU_KV_CACHE=int8``: the prefill of
    2,048 takes the flash kernel, every decode step the int8-KV decode
-   kernel, every RMSNorm the norm kernel, every linear W8A8. One more call
-   with the float16 KV cache. Then the flash kernel against
+   kernel, every RMSNorm the norm kernel (with the residual add and the
+   int8 quantization for the QKV, the GLU pair and the projection), every
+   linear W8A8. One call with ``CT2TPU_PALLAS_NORMS=0`` for its decode ms
+   a step, one more with the float16 KV cache. Then the flash kernel against
    ``CT2TPU_FLASH=0`` and the decode kernel against
    ``CT2TPU_DECODE_KERNEL=0`` at full depth (a prefill and one step): a
    random-weight model of this depth amplifies any rounding difference under
    W8A8, so the switch-off run is fed the kernel run's int8 activations at
-   every linear. Each layer's attention then gets the kernel run's inputs,
+   every linear (``ReplayQuantized`` on ``ops.linear.int8_activations``,
+   which every int8 activation passes, the norm kernel's included). Each
+   layer's attention then gets the kernel run's inputs,
    and its output is compared where the output projection quantizes it: at
    most one int8 step apart, on at most ``FED_STEP_SHARE`` of the entries.
 4. AWQ Generator main path: the same geometry in AutoAWQ's GEMM layout
@@ -66,9 +77,18 @@ Phases, one JSON object per line:
    the paths do not use (flash at head dim 256 and at 32, 80, 96, 160 and
    192, zero-padded to the kernel's 64 / 128 / 256; the decode kernel at
    head dims 72, 200 and 256 with windows, a window of 1 and rows of length
-   0; the norm at widths off a multiple of 8). Tolerances: W8A8 bit-equal, gather equal,
-   ``FLASH_TOL``, ``DECODE_TOL``, ``NORM_F32_TOL`` / one ulp of the half
-   type, ``w4_error_bound`` for the W4 products.
+   0; the norm and its fused forms at widths off a multiple of 8). The norm
+   runs in each form a main path gives it (``NORM_FORMS``; the AWQ path's
+   timed, not summed), with the time of the launches the form replaces
+   (eager add + norm kernel + ``quantize_per_row`` in one CUDA graph); a
+   W8A8 split-K call is profiled for memsets (none: its workspace is kept
+   per stream; the ``w8a8_memsets`` line, right after the card phase, at
+   the int8 Generator's four decode shapes). Tolerances: W8A8 bit-equal,
+   gather equal, ``FLASH_TOL``, ``DECODE_TOL``, ``NORM_F32_TOL`` / one ulp of the half
+   type (the fused forms also: the sum bit-equal to the plain add, q and
+   scale bit-equal to ``quantize_per_row`` of the kernel's own y, within
+   one int8 step of the plain sequence on at most ``FED_STEP_SHARE`` of the
+   entries), ``w4_error_bound`` for the W4 products.
 6. float16 Translator run, float32 chain/chain-off pair, Translator card
    against CPU (as before).
 7. Generator A/B at the same widths and 2 layers, no activation
@@ -117,7 +137,8 @@ MAX_DEC = 32
 ITERS = 3
 # The sources whose registers, shared memory and spills the card phase
 # reports (nvcc -Xptxas -v).
-PTXAS_REPORT = ("w8a8_gemm", "flash_attention", "decode_attention_int8", "w4_gemm")
+PTXAS_REPORT = ("w8a8_gemm", "flash_attention", "decode_attention_int8", "w4_gemm",
+                "fused_norm")
 OPTS = dict(beam_size=BEAM, max_decoding_length=MAX_DEC,
             min_decoding_length=MAX_DEC, return_scores=True)
 # Chain-off vs chain run: the share of identical hypotheses, and the largest
@@ -143,6 +164,10 @@ INT8_KV_LOGPROB_TOL = 5e-2
 # of one linear's entries that may land one step apart (on the H100 0.023
 # for the flash kernel and 0.039 for the decode kernel at the worst layer).
 FED_STEP_SHARE = 0.08
+# Split-K W8A8 calls profiled for memsets (``w8a8_memset_check``), and the
+# share of their kernels the profiler must have recorded.
+W8A8_PROFILED_CALLS = 50
+PROFILED_SHARE = 0.9
 MODEL = dict(vocab_size=32000, num_layers=6, num_heads=8, d_model=512,
              d_ff=2048, seed=7)
 # The Generator's model: Llama-3-8B's geometry at full width and depth.
@@ -272,7 +297,9 @@ SHAPE_KEYS = {
         tuple(q.shape), k8.shape[1], k8.shape[2], _dt(q),
         kw.get("k_new8") is not None, kw.get("window", 0)),
     "fused_norm": lambda x, gamma, beta=None, **kw: (
-        x.numel() // x.shape[-1], x.shape[-1], _dt(x), beta is not None),
+        x.numel() // x.shape[-1], x.shape[-1], _dt(x), beta is not None,
+        kw.get("residual") is not None, bool(kw.get("quantize")),
+        kw.get("keep_sum", True), kw.get("keep_y", True)),
     "matmul_w4p": lambda x, w4p, gs, zs: (x.shape[0], x.shape[1], w4p.shape[1], _dt(x)),
     "matmul_w4a16": lambda x, w4, gs: (x.shape[0], x.shape[1], w4.shape[1], _dt(x)),
 }
@@ -338,6 +365,22 @@ def cuda_time_ms(fn, iters):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls=200):
+    """Host microseconds a call of ``fn()`` takes to enqueue its work: the
+    Python, dispatch and launch cost that bounds a decode step, for work
+    that the card finishes faster than the host enqueues it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
 
 
 def ptxas_summary(log):
@@ -421,11 +464,36 @@ def profile_call(call, label):
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    emit({"phase": f"profile_{label}", "wall_ms_profiled": wall_ms,
-          "device_busy_ms": device_ms,
-          "device_busy_share": device_ms / wall_ms,
-          "kernel_launches_profiled": sum(r[1] for r in rows),
-          "top_device_ms": [[name[:60], ms, n] for ms, n, name in rows[:8]]})
+    line = {"phase": f"profile_{label}", "wall_ms_profiled": wall_ms,
+            "device_busy_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "kernel_launches_profiled": sum(r[1] for r in rows),
+            "top_device_ms": [[name[:60], ms, n] for ms, n, name in rows[:8]]}
+    emit(line)
+    return line
+
+
+def profile_launches(call, first_token_call, steps, label):
+    """``profile_call`` of a whole call and of the same call cut to its
+    first token: the launches a call, and a decode step as the difference
+    over the ``steps - 1`` steps the cut call leaves out; with the norm
+    kernel's fused forms (the default) and with ``CT2TPU_PALLAS_NORMS=0``
+    (the plain sequence: add, norm, quantization, each eager). Returns
+    {"fused" | "plain_norms": {...}}."""
+    out = {}
+    for arm, norms in (("fused", "1"), ("plain_norms", "0")):
+        suffix = "" if arm == "fused" else "_plain_norms"
+        with environ(CT2TPU_PALLAS_NORMS=norms):
+            whole = profile_call(call, label + suffix)
+            first = profile_call(first_token_call, f"{label}{suffix}_first_token")
+        out[arm] = {
+            "launches_per_call": whole["kernel_launches_profiled"],
+            "launches_per_decode_step": (whole["kernel_launches_profiled"]
+                                         - first["kernel_launches_profiled"]) / (steps - 1),
+            "device_busy_share": whole["device_busy_share"],
+            "wall_ms_profiled": whole["wall_ms_profiled"]}
+    emit({"phase": f"launches_{label}", **out})
+    return out
 
 
 def main_path(tt, model_dir, compute_type, batches, checks, label, logs):
@@ -449,12 +517,10 @@ def main_path(tt, model_dir, compute_type, batches, checks, label, logs):
             off, off_seconds, _ = translate_run(translator, batches[1:2])
         counts = tt.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    profile_call(lambda: translator.translate_batch(batches[1], **OPTS), label)
-    # The same call with the plain norm functions (the port's state before
-    # the norm kernel), for its launch count beside the above.
-    with environ(CT2TPU_PALLAS_NORMS="0"):
-        profile_call(lambda: translator.translate_batch(batches[1], **OPTS),
-                     f"{label}_plain_norms")
+    first_token = dict(OPTS, max_decoding_length=1, min_decoding_length=1)
+    launches = profile_launches(
+        lambda: translator.translate_batch(batches[1], **OPTS),
+        lambda: translator.translate_batch(batches[1], **first_token), MAX_DEC, label)
 
     cmp = compare_chain(results[0], off[0])
     lengths_ok = all(len(r.hypotheses[0]) == MAX_DEC for res in results for r in res)
@@ -478,6 +544,7 @@ def main_path(tt, model_dir, compute_type, batches, checks, label, logs):
           "gather_launches_chain_off_call": counts["gather_rows_fused"]
           - chain_counts["gather_rows_fused"],
           "chain_off_vs_chain": cmp,
+          "profiled_launches": launches,
           "peak_memory_bytes": peak})
     return counts
 
@@ -506,6 +573,56 @@ def w8a8_other_plan(qm, M, K, N):
     finally:
         qm.WGMMA_MIN_M = saved
     return other if other.path != chosen.path else None
+
+
+def w8a8_memset_check(checks):
+    """W8A8's split-K path at the int8 Generator's decode shapes (M = 4 at
+    the four Llama (K, N), every one split), profiled over
+    ``W8A8_PROFILED_CALLS`` calls after a warm-up: no memset, and no more
+    than one kernel a call (the workspace is kept per stream, zeroed once).
+    The profiler can drop a record of a window (19 of 20 kernels on the
+    H100), so it must show at least ``PROFILED_SHARE`` of the calls' kernels
+    for the count of memsets to stand. It runs before any other profiled
+    phase; where the profiler shows no device event of the window at all,
+    the window is taken again, ten times as long."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ctranslate2_tpu_torch.kernels import quant_matmul as qm
+    from ctranslate2_tpu_torch.kernels.quant_matmul import matmul_w8a8
+
+    d, ff = LLAMA["d_model"], LLAMA["d_ff"]
+    qkv = (LLAMA["heads"] + 2 * LLAMA["heads_kv"]) * d // LLAMA["heads"]
+    g = torch.Generator(device="cuda").manual_seed(8)
+    out = {}
+    for K, N in ((d, qkv), (d, d), (d, ff), (ff, d)):
+        q = torch.randint(-128, 128, (GEN_BATCH, K), generator=g, device="cuda",
+                          dtype=torch.int8)
+        wq = torch.randint(-127, 128, (N, K), generator=g, device="cuda", dtype=torch.int8)
+        a_s = torch.rand(GEN_BATCH, generator=g, device="cuda") + 0.5
+        w_s = torch.rand(N, generator=g, device="cuda") + 0.5
+        plan = qm.w8a8_plan(GEN_BATCH, N, K)
+        matmul_w8a8(q, wq, a_s, w_s)  # the stream's workspace is made here
+        for calls in (W8A8_PROFILED_CALLS, 10 * W8A8_PROFILED_CALLS):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    matmul_w8a8(q, wq, a_s, w_s)
+                torch.cuda.synchronize()
+            events = {e.key: e.count for e in prof.key_averages()
+                      if (getattr(e, "self_device_time_total", None)
+                          or getattr(e, "self_cuda_time_total", 0)) > 0}
+            if events:
+                break
+        kernels = sum(c for e, c in events.items() if "w8a8_splitk" in e)
+        memsets = sum(c for e, c in events.items() if "memset" in e.lower())
+        checks(plan.splits > 1 and PROFILED_SHARE * calls <= kernels <= calls
+               and memsets == 0,
+               f"w8a8 split-K at {(GEN_BATCH, K, N)} ({plan.splits} splits): one "
+               f"kernel a call and no memset over {calls} calls ({events})")
+        out[f"M {GEN_BATCH} K {K} N {N}"] = {
+            "splits": plan.splits, "calls": calls, "kernels": kernels, "memsets": memsets,
+            "host_us_per_call": host_us(lambda: matmul_w8a8(q, wq, a_s, w_s))}
+    emit({"phase": "w8a8_memsets", "shapes": out})
 
 
 def bench_w8a8(shapes, checks):
@@ -797,48 +914,131 @@ def norm_close(out, ref, beta):
     return bool(((out.float() - ref.float()).abs() <= ulp * scale).all())
 
 
-def bench_norm(shapes, checks):
-    """The norm kernel at every main-path shape against its plain version
-    and, timed only, ``F.rms_norm`` / ``F.layer_norm``."""
+NORM_FORMS = {  # (residual, quantize, keep_sum, keep_y) -> the form's name
+    (False, False, True, True): "norm",
+    (True, False, True, True): "residual",
+    (True, False, False, True): "residual_no_sum",
+    (False, True, True, False): "int8",
+    (True, True, True, False): "residual_int8",
+    (True, True, False, False): "residual_int8_no_sum"}
+
+
+def fused_norm_checks(x, r, gamma, beta, residual, quantize, checks, label):
+    """A fused form against its plain version on the same inputs: the sum
+    bit-equal to the plain add; y within one ulp (``norm_close``); q and
+    scale bit-equal to ``quantize_per_row`` of the kernel's own y, and
+    within one int8 step of the plain sequence on at most
+    ``FED_STEP_SHARE`` of the entries. Returns the largest y difference."""
+    import torch
+    from ctranslate2_tpu_torch.kernels.norms import fused_norm, fused_norm_plain
+    from ctranslate2_tpu_torch.ops.linear import quantize_per_row
+
+    kw = dict(eps=1e-5, residual=r if residual else None, quantize=quantize)
+    out = fused_norm(x, gamma, beta, **kw)
+    ref = fused_norm_plain(x, gamma, beta, **kw)
+    if not (residual or quantize):
+        out, ref = (out, None, None, None), (ref, None, None, None)
+    else:
+        out, ref = (out.y, out.sum, out.q, out.scale), (ref.y, ref.sum, ref.q, ref.scale)
+    torch.cuda.synchronize()
+    err = (out[0].float() - ref[0].float()).abs().max().item()
+    checks(norm_close(out[0], ref[0], beta),
+           f"norm {label} y within one ulp of plain (max abs err {err})")
+    if residual:
+        checks(torch.equal(out[1], ref[1]), f"norm {label}: the sum bit-equal to the plain add")
+    if quantize:
+        q, scale = quantize_per_row(out[0])
+        checks(torch.equal(out[2], q) and torch.equal(out[3], scale),
+               f"norm {label}: q and scale bit-equal to quantize_per_row of its y")
+        step = (out[2].int() - ref[2].int()).abs()
+        share = (step > 0).float().mean().item()
+        checks(int(step.max()) <= 1 and share <= FED_STEP_SHARE,
+               f"norm {label}: q within one int8 step of the plain sequence on at "
+               f"most {FED_STEP_SHARE} of the entries (max step {int(step.max())}, "
+               f"share {share})")
+    return err
+
+
+def bench_norm(shapes, checks, unsummed=None):
+    """The norm kernel in each form at every main-path shape (``shapes``:
+    the Translator and int8 Generator paths', summed; ``unsummed``: the AWQ
+    path's, timed with weight 0) against its plain version (the eager
+    sequence: add, norm, ``quantize_per_row``), with the time of the
+    launches the form replaces (the eager add, the norm kernel alone and
+    ``quantize_per_row``, in one CUDA graph) and, timed only, ``F.rms_norm``
+    / ``F.layer_norm`` of the norm alone (no PyTorch call fuses the add or
+    the quantization)."""
     import torch
     import torch.nn.functional as F
     from ctranslate2_tpu_torch.kernels.norms import fused_norm, fused_norm_plain
+    from ctranslate2_tpu_torch.ops.linear import quantize_per_row
 
     g = torch.Generator(device="cuda").manual_seed(4)
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0, max_abs_err=0.0)
-    for key, n in sorted(shapes.items()):
-        rows, D, dt, has_beta = key
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0, max_abs_err=0.0,
+               replaced_ms=0.0, forms={})
+    rows_all = {key: (n, True) for key, n in shapes.items()}
+    for key, n in (unsummed or {}).items():
+        rows_all.setdefault(key, (0, False))
+    for key, (n, summed) in sorted(rows_all.items()):
+        rows, D, dt, has_beta, residual, quantize, keep_sum, keep_y = key
+        form = (residual, quantize, keep_sum, keep_y)
+        name = NORM_FORMS[form]
         dtype = getattr(torch, dt)
         x = (torch.randn((rows, D), generator=g, device="cuda") * 2 + 0.5).to(dtype)
+        r = torch.randn((rows, D), generator=g, device="cuda").to(dtype) if residual else None
         gamma = torch.randn(D, generator=g, device="cuda")
         beta = torch.randn(D, generator=g, device="cuda") if has_beta else None
-        out = fused_norm(x, gamma, beta, eps=1e-5)
-        ref = fused_norm_plain(x, gamma, beta, eps=1e-5)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
+        err = fused_norm_checks(x, r, gamma, beta, residual, quantize, checks,
+                                f"{name} at {key}")
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
-        checks(norm_close(out, ref, beta),
-               f"norm within one ulp of plain at {key} (max abs err {err})")
+        kw = dict(eps=1e-5)
+        if residual or quantize:
+            kw.update(residual=r, quantize=quantize, keep_sum=keep_sum, keep_y=keep_y)
         iters = 100 if rows * D < 2**22 else 20
-        ms = cuda_time_ms(lambda: fused_norm(x, gamma, beta, eps=1e-5), iters)
-        plain_ms = cuda_time_ms(lambda: fused_norm_plain(x, gamma, beta, eps=1e-5), iters)
+        ms = cuda_time_ms(lambda: fused_norm(x, gamma, beta, **kw), iters)
+        plain_ms = cuda_time_ms(lambda: fused_norm_plain(x, gamma, beta, **kw), iters)
+
+        def replaced():
+            y = fused_norm(x + r if residual else x, gamma, beta, eps=1e-5)
+            return quantize_per_row(y) if quantize else y
+
+        replaced_ms = cuda_time_ms(replaced, iters)
+        small = rows * D < 2**22  # the card outpaces the host: a decode shape
+        host = ({"host_us": host_us(lambda: fused_norm(x, gamma, beta, **kw)),
+                 "replaced_host_us": host_us(replaced)} if small else {})
         gx = gamma.to(dtype)
         if has_beta:
             bx = beta.to(dtype)
             lib_ms = cuda_time_ms(lambda: F.layer_norm(x, (D,), gx, bx, 1e-5), iters)
         else:
             lib_ms = cuda_time_ms(lambda: F.rms_norm(x, (D,), gx, 1e-5), iters)
-        nbytes = 2 * rows * D * x.element_size() + 4 * D * (2 if has_beta else 1)
+        size = x.element_size()
+        nbytes = (rows * D * size * (1 + residual + (residual and keep_sum) + keep_y)
+                  + (rows * D + 4 * rows if quantize else 0)
+                  + 4 * D * (2 if has_beta else 1))
         bytes_ms = nbytes / PEAK_BYTES * 1e3
-        emit({"phase": "kernel_norm", "rows": rows, "D": D, "dtype": dt,
-              "layer_norm": has_beta, "launches": n, "max_abs_err": err,
-              "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-              "library": "F.layer_norm" if has_beta else "F.rms_norm",
-              "bytes_moved": nbytes, "bound_ms": bytes_ms, "bound_by": "bytes"})
+        emit({"phase": "kernel_norm", "form": name, "rows": rows, "D": D, "dtype": dt,
+              "layer_norm": has_beta, "residual": residual, "quantize": quantize,
+              "writes_sum": residual and keep_sum, "writes_y": keep_y,
+              "launches": n, "summed": summed, "max_abs_err": err,
+              "kernel_ms": ms, "plain_ms": plain_ms, "replaced_ms": replaced_ms,
+              "replaced": "eager add + norm kernel + quantize_per_row, one CUDA graph",
+              "library_ms": lib_ms, "library": ("F.layer_norm" if has_beta else "F.rms_norm")
+              + " of the norm alone",
+              "bytes_moved": nbytes, "bound_ms": bytes_ms, "bound_by": "bytes",
+              "share_of_bound": bytes_ms / ms, **host})
+        f = tot["forms"].setdefault(name, dict(launches=0, ms=0.0, replaced_ms=0.0,
+                                                bound_ms=0.0))
+        f["launches"] += n
+        f["ms"] += n * ms
+        f["replaced_ms"] += n * replaced_ms
+        f["bound_ms"] += n * bytes_ms
         tot["ms"] += n * ms
         tot["plain_ms"] += n * plain_ms
+        tot["replaced_ms"] += n * replaced_ms
         tot["library_ms"] += n * lib_ms
         tot["bytes_ms"] += n * bytes_ms
+        del x, r
     return tot
 
 
@@ -950,6 +1150,12 @@ def feature_checks(checks):
         torch.cuda.synchronize()
         worst[f"norm_{name}"] = (out.float() - ref.float()).abs().max().item()
         checks(norm_close(out, ref, beta), f"norm feature {name} within one ulp of plain")
+        # The fused forms at the same widths.
+        r = torch.randn(shape, generator=g, device="cuda").to(x.dtype)
+        for residual, quantize in ((True, False), (False, True), (True, True)):
+            form = NORM_FORMS[residual, quantize, True, not quantize]
+            worst[f"norm_{name}_{form}"] = fused_norm_checks(
+                x, r, gamma, beta, residual, quantize, checks, f"feature {name} {form}")
     emit({"phase": "kernel_features", "max_abs_err": worst})
 
 
@@ -1145,7 +1351,7 @@ def generator_first_step_logprobs(gen, prompts, quantize_wrap=None,
                                   on_prefilled=None):
     """Prefill all but the last prompt token, then one decode step: its
     log-probs (float32, on the CPU). With ``quantize_wrap``,
-    ``ops.linear.quantize_per_row`` is patched by it over both;
+    ``ops.linear.int8_activations`` is patched by it over both;
     ``on_prefilled`` is called between the two."""
     import torch
     import ctranslate2_tpu_torch.ops.linear as L
@@ -1153,7 +1359,7 @@ def generator_first_step_logprobs(gen, prompts, quantize_wrap=None,
 
     m = gen.model
     if quantize_wrap is not None:
-        with patched(L, "quantize_per_row", quantize_wrap):
+        with patched(L, "int8_activations", quantize_wrap):
             return generator_first_step_logprobs(gen, prompts,
                                                  on_prefilled=on_prefilled)
     ids = [[gen._vocab.to_id(t) for t in p] for p in prompts]
@@ -1202,7 +1408,11 @@ def generator_main_path(tt, mf, vocab, checks, logs):
             counts = tt.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         check_logs_cover(counts, logs, logged_before, "generator", checks)
-        profile_call(lambda: generate_run(gen, prompts[1]), "generator_int8")
+        launches = profile_launches(lambda: generate_run(gen, prompts[1]),
+                                    lambda: generate_run(gen, prompts[1], 1),
+                                    GEN_NEW, "generator_int8")
+        with environ(CT2TPU_PALLAS_NORMS="0"):
+            plain_norms = generate_run(gen, prompts[1])
         layers = len(gen.model.arch.decoder.layers)
         recorded = []
         logp = generator_first_step_logprobs(gen, prompts[1],
@@ -1257,6 +1467,11 @@ def generator_main_path(tt, mf, vocab, checks, logs):
           "launches": counts,
           "launches_per_call": {k: v / calls for k, v in counts.items()},
           "peak_memory_bytes": peak,
+          "profiled_launches": launches,
+          "plain_norms_call": {"seconds": plain_norms[1],
+                               "prefill_ms": plain_norms[2] * 1e3,
+                               "decode_ms_per_step":
+                                   (plain_norms[1] - plain_norms[2]) / GEN_NEW * 1e3},
           "float16_kv_call": {"seconds": f16_seconds,
                               "prefill_ms": f16_prefill * 1e3,
                               "decode_ms_per_step":
@@ -1459,7 +1674,11 @@ def generator_awq_main_path(tt, mf, vocab, checks, logs):
             counts = tt.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         check_logs_cover(counts, logs, logged_before, "awq generator", checks)
-        profile_call(lambda: generate_run(gen, prompts[1]), "generator_awq")
+        launches = profile_launches(lambda: generate_run(gen, prompts[1]),
+                                    lambda: generate_run(gen, prompts[1], 1),
+                                    GEN_NEW, "generator_awq")
+        with environ(CT2TPU_PALLAS_NORMS="0"):
+            plain_norms = generate_run(gen, prompts[1])
         del gen
         free_card()
         with environ(CT2TPU_W4_PACKED="0"):
@@ -1507,6 +1726,11 @@ def generator_awq_main_path(tt, mf, vocab, checks, logs):
           "decode_ms_per_step": (seconds - prefill) / calls / GEN_NEW * 1e3,
           "launches": counts, "launches_per_call": {k: v / calls for k, v in counts.items()},
           "peak_memory_bytes": peak,
+          "profiled_launches": launches,
+          "plain_norms_call": {"seconds": plain_norms[1],
+                               "prefill_ms": plain_norms[2] * 1e3,
+                               "decode_ms_per_step":
+                                   (plain_norms[1] - plain_norms[2]) / GEN_NEW * 1e3},
           "unpacked_call": {"seconds": unpacked[1], "prefill_ms": unpacked[2] * 1e3,
                             "decode_ms_per_step": (unpacked[1] - unpacked[2]) / GEN_NEW * 1e3,
                             "note": "one call, no warm-up", "launches": u_counts}})
@@ -1810,21 +2034,22 @@ def generator_awq_checks(tt, mf, vocab, checks):
 
 
 def record_quantized(out):
-    """A ``patched`` wrapper for ``quantize_per_row`` that appends every
-    (q, scale) it returns to ``out``."""
+    """A ``patched`` wrapper for ``ops.linear.int8_activations``, the one
+    function every int8 activation passes (the norm kernel's and
+    ``quantize_input``'s alike), that appends every (q, scale) to ``out``."""
     def wrap(orig):
-        def wrapped(x, *args, **kwargs):
-            q, scale = orig(x, *args, **kwargs)
+        def wrapped(q, scale, dtype):
             out.append((q, scale))
-            return q, scale
+            return orig(q, scale, dtype)
         return wrapped
     return wrap
 
 
 class ReplayQuantized:
-    """A ``patched`` wrapper for ``quantize_per_row``: it quantizes as this
-    run does, counts where that lands apart from the recorded run's int8
-    activations for the same linear, and returns the recorded (q, scale),
+    """A ``patched`` wrapper for ``ops.linear.int8_activations``: it takes
+    this run's int8 activations (quantized by the norm kernel or by
+    ``quantize_input``), counts where they land apart from the recorded
+    run's for the same linears, and passes on the recorded (q, scale),
     so that every W8A8 product gets the same int8 inputs in both runs (card
     and CPU, or a kernel and the plain path it replaces). A run that
     quantizes fewer or other activations than the recorded one leaves
@@ -1840,11 +2065,10 @@ class ReplayQuantized:
         self.worst_share = 0.0  # of one linear's entries
 
     def __call__(self, orig):
-        def wrapped(x, *args, **kwargs):
-            q, _ = orig(x, *args, **kwargs)
+        def wrapped(q, scale, dtype):
             q_rec, scale_rec = self.recorded[self.calls]
             self.calls += 1
-            q_rec, scale_rec = q_rec.to(x.device), scale_rec.to(x.device)
+            q_rec, scale_rec = q_rec.to(q.device), scale_rec.to(q.device)
             step = (q.int() - q_rec.int()).abs()
             differing = int((step > 0).sum().item())
             self.entries += step.numel()
@@ -1852,7 +2076,7 @@ class ReplayQuantized:
             self.calls_differing += differing > 0
             self.worst_share = max(self.worst_share, differing / step.numel())
             self.max_step = max(self.max_step, int(step.max().item()))
-            return q_rec, scale_rec
+            return orig(q_rec, scale_rec, dtype)
         return wrapped
 
 
@@ -1883,7 +2107,7 @@ def check_fed(replay, recorded, logp_fed, logp, layers, label, checks):
 
 def first_step_logprobs(tr, sentences, quantize_wrap=None):
     """The first decode step's log-probs (float32, on the CPU); with
-    ``quantize_wrap``, ``ops.linear.quantize_per_row`` is patched by it."""
+    ``quantize_wrap``, ``ops.linear.int8_activations`` is patched by it."""
     import torch
     import ctranslate2_tpu_torch.ops.linear as L
     from ctranslate2_tpu_torch.models import transformer as T
@@ -1893,7 +2117,7 @@ def first_step_logprobs(tr, sentences, quantize_wrap=None):
         tr._ids_from_streams(tr._source_feature_streams(sentences), 1024))
     qa = m.policy.quantize_activations
     consts = m.ensure_consts(64)
-    patch = (patched(L, "quantize_per_row", quantize_wrap) if quantize_wrap
+    patch = (patched(L, "int8_activations", quantize_wrap) if quantize_wrap
              else contextlib.nullcontext())
     with torch.no_grad(), patch:
         mem = T.encoder_forward(m.arch, m.params, consts, ids, lengths,
@@ -1990,6 +2214,7 @@ def main():
           "cuda": torch.version.cuda, "kernels_built": list(build.KERNEL_SOURCES),
           "kernel_build_seconds": build_seconds})
 
+    w8a8_memset_check(checks)
     work = tempfile.mkdtemp(prefix="smoke_", dir=build.build_dir())
     try:
         t0 = time.perf_counter()
@@ -2054,7 +2279,7 @@ def main():
         free_card()
         de = bench_decode(logs["decode_attention_int8"], GEN_PROMPT - 1, GEN_NEW, checks)
         bench_gemma2_attention(checks)
-        no = bench_norm(logs["fused_norm"], checks)
+        no = bench_norm(logs["fused_norm"], checks, awq_logs.get("fused_norm"))
         feature_checks(checks)
         w4 = bench_w4(awq_logs, checks)
         free_card()
@@ -2081,7 +2306,7 @@ def main():
             bytes_ms, ops_ms = tot["bytes_ms"], tot.get("ops_ms", 0.0)
             if launches is None:
                 launches = tr_counts[name] + gen_counts[name]
-                extra = dict(launches_translator_path=tr_counts[name],
+                extra = dict(extra, launches_translator_path=tr_counts[name],
                              launches_generator_path=gen_counts[name],
                              launches_awq_generator_path_not_summed=awq_counts[name])
             return {"name": name, "route": "cuda",
@@ -2106,7 +2331,9 @@ def main():
                   fl, fl["library_ms"]),
             entry("decode_attention_int8", "decode_attention_int8.cu",
                   "decode_attention.py:135", de, None),
-            entry("fused_norm", "fused_norm.cu", "norms.py:37", no, no["library_ms"]),
+            entry("fused_norm", "fused_norm.cu", "norms.py:37", no, no["library_ms"],
+                  library="F.rms_norm / F.layer_norm of the norm alone",
+                  replaced_ms=no["replaced_ms"], forms=no["forms"]),
             w4_entry("matmul_w4a16", "quant_matmul.py:77",
                      awq_unpacked_counts["matmul_w4a16"],
                      launches_awq_unpacked_call=awq_unpacked_counts["matmul_w4a16"]),

@@ -27,10 +27,11 @@
 //    blocks an SM. The block streams its 64 x 128-byte weight stages and
 //    its activation stages through a 4-stage cp.async.cg ring (up to 27 KB
 //    in flight a block). Partial int32 sums of several slices meet in an
-//    int32 workspace the wrapper zeroes (atomicAdd, exact in any order);
-//    the last block of a tile, found through a per-tile counter behind the
-//    workspace, applies the f32 epilogue. One CUDA launch (plus the
-//    workspace's memset when K is split). The same kernel, with byte-wise
+//    int32 workspace (atomicAdd, exact in any order); the last block of a
+//    tile, found through a per-tile counter behind the sums, applies the
+//    f32 epilogue and zeroes the sums it read and the counter. The wrapper
+//    keeps one workspace per stream, zeroed once when made, so a call is
+//    one CUDA launch and no memset. The same kernel, with byte-wise
 //    shared-memory stores instead of cp.async (VEC = false), takes any
 //    shape: K not a multiple of 16 or operands not 16-byte aligned. That
 //    ragged form is slow and is taken only for such shapes.
@@ -91,7 +92,9 @@ __device__ __forceinline__ unsigned lds32(const int8_t* p) {
 
 // Grid: (ceil(N / 64), ceil(M / MT), splits); slice z covers K bytes
 // [z * k_chunk, min(K, (z + 1) * k_chunk)). With splits > 1, `ws` holds the
-// int32 sums [M, N] (zeroed) and then one counter per (x, y) tile.
+// int32 sums [M, N] and then one counter per (x, y) tile, all zero on entry
+// and zero again when the launch ends (each tile's last block re-zeroes its
+// own).
 template <int MT, bool VEC>
 __global__ void __launch_bounds__(SK_THREADS)
 w8a8_splitk_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ w,
@@ -199,11 +202,14 @@ w8a8_splitk_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ w,
   if (tid == 0) {
     int* counter = ws + (size_t)M * N + blockIdx.y * gridDim.x + blockIdx.x;
     is_last = atomicAdd(counter, 1) == splits - 1;
+    // Every slice of the tile has counted: the next launch finds it at 0.
+    if (is_last) *counter = 0;
   }
   __syncthreads();
   if (!is_last) return;
   __threadfence();
-  // The last slice of this tile: every other slice's sums are in `ws`.
+  // The last slice of this tile: every other slice's sums are in `ws`. Each
+  // is read once and zeroed for the next launch.
 #pragma unroll
   for (int j = 0; j < MT / 8; ++j) {
 #pragma unroll
@@ -211,8 +217,9 @@ w8a8_splitk_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ w,
       const int n = n0 + warp * 16 + g + (r >= 2 ? 8 : 0);
       const int m = m0 + j * 8 + 2 * t + (r & 1);
       if (n < N && m < M) {
-        out[(size_t)m * N + n] =
-            dequant(__ldcg(ws + (size_t)m * N + n), a_scale[m], w_scale[n]);
+        int* sum = ws + (size_t)m * N + n;
+        out[(size_t)m * N + n] = dequant(__ldcg(sum), a_scale[m], w_scale[n]);
+        __stcg(sum, 0);
       }
     }
   }

@@ -59,7 +59,8 @@ class W8A8Plan(NamedTuple):
     blocks) or "ragged" (the split-K kernel with byte-wise loads, for K off
     a multiple of 16 or unaligned operands). ``k_chunk`` bytes of K a
     slice, ``splits`` slices; ``tile`` (rows, columns, K bytes a stage);
-    ``grid`` the CUDA grid; ``workspace`` int32 entries to zero (0: none).
+    ``grid`` the CUDA grid; ``workspace`` int32 entries of the split-K
+    workspace, M * N sums then a counter a tile (0: none).
     """
     path: str
     mt: int
@@ -135,13 +136,34 @@ def matmul_w8a8_plain(q, wq, a_scale, w_scale):
     return acc.to(torch.float32) / (a[:, None] * w_scale[None, :])
 
 
+_w8a8_workspace_cache: Dict[Tuple[int, int], torch.Tensor] = {}
+_w8a8_workspace_lock = threading.Lock()
+
+
+def _w8a8_workspace(device, stream: int, entries: int) -> torch.Tensor:
+    """The split-K path's int32 workspace for (device, stream), at least
+    ``entries`` long: zeroed once when made (or grown), and left zeroed by
+    every call (the last block of each tile zeroes the sums it read and its
+    counter), so a call needs no memset. Keyed by stream, so that kernels of
+    two streams never share it. While a CUDA graph is being captured, a
+    buffer that the stream does not have yet, or too short a one, is made
+    for that call alone: its zeroing becomes a node of the graph, and
+    nothing made inside a capture is kept."""
+    key = (device.index, stream)
+    with _w8a8_workspace_lock:
+        buf = _w8a8_workspace_cache.get(key)
+        if buf is None or buf.numel() < entries:
+            buf = torch.zeros(entries, dtype=torch.int32, device=device)
+            if not torch.cuda.is_current_stream_capturing():
+                _w8a8_workspace_cache[key] = buf
+        return buf
+
+
 def _w8a8_launch(q, wq, a_scale, w_scale, plan: W8A8Plan):
     """Runs ``plan`` on the card (the wrapper's body, without its checks)."""
     M, K = q.shape
     N = wq.shape[0]
     out = torch.empty((M, N), dtype=torch.float32, device=q.device)
-    ws = (torch.zeros(plan.workspace, dtype=torch.int32, device=q.device)
-          if plan.workspace else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         args = (q.data_ptr(), wq.data_ptr(), a_scale.data_ptr(),
@@ -149,10 +171,15 @@ def _w8a8_launch(q, wq, a_scale, w_scale, plan: W8A8Plan):
         if plan.path == "wgmma":
             err = _lib().ct2_w8a8_gemm_wgmma(*args, M, N, K, stream)
         else:
+            ws = (_w8a8_workspace(q.device, stream, plan.workspace)
+                  if plan.workspace else None)
             err = _lib().ct2_w8a8_gemm_splitk(
                 *args, None if ws is None else ws.data_ptr(), M, N, K, plan.mt,
                 plan.k_chunk, plan.splits, int(plan.path == "splitk"), stream)
     if err:
+        if plan.workspace:  # it may hold partial sums now
+            with _w8a8_workspace_lock:
+                _w8a8_workspace_cache.pop((q.device.index, stream), None)
         raise RuntimeError(f"w8a8_gemm ({plan.path}) launch failed with error {err} "
                            "(a CUDA error, or 9000 and up: no TMA tensor map)")
     return out

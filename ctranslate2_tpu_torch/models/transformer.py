@@ -34,8 +34,8 @@ from ..kernels.flash_attention import HEAD_DIMS, flash_attention
 from ..kernels.gather_rows import gather_rows_fused
 from ..ops import attention as attn_ops
 from ..ops.activations import get_activation
-from ..ops.linear import linear
-from ..ops.norms import apply_norm
+from ..ops.linear import linear, quantize_input
+from ..ops.norms import add_and_norm, apply_norm
 from ..ops.positions import (apply_rotary, rotary_tables,
                              sinusoidal_position_encoding)
 from .spec import ArchSpec, AttentionSpec
@@ -194,13 +194,46 @@ def _apply_positions(side_params, side_consts, spec, x, offset: int):
 # ---------------------------------------------------------------------------
 
 
-def _norm(arch: ArchSpec, p: Optional[dict], x):
-    if p is None:
-        return x
+def _eps(arch: ArchSpec, p: dict) -> float:
     eps = arch.ln_epsilon
     if eps is None:
         eps = 1e-5 if "beta" in p else 1e-6
-    return apply_norm(p, x, eps)
+    return eps
+
+
+def _norm(arch: ArchSpec, p: Optional[dict], x):
+    if p is None:
+        return x
+    return apply_norm(p, x, _eps(arch, p))
+
+
+# The residual stream of a pre-norm stack travels as (x, delta): ``delta``
+# is the last block's output, not yet added to ``x`` (None: nothing
+# pending). The next norm adds it in the same launch (``_add_norm``), so
+# the add costs no launch of its own; where no norm reads the stream, a
+# plain add makes it whole (``_settle``).
+
+
+def _settle(x, delta):
+    return x if delta is None else x + delta
+
+
+def _add_norm(arch: ArchSpec, p: Optional[dict], x, delta, quantize: bool = False,
+              keep_sum: bool = True):
+    """(s, h): s = x + delta, the residual stream, and h = norm(s) (for
+    ``quantize``, per-row int8 for the int8 linears after the norm); s is
+    None where ``keep_sum`` is False and a delta was added."""
+    if p is None:
+        s = _settle(x, delta)
+        return s, s
+    return add_and_norm(p, x, _eps(arch, p), residual=delta, quantize=quantize,
+                        keep_sum=keep_sum)
+
+
+def _int8_fed(quantize_acts: bool, *linears: dict) -> bool:
+    """Whether the norm before ``linears`` quantizes for them: all are int8
+    (W8A8) and activations are quantized."""
+    return quantize_acts and all("wq" in p for p in linears)
 
 
 def _project_qkv(arch, ap: dict, spec: AttentionSpec, x, quantize_acts: bool):
@@ -328,17 +361,22 @@ def self_attention_block(
     # its first T positions: attend over the fresh tensors only (O(T^2),
     # flash-eligible); ``bias`` must then cover [*, T, T]
     kv_lengths=None,  # int32 [B] filled with ``offset`` (int8 decode kernel)
+    delta=None,  # the previous block's output, not yet added to ``x``
 ):
     """Self-attention with an optional fixed-capacity KV cache.
 
-    Returns (output, cache). ``cache`` holds {"k","v"} of shape
+    Returns (x, delta, cache): in a pre-norm block the residual stream and
+    this block's output, whose add the next norm makes; otherwise the
+    block's output and None. ``cache`` holds {"k","v"} of shape
     [B, Hkv, C, D] (plus {"k_scale","v_scale"} [B, Hkv, 1, C] in the int8
     layout); this call's keys/values are written at ``offset``, in place.
     """
-    residual = x
-    h = x
-    if pre_norm and spec.has_layer_norm:
-        h = _norm(arch, ap.get("layer_norm"), h)
+    fused = pre_norm and spec.has_layer_norm
+    if fused:
+        x, h = _add_norm(arch, ap.get("layer_norm"), x, delta,
+                         _int8_fed(quantize_acts, ap["qkv"]))
+    else:
+        x = h = _settle(x, delta)
 
     q, k, v = _project_qkv(arch, ap, spec, h, quantize_acts)
     q, k = _maybe_rotary(spec, rot_consts, q, k, offset)
@@ -419,11 +457,12 @@ def self_attention_block(
                 q, k, v, bias=bias, queries_scale=spec.queries_scale)
 
     out = attn_ops.combine_heads(ctx)
-    res = residual if spec.has_layer_norm else None
-    out = linear(ap["o"], out, residual=res, quantize_activations=quantize_acts)
-    if not pre_norm and spec.has_layer_norm:
-        out = _norm(arch, ap.get("layer_norm"), out)
-    return out, cache
+    out = linear(ap["o"], out, quantize_activations=quantize_acts)
+    if fused:
+        return x, out, cache
+    if spec.has_layer_norm:  # post-norm: norm(out + x)
+        out = _add_norm(arch, ap.get("layer_norm"), x, out, keep_sum=False)[1]
+    return out, None, cache
 
 
 def precompute_cross_kv(arch: ArchSpec, spec: AttentionSpec, ap: dict, memory,
@@ -452,18 +491,22 @@ def cross_attention_block(
     memory_bias,
     pre_norm: bool = True,
     quantize_acts: bool = True,
+    delta=None,  # the previous block's output, not yet added to ``x``
 ):
-    """Cross-attention with beam-shared memory.
+    """Cross-attention with beam-shared memory; returns (x, delta) as
+    ``self_attention_block`` does.
 
     ``x``: [B*beam, T, D_model]; ``mem_kv["k"]``: [B, Hkv, S, Dh]. The beam
     folds into the query time axis so memory K/V are read once.
     """
-    residual = x
-    h = x
-    if pre_norm and spec.has_layer_norm:
-        h = _norm(arch, ap.get("layer_norm"), h)
+    fused = pre_norm and spec.has_layer_norm
+    if fused:
+        x, h = _add_norm(arch, ap.get("layer_norm"), x, delta,
+                         _int8_fed(quantize_acts, ap["q"]))
+    else:
+        x = h = _settle(x, delta)
 
-    BK, T, _ = h.shape
+    BK, T, _ = x.shape
     B = mem_kv["k"].shape[0]
     K = BK // B
 
@@ -475,31 +518,40 @@ def cross_attention_block(
         q, mem_kv["k"], mem_kv["v"], bias=memory_bias,
         queries_scale=spec.queries_scale)
     ctx = attn_ops.combine_heads(ctx).reshape(BK, T, -1)
-    res = residual if spec.has_layer_norm else None
-    y = linear(ap["o"], ctx, residual=res, quantize_activations=quantize_acts)
-    if not pre_norm and spec.has_layer_norm:
-        y = _norm(arch, ap.get("layer_norm"), y)
-    return y
+    y = linear(ap["o"], ctx, quantize_activations=quantize_acts)
+    if fused:
+        return x, y
+    if spec.has_layer_norm:  # post-norm: norm(y + x)
+        y = _add_norm(arch, ap.get("layer_norm"), x, y, keep_sum=False)[1]
+    return y, None
 
 
 def ffn_block(arch: ArchSpec, spec, fp: dict, x, pre_norm: bool,
-              quantize_acts: bool = True):
-    """Feed-forward with optional GLU (reference: src/layers/transformer.cc:8-51)."""
-    residual = x
-    h = x
+              quantize_acts: bool = True, delta=None):
+    """Feed-forward with optional GLU (reference:
+    src/layers/transformer.cc:8-51); returns (x, delta) as
+    ``self_attention_block`` does. Under W8A8 the norm quantizes ``h`` once
+    for both GLU linears."""
     has_norm = "layer_norm" in fp
-    if pre_norm and has_norm:
-        h = _norm(arch, fp.get("layer_norm"), h)
+    fused = pre_norm and has_norm
+    if fused:
+        firsts = ((fp["linear_0"], fp["linear_0_noact"]) if spec.glu
+                  else (fp["linear_0"],))
+        x, h = _add_norm(arch, fp["layer_norm"], x, delta,
+                         _int8_fed(quantize_acts, *firsts))
+    else:
+        x = h = _settle(x, delta)
     act = get_activation(spec.activation)
     inner = linear(fp["linear_0"], h, activation=act, quantize_activations=quantize_acts)
     if spec.glu:
         gate = linear(fp["linear_0_noact"], h, quantize_activations=quantize_acts)
         inner = inner * gate
-    res = residual if has_norm else None
-    out = linear(fp["linear_1"], inner, residual=res, quantize_activations=quantize_acts)
-    if not pre_norm and has_norm:
-        out = _norm(arch, fp.get("layer_norm"), out)
-    return out
+    out = linear(fp["linear_1"], inner, quantize_activations=quantize_acts)
+    if fused:
+        return x, out
+    if has_norm:  # post-norm: norm(out + x)
+        out = _add_norm(arch, fp["layer_norm"], x, out, keep_sum=False)[1]
+    return out, None
 
 
 # ---------------------------------------------------------------------------
@@ -524,18 +576,20 @@ def encoder_forward(arch: ArchSpec, params: dict, consts: dict, ids, lengths,
 
     main_ids = ids[0] if isinstance(ids, (tuple, list)) else ids
     bias = attn_ops.length_mask_bias(lengths, main_ids.shape[-1])
+    delta = None
     for i, layer in enumerate(spec.layers):
         lp = ep["layers"][i]
-        x, _ = self_attention_block(
+        x, delta, _ = self_attention_block(
             arch, layer.self_attention, lp["self_attention"], x,
             bias=bias, rot_consts=ec.get("rotary", {}).get(str(i)),
             pre_norm=spec.pre_norm, quantize_acts=quantize_acts,
-            causal=False, flash_lengths=lengths)
-        x = ffn_block(arch, layer.ffn, lp["ffn"], x, spec.pre_norm, quantize_acts)
+            causal=False, flash_lengths=lengths, delta=delta)
+        x, delta = ffn_block(arch, layer.ffn, lp["ffn"], x, spec.pre_norm,
+                             quantize_acts, delta=delta)
 
     if spec.has_output_norm:
-        x = _norm(arch, ep.get("layer_norm"), x)
-    return x
+        return _add_norm(arch, ep.get("layer_norm"), x, delta, keep_sum=False)[1]
+    return _settle(x, delta)
 
 
 # ---------------------------------------------------------------------------
@@ -587,8 +641,13 @@ def cache_repeat_rows(cache, n: int):
 
 
 def precompute_memory(arch: ArchSpec, params: dict, memory, quantize_acts: bool = True):
-    """Project encoder output into per-layer cross K/V (prefill-once)."""
+    """Project encoder output into per-layer cross K/V (prefill-once). Under
+    W8A8 the memory is quantized once for every layer's K and V."""
     layers = params["decoder"]["layers"]
+    kv = [layers[i]["attention"][n] for i, layer in enumerate(arch.decoder.layers)
+          if layer.cross_attention is not None for n in ("k", "v")]
+    if kv and _int8_fed(quantize_acts, *kv):
+        memory = quantize_input(memory)
     out = []
     for i, layer in enumerate(arch.decoder.layers):
         if layer.cross_attention is None:
@@ -678,9 +737,10 @@ def decoder_forward(
         causal_only = False
 
     rotary = dc.get("rotary", {})
+    delta = None
     for i, layer in enumerate(spec.layers):
         lp = dp["layers"][i]
-        x, _ = self_attention_block(
+        x, delta, _ = self_attention_block(
             arch, layer.self_attention, lp["self_attention"], x,
             bias=bias, rot_consts=rotary.get(str(i)), offset=pos,
             cache=self_cache[i] if self_cache is not None else None,
@@ -688,16 +748,26 @@ def decoder_forward(
             causal=True, flash_lengths=lengths,
             causal_only=causal_only,
             beam_chain=beam_chain, beam_chain_size=beam_size,
-            fresh_prefill=fresh, kv_lengths=kv_lengths)
+            fresh_prefill=fresh, kv_lengths=kv_lengths, delta=delta)
         if layer.cross_attention is not None:
-            x = cross_attention_block(
+            x, delta = cross_attention_block(
                 arch, layer.cross_attention, lp["attention"], x, mem_kv[i],
                 memory_bias=memory_bias, pre_norm=spec.pre_norm,
-                quantize_acts=quantize_acts)
-        x = ffn_block(arch, layer.ffn, lp["ffn"], x, spec.pre_norm, quantize_acts)
+                quantize_acts=quantize_acts, delta=delta)
+        x, delta = ffn_block(arch, layer.ffn, lp["ffn"], x, spec.pre_norm,
+                             quantize_acts, delta=delta)
 
     if spec.has_output_norm:
-        x = _norm(arch, dp.get("layer_norm"), x)
+        # Under W8A8 the norm quantizes for the linear that reads its output.
+        after = (dp["project_out"] if spec.has_project_out
+                 else dp["projection"] if (return_logits and spec.has_projection
+                                           and not spec.has_outputs_scale)
+                 else None)
+        x = _add_norm(arch, dp.get("layer_norm"), x, delta,
+                      after is not None and _int8_fed(quantize_acts, after),
+                      keep_sum=False)[1]
+    else:
+        x = _settle(x, delta)
     if spec.has_project_out:
         x = linear(dp["project_out"], x, quantize_activations=quantize_acts)
     if spec.has_outputs_scale:

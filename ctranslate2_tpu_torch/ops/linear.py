@@ -27,11 +27,17 @@ Param dict keys:
   ``g_scale``  AWQ per-group scales (in/G, out)
   ``g_zs``     AWQ per-group zero * scale (in/G, out), with ``w4p``
   ``b``        optional bias (out,)
+
+An int8 linear also takes its input already quantized, as an
+``Int8Activations``: the fused norm before it (``ops/norms.py``) quantizes
+its output once for every linear that reads it. Every (q, scale) that feeds
+a W8A8 product, the norm's and ``quantize_input``'s alike, passes once
+through ``int8_activations``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -57,6 +63,32 @@ def quantize_per_row(x, round_before_cast: bool = True):
     return q, scale
 
 
+class Int8Activations(NamedTuple):
+    """Activations quantized per row for a W8A8 linear: ``q`` int8 [..., K],
+    ``scale`` f32 [...] (x ≈ q / scale), and ``dtype``, the type of the
+    activations they stand for (the linear's output type)."""
+    q: torch.Tensor
+    scale: torch.Tensor
+    dtype: torch.dtype
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+
+def int8_activations(q, scale, dtype) -> Int8Activations:
+    """The one place every int8 activation of the model passes, once per
+    quantization: a run can be watched, or fed another run's (q, scale),
+    by patching this function."""
+    return Int8Activations(q, scale, dtype)
+
+
+def quantize_input(x) -> Int8Activations:
+    """``x`` quantized per row for the int8 linears that read it."""
+    q, scale = quantize_per_row(x)
+    return int8_activations(q, scale, x.dtype)
+
+
 def linear(
     params: dict,
     x,
@@ -64,9 +96,13 @@ def linear(
     residual=None,
     quantize_activations: bool = True,
 ):
-    """Apply a dense layer. ``x``: (..., in) -> (..., out)."""
+    """Apply a dense layer. ``x``: (..., in) -> (..., out); an
+    ``Int8Activations`` feeds an int8 linear as it is."""
     out_dtype = x.dtype
     bias = params.get("b")
+    prequantized = isinstance(x, Int8Activations)
+    if prequantized and not ("wq" in params and quantize_activations):
+        raise ValueError("int8 activations feed only an int8 (W8A8) linear")
 
     if "w4p" in params:
         w4p = params["w4p"]  # [K/2, N]
@@ -82,11 +118,10 @@ def linear(
         wq = params["wq"]  # [N, K]
         w_scale = params["scale"].float()
         if quantize_activations:
-            q, a_scale = quantize_per_row(x)
+            a = x if prequantized else quantize_input(x)
             N, K = wq.shape
-            lead = x.shape[:-1]
-            y = matmul_w8a8(q.reshape(-1, K), wq, a_scale.reshape(-1),
-                            w_scale).reshape(*lead, N)
+            y = matmul_w8a8(a.q.reshape(-1, K), wq, a.scale.reshape(-1),
+                            w_scale).reshape(*a.shape[:-1], N)
         else:
             w = wq.float() / w_scale[:, None]
             y = torch.matmul(x.float(), w.t())

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Times this checkout's W8A8, flash-attention, int8-KV decode-attention and
-AWQ-W4 (``matmul_w4p``, ``matmul_w4a16`` and their folded forms) kernels
-against another checkout's, on one card, in turns.
+"""Times this checkout's W8A8, flash-attention, int8-KV decode-attention,
+AWQ-W4 (``matmul_w4p``, ``matmul_w4a16`` and their folded forms) and norm
+kernels against another checkout's, on one card, in turns.
 
-    python3 kernel_ab.py OTHER_TREE [SMOKE_LOG] [--w4 | --w4-prefill]
+    python3 kernel_ab.py OTHER_TREE [SMOKE_LOG] [--w4 | --w4-prefill | --norm | --e2e]
 
 OTHER_TREE is an unpacked ``git archive`` of an earlier commit (its
 ``ctranslate2_tpu_torch`` is imported from there and builds its kernels
@@ -15,7 +15,17 @@ same shape, as the log does), else the Generator's main-path shapes at
 Llama-3-8B's widths (M = 4 and 8,192; the AWQ path's two packed calls and
 one unpacked call, the folded forms at their counterparts' shapes; the int8
 Generator's 2,048 decode launches) are taken. ``--w4`` keeps only the W4
-shapes, ``--w4-prefill`` only those above 64 rows (the AWQ prefill). Each
+shapes, ``--w4-prefill`` only those above 64 rows (the AWQ prefill).
+``--norm`` times only the norm alone (``fused_norm`` without a residual or
+quantization, the one form both trees have) at every (rows, width, type,
+LayerNorm) of the log's summed ``kernel_norm`` lines, whatever their form,
+with their launches (else ``DEFAULT_NORM``). ``--e2e`` times instead the
+two int8 main paths end to end, where the host's launch rate bounds them:
+``chip_smoke.py``'s Translator (Transformer-base, 3 calls of 64 sentences,
+beam 2, 32 tokens: ``translator_int8`` is their seconds) and its int8
+Generator at Llama-3-8B's widths cut to ``E2E_LAYERS`` layers (int8 KV
+cache, 2 calls of 4 prompts of 2,049 tokens and 64 new ones:
+``generator_int8_decode_step`` and ``generator_int8_prefill``, ms). Each
 tree runs in a worker process, in the order other, this, this, other; each
 worker builds the sources of the kernels it times, times every shape in a
 CUDA graph (this checkout's ``chip_smoke.cuda_time_ms`` for both trees) and
@@ -42,11 +52,16 @@ DEFAULT_W4 = {(name, M, K, N, "float16"): per * calls * (32 * 64 if M == 4 else 
               for name, calls in (("matmul_w4p", 2), ("matmul_w4a16", 1),
                                   ("matmul_w4p_fold", 2), ("matmul_w4a16_fold", 1))
               for M in (4, 8192) for (K, N), per in W4_KN_LAUNCHES.items()}
+# (rows, D, dtype, LayerNorm): launches (the int8 Generator's and the
+# Translator's, float16 on the card).
+DEFAULT_NORM = {(8192, 4096, "float16", False): 65, (4, 4096, "float16", False): 4160,
+                (128, 512, "float16", True): 2432, (2048, 512, "float16", True): 52}
 AWQ_GROUP = 128
+E2E_LAYERS = 8
 
 
 def shapes_from_log(path):
-    w8a8, flash, decode, w4 = {}, {}, {}, {}
+    w8a8, flash, decode, w4, norm = {}, {}, {}, {}, {}
     with open(path) as f:
         for line in f:
             if not line.startswith("{"):
@@ -64,7 +79,10 @@ def shapes_from_log(path):
                 decode[key] = row["launches"]
             elif row.get("phase") == "kernel_w4" and row["weight"]:
                 w4[(row["kernel"], row["M"], row["K"], row["N"], row["dtype"])] = row["weight"]
-    return w8a8, flash, decode, w4
+            elif row.get("phase") == "kernel_norm" and row.get("summed", True):
+                key = (row["rows"], row["D"], row["dtype"], row["layer_norm"])
+                norm[key] = norm.get(key, 0) + row["launches"]
+    return w8a8, flash, decode, w4, norm
 
 
 def worker(tree, spec):
@@ -81,13 +99,18 @@ def worker(tree, spec):
     # Both trees are timed by this checkout's harness.
     smoke = importlib.util.spec_from_file_location(
         "chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
-    cuda_time_ms = importlib.util.module_from_spec(smoke)
-    smoke.loader.exec_module(cuda_time_ms)
-    cuda_time_ms = cuda_time_ms.cuda_time_ms
+    here = importlib.util.module_from_spec(smoke)
+    smoke.loader.exec_module(here)
+    cuda_time_ms = here.cuda_time_ms
     assert os.path.dirname(os.path.dirname(build.__file__)).startswith(tree)
+    if spec["e2e"]:
+        build.build()
+        e2e(here)
+        return
     build.build([source for source, key in (
         ("w8a8_gemm", "w8a8"), ("flash_attention", "flash"),
-        ("decode_attention_int8", "decode"), ("w4_gemm", "w4")) if spec[key]])
+        ("decode_attention_int8", "decode"), ("w4_gemm", "w4"),
+        ("fused_norm", "norm")) if spec[key]])
     g = torch.Generator(device="cuda").manual_seed(0)
     for (M, K, N), n in spec["w8a8"]:
         q = torch.randint(-128, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
@@ -149,23 +172,80 @@ def worker(tree, spec):
                           "ms": ms}), flush=True)
         del x, q, args
         torch.cuda.empty_cache()
+    for (rows, D, dt, layer_norm), n in spec["norm"]:
+        from ctranslate2_tpu_torch.kernels.norms import fused_norm
+
+        x = (torch.randn((rows, D), generator=g, device="cuda") * 2 + 0.5).to(getattr(torch, dt))
+        gamma = torch.randn(D, generator=g, device="cuda")
+        beta = torch.randn(D, generator=g, device="cuda") if layer_norm else None
+        ms = cuda_time_ms(lambda: fused_norm(x, gamma, beta, eps=1e-5),
+                          100 if rows * D < 2**22 else 20)
+        print(json.dumps({"kernel": "fused_norm", "shape": [rows, D, dt, layer_norm],
+                          "launches": n, "ms": ms}), flush=True)
+        del x
+
+
+def e2e(smoke):
+    """The tree's int8 Translator and Generator main paths, timed with
+    ``chip_smoke.py``'s helpers (from this checkout) on the tree's package."""
+    import tempfile
+
+    import ctranslate2_tpu_torch as tt
+    from ctranslate2_tpu_torch.converters.builder import build_seq2seq_model
+    from ctranslate2_tpu_torch.formats.vocabulary import Vocabulary, VocabularyInfo
+    from ctranslate2_tpu_torch.kernels import build
+
+    def row(name, ms, **extra):
+        print(json.dumps({"kernel": name, "shape": [], "launches": 1, "ms": ms, **extra}),
+              flush=True)
+
+    with tempfile.TemporaryDirectory(dir=build.build_dir()) as work:
+        path = build_seq2seq_model(os.path.join(work, "int8"), quantization="int8",
+                                   **smoke.MODEL)
+        vocab = Vocabulary.load(path, "shared_vocabulary")
+        batches = [smoke.make_batch(vocab, i) for i in range(1 + smoke.ITERS)]
+        translator = tt.Translator(path, compute_type="int8")
+        translator.translate_batch(batches[0], **smoke.OPTS)
+        _, seconds, tokens = smoke.translate_run(translator, batches[1:])
+        row("translator_int8", seconds * 1e3, tokens_per_s=tokens / seconds)
+        del translator
+    llama = smoke.build_llama_modelfile(E2E_LAYERS)
+    vocab = Vocabulary(
+        ["<unk>", "<s>", "</s>"] + [f"t{i}" for i in range(smoke.LLAMA["vocab"] - 3)],
+        VocabularyInfo(unk_token="<unk>", bos_token="<s>", eos_token="</s>"))
+    with smoke.environ(CT2TPU_KV_CACHE="int8"):
+        gen = smoke.make_generator(tt, llama, vocab, compute_type="int8")
+        prompts = [smoke.make_prompts(vocab, smoke.GEN_PROMPT, i) for i in range(3)]
+        smoke.generate_run(gen, prompts[0])  # warm-up
+        steps, prefills = [], []
+        for p in prompts[1:]:
+            _, seconds, prefill = smoke.generate_run(gen, p)
+            steps.append((seconds - prefill) / smoke.GEN_NEW * 1e3)
+            prefills.append(prefill * 1e3)
+    row("generator_int8_decode_step", min(steps), runs=steps, layers=E2E_LAYERS)
+    row("generator_int8_prefill", min(prefills), runs=prefills, layers=E2E_LAYERS)
 
 
 def main():
     if sys.argv[1] == "--worker":
         worker(sys.argv[2], json.loads(sys.argv[3]))
         return 0
-    args = [a for a in sys.argv[1:] if a not in ("--w4", "--w4-prefill")]
+    args = [a for a in sys.argv[1:] if a not in ("--w4", "--w4-prefill", "--norm", "--e2e")]
     other = os.path.abspath(args[0])
-    w8a8, flash, decode, w4 = (
+    w8a8, flash, decode, w4, norm = (
         shapes_from_log(args[1]) if len(args) > 1
-        else (DEFAULT_W8A8, DEFAULT_FLASH, DEFAULT_DECODE, DEFAULT_W4))
+        else (DEFAULT_W8A8, DEFAULT_FLASH, DEFAULT_DECODE, DEFAULT_W4, DEFAULT_NORM))
+    if "--norm" in sys.argv or "--e2e" in sys.argv:
+        w8a8, flash, decode, w4 = {}, {}, {}, {}
+    if "--norm" not in sys.argv:
+        norm = {}
     if "--w4" in sys.argv or "--w4-prefill" in sys.argv:
         w8a8, flash, decode = {}, {}, {}
     if "--w4-prefill" in sys.argv:
         w4 = {k: v for k, v in w4.items() if k[1] > 64}
     spec = json.dumps({"w8a8": sorted(w8a8.items()), "flash": sorted(flash.items()),
-                       "decode": sorted(decode.items()), "w4": sorted(w4.items())})
+                       "decode": sorted(decode.items()), "w4": sorted(w4.items()),
+                       "norm": sorted(norm.items()), "e2e": "--e2e" in sys.argv})
     best = {}
     for label, tree in (("other", other), ("this", HERE), ("this", HERE), ("other", other)):
         proc = subprocess.run([sys.executable, __file__, "--worker", tree, spec],
@@ -185,10 +265,13 @@ def main():
                                       for k, v in flash.items()),
                  decode_attention_int8=dict(
                      (json.dumps([list(k[0]), *k[1:-1], list(k[-1])]), v)
-                     for k, v in decode.items()))
+                     for k, v in decode.items()),
+                 fused_norm=dict((json.dumps(list(k)), v) for k, v in norm.items()))
         for k, v in w4.items():
             n.setdefault(k[0], {})[json.dumps(list(k[1:]))] = v
-        launches = n[kernel][shape]
+        launches = n.get(kernel, {}).get(shape)
+        if launches is None:  # an end-to-end row: its best is in per_shape_ms
+            continue
         sums.setdefault(label, {}).setdefault(kernel, 0.0)
         sums[label][kernel] += launches * ms
     print(json.dumps({"kernel_ab": {"other": other, "sums_ms": sums,

@@ -511,6 +511,160 @@ def test_apply_norm_takes_any_width_on_card(D, dtype, layer_norm, offset):
     _assert_norm_close(out, ref, params.get("beta"))
 
 
+# The fused forms (residual add, int8 quantization, both) at the main-path
+# shapes and at the widths off a multiple of 8. The kernel's y may be one
+# ulp from the plain version's, so its q cannot be bit-equal to the fully
+# plain sequence's: q and scale are held bit-equal to quantize_per_row of the
+# kernel's own y, and within one int8 step of the plain sequence on at most
+# FUSED_STEP_SHARE of the entries (chip_smoke.py's FED_STEP_SHARE); the sum
+# is bit-equal to the plain add.
+FUSED_STEP_SHARE = 0.08
+FUSED_MODES = {"residual": (True, False), "int8": (False, True),
+               "residual_int8": (True, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("layer_norm", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8192, 4096), (4, 1, 4096), (64, 2, 512),
+                                   (1920, 512), (37, 12), (37, 100), (37, 4097),
+                                   (3, 17000)])
+@pytest.mark.parametrize("mode", sorted(FUSED_MODES))
+def test_fused_norm_forms_close_to_plain_on_card(mode, shape, dtype, layer_norm, offset):
+    from ctranslate2_tpu_torch.ops.linear import quantize_per_row
+
+    dev = _card()
+    residual, quantize = FUSED_MODES[mode]
+    g = torch.Generator(device="cuda").manual_seed(6)
+    n = math.prod(shape)
+    flat = (torch.randn(2 * n + 1, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    x = flat[offset:offset + n].view(shape)  # offset 1: off the 16-byte loads
+    r = flat[n + 1:].view(shape) if residual else None
+    gamma = torch.randn(shape[-1], generator=g, device=dev)
+    beta = torch.randn(shape[-1], generator=g, device=dev) if layer_norm else None
+    kw = dict(eps=1e-5, residual=r, quantize=quantize)
+    before = kernels.launch_counts()["fused_norm"]
+    out = fused_norm(x, gamma, beta, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_norm"] == before + 1
+    ref = fused_norm_plain(x, gamma, beta, **kw)
+    assert out.y.shape == x.shape and out.y.dtype == dtype
+    _assert_norm_close(out.y, ref.y, beta)
+    if residual:
+        assert torch.equal(out.sum, ref.sum)
+    if quantize:
+        q, scale = quantize_per_row(out.y)
+        assert torch.equal(out.q, q) and torch.equal(out.scale, scale)
+        step = (out.q.int() - ref.q.int()).abs()
+        assert int(step.max()) <= 1
+        assert (step > 0).float().mean().item() <= FUSED_STEP_SHARE
+        # Left out where nothing reads them: the same q, no y, no sum.
+        lean = fused_norm(x, gamma, beta, keep_sum=False, keep_y=False, **kw)
+        assert lean.y is None and lean.sum is None
+        assert torch.equal(lean.q, out.q) and torch.equal(lean.scale, out.scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer_norm", [True, False])
+def test_add_and_norm_on_card_feeds_the_int8_linear(layer_norm):
+    """``add_and_norm`` on the card: one norm launch for the add, the norm and
+    the quantization; the int8 linear it feeds gives what it gives on the
+    kernel's y quantized in the linear."""
+    from ctranslate2_tpu_torch.ops import linear as L
+    from ctranslate2_tpu_torch.ops.norms import add_and_norm
+
+    dev = _card()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((4, 3, 256), generator=g, device=dev).half()
+    r = torch.randn((4, 3, 256), generator=g, device=dev).half()
+    params = {"gamma": torch.randn(256, generator=g, device=dev)}
+    if layer_norm:
+        params["beta"] = torch.randn(256, generator=g, device=dev)
+    lin = {"wq": torch.randint(-127, 128, (96, 256), generator=g, device=dev,
+                               dtype=torch.int8),
+           "scale": torch.full((96,), 127.0 / 0.05, device=dev)}
+    before = kernels.launch_counts()["fused_norm"]
+    s, h = add_and_norm(params, x, 1e-5, residual=r, quantize=True)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_norm"] == before + 1
+    assert isinstance(h, L.Int8Activations) and torch.equal(s, x + r)
+    y = fused_norm(s, params["gamma"], params.get("beta"), eps=1e-5)
+    assert torch.equal(L.linear(lin, h), L.linear(lin, y))
+
+
+@pytest.mark.cuda
+def test_w8a8_splitk_workspace_reused_across_shapes_on_card():
+    """The split-K workspace is kept per stream and left zeroed by each
+    call: calls with shapes alternating, and after a larger one, stay
+    bit-equal to the plain version."""
+    dev = _card()
+    shapes = [(4, 4096, 6144), (4, 14336, 4096), (64, 4096, 14336), (4, 4096, 6144),
+              (9, 512, 2048), (64, 4096, 14336), (4, 14336, 4096), (1, 4096, 4096)]
+    inputs = {sh: [torch.from_numpy(a).to(dev) for a in _w8a8_inputs(*sh, seed=sum(sh))]
+              for sh in set(shapes)}
+    for M, K, N in shapes:
+        assert qm.w8a8_plan(M, N, K).splits > 1
+    for _ in range(2):
+        for sh in shapes:
+            out = matmul_w8a8(*inputs[sh])
+            torch.cuda.synchronize()
+            assert torch.equal(out, matmul_w8a8_plain(*inputs[sh])), sh
+    stream = torch.cuda.current_stream().cuda_stream
+    ws = qm._w8a8_workspace_cache[(inputs[shapes[0]][0].device.index, stream)]
+    assert ws.numel() >= max(qm.w8a8_plan(M, N, K).workspace for M, K, N in shapes)
+    assert int(ws.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [False, True])
+def test_w8a8_splitk_in_a_captured_graph_on_card(warm):
+    """Captured on a stream with no workspace yet (one made for the call
+    inside the capture) or with one (the cached buffer): the replay equals
+    the eager call, twice over."""
+    dev = _card()
+    args = [torch.from_numpy(a).to(dev) for a in _w8a8_inputs(4, 4096, 6144, seed=11)]
+    first = matmul_w8a8(*args)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    if warm:
+        with torch.cuda.stream(stream):
+            matmul_w8a8(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = matmul_w8a8(*args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+    assert (stream.cuda_stream in {k[1] for k in qm._w8a8_workspace_cache}) == warm
+
+
+@pytest.mark.cuda
+def test_w8a8_splitk_launches_no_memset_on_card():
+    """After the stream's first call, split-K calls launch one kernel each
+    and no memset (torch.profiler's device events over 20 calls; the
+    profiler can drop a record of a window, so at least 18 of the 20
+    kernels must show for the count of memsets to stand)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _card()
+    args = [torch.from_numpy(a).to(dev) for a in _w8a8_inputs(4, 4096, 14336, seed=12)]
+    assert qm.w8a8_plan(4, 14336, 4096).splits > 1
+    matmul_w8a8(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            matmul_w8a8(*args)
+        torch.cuda.synchronize()
+    names = {e.key: e.count for e in prof.key_averages()
+             if (getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0)) > 0}
+    assert 18 <= sum(c for n, c in names.items() if "w8a8_splitk" in n) <= 20, names
+    assert not any("memset" in n.lower() for n in names), names
+
+
 @pytest.fixture(scope="module")
 def small_decoder(tmp_path_factory):
     """A builder model whose head dim (64) the flash kernel takes."""
