@@ -109,6 +109,36 @@ Phases, one JSON object per line:
    place, within ``OWN_ERROR_FACTOR`` times float16's own error and with
    the same first 8 tokens.
 
+9. The teacher-forced entry points and random sampling, each with the
+   launch counters zeroed just before and read just after, every kernel's
+   call shapes logged, and every kernel plain version's calls on the card
+   counted (there must be none): ``score_translator`` (the int8
+   Translator's ``score_batch`` on a phase-2 batch against its own
+   translations, right after phase 2); ``score_generator`` (the int8
+   Llama's ``score_batch`` on 4 prompts of 2,049, 2,055 teacher-forced
+   positions a row: causal flash with per-row lengths, the W8A8
+   projection at M 8,220 and N 128,256; then ``forward_batch(
+   return_log_probs=True)``, whose gathered log-probs must equal the
+   scores) and ``sampling`` (that Llama's ``generate_batch`` with top-k 50
+   and temperature 0.8 twice with one seed and once with another, 32 new
+   tokens, int8 KV cache; beam 2 with ``sampling_topk=10`` on the int8
+   Translator, chain mask on and off, which as in the JAX package gives
+   the argmax beam; ``sample_tokens`` drawing
+   ``SAMPLE_ROWS`` times from one distribution, every word within
+   ``FREQ_SIGMAS`` standard errors and none outside the nucleus), both
+   after phase 3 on its model; ``encoder`` (``Encoder.forward_batch`` at
+   bert-base-uncased's widths, ``BERT``, fabricated from seeds, in int8
+   and float16: 32 sequences of up to 128 tokens, then 8 of up to 512 with
+   ``flash_attention=True``, the flash kernel non-causal at head dim 64),
+   after phase 4. In the kernel phase, every shape these paths gave a
+   kernel that no main path did is held against its plain version and
+   timed in rows of its own (``"summed": false``), not in the totals.
+   Then, at ``AB_LAYERS`` layers in float32, the card against the port on
+   the CPU (``teacher_forced_card_vs_cpu``): ``score_batch`` and
+   ``forward_batch`` on 2 prompts of 513 with flash forced on, the
+   Encoder's hidden states and pooler, within ``LOGPROB_TOL``; a sampled
+   ``generate_batch`` token-identical with both sides fed the same noise.
+
 The line before the last is ``{"kernels": [...]}`` (times are sums over
 the ``launches`` counted on the main paths), the last
 ``{"ok": true, "device": {...}}``. The script exits non-zero, without
@@ -216,6 +246,21 @@ W4_CROSSOVER_KN = ((4096, 4096), (4096, 6144), (4096, 14336), (14336, 4096))
 AWQ_LAUNCHES_PER_CALL = {"w4": 32 * 5 * (1 + GEN_NEW), "flash_attention": 32,
                          "decode_attention_int8": GEN_NEW * 32,
                          "fused_norm": 65 * (1 + GEN_NEW), "matmul_w8a8": 0}
+# The Encoder's model: bert-base-uncased's published widths (its
+# config.json: hidden_size 768, num_hidden_layers 12, num_attention_heads 12,
+# intermediate_size 3072, vocab_size 30522, max_position_embeddings 512,
+# type_vocab_size 2, hidden_act gelu, layer_norm_eps 1e-12; a tanh pooler),
+# laid out as the JAX package's Transformers converter writes BERT, with
+# random weights from seeds.
+BERT = dict(layers=12, d_model=768, heads=12, d_ff=3072, vocab=30522,
+            positions=512, types=2)
+ENC_SHAPES = ((32, 128, False), (8, 512, True))  # (rows, longest, flash flag)
+# Sampling: new tokens of each sampled Generator call, and the frequency
+# check's draws (rows of one distribution over SAMPLE_VOCAB words).
+SAMPLE_NEW = 32
+SAMPLE_ROWS, SAMPLE_VOCAB = 100_000, 1000
+SAMPLE_OPTS = dict(topk=50, topp=0.9, temperature=0.7)
+FREQ_SIGMAS = 5.0
 
 
 STARTED = time.perf_counter()
@@ -583,8 +628,9 @@ def w8a8_memset_check(checks):
     The profiler can drop a record of a window (19 of 20 kernels on the
     H100), so it must show at least ``PROFILED_SHARE`` of the calls' kernels
     for the count of memsets to stand. It runs before any other profiled
-    phase; where the profiler shows no device event of the window at all,
-    the window is taken again, ten times as long."""
+    phase; where the profiler shows fewer of the window's kernels and no
+    memset (it dropped records), the window is taken again, ten times as
+    long, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from ctranslate2_tpu_torch.kernels import quant_matmul as qm
@@ -602,7 +648,8 @@ def w8a8_memset_check(checks):
         w_s = torch.rand(N, generator=g, device="cuda") + 0.5
         plan = qm.w8a8_plan(GEN_BATCH, N, K)
         matmul_w8a8(q, wq, a_s, w_s)  # the stream's workspace is made here
-        for calls in (W8A8_PROFILED_CALLS, 10 * W8A8_PROFILED_CALLS):
+        for window, calls in enumerate((W8A8_PROFILED_CALLS,)
+                                       + (10 * W8A8_PROFILED_CALLS,) * 3):
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(calls):
@@ -611,25 +658,26 @@ def w8a8_memset_check(checks):
             events = {e.key: e.count for e in prof.key_averages()
                       if (getattr(e, "self_device_time_total", None)
                           or getattr(e, "self_cuda_time_total", 0)) > 0}
-            if events:
+            kernels = sum(c for e, c in events.items() if "w8a8_splitk" in e)
+            memsets = sum(c for e, c in events.items() if "memset" in e.lower())
+            if memsets or kernels >= PROFILED_SHARE * calls:
                 break
-        kernels = sum(c for e, c in events.items() if "w8a8_splitk" in e)
-        memsets = sum(c for e, c in events.items() if "memset" in e.lower())
         checks(plan.splits > 1 and PROFILED_SHARE * calls <= kernels <= calls
                and memsets == 0,
                f"w8a8 split-K at {(GEN_BATCH, K, N)} ({plan.splits} splits): one "
                f"kernel a call and no memset over {calls} calls ({events})")
         out[f"M {GEN_BATCH} K {K} N {N}"] = {
             "splits": plan.splits, "calls": calls, "kernels": kernels, "memsets": memsets,
-            "host_us_per_call": host_us(lambda: matmul_w8a8(q, wq, a_s, w_s))}
+            "windows": window + 1, "host_us_per_call": host_us(lambda: matmul_w8a8(q, wq, a_s, w_s))}
     emit({"phase": "w8a8_memsets", "shapes": out})
 
 
-def bench_w8a8(shapes, checks):
+def bench_w8a8(shapes, checks, **extra):
     """Kernel vs plain vs library at each (M, K, N), weighted by its
     launches on the main path; returns the sums over those launches. Each
     line also carries the plan (path, split count, tile) and the time of
-    the path the plan did not pick, the evidence for the crossover."""
+    the path the plan did not pick, the evidence for the crossover;
+    ``extra`` goes into each line."""
     import torch
     from ctranslate2_tpu_torch.kernels import quant_matmul as qm
     from ctranslate2_tpu_torch.kernels.quant_matmul import (
@@ -685,7 +733,7 @@ def bench_w8a8(shapes, checks):
               "other_path_ms": other_ms,
               "plain_ms": plain_ms, "library_ms": lib_ms,
               "bound_ms": bound_ms,
-              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", **extra})
         tot["ms"] += n * ms
         tot["plain_ms"] += n * plain_ms
         tot["library_ms"] += n * (lib_ms or 0.0)
@@ -696,7 +744,7 @@ def bench_w8a8(shapes, checks):
     return tot
 
 
-def bench_gather(shapes, checks):
+def bench_gather(shapes, checks, **extra):
     """Kernel vs plain (= the library's index_select loop) at each call
     shape, weighted by its launches on the main path; returns the sums."""
     import torch
@@ -727,7 +775,8 @@ def bench_gather(shapes, checks):
               "num_arrays": len(specs), "dtype": specs[0][1], "rows": n_rows,
               "launches": n, "max_abs_err": err, "kernel_ms": ms,
               "plain_ms": plain_ms, "library_ms": plain_ms,
-              "bytes_moved": 2 * nbytes, "bound_ms": bytes_ms, "bound_by": "bytes"})
+              "bytes_moved": 2 * nbytes, "bound_ms": bytes_ms, "bound_by": "bytes",
+              **extra})
         tot["ms"] += n * ms
         tot["plain_ms"] += n * plain_ms
         tot["bytes_ms"] += n * bytes_ms
@@ -744,10 +793,32 @@ def _flash_inputs(g, B, Hq, Hkv, Tq, Tk, D, dtype):
     return t(B, Hq, Tq, D), t(B, Hkv, Tk, D), t(B, Hkv, Tk, D)
 
 
+def _attention_mask(B, Tq, Tk, causal, lengths, window):
+    """[B, 1, Tq, Tk] bool: the (query, key) pairs ``flash_attention_plain``
+    attends to."""
+    import torch
+
+    q_pos = torch.arange(Tq, device="cuda")[:, None]
+    k_pos = torch.arange(Tk, device="cuda")[None, :]
+    mask = torch.ones((B, 1, Tq, Tk), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= k_pos <= q_pos
+    if window:
+        mask &= k_pos > q_pos - window
+    if lengths is not None:
+        mask &= k_pos < lengths[:, None, None, None]
+    return mask
+
+
 def bench_flash(shapes, checks, **extra):
     """The flash kernel at every main-path shape against its plain version
     (computed in float32 from the same inputs) and, timed only,
-    ``F.scaled_dot_product_attention``; ``extra`` goes into each line."""
+    ``F.scaled_dot_product_attention``: with ``is_causal`` where the
+    attention is at most causal, else with the mask built from the lengths,
+    causality and window (the faster of its GQA call and a call on K and V
+    repeated to every query head beforehand). The bound counts the (query,
+    key) pairs that this run's lengths leave, and K and V only up to each
+    row's length; ``extra`` goes into each line."""
     import torch
     import torch.nn.functional as F
     from ctranslate2_tpu_torch.kernels import flash_attention as fa
@@ -781,21 +852,42 @@ def bench_flash(shapes, checks, **extra):
             finally:
                 fa.HEAVIEST_FIRST = True
         plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v, **kw), 3)
-        lib_ms = None
+        mask = _attention_mask(B, Tq, Tk, causal, lengths, window)
+        pairs = int(mask.sum().item())
+        library_calls = {}
         if lengths is None and not window:
-            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, scale=D ** -0.5,
-                enable_gqa=Hq != Hkv), 5)
-        share = 0.5 if causal and Tq == Tk and not window else 1.0
-        ops = 4.0 * B * Hq * Tq * Tk * D * share
+            library_calls["is_causal" if causal else "unmasked"] = cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, scale=D ** -0.5,
+                    enable_gqa=Hq != Hkv), 5)
+        else:
+            library_calls["mask"] = cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=D ** -0.5,
+                    enable_gqa=Hq != Hkv), 5)
+            if Hq != Hkv:
+                k_rep = k.repeat_interleave(Hq // Hkv, dim=1)
+                v_rep = v.repeat_interleave(Hq // Hkv, dim=1)
+                library_calls["mask_heads_repeated"] = cuda_time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k_rep, v_rep, attn_mask=mask, scale=D ** -0.5), 5)
+                del k_rep, v_rep
+        del mask
+        lib_ms = min(library_calls.values())
+        ops = 4.0 * Hq * D * pairs
         peak = PEAK_F32_FLOPS if dt == "float32" else PEAK_HALF_FLOPS
         ops_ms = ops / peak * 1e3
-        bytes_ms = (2 * q.numel() + 2 * k.numel()) * q.element_size() / PEAK_BYTES * 1e3
+        kv_rows = (B * Tk if lengths is None
+                   else int(lengths.clamp(max=Tk).sum().item()))
+        bytes_ms = ((2 * q.numel() + 2 * Hkv * D * kv_rows) * q.element_size()
+                    / PEAK_BYTES * 1e3)
         emit({"phase": "kernel_flash", "q": [B, Hq, Tq, D], "kv": [B, Hkv, Tk, D],
               "dtype": dt, "causal": causal, "lengths": has_lengths, "window": window,
               "launches": n, "max_abs_err": err, "tolerance": FLASH_TOL[dt],
               "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
               "library": "F.scaled_dot_product_attention",
+              "library_calls_ms": library_calls, "pairs": pairs,
+              "lengths_drawn": None if lengths is None else lengths.tolist(),
               "flops": ops, "tflops": ops / ms / 1e9,
               "share_of_bound": max(ops_ms, bytes_ms) / ms,
               "heaviest_first": causal, "launch_order_ms": launch_order_ms,
@@ -803,8 +895,7 @@ def bench_flash(shapes, checks, **extra):
               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", **extra})
         tot["ms"] += n * ms
         tot["plain_ms"] += n * plain_ms
-        tot["library_ms"] = (None if lib_ms is None or tot["library_ms"] is None
-                             else tot["library_ms"] + n * lib_ms)
+        tot["library_ms"] += n * lib_ms
         tot["bytes_ms"] += n * bytes_ms
         tot["ops_ms"] += n * ops_ms
     return tot
@@ -959,7 +1050,7 @@ def fused_norm_checks(x, r, gamma, beta, residual, quantize, checks, label):
     return err
 
 
-def bench_norm(shapes, checks, unsummed=None):
+def bench_norm(shapes, checks, unsummed=None, **extra):
     """The norm kernel in each form at every main-path shape (``shapes``:
     the Translator and int8 Generator paths', summed; ``unsummed``: the AWQ
     path's, timed with weight 0) against its plain version (the eager
@@ -1026,7 +1117,7 @@ def bench_norm(shapes, checks, unsummed=None):
               "library_ms": lib_ms, "library": ("F.layer_norm" if has_beta else "F.rms_norm")
               + " of the norm alone",
               "bytes_moved": nbytes, "bound_ms": bytes_ms, "bound_by": "bytes",
-              "share_of_bound": bytes_ms / ms, **host})
+              "share_of_bound": bytes_ms / ms, **host, **extra})
         f = tot["forms"].setdefault(name, dict(launches=0, ms=0.0, replaced_ms=0.0,
                                                 bound_ms=0.0))
         f["launches"] += n
@@ -1480,7 +1571,7 @@ def generator_main_path(tt, mf, vocab, checks, logs):
           "fed_kernel_runs_int8_activations": fed,
           "fed_tolerances": {"max_step": 1, "worst_linear_share": FED_STEP_SHARE,
                              "first_step_logprob": LOGPROB_TOL}})
-    return counts
+    return counts, gen
 
 
 def generator_ab(tt, mf, vocab, checks):
@@ -2033,6 +2124,450 @@ def generator_awq_checks(tt, mf, vocab, checks):
     emit(out)
 
 
+# ---------------------------------------------------------------------------
+# Teacher-forced entry points, the Encoder and random sampling.
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_calls_on_card(counter):
+    """Counts, in ``counter[name]``, the calls of every kernel's plain version
+    with a CUDA tensor (where a wrapper or the model code looks it up); on a
+    main path there must be none."""
+    import ctranslate2_tpu_torch.kernels.decode_attention as DA
+    import ctranslate2_tpu_torch.kernels.flash_attention as FA
+    import ctranslate2_tpu_torch.kernels.gather_rows as GR
+    import ctranslate2_tpu_torch.kernels.norms as KN
+    import ctranslate2_tpu_torch.kernels.quant_matmul as Q
+    import ctranslate2_tpu_torch.ops.norms as N
+
+    homes = [(Q, "matmul_w8a8_plain"), (FA, "flash_attention_plain"),
+             (DA, "decode_attention_int8_plain"), (GR, "gather_rows_plain"),
+             (KN, "fused_norm_plain"), (N, "fused_norm_plain")]
+    homes += [(Q, name) for name in W4_PLAIN]
+
+    def wrap(name):
+        def outer(orig):
+            def wrapped(x, *args, **kwargs):
+                first = x[0] if isinstance(x, (list, tuple)) else x
+                if first.is_cuda:
+                    counter[name] = counter.get(name, 0) + 1
+                return orig(x, *args, **kwargs)
+            return wrapped
+        return outer
+
+    with contextlib.ExitStack() as stack:
+        for module, name in homes:
+            stack.enter_context(patched(module, name, wrap(name)))
+        yield counter
+
+
+@contextlib.contextmanager
+def watched(logs, plain):
+    """The kernels' call shapes into ``logs`` and their plain versions' calls
+    on the card into ``plain``, with the launch counters zeroed first."""
+    import torch
+    import ctranslate2_tpu_torch as tt
+
+    with kernel_shape_logs(logs), plain_calls_on_card(plain):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tt.reset_launches()
+        yield
+
+
+def synced_seconds(call):
+    """(result, seconds) of one call, on the host's clock with the card
+    synced on either side."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+def check_path(label, counts, kernels, plain, checks):
+    for name in kernels:
+        checks(counts[name] > 0, f"{label}: {name} launched ({counts[name]})")
+    checks(not plain, f"{label}: no plain version ran on the card ({plain})")
+
+
+def score_generator(tt, gen, vocab, checks, logs):
+    """``Generator.score_batch`` on the 4 prompts of 2,049 tokens at the
+    int8 Llama geometry (every prompt teacher-forced over 2,055 padded
+    positions: causal flash with per-row lengths, the W8A8 projection at
+    M 8,220 and N 128,256), then ``forward_batch(return_log_probs=True)``
+    on the same prompts, whose gathered log-probs must equal the scores."""
+    import torch
+
+    prompts = make_prompts(vocab, GEN_PROMPT, 1)
+    kw = dict(max_input_length=GEN_PROMPT)  # the default, 1,024, would cut them
+    gen.score_batch(prompts, **kw)  # warm-up
+    plain = {}
+    with watched(logs, plain):
+        scores, seconds = synced_seconds(lambda: gen.score_batch(prompts, **kw))
+        counts = tt.launch_counts()
+        score_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        lp, fwd_seconds = synced_seconds(
+            lambda: gen.forward_batch(prompts, return_log_probs=True))
+        fwd_peak = torch.cuda.max_memory_allocated()
+        total = tt.launch_counts()
+    shape = tuple(lp.shape)
+    ids = torch.tensor([[vocab.to_id(t) for t in p] for p in prompts], device=lp.device)
+    gathered = lp[:, :GEN_PROMPT - 1].gather(-1, ids[:, 1:, None])[..., 0].cpu()
+    del lp
+    ref = torch.tensor([s.tokens_score for s in scores])
+    diff = (gathered - ref).abs().max().item()
+    tokens = GEN_BATCH * (GEN_PROMPT - 1)
+    layers = len(gen.model.arch.decoder.layers)
+    checks(tuple(ref.shape) == (GEN_BATCH, GEN_PROMPT - 1) and bool(torch.isfinite(ref).all()),
+           f"score_generator: {GEN_PROMPT - 1} finite scores a row ({tuple(ref.shape)})")
+    checks(shape == (GEN_BATCH, GEN_PROMPT + 7, LLAMA["vocab"]),
+           f"score_generator: forward_batch's log-probs [{GEN_BATCH}, {GEN_PROMPT + 7}, "
+           f"{LLAMA['vocab']}] ({shape})")
+    checks(diff <= LOGPROB_TOL,
+           f"score_generator: forward_batch's gathered log-probs equal score_batch's "
+           f"within {LOGPROB_TOL} (got {diff})")
+    checks(counts["flash_attention"] == layers and counts["fused_norm"] == 2 * layers + 1
+           and counts["matmul_w8a8"] == 5 * layers + 1,
+           f"score_generator: one flash launch a layer, one norm a block and the output "
+           f"norm, five W8A8 a layer and the projection ({counts})")
+    check_path("score_generator", total, ("flash_attention", "matmul_w8a8", "fused_norm"),
+               plain, checks)
+    emit({"phase": "score_generator", "compute_type": gen.compute_type,
+          "prompts": GEN_BATCH, "prompt_tokens": GEN_PROMPT, "scored_tokens": tokens,
+          "score_batch_seconds": seconds, "scored_tokens_per_s": tokens / seconds,
+          "forward_batch_seconds": fwd_seconds,
+          "forward_batch_tokens_per_s": GEN_BATCH * GEN_PROMPT / fwd_seconds,
+          "launches_per_score_call": counts,
+          "launches_both_calls": total,
+          "peak_memory_bytes_score_batch": score_peak,
+          "peak_memory_bytes_forward_batch": fwd_peak,
+          "forward_batch_vs_score_batch_max_abs_diff": diff, "tolerance": LOGPROB_TOL,
+          "plain_calls_on_card": plain})
+
+
+def score_translator(tt, model_dir, batch, checks, logs):
+    """``Translator.score_batch`` on the int8 Transformer-base model: the 64
+    sources of a phase-2 batch, each against its own beam-2 translation
+    (32 tokens; scored with the EOS, 33)."""
+    import torch
+
+    tr = tt.Translator(model_dir, compute_type="int8")
+    targets = [r.hypotheses[0] for r in tr.translate_batch(batch, **OPTS)]
+    tr.score_batch(batch, targets)  # warm-up
+    plain = {}
+    with watched(logs, plain):
+        results, seconds = synced_seconds(lambda: tr.score_batch(batch, targets))
+        counts = tt.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    scores = [s for r in results for s in r.tokens_score]
+    tokens = len(scores)
+    checks(len(results) == BATCH and all(
+               r.tokens == t + ["</s>"] for r, t in zip(results, targets))
+           and tokens == BATCH * (MAX_DEC + 1) and all(math.isfinite(s) for s in scores),
+           f"score_translator: {BATCH} results of {MAX_DEC + 1} finite scores")
+    check_path("score_translator", counts, ("matmul_w8a8", "fused_norm"), plain, checks)
+    emit({"phase": "score_translator", "compute_type": tr.compute_type,
+          "sources": BATCH, "scored_tokens": tokens, "seconds": seconds,
+          "scored_tokens_per_s": tokens / seconds, "launches": counts,
+          "peak_memory_bytes": peak, "plain_calls_on_card": plain})
+
+
+def build_bert_modelfile(layers):
+    """The BERT-base geometry (``BERT``) in a new in-memory ModelFile: float16
+    weights drawn from per-matrix seeds, LayerNorm gammas around 1."""
+    import numpy as np
+    from ctranslate2_tpu_torch.converters.builder import ACTIVATION_IDS
+    from ctranslate2_tpu_torch.formats.model_file import ModelFile, make_variable
+
+    d, ff = BERT["d_model"], BERT["d_ff"]
+    mf = ModelFile(spec_name="TransformerEncoderSpec", spec_revision=1, binary_version=6)
+    mf.config = {"unk_token": "[UNK]", "bos_token": "[CLS]", "eos_token": "[SEP]",
+                 "layer_norm_epsilon": 1e-12}
+
+    def add(name, value, dtype=None):
+        mf.variables[name] = make_variable(name, value, dtype)
+
+    sc = "encoder"
+    add(f"{sc}/num_heads", BERT["heads"], "int16")
+    add(f"{sc}/pre_norm", 0, "int8")
+    # What the converter writes for BERT's hidden_act "gelu".
+    add(f"{sc}/activation", ACTIVATION_IDS["gelu_tanh"], "int8")
+    add(f"{sc}/embeddings_merge", 1, "int8")
+    add(f"{sc}/scale_embeddings", 0, "int8")
+    add("pooler_activation", ACTIVATION_IDS["tanh"], "int8")
+    jobs = [(f"{sc}/embeddings_0/weight", (BERT["vocab"], d), 0.5),
+            (f"{sc}/embeddings_1/weight", (BERT["types"], d), 0.5),
+            (f"{sc}/position_encodings/encodings", (BERT["positions"], d), 0.5),
+            ("pooler_dense/weight", (d, d), 0.05), ("pooler_dense/bias", (d,), 0.05)]
+    norms = [f"{sc}/layernorm_embedding"]
+    for i in range(layers):
+        ls = f"{sc}/layer_{i}"
+        for scope, out_dim, in_dim in ((f"{ls}/self_attention/linear_0", 3 * d, d),
+                                       (f"{ls}/self_attention/linear_1", d, d),
+                                       (f"{ls}/ffn/linear_0", ff, d),
+                                       (f"{ls}/ffn/linear_1", d, ff)):
+            jobs += [(f"{scope}/weight", (out_dim, in_dim), 0.05),
+                     (f"{scope}/bias", (out_dim,), 0.05)]
+        norms += [f"{ls}/self_attention/layer_norm", f"{ls}/ffn/layer_norm"]
+    for seed, (name, shape, scale) in enumerate(jobs):
+        rng = np.random.default_rng(100 + seed)
+        add(name, (rng.standard_normal(shape, dtype=np.float32) * scale).astype(
+            np.float16 if len(shape) == 2 else np.float32))
+    for seed, scope in enumerate(norms):
+        rng = np.random.default_rng(5000 + seed)
+        add(f"{scope}/gamma", 1.0 + rng.standard_normal(d, dtype=np.float32) * 0.05)
+        add(f"{scope}/beta", rng.standard_normal(d, dtype=np.float32) * 0.05)
+    return mf
+
+
+def encoder_subset(mf, layers):
+    """The first ``layers`` layers of a fabricated encoder, sharing its arrays."""
+    from ctranslate2_tpu_torch.formats.model_file import ModelFile
+
+    sub = ModelFile(spec_name=mf.spec_name, spec_revision=mf.spec_revision,
+                    binary_version=mf.binary_version)
+    sub.config = dict(mf.config)
+    for name, var in mf.variables.items():
+        layer = re.match(r"encoder/layer_(\d+)/", name)
+        if not layer or int(layer.group(1)) < layers:
+            sub.variables[name] = var
+    return sub
+
+
+def encoder_inputs(rows, longest, seed):
+    """``rows`` id lists of mixed lengths up to ``longest`` (one of exactly
+    ``longest``), each a sentence pair: token type 0, then 1 from its
+    middle on."""
+    import numpy as np
+
+    r = np.random.default_rng(3000 + seed)
+    lengths = [longest] + [int(n) for n in r.integers(longest // 2, longest + 1, rows - 1)]
+    ids = [[int(t) for t in r.integers(1000, BERT["vocab"], n)] for n in lengths]
+    types = [[0] * (n // 2) + [1] * (n - n // 2) for n in lengths]
+    return ids, types
+
+
+def encoder_phase(tt, mf, checks, logs):
+    """``Encoder.forward_batch`` at the BERT-base geometry, int8 and float16:
+    32 sequences of up to 128 tokens, then 8 of up to 512 with
+    ``flash_attention=True`` (the flash kernel, non-causal, per-row
+    lengths, head dim 64)."""
+    import torch
+
+    out = {}
+    for compute_type in ("int8", "float16"):
+        for rows, longest, flash in ENC_SHAPES:
+            enc = tt.Encoder(mf, compute_type=compute_type, flash_attention=flash)
+            ids, types = encoder_inputs(rows, longest, rows)
+            enc.forward_batch(ids, token_type_ids=types)  # warm-up
+            plain = {}
+            with watched(logs, plain):
+                res, seconds = synced_seconds(
+                    lambda: enc.forward_batch(ids, token_type_ids=types))
+                counts = tt.launch_counts()
+                peak = torch.cuda.max_memory_allocated()
+            label = f"encoder {compute_type} {rows}x{longest}"
+            h, pooled = res.last_hidden_state, res.pooler_output
+            checks(tuple(h.shape) == (rows, longest, BERT["d_model"])
+                   and tuple(pooled.shape) == (rows, BERT["d_model"])
+                   and bool(torch.isfinite(h).all()) and bool(torch.isfinite(pooled).all()),
+                   f"{label}: finite last_hidden_state and pooler_output of the right shapes")
+            kernels = ["fused_norm"] + (["matmul_w8a8"] if compute_type == "int8" else [])
+            check_path(label, counts, kernels + (["flash_attention"] if flash else []),
+                       plain, checks)
+            checks(counts["flash_attention"] == (BERT["layers"] if flash else 0)
+                   and counts["fused_norm"] == 2 * BERT["layers"] + 1,
+                   f"{label}: flash {'on' if flash else 'off'}, 25 norms ({counts})")
+            tokens = sum(len(i) for i in ids)
+            out[f"{compute_type}_{rows}x{longest}"] = {
+                "flash_attention_flag": flash, "sequences": rows, "tokens": tokens,
+                "seconds": seconds, "sequences_per_s": rows / seconds,
+                "tokens_per_s": tokens / seconds, "padded_tokens": rows * longest,
+                "launches": counts, "peak_memory_bytes": peak,
+                "plain_calls_on_card": plain}
+            del enc, res, h, pooled
+            free_card()
+    emit({"phase": "encoder", "model": BERT, **out})
+
+
+def sampling_generator(tt, gen, vocab, checks, logs):
+    """Sampled ``generate_batch`` at the int8 Llama geometry with the int8 KV
+    cache: top-k 50, temperature 0.8, twice with one seed (the same tokens)
+    and once with another (other tokens)."""
+    prompts = make_prompts(vocab, GEN_PROMPT, 3)
+    kw = dict(max_length=SAMPLE_NEW, sampling_topk=50, sampling_temperature=0.8,
+              include_prompt_in_result=False, return_scores=True)
+    plain = {}
+    with environ(CT2TPU_KV_CACHE="int8"), watched(logs, plain):
+        runs = [synced_seconds(lambda: gen.generate_batch(prompts, seed=seed, **kw))
+                for seed in (1, 1, 2)]
+        counts = tt.launch_counts()
+    ids = [[r.sequences_ids[0] for r in run] for run, _ in runs]
+    tokens = sum(len(i) for i in ids[0])
+    checks(ids[0] == ids[1], "sampling: two calls with one seed give the same tokens")
+    checks(ids[0] != ids[2], "sampling: another seed gives other tokens")
+    checks(all(0 < len(i) <= SAMPLE_NEW for run in ids for i in run)
+           and all(math.isfinite(r.scores[0]) for run, _ in runs for r in run),
+           "sampling: every row sampled, with finite scores")
+    check_path("sampling generator", counts, ("decode_attention_int8", "matmul_w8a8",
+                                              "flash_attention", "fused_norm"), plain, checks)
+    return {"prompts": GEN_BATCH, "new_tokens": tokens, "calls": len(runs),
+            "seconds_per_call": [sec for _, sec in runs],
+            "sampled_tokens_per_s": tokens / runs[0][1], "launches_three_calls": counts,
+            "plain_calls_on_card": plain}
+
+
+def sampling_translator(tt, model_dir, batch, checks, logs):
+    """Beam 2 with ``sampling_topk=10`` on the int8 Translator, chain mask on
+    and off. As in the JAX package, beam search takes the best candidates
+    whatever the sampler: both calls must give the argmax beam's
+    hypotheses."""
+    tr = tt.Translator(model_dir, compute_type="int8")
+    opts = dict(OPTS, sampling_topk=10)
+    argmax = tr.translate_batch(batch, **OPTS)
+    plain = {}
+    with watched(logs, plain):
+        chain, seconds = synced_seconds(lambda: tr.translate_batch(batch, **opts))
+        chain_counts = tt.launch_counts()
+        with chain_off():
+            off = tr.translate_batch(batch, **opts)
+        counts = tt.launch_counts()
+    hyps = [[r.hypotheses for r in res] for res in (argmax, chain, off)]
+    checks(hyps[1] == hyps[0], "sampling translator: beam + top-k 10 gives the argmax beam")
+    checks(compare_chain(chain, off)["identical"] == len(batch),
+           "sampling translator: chain-off gives the chain run's hypotheses")
+    gather = counts["gather_rows_fused"] - chain_counts["gather_rows_fused"]
+    checks(gather > 0, f"sampling translator: the chain-off call launched the gather "
+                       f"kernel ({gather})")
+    check_path("sampling translator", counts, ("matmul_w8a8", "fused_norm"), plain, checks)
+    return {"sentences": len(batch), "beam": BEAM, "sampling_topk": 10,
+            "chain_call_seconds": seconds, "gather_launches_chain_off": gather,
+            "launches": counts, "plain_calls_on_card": plain}
+
+
+def sampler_frequencies(checks):
+    """``sample_tokens`` on the card with the card's own noise:
+    ``SAMPLE_ROWS`` draws from one ``SAMPLE_VOCAB``-word distribution under
+    ``SAMPLE_OPTS``. Each word's count within ``FREQ_SIGMAS`` standard
+    errors of its truncated, renormalized probability
+    (``sampling.truncated_probabilities``); no word outside the nucleus."""
+    import numpy as np
+    import torch
+    from ctranslate2_tpu_torch.decoding import sampling
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    lp = torch.log_softmax(torch.randn(SAMPLE_VOCAB, generator=g, device="cuda") * 2.0, -1)
+    expected = sampling.truncated_probabilities(lp.cpu().numpy(), **SAMPLE_OPTS)
+    rows = SAMPLE_ROWS
+    batch = lp.expand(rows, SAMPLE_VOCAB).contiguous()
+    noise = sampling.noise_source(11, "cuda")
+    shape = sampling.sample_noise_shape(rows, SAMPLE_VOCAB, SAMPLE_OPTS["topk"])
+    ids, _ = sampling.sample_tokens(batch, noise(0, shape, "cuda"), **SAMPLE_OPTS)
+    counts = np.bincount(ids.cpu().numpy(), minlength=SAMPLE_VOCAB)
+    inside = expected > 0
+    sd = np.sqrt(rows * expected * (1 - expected))
+    z = np.abs(counts - rows * expected)[inside] / sd[inside]
+    outside = int(counts[~inside].sum())
+    checks(outside == 0 and z.max() <= FREQ_SIGMAS,
+           f"sampling frequencies (sample_tokens): every word within {FREQ_SIGMAS} "
+           f"standard errors (worst {z.max()}), none outside the nucleus ({outside})")
+    return {"nucleus_words": int(inside.sum()),
+            "sample_tokens": {"worst_standard_errors": float(z.max()),
+                              "drawn_outside": outside}}
+
+
+def sampling_phase(tt, gen, vocab, model_dir, batch, checks, logs):
+    t0 = time.perf_counter()
+    out = {"generator": sampling_generator(tt, gen, vocab, checks, logs),
+           "translator_beam": sampling_translator(tt, model_dir, batch, checks, logs),
+           "frequencies": sampler_frequencies(checks)}
+    emit({"phase": "sampling", **out, "seconds": time.perf_counter() - t0})
+
+
+def teacher_forced_card_vs_cpu(tt, mf, vocab, bert, checks):
+    """At ``AB_LAYERS`` layers, float32, the card against the port on the
+    CPU: ``score_batch`` and ``forward_batch`` (2 prompts of ``CPU_PROMPT``,
+    flash forced on by ``flash_attention=True``), the Encoder's hidden
+    states and pooler (8 sequences of up to 128, flash on), and a sampled
+    ``generate_batch`` with both fed the same noise (drawn on the CPU)."""
+    import torch
+    from ctranslate2_tpu_torch.decoding import sampling
+
+    t0 = time.perf_counter()
+    prompts = make_prompts(vocab, CPU_PROMPT, 11)[:2]
+    card = make_generator(tt, mf, vocab, compute_type="float32", flash_attention=True)
+    cpu = make_generator(tt, mf, vocab, device="cpu", compute_type="float32",
+                         flash_attention=True)
+    tt.reset_launches()
+    scores = card.score_batch(prompts, max_input_length=CPU_PROMPT)
+    lp_card = card.forward_batch(prompts, return_log_probs=True).cpu()
+    counts = tt.launch_counts()
+    lp_cpu = cpu.forward_batch(prompts, return_log_probs=True)
+    ids = torch.tensor([[vocab.to_id(t) for t in p] for p in prompts])
+    gathered = lp_cpu[:, :CPU_PROMPT - 1].gather(-1, ids[:, 1:, None])[..., 0]
+    score_diff = (torch.tensor([s.tokens_score for s in scores]) - gathered).abs().max().item()
+    fwd_diff = (lp_card - lp_cpu).abs().max().item()
+    del lp_card, lp_cpu
+    checks(counts["flash_attention"] == 2 * AB_LAYERS and counts["fused_norm"] > 0,
+           f"teacher-forced card vs CPU: the card ran flash and the norm ({counts})")
+    checks(score_diff <= LOGPROB_TOL and fwd_diff <= LOGPROB_TOL,
+           f"teacher-forced card vs CPU: score_batch ({score_diff}) and forward_batch "
+           f"({fwd_diff}) within {LOGPROB_TOL}")
+
+    # A sampled call, both sides fed the same noise.
+    shared = sampling.noise_source
+
+    def same_noise(seed, device):
+        cpu_noise = shared(seed, "cpu")
+        return lambda step, shape, dev: cpu_noise(step, shape, "cpu").to(dev)
+
+    short = [p[:33] for p in make_prompts(vocab, 33, 12)]
+    kw = dict(max_length=AB_NEW, sampling_topk=50, sampling_temperature=0.8,
+              include_prompt_in_result=False, return_scores=True, seed=5)
+    with patched(sampling, "noise_source", lambda orig: same_noise):
+        sampled = [g.generate_batch(short, **kw) for g in (card, cpu)]
+    same = sum(a.sequences_ids == b.sequences_ids for a, b in zip(*sampled))
+    checks(same == len(short),
+           f"sampled generate card vs CPU, fed the same noise: token-identical "
+           f"({same}/{len(short)})")
+    del card, cpu
+    free_card()
+
+    enc_card = tt.Encoder(bert, compute_type="float32", flash_attention=True)
+    enc_cpu = tt.Encoder(bert, device="cpu", compute_type="float32")
+    ids, types = encoder_inputs(8, 128, 13)
+    tt.reset_launches()
+    a = enc_card.forward_batch(ids, token_type_ids=types)
+    enc_counts = tt.launch_counts()
+    b = enc_cpu.forward_batch(ids, token_type_ids=types)
+    h_diff = (a.last_hidden_state.cpu() - b.last_hidden_state).abs().max().item()
+    p_diff = (a.pooler_output.cpu() - b.pooler_output).abs().max().item()
+    checks(enc_counts["flash_attention"] == AB_LAYERS and enc_counts["fused_norm"] > 0,
+           f"encoder card vs CPU: the card ran flash and the norm ({enc_counts})")
+    checks(h_diff <= LOGPROB_TOL and p_diff <= LOGPROB_TOL,
+           f"encoder card vs CPU: hidden states ({h_diff}) and pooler ({p_diff}) "
+           f"within {LOGPROB_TOL}")
+    emit({"phase": "teacher_forced_card_vs_cpu", "layers": AB_LAYERS,
+          "compute_type": "float32", "prompt_tokens": CPU_PROMPT,
+          "score_batch_max_abs_diff": score_diff, "forward_batch_max_abs_diff": fwd_diff,
+          "sampled_rows_identical": f"{same}/{len(short)}",
+          "encoder_hidden_max_abs_diff": h_diff, "encoder_pooler_max_abs_diff": p_diff,
+          "tolerance": LOGPROB_TOL, "card_launches": counts,
+          "encoder_card_launches": enc_counts, "seconds": time.perf_counter() - t0})
+
+
+def new_shapes(logs, main_logs):
+    """Per kernel, the call shapes of ``logs`` that no main path of
+    ``main_logs`` gave it."""
+    return {name: {k: n for k, n in shapes.items() if k not in main_logs.get(name, {})}
+            for name, shapes in logs.items()}
+
+
 def record_quantized(out):
     """A ``patched`` wrapper for ``ops.linear.int8_activations``, the one
     function every int8 activation passes (the norm kernel's and
@@ -2231,6 +2766,10 @@ def main():
             checks(tr_counts[name] > 0,
                    f"{name} launched on the Translator main path ({tr_counts[name]})")
         free_card()
+        # Shapes of the paths after the main ones: benched in rows of their own.
+        new_logs = {}
+        score_translator(tt, int8_dir, batches[1], checks, new_logs)
+        free_card()
 
         # ---- main path 2: Generator ----
         t0 = time.perf_counter()
@@ -2242,11 +2781,18 @@ def main():
               "int8_weight_bytes": sum(v.array.nbytes for n, v in llama.variables.items()
                                        if n.endswith("/weight")),
               "seconds": time.perf_counter() - t0})
-        gen_counts = generator_main_path(tt, llama, llama_vocab, checks, logs)
+        gen_counts, gen = generator_main_path(tt, llama, llama_vocab, checks, logs)
         for name in ("matmul_w8a8", "flash_attention", "decode_attention_int8",
                      "fused_norm"):
             checks(gen_counts[name] > 0,
                    f"{name} launched on the Generator main path ({gen_counts[name]})")
+        free_card()
+
+        # ---- the teacher-forced and sampled paths on the same model ----
+        score_generator(tt, gen, llama_vocab, checks, new_logs)
+        free_card()
+        sampling_phase(tt, gen, llama_vocab, int8_dir, batches[1], checks, new_logs)
+        del gen
         small_llama = llama_subset(llama, AB_LAYERS)
         del llama
         free_card()
@@ -2272,6 +2818,15 @@ def main():
         del awq
         free_card()
 
+        # ---- the Encoder at BERT-base's widths ----
+        t0 = time.perf_counter()
+        bert = build_bert_modelfile(BERT["layers"])
+        emit({"phase": "bert_model", "config": BERT, "seconds": time.perf_counter() - t0})
+        encoder_phase(tt, bert, checks, new_logs)
+        small_bert = encoder_subset(bert, AB_LAYERS)
+        del bert
+        free_card()
+
         # ---- every kernel against its plain version ----
         w8 = bench_w8a8(logs["matmul_w8a8"], checks)
         ga = bench_gather(logs["gather_rows_fused"], checks)
@@ -2284,6 +2839,20 @@ def main():
         w4 = bench_w4(awq_logs, checks)
         free_card()
         bench_w4_crossover(checks)
+        free_card()
+        # The new paths' shapes that no main path gave a kernel: own rows,
+        # not summed into the totals.
+        fresh = new_shapes(new_logs, logs)
+        extra = dict(summed=False, paths="score_generator, score_translator, encoder, "
+                                         "sampling")
+        bench_w8a8(fresh.get("matmul_w8a8", {}), checks, **extra)
+        free_card()
+        bench_flash(fresh.get("flash_attention", {}), checks, **extra)
+        free_card()
+        bench_norm(fresh.get("fused_norm", {}), checks, **extra)
+        bench_gather(fresh.get("gather_rows_fused", {}), checks, **extra)
+        bench_decode(fresh.get("decode_attention_int8", {}), GEN_PROMPT - 1, SAMPLE_NEW,
+                     checks, **extra)
         free_card()
 
         # ---- the other Translator runs ----
@@ -2299,6 +2868,8 @@ def main():
         generator_card_vs_cpu(tt, small_llama, llama_vocab, checks)
         free_card()
         generator_awq_checks(tt, small_awq, llama_vocab, checks)
+        free_card()
+        teacher_forced_card_vs_cpu(tt, small_llama, llama_vocab, small_bert, checks)
 
         def entry(name, source, replaces, tot, library_ms, launches=None, **extra):
             """One kernel's line; ``launches`` defaults to the Translator and

@@ -18,7 +18,7 @@ import torch
 from ..models import transformer as T
 from ..ops import attention as attn_ops
 from . import processors as proc
-from .sampling import greedy_tokens, small_top_k
+from .sampling import greedy_tokens, sample_noise_shape, sample_tokens, small_top_k
 
 SYNC_EVERY = 8
 NEG = -1e10
@@ -242,12 +242,14 @@ def beam_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
 
 def greedy_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
                 has_prefix: bool, control, start_pos: int,
-                encoder_ids=None, encoder_lengths=None, cache=None):
-    """Whole-generation greedy loop (argmax; random sampling is not ported
-    yet). ``control`` [N, 3 + P]: prefix_len | min_steps | start_token |
-    prefix. ``cache`` is a prefilled self-attention cache holding positions
-    [0, start_pos), or None to start an empty one. Returns host tensors
-    (tokens [N, max_steps], num_steps [N], scores [N])."""
+                encoder_ids=None, encoder_lengths=None, cache=None, noise=None):
+    """Whole-generation greedy loop: the argmax, or under a random sampler
+    one draw a row and step with ``noise(step, shape, device)``
+    (``sampling.noise_source``). ``control`` [N, 3 + P]: prefix_len |
+    min_steps | start_token | prefix. ``cache`` is a prefilled
+    self-attention cache holding positions [0, start_pos), or None to start
+    an empty one. Returns host tensors (tokens [N, max_steps], num_steps
+    [N], scores [N])."""
     device = model.device
     arch = model.arch
     end_ids = torch.as_tensor(sig.end_ids or (0,), dtype=torch.long, device=device)
@@ -280,7 +282,13 @@ def greedy_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
         l = logits[:, -1].float()
         l = _apply_processors(sig, l, step, min_steps, out_buf)
         log_probs = torch.log_softmax(l, dim=-1)
-        sampled, sampled_scores = greedy_tokens(log_probs)
+        if sig.greedy_sampler:
+            sampled, sampled_scores = greedy_tokens(log_probs)
+        else:
+            shape = sample_noise_shape(N, log_probs.shape[-1], sig.sampling_topk)
+            sampled, sampled_scores = sample_tokens(
+                log_probs, noise(step, shape, device), topk=sig.sampling_topk,
+                topp=sig.sampling_topp, temperature=sig.sampling_temperature)
 
         if P > 0:
             forced = step < prefix_len

@@ -1,11 +1,19 @@
 """Beam / greedy decoding engine.
 
 Port of ``ctranslate2_tpu/decoding/engine.py`` restricted to its
-whole-generation device loops (reference: src/decoding.cc:411-974). The
-options that need the JAX package's host loop (attention output, coverage
-penalty, prefix-biased decoding, vocabulary logits, alternatives) and
-random sampling are rejected by ``Translator.translate_batch`` until their
-slice.
+whole-generation device loops (reference: src/decoding.cc:411-974), with
+argmax or random sampling. The options that need the JAX package's host
+loop (attention output, coverage penalty, prefix-biased decoding,
+vocabulary logits, alternatives) are rejected by
+``Translator.translate_batch`` until their slice.
+
+As in the JAX package, random sampling (``sampling_topk != 1`` or
+``sampling_topp < 1``; a temperature alone samples nothing) applies to
+greedy search, whose ``num_hypotheses > 1`` then decodes that many
+replicas of each row; beam search always takes the best candidates
+(the JAX package's ``_beam_search`` builds its signature with the argmax
+sampler, so no entry point reaches its beam loop's Gumbel-max branch,
+which the port leaves out until one does).
 """
 
 from __future__ import annotations
@@ -17,7 +25,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import device_loop
+from ..models.transformer import cache_repeat_rows
+from . import device_loop, sampling
 from .options import DecodingOptions, DecodingResult
 
 
@@ -32,6 +41,10 @@ class StepSig:
     repetition_penalty: float
     no_repeat_ngram_size: int
     use_alive_seq: bool
+    greedy_sampler: bool = True  # argmax; False: random sampling
+    sampling_topk: int = 1
+    sampling_topp: float = 1.0
+    sampling_temperature: float = 1.0
 
 
 def _round_up(x: int, multiple: int) -> int:
@@ -84,7 +97,8 @@ class DecodingEngine:
         return max_step, capacity, consts
 
     @staticmethod
-    def _make_sig(options: DecodingOptions, end_ids) -> StepSig:
+    def _make_sig(options: DecodingOptions, end_ids,
+                  greedy_sampler: bool = True) -> StepSig:
         return StepSig(
             end_ids=tuple(end_ids),
             suppress_ids=tuple(options.suppress_tokens),
@@ -95,6 +109,10 @@ class DecodingEngine:
             use_alive_seq=(options.repetition_penalty != 1.0
                            or options.no_repeat_ngram_size > 0
                            or bool(options.suppress_sequences)),
+            greedy_sampler=greedy_sampler,
+            sampling_topk=options.sampling_topk,
+            sampling_topp=options.sampling_topp,
+            sampling_temperature=options.sampling_temperature,
         )
 
     @staticmethod
@@ -182,11 +200,26 @@ class DecodingEngine:
 
     def _greedy_search(self, start_ids, options, encoder_inputs, prefix_ids,
                        end_ids, start_step, params, cache, capacity):
+        is_random = not (options.sampling_topk == 1
+                         and options.sampling_topp >= 1.0)
+        # Several hypotheses under random sampling: that many replicas of
+        # each row (reference: src/decoding.cc:753-814). The encoder runs
+        # once per source: the decoder's cross-attention reads a source's
+        # memory for all of its replicas, as it does for a beam.
+        replicas = options.num_hypotheses if (
+            options.num_hypotheses > 1 and is_random) else 1
+        B0 = len(start_ids)
+        if replicas > 1:
+            start_ids = [s for s in start_ids for _ in range(replicas)]
+            if prefix_ids is not None:
+                prefix_ids = [p for p in prefix_ids for _ in range(replicas)]
+            if cache is not None:
+                cache = cache_repeat_rows(cache, replicas)
         B = len(start_ids)
         end_set = set(end_ids)
         max_step, capacity, consts = self._setup(
             options, prefix_ids, start_step, capacity)
-        sig = self._make_sig(options, end_ids)
+        sig = self._make_sig(options, end_ids, greedy_sampler=not is_random)
         prefix_lengths, P, prefix_arr = self._prefix_rows(prefix_ids, B)
         min_steps = [(prefix_lengths[i] if not options.return_prefix else 0)
                      + options.min_length for i in range(B)]
@@ -201,7 +234,8 @@ class DecodingEngine:
             capacity=capacity, has_prefix=P > 0,
             control=torch.from_numpy(control), start_pos=start_step,
             encoder_ids=encoder_inputs[0], encoder_lengths=encoder_inputs[1],
-            cache=cache)
+            cache=cache, noise=(sampling.noise_source(options.seed, self.model.device)
+                                if is_random else None))
         buf, num_steps, scores = buf.numpy(), num_steps.numpy(), scores.numpy()
 
         results = []
@@ -219,7 +253,22 @@ class DecodingEngine:
             if not options.return_prefix:
                 tokens = tokens[plen:]
             r = DecodingResult(hypotheses=[tokens], scores=[float(scores[i])])
-            self._finalize(r, 1, options.length_penalty, options.return_scores,
+            self._finalize(r, 1, options.length_penalty, True,
                            norm_lengths=[max(norm_len, 1)])
             results.append(r)
+
+        if replicas > 1:
+            merged = [DecodingResult() for _ in range(B0)]
+            for i, r in enumerate(results):
+                m = merged[i // replicas]
+                m.hypotheses.append(r.hypotheses[0])
+                m.scores.append(r.scores[0])
+            for m in merged:
+                order = sorted(range(len(m.scores)), key=lambda i: -m.scores[i])
+                m.hypotheses = [m.hypotheses[i] for i in order]
+                m.scores = [m.scores[i] for i in order]
+            results = merged
+        if not options.return_scores:
+            for r in results:
+                r.scores = []
         return results

@@ -1,7 +1,7 @@
 """Decoding options and result structures (API parity with the reference:
 include/ctranslate2/decoding.h:44-89, include/ctranslate2/translation.h:11-86).
-Options that only unported paths read (sampling, coverage penalty, prefix
-bias, attention and logits output, alternatives) come with their slices;
+Options that only unported paths read (coverage penalty, prefix bias,
+attention and logits output, alternatives) come with their slices;
 ``Translator.translate_batch`` rejects them."""
 
 from __future__ import annotations
@@ -27,9 +27,13 @@ class DecodingOptions:
     include_eos_in_hypotheses: bool = True
     max_length: int = 256
     min_length: int = 0
+    sampling_topk: int = 1
+    sampling_topp: float = 1.0
+    sampling_temperature: float = 1.0
     num_hypotheses: int = 1
     return_scores: bool = False
     return_prefix: bool = True  # include target prefix / prompt in result
+    seed: int = 0  # the random sampler's stream
 
 
 @dataclass

@@ -1,26 +1,50 @@
 """Token selection for the decode loops.
 
-Port of the greedy parts of ``ctranslate2_tpu/decoding/sampling.py``.
-Random sampling is not ported yet.
+Port of ``ctranslate2_tpu/decoding/sampling.py``: argmax, and random
+sampling in the reference RandomSampler's order (reference:
+src/sampling.cc:35-101): top-k restriction, temperature, top-p (nucleus)
+mask, Gumbel-max draw, and the pick's score from the unmodified
+distribution. The per-row forms of the continuous engines are not ported,
+nor is ``gumbel_top_k``, the beam loop's random draw, which no entry point
+of either package reaches (their beam search builds an argmax signature).
+
+The samplers take their Gumbel noise as an argument. The decode loops get
+it from a noise source, ``noise(step, shape, device)``, which
+``noise_source`` makes for one call from its seed: one explicit
+``torch.Generator`` on the device, never the global one, so two calls with
+one seed draw the same tokens. The JAX package draws from
+``fold_in(PRNGKey(seed), step)`` instead; fed the same noise, the two
+sample the same tokens.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .processors import DISABLE
 
+# Above this k an exact top-k is a stable sort (the JAX package's
+# ``lax.top_k``), below it k argmax passes.
+SMALL_TOP_K_MAX = 16
+# jax.random.uniform's minval in the JAX package's Gumbel draw.
+UNIFORM_MIN = 1e-20
+
 
 def small_top_k(x, k: int):
-    """Exact top-k along the last axis by ``k`` iterated argmax passes.
+    """Exact top-k along the last axis.
 
     Returns (values [..., k], indices [..., k]) in descending order. Among
     equal values the lowest index comes first, as in the JAX package's
-    block tournament (``torch.argmax`` returns the first maximal index;
-    ``torch.topk`` guarantees no tie order).
+    block tournament and ``lax.top_k`` (``torch.argmax`` returns the first
+    maximal index and the sort is stable; ``torch.topk`` guarantees no tie
+    order).
     """
     shape = x.shape
     V = shape[-1]
+    if k > SMALL_TOP_K_MAX:
+        vals, idxs = torch.sort(x, dim=-1, descending=True, stable=True)
+        return vals[..., :k], idxs[..., :k]
     work = x.reshape(-1, V)
     cols = torch.arange(V, device=x.device)
     vals, idxs = [], []
@@ -37,3 +61,89 @@ def greedy_tokens(log_probs):
     """Returns (ids [N], scores [N]): the argmax and its log-prob."""
     ids = torch.argmax(log_probs, dim=-1)
     return ids, log_probs.gather(1, ids[:, None])[:, 0]
+
+
+def _divide(scores, temperature: float):
+    # Two tensors: a true division, as the JAX package divides (a Python
+    # scalar divisor is multiplied by its reciprocal on the card); filled
+    # on the device, since a copy from the host would sync every step.
+    return scores / torch.full_like(scores, temperature)
+
+
+def top_p_mask(scores, p: float):
+    """Mask scores outside the nucleus of cumulative probability ``p``:
+    keep the smallest set of highest-probability tokens whose cumulative
+    probability reaches ``p``; the first token is always kept
+    (reference: src/ops/topp_mask.cc)."""
+    sorted_scores = torch.sort(scores, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_scores, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    # Exclusive cumulative sum: a token is kept while the mass before it < p.
+    num_keep = ((cum - probs) < p).sum(dim=-1, keepdim=True)
+    threshold = sorted_scores.gather(-1, num_keep - 1)
+    return torch.where(scores >= threshold, scores, DISABLE)
+
+
+def sample_noise_shape(rows: int, vocab: int, topk: int):
+    """The shape of the noise ``sample_tokens`` takes: [rows, topk] under a
+    top-k restriction, else [rows, vocab]."""
+    return (rows, topk if 0 < topk < vocab else vocab)
+
+
+def sample_tokens(log_probs, noise, *, topk: int = 1, topp: float = 1.0,
+                  temperature: float = 1.0):
+    """One random draw a row: ``log_probs`` [N, V] log-softmaxed scores,
+    ``noise`` Gumbel noise of ``sample_noise_shape(N, V, topk)``. Returns
+    (ids [N], scores [N]), the scores the picks' log-probs."""
+    V = log_probs.shape[-1]
+    scores = log_probs
+    top_ids = None
+    if 0 < topk < V:
+        scores, top_ids = small_top_k(scores, topk)
+    if temperature != 1.0:
+        scores = _divide(scores, temperature)
+    if topp < 1.0:
+        scores = top_p_mask(scores, topp)
+    # jax.random.categorical: the argmax of the scores plus Gumbel noise.
+    sampled = torch.argmax(scores + noise, dim=-1)
+    ids = sampled if top_ids is None else top_ids.gather(1, sampled[:, None])[:, 0]
+    return ids, log_probs.gather(1, ids[:, None])[:, 0]
+
+
+def draw_gumbel(generator: torch.Generator, shape, device):
+    """Standard Gumbel noise of ``shape`` in float32 on ``device``, drawn
+    from ``generator`` (which lives on that device): -log(-log(u)) of u
+    uniform in [1e-20, 1)."""
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32).clamp_min_(UNIFORM_MIN)
+    return -torch.log(-torch.log(u))
+
+
+def noise_source(seed: int, device):
+    """One call's noise: a function (step, shape, device) -> Gumbel noise,
+    drawn in step order from one ``torch.Generator`` on ``device`` seeded
+    with ``seed``."""
+    generator = torch.Generator(device=device)
+    generator.manual_seed(int(seed))
+
+    def noise(step: int, shape, device):
+        return draw_gumbel(generator, shape, device)
+
+    return noise
+
+
+def truncated_probabilities(log_probs, topk: int, topp: float, temperature: float):
+    """The distribution ``sample_tokens`` draws from for one row of
+    ``log_probs``, in float64 numpy: the top-k words, tempered, renormalized,
+    cut to the nucleus and renormalized again (the plain reference that
+    frequency checks hold the sampler's draws to)."""
+    p = np.exp(np.asarray(log_probs, np.float64))
+    order = np.argsort(-p, kind="stable")
+    keep = order[:topk] if topk else order
+    w = np.exp(np.log(p[keep]) / temperature)
+    w /= w.sum()
+    nucleus = keep[(np.cumsum(w) - w) < topp]
+    w = np.exp(np.log(p[nucleus]) / temperature)
+    out = np.zeros_like(p)
+    out[nucleus] = w / w.sum()
+    return out

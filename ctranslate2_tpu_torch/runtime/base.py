@@ -7,6 +7,9 @@ from __future__ import annotations
 
 import dataclasses
 
+from .batching import rebatch_input
+from .results import AsyncResult
+
 
 class TaskAPIMixin:
     """Mixin for classes owning ``self.model`` (LoadedModel) and
@@ -22,6 +25,29 @@ class TaskAPIMixin:
         if kwargs.get("flash_attention"):
             self.model.arch = dataclasses.replace(
                 self.model.arch, flash_min_len=0)
+
+    def _run_batches(self, results, compute_idx, lengths, max_batch_size,
+                     batch_type, run, asynchronous):
+        """Runs ``run(rows)`` on the worker pool for the rows ``compute_idx``
+        of a call (``lengths`` theirs), rebatched longest first; ``run``
+        returns one result a row, in order. ``results`` holds one entry a
+        row of the call, those outside ``compute_idx`` done already.
+        Returns ``results`` filled, or one AsyncResult a row when
+        ``asynchronous``."""
+        async_results = [None if r is None else AsyncResult(r) for r in results]
+        futures = []
+        for batch in rebatch_input(lengths, max_batch_size, batch_type):
+            rows = [compute_idx[j] for j in batch]
+            future = self._pool.submit(run, rows)
+            futures.append((rows, future))
+            for pos, i in enumerate(rows):
+                async_results[i] = AsyncResult(future, pos)
+        if asynchronous:
+            return async_results
+        for rows, future in futures:
+            for i, out in zip(rows, future.result()):
+                results[i] = out
+        return results
 
     @property
     def compute_type(self) -> str:

@@ -8,6 +8,7 @@ as the JAX package does, so both packages see the same padded inputs.
 
 from __future__ import annotations
 
+import numbers
 from typing import List, Sequence, Tuple
 
 
@@ -68,3 +69,25 @@ def pad_batch(
     max_len = round_up(max_len, length_multiple)
     padded = [list(x) + [pad_id] * (max_len - len(x)) for x in ids]
     return padded, lengths
+
+
+def normalize_input_ids(inputs, vocab, lengths=None):
+    """Coerce a forward_batch input (a batch of token strings, a batch of
+    token ids, or a dense id array or tensor: the reference's BatchTokens /
+    BatchIds / StorageView variants) into a list of id lists.
+
+    ``lengths`` (only meaningful for a dense array, which carries no
+    natural per-row length) trims each row to its true length, so padding
+    is not attended or scored as real tokens.
+    """
+    if hasattr(inputs, "shape"):
+        rows = inputs.tolist()
+        if lengths is not None:
+            rows = [row[:int(n)] for row, n in zip(rows, lengths)]
+        return rows
+    if lengths is not None:
+        raise ValueError(
+            "lengths is only accepted with a dense id array input")
+    return [[int(t) if isinstance(t, numbers.Integral) else vocab.to_id(t)
+             for t in seq]
+            for seq in inputs]

@@ -3,9 +3,11 @@
 src/models/language_model.cc:105-300).
 
 Runs on one CUDA card by default, or on the CPU when ``device="cpu"``.
-``static_prompt``, ``callback``, ``return_alternatives``, ``speculation_k``,
-random sampling, ``return_logits_vocab``, ``score_batch``, ``forward_batch``
-and the streaming helpers are not ported yet.
+``generate_batch`` (beam or greedy, argmax or random sampling),
+``score_batch``, ``forward_batch`` and ``score_iterable`` are ported;
+``static_prompt``, ``callback``, ``return_alternatives``,
+``speculation_k``, ``return_logits_vocab``, ``generate_tokens`` and
+``generate_iterable`` are not yet.
 """
 
 from __future__ import annotations
@@ -20,9 +22,10 @@ from ..decoding.options import DecodingOptions
 from ..models import transformer as T
 from ..models.loader import LoadedModel, load_model, resolve_device
 from .base import TaskAPIMixin
-from .batching import rebatch_input
+from .batching import normalize_input_ids, pad_batch
 from .pool import WorkerPool, resolve_max_queued_batches
-from .results import AsyncResult, GenerationResult
+from .results import GenerationResult, ScoringResult
+from .scoring import teacher_forced_logits, teacher_forced_scores
 
 
 class Generator(TaskAPIMixin):
@@ -114,7 +117,6 @@ class Generator(TaskAPIMixin):
             ("return_alternatives", return_alternatives),
             ("return_logits_vocab", return_logits_vocab),
             ("speculation_k", speculation_k > 1),
-            ("random sampling", sampling_topk != 1 or sampling_topp < 1.0),
         ) if on]
         if unported:
             raise NotImplementedError("not ported yet: " + ", ".join(unported))
@@ -135,32 +137,23 @@ class Generator(TaskAPIMixin):
             return_end_token=return_end_token,
             max_length=max_length,
             min_length=min_length,
+            sampling_topk=sampling_topk,
+            sampling_topp=sampling_topp,
+            sampling_temperature=sampling_temperature,
             num_hypotheses=num_hypotheses,
             return_scores=return_scores,
             return_prefix=True,
+            seed=seed,
         )
 
-        results: List[Optional[GenerationResult]] = [None] * len(start_tokens)
-        batches = rebatch_input(
-            [len(s) for s in start_tokens], max_batch_size, batch_type)
-        if not batches:
-            batches = [list(range(len(start_tokens)))]
-        async_results: List[Optional[AsyncResult]] = [None] * len(start_tokens)
-        futures = []
-        for batch in batches:
-            future = self._pool.submit(
-                self._generate, [start_tokens[i] for i in batch], options,
-                end_ids, include_prompt_in_result)
-            futures.append((batch, future))
-            for pos, i in enumerate(batch):
-                async_results[i] = AsyncResult(future, pos)
-        if asynchronous:
-            return async_results
-        for batch, future in futures:
-            out = future.result()
-            for pos, i in enumerate(batch):
-                results[i] = out[pos]
-        return results
+        def run(rows):
+            return self._generate([start_tokens[i] for i in rows], options,
+                                  end_ids, include_prompt_in_result)
+
+        return self._run_batches([None] * len(start_tokens),
+                                 list(range(len(start_tokens))),
+                                 [len(s) for s in start_tokens], max_batch_size,
+                                 batch_type, run, asynchronous)
 
     def _resolve_end_token(self, end_token) -> tuple:
         v = self._vocab
@@ -246,11 +239,64 @@ class Generator(TaskAPIMixin):
 
     # ------------------------------------------------------------------
 
-    def score_batch(self, *args, **kwargs):
-        raise NotImplementedError("Generator.score_batch is not ported yet")
+    def score_iterable(self, tokens, max_batch_size: int = 64, **kwargs):
+        from .extensions import score_iterable
 
-    def forward_batch(self, *args, **kwargs):
-        raise NotImplementedError("Generator.forward_batch is not ported yet")
+        return score_iterable(self, tokens, None, max_batch_size, **kwargs)
+
+    def score_batch(
+        self,
+        tokens: Sequence[Sequence[str]],
+        *,
+        max_batch_size: int = 0,
+        batch_type: str = "examples",
+        max_input_length: int = 1024,
+        offset: int = 0,
+        asynchronous: bool = False,
+    ) -> List[ScoringResult]:
+        """The log-prob of every token after the first given the ones
+        before it, from token ``offset`` on; rows of fewer than 2 tokens
+        score nothing."""
+        results: List[Optional[ScoringResult]] = [
+            None if len(t) >= 2 else ScoringResult() for t in tokens]
+        compute_idx = [i for i, t in enumerate(tokens) if len(t) >= 2]
+        def run(rows):
+            return self._score_rows([tokens[i] for i in rows], max_input_length,
+                                    offset)
+
+        return self._run_batches(results, compute_idx,
+                                 [len(tokens[i]) for i in compute_idx],
+                                 max_batch_size, batch_type, run, asynchronous)
+
+    def _score_rows(self, rows, max_input_length, offset):
+        v = self._vocab
+        ids = [[v.to_id(t) for t in row][:max_input_length] for row in rows]
+        scores = teacher_forced_scores(self.model, ids)
+        return [ScoringResult(
+                    tokens=[v.to_token(t) for t in row[1 + max(offset, 0):]],
+                    tokens_score=scores[i][max(offset, 0):len(row) - 1])
+                for i, row in enumerate(ids)]
+
+    def forward_batch(self, inputs, lengths=None,
+                      return_log_probs: bool = False):
+        """Full-sequence logits [B, T, V] (reference:
+        src/models/language_model.cc:279-299), T the longest row padded to
+        a multiple of 8 (at least 8), on the model's device; float32
+        log-probs with ``return_log_probs``.
+
+        ``inputs``: a batch of token strings, a batch of token ids, or a
+        dense id array or tensor (the reference's BatchTokens / BatchIds /
+        StorageView variants, python/cpp/generator.cc:99-115); ``lengths``
+        gives a dense array's true row lengths."""
+        model = self.model
+        ids = normalize_input_ids(inputs, self._vocab, lengths)
+        padded, lengths = pad_batch(ids, length_multiple=8, min_length=8)
+        logits = teacher_forced_logits(
+            model, torch.tensor(padded, dtype=torch.long, device=model.device),
+            torch.tensor(lengths, dtype=torch.long, device=model.device))
+        if return_log_probs:
+            return torch.log_softmax(logits.float(), dim=-1)
+        return logits
 
     def generate_tokens(self, *args, **kwargs):
         raise NotImplementedError("Generator.generate_tokens is not ported yet")

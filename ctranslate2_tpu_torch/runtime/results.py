@@ -1,7 +1,6 @@
 """User-facing result types (parity with reference:
 include/ctranslate2/translation.h:88-130,
-include/ctranslate2/generation.h). The scoring result comes with its
-slice."""
+include/ctranslate2/generation.h, include/ctranslate2/scoring.h)."""
 
 from __future__ import annotations
 
@@ -65,6 +64,21 @@ class GenerationResult:
     def __repr__(self):
         return (f"GenerationResult(sequences={self.sequences!r}, "
                 f"scores={self.scores!r})")
+
+
+@dataclass
+class ScoringResult:
+    tokens: List[str] = field(default_factory=list)
+    tokens_score: List[float] = field(default_factory=list)
+
+    def normalized_score(self) -> float:
+        num_tokens = len(self.tokens_score)
+        if num_tokens == 0:
+            return 0.0
+        return sum(self.tokens_score) / num_tokens
+
+    def cumulated_score(self) -> float:
+        return sum(self.tokens_score)
 
 
 class AsyncResult:

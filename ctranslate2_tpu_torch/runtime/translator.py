@@ -3,8 +3,10 @@
 src/models/sequence_to_sequence.cc:304-470).
 
 Runs on one CUDA card by default, or on the CPU when ``device="cpu"``.
-``score_batch``, ``translate_file``, ``use_vmap`` and the options that
-need a host-side decode loop are not ported yet.
+``translate_batch`` (beam or greedy, argmax or random sampling),
+``score_batch`` and ``score_iterable`` are ported; ``translate_file``,
+``translate_iterable``, ``use_vmap`` and the options that need a host-side
+decode loop are not yet.
 """
 
 from __future__ import annotations
@@ -19,10 +21,12 @@ from ..decoding.engine import DecodingEngine
 from ..decoding.options import DecodingOptions
 from ..models import transformer as T
 from ..models.loader import LoadedModel, load_model, resolve_device
+from ..ops import attention as attn_ops
 from .base import TaskAPIMixin
-from .batching import bucket_length, pad_batch, rebatch_input
+from .batching import bucket_length, pad_batch
 from .pool import WorkerPool, resolve_max_queued_batches
-from .results import AsyncResult, TranslationResult
+from .results import AsyncResult, ScoringResult, TranslationResult
+from .scoring import teacher_forced_scores
 
 # Source-factor separator (reference: include/ctranslate2/utils.h:33).
 FEATURES_SEPARATOR = "￨"
@@ -105,6 +109,13 @@ class Translator(TaskAPIMixin):
                 "are loaded")
         return extract_features(source, num_features)
 
+    def _make_source_ids(self, source: Sequence[Sequence[str]],
+                         max_input_length: int):
+        """(Possibly ``￨``-factored) source tokens as per-feature id
+        batches, [F][B][T]."""
+        return self._ids_from_streams(
+            self._source_feature_streams(source), max_input_length)
+
     def _ids_from_streams(self, streams, max_input_length: int):
         cfg = self.model.config
         return [
@@ -170,7 +181,6 @@ class Translator(TaskAPIMixin):
             ("return_logits_vocab", return_logits_vocab),
             ("coverage_penalty", coverage_penalty != 0),
             ("prefix_bias_beta", prefix_bias_beta > 0),
-            ("random sampling", sampling_topk != 1 or sampling_topp < 1.0),
         ) if on]
         if unported:
             raise NotImplementedError("not ported yet: " + ", ".join(unported))
@@ -205,6 +215,9 @@ class Translator(TaskAPIMixin):
             return_end_token=return_end_token,
             max_length=max_decoding_length,
             min_length=min_decoding_length,
+            sampling_topk=sampling_topk,
+            sampling_topp=sampling_topp,
+            sampling_temperature=sampling_temperature,
             num_hypotheses=num_hypotheses,
             return_scores=return_scores,
             return_prefix=True,
@@ -221,28 +234,15 @@ class Translator(TaskAPIMixin):
             else:
                 compute_idx.append(i)
 
-        batches = rebatch_input(
-            [len(source[i]) for i in compute_idx], max_batch_size, batch_type)
-        async_results = [None if r is None else AsyncResult(r) for r in results]
-        futures = []
-        for batch in batches:
-            idx = [compute_idx[j] for j in batch]
-            batch_prefix = ([target_prefix[i] for i in idx]
-                            if target_prefix else None)
-            future = self._pool.submit(
-                self._translate_padded, [source[i] for i in idx],
-                batch_prefix, options, max_input_length, end_ids)
-            futures.append((idx, future))
-            for pos, i in enumerate(idx):
-                async_results[i] = AsyncResult(future, pos)
+        def run(rows):
+            return self._translate_padded(
+                [source[i] for i in rows],
+                [target_prefix[i] for i in rows] if target_prefix else None,
+                options, max_input_length, end_ids)
 
-        if asynchronous:
-            return async_results
-        for idx, future in futures:
-            out = future.result()
-            for pos, i in enumerate(idx):
-                results[i] = out[pos]
-        return results
+        return self._run_batches(results, compute_idx,
+                                 [len(source[i]) for i in compute_idx],
+                                 max_batch_size, batch_type, run, asynchronous)
 
     def _resolve_end_token(self, end_token) -> tuple:
         tv = self._target_vocab
@@ -285,9 +285,8 @@ class Translator(TaskAPIMixin):
     def _translate_padded(self, source, target_prefix, options,
                           max_input_length, end_ids):
         tv = self._target_vocab
-        streams = self._source_feature_streams(source)
-        feature_ids = self._ids_from_streams(streams, max_input_length)
-        enc_ids, enc_lengths = self._pad_feature_ids(feature_ids)
+        enc_ids, enc_lengths = self._pad_feature_ids(
+            self._make_source_ids(source, max_input_length))
 
         start_id = self._decoder_start_id()
         prefix_ids = None
@@ -312,3 +311,78 @@ class Translator(TaskAPIMixin):
                 scores=dr.scores if options.return_scores else [])
             for dr in dec_results
         ]
+
+    # ------------------------------------------------------------------
+    # Scoring (reference: src/scoring.cc:5-68).
+    # ------------------------------------------------------------------
+
+    def score_iterable(self, source, target, max_batch_size: int = 64,
+                       **kwargs):
+        from .extensions import score_iterable
+
+        return score_iterable(self, source, target, max_batch_size, **kwargs)
+
+    def score_batch(
+        self,
+        source: Sequence[Sequence[str]],
+        target: Sequence[Sequence[str]],
+        *,
+        max_batch_size: int = 0,
+        batch_type: str = "examples",
+        max_input_length: int = 1024,
+        offset: int = 0,
+        asynchronous: bool = False,
+    ) -> List[ScoringResult]:
+        """The log-prob of every target token (and of the final EOS) given
+        the source. ``offset`` is accepted and ignored, as in the JAX
+        package."""
+        tv = self._target_vocab
+        start_id = self._decoder_start_id()
+        results: List[Optional[ScoringResult]] = [None] * len(source)
+
+        # Empty sources score 0.0 on every target token without running
+        # the model.
+        compute_idx = []
+        for i in range(len(source)):
+            if len(self._make_source_ids([source[i]], max_input_length)[0][0]) == 0:
+                ids = tv.tokens_to_ids([target[i]], max_input_length)[0]
+                results[i] = ScoringResult(tokens=[tv.to_token(t) for t in ids],
+                                           tokens_score=[0.0] * len(ids))
+            else:
+                compute_idx.append(i)
+
+        def run(rows):
+            return self._score_padded([source[i] for i in rows],
+                                      [target[i] for i in rows], max_input_length,
+                                      start_id)
+
+        return self._run_batches(results, compute_idx,
+                                 [len(source[i]) for i in compute_idx],
+                                 max_batch_size, batch_type, run, asynchronous)
+
+    def _score_padded(self, source, target, max_input_length, start_id):
+        model = self.model
+        tv = self._target_vocab
+        qa = model.policy.quantize_activations
+        enc_ids, enc_lengths = self._pad_feature_ids(
+            self._make_source_ids(source, max_input_length))
+        main_ids = enc_ids[0] if isinstance(enc_ids, tuple) else enc_ids
+        consts = model.ensure_consts(main_ids.shape[1])
+        memory = T.encoder_forward(model.arch, model.params, consts,
+                                   enc_ids, enc_lengths, quantize_acts=qa,
+                                   out_dtype=model.out_dtype)
+        mem_kv = T.precompute_memory(model.arch, model.params, memory,
+                                     quantize_acts=qa)
+        mem_bias = attn_ops.length_mask_bias(enc_lengths, memory.shape[1])
+
+        # The full target sequence: start + tokens + EOS.
+        full_ids = []
+        for t in target:
+            ids = tv.tokens_to_ids([t], max_input_length)[0]
+            full_ids.append(([start_id] if start_id is not None else [])
+                            + ids + [tv.eos_id])
+        scores = teacher_forced_scores(model, full_ids, mem_kv, mem_bias)
+        return [ScoringResult(tokens=[tv.to_token(t) for t in seq[1:]],
+                              tokens_score=scores[i][:len(seq) - 1])
+                for i, seq in enumerate(full_ids)]
+

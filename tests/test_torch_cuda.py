@@ -14,6 +14,12 @@ epilogue is the same two IEEE f32 operations);
 the gather must be equal. The flash, int8-KV decode, norm and W4 kernels
 sum floats in another order than their plain versions and are held to the
 tolerances below.
+
+It also holds the teacher-forced entry points (``score_batch``,
+``forward_batch``, the Encoder) and random sampling on the card against the
+port on the CPU, and the sampler's frequencies on the card; and the
+JAX-free helpers other test files share: ``build_bert_model`` (a BERT-style
+encoder-only model) and the sampler's expected frequencies.
 """
 
 import math
@@ -24,7 +30,10 @@ import torch
 
 import ctranslate2_tpu_torch as tt
 from ctranslate2_tpu_torch import kernels
-from ctranslate2_tpu_torch.converters.builder import build_decoder_only_model
+from ctranslate2_tpu_torch.converters.builder import (
+    ACTIVATION_IDS, SpecBuilder, build_decoder_only_model, build_seq2seq_model,
+    default_vocab)
+from ctranslate2_tpu_torch.decoding import sampling
 from ctranslate2_tpu_torch.kernels.decode_attention import (
     decode_attention_int8, decode_attention_int8_plain, quantize_kv)
 from ctranslate2_tpu_torch.kernels.flash_attention import (
@@ -1101,3 +1110,233 @@ def test_awq_generator_on_card_matches_cpu(awq_decoder, monkeypatch, packed, bea
     for o, r in zip(out, ref):
         assert o.sequences_ids == r.sequences_ids
         np.testing.assert_allclose(o.scores, r.scores, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# Shared helpers: a BERT-style model and the sampler's expected frequencies.
+# ---------------------------------------------------------------------------
+
+
+def build_bert_model(directory, *, vocab_size, num_layers, num_heads, d_model,
+                     d_ff, max_positions, type_vocab_size=2, seed=11,
+                     quantization=None, pooler=True):
+    """A BERT-style ``TransformerEncoderSpec`` directory with random weights
+    from ``seed``, laid out as the JAX package's Transformers converter
+    writes BERT: post-norm layers, word and token-type embeddings merged by
+    addition, learned positions, ``layernorm_embedding``, no output norm,
+    a ``pooler_dense`` head with tanh."""
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape, scale=0.05):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    b = SpecBuilder("TransformerEncoderSpec", 1)
+    sc = "encoder"
+    b.add_attr(f"{sc}/num_heads", num_heads, "int16")
+    b.add_attr(f"{sc}/pre_norm", 0, "int8")
+    # What the converter writes for BERT's hidden_act "gelu".
+    b.add_attr(f"{sc}/activation", ACTIVATION_IDS["gelu_tanh"], "int8")
+    b.add_attr(f"{sc}/embeddings_merge", 1, "int8")  # add
+    b.add_attr(f"{sc}/scale_embeddings", 0, "int8")
+    b.add(f"{sc}/embeddings_0/weight", rand(vocab_size, d_model, scale=0.5))
+    b.add(f"{sc}/embeddings_1/weight", rand(type_vocab_size, d_model, scale=0.5))
+    b.add(f"{sc}/position_encodings/encodings", rand(max_positions, d_model, scale=0.5))
+
+    def layer_norm(scope):
+        b.add(f"{scope}/gamma", 1.0 + rand(d_model))
+        b.add(f"{scope}/beta", rand(d_model))
+
+    def dense(scope, out_dim, in_dim):
+        b.add(f"{scope}/weight", rand(out_dim, in_dim))
+        b.add(f"{scope}/bias", rand(out_dim))
+
+    layer_norm(f"{sc}/layernorm_embedding")
+    for i in range(num_layers):
+        ls = f"{sc}/layer_{i}"
+        dense(f"{ls}/self_attention/linear_0", 3 * d_model, d_model)
+        dense(f"{ls}/self_attention/linear_1", d_model, d_model)
+        layer_norm(f"{ls}/self_attention/layer_norm")
+        dense(f"{ls}/ffn/linear_0", d_ff, d_model)
+        dense(f"{ls}/ffn/linear_1", d_model, d_ff)
+        layer_norm(f"{ls}/ffn/layer_norm")
+    if pooler:
+        dense("pooler_dense", d_model, d_model)
+        b.add_attr("pooler_activation", ACTIVATION_IDS["tanh"], "int8")
+    b.quantize(quantization)
+    b.save(directory, config={"unk_token": "<unk>", "bos_token": "<s>",
+                              "eos_token": "</s>", "layer_norm_epsilon": 1e-12},
+           vocabulary=default_vocab(vocab_size))
+    return directory
+
+
+def assert_frequencies(ids, expected, rows, sigmas=5.0):
+    """Each word's count within ``sigmas`` standard errors of its expected
+    count; no word of probability 0 drawn."""
+    counts = np.bincount(ids, minlength=len(expected))
+    assert counts[expected == 0].sum() == 0
+    mean = rows * expected
+    sd = np.sqrt(rows * expected * (1 - expected))
+    assert np.all(np.abs(counts - mean) <= sigmas * sd + 1e-9), (counts, mean)
+
+
+def draw_samples(log_probs, rows, topk, topp, temperature, seed=9):
+    """``rows`` draws from one distribution by ``sample_tokens``, with
+    ``noise_source`` on its device."""
+    V = log_probs.shape[-1]
+    batch = log_probs.expand(rows, V).contiguous()
+    noise = sampling.noise_source(seed, log_probs.device)
+    ids, scores = sampling.sample_tokens(
+        batch, noise(0, sampling.sample_noise_shape(rows, V, topk), log_probs.device),
+        topk=topk, topp=topp, temperature=temperature)
+    assert torch.equal(scores, log_probs[ids])
+    return ids
+
+
+# ---------------------------------------------------------------------------
+# Sampling, scoring and the Encoder on the card.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["sample_tokens"])
+def test_sampler_frequencies_on_card(sampler):
+    """100,000 draws from one 1,000-word distribution under top-k 50, top-p
+    0.9 and temperature 0.7, with the card's own noise."""
+    dev = _card()
+    rows, topk, topp, temperature = 100_000, 50, 0.9, 0.7
+    g = torch.Generator().manual_seed(6)
+    lp = torch.log_softmax(torch.randn(1000, generator=g) * 2.0, -1).to(dev)
+    ids = draw_samples(lp, rows, topk, topp, temperature)
+    assert_frequencies(ids.cpu().numpy(), sampling.truncated_probabilities(
+        lp.cpu().numpy(), topk, topp, temperature), rows)
+
+
+@pytest.mark.cuda
+def test_noise_source_on_card_is_deterministic():
+    dev = _card()
+    a, b = sampling.noise_source(3, dev), sampling.noise_source(3, dev)
+    x, y = a(0, (4, 1000), dev), b(0, (4, 1000), dev)
+    assert x.is_cuda and torch.equal(x, y)
+    assert not torch.equal(a(1, (4, 1000), dev), x)
+
+
+_NOISE_SOURCE = sampling.noise_source
+
+
+def _shared_noise(seed, device):
+    """Noise drawn on the CPU and moved to ``device``: the card and the CPU
+    get the same draws."""
+    cpu = _NOISE_SOURCE(seed, "cpu")
+    return lambda step, shape, dev: cpu(step, shape, "cpu").to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [
+    dict(sampling_topk=10), dict(sampling_topk=0, sampling_topp=0.9,
+                                 sampling_temperature=0.8),
+    dict(sampling_topk=20, num_hypotheses=3)], ids=["topk", "topp", "replicas"])
+@pytest.mark.parametrize("kv", ["float", "int8"])
+def test_sampled_generate_on_card_matches_cpu(small_decoder, monkeypatch, kv, opts):
+    """float32, both fed the same noise: the same tokens, scores within the
+    tolerances of test_generator_on_card_matches_cpu."""
+    _card()
+    if kv == "int8":
+        monkeypatch.setenv("CT2TPU_KV_CACHE", "int8")
+    monkeypatch.setattr(sampling, "noise_source", _shared_noise)
+    rng = np.random.default_rng(5)
+    prompts = [[f"tok{int(t)}" for t in rng.integers(0, 190, n)] for n in (40, 33, 37)]
+    kw = dict(max_length=12, include_prompt_in_result=False, return_scores=True,
+              seed=4, **opts)
+    card = tt.Generator(small_decoder, compute_type="float32", flash_attention=True)
+    cpu = tt.Generator(small_decoder, device="cpu", compute_type="float32")
+    kernels.reset_launches()
+    out = card.generate_batch(prompts, **kw)
+    counts = kernels.launch_counts()
+    ref = cpu.generate_batch(prompts, **kw)
+    assert (counts["decode_attention_int8"] > 0) == (kv == "int8")
+    for o, r in zip(out, ref):
+        if kv == "float":
+            assert o.sequences_ids == r.sequences_ids
+            np.testing.assert_allclose(o.scores, r.scores, atol=1e-3)
+        else:
+            np.testing.assert_allclose(o.scores[0], r.scores[0], atol=5e-2)
+
+
+@pytest.mark.cuda
+def test_generator_scoring_on_card_matches_cpu(small_decoder):
+    """float32, ``flash_attention=True``: score_batch and forward_batch run
+    the flash kernel (causal, per-row lengths) and the norm kernel, and
+    agree with the CPU within 1e-3."""
+    _card()
+    rng = np.random.default_rng(7)
+    rows = [[f"tok{int(t)}" for t in rng.integers(0, 190, n)] for n in (40, 2, 37, 61)]
+    card = tt.Generator(small_decoder, compute_type="float32", flash_attention=True)
+    cpu = tt.Generator(small_decoder, device="cpu", compute_type="float32")
+    kernels.reset_launches()
+    out = card.score_batch(rows, offset=1)
+    lp = card.forward_batch(rows, return_log_probs=True)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 4 and counts["fused_norm"] > 0
+    ref = cpu.score_batch(rows, offset=1)
+    for o, r in zip(out, ref):
+        assert o.tokens == r.tokens
+        np.testing.assert_allclose(o.tokens_score, r.tokens_score, atol=1e-3)
+    np.testing.assert_allclose(lp.cpu().numpy(),
+                               cpu.forward_batch(rows, return_log_probs=True).numpy(),
+                               atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_type", ["float32", "int8_float32"])
+def test_translator_scoring_on_card_matches_cpu(tmp_path, compute_type):
+    """Scores within 1e-3 in float32; int8 only launches W8A8 (an activation
+    at a half-step tie may round one step apart on the two devices)."""
+    _card()
+    path = build_seq2seq_model(str(tmp_path / "s2s"), vocab_size=200, d_model=256,
+                               d_ff=512)
+    rng = np.random.default_rng(8)
+    source = [[f"tok{int(t)}" for t in rng.integers(0, 190, n)] for n in (9, 20, 14)]
+    target = [[f"tok{int(t)}" for t in rng.integers(0, 190, n)] for n in (7, 12, 3)]
+    card = tt.Translator(path, compute_type=compute_type)
+    cpu = tt.Translator(path, device="cpu", compute_type=compute_type)
+    kernels.reset_launches()
+    out = card.score_batch(source, target)
+    counts = kernels.launch_counts()
+    ref = cpu.score_batch(source, target)
+    assert counts["fused_norm"] > 0
+    assert (counts["matmul_w8a8"] > 0) == (compute_type != "float32")
+    for o, r in zip(out, ref):
+        assert o.tokens == r.tokens
+        np.testing.assert_allclose(o.tokens_score, r.tokens_score,
+                                   atol=1e-3 if compute_type == "float32" else 5e-2)
+
+
+@pytest.fixture(scope="module")
+def small_bert(tmp_path_factory):
+    return build_bert_model(str(tmp_path_factory.mktemp("bert_cuda")), vocab_size=200,
+                            num_layers=2, num_heads=4, d_model=256, d_ff=512,
+                            max_positions=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flash", [False, True])
+def test_encoder_on_card_matches_cpu(small_bert, flash):
+    """float32: the post-norm BERT layers through the norm kernel (with the
+    residual) and, with ``flash_attention=True``, the flash kernel
+    (non-causal, per-row lengths), within 1e-3 of the CPU."""
+    _card()
+    rng = np.random.default_rng(9)
+    rows = [[f"tok{int(t)}" for t in rng.integers(0, 190, n)] for n in (70, 5, 33)]
+    types = [[int(t) for t in rng.integers(0, 2, len(r))] for r in rows]
+    card = tt.Encoder(small_bert, compute_type="float32", flash_attention=flash)
+    cpu = tt.Encoder(small_bert, device="cpu", compute_type="float32")
+    kernels.reset_launches()
+    out = card.forward_batch(rows, token_type_ids=types)
+    counts = kernels.launch_counts()
+    ref = cpu.forward_batch(rows, token_type_ids=types)
+    assert counts["flash_attention"] == (2 if flash else 0)
+    assert counts["fused_norm"] == 1 + 2 * 2
+    np.testing.assert_allclose(out.last_hidden_state.cpu().numpy(),
+                               ref.last_hidden_state.numpy(), atol=1e-3)
+    np.testing.assert_allclose(out.pooler_output.cpu().numpy(),
+                               ref.pooler_output.numpy(), atol=1e-3)

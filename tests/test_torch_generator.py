@@ -480,17 +480,16 @@ def test_prefill_in_jax_decode_in_port(model_dirs, monkeypatch, kv):
 @pytest.mark.parametrize("option", [
     dict(static_prompt=["tok1"]), dict(callback=lambda step: False),
     dict(return_alternatives=True), dict(speculation_k=4),
-    dict(sampling_topk=5), dict(return_logits_vocab=True)],
+    dict(return_logits_vocab=True)],
     ids=["static_prompt", "callback", "alternatives", "speculation",
-         "sampling", "logits_vocab"])
+         "logits_vocab"])
 def test_unported_generator_options_raise(model_dirs, option):
     tg = tt.Generator(model_dirs["float32"], device="cpu")
     with pytest.raises(NotImplementedError):
         tg.generate_batch(_prompts(), **option)
 
 
-@pytest.mark.parametrize("method", ["score_batch", "forward_batch",
-                                    "generate_tokens", "generate_iterable"])
+@pytest.mark.parametrize("method", ["generate_tokens", "generate_iterable"])
 def test_unported_generator_methods_raise(model_dirs, method):
     tg = tt.Generator(model_dirs["float32"], device="cpu")
     with pytest.raises(NotImplementedError):

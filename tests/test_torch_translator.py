@@ -131,7 +131,7 @@ def test_translator_needs_cuda_unless_cpu_is_asked(model_dirs, monkeypatch):
 @pytest.mark.parametrize("option", [
     dict(return_attention=True), dict(coverage_penalty=0.2),
     dict(prefix_bias_beta=0.5), dict(return_logits_vocab=True),
-    dict(return_alternatives=True), dict(sampling_topk=5), dict(use_vmap=True)])
+    dict(return_alternatives=True), dict(use_vmap=True)])
 def test_unported_options_raise(translators, option):
     _, pt = translators("float32", {})
     with pytest.raises(NotImplementedError):
