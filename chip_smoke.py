@@ -139,6 +139,31 @@ Phases, one JSON object per line:
    Encoder's hidden states and pooler, within ``LOGPROB_TOL``; a sampled
    ``generate_batch`` token-identical with both sides fed the same noise.
 
+10. The host decode loops (each with the launch counters zeroed just
+   before and read just after, the kernels' call shapes logged and their
+   plain versions' calls on the card counted; none allowed):
+   ``host_loop_translator`` (the int8 Translator on a phase-2 batch,
+   ``OPTS``, after ``score_translator``: one timed call each of
+   ``return_attention`` with ``replace_unknowns``, ``coverage_penalty=0.2``,
+   ``prefix_bias_beta=0.5`` on 4-token target prefixes,
+   ``return_logits_vocab``, ``return_alternatives`` with 4 hypotheses on
+   3-token prefixes (the first ``HOST_ALT_SENTENCES`` sentences), ``use_vmap`` with a ``vmap.txt`` written into the
+   model directory (``VMAP_TARGETS`` words of a pool of ``VMAP_POOL`` a
+   source token: about 3,700 candidates a sentence, a 4,096-wide
+   projection), and a ``callback`` at beam 1, beside the device loop's
+   calls; the attention, logits and callback calls give the device loop's
+   hypotheses under ``compare_chain``'s rule, every host beam call launches
+   the gather kernel); ``host_loop_generator`` (the int8 Llama with the
+   int8 KV cache after ``sampling``: a callback's greedy call against the
+   device loop's, token-identical with one callback a token, the decode ms
+   a step of both; every step's vocabulary logits for 8 tokens; a static
+   prompt of 2,048 tokens before 4 prompts of 64, two calls timed to their
+   first token, the second with no flash launch; the alternatives of one
+   prompt) and ``host_loop_card_vs_cpu`` (at ``AB_LAYERS`` layers, float32:
+   every option on the card against the port on the CPU, identical tokens
+   and callbacks, scores, attention and logits within ``LOGPROB_TOL``; the
+   static prompt's tokens equal to the prompt prepended's).
+
 The line before the last is ``{"kernels": [...]}`` (times are sums over
 the ``launches`` counted on the main paths), the last
 ``{"ok": true, "device": {...}}``. The script exits non-zero, without
@@ -261,6 +286,18 @@ SAMPLE_NEW = 32
 SAMPLE_ROWS, SAMPLE_VOCAB = 100_000, 1000
 SAMPLE_OPTS = dict(topk=50, topp=0.9, temperature=0.7)
 FREQ_SIGMAS = 5.0
+# The host decode loops: target-prefix tokens of the prefix-bias and the
+# alternatives calls, alternatives a call, and the vocabulary map's rules
+# (each source token proposes VMAP_TARGETS words of one pool of VMAP_POOL).
+HOST_BIAS_PREFIX = 4
+HOST_ALT_PREFIX = 3
+HOST_ALT_HYPOTHESES = 4
+# Sentences of the alternatives call: one ``decode_alternatives`` each (an
+# interactive user asks for one sentence's), about 1 s a sentence on the
+# card at Transformer-base's widths.
+HOST_ALT_SENTENCES = 8
+VMAP_POOL = 4000
+VMAP_TARGETS = 400
 
 
 STARTED = time.perf_counter()
@@ -1411,9 +1448,10 @@ def environ(**values):
                 os.environ[k] = v
 
 
-def generate_run(gen, prompts, new_tokens=GEN_NEW):
-    """One timed generate_batch call; returns (results, seconds, prefill
-    seconds). The prefill is timed with a device sync on either side."""
+def generate_run(gen, prompts, new_tokens=GEN_NEW, **kwargs):
+    """One timed generate_batch call (``kwargs`` its further options);
+    returns (results, seconds, prefill seconds). The prefill is timed with a
+    device sync on either side."""
     import torch
 
     prefill = []
@@ -1433,7 +1471,8 @@ def generate_run(gen, prompts, new_tokens=GEN_NEW):
     with patched(gen, "_prefill", timed):
         results = gen.generate_batch(
             prompts, include_prompt_in_result=False, beam_size=1,
-            min_length=new_tokens, max_length=new_tokens, return_scores=True)
+            min_length=new_tokens, max_length=new_tokens, return_scores=True,
+            **kwargs)
     torch.cuda.synchronize()
     return results, time.perf_counter() - start, sum(prefill)
 
@@ -2489,20 +2528,27 @@ def sampling_phase(tt, gen, vocab, model_dir, batch, checks, logs):
     emit({"phase": "sampling", **out, "seconds": time.perf_counter() - t0})
 
 
-def teacher_forced_card_vs_cpu(tt, mf, vocab, bert, checks):
+def card_cpu_generators(tt, mf, vocab):
+    """The ``AB_LAYERS``-layer Llama in float32 with ``flash_attention=True``
+    on the card and on the CPU, shared by the card-against-CPU phases."""
+    return (make_generator(tt, mf, vocab, compute_type="float32", flash_attention=True),
+            make_generator(tt, mf, vocab, device="cpu", compute_type="float32",
+                           flash_attention=True))
+
+
+def teacher_forced_card_vs_cpu(tt, generators, vocab, bert, checks):
     """At ``AB_LAYERS`` layers, float32, the card against the port on the
-    CPU: ``score_batch`` and ``forward_batch`` (2 prompts of ``CPU_PROMPT``,
-    flash forced on by ``flash_attention=True``), the Encoder's hidden
-    states and pooler (8 sequences of up to 128, flash on), and a sampled
-    ``generate_batch`` with both fed the same noise (drawn on the CPU)."""
+    CPU (``generators``, from ``card_cpu_generators``): ``score_batch`` and
+    ``forward_batch`` (2 prompts of ``CPU_PROMPT``, flash forced on by
+    ``flash_attention=True``), the Encoder's hidden states and pooler (8
+    sequences of up to 128, flash on), and a sampled ``generate_batch``
+    with both fed the same noise (drawn on the CPU)."""
     import torch
     from ctranslate2_tpu_torch.decoding import sampling
 
     t0 = time.perf_counter()
     prompts = make_prompts(vocab, CPU_PROMPT, 11)[:2]
-    card = make_generator(tt, mf, vocab, compute_type="float32", flash_attention=True)
-    cpu = make_generator(tt, mf, vocab, device="cpu", compute_type="float32",
-                         flash_attention=True)
+    card, cpu = generators
     tt.reset_launches()
     scores = card.score_batch(prompts, max_input_length=CPU_PROMPT)
     lp_card = card.forward_batch(prompts, return_log_probs=True).cpu()
@@ -2535,8 +2581,6 @@ def teacher_forced_card_vs_cpu(tt, mf, vocab, bert, checks):
     checks(same == len(short),
            f"sampled generate card vs CPU, fed the same noise: token-identical "
            f"({same}/{len(short)})")
-    del card, cpu
-    free_card()
 
     enc_card = tt.Encoder(bert, compute_type="float32", flash_attention=True)
     enc_cpu = tt.Encoder(bert, device="cpu", compute_type="float32")
@@ -2559,6 +2603,399 @@ def teacher_forced_card_vs_cpu(tt, mf, vocab, bert, checks):
           "encoder_hidden_max_abs_diff": h_diff, "encoder_pooler_max_abs_diff": p_diff,
           "tolerance": LOGPROB_TOL, "card_launches": counts,
           "encoder_card_launches": enc_counts, "seconds": time.perf_counter() - t0})
+
+
+# ---------------------------------------------------------------------------
+# The host decode loops.
+# ---------------------------------------------------------------------------
+
+
+def write_vmap(model_dir, sources, vocab):
+    """A ``vmap.txt`` whose rules cover the tokens of ``sources``: each
+    proposes ``VMAP_TARGETS`` words drawn from one pool of ``VMAP_POOL``, so
+    a sentence of 20-30 tokens gets about 3,700 candidates and a batch at
+    most the pool (with <unk>, <s> and </s>)."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    pool = rng.choice(np.arange(3, len(vocab)), VMAP_POOL, replace=False)
+    with open(os.path.join(model_dir, "vmap.txt"), "w", encoding="utf-8") as f:
+        for token in sorted({t for s in sources for t in s}):
+            targets = rng.choice(pool, VMAP_TARGETS, replace=False)
+            f.write(token + "\t" + " ".join(vocab.to_token(int(t)) for t in targets)
+                    + "\n")
+
+
+def same_hypotheses(host, device, label, checks):
+    """``compare_chain``'s rule (``CHAIN_SAME_SHARE["int8"]``, ``SCORE_TOL``)
+    for a host-loop call against the device loop's call on the same batch."""
+    cmp = compare_chain(host, device)
+    checks(cmp["identical"] >= CHAIN_SAME_SHARE["int8"] * cmp["sentences"]
+           and cmp["best_score_max_abs_diff"] <= SCORE_TOL,
+           f"{label}: the device loop's hypotheses ({cmp['identical']}/"
+           f"{cmp['sentences']} identical, best-score diff "
+           f"{cmp['best_score_max_abs_diff']})")
+    return cmp
+
+
+def unknowns_restored(host, device, sources, label, checks):
+    """``replace_unknowns``: the host call's hypotheses are the device
+    loop's with every <unk> replaced by a source token. Returns the host
+    results with those tokens put back to <unk> (for ``same_hypotheses``)
+    and the count of replaced tokens."""
+    import copy
+
+    restored, replaced, ok = [], 0, True
+    for h, d, src in zip(host, device, sources):
+        r = copy.copy(h)
+        r.hypotheses = []
+        for hyp, dev in zip(h.hypotheses, d.hypotheses + [None] * len(h.hypotheses)):
+            back = list(hyp)
+            for t, tok in enumerate(hyp):
+                if dev is not None and t < len(dev) and dev[t] == "<unk>":
+                    ok &= tok in src
+                    back[t] = "<unk>"
+                    replaced += 1
+            r.hypotheses.append(back)
+        restored.append(r)
+    checks(ok and not any("<unk>" in hyp for h in host for hyp in h.hypotheses),
+           f"{label}: every <unk> replaced by a source token ({replaced})")
+    return restored, replaced
+
+
+def attention_checks(results, sources, label, checks):
+    """Attention rows: one a target token, non-negative, the source's
+    length, each summing to 1 within 1e-3."""
+    worst, ok = 0.0, True
+    for r, src in zip(results, sources):
+        ok &= len(r.attention) == len(r.hypotheses)
+        for hyp, attn in zip(r.hypotheses, r.attention):
+            ok &= len(attn) == len(hyp) and all(len(row) == len(src) for row in attn)
+            for row in attn:
+                ok &= min(row) >= 0
+                worst = max(worst, abs(sum(row) - 1.0))
+    checks(ok and worst <= 1e-3,
+           f"{label}: attention rows non-negative, of the source's length, summing "
+           f"to 1 within 1e-3 (worst {worst})")
+    return worst
+
+
+def count_delta(after, before):
+    return {k: after[k] - before.get(k, 0) for k in after if after[k] - before.get(k, 0)}
+
+
+def host_loop_translator(tt, model_dir, vocab, batch, checks, logs):
+    """The int8 Transformer-base Translator's host loops on the 64 sentences
+    of a phase-2 batch (``OPTS``: beam 2, 32 target tokens), one timed call
+    of each option, beside the device loop's call (chain mask on, and off)
+    in the same run."""
+    import numpy as np
+
+    write_vmap(model_dir, batch, vocab)
+    tr = tt.Translator(model_dir, compute_type="int8")
+    greedy = dict(OPTS, beam_size=1)
+    device, device_s = synced_seconds(lambda: tr.translate_batch(batch, **OPTS))
+    with chain_off():
+        device_off, device_off_s = synced_seconds(lambda: tr.translate_batch(batch, **OPTS))
+    device_greedy, device_greedy_s = synced_seconds(
+        lambda: tr.translate_batch(batch, **greedy))
+    bias_prefix = [h.hypotheses[0][:HOST_BIAS_PREFIX] for h in device]
+    alt_batch = batch[:HOST_ALT_SENTENCES]
+    alt_prefix = [h.hypotheses[0][:HOST_ALT_PREFIX] for h in device[:HOST_ALT_SENTENCES]]
+    steps = []
+
+    def callback(step):
+        steps.append((step.batch_id, step.step, step.token, step.is_last))
+
+    calls = {  # name: (sentences, target prefix, options)
+        "attention": (batch, None, dict(OPTS, return_attention=True,
+                                        replace_unknowns=True)),
+        "coverage": (batch, None, dict(OPTS, coverage_penalty=0.2)),
+        "prefix_bias": (batch, bias_prefix, dict(OPTS, prefix_bias_beta=0.5)),
+        "logits": (batch, None, dict(OPTS, return_logits_vocab=True)),
+        "alternatives": (alt_batch, alt_prefix, dict(
+            OPTS, return_alternatives=True, num_hypotheses=HOST_ALT_HYPOTHESES)),
+        "vmap": (batch, None, dict(OPTS, use_vmap=True)),
+        "callback": (batch, None, dict(greedy, callback=callback)),
+    }
+    plain, results, out = {}, {}, {}
+    with watched(logs, plain):
+        for name, (sentences, prefix, opts) in calls.items():
+            before = tt.launch_counts()
+            results[name], seconds = synced_seconds(
+                lambda: tr.translate_batch(sentences, prefix, **opts))
+            tokens = sum(len(h) for r in results[name] for h in r.hypotheses)
+            out[name] = {"sentences": len(sentences), "seconds": seconds,
+                         "target_tokens": tokens,
+                         "target_tokens_per_s": tokens / seconds,
+                         "launches": count_delta(tt.launch_counts(), before)}
+        total = tt.launch_counts()
+    os.remove(os.path.join(model_dir, "vmap.txt"))
+
+    label = "host_loop_translator"
+    for name in ("attention", "coverage", "prefix_bias", "logits", "alternatives"):
+        checks(out[name]["launches"].get("gather_rows_fused", 0) > 0,
+               f"{label} {name}: the beam call launched the gather kernel "
+               f"({out[name]['launches'].get('gather_rows_fused', 0)})")
+    attn = results["attention"]
+    restored, out["attention"]["unknowns_replaced"] = unknowns_restored(
+        attn, device_off, batch, f"{label} attention", checks)
+    out["attention"]["vs_device_loop"] = same_hypotheses(
+        restored, device_off, f"{label} attention", checks)
+    out["attention"]["attention_row_sum_worst_abs_diff"] = attention_checks(
+        attn, batch, f"{label} attention", checks)
+    out["logits"]["vs_device_loop"] = same_hypotheses(
+        results["logits"], device_off, f"{label} logits", checks)
+    widths = {tuple(np.asarray(l).shape) for r in results["logits"]
+              for ls in r.logits for l in ls}
+    checks(widths == {(MODEL["vocab_size"],)}
+           and all(len(ls) == 1 for r in results["logits"] for ls in r.logits)
+           and all(len(r.logits) == len(r.hypotheses) for r in results["logits"]),
+           f"{label} logits: one vocabulary-wide vector a hypothesis, its last step "
+           f"({widths})")
+    out["callback"]["vs_device_loop"] = same_hypotheses(
+        results["callback"], device_greedy, f"{label} callback", checks)
+    emitted = sum(len(r.hypotheses[0]) for r in results["callback"])
+    lasts = sorted((b, s) for b, s, _, last in steps if last)
+    row_ends = sorted((b, max(s for bb, s, _, _ in steps if bb == b))
+                      for b in {b for b, _, _, _ in steps})
+    checks(len(steps) == emitted and lasts == row_ends and len(lasts) == len(batch),
+           f"{label} callback: one callback a token ({len(steps)} for {emitted}), "
+           f"is_last on each row's last")
+    checks(all(len(r.hypotheses[0]) == MAX_DEC and math.isfinite(r.scores[0])
+               for name in ("coverage", "prefix_bias", "vmap") for r in results[name]),
+           f"{label}: coverage, prefix-bias and vmap calls give {MAX_DEC} tokens and "
+           f"finite scores")
+    alt_ok = True
+    for r, p in zip(results["alternatives"], alt_prefix):
+        alt_ok &= len(r.hypotheses) == HOST_ALT_HYPOTHESES and all(
+            h[:len(p)] == p for h in r.hypotheses)
+        alt_ok &= len({h[len(p)] for h in r.hypotheses}) == len(r.hypotheses)
+    checks(alt_ok, f"{label} alternatives: {HOST_ALT_HYPOTHESES} a sentence, each "
+                   f"starting with its prefix, all parting right after it")
+    sentence_candidates = [len(tr._vmap.get_candidates([s])) for s in batch]
+    allowed = set(tr._vmap.get_candidates(batch))
+    used = {vocab.to_id(t) for r in results["vmap"] for h in r.hypotheses for t in h}
+    checks(used <= allowed, f"{label} vmap: every token a candidate "
+                            f"({len(used - allowed)} outside)")
+    out["vmap"].update(candidates_per_sentence=[min(sentence_candidates),
+                                                max(sentence_candidates)],
+                       candidates_call=len(allowed),
+                       projection_width=-(-len(allowed) // 256) * 256)
+    out["prefix_bias"]["rows_keeping_the_prefix"] = sum(
+        r.hypotheses[0][:HOST_BIAS_PREFIX] == p for r, p in zip(results["prefix_bias"],
+                                                                 bias_prefix))
+    check_path(label, total, ("matmul_w8a8", "fused_norm", "gather_rows_fused"), plain,
+               checks)
+    tokens = BATCH * MAX_DEC
+    emit({"phase": label, "compute_type": tr.compute_type, "sentences": BATCH,
+          "beam": BEAM, "target_tokens_per_call": tokens,
+          "device_loop": {"chain_seconds": device_s, "chain_tokens_per_s": tokens / device_s,
+                          "chain_off_seconds": device_off_s,
+                          "chain_off_tokens_per_s": tokens / device_off_s,
+                          "greedy_seconds": device_greedy_s,
+                          "greedy_tokens_per_s": tokens / device_greedy_s},
+          "calls": out, "launches": total, "plain_calls_on_card": plain})
+
+
+def host_loop_generator(tt, gen, vocab, checks, logs):
+    """The int8 Llama's host loops with the int8 KV cache: a callback's
+    greedy call against the device loop's (4 x 2,049, 64 new tokens), every
+    step's vocabulary logits for 8 tokens, a static prompt of 2,048 tokens
+    before 4 prompts of 64 (two calls, the second on the cached prompt) and
+    the alternatives of one prompt."""
+    import numpy as np
+
+    prompts = make_prompts(vocab, GEN_PROMPT, 4)
+    sp = make_prompts(vocab, GEN_PROMPT - 1, 5)[0]
+    short = make_prompts(vocab, 64, 6)
+    steps = []
+    label = "host_loop_generator"
+    plain, out = {}, {}
+    with environ(CT2TPU_KV_CACHE="int8"), watched(logs, plain):
+        def run(name, call):
+            before = tt.launch_counts()
+            result = call()
+            out[name] = {"launches": count_delta(tt.launch_counts(), before)}
+            return result
+
+        device, device_s, device_prefill = run("device_loop", lambda: generate_run(
+            gen, prompts))
+        host, host_s, host_prefill = run("callback", lambda: generate_run(
+            gen, prompts, callback=lambda r: steps.append((r.batch_id, r.is_last))))
+        for name, sec, pre in (("device_loop", device_s, device_prefill),
+                               ("callback", host_s, host_prefill)):
+            out[name].update(seconds=sec, prefill_ms=pre * 1e3,
+                             decode_ms_per_step=(sec - pre) / GEN_NEW * 1e3)
+        logits, out_logits = run("logits", lambda: synced_seconds(lambda: gen.generate_batch(
+            prompts, include_prompt_in_result=False, max_length=AB_NEW,
+            min_length=AB_NEW, return_logits_vocab=True)))
+        out["logits"]["seconds"] = out_logits
+        ttft = []
+        for i in range(2):
+            res, sec = run(f"static_prompt_{i + 1}", lambda: synced_seconds(
+                lambda: gen.generate_batch(short, static_prompt=sp, max_length=1,
+                                           include_prompt_in_result=False)))
+            ttft.append((res, sec))
+            out[f"static_prompt_{i + 1}"]["time_to_first_token_ms"] = sec * 1e3
+        alts, alt_s = run("alternatives", lambda: synced_seconds(lambda: gen.generate_batch(
+            prompts[:1], include_prompt_in_result=False, max_length=16,
+            return_alternatives=True, num_hypotheses=HOST_ALT_HYPOTHESES)))
+        out["alternatives"]["seconds"] = alt_s
+        total = tt.launch_counts()
+
+    layers = len(gen.model.arch.decoder.layers)
+    same = sum(a.sequences_ids == b.sequences_ids for a, b in zip(host, device))
+    checks(same == GEN_BATCH, f"{label}: the callback's call gives the device loop's "
+                              f"tokens ({same}/{GEN_BATCH})")
+    checks(len(steps) == GEN_BATCH * GEN_NEW
+           and sorted(b for b, last in steps if last) == list(range(GEN_BATCH)),
+           f"{label}: one callback a token ({len(steps)}), is_last once a row")
+    for name in ("device_loop", "callback"):
+        checks(out[name]["launches"].get("decode_attention_int8", 0) == GEN_NEW * layers,
+               f"{label} {name}: one decode launch a layer and step")
+    shapes = {tuple(np.asarray(l).shape) for r in logits for ls in r.logits for l in ls}
+    checks(shapes == {(LLAMA["vocab"],)}
+           and all(len(r.logits[0]) == AB_NEW for r in logits)
+           and all(bool(np.isfinite(np.asarray(l)).all()) for r in logits
+                   for l in r.logits[0]),
+           f"{label} logits: {AB_NEW} finite vocabulary-wide vectors a row ({shapes})")
+    first, second = (out[f"static_prompt_{i}"]["launches"] for i in (1, 2))
+    checks(first.get("flash_attention", 0) == layers
+           and second.get("flash_attention", 0) == 0,
+           f"{label} static prompt: the first call prefills it through flash "
+           f"({first.get('flash_attention', 0)}), the second reuses it (no flash: "
+           f"{second.get('flash_attention', 0)})")
+    checks([r.sequences_ids for r in ttft[0][0]] == [r.sequences_ids for r in ttft[1][0]],
+           f"{label} static prompt: both calls give the same first tokens")
+    hyps = alts[0].sequences_ids
+    checks(len(hyps) == HOST_ALT_HYPOTHESES and len({h[0] for h in hyps}) == len(hyps),
+           f"{label} alternatives: {HOST_ALT_HYPOTHESES}, parting at the first token")
+    check_path(label, total, ("matmul_w8a8", "fused_norm", "flash_attention",
+                              "decode_attention_int8"), plain, checks)
+    emit({"phase": label, "compute_type": gen.compute_type, "kv_cache": "int8",
+          "prompts": GEN_BATCH, "prompt_tokens": GEN_PROMPT, "new_tokens": GEN_NEW,
+          "static_prompt_tokens": len(sp), "static_prompt_inputs": [GEN_BATCH, 64],
+          "calls": out, "callbacks": len(steps), "launches": total,
+          "plain_calls_on_card": plain})
+
+
+def host_loop_card_vs_cpu(tt, small_dir, generators, vocab, tvocab, batch, checks):
+    """At ``AB_LAYERS`` layers, float32, every host-loop option on the card
+    against the port on the CPU: the Transformer-base widths' Translator (4
+    sentences) and the Llama geometry's Generator (4 prompts of 33, a static
+    prompt of 64): identical hypotheses and callbacks, scores, attention
+    and logits within ``LOGPROB_TOL``; the static prompt's call gives the
+    first ``AB_NEW`` tokens of the call with the prompt prepended."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    sentences = batch[:4]
+    write_vmap(small_dir, sentences, tvocab)
+    card = tt.Translator(small_dir, compute_type="float32")
+    cpu = tt.Translator(small_dir, device="cpu", compute_type="float32")
+    device = card.translate_batch(sentences, **OPTS)
+    prefix = [h.hypotheses[0][:HOST_BIAS_PREFIX] for h in device]
+    worst = {}
+    label = "host_loop_card_vs_cpu"
+
+    def close(name, a, b):
+        if not a and not b:
+            return
+        d = max((float(np.abs(np.asarray(x, np.float64) - np.asarray(y, np.float64)).max())
+                 for x, y in zip(a, b)), default=0.0)
+        worst[name] = max(worst.get(name, 0.0), d)
+        checks(len(a) == len(b) and d <= LOGPROB_TOL,
+               f"{label} {name}: card within {LOGPROB_TOL} of the CPU (got {d})")
+
+    calls = {
+        "attention": (None, dict(return_attention=True, replace_unknowns=True)),
+        "coverage": (None, dict(coverage_penalty=0.2)),
+        "prefix_bias": (prefix, dict(prefix_bias_beta=0.5)),
+        "logits": (None, dict(return_logits_vocab=True)),
+        "alternatives": ([p[:HOST_ALT_PREFIX] for p in prefix],
+                         dict(return_alternatives=True,
+                              num_hypotheses=HOST_ALT_HYPOTHESES)),
+        "vmap": (None, dict(use_vmap=True)),
+        "callback": (None, dict(beam_size=1)),
+    }
+    counts = {}
+    for name, (pre, extra) in calls.items():
+        streams = ([], [])
+        res = []
+        for tr, into in zip((card, cpu), streams):
+            opts = dict(OPTS, **extra)
+            if name == "callback":
+                opts["callback"] = lambda r, into=into: into.append(
+                    (r.batch_id, r.step, r.token_id, r.is_last))
+            tt.reset_launches()
+            res.append(tr.translate_batch(sentences, pre, **opts))
+            if tr is card:
+                counts[name] = tt.launch_counts()
+        a, b = res
+        checks([r.hypotheses for r in a] == [r.hypotheses for r in b]
+               and streams[0] == streams[1],
+               f"{label} translator {name}: identical hypotheses and callbacks")
+        close(f"translator {name} scores", [r.scores for r in a], [r.scores for r in b])
+        close(f"translator {name} attention", [x for r in a for x in r.attention],
+              [x for r in b for x in r.attention])
+        close(f"translator {name} logits", [x for r in a for x in r.logits],
+              [x for r in b for x in r.logits])
+    os.remove(os.path.join(small_dir, "vmap.txt"))
+    checks(all(counts[n]["gather_rows_fused"] > 0 for n in
+               ("attention", "coverage", "prefix_bias", "logits", "alternatives")),
+           f"{label}: the card's host beam calls launched the gather kernel")
+    del card, cpu
+    free_card()
+
+    gcard, gcpu = generators
+    prompts = [p[:33] for p in make_prompts(vocab, 33, 14)]
+    sp = make_prompts(vocab, 64, 15)[0]
+    kw = dict(max_length=AB_NEW, include_prompt_in_result=False, return_scores=True)
+    gen_calls = {
+        "callback": dict(kw),
+        "logits": dict(kw, return_logits_vocab=True),
+        "static_prompt": dict(kw, static_prompt=sp),
+        "static_prompt_beam": dict(kw, static_prompt=sp, beam_size=2),
+        "alternatives": dict(kw, return_alternatives=True,
+                             num_hypotheses=HOST_ALT_HYPOTHESES),
+    }
+    for name, opts in gen_calls.items():
+        streams = ([], [])
+        res = []
+        for g, into in zip((gcard, gcpu), streams):
+            if name == "callback":
+                opts = dict(opts, callback=lambda r, into=into: into.append(
+                    (r.batch_id, r.step, r.token_id, r.is_last)))
+            tt.reset_launches()
+            res.append(g.generate_batch(prompts, **opts))
+            if g is gcard:
+                counts["generator " + name] = tt.launch_counts()
+        a, b = res
+        checks([r.sequences_ids for r in a] == [r.sequences_ids for r in b]
+               and streams[0] == streams[1],
+               f"{label} generator {name}: identical tokens and callbacks")
+        close(f"generator {name} scores", [r.scores for r in a], [r.scores for r in b])
+        close(f"generator {name} logits", [x for r in a for x in r.logits],
+              [x for r in b for x in r.logits])
+    prepended = gcard.generate_batch([sp + p for p in prompts], **kw)
+    cached = gcard.generate_batch(prompts, static_prompt=sp, **kw)
+    same = sum(x.sequences_ids[0][:AB_NEW] == y.sequences_ids[0][:AB_NEW]
+               for x, y in zip(cached, prepended))
+    checks(same == len(prompts),
+           f"{label} static prompt: the first {AB_NEW} tokens of the prompt prepended "
+           f"on every row ({same}/{len(prompts)})")
+    checks(counts["generator static_prompt"]["flash_attention"] == AB_LAYERS
+           and counts["generator static_prompt_beam"]["flash_attention"] == 0,
+           f"{label} static prompt: flash prefills it once, then the cache serves "
+           f"({counts['generator static_prompt']['flash_attention']}, "
+           f"{counts['generator static_prompt_beam']['flash_attention']})")
+    emit({"phase": label, "layers": AB_LAYERS, "compute_type": "float32",
+          "sentences": len(sentences), "prompts": len(prompts), "prompt_tokens": 33,
+          "static_prompt_tokens": len(sp), "max_abs_diff": worst,
+          "tolerance": LOGPROB_TOL,
+          "static_prompt_rows_as_prepended": f"{same}/{len(prompts)}",
+          "card_launches": counts, "seconds": time.perf_counter() - t0})
 
 
 def new_shapes(logs, main_logs):
@@ -2770,6 +3207,8 @@ def main():
         new_logs = {}
         score_translator(tt, int8_dir, batches[1], checks, new_logs)
         free_card()
+        host_loop_translator(tt, int8_dir, vocab, batches[1], checks, new_logs)
+        free_card()
 
         # ---- main path 2: Generator ----
         t0 = time.perf_counter()
@@ -2792,6 +3231,8 @@ def main():
         score_generator(tt, gen, llama_vocab, checks, new_logs)
         free_card()
         sampling_phase(tt, gen, llama_vocab, int8_dir, batches[1], checks, new_logs)
+        free_card()
+        host_loop_generator(tt, gen, llama_vocab, checks, new_logs)
         del gen
         small_llama = llama_subset(llama, AB_LAYERS)
         del llama
@@ -2844,7 +3285,8 @@ def main():
         # not summed into the totals.
         fresh = new_shapes(new_logs, logs)
         extra = dict(summed=False, paths="score_generator, score_translator, encoder, "
-                                         "sampling")
+                                         "sampling, host_loop_translator, "
+                                         "host_loop_generator")
         bench_w8a8(fresh.get("matmul_w8a8", {}), checks, **extra)
         free_card()
         bench_flash(fresh.get("flash_attention", {}), checks, **extra)
@@ -2869,7 +3311,13 @@ def main():
         free_card()
         generator_awq_checks(tt, small_awq, llama_vocab, checks)
         free_card()
-        teacher_forced_card_vs_cpu(tt, small_llama, llama_vocab, small_bert, checks)
+        pair = card_cpu_generators(tt, small_llama, llama_vocab)
+        teacher_forced_card_vs_cpu(tt, pair, llama_vocab, small_bert, checks)
+        free_card()
+        small_dir = build_seq2seq_model(os.path.join(work, "small"),
+                                        **dict(MODEL, num_layers=AB_LAYERS))
+        host_loop_card_vs_cpu(tt, small_dir, pair, llama_vocab, vocab, batches[1], checks)
+        del pair
 
         def entry(name, source, replaces, tot, library_ms, launches=None, **extra):
             """One kernel's line; ``launches`` defaults to the Translator and

@@ -16,7 +16,6 @@ import os
 import torch
 
 from ..models import transformer as T
-from ..ops import attention as attn_ops
 from . import processors as proc
 from .sampling import greedy_tokens, sample_noise_shape, sample_tokens, small_top_k
 
@@ -54,12 +53,15 @@ def _self_cache(model, cache, rows: int, capacity: int):
     return cache
 
 
-def _apply_processors(sig, l, step: int, min_steps_rows, alive_flat):
+def apply_processors(sig, l, step: int, disable_end, alive_flat):
+    """The logits processors of one step: ``l`` [N, V] float32,
+    ``disable_end`` bool [N] (the rows whose end tokens are off this step),
+    ``alive_flat`` [N, L] the tokens generated so far."""
     l = proc.disable_tokens(l, sig.suppress_ids)
     if sig.begin_suppress_ids and step == 0:
         l = proc.disable_tokens(l, sig.begin_suppress_ids)
     if sig.end_ids:
-        l = proc.disable_tokens_if(l, sig.end_ids, step < min_steps_rows)
+        l = proc.disable_tokens_if(l, sig.end_ids, disable_end)
     if sig.use_alive_seq:
         if sig.repetition_penalty != 1.0:
             l = proc.repetition_penalty(l, alive_flat, step, sig.repetition_penalty)
@@ -70,35 +72,24 @@ def _apply_processors(sig, l, step: int, min_steps_rows, alive_flat):
     return l
 
 
-def _encode(model, params, consts, encoder_ids, encoder_lengths):
-    """Fused encode + cross-KV projection for one request; (None, None) for
-    a decoder-only model, which has no encoder inputs."""
-    if encoder_ids is None:
-        return None, None
-    qa = model.policy.quantize_activations
-    memory = T.encoder_forward(model.arch, params, consts, encoder_ids,
-                               encoder_lengths, quantize_acts=qa,
-                               out_dtype=model.out_dtype)
-    mem_kv = T.precompute_memory(model.arch, params, memory, quantize_acts=qa)
-    mem_bias = attn_ops.length_mask_bias(encoder_lengths, memory.shape[1])
-    return mem_kv, mem_bias
-
-
 def beam_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
               beam_size: int, num_hyp: int, max_candidates: int,
               length_penalty: float, return_prefix: bool, include_eos: bool,
               count_eos: bool, max_length: int, allow_early_exit: bool,
               has_prefix: bool, control, start_pos: int,
-              encoder_ids=None, encoder_lengths=None, cache=None):
+              memory=(None, None), cache=None, token_map=None):
     """Whole-generation beam search with the reference's candidate
     bookkeeping (2*beam candidates, EOS harvesting with secondary
     promotion, hard-prefix override — reference: src/decoding.cc:411-720).
     Hypotheses land in a fixed [B, num_hyp] best-score store.
 
     ``control`` [B, 3 + K + P]: prefix_len | min_steps | pad | start tokens
-    (per beam) | prefix rows. ``cache`` is a prefilled self-attention cache
-    of B*beam rows (a decoder-only prompt), or None to start an empty one.
-    Returns the store as host tensors
+    (per beam) | prefix rows. ``memory`` is the encoder's (mem_kv,
+    mem_bias), or (None, None) for a decoder-only model. ``cache`` is a
+    prefilled self-attention cache of B*beam rows (a decoder-only prompt),
+    or None to start an empty one. ``token_map`` (long [V']) maps the ids of
+    a vocabulary-restricted projection to the embedding's (``use_vmap``):
+    each step feeds ``token_map[tokens]``. Returns the store as host tensors
     (seqs [B, M, L], lens [B, M], scores [B, M]).
     """
     device = model.device
@@ -125,8 +116,10 @@ def beam_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
     P = prefix.shape[1]
     use_chain = use_beam_chain(arch, K, model.kv_dtype, cache is not None)
 
-    mem_kv, mem_bias = _encode(model, params, consts, encoder_ids, encoder_lengths)
+    mem_kv, mem_bias = memory
     cache = _self_cache(model, cache, N, capacity)
+    if token_map is not None:
+        token_map = token_map.to(device)
 
     rows_b = torch.arange(B, device=device)
     alive = torch.zeros((B, K, L), dtype=torch.long, device=device)
@@ -158,14 +151,15 @@ def beam_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
     for step in range(max_steps):
         if step and step % SYNC_EVERY == 0 and not bool(batch_active.any()):
             break
+        fed = tokens if token_map is None else token_map[tokens]
         logits, cache = T.decoder_forward(
-            arch, params, consts, tokens[:, None], start_pos + step, cache,
+            arch, params, consts, fed[:, None], start_pos + step, cache,
             mem_kv, mem_bias, beam_size=K,
             quantize_acts=model.policy.quantize_activations,
             out_dtype=model.out_dtype, beam_chain=chain)
         l = logits[:, -1].float()  # [N, V]
         V = l.shape[-1]
-        l = _apply_processors(sig, l, step, min_rows, alive.reshape(N, L))
+        l = apply_processors(sig, l, step, step < min_rows, alive.reshape(N, L))
 
         log_probs = torch.log_softmax(l, dim=-1)
         total = log_probs + scores.reshape(N)[:, None]
@@ -242,14 +236,14 @@ def beam_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
 
 def greedy_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
                 has_prefix: bool, control, start_pos: int,
-                encoder_ids=None, encoder_lengths=None, cache=None, noise=None):
+                memory=(None, None), cache=None, noise=None, token_map=None):
     """Whole-generation greedy loop: the argmax, or under a random sampler
     one draw a row and step with ``noise(step, shape, device)``
     (``sampling.noise_source``). ``control`` [N, 3 + P]: prefix_len |
     min_steps | start_token | prefix. ``cache`` is a prefilled
     self-attention cache holding positions [0, start_pos), or None to start
-    an empty one. Returns host tensors (tokens [N, max_steps], num_steps
-    [N], scores [N])."""
+    an empty one; ``memory`` and ``token_map`` as in ``beam_loop``. Returns
+    host tensors (tokens [N, max_steps], num_steps [N], scores [N])."""
     device = model.device
     arch = model.arch
     end_ids = torch.as_tensor(sig.end_ids or (0,), dtype=torch.long, device=device)
@@ -263,8 +257,10 @@ def greedy_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
     N = control.shape[0]
     P = prefix.shape[1] if has_prefix else 0
 
-    mem_kv, mem_bias = _encode(model, params, consts, encoder_ids, encoder_lengths)
+    mem_kv, mem_bias = memory
     cache = _self_cache(model, cache, N, capacity)
+    if token_map is not None:
+        token_map = token_map.to(device)
 
     out_buf = torch.zeros((N, max_steps), dtype=torch.long, device=device)
     scores = torch.zeros(N, dtype=torch.float32, device=device)
@@ -274,13 +270,14 @@ def greedy_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
     for step in range(max_steps):
         if step and step % SYNC_EVERY == 0 and bool(finished.all()):
             break
+        fed = tokens if token_map is None else token_map[tokens]
         logits, cache = T.decoder_forward(
-            arch, params, consts, tokens[:, None], start_pos + step, cache,
+            arch, params, consts, fed[:, None], start_pos + step, cache,
             mem_kv, mem_bias, beam_size=1,
             quantize_acts=model.policy.quantize_activations,
             out_dtype=model.out_dtype)
         l = logits[:, -1].float()
-        l = _apply_processors(sig, l, step, min_steps, out_buf)
+        l = apply_processors(sig, l, step, step < min_steps, out_buf)
         log_probs = torch.log_softmax(l, dim=-1)
         if sig.greedy_sampler:
             sampled, sampled_scores = greedy_tokens(log_probs)

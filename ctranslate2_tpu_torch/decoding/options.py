@@ -1,13 +1,12 @@
 """Decoding options and result structures (API parity with the reference:
-include/ctranslate2/decoding.h:44-89, include/ctranslate2/translation.h:11-86).
-Options that only unported paths read (coverage penalty, prefix bias,
-attention and logits output, alternatives) come with their slices;
-``Translator.translate_batch`` rejects them."""
+include/ctranslate2/decoding.h:44-89, include/ctranslate2/translation.h:11-86,
+include/ctranslate2/generation.h:14-78). ``speculation_k`` is not ported:
+``Generator.generate_batch`` rejects it."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 
 @dataclass
@@ -15,8 +14,10 @@ class DecodingOptions:
     beam_size: int = 1
     patience: float = 1.0
     length_penalty: float = 1.0
+    coverage_penalty: float = 0.0
     repetition_penalty: float = 1.0
     no_repeat_ngram_size: int = 0
+    prefix_bias_beta: float = 0.0
     suppress_sequences: Sequence[Sequence[int]] = ()
     suppress_tokens: Sequence[int] = ()
     suppress_tokens_begin: Sequence[int] = ()
@@ -32,11 +33,30 @@ class DecodingOptions:
     sampling_temperature: float = 1.0
     num_hypotheses: int = 1
     return_scores: bool = False
+    return_attention: bool = False
+    return_logits_vocab: bool = False
     return_prefix: bool = True  # include target prefix / prompt in result
+    return_alternatives: bool = False
+    min_alternative_expansion_prob: float = 0.0
     seed: int = 0  # the random sampler's stream
+
+
+@dataclass
+class DecodingStepResult:
+    """One emitted token of the greedy host loop, for a step callback."""
+    step: int
+    batch_id: int
+    token_id: int
+    hypothesis_id: int = 0
+    score: Optional[float] = None
+    is_last: bool = False
+    token: Optional[str] = None
+    log_probs: Optional[object] = None
 
 
 @dataclass
 class DecodingResult:
     hypotheses: List[List[int]] = field(default_factory=list)
     scores: List[float] = field(default_factory=list)
+    attention: List[List[List[float]]] = field(default_factory=list)
+    logits: List[object] = field(default_factory=list)

@@ -9,8 +9,8 @@ from typing import List, Optional
 
 import torch
 
-from ..formats.model_file import (ModelFile, load_model_file,
-                                  load_model_file_from_files)
+from ..formats.model_file import (ModelFile, file_content_bytes,
+                                  load_model_file, load_model_file_from_files)
 from ..formats.vocabulary import Vocabulary, VocabularyInfo
 from ..utils.dtypes import DTypePolicy, resolve_compute_type
 from . import transformer
@@ -43,6 +43,8 @@ class LoadedModel:
     device: torch.device
     source_vocabularies: List[Vocabulary] = field(default_factory=list)
     target_vocabulary: Optional[Vocabulary] = None
+    # The model's vocabulary map (``vmap.txt``): its lines, or None.
+    vmap_lines: Optional[List[str]] = None
     _consts_lock: object = field(default_factory=threading.Lock,
                                  repr=False, compare=False)
 
@@ -237,6 +239,13 @@ def load_model(
         if target_vocabulary is None:
             target_vocabulary = _load_vocab("vocabulary")
 
+    vmap_lines = None
+    if files is not None and "vmap.txt" in files:
+        vmap_lines = file_content_bytes(files["vmap.txt"]).decode("utf-8").splitlines()
+    elif path and os.path.isfile(os.path.join(path, "vmap.txt")):
+        with open(os.path.join(path, "vmap.txt"), encoding="utf-8") as f:
+            vmap_lines = f.read().splitlines()
+
     return LoadedModel(
         mf=mf,
         arch=arch,
@@ -246,4 +255,5 @@ def load_model(
         device=device,
         source_vocabularies=source_vocabularies,
         target_vocabulary=target_vocabulary,
+        vmap_lines=vmap_lines,
     )

@@ -492,9 +492,12 @@ def cross_attention_block(
     pre_norm: bool = True,
     quantize_acts: bool = True,
     delta=None,  # the previous block's output, not yet added to ``x``
+    return_weights: bool = False,
 ):
-    """Cross-attention with beam-shared memory; returns (x, delta) as
-    ``self_attention_block`` does.
+    """Cross-attention with beam-shared memory; returns (x, delta, weights):
+    (x, delta) as ``self_attention_block`` does, and with
+    ``return_weights`` the softmax weights [B*beam, Hq, T, S] (else None).
+    The weights leave the residual stream as it is.
 
     ``x``: [B*beam, T, D_model]; ``mem_kv["k"]``: [B, Hkv, S, Dh]. The beam
     folds into the query time axis so memory K/V are read once.
@@ -514,16 +517,25 @@ def cross_attention_block(
     if spec.has_q_norm:
         q = _norm(arch, ap.get("q_norm"), q)
     q = attn_ops.split_heads(q.reshape(B, K * T, -1), spec.num_heads)
-    ctx = attn_ops.dot_product_attention(
+    out = attn_ops.dot_product_attention(
         q, mem_kv["k"], mem_kv["v"], bias=memory_bias,
-        queries_scale=spec.queries_scale)
+        queries_scale=spec.queries_scale, return_weights=return_weights)
+    weights = None
+    if return_weights:
+        ctx, weights = out
+        # [B, Hq, K*T, S] -> [B*K, Hq, T, S]
+        H, S = spec.num_heads, weights.shape[-1]
+        weights = (weights.reshape(B, H, K, T, S).transpose(1, 2)
+                   .reshape(BK, H, T, S))
+    else:
+        ctx = out
     ctx = attn_ops.combine_heads(ctx).reshape(BK, T, -1)
     y = linear(ap["o"], ctx, quantize_activations=quantize_acts)
     if fused:
-        return x, y
+        return x, y, weights
     if spec.has_layer_norm:  # post-norm: norm(y + x)
         y = _add_norm(arch, ap.get("layer_norm"), x, y, keep_sum=False)[1]
-    return y, None
+    return y, None, weights
 
 
 def ffn_block(arch: ArchSpec, spec, fp: dict, x, pre_norm: bool,
@@ -640,6 +652,36 @@ def cache_repeat_rows(cache, n: int):
             for layer in cache]
 
 
+def cache_slice_rows(cache, start: int, size: int):
+    """Batch rows [start, start + size) of every cache array (views)."""
+    if cache is None:
+        return None
+    return [{name: a[start:start + size] for name, a in layer.items()}
+            for layer in cache]
+
+
+def cache_grow(cache, n_rows: int, capacity: int):
+    """A cache of ``n_rows`` batch rows and ``capacity`` positions: each row
+    tiled ``n_rows // rows`` times, the time axis padded with zeros (the
+    int8 layout's scales with ones, so dequantizing stays finite). Arrays
+    already of that size are returned as they are."""
+    if cache is None:
+        return None
+
+    def grow(name, a):
+        if a.shape[0] != n_rows:
+            a = a.repeat_interleave(n_rows // a.shape[0], dim=0)
+        axis = 3 if name.endswith("_scale") else 2
+        if a.shape[axis] < capacity:
+            pad = list(a.shape)
+            pad[axis] = capacity - a.shape[axis]
+            fill = torch.ones if name.endswith("_scale") else torch.zeros
+            a = torch.cat([a, fill(pad, dtype=a.dtype, device=a.device)], dim=axis)
+        return a
+
+    return [{name: grow(name, a) for name, a in layer.items()} for layer in cache]
+
+
 def precompute_memory(arch: ArchSpec, params: dict, memory, quantize_acts: bool = True):
     """Project encoder output into per-layer cross K/V (prefill-once). Under
     W8A8 the memory is quantized once for every layer's K and V."""
@@ -683,6 +725,7 @@ def decoder_forward(
     fresh_prefill: bool = False,  # the cache is empty and ``ids`` are its
     # first positions: prefill attention runs over the fresh tensors only
     # (O(T^2), flash-eligible) while still writing the cache
+    return_attention: bool = False,
 ):
     """Decoder pass covering both modes:
 
@@ -692,7 +735,10 @@ def decoder_forward(
 
     ``mem_kv`` is None for a decoder-only model. Returns (logits
     [B*beam, T, V] (or the hidden states when ``return_logits`` is False),
-    self_cache).
+    self_cache); with ``return_attention`` also the cross-attention weights
+    of layer ``spec.alignment_layer`` averaged over its first
+    ``spec.alignment_heads`` heads, float32 [B*beam, T, S] (None without a
+    cross-attention there) (reference: src/layers/transformer.cc:565-603).
     """
     check_supported(arch)
     if getattr(pos, "ndim", 0) > 0:
@@ -738,6 +784,7 @@ def decoder_forward(
 
     rotary = dc.get("rotary", {})
     delta = None
+    attention = None
     for i, layer in enumerate(spec.layers):
         lp = dp["layers"][i]
         x, delta, _ = self_attention_block(
@@ -750,10 +797,13 @@ def decoder_forward(
             beam_chain=beam_chain, beam_chain_size=beam_size,
             fresh_prefill=fresh, kv_lengths=kv_lengths, delta=delta)
         if layer.cross_attention is not None:
-            x, delta = cross_attention_block(
+            want = return_attention and i == spec.alignment_layer
+            x, delta, weights = cross_attention_block(
                 arch, layer.cross_attention, lp["attention"], x, mem_kv[i],
                 memory_bias=memory_bias, pre_norm=spec.pre_norm,
-                quantize_acts=quantize_acts, delta=delta)
+                quantize_acts=quantize_acts, delta=delta, return_weights=want)
+            if want:
+                attention = weights[:, :spec.alignment_heads].mean(dim=1)
         x, delta = ffn_block(arch, layer.ffn, lp["ffn"], x, spec.pre_norm,
                              quantize_acts, delta=delta)
 
@@ -772,10 +822,11 @@ def decoder_forward(
         x = linear(dp["project_out"], x, quantize_activations=quantize_acts)
     if spec.has_outputs_scale:
         x = x * dp["scale_outputs"].to(x.dtype)
-    if not (return_logits and spec.has_projection):
-        return x, self_cache
-    logits = linear(dp["projection"], x, quantize_activations=quantize_acts)
-    if spec.final_logit_softcapping:
-        cap = spec.final_logit_softcapping
-        logits = torch.tanh(logits / cap) * cap
-    return logits, self_cache
+    if return_logits and spec.has_projection:
+        x = linear(dp["projection"], x, quantize_activations=quantize_acts)
+        if spec.final_logit_softcapping:
+            cap = spec.final_logit_softcapping
+            x = torch.tanh(x / cap) * cap
+    if return_attention:
+        return x, self_cache, attention
+    return x, self_cache

@@ -72,7 +72,10 @@ def dot_product_attention(
     v,  # [B, Hkv, Tk, D]
     bias=None,  # additive f32, broadcastable to [B, Hq, Tq, Tk]
     queries_scale: float = 1.0,
+    return_weights: bool = False,
 ):
+    """The attention output [B, Hq, Tq, D]; with ``return_weights``, also
+    the float32 softmax weights [B, Hq, Tq, Tk]."""
     B, Hq, Tq, D = q.shape
     Hkv = k.shape[1]
     group = Hq // Hkv
@@ -83,7 +86,10 @@ def dot_product_attention(
         logits = logits + _group_bias(bias, Hkv, group)
     weights = torch.softmax(logits, dim=-1)
     out = torch.matmul(weights.to(v.dtype), v[:, :, None])
-    return out.reshape(B, Hq, Tq, D).to(q.dtype)
+    out = out.reshape(B, Hq, Tq, D).to(q.dtype)
+    if return_weights:
+        return out, weights.reshape(B, Hq, Tq, -1)
+    return out
 
 
 def split_heads(x, num_heads: int):

@@ -3,17 +3,18 @@
 src/models/language_model.cc:105-300).
 
 Runs on one CUDA card by default, or on the CPU when ``device="cpu"``.
-``generate_batch`` (beam or greedy, argmax or random sampling),
-``score_batch``, ``forward_batch`` and ``score_iterable`` are ported;
-``static_prompt``, ``callback``, ``return_alternatives``,
-``speculation_k``, ``return_logits_vocab``, ``generate_tokens`` and
+``generate_batch`` (beam or greedy, argmax or random sampling, with a
+static prompt prefilled once and cached, step callbacks, alternatives and
+vocabulary logits), ``score_batch``, ``forward_batch`` and
+``score_iterable`` are ported; ``speculation_k``, ``generate_tokens`` and
 ``generate_iterable`` are not yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -24,7 +25,7 @@ from ..models.loader import LoadedModel, load_model, resolve_device
 from .base import TaskAPIMixin
 from .batching import normalize_input_ids, pad_batch
 from .pool import WorkerPool, resolve_max_queued_batches
-from .results import GenerationResult, ScoringResult
+from .results import GenerationResult, GenerationStepResult, ScoringResult
 from .scoring import teacher_forced_logits, teacher_forced_scores
 
 
@@ -63,6 +64,10 @@ class Generator(TaskAPIMixin):
             max_queued_batches=resolve_max_queued_batches(
                 kwargs, max_queued_batches))
         self.engine = DecodingEngine(self.model)
+        # Prefilled static prompts: token ids -> (1-row cache, capacity)
+        # (reference: include/ctranslate2/layers/decoder.h:102-110).
+        self._static_prompt_cache: Dict[Tuple[int, ...], tuple] = {}
+        self._static_prompt_lock = threading.Lock()
 
     @property
     def num_generators(self) -> int:
@@ -111,15 +116,8 @@ class Generator(TaskAPIMixin):
             return []
         if any(len(s) == 0 for s in start_tokens):
             raise ValueError("Generator expects at least one start token per example")
-        unported = [name for name, on in (
-            ("static_prompt", bool(static_prompt)),
-            ("callback", callback is not None),
-            ("return_alternatives", return_alternatives),
-            ("return_logits_vocab", return_logits_vocab),
-            ("speculation_k", speculation_k > 1),
-        ) if on]
-        if unported:
-            raise NotImplementedError("not ported yet: " + ", ".join(unported))
+        if speculation_k > 1:
+            raise NotImplementedError("not ported yet: speculation_k")
 
         v = self._vocab
         end_ids = self._resolve_end_token(end_token)
@@ -142,13 +140,18 @@ class Generator(TaskAPIMixin):
             sampling_temperature=sampling_temperature,
             num_hypotheses=num_hypotheses,
             return_scores=return_scores,
+            return_logits_vocab=return_logits_vocab,
             return_prefix=True,
+            return_alternatives=return_alternatives,
+            min_alternative_expansion_prob=min_alternative_expansion_prob,
             seed=seed,
         )
 
         def run(rows):
             return self._generate([start_tokens[i] for i in rows], options,
-                                  end_ids, include_prompt_in_result)
+                                  end_ids, include_prompt_in_result,
+                                  static_prompt, cache_static_prompt, callback,
+                                  rows)
 
         return self._run_batches([None] * len(start_tokens),
                                  list(range(len(start_tokens))),
@@ -182,8 +185,26 @@ class Generator(TaskAPIMixin):
             fresh_prefill=(start_step == 0))
         return cache
 
-    def _generate(self, start_tokens, options, end_ids,
-                  include_prompt_in_result):
+    def _static_prompt(self, ids: Tuple[int, ...], capacity: int, use_cache: bool):
+        """A 1-row cache holding the static prompt ``ids`` at positions
+        [0, len(ids)), of at most ``capacity`` slots: the cached one when
+        ``use_cache`` and one is there, else a new prefill (cached when
+        ``use_cache``). Never written by a decode: callers copy it."""
+        model = self.model
+        if use_cache:
+            with self._static_prompt_lock:
+                cached = self._static_prompt_cache.get(ids)
+            if cached is not None and cached[1] <= capacity:
+                return cached[0]
+        cache = self._prefill([list(ids)], T.init_self_cache(
+            model.arch, 1, capacity, dtype=model.kv_dtype, device=model.device), 0)
+        if use_cache:
+            with self._static_prompt_lock:
+                self._static_prompt_cache[ids] = (cache, capacity)
+        return cache
+
+    def _generate(self, start_tokens, options, end_ids, include_prompt_in_result,
+                  static_prompt, cache_static_prompt, callback, batch_ids):
         model = self.model
         v = self._vocab
         B = len(start_tokens)
@@ -191,12 +212,29 @@ class Generator(TaskAPIMixin):
 
         start_step = 0
         max_prompt = max(len(s) for s in start_ids)
-        capacity = _round_up(max_prompt + options.max_length + 1, 64)
+        static_len = len(static_prompt) if static_prompt else 0
+        capacity = _round_up(static_len + max_prompt + options.max_length + 1, 64)
         model.ensure_consts(capacity)
+        rows = B * options.beam_size if options.beam_size > 1 else B
+
+        sp_cache = None
+        if static_prompt:
+            # Reference: src/models/language_model.cc:186-215.
+            sp_cache = self._static_prompt(
+                tuple(v.to_id(t) for t in static_prompt), capacity,
+                cache_static_prompt)
+            start_step += static_len
+
+        def new_cache(n):
+            """``n`` rows: copies of the static prompt's, or empty."""
+            if sp_cache is not None:
+                return T.cache_grow(T.cache_repeat_rows(sp_cache, n), n, capacity)
+            return T.init_self_cache(model.arch, n, capacity, dtype=model.kv_dtype,
+                                     device=model.device)
 
         # When nothing is prefilled the decode loop creates the cache
         # itself (which enables the chain-mask beam attention).
-        cache = None
+        cache = new_cache(rows) if sp_cache is not None else None
         return_prefix = options.return_prefix
         if not include_prompt_in_result:
             forward_length = min(len(s) for s in start_ids) - 1
@@ -204,11 +242,7 @@ class Generator(TaskAPIMixin):
                 prompt_chunk = [s[:forward_length] for s in start_ids]
                 start_ids = [s[forward_length:] for s in start_ids]
                 # Prefill the un-replicated rows, then tile them per beam.
-                cache = self._prefill(
-                    prompt_chunk,
-                    T.init_self_cache(model.arch, B, capacity,
-                                      dtype=model.kv_dtype, device=model.device),
-                    start_step)
+                cache = self._prefill(prompt_chunk, new_cache(B), start_step)
                 if options.beam_size > 1:
                     cache = T.cache_repeat_rows(cache, options.beam_size)
                 start_step += forward_length
@@ -220,9 +254,26 @@ class Generator(TaskAPIMixin):
         if not any(prefix_ids):
             prefix_ids = None
 
-        dec_results = self.engine.decode(
-            first_ids, options, cache=cache, start_step=start_step,
-            prefix_ids=prefix_ids, end_ids=end_ids, capacity=capacity)
+        step_callback = None
+        if callback is not None:
+            def step_callback(sr):
+                # The example's index in the call (sub-batches are sorted
+                # by length).
+                return callback(GenerationStepResult(
+                    step=sr.step,
+                    batch_id=batch_ids[sr.batch_id], token_id=sr.token_id,
+                    hypothesis_id=sr.hypothesis_id, token=v.to_token(sr.token_id),
+                    score=sr.score, logits=sr.log_probs, is_last=sr.is_last))
+
+        if options.return_alternatives:
+            dec_results = [self.engine.decode_alternatives(
+                start_ids[i], options, start_step=start_step, end_ids=end_ids,
+                cache=T.cache_slice_rows(cache, i, 1)) for i in range(B)]
+        else:
+            dec_results = self.engine.decode(
+                first_ids, options, cache=cache, start_step=start_step,
+                prefix_ids=prefix_ids, end_ids=end_ids, capacity=capacity,
+                step_callback=step_callback)
 
         out = []
         for i, dr in enumerate(dec_results):
@@ -234,7 +285,8 @@ class Generator(TaskAPIMixin):
             out.append(GenerationResult(
                 sequences=[[v.to_token(t) for t in h] for h in hyps],
                 sequences_ids=[list(h) for h in hyps],
-                scores=dr.scores))
+                scores=dr.scores,
+                logits=dr.logits if options.return_logits_vocab else []))
         return out
 
     # ------------------------------------------------------------------

@@ -52,6 +52,9 @@ class GenerationResult:
     sequences: List[List[str]] = field(default_factory=list)
     sequences_ids: List[List[int]] = field(default_factory=list)
     scores: List[float] = field(default_factory=list)
+    # Vocab logits per sequence (reference `return_logits_vocab`:
+    # python/cpp/generation_result.cc:52-53).
+    logits: List[List[object]] = field(default_factory=list)
 
     @property
     def num_sequences(self) -> int:
@@ -79,6 +82,27 @@ class ScoringResult:
 
     def cumulated_score(self) -> float:
         return sum(self.tokens_score)
+
+
+@dataclass
+class GenerationStepResult:
+    """One token streamed to a ``callback`` (reference:
+    include/ctranslate2/generation.h:14-40). ``batch_id`` is the example's
+    index in the call, ``logits`` the step's vocabulary logits when the
+    call returns them."""
+    step: int
+    batch_id: int
+    token_id: int
+    hypothesis_id: int
+    token: str
+    score: Optional[float] = None
+    logits: Optional[object] = None
+    is_last: bool = False
+
+    @property
+    def log_prob(self):
+        """Reference-API alias of ``score``."""
+        return self.score
 
 
 class AsyncResult:

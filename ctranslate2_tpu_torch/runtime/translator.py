@@ -3,10 +3,11 @@
 src/models/sequence_to_sequence.cc:304-470).
 
 Runs on one CUDA card by default, or on the CPU when ``device="cpu"``.
-``translate_batch`` (beam or greedy, argmax or random sampling),
-``score_batch`` and ``score_iterable`` are ported; ``translate_file``,
-``translate_iterable``, ``use_vmap`` and the options that need a host-side
-decode loop are not yet.
+``translate_batch`` (beam or greedy, argmax or random sampling, with every
+option: attention and ``replace_unknowns``, the coverage penalty,
+prefix-biased decoding, vocabulary logits, alternatives, a vocabulary map
+and step callbacks), ``score_batch`` and ``score_iterable`` are ported;
+``translate_file`` and ``translate_iterable`` are not yet.
 """
 
 from __future__ import annotations
@@ -15,17 +16,22 @@ import sys
 from concurrent.futures import Future
 from typing import List, Optional, Sequence
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from ..decoding.engine import DecodingEngine
 from ..decoding.options import DecodingOptions
+from ..formats.vocabulary_map import VocabularyMap
 from ..models import transformer as T
 from ..models.loader import LoadedModel, load_model, resolve_device
 from ..ops import attention as attn_ops
 from .base import TaskAPIMixin
 from .batching import bucket_length, pad_batch
 from .pool import WorkerPool, resolve_max_queued_batches
-from .results import AsyncResult, ScoringResult, TranslationResult
+from .results import (AsyncResult, GenerationStepResult, ScoringResult,
+                      TranslationResult)
 from .scoring import teacher_forced_scores
 
 # Source-factor separator (reference: include/ctranslate2/utils.h:33).
@@ -89,6 +95,9 @@ class Translator(TaskAPIMixin):
             max_queued_batches=resolve_max_queued_batches(
                 kwargs, max_queued_batches))
         self.engine = DecodingEngine(self.model)
+        self._vmap = (None if self.model.vmap_lines is None else
+                      VocabularyMap.from_lines(self.model.vmap_lines,
+                                               self.model.target_vocabulary))
 
     @property
     def _source_vocab(self):
@@ -173,25 +182,22 @@ class Translator(TaskAPIMixin):
     ) -> List[TranslationResult]:
         if len(source) == 0:
             return []
-        unported = [name for name, on in (
-            ("use_vmap", use_vmap), ("replace_unknowns", replace_unknowns),
-            ("callback", callback is not None),
-            ("return_attention", return_attention),
-            ("return_alternatives", return_alternatives),
-            ("return_logits_vocab", return_logits_vocab),
-            ("coverage_penalty", coverage_penalty != 0),
-            ("prefix_bias_beta", prefix_bias_beta > 0),
-        ) if on]
-        if unported:
-            raise NotImplementedError("not ported yet: " + ", ".join(unported))
         try:
-            # Reference wording (src/decoding.cc:1036-1039).
+            # Reference wording (src/decoding.cc:1036-1054).
             if min_decoding_length > max_decoding_length:
                 raise ValueError(
                     "The minimum decoding length is greater than the "
                     "maximum decoding length")
             if max_decoding_length == 0:
                 raise ValueError("The maximum decoding length must be > 0")
+            if prefix_bias_beta >= 1:
+                raise ValueError("The beta value in biased decoding must be < 1")
+            if prefix_bias_beta > 0 and return_alternatives:
+                raise ValueError("Biased decoding is not compatible with the "
+                                 "return_alternatives mode")
+            if callback is not None and prefix_bias_beta > 0:
+                raise ValueError("The callback function is not compatible "
+                                 "with prefix_bias_beta > 0")
         except ValueError:
             if not asynchronous:
                 raise
@@ -205,6 +211,7 @@ class Translator(TaskAPIMixin):
             beam_size=beam_size,
             patience=patience,
             length_penalty=length_penalty,
+            coverage_penalty=coverage_penalty,
             repetition_penalty=repetition_penalty,
             no_repeat_ngram_size=no_repeat_ngram_size,
             suppress_tokens=((tv.unk_id,) if disable_unk else ()),
@@ -220,7 +227,12 @@ class Translator(TaskAPIMixin):
             sampling_temperature=sampling_temperature,
             num_hypotheses=num_hypotheses,
             return_scores=return_scores,
+            return_logits_vocab=return_logits_vocab,
+            return_attention=return_attention or replace_unknowns,
             return_prefix=True,
+            return_alternatives=return_alternatives,
+            min_alternative_expansion_prob=min_alternative_expansion_prob,
+            prefix_bias_beta=prefix_bias_beta,
         )
 
         results: List[Optional[TranslationResult]] = [None] * len(source)
@@ -230,7 +242,8 @@ class Translator(TaskAPIMixin):
         for i, src in enumerate(source):
             if len(src) == 0:
                 results[i] = self._empty_source_result(
-                    target_prefix[i] if target_prefix else None, options)
+                    target_prefix[i] if target_prefix else None, options,
+                    return_attention)
             else:
                 compute_idx.append(i)
 
@@ -238,7 +251,8 @@ class Translator(TaskAPIMixin):
             return self._translate_padded(
                 [source[i] for i in rows],
                 [target_prefix[i] for i in rows] if target_prefix else None,
-                options, max_input_length, end_ids)
+                options, max_input_length, end_ids, replace_unknowns,
+                return_attention, callback, use_vmap, rows)
 
         return self._run_batches(results, compute_idx,
                                  [len(source[i]) for i in compute_idx],
@@ -255,13 +269,15 @@ class Translator(TaskAPIMixin):
         return tuple(ids) if ids else (tv.eos_id,)
 
     @staticmethod
-    def _empty_source_result(prefix, options):
+    def _empty_source_result(prefix, options, return_attention):
         hypothesis: List[str] = list(prefix)[: options.max_length] if prefix else []
         r = TranslationResult()
         for _ in range(options.num_hypotheses):
             r.hypotheses.append(list(hypothesis))
             if options.return_scores:
                 r.scores.append(0.0)
+            if return_attention:
+                r.attention.append([[] for _ in hypothesis])
         return r
 
     def _pad_feature_ids(self, feature_ids):
@@ -282,11 +298,47 @@ class Translator(TaskAPIMixin):
         ids = arrays[0] if len(arrays) == 1 else tuple(arrays)
         return ids, torch.tensor(lengths, dtype=torch.long, device=device)
 
-    def _translate_padded(self, source, target_prefix, options,
-                          max_input_length, end_ids):
+    def _restricted_output_params(self, candidates, size_multiple: int = 256):
+        """The params with an output projection cut to the ``candidates``
+        (reference update_output_layer: src/layers/decoder.cc:72-139,
+        Dense::select_weights: src/layers/common.cc:313-337), padded to a
+        multiple of ``size_multiple`` with columns of bias -1e10. Returns
+        (params, to_output {id: restricted id}, to_original [restricted id
+        -> id])."""
+        ids = list(candidates)
+        pad = -len(ids) % size_multiple
+        ids += [0] * pad
+        proj = self.model.params["decoder"]["projection"]
+        device = self.model.device
+        idx = torch.tensor(ids, dtype=torch.long, device=device)
+        if "w" in proj:  # float: w (in, out)
+            new_proj = {"w": proj["w"].index_select(1, idx)}
+        else:  # W8A8: wq (out, in), one scale an output
+            new_proj = {"wq": proj["wq"].index_select(0, idx),
+                        "scale": proj["scale"].index_select(0, idx)}
+        bias = (proj["b"].float().index_select(0, idx) if "b" in proj
+                else torch.zeros(len(ids), dtype=torch.float32, device=device))
+        if pad:
+            bias[len(ids) - pad:] = -1e10
+        new_proj["b"] = bias
+        params = dict(self.model.params)
+        params["decoder"] = dict(params["decoder"], projection=new_proj)
+        to_output = {}
+        for i, orig in enumerate(ids):
+            to_output.setdefault(orig, i)
+        return params, to_output, ids
+
+    def _translate_padded(self, source, target_prefix, options, max_input_length,
+                          end_ids, replace_unknowns, return_attention, callback,
+                          use_vmap, batch_ids):
         tv = self._target_vocab
-        enc_ids, enc_lengths = self._pad_feature_ids(
-            self._make_source_ids(source, max_input_length))
+        streams = self._source_feature_streams(source)
+        feature_ids = self._ids_from_streams(streams, max_input_length)
+        source_ids = feature_ids[0]
+        # Factored models report and replace with the main feature's tokens
+        # (reference: sequence_to_sequence.cc:396).
+        source_tokens = streams[0]
+        enc_ids, enc_lengths = self._pad_feature_ids(feature_ids)
 
         start_id = self._decoder_start_id()
         prefix_ids = None
@@ -302,15 +354,99 @@ class Translator(TaskAPIMixin):
         else:
             start_ids = [start_id] * len(source)
 
-        dec_results = self.engine.decode(
-            start_ids, options, encoder_inputs=(enc_ids, enc_lengths),
-            prefix_ids=prefix_ids, end_ids=end_ids)
-        return [
-            TranslationResult(
-                hypotheses=[[tv.to_token(t) for t in h] for h in dr.hypotheses],
-                scores=dr.scores if options.return_scores else [])
-            for dr in dec_results
-        ]
+        step_callback = None
+        if callback is not None:
+            def step_callback(sr):
+                # The example's index in the call: sub-batches are sorted
+                # by length (reference: src/decoding.cc:899-901).
+                return callback(GenerationStepResult(
+                    step=sr.step,
+                    batch_id=batch_ids[sr.batch_id], token_id=sr.token_id,
+                    hypothesis_id=sr.hypothesis_id, token=tv.to_token(sr.token_id),
+                    score=sr.score, is_last=sr.is_last))
+
+        # The output layer cut to the vocabulary map's candidates.
+        run_params = to_original = token_map = None
+        if use_vmap and self._vmap is not None:
+            candidates = self._vmap.get_candidates(
+                [list(s) for s in source_tokens], prefix_ids or [])
+            run_params, to_output, to_original = (
+                self._restricted_output_params(candidates))
+            token_map = torch.tensor(to_original, dtype=torch.long)
+            start_ids = [to_output[i] for i in start_ids]
+            if prefix_ids is not None:
+                prefix_ids = [[to_output[t] for t in p if t in to_output]
+                              for p in prefix_ids]
+            end_ids = tuple(to_output[e] for e in end_ids if e in to_output)
+            options = dataclasses.replace(
+                options,
+                suppress_tokens=tuple(to_output[t] for t in options.suppress_tokens
+                                      if t in to_output),
+                suppress_sequences=tuple(
+                    tuple(to_output[t] for t in seq if t in to_output)
+                    for seq in options.suppress_sequences))
+
+        if options.return_alternatives:
+            # Encode the batch once; each example's alternatives read its
+            # own row of the memory.
+            model = self.model
+            qa = model.policy.quantize_activations
+            main_ids = enc_ids[0] if isinstance(enc_ids, tuple) else enc_ids
+            consts = model.ensure_consts(main_ids.shape[1])
+            memory = T.encoder_forward(model.arch, model.params, consts, enc_ids,
+                                       enc_lengths, quantize_acts=qa,
+                                       out_dtype=model.out_dtype)
+            mem_kv = T.precompute_memory(model.arch, model.params, memory,
+                                         quantize_acts=qa)
+            mem_bias = attn_ops.length_mask_bias(enc_lengths, memory.shape[1])
+            dec_results = [
+                self.engine.decode_alternatives(
+                    [start_ids[i]] + (list(prefix_ids[i]) if prefix_ids else []),
+                    options,
+                    memory=([None if kv is None else
+                             {n: a[i:i + 1] for n, a in kv.items()} for kv in mem_kv],
+                            mem_bias[i:i + 1]),
+                    end_ids=end_ids, params=run_params, token_map=token_map)
+                for i in range(len(source))]
+        else:
+            dec_results = self.engine.decode(
+                start_ids, options, encoder_inputs=(enc_ids, enc_lengths),
+                prefix_ids=prefix_ids, end_ids=end_ids, params=run_params,
+                step_callback=step_callback, token_map=token_map)
+
+        if to_original is not None:
+            for dr in dec_results:
+                dr.hypotheses = [[to_original[t] for t in h] for h in dr.hypotheses]
+
+        cfg = self.model.config
+        out = []
+        for i, dr in enumerate(dec_results):
+            hyps = [[tv.to_token(t) for t in h] for h in dr.hypotheses]
+            attention = []
+            src_len = len(source_ids[i])
+            for h, attn in enumerate(dr.attention):
+                # Rows over the source's own tokens, without the added BOS
+                # or EOS (reference: sequence_to_sequence.cc:396-430).
+                rows = []
+                for vec in attn:
+                    vec = list(vec[:src_len])
+                    if cfg.get("add_source_bos"):
+                        vec = vec[1:]
+                    if cfg.get("add_source_eos"):
+                        vec = vec[:-1]
+                    vec = vec[:len(source[i])]
+                    rows.append(vec + [0.0] * (len(source[i]) - len(vec)))
+                attention.append(rows)
+                if replace_unknowns:
+                    for t, tok in enumerate(hyps[h]):
+                        if tok == tv.unk_token and t < len(rows):
+                            hyps[h][t] = source_tokens[i][int(np.argmax(rows[t]))]
+            out.append(TranslationResult(
+                hypotheses=hyps,
+                scores=dr.scores if options.return_scores else [],
+                attention=attention if return_attention else [],
+                logits=dr.logits if options.return_logits_vocab else []))
+        return out
 
     # ------------------------------------------------------------------
     # Scoring (reference: src/scoring.cc:5-68).

@@ -1340,3 +1340,169 @@ def test_encoder_on_card_matches_cpu(small_bert, flash):
                                ref.last_hidden_state.numpy(), atol=1e-3)
     np.testing.assert_allclose(out.pooler_output.cpu().numpy(),
                                ref.pooler_output.numpy(), atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The host decode loops on the card.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def small_seq2seq(tmp_path_factory):
+    path = build_seq2seq_model(str(tmp_path_factory.mktemp("s2s_host_cuda")),
+                               vocab_size=200, d_model=256, d_ff=512)
+    with open(f"{path}/vmap.txt", "w") as f:
+        for i in range(190):
+            f.write(f"tok{i}\t" + " ".join(f"tok{(i * 7 + j) % 190}"
+                                           for j in range(20)) + "\n")
+    return path
+
+
+def _host_sources(seed=10):
+    rng = np.random.default_rng(seed)
+    return [[f"tok{int(t)}" for t in rng.integers(0, 190, n)] for n in (9, 20, 14, 3)]
+
+
+HOST_TRANSLATE_OPTIONS = {
+    "attention": dict(return_attention=True, replace_unknowns=True),
+    "coverage": dict(coverage_penalty=0.2),
+    "prefix_bias": dict(prefix_bias_beta=0.5),
+    "logits": dict(return_logits_vocab=True),
+    "alternatives": dict(return_alternatives=True, num_hypotheses=3),
+    "vmap": dict(use_vmap=True),
+    "callback": dict(callback=lambda r: False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option,beam_size", [
+    (option, beam) for option in sorted(HOST_TRANSLATE_OPTIONS) for beam in (1, 2)
+    if option != "callback" or beam == 1])  # a callback streams greedy search
+def test_translator_host_loops_on_card_match_cpu(small_seq2seq, monkeypatch, option,
+                                                 beam_size):
+    """float32: each host-loop option on the card against the CPU (the same
+    tokens; scores, attention and logits within 1e-3); under beam search the
+    host loop reorders through the gather kernel, chain mask or not."""
+    _card()
+    opts = dict(HOST_TRANSLATE_OPTIONS[option], beam_size=beam_size,
+                max_decoding_length=12, return_scores=True)
+    src = _host_sources()
+    prefix = ([["tok5", "tok9", "tok3", "tok1"], None, ["tok7"], ["tok1", "tok2"]]
+              if option in ("prefix_bias", "alternatives") else None)
+    card = tt.Translator(small_seq2seq, compute_type="float32")
+    cpu = tt.Translator(small_seq2seq, device="cpu", compute_type="float32")
+    kernels.reset_launches()
+    out = card.translate_batch(src, prefix, **opts)
+    counts = kernels.launch_counts()
+    ref = cpu.translate_batch(src, prefix, **opts)
+    assert counts["fused_norm"] > 0
+    host_beam = beam_size > 1 and option in ("attention", "coverage", "prefix_bias",
+                                              "logits")
+    if host_beam:
+        assert counts["gather_rows_fused"] > 0
+    for o, r in zip(out, ref):
+        assert o.hypotheses == r.hypotheses
+        np.testing.assert_allclose(o.scores, r.scores, atol=1e-3)
+        for a, b in zip(o.attention, r.attention):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-3)
+        for a, b in zip(o.logits, r.logits):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam_size", [1, 2])
+def test_translator_host_loop_on_card_matches_device_loop(small_seq2seq, monkeypatch,
+                                                          beam_size):
+    """The host loop (attention, vocabulary logits) and the device loop
+    (``CT2TPU_BEAM_CHAIN=0``: the gather reorder) give the same tokens and
+    scores on the card."""
+    _card()
+    monkeypatch.setenv("CT2TPU_BEAM_CHAIN", "0")
+    card = tt.Translator(small_seq2seq, compute_type="float32")
+    opts = dict(beam_size=beam_size, max_decoding_length=12, return_scores=True)
+    device = card.translate_batch(_host_sources(), **opts)
+    kernels.reset_launches()
+    host = card.translate_batch(_host_sources(), return_attention=True,
+                                return_logits_vocab=True, **opts)
+    counts = kernels.launch_counts()
+    assert (counts["gather_rows_fused"] > 0) == (beam_size > 1)
+    for h, d in zip(host, device):
+        assert h.hypotheses == d.hypotheses
+        np.testing.assert_allclose(h.scores, d.scores, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_restricted_w8a8_projection_on_card(small_seq2seq):
+    """The vocabulary-restricted int8 projection (rows of ``wq`` and their
+    scales, padded to a multiple of 256) is bit-equal to its plain version
+    at every candidate count the plan may see."""
+    _card()
+    card = tt.Translator(small_seq2seq, compute_type="int8_float32")
+    rng = np.random.default_rng(11)
+    for n in (3, 120, 190):
+        cand = sorted(rng.choice(200, n, replace=False).tolist())
+        params, _, to_original = card._restricted_output_params(cand)
+        proj = params["decoder"]["projection"]
+        assert proj["wq"].shape[0] % 256 == 0 and proj["wq"].is_contiguous()
+        for M in (1, 8, 128):
+            q = torch.from_numpy(rng.integers(-128, 128, (M, 256)).astype(np.int8)).cuda()
+            a_s = torch.from_numpy((rng.random(M) * 5 + 0.5).astype(np.float32)).cuda()
+            out = matmul_w8a8(q, proj["wq"], a_s, proj["scale"].float())
+            ref = matmul_w8a8_plain(q, proj["wq"], a_s, proj["scale"].float())
+            assert torch.equal(out, ref)
+            full = card.model.params["decoder"]["projection"]
+            idx = torch.tensor(to_original, device="cuda")
+            whole = matmul_w8a8_plain(q, full["wq"], a_s, full["scale"].float())
+            assert torch.equal(out, whole.index_select(1, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float", "int8"])
+def test_generator_host_loops_on_card(small_decoder, monkeypatch, kv):
+    """float32: a callback's greedy host loop gives the device loop's tokens
+    with one callback a token (the int8-KV decode kernel launched under the
+    int8 cache); vocabulary logits, alternatives and a static prompt (flash
+    prefill on the first call only) match the CPU within 1e-3."""
+    _card()
+    if kv == "int8":
+        monkeypatch.setenv("CT2TPU_KV_CACHE", "int8")
+    rng = np.random.default_rng(12)
+    prompts = [[f"tok{int(t)}" for t in rng.integers(0, 190, n)] for n in (40, 33, 37)]
+    kw = dict(max_length=10, include_prompt_in_result=False, return_scores=True)
+    card = tt.Generator(small_decoder, compute_type="float32", flash_attention=True)
+    cpu = tt.Generator(small_decoder, device="cpu", compute_type="float32")
+    device = card.generate_batch(prompts, **kw)
+    steps = []
+    kernels.reset_launches()
+    host = card.generate_batch(prompts, callback=lambda r: steps.append(r), **kw)
+    counts = kernels.launch_counts()
+    assert (counts["decode_attention_int8"] > 0) == (kv == "int8")
+    assert [h.sequences_ids for h in host] == [d.sequences_ids for d in device]
+    # One callback a token, the end token of a row that ends on it included.
+    eos = card.model.target_vocabulary.eos_id
+    for i, h in enumerate(host):
+        streamed = [s.token_id for s in steps if s.batch_id == i]
+        assert streamed in (h.sequences_ids[0], h.sequences_ids[0] + [eos])
+    assert sum(s.is_last for s in steps) == len(prompts)
+
+    sp = [f"tok{int(t)}" for t in rng.integers(0, 190, 64)]
+    for opts in (dict(return_logits_vocab=True), dict(return_alternatives=True,
+                                                      num_hypotheses=3),
+                 dict(static_prompt=sp), dict(static_prompt=sp, beam_size=2)):
+        kernels.reset_launches()
+        out = card.generate_batch(prompts, **kw, **opts)
+        counts = kernels.launch_counts()
+        ref = cpu.generate_batch(prompts, **kw, **opts)
+        if "static_prompt" in opts:
+            # The first call prefills the prompt through flash; later ones reuse it.
+            assert counts["flash_attention"] == (2 if opts.get("beam_size", 1) == 1
+                                                 else 0)
+        for o, r in zip(out, ref):
+            if kv == "float":
+                assert o.sequences_ids == r.sequences_ids
+                np.testing.assert_allclose(o.scores, r.scores, atol=1e-3)
+                for a, b in zip(o.logits, r.logits):
+                    np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-3)
+            else:
+                # A cached vector at a rounding tie may land one int8 step apart.
+                np.testing.assert_allclose(o.scores[0], r.scores[0], atol=5e-2)
