@@ -298,6 +298,38 @@ HOST_ALT_HYPOTHESES = 4
 HOST_ALT_SENTENCES = 8
 VMAP_POOL = 4000
 VMAP_TARGETS = 400
+# The architecture paths: each family's published config.json widths and
+# depths (``source`` in each phase line), fabricated from seeds.
+GEMMA2_9B = dict(layers=42, d_model=3584, heads=16, heads_kv=8, head_dim=256,
+                 d_ff=14336, vocab=256000, window=4096, query_pre_attn_scalar=256,
+                 final_softcap=30.0, rotary_base=10000.0, eps=1e-6)
+GEMMA2_PROMPT = 8257  # prefilled 8,256: chunks 4,096 / 4,096 / 64; the rings wrap
+GEMMA2_NEW = 32
+# Ring on and off at full width (int8 weights and KV; the rings dequantized
+# against the decode kernel with the window on linear caches, two float16
+# attentions in other orders): every row's first tokens must agree (both
+# rows' first 8 did on the H100).
+GEMMA2_RING_SAME = 8
+MPT_7B = dict(layers=32, d_model=4096, heads=32, d_ff=16384, vocab=50432, eps=1e-5)
+MPT_BEAM_PROMPT = 64
+MPT_BEAM_NEW = 16
+FALCON_7B = dict(layers=32, d_model=4544, heads=71, d_ff=18176, vocab=65024,
+                 rotary_base=10000.0, eps=1e-5)
+FLAN_T5_LARGE = dict(layers=24, d_model=1024, heads=16, head_dim=64, d_ff=2816,
+                     vocab=32128, buckets=32, max_distance=128, eps=1e-6)
+T5_SOURCES = 16
+T5_SOURCE_TOKENS = 1024
+T5_TARGET_TOKENS = 32
+# ``architectures_card_vs_cpu``: builder models and the Gemma-2 / Flan-T5
+# layouts at these widths (4 heads of 64), ``AB_LAYERS`` layers; a window of
+# 64 (a 256-slot ring), prompts of ARCH_AB_LONG past it.
+ARCH_AB = dict(vocab_size=512, num_heads=4, d_model=256, d_ff=512)
+ARCH_AB_WINDOW = 64
+ARCH_AB_LONG = 300
+ARCH_AB_NEW = 8
+GEMMA2_AB = dict(GEMMA2_9B, d_model=256, heads=4, heads_kv=2, head_dim=64, d_ff=512,
+                 vocab=512, window=ARCH_AB_WINDOW, query_pre_attn_scalar=64)
+FLAN_T5_AB = dict(FLAN_T5_LARGE, d_model=256, heads=4, head_dim=64, d_ff=512, vocab=512)
 
 
 STARTED = time.perf_counter()
@@ -374,7 +406,13 @@ SHAPE_KEYS = {
         tuple((tuple(a.shape), str(a.dtype)) for a in arrays), rows.shape[0]),
     "flash_attention": lambda q, k, v, **kw: (
         tuple(q.shape), k.shape[1], k.shape[2], _dt(q), bool(kw.get("causal")),
-        kw.get("lengths") is not None, kw.get("window", 0)),
+        kw.get("lengths") is not None, kw.get("window", 0),
+        # ALiBi: its convention (positive positions); T5: (buckets, max
+        # distance, bidirectional).
+        None if kw.get("alibi_slopes") is None else bool(kw.get("alibi_positive")),
+        None if kw.get("rel_bias_table") is None else (
+            kw["rel_bias_table"].shape[0], kw.get("rel_max_distance", 0),
+            bool(kw.get("rel_bidirectional", True)))),
     "decode_attention_int8": lambda q, k8, ks, v8, vs, lengths, **kw: (
         tuple(q.shape), k8.shape[1], k8.shape[2], _dt(q),
         kw.get("k_new8") is not None, kw.get("window", 0)),
@@ -847,15 +885,44 @@ def _attention_mask(B, Tq, Tk, causal, lengths, window):
     return mask
 
 
+def _flash_extras(g, Hq, Tq, Tk, alibi, t5):
+    """The flash kwargs of a logged ALiBi convention and T5 (buckets, max
+    distance, bidirectional), and their additive bias [1, Hq, Tq, Tk]
+    float32 for the library call (None without either): the published
+    slopes of Hq heads, a drawn bucket table."""
+    import torch
+    from ctranslate2_tpu_torch.kernels.flash_attention import relative_position_bucket
+    from ctranslate2_tpu_torch.ops.positions import alibi_slopes
+
+    kw, bias = {}, None
+    q_pos = torch.arange(Tq, device="cuda")[:, None]
+    k_pos = torch.arange(Tk, device="cuda")[None, :]
+    if alibi is not None:
+        slopes = torch.from_numpy(alibi_slopes(Hq)).cuda()
+        kw.update(alibi_slopes=slopes, alibi_positive=alibi)
+        offs = 0 if alibi else Tq - 1
+        bias = slopes[:, None, None] * (k_pos - offs).float()[None]
+    if t5 is not None:
+        nb, maxd, bidirectional = t5
+        table = torch.randn((nb, Hq), generator=g, device="cuda") * 0.5
+        kw.update(rel_bias_table=table, rel_max_distance=maxd,
+                  rel_bidirectional=bidirectional)
+        bucket = relative_position_bucket(k_pos - q_pos, nb, maxd, bidirectional)
+        t5_bias = table.t()[:, bucket]
+        bias = t5_bias if bias is None else bias + t5_bias
+    return kw, None if bias is None else bias[None]
+
+
 def bench_flash(shapes, checks, **extra):
     """The flash kernel at every main-path shape against its plain version
     (computed in float32 from the same inputs) and, timed only,
     ``F.scaled_dot_product_attention``: with ``is_causal`` where the
     attention is at most causal, else with the mask built from the lengths,
-    causality and window (the faster of its GQA call and a call on K and V
-    repeated to every query head beforehand). The bound counts the (query,
-    key) pairs that this run's lengths leave, and K and V only up to each
-    row's length; ``extra`` goes into each line."""
+    causality and window, and with ALiBi or the T5 bias as a float mask
+    (the bias, and -inf where masked); the faster of its GQA call and a call
+    on K and V repeated to every query head beforehand. The bound counts
+    the (query, key) pairs that this run's lengths leave, and K and V only
+    up to each row's length; ``extra`` goes into each line."""
     import torch
     import torch.nn.functional as F
     from ctranslate2_tpu_torch.kernels import flash_attention as fa
@@ -865,13 +932,15 @@ def bench_flash(shapes, checks, **extra):
     g = torch.Generator(device="cuda").manual_seed(2)
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
                max_abs_err=0.0)
-    for key, n in sorted(shapes.items()):
-        (B, Hq, Tq, D), Hkv, Tk, dt, causal, has_lengths, window = key
+    for key, n in sorted(shapes.items(), key=lambda kv: str(kv[0])):
+        (B, Hq, Tq, D), Hkv, Tk, dt, causal, has_lengths, window, *more = key
+        alibi, t5 = (more + [None, None])[:2]
         dtype = getattr(torch, dt)
         q, k, v = _flash_inputs(g, B, Hq, Hkv, Tq, Tk, D, dtype)
         lengths = (torch.randint(Tk // 2, Tk + 1, (B,), generator=g, device="cuda",
                                  dtype=torch.int32) if has_lengths else None)
-        kw = dict(scale=D ** -0.5, causal=causal, lengths=lengths, window=window)
+        extras, bias = _flash_extras(g, Hq, Tq, Tk, alibi, t5)
+        kw = dict(scale=D ** -0.5, causal=causal, lengths=lengths, window=window, **extras)
         out = flash_attention(q, k, v, **kw)
         ref = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
         torch.cuda.synchronize()
@@ -892,24 +961,27 @@ def bench_flash(shapes, checks, **extra):
         mask = _attention_mask(B, Tq, Tk, causal, lengths, window)
         pairs = int(mask.sum().item())
         library_calls = {}
-        if lengths is None and not window:
-            library_calls["is_causal" if causal else "unmasked"] = cuda_time_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal, scale=D ** -0.5,
-                    enable_gqa=Hq != Hkv), 5)
+        if bias is not None:
+            attn_mask = bias.masked_fill(~mask, float("-inf")).to(dtype)
+            name = "float_mask"
+        elif lengths is None and not window:
+            attn_mask, name = None, "is_causal" if causal else "unmasked"
         else:
-            library_calls["mask"] = cuda_time_ms(
+            attn_mask, name = mask, "mask"
+        lib_causal = attn_mask is None and causal
+        library_calls[name] = cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=attn_mask, is_causal=lib_causal, scale=D ** -0.5,
+                enable_gqa=Hq != Hkv), 5)
+        if Hq != Hkv:
+            k_rep = k.repeat_interleave(Hq // Hkv, dim=1)
+            v_rep = v.repeat_interleave(Hq // Hkv, dim=1)
+            library_calls[name + "_heads_repeated"] = cuda_time_ms(
                 lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, scale=D ** -0.5,
-                    enable_gqa=Hq != Hkv), 5)
-            if Hq != Hkv:
-                k_rep = k.repeat_interleave(Hq // Hkv, dim=1)
-                v_rep = v.repeat_interleave(Hq // Hkv, dim=1)
-                library_calls["mask_heads_repeated"] = cuda_time_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        q, k_rep, v_rep, attn_mask=mask, scale=D ** -0.5), 5)
-                del k_rep, v_rep
-        del mask
+                    q, k_rep, v_rep, attn_mask=attn_mask, is_causal=lib_causal,
+                    scale=D ** -0.5), 5)
+            del k_rep, v_rep
+        del mask, attn_mask, bias
         lib_ms = min(library_calls.values())
         ops = 4.0 * Hq * D * pairs
         peak = PEAK_F32_FLOPS if dt == "float32" else PEAK_HALF_FLOPS
@@ -920,6 +992,7 @@ def bench_flash(shapes, checks, **extra):
                     / PEAK_BYTES * 1e3)
         emit({"phase": "kernel_flash", "q": [B, Hq, Tq, D], "kv": [B, Hkv, Tk, D],
               "dtype": dt, "causal": causal, "lengths": has_lengths, "window": window,
+              "alibi_positive": alibi, "t5_buckets_max_distance_bidirectional": t5,
               "launches": n, "max_abs_err": err, "tolerance": FLASH_TOL[dt],
               "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
               "library": "F.scaled_dot_product_attention",
@@ -995,7 +1068,10 @@ def bench_decode(shapes, first_length, steps, checks, **extra):
         nbytes = keys * Hkv * (2 * D + 8) + (2 * Hkv * (D + 4) * B if fresh else 0) \
             + B * Hq * D * (args[0].element_size() + 4)
         bytes_ms = nbytes / PEAK_BYTES * 1e3
-        ops_ms = 4.0 * keys * Hq * D / PEAK_F32_FLOPS * 1e3
+        # float16 q with D a multiple of 16 runs on the tensor cores
+        # (decode_mma_kernel); the rest on f32 FMAs.
+        mma = dt == "float16" and D % 16 == 0
+        ops_ms = 4.0 * keys * Hq * D / (PEAK_HALF_FLOPS if mma else PEAK_F32_FLOPS) * 1e3
         plan = decode_plan(B, Hkv, Hq // Hkv, C, D,
                            torch.cuda.get_device_properties(0).multi_processor_count)
         emit({"phase": "kernel_decode", "q": [B, Hq, 1, D], "cache": [B, Hkv, C, D],
@@ -1354,17 +1430,18 @@ def build_llama_modelfile(layers):
     """The Llama-3-8B geometry fabricated directly as int8 payloads and
     scales, in memory (no float intermediates): every linear's payload is
     drawn from its own seed."""
+    mf, jobs = _llama_file(layers)
+    return _draw_into(mf, jobs, _int8_payload)
+
+
+def _int8_payload(job):
+    """An int8 weight of (scope, rows, cols, seed): payload drawn from the
+    seed, every row's scale 127 / 0.05 (weights within +-0.05)."""
     import numpy as np
 
-    mf, jobs = _llama_file(layers)
-
-    def draw(job):
-        scope, rows, cols, seed = job
-        q = np.random.default_rng(seed).integers(-127, 128, (rows, cols), dtype=np.int8)
-        return scope, {"weight": q,
-                       "weight_scale": np.full((rows,), 127.0 / 0.05, np.float32)}
-
-    return _draw_into(mf, jobs, draw)
+    scope, rows, cols, seed = job
+    q = np.random.default_rng(seed).integers(-127, 128, (rows, cols), dtype=np.int8)
+    return scope, {"weight": q, "weight_scale": np.full((rows,), 127.0 / 0.05, np.float32)}
 
 
 def build_awq_llama_modelfile(layers):
@@ -3159,6 +3236,692 @@ def card_vs_cpu(tt, model_dir, batch, checks):
         emit(out)
 
 
+# ---------------------------------------------------------------------------
+# The architecture features at four published families' widths.
+# ---------------------------------------------------------------------------
+
+def _family_file(spec_name, revision, config, attrs, norms, jobs, tied=()):
+    """A new in-memory ModelFile: ``attrs`` {name: (value, dtype)}, ``norms``
+    {scope: (width, with_beta)} (gamma ones, beta zeros), the int8 payloads
+    of ``jobs`` (scope, rows, cols, seed) drawn from their seeds, and
+    ``tied`` (name, of) pairs sharing a drawn array."""
+    import numpy as np
+    from ctranslate2_tpu_torch.formats.model_file import ModelFile, make_variable
+
+    mf = ModelFile(spec_name=spec_name, spec_revision=revision, binary_version=6)
+    mf.config = {"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>", **config}
+    for name, (value, dtype) in attrs.items():
+        mf.variables[name] = make_variable(name, value, dtype)
+    for scope, (width, beta) in norms.items():
+        mf.variables[f"{scope}/gamma"] = make_variable(f"{scope}/gamma",
+                                                       np.ones(width, np.float32))
+        if beta:
+            mf.variables[f"{scope}/beta"] = make_variable(f"{scope}/beta",
+                                                          np.zeros(width, np.float32))
+    _draw_into(mf, jobs, _int8_payload)
+    for name, of in tied:
+        for suffix in ("weight", "weight_scale"):
+            mf.variables[f"{name}/{suffix}"] = make_variable(
+                f"{name}/{suffix}", mf.variables[f"{of}/{suffix}"].array)
+    return mf
+
+
+def build_gemma2_modelfile(layers, cfg=GEMMA2_9B):
+    """google/gemma-2-9b as the JAX converter writes it (``load_gemma``):
+    sandwich norms with the plus-one gamma baked in, a window of 4,096 on
+    the even layers, 256^-0.5 queries scale, embeddings scaled by
+    sqrt(3,584), final softcap 30, tied projection; int8 payloads."""
+    d, h, hkv, hd = cfg["d_model"], cfg["heads"], cfg["heads_kv"], cfg["head_dim"]
+    sc = "decoder"
+    attrs = {f"{sc}/num_heads": (h, "int16"), f"{sc}/pre_norm": (1, "int8"),
+             f"{sc}/activation": (1, "int8"),  # gelu_tanh
+             f"{sc}/scale_embeddings": (d ** 0.5, "float32"),
+             f"{sc}/final_logit_softcapping": (cfg["final_softcap"], "float32")}
+    norms = {f"{sc}/layer_norm": (d, False)}
+    jobs = [(f"{sc}/embeddings", cfg["vocab"], d, 0)]
+    for i in range(layers):
+        ls, asc = f"{sc}/layer_{i}", f"{sc}/layer_{i}/self_attention"
+        for name in ("input_layer_norm", "post_attention_layer_norm",
+                     "pre_feedforward_layer_norm", "post_feedforward_layer_norm"):
+            norms[f"{ls}/{name}"] = (d, False)
+        if i % 2 == 0:
+            attrs[f"{asc}/sliding_window"] = (cfg["window"], "int32")
+        attrs.update({f"{asc}/num_heads_kv": (hkv, "int32"),
+                      f"{asc}/head_dim": (hd, "int32"),
+                      f"{asc}/rotary_dim": (0, "int32"),
+                      f"{asc}/rotary_interleave": (0, "int8"),
+                      f"{asc}/rotary_base": (cfg["rotary_base"], "float32"),
+                      f"{asc}/queries_scale": (cfg["query_pre_attn_scalar"] ** -0.5,
+                                               "float32")})
+        jobs += [(f"{asc}/linear_0", (h + 2 * hkv) * hd, d, 10 + i),
+                 (f"{asc}/linear_1", d, h * hd, 1000 + i),
+                 (f"{ls}/ffn/linear_0", cfg["d_ff"], d, 2000 + i),
+                 (f"{ls}/ffn/linear_0_noact", cfg["d_ff"], d, 3000 + i),
+                 (f"{ls}/ffn/linear_1", d, cfg["d_ff"], 4000 + i)]
+    return _family_file("TransformerDecoderSpec", 8, {"layer_norm_epsilon": cfg["eps"]},
+                        attrs, norms, jobs, tied=[(f"{sc}/projection", f"{sc}/embeddings")])
+
+
+def build_mpt_modelfile(layers, cfg=MPT_7B):
+    """mosaicml/mpt-7b as the JAX converter writes it (``load_mpt``): ALiBi
+    (positive positions, no scale), LayerNorms with a zero beta, no biases,
+    tied projection; int8 payloads."""
+    d, sc = cfg["d_model"], "decoder"
+    attrs = {f"{sc}/num_heads": (cfg["heads"], "int16"), f"{sc}/pre_norm": (1, "int8"),
+             f"{sc}/activation": (3, "int8"),  # gelu
+             f"{sc}/scale_embeddings": (0, "int8"), f"{sc}/alibi": (1, "int8")}
+    norms = {f"{sc}/layer_norm": (d, True)}
+    jobs = [(f"{sc}/embeddings", cfg["vocab"], d, 0)]
+    for i in range(layers):
+        ls, asc = f"{sc}/layer_{i}", f"{sc}/layer_{i}/self_attention"
+        norms[f"{asc}/layer_norm"] = (d, True)
+        norms[f"{ls}/ffn/layer_norm"] = (d, True)
+        jobs += [(f"{asc}/linear_0", 3 * d, d, 10 + i),
+                 (f"{asc}/linear_1", d, d, 1000 + i),
+                 (f"{ls}/ffn/linear_0", cfg["d_ff"], d, 2000 + i),
+                 (f"{ls}/ffn/linear_1", d, cfg["d_ff"], 4000 + i)]
+    return _family_file("TransformerDecoderSpec", 8, {"layer_norm_epsilon": cfg["eps"]},
+                        attrs, norms, jobs, tied=[(f"{sc}/projection", f"{sc}/embeddings")])
+
+
+def build_falcon_modelfile(layers, cfg=FALCON_7B):
+    """tiiuae/falcon-7b as the JAX converter writes it (``load_falcon``): 71
+    query heads on one KV head (``multi_query``), rotary, one shared
+    LayerNorm a layer (parallel residual), no biases, tied projection; int8
+    payloads."""
+    d, h, sc = cfg["d_model"], cfg["heads"], "decoder"
+    hd = d // h
+    attrs = {f"{sc}/num_heads": (h, "int16"), f"{sc}/pre_norm": (1, "int8"),
+             f"{sc}/activation": (3, "int8"),  # gelu
+             f"{sc}/scale_embeddings": (0, "int8")}
+    norms = {f"{sc}/layer_norm": (d, True)}
+    jobs = [(f"{sc}/embeddings", cfg["vocab"], d, 0)]
+    for i in range(layers):
+        ls, asc = f"{sc}/layer_{i}", f"{sc}/layer_{i}/self_attention"
+        norms[f"{ls}/shared_layer_norm"] = (d, True)
+        attrs.update({f"{asc}/multi_query": (1, "int8"),
+                      f"{asc}/rotary_dim": (0, "int32"),
+                      f"{asc}/rotary_interleave": (0, "int8"),
+                      f"{asc}/rotary_base": (cfg["rotary_base"], "float32")})
+        jobs += [(f"{asc}/linear_0", (h + 2) * hd, d, 10 + i),
+                 (f"{asc}/linear_1", d, d, 1000 + i),
+                 (f"{ls}/ffn/linear_0", cfg["d_ff"], d, 2000 + i),
+                 (f"{ls}/ffn/linear_1", d, cfg["d_ff"], 4000 + i)]
+    return _family_file("TransformerDecoderSpec", 8, {"layer_norm_epsilon": cfg["eps"]},
+                        attrs, norms, jobs, tied=[(f"{sc}/projection", f"{sc}/embeddings")])
+
+
+def build_flan_t5_modelfile(layers, cfg=FLAN_T5_LARGE):
+    """google/flan-t5-large as the JAX converter writes it (``load_t5``):
+    RMS norms, queries scale 1, the relative-attention bucket table on
+    every self-attention (layer 0's, shared down the stack), gated GELU
+    (tanh), an untied projection; int8 payloads."""
+    import numpy as np
+
+    d, h, hd = cfg["d_model"], cfg["heads"], cfg["head_dim"]
+    inner = h * hd
+    attrs = {"encoder/embeddings_merge": (0, "int8")}
+    norms = {}
+    jobs = [("encoder/embeddings_0", cfg["vocab"], d, 0), ("decoder/projection", cfg["vocab"], d, 1)]
+    table = (np.random.default_rng(7).standard_normal((cfg["buckets"], h)) * 0.5) \
+        .astype(np.float32)
+    for side in ("encoder", "decoder"):
+        attrs.update({f"{side}/num_heads": (h, "int16"), f"{side}/pre_norm": (1, "int8"),
+                      f"{side}/activation": (1, "int8"),  # gelu_tanh
+                      f"{side}/scale_embeddings": (0, "int8")})
+        norms[f"{side}/layer_norm"] = (d, False)
+        for i in range(layers):
+            ls = f"{side}/layer_{i}"
+            asc = f"{ls}/self_attention"
+            norms[f"{asc}/layer_norm"] = (d, False)
+            norms[f"{ls}/ffn/layer_norm"] = (d, False)
+            attrs.update({f"{asc}/queries_scale": (1.0, "float32"),
+                          f"{asc}/relative_attention_bias": (table, None),
+                          f"{asc}/relative_attention_max_distance":
+                              (cfg["max_distance"], "int32")})
+            seed = (0 if side == "encoder" else 100000) + i
+            jobs += [(f"{asc}/linear_0", 3 * inner, d, 10 + seed),
+                     (f"{asc}/linear_1", d, inner, 1000 + seed),
+                     (f"{ls}/ffn/linear_0", cfg["d_ff"], d, 2000 + seed),
+                     (f"{ls}/ffn/linear_0_noact", cfg["d_ff"], d, 3000 + seed),
+                     (f"{ls}/ffn/linear_1", d, cfg["d_ff"], 4000 + seed)]
+            if side == "decoder":
+                csc = f"{ls}/attention"
+                norms[f"{csc}/layer_norm"] = (d, False)
+                attrs[f"{csc}/queries_scale"] = (1.0, "float32")
+                jobs += [(f"{csc}/linear_0", inner, d, 5000 + seed),
+                         (f"{csc}/linear_1", 2 * inner, d, 6000 + seed),
+                         (f"{csc}/linear_2", d, inner, 7000 + seed)]
+    mf = _family_file("TransformerSpec", 7,
+                      {"layer_norm_epsilon": cfg["eps"], "add_source_bos": False,
+                       "add_source_eos": False, "decoder_start_token": "<s>"},
+                      attrs, norms, jobs, tied=[("decoder/embeddings", "encoder/embeddings_0")])
+    return mf
+
+
+def family_vocab(size):
+    from ctranslate2_tpu_torch.formats.vocabulary import Vocabulary, VocabularyInfo
+
+    return Vocabulary(["<unk>", "<s>", "</s>"] + [f"t{i}" for i in range(size - 3)],
+                      VocabularyInfo(unk_token="<unk>", bos_token="<s>", eos_token="</s>"))
+
+
+def family_prompts(vocab_size, rows, length, seed, prefix="t"):
+    """``rows`` prompts of ``length`` tokens of ``family_vocab`` (``prefix``
+    "tok": of the builder's vocabulary)."""
+    import numpy as np
+
+    r = np.random.default_rng(3000 + seed)
+    return [[f"{prefix}{int(t)}" for t in r.integers(10, vocab_size - 13, length)]
+            for _ in range(rows)]
+
+
+def arch_call(label, tt, call, kernels, logs, checks, prefill=None):
+    """One watched call: the launch counters zeroed just before and read just
+    after, the kernels' call shapes logged, their plain versions' calls on
+    the card counted; returns (result, seconds, counts, peak bytes)."""
+    import torch
+
+    plain = {}
+    with watched(logs, plain):
+        out, seconds = synced_seconds(call)
+        counts = tt.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    check_path(label, counts, kernels, plain, checks)
+    return out, seconds, counts, peak
+
+
+def timed_prefills(gen):
+    """A ``patched`` wrapper for ``Generator._prefill``: the seconds of each
+    prefill (synced on either side) into the returned list."""
+    import torch
+
+    seconds = []
+
+    def wrap(orig):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - start)
+            return out
+        return wrapped
+    return seconds, wrap
+
+
+def generate_watched(label, tt, gen, prompts, new_tokens, kernels, logs, checks, **kw):
+    """``generate_batch`` with exactly ``new_tokens`` new tokens a prompt,
+    watched (``arch_call``), with its prefill timed apart; returns its
+    numbers as a dict and the results."""
+    from ctranslate2_tpu_torch.models import transformer as T
+
+    seconds_list, wrap = timed_prefills(gen)
+    chunks = []
+
+    def chunk_log(orig):
+        def wrapped(arch, params, consts, ids, pos, *args, **kwargs):
+            if ids.shape[-1] > 1:
+                chunks.append((pos, ids.shape[-1]))
+            return orig(arch, params, consts, ids, pos, *args, **kwargs)
+        return wrapped
+
+    # With the prompt in the result, the loop feeds it token by token and
+    # ``max_length`` counts it (the reference's rule).
+    with_prompt = kw.get("include_prompt_in_result", False)
+    steps = new_tokens + (len(prompts[0]) - 1 if with_prompt else 0)
+    opts = dict(include_prompt_in_result=False, beam_size=1, min_length=steps,
+                max_length=steps, return_scores=True)
+    opts.update(kw)
+    with patched(gen, "_prefill", wrap), patched(T, "decoder_forward", chunk_log):
+        results, seconds, counts, peak = arch_call(
+            label, tt, lambda: gen.generate_batch(prompts, **opts), kernels, logs, checks)
+    prefill = sum(seconds_list)
+    hyps = [r.sequences_ids[0] for r in results]
+    checks(all(len(h) == new_tokens + (len(prompts[0]) if with_prompt else 0) for h in hyps)
+           and all(math.isfinite(r.scores[0]) for r in results),
+           f"{label}: every hypothesis has {new_tokens} new tokens and a finite score")
+    tokens = len(prompts) * new_tokens
+    return results, {
+        "seconds": seconds, "prefill_ms": prefill * 1e3, "prefill_chunks": chunks,
+        "decode_ms_per_step": (seconds - prefill) / steps * 1e3,
+        "new_tokens_per_s": tokens / seconds, "peak_memory_bytes": peak,
+        "launches": counts}
+
+
+def gemma2_phase(tt, checks, logs):
+    """Gemma-2-9B: 2 prompts of 8,257 tokens, int8 KV, greedy, 32 new
+    tokens, with the ring (prefill chunks 4,096 / 4,096 / 64 split at the
+    ring block; 8,192-slot rings on the windowed layers, which wrap past
+    position 8,192; the global layers' linear caches take the decode
+    kernel), then ``CT2TPU_WINDOW_RING=0`` (one fresh prefill through flash
+    with the window, the decode kernel with the window on linear caches)."""
+    from ctranslate2_tpu_torch.models import transformer as T
+
+    cfg = GEMMA2_9B
+    t0 = time.perf_counter()
+    mf = build_gemma2_modelfile(cfg["layers"])
+    build_s = time.perf_counter() - t0
+    vocab = family_vocab(cfg["vocab"])
+    layers = cfg["layers"]
+    prompts = family_prompts(cfg["vocab"], 2, GEMMA2_PROMPT, 0)
+    out = {}
+    with environ(CT2TPU_KV_CACHE="int8"):
+        t0 = time.perf_counter()
+        gen = make_generator(tt, mf, vocab, compute_type="int8")
+        load_s = time.perf_counter() - t0
+        del mf
+        kernels = ("matmul_w8a8", "flash_attention", "decode_attention_int8", "fused_norm")
+        for ring in ("1", "0"):
+            with environ(CT2TPU_WINDOW_RING=ring):
+                results, nums = generate_watched(
+                    f"gemma2 ring={ring}", tt, gen, prompts, GEMMA2_NEW, kernels,
+                    logs.setdefault(f"gemma2_ring{ring}", {}), checks)
+                out["ring_on" if ring == "1" else "ring_off"] = nums
+                out.setdefault("tokens", []).append([r.sequences_ids[0] for r in results])
+        rb = T.ring_block(gen.model.arch)
+        with environ(CT2TPU_WINDOW_RING="1"):
+            rb = T.ring_block(gen.model.arch)
+    on, off = out["ring_on"], out["ring_off"]
+    windowed = sum(1 for l in gen.model.arch.decoder.layers if l.self_attention.sliding_window)
+    want = [(0, 4096), (4096, 4096), (8192, GEMMA2_PROMPT - 1 - 8192)]
+    checks(rb == cfg["window"] and on["prefill_chunks"] == want
+           and off["prefill_chunks"] == [(0, GEMMA2_PROMPT - 1)],
+           f"gemma2: ring block {rb}, prefill chunks (position, length) "
+           f"{on['prefill_chunks']} (ring) and {off['prefill_chunks']} (no ring)")
+    checks(on["launches"]["flash_attention"] == layers
+           and on["launches"]["decode_attention_int8"] == (layers - windowed) * GEMMA2_NEW,
+           "gemma2 ring: flash on every layer's first chunk, the decode kernel on the "
+           f"global layers only ({on['launches']})")
+    checks(off["launches"]["flash_attention"] == layers
+           and off["launches"]["decode_attention_int8"] == layers * GEMMA2_NEW,
+           f"gemma2 no ring: flash and the decode kernel on every layer ({off['launches']})")
+    same = sum(a[:GEMMA2_RING_SAME] == b[:GEMMA2_RING_SAME]
+               for a, b in zip(*out.pop("tokens")))
+    checks(same == len(prompts),
+           f"gemma2: ring on and off give the same first {GEMMA2_RING_SAME} tokens "
+           f"in {same} of {len(prompts)} rows")
+    emit({"phase": "architectures_gemma2", "config": cfg, "source": "google/gemma-2-9b",
+          "build_seconds": build_s, "load_seconds": load_s, "prompts": 2,
+          "prompt_tokens": GEMMA2_PROMPT, "new_tokens": GEMMA2_NEW, "kv_cache": "int8",
+          "ring_block": rb, "windowed_layers": windowed,
+          "ring_on_vs_off_rows_with_same_first_tokens": same,
+          "first_tokens_compared": GEMMA2_RING_SAME, **out})
+    del gen
+    free_card()
+
+
+def mpt_phase(tt, checks, logs):
+    """MPT-7B: 4 prompts of 2,049 tokens, int8 KV, greedy, 64 new tokens
+    (the prefill through flash with the ALiBi slopes; each decode step the
+    plain attention over the dequantized cache with the ALiBi bias, as in
+    the JAX package, which declines its decode kernel for ALiBi); then beam
+    2 with the float16 KV cache on 2 prompts of ``MPT_BEAM_PROMPT`` tokens,
+    16 new tokens, the prompt in the result: the loop makes its own cache
+    and feeds the prompt token by token, so every step runs chain-mask
+    attention with ALiBi (a prefilled cache takes the gather reorder
+    instead, and a prompt of 2,049 fed token by token would take minutes)."""
+    cfg = MPT_7B
+    t0 = time.perf_counter()
+    mf = build_mpt_modelfile(cfg["layers"])
+    build_s = time.perf_counter() - t0
+    vocab = family_vocab(cfg["vocab"])
+    t0 = time.perf_counter()
+    gen = make_generator(tt, mf, vocab, compute_type="int8")
+    load_s = time.perf_counter() - t0
+    del mf
+    with environ(CT2TPU_KV_CACHE="int8"):
+        _, greedy = generate_watched(
+            "mpt greedy", tt, gen, family_prompts(cfg["vocab"], GEN_BATCH, GEN_PROMPT, 1),
+            GEN_NEW, ("matmul_w8a8", "flash_attention", "fused_norm"),
+            logs.setdefault("mpt_greedy", {}), checks)
+    checks(greedy["launches"]["decode_attention_int8"] == 0
+           and greedy["launches"]["flash_attention"] == cfg["layers"],
+           f"mpt greedy: flash with slopes a layer, no decode kernel ({greedy['launches']})")
+    chain_calls = []
+    import ctranslate2_tpu_torch.ops.attention as A
+
+    def count_chain(orig):
+        def wrapped(*args, **kwargs):
+            chain_calls.append(kwargs.get("alibi_bias") is not None)
+            return orig(*args, **kwargs)
+        return wrapped
+
+    with patched(A, "beam_chain_attention", count_chain):
+        _, beam = generate_watched(
+            "mpt beam", tt, gen, family_prompts(cfg["vocab"], 2, MPT_BEAM_PROMPT, 2),
+            MPT_BEAM_NEW, ("matmul_w8a8", "fused_norm"), logs.setdefault("mpt_beam", {}),
+            checks, beam_size=2, include_prompt_in_result=True)
+    steps = MPT_BEAM_PROMPT - 1 + MPT_BEAM_NEW
+    checks(len(chain_calls) == steps * cfg["layers"] and all(chain_calls)
+           and beam["launches"]["gather_rows_fused"] == 0,
+           f"mpt beam: chain-mask attention with ALiBi on every layer and step "
+           f"({len(chain_calls)} calls), no gather reorder")
+    emit({"phase": "architectures_mpt", "config": cfg, "source": "mosaicml/mpt-7b",
+          "build_seconds": build_s, "load_seconds": load_s, "compute_type": gen.compute_type,
+          "greedy": dict(greedy, prompts=GEN_BATCH, prompt_tokens=GEN_PROMPT,
+                         new_tokens=GEN_NEW, kv_cache="int8"),
+          "beam": dict(beam, prompts=2, prompt_tokens=MPT_BEAM_PROMPT,
+                       new_tokens=MPT_BEAM_NEW, beam_size=2, kv_cache="float16",
+                       chain_attention_calls=len(chain_calls))})
+    del gen
+    free_card()
+
+
+def falcon_phase(tt, checks, logs):
+    """Falcon-7B: 4 prompts of 2,049 tokens, int8 KV, greedy, 64 new tokens:
+    the decode kernel at 71 query heads on one KV head, W8A8 at K 4,544."""
+    cfg = FALCON_7B
+    t0 = time.perf_counter()
+    mf = build_falcon_modelfile(cfg["layers"])
+    build_s = time.perf_counter() - t0
+    vocab = family_vocab(cfg["vocab"])
+    t0 = time.perf_counter()
+    gen = make_generator(tt, mf, vocab, compute_type="int8")
+    load_s = time.perf_counter() - t0
+    del mf
+    with environ(CT2TPU_KV_CACHE="int8"):
+        _, nums = generate_watched(
+            "falcon", tt, gen, family_prompts(cfg["vocab"], GEN_BATCH, GEN_PROMPT, 3),
+            GEN_NEW, ("matmul_w8a8", "flash_attention", "decode_attention_int8",
+                      "fused_norm"), logs.setdefault("falcon", {}), checks)
+    layers = cfg["layers"]
+    checks(nums["launches"]["decode_attention_int8"] == layers * GEN_NEW
+           and nums["launches"]["fused_norm"] == (layers + 1) * (1 + GEN_NEW),
+           "falcon: one decode launch a layer and step, one shared norm a layer and the "
+           f"output norm a pass ({nums['launches']})")
+    emit({"phase": "architectures_falcon", "config": cfg, "source": "tiiuae/falcon-7b",
+          "build_seconds": build_s, "load_seconds": load_s, "compute_type": gen.compute_type,
+          "prompts": GEN_BATCH, "prompt_tokens": GEN_PROMPT, "new_tokens": GEN_NEW,
+          "kv_cache": "int8", **nums})
+    del gen
+    free_card()
+
+
+def flan_t5_phase(tt, checks, logs):
+    """Flan-T5-large: ``Translator(..., flash_attention=True).translate_batch``
+    on 16 sources of 1,024 tokens, beam 2, exactly 32 target tokens: the
+    encoder through flash (non-causal, the bucket table, per-row lengths),
+    the decoder's self-attention with the causal T5 bias on the plain path,
+    the beams reordered by the gather kernel."""
+    import torch
+
+    cfg = FLAN_T5_LARGE
+    t0 = time.perf_counter()
+    mf = build_flan_t5_modelfile(cfg["layers"])
+    build_s = time.perf_counter() - t0
+    vocab = family_vocab(cfg["vocab"])
+    t0 = time.perf_counter()
+    tr = tt.Translator(mf, compute_type="int8", flash_attention=True)
+    tr.model.source_vocabularies = [vocab]
+    tr.model.target_vocabulary = vocab
+    load_s = time.perf_counter() - t0
+    del mf
+    sources = family_prompts(cfg["vocab"], T5_SOURCES, T5_SOURCE_TOKENS, 4)
+    opts = dict(beam_size=2, max_decoding_length=T5_TARGET_TOKENS,
+                min_decoding_length=T5_TARGET_TOKENS, return_scores=True,
+                max_input_length=T5_SOURCE_TOKENS)
+    results, seconds, counts, peak = arch_call(
+        "flan_t5", tt, lambda: tr.translate_batch(sources, **opts),
+        ("matmul_w8a8", "flash_attention", "gather_rows_fused", "fused_norm"),
+        logs.setdefault("flan_t5", {}), checks)
+    # The encoder alone, for the split of the call's time.
+    from ctranslate2_tpu_torch.models import transformer as T
+
+    m = tr.model
+    ids = torch.tensor([[vocab.to_id(t) for t in s] for s in sources], device=m.device)
+    lengths = torch.full((len(sources),), T5_SOURCE_TOKENS, device=m.device)
+    _, enc_seconds, enc_counts, _ = arch_call(
+        "flan_t5 encoder", tt, lambda: T.encoder_forward(
+            m.arch, m.params, m.consts, ids, lengths,
+            quantize_acts=m.policy.quantize_activations, out_dtype=m.out_dtype),
+        ("flash_attention",), {}, checks)
+    checks(all(len(r.hypotheses[0]) == T5_TARGET_TOKENS and math.isfinite(r.scores[0])
+               for r in results),
+           f"flan_t5: {T5_TARGET_TOKENS} target tokens and a finite score a source")
+    checks(counts["flash_attention"] == cfg["layers"],
+           f"flan_t5: one flash launch an encoder layer ({counts['flash_attention']})")
+    tokens = T5_SOURCES * T5_TARGET_TOKENS
+    emit({"phase": "architectures_flan_t5", "config": cfg, "source": "google/flan-t5-large",
+          "build_seconds": build_s, "load_seconds": load_s, "compute_type": tr.compute_type,
+          "sources": T5_SOURCES, "source_tokens": T5_SOURCE_TOKENS, "beam_size": 2,
+          "target_tokens": T5_TARGET_TOKENS, "seconds": seconds,
+          "target_tokens_per_s": tokens / seconds, "encoder_seconds": enc_seconds,
+          "decode_ms_per_step": (seconds - enc_seconds) / T5_TARGET_TOKENS * 1e3,
+          "peak_memory_bytes": peak, "launches": counts,
+          "launches_encoder": enc_counts})
+    del tr
+    free_card()
+
+
+def _ab_file_edits(path, edits):
+    """Writes ``edits`` {name: array} into the model directory at ``path``
+    (an attribute the builder does not take, or Shaw tables)."""
+    from ctranslate2_tpu_torch.formats.model_file import load_model_file, make_variable
+
+    mf = load_model_file(path)
+    for name, value in edits(mf).items():
+        mf.variables[name] = make_variable(name, value)
+    mf.save(path)
+    return path
+
+
+def _shaw_tables(mf):
+    """Shaw keys and values (max position 8) in every self-attention."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    out = {}
+    for name in list(mf.variables):
+        if name.endswith("/self_attention/linear_1/weight"):
+            scope = name[:-len("/linear_1/weight")]
+            side = scope.split("/")[0]
+            hd = mf.variables[name].shape[0] // int(mf.variables[f"{side}/num_heads"].array)
+            for table in ("relative_position_keys", "relative_position_values"):
+                out[f"{scope}/{table}"] = (rng.standard_normal((17, hd)) * 0.05) \
+                    .astype(np.float32)
+    return out
+
+
+def architectures_card_vs_cpu(tt, work, checks):
+    """At ``AB_LAYERS`` layers in float32, every architecture feature on the
+    card against the port on the CPU, both with ``flash_attention=True``:
+    the first decode step's log-probs after a prefill within
+    ``LOGPROB_TOL``, and the same greedy tokens (``ARCH_AB_NEW``). Builder
+    models at ``ARCH_AB`` widths (ALiBi both ways and with ``scale_alibi``,
+    Shaw positions, the T5 bias, a uniform window, Gemma-style hybrid
+    windows, both parallel-residual forms; seq2seq: Shaw, merged
+    attention), the Gemma-2 and Flan-T5 layouts at small widths (sandwich
+    norms and windows; the T5 bias through the encoder's flash table), and
+    the ring on against the ring off on the card (prompts past 2 x Wr)."""
+    import numpy as np
+    import torch
+    from ctranslate2_tpu_torch.converters import builder as tb
+
+    t0 = time.perf_counter()
+    kw = dict(ARCH_AB, num_layers=AB_LAYERS)
+    decoders = {
+        "alibi": dict(alibi=True),
+        "alibi_negative": dict(alibi=True, alibi_positive=False),
+        "alibi_scaled": dict(alibi=True),
+        "shaw": dict(rel_position_max=8),
+        "t5_bias": dict(rel_bias_buckets=32, rel_bias_max_distance=128),
+        "window": dict(sliding_window=ARCH_AB_WINDOW, rotary_dim=0),
+        "hybrid_windows": dict(sliding_window=ARCH_AB_WINDOW, rotary_dim=0,
+                               sliding_window_pattern=2),
+        "parallel_shared_norm": dict(parallel_residual=True, shared_layer_norm=True,
+                                     rotary_dim=0),
+        "parallel_two_norms": dict(parallel_residual=True, rotary_dim=0),
+    }
+    rows = {}
+
+    def decoder_pair(name, source):
+        card = tt.Generator(source, compute_type="float32", flash_attention=True)
+        cpu = tt.Generator(source, device="cpu", compute_type="float32",
+                           flash_attention=True)
+        for g in (card, cpu):
+            if not isinstance(source, str):
+                g.model.target_vocabulary = family_vocab(ARCH_AB["vocab_size"])
+        return card, cpu
+
+    def compare_generators(name, source, length):
+        """With the float KV cache within ``LOGPROB_TOL``, and with the int8
+        one (the first step reads a linear cache: windowed layers take the
+        decode kernel with the window, ALiBi and relative positions the
+        dequantized cache; greedy search then runs ring layers on their
+        dequantized rings) within ``INT8_KV_LOGPROB_TOL``."""
+        card, cpu = decoder_pair(name, source)
+        prompts = family_prompts(ARCH_AB["vocab_size"], 2, length, 5,
+                                 "tok" if isinstance(source, str) else "t")
+        for kv, tol, row in (("", LOGPROB_TOL, name),
+                             ("int8", INT8_KV_LOGPROB_TOL, f"{name}_int8_kv")):
+            with environ(CT2TPU_KV_CACHE=kv):
+                tt.reset_launches()
+                lp_card = generator_first_step_logprobs(card, prompts)
+                counts = tt.launch_counts()
+                lp_cpu = generator_first_step_logprobs(cpu, prompts)
+                opts = dict(max_length=ARCH_AB_NEW, include_prompt_in_result=False)
+                same = [a.sequences_ids == b.sequences_ids for a, b in zip(
+                    card.generate_batch(prompts, **opts),
+                    cpu.generate_batch(prompts, **opts))]
+            diff = (lp_card - lp_cpu).abs().max().item()
+            # Shaw keys and values decline the flash kernel, and so does the
+            # decoder's T5 bias (the JAX package gives the kernel its table in
+            # the encoder only); every other prefill takes it.
+            flash = name not in ("shaw", "t5_bias")
+            checks(diff <= tol and all(same) and (counts["flash_attention"] > 0) == flash,
+                   f"architectures card vs CPU, {row}: first-step log-probs within "
+                   f"{tol} (got {diff}), same tokens ({same}), flash on the card "
+                   f"{flash} ({counts['flash_attention']})")
+            rows[row] = {"first_step_logprob_max_abs_diff": diff, "tolerance": tol,
+                         "same_tokens": all(same), "prompt_tokens": length,
+                         "launches_first_step": counts}
+        return card
+
+    for name, extra in decoders.items():
+        path = tb.build_decoder_only_model(os.path.join(work, f"ab_{name}"),
+                                           **{**kw, **extra})
+        if name == "alibi_scaled":
+            _ab_file_edits(path, lambda mf: {"decoder/scale_alibi": np.int8(1)})
+        length = ARCH_AB_LONG if "window" in name else CPU_PROMPT
+        card = compare_generators(name, path, length)
+        if name == "hybrid_windows":
+            # The ring on against the ring off, on the card: wraps past 2 x Wr.
+            # With the int8 KV cache the ring is dequantized, the linear
+            # cache read by the decode kernel with the window.
+            prompts = family_prompts(ARCH_AB["vocab_size"], 2, ARCH_AB_LONG, 6, "tok")
+            opts = dict(max_length=ARCH_AB_NEW, include_prompt_in_result=False,
+                        return_scores=True)
+            for kv, tol, row in (("", LOGPROB_TOL, "ring_on_vs_off_on_card"),
+                                 ("int8", INT8_KV_LOGPROB_TOL,
+                                  "ring_on_vs_off_on_card_int8_kv")):
+                with environ(CT2TPU_KV_CACHE=kv):
+                    with environ(CT2TPU_WINDOW_RING="1"):
+                        on = card.generate_batch(prompts, **opts)
+                    with environ(CT2TPU_WINDOW_RING="0"):
+                        tt.reset_launches()
+                        off = card.generate_batch(prompts, **opts)
+                        counts = tt.launch_counts()
+                diff = max(abs(a.scores[0] - b.scores[0]) for a, b in zip(on, off))
+                same = all(a.sequences_ids == b.sequences_ids for a, b in zip(on, off))
+                kernel = kv != "int8" or counts["decode_attention_int8"] > 0
+                checks(same and diff <= tol and kernel,
+                       f"architectures on the card, {row}: same tokens ({same}), "
+                       f"scores within {tol} (got {diff}), the decode kernel on the "
+                       f"linear int8 cache ({counts['decode_attention_int8']})")
+                rows[row] = {"score_max_abs_diff": diff, "tolerance": tol,
+                             "same_tokens": same, "prompt_tokens": ARCH_AB_LONG,
+                             "launches_ring_off": counts}
+        del card
+    gemma = build_gemma2_modelfile(AB_LAYERS, cfg=GEMMA2_AB)
+    compare_generators("sandwich_gemma2_layout", gemma, ARCH_AB_LONG)
+    del gemma
+
+    def compare_translators(name, source):
+        card = tt.Translator(source, compute_type="float32", flash_attention=True)
+        cpu = tt.Translator(source, device="cpu", compute_type="float32",
+                            flash_attention=True)
+        if not isinstance(source, str):
+            for tr in (card, cpu):
+                vocab = family_vocab(FLAN_T5_AB["vocab"])
+                tr.model.source_vocabularies = [vocab]
+                tr.model.target_vocabulary = vocab
+            size = FLAN_T5_AB["vocab"]
+        else:
+            size = ARCH_AB["vocab_size"]
+        sources = family_prompts(size, 4, 200, 7,
+                                 "tok" if isinstance(source, str) else "t")
+        tt.reset_launches()
+        lp_card = first_step_logprobs(card, sources)
+        counts = tt.launch_counts()
+        lp_cpu = first_step_logprobs(cpu, sources)
+        opts = dict(beam_size=2, max_decoding_length=ARCH_AB_NEW)
+        same = [a.hypotheses == b.hypotheses for a, b in zip(
+            card.translate_batch(sources, **opts), cpu.translate_batch(sources, **opts))]
+        diff = (lp_card - lp_cpu).abs().max().item()
+        checks(diff <= LOGPROB_TOL and all(same),
+               f"architectures card vs CPU, {name}: first-step log-probs within "
+               f"{LOGPROB_TOL} (got {diff}), same beam hypotheses ({same})")
+        rows[name] = {"first_step_logprob_max_abs_diff": diff, "same_tokens": all(same),
+                      "launches_first_step": counts}
+        return counts
+
+    s2s = dict(vocab_size=ARCH_AB["vocab_size"], num_layers=AB_LAYERS,
+               num_heads=ARCH_AB["num_heads"], d_model=ARCH_AB["d_model"],
+               d_ff=ARCH_AB["d_ff"])
+    path = tb.build_seq2seq_model(os.path.join(work, "ab_shaw_s2s"), **s2s)
+    compare_translators("shaw_seq2seq", _ab_file_edits(path, _shaw_tables))
+    path = tb.build_seq2seq_model(os.path.join(work, "ab_merged"), merged_attention=True,
+                                  **s2s)
+    compare_translators("merged_attention", path)
+    t5 = build_flan_t5_modelfile(AB_LAYERS, cfg=FLAN_T5_AB)
+    counts = compare_translators("t5_bias_seq2seq", t5)
+    checks(counts["flash_attention"] == AB_LAYERS,
+           f"architectures card vs CPU, T5: the encoder's flash with the bucket table "
+           f"({counts['flash_attention']})")
+    emit({"phase": "architectures_card_vs_cpu", "layers": AB_LAYERS, "widths": ARCH_AB,
+          "tolerance": LOGPROB_TOL, "int8_kv_tolerance": INT8_KV_LOGPROB_TOL,
+          "checks": rows, "seconds": time.perf_counter() - t0})
+
+
+# The decode kernel's lengths on each architecture path: (the first step's
+# cache length, the steps of a call).
+ARCH_DECODE_LENGTHS = {"gemma2_ring1": (GEMMA2_PROMPT - 1, GEMMA2_NEW),
+                       "gemma2_ring0": (GEMMA2_PROMPT - 1, GEMMA2_NEW)}
+
+
+def arch_benches(arch_logs, seen, checks):
+    """Every shape the architecture paths gave a kernel that no earlier path
+    did (``seen``: the earlier paths' logs), held against the kernel's plain
+    version and timed in a row of its own (``"summed": false``)."""
+    done = {name: dict(shapes) for name, shapes in seen.items()}
+    for path, plogs in arch_logs.items():
+        fresh = new_shapes(plogs, done)
+        extra = dict(summed=False, paths=f"architectures_{path}")
+        bench_w8a8(fresh.get("matmul_w8a8", {}), checks, **extra)
+        free_card()
+        bench_flash(fresh.get("flash_attention", {}), checks, **extra)
+        free_card()
+        bench_norm(fresh.get("fused_norm", {}), checks, **extra)
+        bench_gather(fresh.get("gather_rows_fused", {}), checks, **extra)
+        first, steps = ARCH_DECODE_LENGTHS.get(path, (GEN_PROMPT - 1, GEN_NEW))
+        bench_decode(fresh.get("decode_attention_int8", {}), first, steps, checks, **extra)
+        free_card()
+        for name, shapes in fresh.items():
+            done.setdefault(name, {}).update(shapes)
+
+
+def architectures_phase(tt, work, checks, logs):
+    """The four families at their published widths (``logs[path]`` gets
+    each call's kernel shapes)."""
+    t0 = time.perf_counter()
+    gemma2_phase(tt, checks, logs)
+    mpt_phase(tt, checks, logs)
+    falcon_phase(tt, checks, logs)
+    flan_t5_phase(tt, checks, logs)
+    emit({"phase": "architectures", "seconds": time.perf_counter() - t0})
+
+
 def main():
     import torch
 
@@ -3268,6 +4031,10 @@ def main():
         del bert
         free_card()
 
+        # ---- the architecture features at four families' widths ----
+        arch_logs = {}
+        architectures_phase(tt, work, checks, arch_logs)
+
         # ---- every kernel against its plain version ----
         w8 = bench_w8a8(logs["matmul_w8a8"], checks)
         ga = bench_gather(logs["gather_rows_fused"], checks)
@@ -3296,6 +4063,10 @@ def main():
         bench_decode(fresh.get("decode_attention_int8", {}), GEN_PROMPT - 1, SAMPLE_NEW,
                      checks, **extra)
         free_card()
+        seen = {name: {**logs.get(name, {}), **new_logs.get(name, {}),
+                       **awq_logs.get(name, {})}
+                for name in set(logs) | set(new_logs) | set(awq_logs)}
+        arch_benches(arch_logs, seen, checks)
 
         # ---- the other Translator runs ----
         f16_counts = main_path(tt, float_dir, "float16", batches, checks, "float16", {})
@@ -3318,6 +4089,8 @@ def main():
                                         **dict(MODEL, num_layers=AB_LAYERS))
         host_loop_card_vs_cpu(tt, small_dir, pair, llama_vocab, vocab, batches[1], checks)
         del pair
+        free_card()
+        architectures_card_vs_cpu(tt, work, checks)
 
         def entry(name, source, replaces, tot, library_ms, launches=None, **extra):
             """One kernel's line; ``launches`` defaults to the Translator and

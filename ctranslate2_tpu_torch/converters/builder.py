@@ -1,9 +1,12 @@
 """Programmatic model-directory builder (numpy only).
 
 A copy of the encoder-decoder builder and of the decoder-only builder of
-``ctranslate2_tpu/converters/builder.py``: each writes the same
-CTranslate2-format model directory, byte for byte, from the same seed, so
-a model can be fabricated without importing the JAX package.
+``ctranslate2_tpu/converters/builder.py``, with every argument of theirs
+(ALiBi, parallel residual, sliding windows and Gemma-style hybrid stacks,
+Shaw and T5 relative positions, merged self+cross attention, source
+features): each writes the same CTranslate2-format model directory, byte
+for byte, from the same seed, so a model can be fabricated without
+importing the JAX package.
 """
 
 from __future__ import annotations
@@ -76,6 +79,13 @@ class SpecBuilder:
                 new_vars[name] = make_variable(name, q, "int8")
                 new_vars[name + "_scale"] = make_variable(
                     name + "_scale", scale.astype(np.float32))
+            elif quantization == "int16":
+                amax = np.amax(np.abs(w))
+                scale = float(2 ** 10) / amax
+                q = np.clip(np.rint(w * scale), -(2 ** 15), 2 ** 15 - 1).astype(np.int16)
+                new_vars[name] = make_variable(name, q, "int16")
+                new_vars[name + "_scale"] = make_variable(
+                    name + "_scale", np.float32(scale))
             elif quantization in ("float16", "bfloat16"):
                 new_vars[name] = make_variable(name, w, quantization)
             else:
@@ -84,7 +94,9 @@ class SpecBuilder:
         self.mf.variables.update(new_vars)
 
     def save(self, directory: str, config: Optional[dict] = None,
-             vocabulary: Optional[Sequence[str]] = None):
+             vocabulary: Optional[Sequence[str]] = None,
+             source_vocabulary: Optional[Sequence[str]] = None,
+             target_vocabulary: Optional[Sequence[str]] = None):
         self.mf.config = config or {}
         self.mf.config.update(getattr(self, "_awq_config", {}))
         self.mf.dedupe_aliases()
@@ -99,6 +111,12 @@ class SpecBuilder:
             with open(os.path.join(directory, name), "w",
                       encoding="utf-8") as f:
                 json.dump(list(vocabulary), f)
+        for fname, words in (("source_vocabulary.json", source_vocabulary),
+                             ("target_vocabulary.json", target_vocabulary)):
+            if words is not None:
+                with open(os.path.join(directory, fname), "w",
+                          encoding="utf-8") as f:
+                    json.dump(list(words), f)
 
 
 def _rand(rng, *shape):
@@ -109,12 +127,16 @@ def _add_attention(b: SpecBuilder, scope: str, rng, d_model: int,
                    num_heads: int, self_attention: bool,
                    num_heads_kv: Optional[int] = None,
                    rotary_dim: Optional[int] = None,
+                   rotary_interleave: bool = True,
+                   head_dim: Optional[int] = None,
+                   with_norm: bool = True,
                    rms_norm: bool = False):
-    hd = d_model // num_heads
+    hd = head_dim or d_model // num_heads
     hkv = num_heads_kv if num_heads_kv is not None else num_heads
-    b.add(f"{scope}/layer_norm/gamma", np.ones(d_model, np.float32))
-    if not rms_norm:
-        b.add(f"{scope}/layer_norm/beta", np.zeros(d_model, np.float32))
+    if with_norm:
+        b.add(f"{scope}/layer_norm/gamma", np.ones(d_model, np.float32))
+        if not rms_norm:
+            b.add(f"{scope}/layer_norm/beta", np.zeros(d_model, np.float32))
     if self_attention:
         qkv_out = num_heads * hd + 2 * hkv * hd
         b.add(f"{scope}/linear_0/weight", _rand(rng, qkv_out, d_model))
@@ -130,23 +152,28 @@ def _add_attention(b: SpecBuilder, scope: str, rng, d_model: int,
         b.add(f"{scope}/linear_2/bias", _rand(rng, d_model))
     if hkv != num_heads:
         b.add_attr(f"{scope}/num_heads_kv", hkv, "int32")
+    if head_dim is not None:
+        b.add_attr(f"{scope}/head_dim", head_dim, "int32")
     if rotary_dim is not None:
         b.add_attr(f"{scope}/rotary_dim", rotary_dim, "int32")
-        b.add_attr(f"{scope}/rotary_interleave", 1, "int8")
+        b.add_attr(f"{scope}/rotary_interleave", 1 if rotary_interleave else 0, "int8")
 
 
 def _add_ffn(b: SpecBuilder, scope: str, rng, d_model: int, d_ff: int,
-             glu: bool = False, rms_norm: bool = False):
+             glu: bool = False, rms_norm: bool = False, bias: bool = True):
     b.add(f"{scope}/layer_norm/gamma", np.ones(d_model, np.float32))
     if not rms_norm:
         b.add(f"{scope}/layer_norm/beta", np.zeros(d_model, np.float32))
     b.add(f"{scope}/linear_0/weight", _rand(rng, d_ff, d_model))
-    b.add(f"{scope}/linear_0/bias", _rand(rng, d_ff))
+    if bias:
+        b.add(f"{scope}/linear_0/bias", _rand(rng, d_ff))
     if glu:
         b.add(f"{scope}/linear_0_noact/weight", _rand(rng, d_ff, d_model))
-        b.add(f"{scope}/linear_0_noact/bias", _rand(rng, d_ff))
+        if bias:
+            b.add(f"{scope}/linear_0_noact/bias", _rand(rng, d_ff))
     b.add(f"{scope}/linear_1/weight", _rand(rng, d_model, d_ff))
-    b.add(f"{scope}/linear_1/bias", _rand(rng, d_model))
+    if bias:
+        b.add(f"{scope}/linear_1/bias", _rand(rng, d_model))
 
 
 def build_decoder_only_model(
@@ -162,19 +189,24 @@ def build_decoder_only_model(
     glu: bool = False,
     rms_norm: bool = False,
     activation: str = "relu",
+    alibi: bool = False,
+    alibi_positive: bool = True,
+    parallel_residual: bool = False,
+    shared_layer_norm: bool = False,
+    sliding_window: int = 0,
+    sliding_window_pattern: int = 1,  # >1: every Nth layer is GLOBAL
+    # (Gemma-style hybrid window/global stacks)
     seed: int = 1234,
     quantization: Optional[str] = None,
     vocabulary: Optional[Sequence[str]] = None,
     tied_projection: bool = False,
-    **unported,
+    rel_position_max: int = 0,  # Shaw relative-position keys/values
+    # (reference: src/layers/attention.cc:128-165)
+    rel_bias_buckets: int = 0,  # T5 relative-bias table on layer 0
+    rel_bias_max_distance: int = 16,
+    # (reference: src/layers/attention.cc:51-126)
 ):
-    """Fabricate a TransformerDecoderSpec model directory (GPT-style) with
-    random weights from ``seed``. Without ``rotary_dim`` the model gets
-    learned position embeddings. The JAX package's other arguments (ALiBi,
-    parallel residual, sliding windows, relative positions) raise."""
-    if any(unported.values()):
-        raise NotImplementedError(
-            "not ported yet: " + ", ".join(sorted(k for k, v in unported.items() if v)))
+    """Fabricate a TransformerDecoderSpec model directory (GPT-style)."""
     rng = np.random.default_rng(seed)
     b = SpecBuilder("TransformerDecoderSpec", 8)
     sc = "decoder"
@@ -182,11 +214,18 @@ def build_decoder_only_model(
     b.add_attr(f"{sc}/num_heads", num_heads, "int16")
     b.add_attr(f"{sc}/pre_norm", 1, "int8")
     b.add_attr(f"{sc}/activation", ACTIVATION_IDS[activation], "int8")
+    if sliding_window:
+        b.add_attr(f"{sc}/sliding_window", sliding_window, "int32")
+    if alibi:
+        b.add_attr(f"{sc}/alibi", 1, "int8")
+        if not alibi_positive:
+            b.add_attr(f"{sc}/alibi_use_positive_positions", 0, "int8")
     b.add_attr(f"{sc}/scale_embeddings", 0, "int8")
 
     emb = _rand(rng, vocab_size, d_model)
     b.add(f"{sc}/embeddings/weight", emb)
-    if rotary_dim is None:
+    relative = rel_position_max or rel_bias_buckets
+    if rotary_dim is None and not alibi and not relative:
         # Learned position embeddings.
         b.add(f"{sc}/position_encodings/encodings", _rand(rng, 512, d_model))
     b.add(f"{sc}/layer_norm/gamma", np.ones(d_model, np.float32))
@@ -197,16 +236,57 @@ def build_decoder_only_model(
 
     for i in range(num_layers):
         ls = f"{sc}/layer_{i}"
-        _add_attention(b, f"{ls}/self_attention", rng, d_model, num_heads,
-                       self_attention=True, num_heads_kv=num_heads_kv,
-                       rotary_dim=rotary_dim, rms_norm=rms_norm)
-        _add_ffn(b, f"{ls}/ffn", rng, d_model, d_ff, glu=glu, rms_norm=rms_norm)
+        _add_attention(
+            b, f"{ls}/self_attention", rng, d_model, num_heads,
+            self_attention=True, num_heads_kv=num_heads_kv,
+            rotary_dim=rotary_dim, rms_norm=rms_norm,
+            with_norm=not (parallel_residual and shared_layer_norm))
+        if rel_position_max:
+            hd = d_model // num_heads
+            b.add(f"{ls}/self_attention/relative_position_keys",
+                  _rand(rng, 2 * rel_position_max + 1, hd))
+            b.add(f"{ls}/self_attention/relative_position_values",
+                  _rand(rng, 2 * rel_position_max + 1, hd))
+        if rel_bias_buckets and i == 0:
+            # T5 convention: the learned bias table lives on layer 0 and
+            # is shared down the stack.
+            b.add(f"{ls}/self_attention/relative_attention_bias",
+                  _rand(rng, rel_bias_buckets, num_heads))
+            b.add_attr(
+                f"{ls}/self_attention/relative_attention_max_distance",
+                rel_bias_max_distance, "int32")
+        if sliding_window and (sliding_window_pattern <= 1 or
+                               (i + 1) % sliding_window_pattern != 0):
+            # Per-layer attr, matching the HF converter / reference
+            # attention_spec serialization (with a pattern, every Nth
+            # layer stays global — the Gemma hybrid layout).
+            b.add_attr(f"{ls}/self_attention/sliding_window",
+                       sliding_window, "int32")
+        if parallel_residual:
+            norm_scope = ("shared_layer_norm" if shared_layer_norm
+                          else "input_layer_norm")
+            b.add(f"{ls}/{norm_scope}/gamma", np.ones(d_model, np.float32))
+            b.add(f"{ls}/{norm_scope}/beta", np.zeros(d_model, np.float32))
+            if not shared_layer_norm:
+                b.add(f"{ls}/post_attention_layer_norm/gamma",
+                      np.ones(d_model, np.float32))
+                b.add(f"{ls}/post_attention_layer_norm/beta",
+                      np.zeros(d_model, np.float32))
+            # Parallel-residual FFN has no layer norm of its own.
+            b.add(f"{ls}/ffn/linear_0/weight", _rand(rng, d_ff, d_model))
+            b.add(f"{ls}/ffn/linear_0/bias", _rand(rng, d_ff))
+            b.add(f"{ls}/ffn/linear_1/weight", _rand(rng, d_model, d_ff))
+            b.add(f"{ls}/ffn/linear_1/bias", _rand(rng, d_model))
+        else:
+            _add_ffn(b, f"{ls}/ffn", rng, d_model, d_ff, glu=glu,
+                     rms_norm=rms_norm)
 
     b.quantize(quantization)
+    vocab = vocabulary or default_vocab(vocab_size)
     b.save(directory,
            config={"unk_token": "<unk>", "bos_token": "<s>",
                    "eos_token": "</s>"},
-           vocabulary=vocabulary or default_vocab(vocab_size))
+           vocabulary=vocab)
     return directory
 
 
@@ -221,10 +301,23 @@ def build_seq2seq_model(
     activation: str = "relu",
     seed: int = 1234,
     quantization: Optional[str] = None,
+    merged_attention: bool = False,
+    num_source_features: int = 1,
+    features_merge: str = "concat",
+    feature_vocab_size: int = 16,
+    zero_extra_features: bool = False,
 ):
-    """Fabricate a TransformerSpec encoder-decoder model directory with
-    random weights from ``seed`` (pre-norm, sinusoidal positions, shared
-    vocabulary)."""
+    """Fabricate a TransformerSpec encoder-decoder model directory.
+
+    With ``merged_attention``, decoder layers carry a ``memory_kv``
+    projection and no separate cross-attention (the T5Gemma2 layout,
+    reference: src/layers/attention.cc:625-796).
+
+    ``num_source_features > 1`` fabricates a source-factor model
+    (embeddings_0..N + embeddings_merge + per-feature vocabularies,
+    reference: src/layers/common.cc:49-148). With ``zero_extra_features``
+    and ``features_merge="add"`` the model is numerically identical to its
+    single-feature twin (same seed)."""
     rng = np.random.default_rng(seed)
     b = SpecBuilder("TransformerSpec", 7)
 
@@ -237,7 +330,8 @@ def build_seq2seq_model(
               _rand(rng, vocab_size, d_model))
         b.add(f"{sc}/layer_norm/gamma", np.ones(d_model, np.float32))
         b.add(f"{sc}/layer_norm/beta", np.zeros(d_model, np.float32))
-    b.add_attr("encoder/embeddings_merge", 0, "int8")
+    b.add_attr("encoder/embeddings_merge",
+               1 if features_merge in ("add", "sum") else 0, "int8")
     b.add("decoder/projection/weight", _rand(rng, vocab_size, d_model))
     b.add("decoder/projection/bias", _rand(rng, vocab_size))
 
@@ -248,14 +342,49 @@ def build_seq2seq_model(
     for i in range(num_layers):
         ls = f"decoder/layer_{i}"
         _add_attention(b, f"{ls}/self_attention", rng, d_model, num_heads, True)
-        _add_attention(b, f"{ls}/attention", rng, d_model, num_heads, False)
+        if merged_attention:
+            b.add(f"{ls}/self_attention/memory_kv/weight",
+                  _rand(rng, 2 * d_model, d_model))
+            b.add(f"{ls}/self_attention/memory_kv/bias",
+                  _rand(rng, 2 * d_model))
+        else:
+            _add_attention(b, f"{ls}/attention", rng, d_model, num_heads, False)
         _add_ffn(b, f"{ls}/ffn", rng, d_model, d_ff)
+
+    if num_source_features > 1:
+        rng2 = np.random.default_rng(seed + 99)
+        extra = num_source_features - 1
+        if features_merge in ("add", "sum"):
+            dims = [d_model] * extra
+        else:
+            fd = 8
+            dims = [fd] * extra
+            # Shrink the main feature so concatenated dims sum to d_model.
+            b.add("encoder/embeddings_0/weight",
+                  _rand(rng2, vocab_size, d_model - fd * extra))
+        for i, dim in enumerate(dims, start=1):
+            w = (np.zeros((feature_vocab_size, dim), np.float32)
+                 if zero_extra_features
+                 else _rand(rng2, feature_vocab_size, dim))
+            b.add(f"encoder/embeddings_{i}/weight", w)
 
     b.quantize(quantization)
     config = {"unk_token": "<unk>", "bos_token": "<s>",
               "eos_token": "</s>", "add_source_bos": False,
               "add_source_eos": False, "decoder_start_token": "<s>"}
-    b.save(directory, config=config, vocabulary=default_vocab(vocab_size))
+    if num_source_features > 1:
+        b.save(directory, config=config,
+               target_vocabulary=default_vocab(vocab_size))
+        vocab_sizes = [vocab_size] + [feature_vocab_size] * (
+            num_source_features - 1)
+        for i, vs in enumerate(vocab_sizes, start=1):
+            with open(os.path.join(
+                    directory, f"source_{i}_vocabulary.json"),
+                    "w", encoding="utf-8") as f:
+                json.dump(default_vocab(vs), f, ensure_ascii=False)
+    else:
+        b.save(directory, config=config,
+               vocabulary=default_vocab(vocab_size))
     return directory
 
 

@@ -40,16 +40,20 @@ def use_beam_chain(arch, beam_size: int, kv_dtype, prefilled: bool) -> bool:
                 for l in arch.decoder.layers))
 
 
-def _self_cache(model, cache, rows: int, capacity: int):
-    """The loop's self-attention cache: a new one, or the caller's prefilled
-    one, which must already have ``rows`` rows and ``capacity`` slots."""
+def _self_cache(model, cache, rows: int, capacity: int, ring: bool = False):
+    """The loop's self-attention cache: a new one (with ``ring``, windowed
+    layers get ring buffers, as greedy search makes them), or the caller's
+    prefilled one, which must already have ``rows`` rows and ``capacity``
+    slots (a ring layer its ring's)."""
     if cache is None:
         return T.init_self_cache(model.arch, rows, capacity,
-                                 dtype=model.kv_dtype, device=model.device)
-    shape = tuple(cache[0]["k"].shape)
-    if shape[0] != rows or shape[2] != capacity:
-        raise ValueError(f"the prefilled cache has {shape[0]} rows of "
-                         f"{shape[2]} slots; the loop needs {rows} of {capacity}")
+                                 dtype=model.kv_dtype, device=model.device, ring=ring)
+    rc = T.ring_capacity(model.arch)
+    for layer in cache:
+        shape = tuple(layer["k"].shape)
+        if shape[0] != rows or shape[2] not in (capacity, rc):
+            raise ValueError(f"the prefilled cache has {shape[0]} rows of "
+                             f"{shape[2]} slots; the loop needs {rows} of {capacity}")
     return cache
 
 
@@ -258,7 +262,9 @@ def greedy_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
     P = prefix.shape[1] if has_prefix else 0
 
     mem_kv, mem_bias = memory
-    cache = _self_cache(model, cache, N, capacity)
+    # Greedy search decodes one token at a time: windowed layers take
+    # O(window) ring buffers (chain-mask beam attention cannot).
+    cache = _self_cache(model, cache, N, capacity, ring=True)
     if token_map is not None:
         token_map = token_map.to(device)
 

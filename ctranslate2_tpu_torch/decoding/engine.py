@@ -285,14 +285,15 @@ class DecodingEngine:
                     prefix_arr[i, :len(p)] = p
         return prefix_lengths, P, prefix_arr
 
-    def _host_cache(self, cache, rows, capacity):
+    def _host_cache(self, cache, rows, capacity, ring: bool = False):
         """The host loops' self cache: the caller's (already of ``rows``
-        rows and ``capacity`` slots), or a new one."""
+        rows and ``capacity`` slots), or a new one (ring buffers for the
+        windowed layers with ``ring``: greedy search)."""
         model = self.model
         if cache is not None:
             return cache
         return T.init_self_cache(model.arch, rows, capacity, dtype=model.kv_dtype,
-                                 device=model.device)
+                                 device=model.device, ring=ring)
 
     # ------------------------------------------------------------------
     # Beam search.
@@ -310,7 +311,7 @@ class DecodingEngine:
         sig = self._make_sig(options, end_ids, use_bias=use_bias)
         memory = self._memory(params, consts, encoder_inputs, memory)
         if cache is not None:
-            cache = T.cache_grow(cache, B * K, capacity)
+            cache = T.cache_grow(cache, B * K, capacity, arch=self.model.arch)
         if (sig.return_attention or options.return_logits_vocab or use_bias):
             return self._beam_host_loop(
                 start_ids, options, sig, memory,
@@ -586,7 +587,7 @@ class DecodingEngine:
         max_step, capacity, consts = self._setup(
             options, prefix_ids, start_step, capacity, True)
         if cache is not None:
-            cache = T.cache_grow(cache, B, capacity)
+            cache = T.cache_grow(cache, B, capacity, arch=self.model.arch)
         sig = self._make_sig(options, end_ids, greedy_sampler=not is_random)
         memory = self._memory(params, consts, encoder_inputs, memory)
         noise = (sampling.noise_source(options.seed, self.model.device)
@@ -681,7 +682,7 @@ class DecodingEngine:
         model = self.model
         device = model.device
         B = len(start_ids)
-        cache = self._host_cache(cache, B, capacity)
+        cache = self._host_cache(cache, B, capacity, ring=True)
         fed_map = None if token_map is None else token_map.to(device)
         alive_seq = (torch.zeros((B, max_step), dtype=torch.long, device=device)
                      if sig.use_alive_seq else None)
@@ -825,7 +826,8 @@ class DecodingEngine:
             cache = T.init_self_cache(model.arch, 1, capacity, dtype=model.kv_dtype,
                                       device=device)
         else:
-            cache = T.cache_grow(cache, cache[0]["k"].shape[0], capacity)
+            cache = T.cache_grow(cache, cache[0]["k"].shape[0], capacity,
+                                 arch=model.arch)
 
         pos = start_step
         qa = model.policy.quantize_activations

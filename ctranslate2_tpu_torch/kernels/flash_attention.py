@@ -55,7 +55,10 @@ def flash_head_dim(D: int) -> int:
 def relative_position_bucket(relp, num_buckets: int, max_distance: int,
                              bidirectional: bool):
     """T5 bucket index of ``relp = key position - query position``
-    (reference: src/layers/attention.cc:51-101)."""
+    (reference: src/layers/attention.cc:51-101). The logarithm and the
+    divisions run in float32 on tensors, as the JAX package's do (a Python
+    scalar divisor becomes a reciprocal product on the card), so the
+    buckets are bit-equal to the JAX package's."""
     if bidirectional:
         nbh = num_buckets // 2
         base = torch.where(relp > 0, nbh, 0)
@@ -66,11 +69,15 @@ def relative_position_bucket(relp, num_buckets: int, max_distance: int,
         r = -torch.clamp(relp, max=0)
     max_exact = nbh // 2
     r_safe = r.clamp(min=1).float()
+
+    def f32(value):
+        return torch.full_like(r_safe, value)
+
     large = max_exact + (
-        torch.log(r_safe / max_exact) / math.log(max_distance / max_exact)
-        * (nbh - max_exact)).to(relp.dtype)
+        torch.log(r_safe / f32(max_exact)) / f32(math.log(max_distance / max_exact))
+        * f32(nbh - max_exact)).to(torch.int32)
     large = large.clamp(max=nbh - 1)
-    return base + torch.where(r < max_exact, r, large)
+    return (base + torch.where(r < max_exact, r, large)).to(torch.int32)
 
 
 def _alibi_offs(alibi_positive: bool, q_offset: int, Tq: int) -> int:

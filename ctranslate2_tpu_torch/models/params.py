@@ -15,11 +15,16 @@ tensors on one device:
 - self-attention keeps the artifact's fused QKV projection as one linear
   (``qkv``); cross-attention K/V are split into ``k`` and ``v``;
 - embeddings stay in gather layout ``(vocab, dim)``; int8 embeddings keep
-  payload + scales and dequantize after the gather.
+  payload + scales and dequantize after the gather;
+- the relative-position tables (Shaw keys/values, the T5 bucket table) stay
+  float32; merged attention's ``memory_kv`` is one fused linear; the
+  layer-level norms of sandwich and parallel-residual layers sit in the
+  layer's dict under their artifact names.
 
 ``params_from_numpy`` converts the JAX package's parameter tree (as numpy
 arrays) into the same layout, so both packages can run on identical
-weights; ``cache_from_numpy`` does the same for a self-attention KV cache.
+weights (its stacked-layer tree too); ``cache_from_numpy`` does the same
+for a self-attention KV cache.
 """
 
 from __future__ import annotations
@@ -58,6 +63,15 @@ def _quantize_per_row(w: np.ndarray):
     scale = 127.0 / amax
     q = np.clip(np.rint(w * scale.reshape((-1,) + (1,) * (w.ndim - 1))), -127, 127)
     return q.astype(np.int8), scale.astype(np.float32)
+
+
+# The layer-level norms of sandwich-norm (Gemma-2/3, T5Gemma) and
+# parallel-residual (GPT-J, GPT-NeoX, Falcon) layers.
+ENCODER_LAYER_NORMS = ("input_layer_norm", "post_attention_layer_norm",
+                       "pre_feedforward_layer_norm", "post_feedforward_layer_norm")
+DECODER_LAYER_NORMS = ("shared_layer_norm",) + ENCODER_LAYER_NORMS + (
+    "external_pre_encoder_attention_layer_norm",
+    "external_post_encoder_attention_layer_norm")
 
 
 class ParamsBuilder:
@@ -197,12 +211,27 @@ class ParamsBuilder:
             n = self.norm(f"{scope}/{name}")
             if n is not None:
                 out[name] = n
+        for name in ("relative_attention_bias", "relative_position_keys",
+                     "relative_asymmetric_position_keys", "relative_position_values"):
+            arr = self.array(f"{scope}/{name}", torch.float32)
+            if arr is not None:
+                out[name] = arr
         if spec.rotary is not None and spec.rotary.has_long_short_factors:
             out["rotary_long_factor"] = self.array(
                 f"{scope}/rotary_scaling_long_factor", torch.float32)
             out["rotary_short_factor"] = self.array(
                 f"{scope}/rotary_scaling_short_factor", torch.float32)
+        if spec.has_memory_kv:
+            out["memory_kv"] = self.linear(f"{scope}/memory_kv")
         return out
+
+    def layer_norms(self, lp: dict, lscope: str, names) -> dict:
+        """Adds the layer-level norms ``names`` that the artifact holds."""
+        for name in names:
+            n = self.norm(f"{lscope}/{name}")
+            if n is not None:
+                lp[name] = n
+        return lp
 
     def ffn(self, scope: str) -> dict:
         out = {"linear_0": self.linear(f"{scope}/linear_0"),
@@ -245,9 +274,11 @@ class ParamsBuilder:
             raise NotImplementedError("speech encoders are not ported yet")
 
         def layer_fn(lscope, layer):
-            return {"self_attention": self.attention(
-                        f"{lscope}/self_attention", layer.self_attention),
-                    "ffn": self.ffn(f"{lscope}/ffn")}
+            return self.layer_norms(
+                {"self_attention": self.attention(
+                    f"{lscope}/self_attention", layer.self_attention),
+                 "ffn": self.ffn(f"{lscope}/ffn")},
+                lscope, ENCODER_LAYER_NORMS)
 
         return self._side(spec, scope, layer_fn)
 
@@ -259,7 +290,7 @@ class ParamsBuilder:
             if layer.cross_attention is not None:
                 lp["attention"] = self.attention(
                     f"{lscope}/attention", layer.cross_attention)
-            return lp
+            return self.layer_norms(lp, lscope, DECODER_LAYER_NORMS)
 
         out = self._side(spec, scope, layer_fn)
         for name in ("project_in", "project_out", "projection"):
@@ -286,18 +317,27 @@ def build_params(mf: ModelFile, arch: ArchSpec, policy: DTypePolicy,
 def params_from_numpy(jax_params, arch: ArchSpec, *, device="cpu",
                       float_dtype=torch.float32) -> dict:
     """Convert the JAX package's ``LoadedModel.params`` tree (leaves as
-    numpy arrays, float QKV fused, unstacked layers) into the port's
-    params: int8 ``wq`` goes from (in, out) back to (out, in); float
-    weights keep (in, out) and take ``float_dtype``; scales, biases and
-    norms stay float32. AWQ leaves (``w4``, ``w4p``, ``g_scale``,
-    ``g_zs``) keep their layouts and types."""
+    numpy arrays, float QKV fused) into the port's params: int8 ``wq``
+    goes from (in, out) back to (out, in); float weights keep (in, out) and
+    take ``float_dtype``; scales, biases, norms and relative-position tables
+    stay float32. AWQ leaves (``w4``, ``w4p``, ``g_scale``, ``g_zs``) keep
+    their layouts and types. A stacked layer tree (``stack_layers=True``:
+    one dict whose leaves carry the layer axis first) is split by layer."""
     device = torch.device(device)
+
+    def unstack(tree, i):
+        if isinstance(tree, dict):
+            return {k: unstack(v, i) for k, v in tree.items()}
+        return np.asarray(tree)[i]
 
     def leaf(a, dtype=None):
         t = torch.from_numpy(np.array(a))  # a writable, contiguous copy
         return t.to(device=device, dtype=dtype or t.dtype)
 
     def convert(node, key=None):
+        if key == "layers" and isinstance(node, dict):
+            num_layers = len(arch.decoder.layers)
+            return [convert(unstack(node, i)) for i in range(num_layers)]
         if isinstance(node, dict):
             if "wq" in node and "scale" in node and np.ndim(node["wq"]) == 2 \
                     and key != "embeddings":

@@ -15,13 +15,19 @@ Beam reorder goes through the fused gather kernel (``cache_gather_rows``).
 Decoder-only models run with rotary positions, an optional int8 KV cache
 (``CT2TPU_KV_CACHE=int8``: int8 payloads plus one scale per cached vector,
 read by the int8 decode kernel) and, for a long prompt's first prefill, the
-flash kernel. ALiBi, relative positions, sliding windows, parallel-residual
-and sandwich-norm layers and merged attention raise ``NotImplementedError``
-until their slice.
+flash kernel. The architecture features of the JAX package run too: ALiBi
+(both conventions, ``scale_alibi``), Shaw and T5 relative positions,
+sliding windows with O(window) ring caches (``ring_block``), merged
+self+cross attention (T5Gemma2), sandwich-norm (Gemma-2/3, T5Gemma) and
+parallel-residual (GPT-J, GPT-NeoX, Falcon) layers. The JAX package's
+stacked (scan) layers are an XLA compile-time device; the port's per-layer
+loop is their counterpart and reads their stacked parameters
+(``params_from_numpy``). Speech encoders raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional
 
@@ -36,45 +42,23 @@ from ..ops import attention as attn_ops
 from ..ops.activations import get_activation
 from ..ops.linear import linear, quantize_input
 from ..ops.norms import add_and_norm, apply_norm
-from ..ops.positions import (apply_rotary, rotary_tables,
+from ..ops.positions import (alibi_slopes, apply_rotary, rotary_tables,
                              sinusoidal_position_encoding)
 from .spec import ArchSpec, AttentionSpec
 
 
 # ---------------------------------------------------------------------------
-# Unsupported branches.
+# Supported architectures.
 # ---------------------------------------------------------------------------
 
 
-def _check_attention(spec: AttentionSpec) -> None:
-    if (spec.has_rel_position_keys or spec.has_rel_asymmetric_keys
-            or spec.has_rel_attention_bias):
-        raise NotImplementedError("relative position attention is not ported yet")
-    if spec.sliding_window:
-        raise NotImplementedError("sliding-window attention is not ported yet")
-    if spec.has_memory_kv:
-        raise NotImplementedError("merged self+cross attention is not ported yet")
-
-
 def check_supported(arch: ArchSpec) -> None:
-    """Raise NotImplementedError for architecture features this port does
-    not run yet."""
-    for side in (arch.encoder, arch.decoder):
-        if side is None:
-            continue
-        if getattr(side, "alibi", False):
-            raise NotImplementedError("ALiBi is not ported yet")
-        if getattr(side, "num_conv_layers", 0) or getattr(side, "is_wav2vec2", False):
-            raise NotImplementedError("speech encoders are not ported yet")
-        for layer in side.layers:
-            _check_attention(layer.self_attention)
-            cross = getattr(layer, "cross_attention", None)
-            if cross is not None:
-                _check_attention(cross)
-            if layer.sandwich_norm or getattr(layer, "shared_layer_norm", False) \
-                    or getattr(layer, "input_layer_norm", False):
-                raise NotImplementedError(
-                    "sandwich-norm and parallel-residual layers are not ported yet")
+    """Raise NotImplementedError for the architectures this port does not
+    run yet: speech encoders."""
+    enc = arch.encoder
+    if enc is not None and (getattr(enc, "num_conv_layers", 0)
+                            or getattr(enc, "is_wav2vec2", False)):
+        raise NotImplementedError("speech encoders are not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -110,8 +94,9 @@ def _rotary_consts(spec: AttentionSpec, attn_params: dict, max_positions: int,
 
 def make_consts(arch: ArchSpec, params: dict, max_positions: int = 4096,
                 device="cpu") -> dict:
-    """Precompute the sinusoidal and rotary position tables on ``device``.
-    Layers with the same rotary spec share one pair of tables."""
+    """Precompute the sinusoidal and rotary position tables and the ALiBi
+    slopes on ``device``. Layers with the same rotary spec share one pair of
+    tables."""
     consts: dict = {"max_positions": max_positions}
     for side, spec in (("encoder", arch.encoder), ("decoder", arch.decoder)):
         if spec is None:
@@ -140,6 +125,9 @@ def make_consts(arch: ArchSpec, params: dict, max_positions: int = 4096,
             rotary_layers[str(i)] = shared[key]
         if rotary_layers:
             side_consts["rotary"] = rotary_layers
+        if getattr(spec, "alibi", False):
+            side_consts["alibi_slopes"] = torch.from_numpy(
+                alibi_slopes(spec.num_heads)).to(device)
         consts[side] = side_consts
     return consts
 
@@ -280,7 +268,9 @@ def _chunked(causal_only: bool, capacity: int) -> int:
     return 0
 
 
-def _flash_eligible(q, k, min_len=None) -> bool:
+def _flash_eligible(q, k, min_len=None, *, alibi_bias=None, alibi_slopes=None,
+                    position_bias=None, rel_bias_table=None,
+                    rel_positions=None) -> bool:
     """Static dispatch decision for the flash-attention kernel: on the card,
     for an uncached attention whose query and key lengths both reach the
     threshold (``arch.flash_min_len`` when the ``flash_attention=True``
@@ -288,9 +278,16 @@ def _flash_eligible(q, k, min_len=None) -> bool:
     and whose head dim the kernel takes (up to its widest instance,
     ``HEAD_DIMS[-1]``; wider heads take the plain attention, as the JAX
     package declines its kernels for shapes they do not serve).
-    ``CT2TPU_FLASH=0`` turns it off. Shaw and T5 relative positions and
-    ALiBi, which the JAX package also weighs here, raise before this point
-    in the port."""
+    ALiBi rides the kernel as its slopes and the T5 bias as its bucket
+    table; Shaw relative keys/values decline it (they gather
+    score-matrix-sized embeddings, not per-head scalars), as does a bias
+    given without its kernel form. ``CT2TPU_FLASH=0`` turns it off."""
+    if rel_positions is not None:
+        return False
+    if position_bias is not None and rel_bias_table is None:
+        return False
+    if alibi_bias is not None and alibi_slopes is None:
+        return False
     if os.environ.get("CT2TPU_FLASH", "1") == "0":
         return False
     if not q.is_cuda or q.shape[-1] > HEAD_DIMS[-1]:
@@ -300,29 +297,82 @@ def _flash_eligible(q, k, min_len=None) -> bool:
     return q.shape[2] >= threshold and k.shape[2] >= threshold
 
 
-def _cache_write(buf, new, offset: int):
+def ring_block(arch: ArchSpec) -> int:
+    """The sliding-window ring granularity Wr of this model, or 0 where ring
+    caches do not apply (no windows, windows of several sizes, or
+    ``CT2TPU_WINDOW_RING=0``).
+
+    A windowed layer stores only ``2 * Wr`` KV slots, written at
+    ``position % (2 * Wr)``: the O(window) memory of the reference's cache
+    eviction (src/layers/attention.cc:536-557) without moving any data.
+    Prefill chunks split at multiples of Wr (``split_prefill_chunks``)."""
+    if os.environ.get("CT2TPU_WINDOW_RING", "1") == "0":
+        return 0
+    if arch.decoder is None:
+        return 0
+    windows = {layer.self_attention.sliding_window for layer in arch.decoder.layers
+               if layer.self_attention.sliding_window > 1
+               and not layer.self_attention.has_memory_kv}
+    if len(windows) != 1:
+        return 0
+    (w,) = windows
+    return ((w + 127) // 128) * 128
+
+
+def ring_capacity(arch: ArchSpec) -> int:
+    """A ring layer's capacity (0: no ring)."""
+    wr = ring_block(arch)
+    return 2 * wr if wr else 0
+
+
+def split_prefill_chunks(start: int, length: int, block: int):
+    """The absolute position range [start, start + length) split at every
+    multiple of ``block`` (the reference's chunked prefill over window-size
+    pieces: src/layers/transformer.cc:735-792): a list of (offset, size),
+    the whole range when ``block`` is 0."""
+    if block <= 0 or length <= 0:
+        return [(start, length)]
+    out = []
+    p = start
+    end = start + length
+    while p < end:
+        nxt = min((p // block + 1) * block, end)
+        out.append((p, nxt - p))
+        p = nxt
+    return out
+
+
+def _cache_write(buf, new, offset: int, ring: int = 0):
     """Write ``new`` [B, H, T, D] into ``buf`` [B, H, C, D] at time slot
-    ``offset``, in place."""
-    buf[:, :, offset:offset + new.shape[2]] = new.to(buf.dtype)
+    ``offset``, in place; with ``ring`` the positions wrap at the ring's
+    end (window-aligned chunks never reach it)."""
+    T = new.shape[2]
+    new = new.to(buf.dtype)
+    if ring and offset + T > ring:
+        head = ring - offset
+        buf[:, :, offset:] = new[:, :, :head]
+        buf[:, :, :T - head] = new[:, :, head:]
+        return buf
+    buf[:, :, offset:offset + T] = new
     return buf
 
 
-def _append_int8_cache(cache: dict, k8, ks, v8, vs, offset: int):
+def _append_int8_cache(cache: dict, k8, ks, v8, vs, offset: int, ring: int = 0):
     """Write quantized K/V [B, H, T, D] and their scales [B, H, T] into the
-    int8 cache at time slot ``offset``, in place."""
-    T = k8.shape[2]
-    cache["k"][:, :, offset:offset + T] = k8
-    cache["v"][:, :, offset:offset + T] = v8
-    cache["k_scale"][:, :, 0, offset:offset + T] = ks
-    cache["v_scale"][:, :, 0, offset:offset + T] = vs
+    int8 cache at time slot ``offset`` (wrapping as ``_cache_write``), in
+    place."""
+    _cache_write(cache["k"], k8, offset, ring)
+    _cache_write(cache["v"], v8, offset, ring)
+    _cache_write(cache["k_scale"].transpose(2, 3), ks[..., None], offset, ring)
+    _cache_write(cache["v_scale"].transpose(2, 3), vs[..., None], offset, ring)
     return cache
 
 
-def _update_int8_cache(cache: dict, k, v, offset: int):
+def _update_int8_cache(cache: dict, k, v, offset: int, ring: int = 0):
     """Quantize and append new K/V vectors at ``offset``."""
     k8, ks = quantize_kv(k)
     v8, vs = quantize_kv(v)
-    return _append_int8_cache(cache, k8, ks, v8, vs, offset)
+    return _append_int8_cache(cache, k8, ks, v8, vs, offset, ring)
 
 
 def _dequantize_cache(cache: dict, dtype):
@@ -340,6 +390,32 @@ def _use_decode_kernel(q) -> bool:
             and bool(int(os.environ.get("CT2TPU_DECODE_KERNEL", "1"))))
 
 
+def _begin(arch, spec: AttentionSpec, ap: dict, x, delta, pre_norm: bool,
+           wrap_norm: bool, quantize_acts: bool, fed_by=("qkv",)):
+    """A block's input: (x, h, fused). In a pre-norm block (``fused``) the
+    norm adds the pending ``delta`` and, under W8A8, quantizes h for the
+    linears ``fed_by``; otherwise h is the settled stream (with
+    ``wrap_norm`` False the caller normed it already)."""
+    fused = wrap_norm and pre_norm and spec.has_layer_norm
+    if fused:
+        x, h = _add_norm(arch, ap.get("layer_norm"), x, delta,
+                         _int8_fed(quantize_acts, *(ap[n] for n in fed_by)))
+    else:
+        x = h = _settle(x, delta)
+    return x, h, fused
+
+
+def _end(arch, spec: AttentionSpec, ap: dict, x, out, fused: bool, wrap_norm: bool):
+    """A block's result (x, delta): in a pre-norm block the stream and the
+    output whose add the next norm makes; post-norm: norm(out + x); with
+    ``wrap_norm`` False the output alone."""
+    if fused:
+        return x, out
+    if wrap_norm and spec.has_layer_norm:  # post-norm: norm(out + x)
+        out = _add_norm(arch, ap.get("layer_norm"), x, out, keep_sum=False)[1]
+    return out, None
+
+
 def self_attention_block(
     arch: ArchSpec,
     spec: AttentionSpec,
@@ -352,11 +428,23 @@ def self_attention_block(
     cache: Optional[dict] = None,
     pre_norm: bool = True,
     quantize_acts: bool = True,
+    alibi_bias=None,  # [Hq, 1, Tk] float32
+    rel_positions=None,  # [Tq, Tk] Shaw indices
+    position_bias=None,  # [Hq, Tq, Tk] T5 bias, or a function that builds
+    # it (called only where the plain attention runs)
+    wrap_norm: bool = True,  # False: ``x`` is normed already, no residual
     causal: bool = False,
     flash_lengths=None,  # [B] valid lengths, given to the flash kernel
     causal_only: bool = False,  # ``bias`` is exactly the T == 1 causal mask
     beam_chain=None,  # [N, C] origin chain (chain-mask beam attention)
     beam_chain_size: int = 1,
+    ring: int = 0,  # ring KV buffer size R (0: linear cache): writes land at
+    # ``offset % R`` and ``bias`` is a ring_window_bias over R
+    alibi_slopes=None,  # [Hq] float32: the flash kernel's form of ALiBi
+    alibi_positive: bool = True,
+    rel_bias_table=None,  # [num_buckets, Hq]: the flash kernel's T5 form
+    rel_max_distance: int = 0,
+    rel_bidirectional: bool = True,
     fresh_prefill: bool = False,  # the cache is empty and this call writes
     # its first T positions: attend over the fresh tensors only (O(T^2),
     # flash-eligible); ``bias`` must then cover [*, T, T]
@@ -369,32 +457,42 @@ def self_attention_block(
     this block's output, whose add the next norm makes; otherwise the
     block's output and None. ``cache`` holds {"k","v"} of shape
     [B, Hkv, C, D] (plus {"k_scale","v_scale"} [B, Hkv, 1, C] in the int8
-    layout); this call's keys/values are written at ``offset``, in place.
+    layout); this call's keys/values are written at ``offset`` (modulo
+    ``ring`` for a ring layer), in place. The path at each point is the
+    JAX package's: ALiBi, T5 and Shaw positions and ring layers leave the
+    int8 decode kernel for the dequantized cache; relative positions leave
+    the chain mask and the one-token fast path for the masked attention.
     """
-    fused = pre_norm and spec.has_layer_norm
-    if fused:
-        x, h = _add_norm(arch, ap.get("layer_norm"), x, delta,
-                         _int8_fed(quantize_acts, ap["qkv"]))
-    else:
-        x = h = _settle(x, delta)
+    if ring:
+        assert beam_chain is None, \
+            "ring KV caches are incompatible with chain-mask beam attention"
+    x, h, fused = _begin(arch, spec, ap, x, delta, pre_norm, wrap_norm,
+                         quantize_acts)
 
     q, k, v = _project_qkv(arch, ap, spec, h, quantize_acts)
     q, k = _maybe_rotary(spec, rot_consts, q, k, offset)
     T = q.shape[2]
+    # The write slot: the absolute position in a linear cache, wrapped in
+    # a ring (rotary phases always take the absolute position).
+    w_off = offset % ring if ring else offset
+    relative = rel_positions is not None or position_bias is not None
+    extra_free = alibi_bias is None and not relative
 
     attn_cache = cache
     if cache is not None and fresh_prefill and T > 1:
         # First-chunk prefill: write the cache, then attend over the fresh
         # Q/K/V as if cache-less.
         if "k_scale" in cache:
-            _update_int8_cache(cache, k, v, offset)
+            _update_int8_cache(cache, k, v, w_off, ring)
         else:
-            _cache_write(cache["k"], k, offset)
-            _cache_write(cache["v"], v, offset)
+            _cache_write(cache["k"], k, w_off, ring)
+            _cache_write(cache["v"], v, w_off, ring)
         attn_cache = None
 
+    ctx = None
     if attn_cache is not None and "k_scale" in attn_cache:
-        if T == 1 and _use_decode_kernel(q):
+        if (T == 1 and extra_free and spec.sliding_window != 1 and not ring
+                and _use_decode_kernel(q)):
             # Attend over [pre-append cache | fresh K/V], then append.
             k8, ks = quantize_kv(k)
             v8, vs = quantize_kv(v)
@@ -409,16 +507,14 @@ def self_attention_block(
             _append_int8_cache(cache, k8, ks, v8, vs, offset)
             ctx = ctx.to(x.dtype)
         else:
-            # Prefill into a filled cache, or the CPU: dequantize the whole
-            # cache for the masked attention.
-            _update_int8_cache(cache, k, v, offset)
-            kd, vd = _dequantize_cache(cache, q.dtype)
-            ctx = attn_ops.dot_product_attention(
-                q, kd, vd, bias=bias, queries_scale=spec.queries_scale)
-    elif attn_cache is not None and T == 1:
+            # A prefill into a filled cache, a ring layer, an extra bias, or
+            # the CPU: dequantize the whole cache for the masked attention.
+            _update_int8_cache(cache, k, v, w_off, ring)
+            k, v = _dequantize_cache(cache, q.dtype)
+    elif attn_cache is not None and T == 1 and not relative:
         ck, cv = cache["k"], cache["v"]
         k_new, v_new = k.to(ck.dtype), v.to(cv.dtype)
-        chunk = _chunked(causal_only, ck.shape[2])
+        chunk = _chunked(causal_only and alibi_bias is None, ck.shape[2])
         if beam_chain is not None:
             # Chain attention over the PRE-append cache + the fresh token.
             if chunk:
@@ -427,42 +523,133 @@ def self_attention_block(
                     beam_size=beam_chain_size,
                     queries_scale=spec.queries_scale, chunk=chunk)
             else:
+                fresh_bias = None
+                if alibi_bias is not None:
+                    G = spec.num_heads // spec.num_heads_kv
+                    fresh_bias = alibi_bias.float()[..., offset].reshape(
+                        1, 1, spec.num_heads_kv, G, 1)
                 ctx = attn_ops.beam_chain_attention(
                     q, ck, cv, beam_chain, beam_size=beam_chain_size,
                     queries_scale=spec.queries_scale, bias=bias,
-                    k_new=k_new, v_new=v_new)
+                    alibi_bias=alibi_bias, k_new=k_new, v_new=v_new,
+                    fresh_bias=fresh_bias)
         elif chunk:
             ctx = attn_ops.chunked_decode_attention(
                 q, ck, cv, k_new, v_new, offset,
                 queries_scale=spec.queries_scale, chunk=chunk)
         else:
             ctx = attn_ops.decode_step_attention(
-                q, ck, cv, k_new, v_new, offset,
-                queries_scale=spec.queries_scale, bias=bias)
+                q, ck, cv, k_new, v_new, w_off,
+                queries_scale=spec.queries_scale, bias=bias,
+                alibi_bias=alibi_bias)
         # The append comes after the attention read the pre-append cache.
-        _cache_write(ck, k_new, offset)
-        _cache_write(cv, v_new, offset)
-    else:
-        if attn_cache is not None:
-            k = _cache_write(cache["k"], k, offset)
-            v = _cache_write(cache["v"], v, offset)
-        if attn_cache is None and _flash_eligible(q, k, arch.flash_min_len):
+        _cache_write(ck, k_new, w_off)
+        _cache_write(cv, v_new, w_off)
+    elif attn_cache is not None:
+        k = _cache_write(cache["k"], k, w_off, ring)
+        v = _cache_write(cache["v"], v, w_off, ring)
+
+    if ctx is None:
+        if attn_cache is None and _flash_eligible(
+                q, k, arch.flash_min_len, alibi_bias=alibi_bias,
+                alibi_slopes=alibi_slopes, position_bias=position_bias,
+                rel_bias_table=rel_bias_table, rel_positions=rel_positions):
             ctx = flash_attention(
                 q, k, v, scale=spec.queries_scale, causal=causal,
                 lengths=(None if flash_lengths is None
                          else flash_lengths.to(torch.int32)),
-                window=spec.sliding_window)
+                window=spec.sliding_window,
+                alibi_slopes=alibi_slopes if alibi_bias is not None else None,
+                alibi_positive=alibi_positive,
+                rel_bias_table=rel_bias_table,
+                rel_max_distance=rel_max_distance,
+                rel_bidirectional=rel_bidirectional)
         else:
+            if callable(position_bias):
+                position_bias = position_bias()
+            full_bias = attn_ops.combine_bias(
+                bias, attn_ops.combine_bias(alibi_bias, position_bias))
             ctx = attn_ops.dot_product_attention(
-                q, k, v, bias=bias, queries_scale=spec.queries_scale)
+                q, k, v, bias=full_bias, queries_scale=spec.queries_scale,
+                rel_position_keys=ap.get("relative_position_keys"),
+                rel_position_values=ap.get("relative_position_values"),
+                rel_positions=rel_positions)
 
     out = attn_ops.combine_heads(ctx)
     out = linear(ap["o"], out, quantize_activations=quantize_acts)
-    if fused:
-        return x, out, cache
-    if spec.has_layer_norm:  # post-norm: norm(out + x)
-        out = _add_norm(arch, ap.get("layer_norm"), x, out, keep_sum=False)[1]
-    return out, None, cache
+    return (*_end(arch, spec, ap, x, out, fused, wrap_norm), cache)
+
+
+def merged_attention_block(
+    arch: ArchSpec,
+    spec: AttentionSpec,
+    ap: dict,
+    x,
+    mem_kv: dict,  # {"k","v"} [B, Hkv, S, D] (beam-shared, k_norm applied)
+    *,
+    bias,  # self-keys bias (causal/lengths) [., ., T, C]
+    memory_bias,  # [B, 1, 1, S] additive float32 or None
+    rot_consts=None,
+    offset: int = 0,
+    cache: Optional[dict] = None,
+    pre_norm: bool = True,
+    quantize_acts: bool = True,
+    wrap_norm: bool = True,
+    delta=None,
+):
+    """T5Gemma2-style merged self+cross attention: one softmax over
+    [self keys | memory keys] (reference: src/layers/attention.cc:625-796
+    forward_merged). The memory K/V come from the ``memory_kv`` projection
+    (k_norm only, no rotary) and are shared by the beams. Returns
+    (x, delta, cache) as ``self_attention_block``."""
+    x, h, fused = _begin(arch, spec, ap, x, delta, pre_norm, wrap_norm,
+                         quantize_acts)
+    q, k, v = _project_qkv(arch, ap, spec, h, quantize_acts)
+    q, k = _maybe_rotary(spec, rot_consts, q, k, offset)
+
+    if cache is not None and "k_scale" in cache:
+        _update_int8_cache(cache, k, v, offset)
+        k, v = _dequantize_cache(cache, q.dtype)
+    elif cache is not None:
+        k = _cache_write(cache["k"], k, offset)
+        v = _cache_write(cache["v"], v, offset)
+
+    BK, _, T, _ = q.shape
+    B, _, S, _ = mem_kv["k"].shape
+    beam = BK // B
+    mem_k, mem_v = mem_kv["k"], mem_kv["v"]
+    if beam > 1:
+        mem_k = mem_k.repeat_interleave(beam, dim=0)
+        mem_v = mem_v.repeat_interleave(beam, dim=0)
+    keys = torch.cat([k, mem_k.to(k.dtype)], dim=2)
+    values = torch.cat([v, mem_v.to(v.dtype)], dim=2)
+
+    C = k.shape[2]
+    self_bias = (bias.float().expand(BK, 1, T, C) if bias is not None
+                 else torch.zeros((BK, 1, T, C), dtype=torch.float32, device=q.device))
+    if memory_bias is not None:
+        mem_b = memory_bias.float().repeat_interleave(beam, dim=0).expand(BK, 1, T, S)
+    else:
+        mem_b = torch.zeros((BK, 1, T, S), dtype=torch.float32, device=q.device)
+    ctx = attn_ops.dot_product_attention(
+        q, keys, values, bias=torch.cat([self_bias, mem_b], dim=-1),
+        queries_scale=spec.queries_scale)
+    out = linear(ap["o"], attn_ops.combine_heads(ctx), quantize_activations=quantize_acts)
+    return (*_end(arch, spec, ap, x, out, fused, wrap_norm), cache)
+
+
+def precompute_merged_memory_kv(arch: ArchSpec, spec: AttentionSpec, ap: dict,
+                                memory, quantize_acts: bool = True):
+    """Project the encoder output through the merged attention's
+    ``memory_kv`` linear (k_norm only, no rotary; reference:
+    src/layers/attention.cc:706-735)."""
+    Hkv, D = spec.num_heads_kv, spec.head_dim
+    fused = linear(ap["memory_kv"], memory, quantize_activations=quantize_acts)
+    k = attn_ops.split_heads(fused[..., :Hkv * D], Hkv)
+    v = attn_ops.split_heads(fused[..., Hkv * D:], Hkv)
+    if spec.has_k_norm:
+        k = _norm(arch, ap.get("k_norm"), k)
+    return {"k": k, "v": v}
 
 
 def precompute_cross_kv(arch: ArchSpec, spec: AttentionSpec, ap: dict, memory,
@@ -493,6 +680,7 @@ def cross_attention_block(
     quantize_acts: bool = True,
     delta=None,  # the previous block's output, not yet added to ``x``
     return_weights: bool = False,
+    wrap_norm: bool = True,  # False: ``x`` is normed already, no residual
 ):
     """Cross-attention with beam-shared memory; returns (x, delta, weights):
     (x, delta) as ``self_attention_block`` does, and with
@@ -502,14 +690,10 @@ def cross_attention_block(
     ``x``: [B*beam, T, D_model]; ``mem_kv["k"]``: [B, Hkv, S, Dh]. The beam
     folds into the query time axis so memory K/V are read once.
     """
-    fused = pre_norm and spec.has_layer_norm
-    if fused:
-        x, h = _add_norm(arch, ap.get("layer_norm"), x, delta,
-                         _int8_fed(quantize_acts, ap["q"]))
-    else:
-        x = h = _settle(x, delta)
+    x, h, fused = _begin(arch, spec, ap, x, delta, pre_norm, wrap_norm,
+                         quantize_acts, fed_by=("q",))
 
-    BK, T, _ = x.shape
+    BK, T, _ = h.shape
     B = mem_kv["k"].shape[0]
     K = BK // B
 
@@ -531,26 +715,21 @@ def cross_attention_block(
         ctx = out
     ctx = attn_ops.combine_heads(ctx).reshape(BK, T, -1)
     y = linear(ap["o"], ctx, quantize_activations=quantize_acts)
-    if fused:
-        return x, y, weights
-    if spec.has_layer_norm:  # post-norm: norm(y + x)
-        y = _add_norm(arch, ap.get("layer_norm"), x, y, keep_sum=False)[1]
-    return y, None, weights
+    return (*_end(arch, spec, ap, x, y, fused, wrap_norm), weights)
 
 
 def ffn_block(arch: ArchSpec, spec, fp: dict, x, pre_norm: bool,
-              quantize_acts: bool = True, delta=None):
+              quantize_acts: bool = True, delta=None, wrap_norm: bool = True):
     """Feed-forward with optional GLU (reference:
     src/layers/transformer.cc:8-51); returns (x, delta) as
-    ``self_attention_block`` does. Under W8A8 the norm quantizes ``h`` once
-    for both GLU linears."""
-    has_norm = "layer_norm" in fp
+    ``self_attention_block`` does (with ``wrap_norm`` False, ``x`` is the
+    normed input and the output comes alone). Under W8A8 the norm
+    quantizes ``h`` once for both GLU linears."""
+    has_norm = wrap_norm and "layer_norm" in fp
     fused = pre_norm and has_norm
     if fused:
-        firsts = ((fp["linear_0"], fp["linear_0_noact"]) if spec.glu
-                  else (fp["linear_0"],))
         x, h = _add_norm(arch, fp["layer_norm"], x, delta,
-                         _int8_fed(quantize_acts, *firsts))
+                         _int8_fed(quantize_acts, *_ffn_firsts(spec, fp)))
     else:
         x = h = _settle(x, delta)
     act = get_activation(spec.activation)
@@ -564,6 +743,11 @@ def ffn_block(arch: ArchSpec, spec, fp: dict, x, pre_norm: bool,
     if has_norm:  # post-norm: norm(out + x)
         out = _add_norm(arch, fp["layer_norm"], x, out, keep_sum=False)[1]
     return out, None
+
+
+def _ffn_firsts(spec, fp: dict):
+    """The FFN linears that read its input."""
+    return (fp["linear_0"], fp["linear_0_noact"]) if spec.glu else (fp["linear_0"],)
 
 
 # ---------------------------------------------------------------------------
@@ -587,21 +771,63 @@ def encoder_forward(arch: ArchSpec, params: dict, consts: dict, ids, lengths,
         x = _norm(arch, ep.get("layernorm_embedding"), x)
 
     main_ids = ids[0] if isinstance(ids, (tuple, list)) else ids
-    bias = attn_ops.length_mask_bias(lengths, main_ids.shape[-1])
+    S = main_ids.shape[-1]
+    bias = attn_ops.length_mask_bias(lengths, S)
     delta = None
+    position_bias = rel_table = None
+    rel_maxd = 0
     for i, layer in enumerate(spec.layers):
         lp = ep["layers"][i]
-        x, delta, _ = self_attention_block(
-            arch, layer.self_attention, lp["self_attention"], x,
-            bias=bias, rot_consts=ec.get("rotary", {}).get(str(i)),
-            pre_norm=spec.pre_norm, quantize_acts=quantize_acts,
-            causal=False, flash_lengths=lengths, delta=delta)
-        x, delta = ffn_block(arch, layer.ffn, lp["ffn"], x, spec.pre_norm,
-                             quantize_acts, delta=delta)
+        aspec = layer.self_attention
+        ap = lp["self_attention"]
+        rel_positions = None
+        if aspec.has_rel_position_keys or aspec.has_rel_asymmetric_keys:
+            rel_positions = attn_ops.make_relative_positions(
+                S, S, aspec.max_relative_position,
+                asymmetric=aspec.has_rel_asymmetric_keys,
+                left_max=aspec.rel_left_max, right_max=aspec.rel_right_max,
+                device=x.device)
+        if aspec.has_rel_attention_bias and rel_table is None:
+            # The T5 bias of layer 0's table serves every layer: the flash
+            # kernel takes the table itself, the plain attention the dense
+            # [H, S, S] bias, built once, the first time the kernel is not
+            # taken.
+            rel_table = ap["relative_attention_bias"]
+            rel_maxd = aspec.rel_max_distance
+            position_bias = functools.cache(functools.partial(
+                attn_ops.t5_position_bias, rel_table, S, S, rel_maxd,
+                bidirectional=True))
+        kw = dict(bias=bias, rot_consts=ec.get("rotary", {}).get(str(i)),
+                  pre_norm=spec.pre_norm, quantize_acts=quantize_acts,
+                  rel_positions=rel_positions, position_bias=position_bias,
+                  rel_bias_table=rel_table, rel_max_distance=rel_maxd,
+                  causal=False, flash_lengths=lengths)
+        if layer.sandwich_norm:
+            x, h = _add_norm(arch, lp["input_layer_norm"], x, delta,
+                             _int8_fed(quantize_acts, ap["qkv"]))
+            ctx, _, _ = self_attention_block(arch, aspec, ap, h, wrap_norm=False, **kw)
+            delta = _norm(arch, lp["post_attention_layer_norm"], ctx)
+            x, delta = _sandwich_ffn(arch, layer.ffn, lp, x, delta, spec.pre_norm,
+                                     quantize_acts)
+        else:
+            x, delta, _ = self_attention_block(arch, aspec, ap, x, delta=delta, **kw)
+            x, delta = ffn_block(arch, layer.ffn, lp["ffn"], x, spec.pre_norm,
+                                 quantize_acts, delta=delta)
 
     if spec.has_output_norm:
         return _add_norm(arch, ep.get("layer_norm"), x, delta, keep_sum=False)[1]
     return _settle(x, delta)
+
+
+def _sandwich_ffn(arch, fspec, lp: dict, x, delta, pre_norm: bool, quantize_acts: bool):
+    """A sandwich layer's FFN half: the pre-FFN norm adds the pending delta
+    (and under W8A8 quantizes for the FFN's first linears), and the post-FFN
+    norm normalises the FFN's output alone, which becomes the new delta."""
+    x, h = _add_norm(arch, lp["pre_feedforward_layer_norm"], x, delta,
+                     _int8_fed(quantize_acts, *_ffn_firsts(fspec, lp["ffn"])))
+    f, _ = ffn_block(arch, fspec, lp["ffn"], h, pre_norm, quantize_acts,
+                     wrap_norm=False)
+    return x, _norm(arch, lp["post_feedforward_layer_norm"], f)
 
 
 # ---------------------------------------------------------------------------
@@ -609,21 +835,35 @@ def encoder_forward(arch: ArchSpec, params: dict, consts: dict, ids, lengths,
 # ---------------------------------------------------------------------------
 
 
+def layer_cache_capacity(arch: ArchSpec, aspec: AttentionSpec, capacity: int,
+                         ring: bool) -> int:
+    """A layer's KV capacity: with ``ring``, a windowed layer stores only
+    ``2 * Wr`` slots (O(window) memory); every other layer the whole
+    ``capacity``."""
+    if not ring or not aspec.sliding_window > 1 or aspec.has_memory_kv:
+        return capacity
+    rc = ring_capacity(arch)
+    return min(capacity, rc) if rc else capacity
+
+
 def init_self_cache(arch: ArchSpec, batch: int, capacity: int,
-                    dtype=torch.float32, device="cpu"):
+                    dtype=torch.float32, device="cpu", ring: bool = False):
     """Fixed-capacity self-attention KV cache: one dict per decoder layer
-    with "k" and "v" of [batch, Hkv, capacity, D]. ``dtype=torch.int8``
-    selects the quantized layout: int8 payloads plus "k_scale" and
-    "v_scale" of [batch, Hkv, 1, capacity], one float scale per cached
-    vector (ones where nothing is written, so dequantizing stays finite)."""
+    with "k" and "v" of [batch, Hkv, C, D], C the layer's capacity
+    (``layer_cache_capacity``: with ``ring``, windowed layers take 2 x Wr
+    slots). ``dtype=torch.int8`` selects the quantized layout: int8
+    payloads plus "k_scale" and "v_scale" of [batch, Hkv, 1, C], one float
+    scale per cached vector (ones where nothing is written, so dequantizing
+    stays finite)."""
     out = []
     for layer in arch.decoder.layers:
         a = layer.self_attention
-        shape = (batch, a.num_heads_kv, capacity, a.head_dim)
+        cap = layer_cache_capacity(arch, a, capacity, ring)
+        shape = (batch, a.num_heads_kv, cap, a.head_dim)
         layer_cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
                        "v": torch.zeros(shape, dtype=dtype, device=device)}
         if dtype == torch.int8:
-            sshape = (batch, a.num_heads_kv, 1, capacity)
+            sshape = (batch, a.num_heads_kv, 1, cap)
             layer_cache["k_scale"] = torch.ones(sshape, dtype=torch.float32,
                                                 device=device)
             layer_cache["v_scale"] = torch.ones(sshape, dtype=torch.float32,
@@ -660,50 +900,159 @@ def cache_slice_rows(cache, start: int, size: int):
             for layer in cache]
 
 
-def cache_grow(cache, n_rows: int, capacity: int):
+def cache_grow(cache, n_rows: int, capacity: int, arch: Optional[ArchSpec] = None):
     """A cache of ``n_rows`` batch rows and ``capacity`` positions: each row
     tiled ``n_rows // rows`` times, the time axis padded with zeros (the
-    int8 layout's scales with ones, so dequantizing stays finite). Arrays
-    already of that size are returned as they are."""
+    int8 layout's scales with ones, so dequantizing stays finite). A ring
+    layer (a windowed layer of exactly ``ring_capacity`` slots; ``arch``
+    tells) keeps its size: growing it would break its ``position % ring``
+    slot mapping. Arrays already of that size are returned as they are."""
     if cache is None:
         return None
+    rc = ring_capacity(arch) if arch is not None else 0
 
-    def grow(name, a):
+    def grow(name, a, cap):
         if a.shape[0] != n_rows:
             a = a.repeat_interleave(n_rows // a.shape[0], dim=0)
         axis = 3 if name.endswith("_scale") else 2
-        if a.shape[axis] < capacity:
+        if a.shape[axis] < cap:
             pad = list(a.shape)
-            pad[axis] = capacity - a.shape[axis]
+            pad[axis] = cap - a.shape[axis]
             fill = torch.ones if name.endswith("_scale") else torch.zeros
             a = torch.cat([a, fill(pad, dtype=a.dtype, device=a.device)], dim=axis)
         return a
 
-    return [{name: grow(name, a) for name, a in layer.items()} for layer in cache]
+    return [{name: grow(name, a, rc if rc and layer["k"].shape[2] == rc else capacity)
+             for name, a in layer.items()} for layer in cache]
 
 
 def precompute_memory(arch: ArchSpec, params: dict, memory, quantize_acts: bool = True):
-    """Project encoder output into per-layer cross K/V (prefill-once). Under
-    W8A8 the memory is quantized once for every layer's K and V."""
+    """Project encoder output into per-layer cross K/V (prefill-once): the
+    cross-attention's K and V, or a merged attention's ``memory_kv``. Under
+    W8A8 the memory is quantized once for every layer's projections."""
     layers = params["decoder"]["layers"]
-    kv = [layers[i]["attention"][n] for i, layer in enumerate(arch.decoder.layers)
-          if layer.cross_attention is not None for n in ("k", "v")]
+    kv = [p for i, layer in enumerate(arch.decoder.layers)
+          for p in ((layers[i]["attention"]["k"], layers[i]["attention"]["v"])
+                    if layer.cross_attention is not None
+                    else (layers[i]["self_attention"]["memory_kv"],)
+                    if layer.self_attention.has_memory_kv else ())]
     if kv and _int8_fed(quantize_acts, *kv):
         memory = quantize_input(memory)
     out = []
     for i, layer in enumerate(arch.decoder.layers):
-        if layer.cross_attention is None:
+        if layer.cross_attention is not None:
+            out.append(precompute_cross_kv(arch, layer.cross_attention,
+                                           layers[i]["attention"], memory,
+                                           quantize_acts))
+        elif layer.self_attention.has_memory_kv:
+            out.append(precompute_merged_memory_kv(
+                arch, layer.self_attention, layers[i]["self_attention"], memory,
+                quantize_acts))
+        else:
             out.append(None)
-            continue
-        out.append(precompute_cross_kv(arch, layer.cross_attention,
-                                       layers[i]["attention"], memory,
-                                       quantize_acts))
     return out
 
 
 # ---------------------------------------------------------------------------
 # Decoder.
 # ---------------------------------------------------------------------------
+
+
+class _LayerExtras:
+    """A decoder call's per-layer attention extras (the JAX package's
+    ``layer_extras``): the self-attention bias over the layer's keys (the
+    causal and length masks, the sliding window, or a ring layer's
+    ``ring_window_bias``, which replaces them), the ALiBi bias, the Shaw
+    indices, the T5 bias and the ring size. Each is built once per key
+    length. A layer's key length is its own capacity, so a hybrid stack of
+    ring and linear layers (Gemma-2) gets each its own bias."""
+
+    def __init__(self, arch: ArchSpec, dc: dict, T: int, pos: int,
+                 attn_cached: bool, fresh: bool, lengths, device):
+        self.arch, self.dc, self.T, self.pos = arch, dc, T, pos
+        self.attn_cached, self.fresh = attn_cached, fresh
+        self.lengths, self.device = lengths, device
+        self.ring = ring_capacity(arch)
+        self._memo: dict = {}
+
+    def _once(self, key, build):
+        if key not in self._memo:
+            self._memo[key] = build()
+        return self._memo[key]
+
+    def _base(self, Tk: int):
+        """The causal (+ length) bias over ``Tk`` keys."""
+        def build():
+            off = self.pos if self.attn_cached else 0
+            bias = attn_ops.causal_mask_bias(self.T, Tk, offset=off, device=self.device)
+            if self.lengths is not None:
+                bias = bias + attn_ops.length_mask_bias(self.lengths, Tk)
+            return bias
+        return self._once(("base", Tk), build)
+
+    def __call__(self, layer, lp: dict, cache_i, t5: bool = True):
+        """(bias, alibi_bias, rel_positions, t5_bias, ring) of one layer;
+        the T5 bias only with ``t5`` (once a call: layer 0's serves every
+        layer)."""
+        arch, T, pos = self.arch, self.T, self.pos
+        aspec = layer.self_attention
+        window = aspec.sliding_window
+        cap = cache_i["k"].shape[2] if cache_i is not None else T
+        Tk = cap if self.attn_cached else T
+        bias = self._base(Tk)
+        ring = 0
+        if (window > 1 and self.ring and cache_i is not None and cap == self.ring
+                and not aspec.has_memory_kv):
+            ring = self.ring
+        if window and self.attn_cached:
+            if ring:
+                bias = self._once(("ring", window), lambda: attn_ops.ring_window_bias(
+                    T, ring, window, offset=pos, device=self.device))
+            else:
+                bias = self._once(("window", window, Tk), lambda: bias + (
+                    attn_ops.sliding_window_bias(T, Tk, window, offset=pos,
+                                                 device=self.device)))
+        elif window:
+            bias = self._once(("window", window, Tk), lambda: bias + (
+                attn_ops.sliding_window_bias(T, T, window, device=self.device)))
+
+        spec = arch.decoder
+        alibi_bias = None
+        if spec.alibi:
+            scale = aspec.queries_scale if spec.scale_alibi else 1.0
+
+            def alibi():
+                positions = torch.arange(Tk, dtype=torch.float32, device=self.device)
+                if not spec.alibi_use_positive_positions:
+                    # Negative positions end at 0 on the last current key
+                    # (reference: src/layers/attention_layer.cc:38-41).
+                    cur_len = (pos + T) if self.attn_cached else T
+                    positions = positions - (torch.tensor(
+                        cur_len, dtype=torch.float32, device=self.device) - 1)
+                return (self.dc["alibi_slopes"][:, None, None]
+                        * positions[None, None, :] * scale)
+            alibi_bias = self._once(("alibi", Tk, scale), alibi)
+
+        rel_positions = None
+        if aspec.has_rel_position_keys:
+            rel_positions = self._once(
+                ("shaw", Tk, aspec.max_relative_position),
+                lambda: attn_ops.make_relative_positions(
+                    T, Tk, aspec.max_relative_position,
+                    query_offset=pos if self.attn_cached else None,
+                    device=self.device))
+        pbias = None
+        if aspec.has_rel_attention_bias and t5:
+            pbias = attn_ops.t5_position_bias(
+                lp["self_attention"]["relative_attention_bias"], T, Tk,
+                aspec.rel_max_distance, bidirectional=False,
+                query_offset=pos if self.attn_cached else 0)
+        if ring and (alibi_bias is not None or rel_positions is not None
+                     or pbias is not None):
+            raise NotImplementedError(
+                "ring KV caches do not take ALiBi or relative-position layers "
+                "(set CT2TPU_WINDOW_RING=0)")
+        return bias, alibi_bias, rel_positions, pbias, ring
 
 
 def decoder_forward(
@@ -765,47 +1114,115 @@ def decoder_forward(
         x = _norm(arch, dp.get("layernorm_embedding"), x)
 
     fresh = fresh_prefill and self_cache is not None and T > 1
+    attn_cached = self_cache is not None and not fresh
     kv_lengths = None
-    if self_cache is not None and not fresh:
-        C = self_cache[0]["k"].shape[2]
-        bias = attn_ops.causal_mask_bias(T, C, offset=pos, device=device)
-        if lengths is not None:
-            bias = bias + attn_ops.length_mask_bias(lengths, C)
-        causal_only = T == 1 and lengths is None
-        if T == 1 and "k_scale" in self_cache[0]:
-            kv_lengths = torch.full((x.shape[0],), pos, dtype=torch.int32,
-                                    device=device)
-    else:
-        # No cache, or an empty one: attention sees the T fresh positions.
-        bias = attn_ops.causal_mask_bias(T, T, device=device)
-        if lengths is not None:
-            bias = bias + attn_ops.length_mask_bias(lengths, T)
-        causal_only = False
+    causal_only = attn_cached and T == 1 and lengths is None
+    if attn_cached and T == 1 and "k_scale" in self_cache[0]:
+        kv_lengths = torch.full((x.shape[0],), pos, dtype=torch.int32, device=device)
+    extras = _LayerExtras(arch, dc, T, pos, attn_cached, fresh, lengths, device)
+    flash_alibi = None
+    if spec.alibi:
+        # The flash kernel's ALiBi: the slopes, with scale_alibi folded in.
+        flash_alibi = dc["alibi_slopes"]
+        if spec.scale_alibi:
+            flash_alibi = flash_alibi * spec.layers[0].self_attention.queries_scale
 
     rotary = dc.get("rotary", {})
+    qa = quantize_acts
     delta = None
     attention = None
+    position_bias = None
     for i, layer in enumerate(spec.layers):
         lp = dp["layers"][i]
-        x, delta, _ = self_attention_block(
-            arch, layer.self_attention, lp["self_attention"], x,
-            bias=bias, rot_consts=rotary.get(str(i)), offset=pos,
-            cache=self_cache[i] if self_cache is not None else None,
-            pre_norm=spec.pre_norm, quantize_acts=quantize_acts,
-            causal=True, flash_lengths=lengths,
-            causal_only=causal_only,
-            beam_chain=beam_chain, beam_chain_size=beam_size,
-            fresh_prefill=fresh, kv_lengths=kv_lengths, delta=delta)
-        if layer.cross_attention is not None:
-            want = return_attention and i == spec.alignment_layer
-            x, delta, weights = cross_attention_block(
-                arch, layer.cross_attention, lp["attention"], x, mem_kv[i],
-                memory_bias=memory_bias, pre_norm=spec.pre_norm,
-                quantize_acts=quantize_acts, delta=delta, return_weights=want)
-            if want:
-                attention = weights[:, :spec.alignment_heads].mean(dim=1)
-        x, delta = ffn_block(arch, layer.ffn, lp["ffn"], x, spec.pre_norm,
-                             quantize_acts, delta=delta)
+        aspec = layer.self_attention
+        ap = lp["self_attention"]
+        cache_i = self_cache[i] if self_cache is not None else None
+        layer_bias, alibi_bias, rel_positions, pbias, ring = extras(
+            layer, lp, cache_i, t5=position_bias is None)
+        if pbias is not None:
+            position_bias = pbias  # T5: layer 0's bias serves every layer
+        kw = dict(rot_consts=rotary.get(str(i)), offset=pos, cache=cache_i,
+                  pre_norm=spec.pre_norm, quantize_acts=qa)
+        self_kw = dict(kw, bias=layer_bias, alibi_bias=alibi_bias,
+                       rel_positions=rel_positions, position_bias=position_bias,
+                       causal=True, flash_lengths=lengths,
+                       causal_only=causal_only and not aspec.sliding_window,
+                       beam_chain=beam_chain, beam_chain_size=beam_size, ring=ring,
+                       alibi_slopes=flash_alibi,
+                       alibi_positive=spec.alibi_use_positive_positions,
+                       fresh_prefill=fresh, kv_lengths=kv_lengths)
+        want = return_attention and i == spec.alignment_layer
+        weights = None
+        if layer.sandwich_norm:
+            x, h = _add_norm(arch, lp["input_layer_norm"], x, delta,
+                             _int8_fed(qa, ap["qkv"]))
+            if aspec.has_memory_kv:
+                # Merged self+cross attention (T5Gemma2,
+                # reference: src/layers/attention.cc:625-796).
+                ctx, _, _ = merged_attention_block(
+                    arch, aspec, ap, h, mem_kv[i], bias=layer_bias,
+                    memory_bias=memory_bias, wrap_norm=False, **kw)
+            else:
+                ctx, _, _ = self_attention_block(arch, aspec, ap, h,
+                                                 wrap_norm=False, **self_kw)
+            # The post-attention norm normalises the block's output alone;
+            # the next norm adds it to the stream.
+            delta = _norm(arch, lp["post_attention_layer_norm"], ctx)
+            if layer.cross_attention is not None:
+                if layer.external_pre_cross_norm:
+                    x, h = _add_norm(
+                        arch, lp["external_pre_encoder_attention_layer_norm"], x,
+                        delta, _int8_fed(qa, lp["attention"]["q"]))
+                else:
+                    x = h = _settle(x, delta)
+                ctx, _, weights = cross_attention_block(
+                    arch, layer.cross_attention, lp["attention"], h, mem_kv[i],
+                    memory_bias=memory_bias, pre_norm=spec.pre_norm,
+                    quantize_acts=qa, return_weights=want, wrap_norm=False)
+                if layer.external_post_cross_norm:
+                    ctx = _norm(arch, lp["external_post_encoder_attention_layer_norm"],
+                                ctx)
+                delta = ctx
+            x, delta = _sandwich_ffn(arch, layer.ffn, lp, x, delta, spec.pre_norm, qa)
+            if layer.layer_scalar != 1.0:
+                x = _settle(x, delta) * torch.tensor(layer.layer_scalar, dtype=x.dtype)
+                delta = None
+        elif layer.shared_layer_norm or layer.input_layer_norm:
+            # Parallel residual (reference: src/layers/transformer.cc:298-332):
+            # one shared norm (GPT-J, Falcon) quantizes once for the QKV and
+            # the FFN's first linears; GPT-NeoX norms the same input twice.
+            norm_p = lp.get("shared_layer_norm") or lp.get("input_layer_norm")
+            firsts = _ffn_firsts(layer.ffn, lp["ffn"])
+            two_norms = layer.post_attention_layer_norm
+            x, h = _add_norm(arch, norm_p, x, delta, _int8_fed(
+                qa, ap["qkv"], *(() if two_norms else firsts)))
+            a, _, _ = self_attention_block(arch, aspec, ap, h, wrap_norm=False,
+                                           **self_kw)
+            if two_norms:
+                h = _add_norm(arch, lp["post_attention_layer_norm"], x, None,
+                              _int8_fed(qa, *firsts))[1]
+            f, _ = ffn_block(arch, layer.ffn, lp["ffn"], h, spec.pre_norm, qa,
+                             wrap_norm=False)
+            # x + a + f, summed in that order as the JAX package does.
+            x, delta = x + a, f
+        elif aspec.has_memory_kv:
+            x, delta, _ = merged_attention_block(
+                arch, aspec, ap, x, mem_kv[i], bias=layer_bias,
+                memory_bias=memory_bias, delta=delta, **kw)
+            x, delta = ffn_block(arch, layer.ffn, lp["ffn"], x, spec.pre_norm, qa,
+                                 delta=delta)
+        else:
+            x, delta, _ = self_attention_block(arch, aspec, ap, x, delta=delta,
+                                               **self_kw)
+            if layer.cross_attention is not None:
+                x, delta, weights = cross_attention_block(
+                    arch, layer.cross_attention, lp["attention"], x, mem_kv[i],
+                    memory_bias=memory_bias, pre_norm=spec.pre_norm,
+                    quantize_acts=qa, delta=delta, return_weights=want)
+            x, delta = ffn_block(arch, layer.ffn, lp["ffn"], x, spec.pre_norm, qa,
+                                 delta=delta)
+        if want and weights is not None:
+            attention = weights[:, :spec.alignment_heads].mean(dim=1)
 
     if spec.has_output_norm:
         # Under W8A8 the norm quantizes for the linear that reads its output.

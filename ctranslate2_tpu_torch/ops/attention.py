@@ -6,13 +6,18 @@ capacity; masks are additive float32 biases; softmax runs in float32.
 Products run in the activation dtype and their results are read as
 float32, as the JAX package's ``preferred_element_type=float32`` does.
 
-Relative positions (Shaw, T5), ALiBi and ring-buffer masks are not ported
-yet.
+Sliding windows, ring-buffer windows, ALiBi, and the relative-position
+schemes (Shaw keys/values, T5 buckets; reference:
+src/layers/attention.cc:16-165) build the same biases and indices as the
+JAX package, bit for bit. Positions are shared by the batch (per-row
+positions come with continuous batching).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..kernels.flash_attention import relative_position_bucket
 
 NEG_INF = -1e9
 
@@ -41,6 +46,36 @@ def causal_mask_bias(num_queries: int, num_keys: int, offset: int = 0,
     return _where_bias(k_pos <= q_pos)[None, None]
 
 
+def sliding_window_bias(num_queries: int, num_keys: int, window: int,
+                        offset: int = 0, device=None):
+    """[1, 1, Tq, Tk]: restrict attention to the last ``window`` keys
+    (inclusive of self)."""
+    q_pos = torch.arange(num_queries, device=device)[:, None] + offset
+    k_pos = torch.arange(num_keys, device=device)[None, :]
+    return _where_bias(k_pos > q_pos - window)[None, None]
+
+
+def ring_window_bias(num_queries: int, ring: int, window: int, offset: int = 0,
+                     device=None):
+    """[1, 1, Tq, ring]: the bias of a RING KV buffer of ``ring`` slots
+    holding a sliding window of ``window`` positions (the reference evicts
+    instead: src/layers/attention.cc:536-557, 587-595).
+
+    Keys are written at ``position % ring``. For a query at absolute
+    position q, slot j holds position ``q - d``, ``d = (q - j) mod ring``;
+    the slot is valid iff ``d < window`` (inside the window) and ``d <= q``
+    (written). With ``ring >= 2 * window`` and prefill chunks of at most
+    ``window`` tokens, same-chunk future keys wrap to ``d >= window``, so
+    the one formula covers chunked prefill and decode. It encodes the causal
+    mask too: it replaces the causal bias, never adds to it. The slot of
+    d == 0 is the query's own: decode-step callers attend the fresh token
+    separately and exclude that stale slot themselves."""
+    j = torch.arange(ring, device=device)
+    q = torch.arange(num_queries, device=device)[:, None] + offset
+    d = torch.remainder(q - j[None, :], ring)
+    return _where_bias((d < window) & (d <= q))[None, None]
+
+
 def combine_bias(*biases):
     out = None
     for b in biases:
@@ -48,6 +83,40 @@ def combine_bias(*biases):
             continue
         out = b if out is None else out + b
     return out
+
+
+# ---------------------------------------------------------------------------
+# Relative position representations.
+# ---------------------------------------------------------------------------
+
+def make_relative_positions(num_queries: int, num_keys: int, max_position: int,
+                            asymmetric: bool = False, left_max: int = 0,
+                            right_max: int = 0, query_offset=None, device=None):
+    """Clipped relative-position index matrix [Tq, Tk], int32
+    (reference: src/layers/attention.cc:16-49). ``query_offset`` is the
+    absolute position of query 0; None right-aligns the queries with the
+    keys (offset Tk - Tq), the full-sequence convention."""
+    i = torch.arange(num_queries, device=device)[:, None]
+    j = torch.arange(num_keys, device=device)[None, :]
+    if asymmetric:
+        rel = torch.clamp(j - i, -left_max, right_max) + left_max
+    else:
+        offset = (num_keys - num_queries) if query_offset is None else query_offset
+        rel = torch.clamp(j - (i + offset), -max_position, max_position) + max_position
+    return rel.to(torch.int32)
+
+
+def t5_position_bias(rel_attention_bias, num_queries: int, num_keys: int,
+                     max_distance: int, bidirectional: bool, query_offset: int = 0):
+    """[H, Tq, Tk] float32 additive bias from the learned [num_buckets, H]
+    table; the buckets are the flash kernel's plain version's."""
+    device = rel_attention_bias.device
+    i = torch.arange(num_queries, device=device)[:, None] + query_offset
+    j = torch.arange(num_keys, device=device)[None, :]
+    buckets = relative_position_bucket(
+        j - i, rel_attention_bias.shape[0], max_distance, bidirectional)
+    values = rel_attention_bias[buckets.long()]  # [Tq, Tk, H]
+    return values.permute(2, 0, 1).float()
 
 
 # ---------------------------------------------------------------------------
@@ -73,19 +142,32 @@ def dot_product_attention(
     bias=None,  # additive f32, broadcastable to [B, Hq, Tq, Tk]
     queries_scale: float = 1.0,
     return_weights: bool = False,
+    rel_position_keys=None,  # [2P+1, D] Shaw tables (float32)
+    rel_position_values=None,
+    rel_positions=None,  # [Tq, Tk] int indices into the tables
 ):
     """The attention output [B, Hq, Tq, D]; with ``return_weights``, also
-    the float32 softmax weights [B, Hq, Tq, Tk]."""
+    the float32 softmax weights [B, Hq, Tq, Tk]. The Shaw tables add
+    ``q . rel_keys[rel]`` to the logits and ``weights . rel_values[rel]``
+    to the output, in float32 (reference: src/layers/attention.cc:128-165)."""
     B, Hq, Tq, D = q.shape
     Hkv = k.shape[1]
     group = Hq // Hkv
 
     qg = q.reshape(B, Hkv, group, Tq, D)
     logits = torch.matmul(qg, k[:, :, None].transpose(-1, -2)).float() * queries_scale
+    if rel_position_keys is not None:
+        rel_rep = rel_position_keys.float()[rel_positions.long()]  # [Tq, Tk, D]
+        logits = logits + torch.einsum(
+            "bhgqd,qkd->bhgqk", qg.float(), rel_rep) * queries_scale
     if bias is not None:
         logits = logits + _group_bias(bias, Hkv, group)
     weights = torch.softmax(logits, dim=-1)
     out = torch.matmul(weights.to(v.dtype), v[:, :, None])
+    if rel_position_values is not None:
+        rel_rep_v = rel_position_values.float()[rel_positions.long()]
+        out = out.float() + torch.einsum(
+            "bhgqk,qkd->bhgqd", weights.to(v.dtype).float(), rel_rep_v)
     out = out.reshape(B, Hq, Tq, D).to(q.dtype)
     if return_weights:
         return out, weights.reshape(B, Hq, Tq, -1)
@@ -113,8 +195,10 @@ def beam_chain_attention(
     beam_size: int,
     queries_scale: float = 1.0,
     bias=None,  # additive, broadcastable over slots [.., 1, C]
+    alibi_bias=None,  # [Hq, 1, C]
     k_new=None,  # [N, Hkv, 1, D]: this step's fresh key (pre-append)
     v_new=None,
+    fresh_bias=None,  # additive for the fresh token, broadcastable [1, 1, Hkv, G, 1]
 ):
     """Beam attention without physical cache reordering.
 
@@ -145,6 +229,8 @@ def beam_chain_attention(
         b4 = bias.float()
         logits = logits + b4.reshape(
             (1,) * 4 + (Tq, 1, C) if b4.dim() <= 4 else tuple(b4.shape))
+    if alibi_bias is not None:
+        logits = logits + alibi_bias.float().reshape(1, 1, Hkv, group, Tq, 1, C)
 
     flat = logits.reshape(B, K, Hkv, group, Tq, K * C)
     if k_new is not None:
@@ -152,6 +238,8 @@ def beam_chain_attention(
         # the append can come after the attention).
         lf = torch.einsum("bkhgqd,bkhd->bkhgq", qg,
                           k_new.reshape(B, K, Hkv, D)).float() * queries_scale
+        if fresh_bias is not None:
+            lf = lf + fresh_bias
         flat = torch.cat([flat, lf[..., None]], dim=-1)
     weights = torch.softmax(flat, dim=-1)
     wc = weights[..., :K * C].reshape(B, K, Hkv, group, Tq, K, C)
@@ -229,6 +317,7 @@ def decode_step_attention(
     *,
     queries_scale: float = 1.0,
     bias=None,  # additive over cache slots, broadcastable [.., 1, C]
+    alibi_bias=None,  # [Hq, Tq, C]
 ):
     """Single-token decode attention over [pre-update cache | fresh token].
 
@@ -248,6 +337,11 @@ def decode_step_attention(
     lc = lc + excl.to(torch.float32)
     if bias is not None:
         lc = lc + _group_bias(bias, Hkv, group)
+    if alibi_bias is not None:
+        ab = alibi_bias.float()
+        lc = lc + ab.reshape(1, Hkv, group, Tq, C)
+        # The fresh token sits at slot ``pos``: its column of the bias.
+        lf = lf + ab[..., pos].reshape(1, Hkv, group, Tq)
 
     full = torch.cat([lc, lf[..., None]], dim=-1)  # [..., C+1]
     w = torch.softmax(full, dim=-1)

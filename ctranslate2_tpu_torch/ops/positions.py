@@ -7,8 +7,8 @@ layout ``concat([sin, cos], -1)``.
 
 Rotary tables match reference: src/layers/attention_layer.cc:177-343,
 including Linear / Su / Llama3 scaling and the Su long-context
-attention-scale factor. The tables are built with numpy, exactly as the JAX
-package builds them. ALiBi slopes are not ported yet.
+attention-scale factor. The tables and the ALiBi slopes are built with
+numpy, exactly as the JAX package builds them.
 """
 
 from __future__ import annotations
@@ -123,3 +123,15 @@ def apply_rotary(x, sin, cos, interleave: bool, rotary_dim: int = 0):
     if rest.shape[-1]:
         out = torch.cat([out, rest], dim=-1)
     return out
+
+
+def alibi_slopes(num_heads: int) -> np.ndarray:
+    """Per-head ALiBi slopes (power-of-2 law)."""
+    closest_pow2 = 2 ** math.floor(math.log2(num_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(closest_pow2) - 3)))
+    slopes = [base ** (i + 1) for i in range(closest_pow2)]
+    if closest_pow2 != num_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * closest_pow2) - 3)))
+        slopes += [extra_base ** (i + 1)
+                   for i in range(0, 2 * (num_heads - closest_pow2), 2)]
+    return np.asarray(slopes, dtype=np.float32)

@@ -64,9 +64,9 @@ class Generator(TaskAPIMixin):
             max_queued_batches=resolve_max_queued_batches(
                 kwargs, max_queued_batches))
         self.engine = DecodingEngine(self.model)
-        # Prefilled static prompts: token ids -> (1-row cache, capacity)
+        # Prefilled static prompts: (token ids, ring) -> (1-row cache, capacity)
         # (reference: include/ctranslate2/layers/decoder.h:102-110).
-        self._static_prompt_cache: Dict[Tuple[int, ...], tuple] = {}
+        self._static_prompt_cache: Dict[Tuple[Tuple[int, ...], bool], tuple] = {}
         self._static_prompt_lock = threading.Lock()
 
     @property
@@ -172,35 +172,45 @@ class Generator(TaskAPIMixin):
 
     def _prefill(self, ids_list: List[List[int]], cache, start_step: int):
         """Forward a uniform-length prompt chunk into the cache, in place.
-        (The JAX package splits the chunk at sliding-window boundaries;
-        windows are not ported, so it is always one chunk.)"""
+        A sliding-window model's prompt runs in chunks split at multiples of
+        its ring block (the reference's chunked prefill,
+        src/layers/transformer.cc:735-792), so a ring cache only ever takes
+        window-aligned writes."""
         model = self.model
         ids = torch.tensor(ids_list, dtype=torch.long, device=model.device)
-        T.decoder_forward(
-            model.arch, model.params, model.consts, ids, start_step, cache,
-            quantize_acts=model.policy.quantize_activations,
-            out_dtype=model.out_dtype, return_logits=False,
-            # The first chunk of an empty cache attends only its own T
-            # positions (O(T^2) prefill, flash-eligible).
-            fresh_prefill=(start_step == 0))
+        for off, size in T.split_prefill_chunks(start_step, ids.shape[1],
+                                                T.ring_block(model.arch)):
+            rel = off - start_step
+            T.decoder_forward(
+                model.arch, model.params, model.consts, ids[:, rel:rel + size],
+                off, cache, quantize_acts=model.policy.quantize_activations,
+                out_dtype=model.out_dtype, return_logits=False,
+                # The first chunk of an empty cache attends only its own T
+                # positions (O(T^2) prefill, flash-eligible).
+                fresh_prefill=(off == 0))
         return cache
 
-    def _static_prompt(self, ids: Tuple[int, ...], capacity: int, use_cache: bool):
+    def _static_prompt(self, ids: Tuple[int, ...], capacity: int, use_cache: bool,
+                       ring: bool):
         """A 1-row cache holding the static prompt ``ids`` at positions
-        [0, len(ids)), of at most ``capacity`` slots: the cached one when
-        ``use_cache`` and one is there, else a new prefill (cached when
-        ``use_cache``). Never written by a decode: callers copy it."""
+        [0, len(ids)), of at most ``capacity`` slots (ring buffers for the
+        windowed layers with ``ring``; keyed by it, since a ring cannot
+        serve beam search): the cached one when ``use_cache`` and one is
+        there, else a new prefill (cached when ``use_cache``). Never written
+        by a decode: callers copy it."""
         model = self.model
+        key = (ids, ring)
         if use_cache:
             with self._static_prompt_lock:
-                cached = self._static_prompt_cache.get(ids)
+                cached = self._static_prompt_cache.get(key)
             if cached is not None and cached[1] <= capacity:
                 return cached[0]
         cache = self._prefill([list(ids)], T.init_self_cache(
-            model.arch, 1, capacity, dtype=model.kv_dtype, device=model.device), 0)
+            model.arch, 1, capacity, dtype=model.kv_dtype, device=model.device,
+            ring=ring), 0)
         if use_cache:
             with self._static_prompt_lock:
-                self._static_prompt_cache[ids] = (cache, capacity)
+                self._static_prompt_cache[key] = (cache, capacity)
         return cache
 
     def _generate(self, start_tokens, options, end_ids, include_prompt_in_result,
@@ -216,21 +226,26 @@ class Generator(TaskAPIMixin):
         capacity = _round_up(static_len + max_prompt + options.max_length + 1, 64)
         model.ensure_consts(capacity)
         rows = B * options.beam_size if options.beam_size > 1 else B
+        # Ring KV buffers (O(window) memory) serve one-token greedy steps of
+        # a windowed model; beam search's chain-mask attention needs linear
+        # caches.
+        use_ring = options.beam_size == 1 and T.ring_capacity(model.arch) > 0
 
         sp_cache = None
         if static_prompt:
             # Reference: src/models/language_model.cc:186-215.
             sp_cache = self._static_prompt(
                 tuple(v.to_id(t) for t in static_prompt), capacity,
-                cache_static_prompt)
+                cache_static_prompt, use_ring)
             start_step += static_len
 
         def new_cache(n):
             """``n`` rows: copies of the static prompt's, or empty."""
             if sp_cache is not None:
-                return T.cache_grow(T.cache_repeat_rows(sp_cache, n), n, capacity)
+                return T.cache_grow(T.cache_repeat_rows(sp_cache, n), n, capacity,
+                                    arch=model.arch)
             return T.init_self_cache(model.arch, n, capacity, dtype=model.kv_dtype,
-                                     device=model.device)
+                                     device=model.device, ring=use_ring)
 
         # When nothing is prefilled the decode loop creates the cache
         # itself (which enables the chain-mask beam attention).

@@ -1506,3 +1506,304 @@ def test_generator_host_loops_on_card(small_decoder, monkeypatch, kv):
             else:
                 # A cached vector at a rounding tie may land one int8 step apart.
                 np.testing.assert_allclose(o.scores[0], r.scores[0], atol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# The architecture features (ALiBi, T5 and Shaw positions, windows and ring
+# caches, merged attention, sandwich and parallel-residual layers): the
+# kernels at the four families' shapes, and the models on the card against
+# the CPU.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fresh", [True, False])
+@pytest.mark.parametrize("window", [0, 9])
+@pytest.mark.parametrize("qdtype", [torch.float16, torch.bfloat16, torch.float32])
+def test_decode_kernel_falcon_groups_close_to_plain_on_card(qdtype, window, fresh):
+    """Falcon-7B: 71 query heads on one KV head of 64 (the group tiles of
+    ``decode_plan`` leave a ragged last tile), at its main path's cache."""
+    dev = _card()
+    lengths = [2048, 2111, 1, 1500]
+    args, kw = _decode_inputs(dev, qdtype, len(lengths), 71, 1, 2176, 64, lengths, fresh)
+    before = kernels.launch_counts()["decode_attention_int8"]
+    out = decode_attention_int8(*args, scale=64 ** -0.5, window=window, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_attention_int8"] == before + 1
+    ref = decode_attention_int8_plain(*args, scale=64 ** -0.5, window=window, **kw)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+# (K, N) of the int8 linears of the four families: Falcon-7B (fused QKV
+# 4,672 at K 4,544, the FFN 18,176), Gemma-2-9B, MPT-7B and Flan-T5-large,
+# projections included.
+ARCH_KN = [(4544, 4672), (4544, 4544), (4544, 18176), (18176, 4544), (4544, 65024),
+           (3584, 8192), (4096, 3584), (3584, 14336), (14336, 3584), (3584, 256000),
+           (4096, 12288), (4096, 16384), (16384, 4096), (4096, 50432),
+           (1024, 3072), (1024, 1024), (1024, 2048), (1024, 2816), (2816, 1024),
+           (1024, 32128)]
+ARCH_VOCAB_N = (65024, 256000, 50432, 32128)
+# Every M at every (K, N); a vocabulary projection at decode rows only.
+ARCH_W8A8_CASES = [(K, N, M) for K, N in ARCH_KN for M in (2, 4, 32, 128, 8192)
+                   if N not in ARCH_VOCAB_N or M <= 128]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,M", ARCH_W8A8_CASES)
+def test_w8a8_architecture_shapes_bit_equal_on_card(K, N, M):
+    dev = _card()
+    args = [torch.from_numpy(a).to(dev) for a in _w8a8_inputs(M, K, N, seed=M + K + N)]
+    out = matmul_w8a8(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, matmul_w8a8_plain(*args)), qm.w8a8_plan(M, N, K)
+
+
+ARCH_FLASH = {  # the families' prefill attention, one or two rows of it
+    "mpt_alibi": (torch.float16, 1, 32, 32, 2048, 128,
+                  dict(causal=True, alibi="positive")),
+    "alibi_negative": (torch.bfloat16, 1, 32, 32, 2048, 128,
+                       dict(causal=True, alibi="negative")),
+    "flan_t5_encoder": (torch.float16, 2, 16, 16, 1024, 64,
+                        dict(t5=True, lengths=[1024, 700])),
+    "gemma2_window": (torch.float16, 1, 16, 8, 8256, 256, dict(causal=True, window=4096)),
+    "falcon_71_to_1": (torch.float16, 1, 71, 1, 2048, 64, dict(causal=True)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ARCH_FLASH))
+def test_flash_architecture_shapes_close_to_plain_on_card(case):
+    from ctranslate2_tpu_torch.ops.positions import alibi_slopes
+
+    dev = _card()
+    dtype, B, Hq, Hkv, T, D, opts = ARCH_FLASH[case]
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+               for shape in ((B, Hq, T, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+    kw = dict(scale=D ** -0.5, causal=opts.get("causal", False),
+              window=opts.get("window", 0))
+    if "lengths" in opts:
+        kw["lengths"] = torch.tensor(opts["lengths"], dtype=torch.int32, device=dev)
+    if "alibi" in opts:
+        kw.update(alibi_slopes=torch.from_numpy(alibi_slopes(Hq)).to(dev),
+                  alibi_positive=opts["alibi"] == "positive")
+    if opts.get("t5"):
+        kw.update(rel_bias_table=torch.randn((32, Hq), generator=g, device=dev) * 0.5,
+                  rel_max_distance=128, rel_bidirectional=True)
+    before = kernels.launch_counts()["flash_attention"]
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(out.float(), ref, **FLASH_TOL[dtype])
+
+
+ARCH_AB = dict(vocab_size=200, num_layers=2, num_heads=4, d_model=256, d_ff=512)
+ARCH_DECODERS = {
+    "alibi": dict(alibi=True),
+    "alibi_negative": dict(alibi=True, alibi_positive=False),
+    "alibi_scaled": dict(alibi=True),  # ``scale_alibi`` written after the build
+    "shaw": dict(rel_position_max=8),
+    "t5_bias": dict(rel_bias_buckets=32, rel_bias_max_distance=128),
+    "window": dict(sliding_window=64, rotary_dim=0),
+    "hybrid_windows": dict(sliding_window=64, rotary_dim=0, sliding_window_pattern=2),
+    "parallel_shared_norm": dict(parallel_residual=True, shared_layer_norm=True,
+                                 rotary_dim=0),
+    "parallel_two_norms": dict(parallel_residual=True, rotary_dim=0),
+}
+
+
+def _arch_prompts(length, seed=5, rows=3):
+    rng = np.random.default_rng(seed)
+    return [[f"tok{int(t)}" for t in rng.integers(3, 190, length)] for _ in range(rows)]
+
+
+def _card_and_cpu(cls, source, vocab=None):
+    card = cls(source, compute_type="float32", flash_attention=True)
+    cpu = cls(source, device="cpu", compute_type="float32", flash_attention=True)
+    if vocab is not None:
+        for m in (card.model, cpu.model):
+            m.target_vocabulary = vocab
+            m.source_vocabularies = [vocab]
+    return card, cpu
+
+
+def _kv_tol(kv):
+    """Scores and per-step log-probs: 1e-3 with the float KV cache; with
+    the int8 one ``chip_smoke.py``'s ``INT8_KV_LOGPROB_TOL`` (a cached
+    vector at a rounding tie may land one int8 step apart)."""
+    return 1e-3 if kv == "float" else _chip_smoke().INT8_KV_LOGPROB_TOL
+
+
+def _same_on_card(out, ref, kv, hyps="sequences_ids"):
+    """The same tokens in every hypothesis, and scores within ``_kv_tol``."""
+    for o, r in zip(out, ref):
+        assert getattr(o, hyps) == getattr(r, hyps)
+        np.testing.assert_allclose(o.scores, r.scores, atol=_kv_tol(kv), rtol=0)
+
+
+def _same_steps_on_card(run, kv):
+    """``run(return_logits_vocab=True)`` on the card against the CPU
+    (``run`` takes the device): the same tokens, and every step's
+    log-probs over the vocabulary within ``_kv_tol``."""
+    out, ref = run("card", return_logits_vocab=True), run("cpu", return_logits_vocab=True)
+    _same_on_card(out, ref, kv)
+    for o, r in zip(out, ref):
+        assert len(o.logits) == len(r.logits)
+        for steps_o, steps_r in zip(o.logits, r.logits):
+            assert len(steps_o) == len(steps_r)
+            for lo, lr in zip(steps_o, steps_r):
+                lo = torch.log_softmax(torch.as_tensor(lo).double().cpu(), -1)
+                lr = torch.log_softmax(torch.as_tensor(lr).double().cpu(), -1)
+                assert (lo - lr).abs().max().item() <= _kv_tol(kv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam_size", [1, 2])
+@pytest.mark.parametrize("kv", ["float", "int8"])
+@pytest.mark.parametrize("feature", sorted(ARCH_DECODERS))
+def test_architecture_generator_on_card_matches_cpu(tmp_path, monkeypatch, feature, kv,
+                                                    beam_size):
+    """float32, 2 layers: the card (flash with slopes or windows through
+    ``flash_attention=True``; the decode kernel or the dequantized cache;
+    ring caches past 2 x Wr under greedy search) against the CPU."""
+    _card()
+    if kv == "int8":
+        monkeypatch.setenv("CT2TPU_KV_CACHE", "int8")
+    path = build_decoder_only_model(str(tmp_path / feature),
+                                    **{**ARCH_AB, **ARCH_DECODERS[feature]})
+    if feature == "alibi_scaled":
+        from ctranslate2_tpu_torch.formats.model_file import (load_model_file,
+                                                              make_variable)
+
+        mf = load_model_file(path)
+        mf.variables["decoder/scale_alibi"] = make_variable("decoder/scale_alibi",
+                                                            np.int8(1))
+        mf.save(path)
+    card, cpu = _card_and_cpu(tt.Generator, path)
+    assert card.model.arch.decoder.scale_alibi == (feature == "alibi_scaled")
+    prompts = _arch_prompts(300 if "window" in feature else 100)
+    opts = dict(max_length=8, min_length=8, include_prompt_in_result=False,
+                beam_size=beam_size, return_scores=True)
+    kernels.reset_launches()
+    out = card.generate_batch(prompts, **opts)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    # Shaw keys and values decline the flash kernel; so does the decoder's T5
+    # bias, whose table the JAX package gives the kernel in the encoder only.
+    assert (counts["flash_attention"] > 0) == (feature not in ("shaw", "t5_bias"))
+    assert counts["fused_norm"] > 0
+    _same_on_card(out, cpu.generate_batch(prompts, **opts), kv)
+    gens = {"card": card, "cpu": cpu}
+    _same_steps_on_card(lambda dev, **kw: gens[dev].generate_batch(prompts, **opts, **kw),
+                        kv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float", "int8"])
+def test_ring_on_and_off_agree_on_card(tmp_path, monkeypatch, kv):
+    """Hybrid windows past 2 x Wr on the card: ring caches (with int8 KV,
+    the ring dequantized) against linear caches (with int8 KV, the decode
+    kernel with the window)."""
+    _card()
+    if kv == "int8":
+        monkeypatch.setenv("CT2TPU_KV_CACHE", "int8")
+    path = build_decoder_only_model(str(tmp_path / "hybrid"),
+                                    **{**ARCH_AB, **ARCH_DECODERS["hybrid_windows"]})
+    card = tt.Generator(path, compute_type="float32", flash_attention=True)
+    opts = dict(max_length=8, include_prompt_in_result=False, return_scores=True)
+    prompts = _arch_prompts(300, seed=6)
+    monkeypatch.setenv("CT2TPU_WINDOW_RING", "1")
+    on = card.generate_batch(prompts, **opts)
+    monkeypatch.setenv("CT2TPU_WINDOW_RING", "0")
+    kernels.reset_launches()
+    off = card.generate_batch(prompts, **opts)
+    torch.cuda.synchronize()
+    if kv == "int8":
+        assert kernels.launch_counts()["decode_attention_int8"] > 0
+    _same_on_card(on, off, kv)
+
+
+def _chip_smoke():
+    """The repository's ``chip_smoke.py`` (JAX-free), for its family
+    fabricators; the card tests run from the repository root."""
+    import importlib
+    import sys
+
+    root = __file__.rsplit("/tests/", 1)[0]
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float", "int8"])
+def test_sandwich_gemma2_layout_on_card_matches_cpu(monkeypatch, kv):
+    """Gemma-2's layout (sandwich norms, hybrid windows, softcap, scaled
+    embeddings) at small widths, int8 payloads run in float32."""
+    _card()
+    if kv == "int8":
+        monkeypatch.setenv("CT2TPU_KV_CACHE", "int8")
+    cs = _chip_smoke()
+    mf = cs.build_gemma2_modelfile(2, cfg=cs.GEMMA2_AB)
+    vocab = cs.family_vocab(cs.GEMMA2_AB["vocab"])
+    card, cpu = _card_and_cpu(tt.Generator, mf, vocab)
+    prompts = cs.family_prompts(cs.GEMMA2_AB["vocab"], 2, 300, 5)
+    opts = dict(max_length=8, min_length=8, include_prompt_in_result=False,
+                return_scores=True)
+    _same_on_card(card.generate_batch(prompts, **opts), cpu.generate_batch(prompts, **opts),
+                  kv)
+    gens = {"card": card, "cpu": cpu}
+    _same_steps_on_card(lambda dev, **kw: gens[dev].generate_batch(prompts, **opts, **kw),
+                        kv)
+
+
+def _shaw_seq2seq(path):
+    from ctranslate2_tpu_torch.formats.model_file import load_model_file, make_variable
+
+    build_seq2seq_model(path, vocab_size=200, num_layers=2, num_heads=4, d_model=256,
+                        d_ff=512)
+    mf = load_model_file(path)
+    rng = np.random.default_rng(11)
+    for name in list(mf.variables):
+        if name.endswith("/self_attention/linear_1/weight"):
+            scope = name[:-len("/linear_1/weight")]
+            for table in ("relative_position_keys", "relative_position_values"):
+                mf.variables[f"{scope}/{table}"] = make_variable(
+                    f"{scope}/{table}",
+                    (rng.standard_normal((17, 64)) * 0.05).astype(np.float32))
+    mf.save(path)
+    return path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam_size", [1, 2])
+@pytest.mark.parametrize("model", ["shaw", "merged", "flan_t5_layout"])
+def test_architecture_translator_on_card_matches_cpu(tmp_path, model, beam_size):
+    """Shaw positions in every self-attention, merged self+cross attention,
+    and Flan-T5's layout (the T5 bias through the encoder's flash table)."""
+    _card()
+    vocab, size, prefix = None, 200, "tok"
+    if model == "shaw":
+        source = _shaw_seq2seq(str(tmp_path / "shaw"))
+    elif model == "merged":
+        source = build_seq2seq_model(str(tmp_path / "merged"), vocab_size=200,
+                                     num_layers=2, num_heads=4, d_model=256, d_ff=512,
+                                     merged_attention=True)
+    else:
+        cs = _chip_smoke()
+        source = cs.build_flan_t5_modelfile(2, cfg=cs.FLAN_T5_AB)
+        size, prefix = cs.FLAN_T5_AB["vocab"], "t"
+        vocab = cs.family_vocab(size)
+    card, cpu = _card_and_cpu(tt.Translator, source, vocab)
+    rng = np.random.default_rng(7)
+    sources = [[f"{prefix}{int(t)}" for t in rng.integers(10, size - 13, 150)]
+               for _ in range(3)]
+    opts = dict(beam_size=beam_size, max_decoding_length=8, min_decoding_length=8,
+                return_scores=True)
+    kernels.reset_launches()
+    out = card.translate_batch(sources, **opts)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    # Shaw keys and values decline the flash kernel; the others' encoders take it.
+    assert (counts["flash_attention"] > 0) == (model != "shaw")
+    _same_on_card(out, cpu.translate_batch(sources, **opts), "float", hyps="hypotheses")

@@ -48,29 +48,38 @@ MODEL = dict(vocab_size=96, num_layers=2, num_heads=4, d_model=64, d_ff=96,
 # Builder.
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kwargs", [
-    MODEL,
-    dict(MODEL, quantization="int8"),
-    dict(MODEL, rotary_dim=8, tied_projection=True, seed=7),
-    dict(vocab_size=40, num_layers=1, tied_projection=True),  # learned positions
-    dict(MODEL, num_heads_kv=1, quantization="float16"),
-], ids=["gqa_rotary", "int8", "partial_rotary_tied", "learned_positions", "mqa_f16"])
-def test_builder_writes_the_same_files(tmp_path, kwargs):
-    a = jbuilder.build_decoder_only_model(str(tmp_path / "jax"), **kwargs)
-    b = tbuilder.build_decoder_only_model(str(tmp_path / "port"), **kwargs)
+@pytest.mark.parametrize("build,kwargs", [
+    ("build_decoder_only_model", MODEL),
+    ("build_decoder_only_model", dict(MODEL, quantization="int8")),
+    ("build_decoder_only_model", dict(MODEL, rotary_dim=8, tied_projection=True, seed=7)),
+    ("build_decoder_only_model", dict(vocab_size=40, num_layers=1, tied_projection=True)),
+    ("build_decoder_only_model", dict(MODEL, num_heads_kv=1, quantization="float16")),
+    ("build_decoder_only_model", dict(alibi=True)),
+    ("build_decoder_only_model", dict(alibi=True, alibi_positive=False)),
+    ("build_decoder_only_model", dict(sliding_window=4)),
+    ("build_decoder_only_model", dict(MODEL, sliding_window=4, sliding_window_pattern=2,
+                                      num_layers=4)),
+    ("build_decoder_only_model", dict(parallel_residual=True)),
+    ("build_decoder_only_model", dict(parallel_residual=True, shared_layer_norm=True)),
+    ("build_decoder_only_model", dict(rel_position_max=4)),
+    ("build_decoder_only_model", dict(rel_bias_buckets=8, rel_bias_max_distance=20)),
+    ("build_seq2seq_model", dict(merged_attention=True)),
+    ("build_seq2seq_model", dict(num_source_features=2, features_merge="add")),
+    ("build_decoder_only_model", dict(MODEL, quantization="int16")),
+], ids=["gqa_rotary", "int8", "partial_rotary_tied", "learned_positions", "mqa_f16",
+        "alibi", "alibi_negative", "sliding_window", "sliding_window_pattern",
+        "parallel_residual", "parallel_residual_shared", "rel_position_max",
+        "rel_bias_buckets", "seq2seq_merged_attention", "seq2seq_source_features",
+        "int16"])
+def test_builder_writes_the_same_files(tmp_path, build, kwargs):
+    a = getattr(jbuilder, build)(str(tmp_path / "jax"), **kwargs)
+    b = getattr(tbuilder, build)(str(tmp_path / "port"), **kwargs)
     names = sorted(os.listdir(a))
     assert names == sorted(os.listdir(b)) and "model.bin" in names
-    assert "vocabulary.json" in names
+    assert "vocabulary.json" in names or "shared_vocabulary.json" in names \
+        or "target_vocabulary.json" in names
     match, mismatch, errors = filecmp.cmpfiles(a, b, names, shallow=False)
     assert (sorted(match), mismatch, errors) == (names, [], [])
-
-
-@pytest.mark.parametrize("kwargs", [dict(alibi=True), dict(sliding_window=4),
-                                    dict(parallel_residual=True),
-                                    dict(rel_position_max=4)])
-def test_builder_unported_arguments_raise(tmp_path, kwargs):
-    with pytest.raises(NotImplementedError):
-        tbuilder.build_decoder_only_model(str(tmp_path / "m"), **kwargs)
 
 
 # ---------------------------------------------------------------------------
