@@ -164,6 +164,45 @@ Phases, one JSON object per line:
    and callbacks, scores, attention and logits within ``LOGPROB_TOL``; the
    static prompt's tokens equal to the prompt prepended's).
 
+11. The architecture features at four families' published widths and half
+   their depths (``ARCH_DEPTH_DIVISOR``; ``architectures_*``: Gemma-2-9B,
+   MPT-7B, Falcon-7B, Flan-T5-large, int8 payloads from seeds) and
+   ``architectures_card_vs_cpu`` at 2 layers.
+
+12. The file and streaming helpers and the speech models, each call with
+   the launch counters zeroed just before and read just after, the kernels'
+   call shapes logged and their plain versions' calls on the card counted
+   (none allowed): ``file_helpers_translator`` (after
+   ``host_loop_translator``: ``translate_file`` of the four phase-2
+   batches at ``max_batch_size`` 64, its lines equal to ``translate_batch``'s
+   hypotheses, with scores equal to its scores, and with read windows of 64
+   (at least ``FILE_SAME_SHARE`` of the lines equal); ``score_file`` on the
+   pair, its means within 1e-6 of ``score_batch``'s; ``translate_iterable``
+   equal to the batch calls; target tok/s beside ``translate_batch``'s);
+   ``file_helpers_generator`` (after ``host_loop_generator``, the int8 Llama
+   with the int8 KV cache: ``generate_tokens`` on one 2,049-token prompt,
+   64 new tokens equal to ``generate_batch``'s, its time to the first token
+   and ms a step; ``generate_iterable`` over the 4 prompts;
+   ``async_generate_tokens``); ``whisper`` (``WHISPER_LARGE_V3``,
+   openai/whisper-large-v3's widths, int8 with the int8 KV cache: ``encode``
+   of 4 x 30 s; ``generate`` at beam 5 with timestamps, max_length 448; a
+   32-token ``<|startofprev|>`` prompt with the no-speech probability and a
+   greedy ``<|notimestamps|>`` call, max_length ``WHISPER_SHORT_LENGTH``;
+   ``detect_language``; ``align`` of 4 texts of 32 tokens at 3,000 frames;
+   then ``encode`` built with ``flash_attention=True``, fed the first
+   encode's int8 activations (``ReplayQuantized``): only the attention
+   outputs may differ, by one int8 step on at most ``FED_STEP_SHARE``);
+   ``wav2vec2`` (``WAV2VEC2_LARGE``, 8 x 20 s of 16 kHz audio, 999 frames,
+   then with flash, fed likewise); ``w2v_bert`` (``W2V_BERT_2``, 8 x 1,000
+   frames); then, after ``architectures_card_vs_cpu``,
+   ``speech_card_vs_cpu`` at ``AB_LAYERS`` layers in float32: Whisper's
+   tokens identical on three calls, its encoder output (flash too),
+   no-speech, language and alignment probabilities and the two encoders'
+   logits (flash on and off) within ``LOGPROB_TOL`` of the port on the CPU,
+   the alignments identical. The kernel phase benches every shape these
+   paths gave a kernel that no earlier path did, in rows of their own
+   (``"summed": false``).
+
 The line before the last is ``{"kernels": [...]}`` (times are sums over
 the ``launches`` counted on the main paths), the last
 ``{"ok": true, "device": {...}}``. The script exits non-zero, without
@@ -324,6 +363,15 @@ T5_TARGET_TOKENS = 32
 # layouts at these widths (4 heads of 64), ``AB_LAYERS`` layers; a window of
 # 64 (a 256-slot ring), prompts of ARCH_AB_LONG past it.
 ARCH_AB = dict(vocab_size=512, num_heads=4, d_model=256, d_ff=512)
+# The architecture phases run their families at half their published depth
+# (widths as published): the speech phases' time comes out of theirs, so
+# the whole run stays inside its limit on a slow host.
+ARCH_DEPTH_DIVISOR = 2
+
+
+def arch_depth(cfg):
+    """``cfg`` cut to ``1 / ARCH_DEPTH_DIVISOR`` of its layers."""
+    return dict(cfg, layers=cfg["layers"] // ARCH_DEPTH_DIVISOR)
 ARCH_AB_WINDOW = 64
 ARCH_AB_LONG = 300
 ARCH_AB_NEW = 8
@@ -3498,7 +3546,7 @@ def gemma2_phase(tt, checks, logs):
     with the window, the decode kernel with the window on linear caches)."""
     from ctranslate2_tpu_torch.models import transformer as T
 
-    cfg = GEMMA2_9B
+    cfg = arch_depth(GEMMA2_9B)
     t0 = time.perf_counter()
     mf = build_gemma2_modelfile(cfg["layers"])
     build_s = time.perf_counter() - t0
@@ -3561,7 +3609,7 @@ def mpt_phase(tt, checks, logs):
     and feeds the prompt token by token, so every step runs chain-mask
     attention with ALiBi (a prefilled cache takes the gather reorder
     instead, and a prompt of 2,049 fed token by token would take minutes)."""
-    cfg = MPT_7B
+    cfg = arch_depth(MPT_7B)
     t0 = time.perf_counter()
     mf = build_mpt_modelfile(cfg["layers"])
     build_s = time.perf_counter() - t0
@@ -3611,7 +3659,7 @@ def mpt_phase(tt, checks, logs):
 def falcon_phase(tt, checks, logs):
     """Falcon-7B: 4 prompts of 2,049 tokens, int8 KV, greedy, 64 new tokens:
     the decode kernel at 71 query heads on one KV head, W8A8 at K 4,544."""
-    cfg = FALCON_7B
+    cfg = arch_depth(FALCON_7B)
     t0 = time.perf_counter()
     mf = build_falcon_modelfile(cfg["layers"])
     build_s = time.perf_counter() - t0
@@ -3646,7 +3694,7 @@ def flan_t5_phase(tt, checks, logs):
     the beams reordered by the gather kernel."""
     import torch
 
-    cfg = FLAN_T5_LARGE
+    cfg = arch_depth(FLAN_T5_LARGE)
     t0 = time.perf_counter()
     mf = build_flan_t5_modelfile(cfg["layers"])
     build_s = time.perf_counter() - t0
@@ -3887,28 +3935,38 @@ def architectures_card_vs_cpu(tt, work, checks):
 # The decode kernel's lengths on each architecture path: (the first step's
 # cache length, the steps of a call).
 ARCH_DECODE_LENGTHS = {"gemma2_ring1": (GEMMA2_PROMPT - 1, GEMMA2_NEW),
-                       "gemma2_ring0": (GEMMA2_PROMPT - 1, GEMMA2_NEW)}
+                       "gemma2_ring0": (GEMMA2_PROMPT - 1, GEMMA2_NEW),
+                       # Whisper: the prompt's first two tokens prefilled,
+                       # then up to 224 steps (max_length 448 halved).
+                       "whisper": (2, 448 // 2)}
 
 
-def arch_benches(arch_logs, seen, checks):
-    """Every shape the architecture paths gave a kernel that no earlier path
-    did (``seen``: the earlier paths' logs), held against the kernel's plain
-    version and timed in a row of its own (``"summed": false``)."""
+def arch_benches(arch_logs, seen, checks, prefix="architectures_"):
+    """Every shape the paths of ``arch_logs`` gave a kernel that no earlier
+    path did (``seen``: the earlier paths' logs), held against the kernel's
+    plain version and timed in a row of its own (``"summed": false``).
+    Returns ``seen`` with their shapes added."""
     done = {name: dict(shapes) for name, shapes in seen.items()}
     for path, plogs in arch_logs.items():
         fresh = new_shapes(plogs, done)
-        extra = dict(summed=False, paths=f"architectures_{path}")
+        extra = dict(summed=False, paths=f"{prefix}{path}")
         bench_w8a8(fresh.get("matmul_w8a8", {}), checks, **extra)
         free_card()
         bench_flash(fresh.get("flash_attention", {}), checks, **extra)
         free_card()
         bench_norm(fresh.get("fused_norm", {}), checks, **extra)
         bench_gather(fresh.get("gather_rows_fused", {}), checks, **extra)
-        first, steps = ARCH_DECODE_LENGTHS.get(path, (GEN_PROMPT - 1, GEN_NEW))
-        bench_decode(fresh.get("decode_attention_int8", {}), first, steps, checks, **extra)
+        for key, n in fresh.get("decode_attention_int8", {}).items():
+            # The run's cache lengths: the path's, held inside the shape's
+            # capacity (Whisper's language detection reads a 16-slot cache).
+            first, steps = ARCH_DECODE_LENGTHS.get(path, (GEN_PROMPT - 1, GEN_NEW))
+            if first + steps > key[2]:
+                first, steps = 0, 1
+            bench_decode({key: n}, first, steps, checks, **extra)
         free_card()
         for name, shapes in fresh.items():
             done.setdefault(name, {}).update(shapes)
+    return done
 
 
 def architectures_phase(tt, work, checks, logs):
@@ -3920,6 +3978,733 @@ def architectures_phase(tt, work, checks, logs):
     falcon_phase(tt, checks, logs)
     flan_t5_phase(tt, checks, logs)
     emit({"phase": "architectures", "seconds": time.perf_counter() - t0})
+
+
+# ---------------------------------------------------------------------------
+# The file and streaming helpers, and the speech models.
+# ---------------------------------------------------------------------------
+
+FILE_SENTENCES = 4 * BATCH  # four phase-2 batches
+FILE_STREAM_NEW = 64  # generate_tokens: new tokens after one 2,049-token prompt
+FILE_ITERABLE_NEW = 16
+FILE_SAME_SHARE = 0.95  # of lines equal between read windows of 64 and 1,024
+# openai/whisper-large-v3 (config.json): 32 + 32 layers, d_model 1,280, 20
+# heads, ffn 5,120, 128 mel bins, 1,500 / 448 positions, 51,866 tokens: 50,256
+# text tokens, <|endoftext|>, <|startoftranscript|>, 100 languages, 6 special
+# tokens and 1,502 timestamps. Its alignment heads are the model's own
+# (generation_config.json).
+WHISPER_LARGE_V3 = dict(layers=32, d_model=1280, heads=20, d_ff=5120, n_mels=128,
+                        source_positions=1500, target_positions=448, text_tokens=50256,
+                        languages=100, timestamps=1502,
+                        alignment_heads=((7, 0), (10, 17), (12, 18), (13, 12), (16, 1),
+                                         (17, 14), (19, 11), (21, 4), (24, 1), (25, 6)))
+# facebook/wav2vec2-large-960h-lv60-self (config.json): 7 layer-normed
+# feature convolutions of 512 channels, 24 layers, d_model 1,024, 16 heads,
+# ffn 4,096, a 128-tap positional convolution in 16 groups, 32 CTC symbols.
+WAV2VEC2_LARGE = dict(layers=24, d_model=1024, heads=16, d_ff=4096, conv_dim=512,
+                      conv_kernel=(10, 3, 3, 3, 3, 2, 2), conv_stride=(5, 2, 2, 2, 2, 2, 2),
+                      pos_taps=128, pos_groups=16, vocab=32, eps=1e-5)
+# facebook/w2v-bert-2.0 (config.json): 24 conformer layers, d_model 1,024, 16
+# heads, ffn 4,096, 160 input features, a depthwise kernel of 31, relative
+# keys 64 left / 8 right; one stride-2 adapter layer and a CTC head as its
+# CTC fine-tunes add them (the head's width is not in the base config: 32).
+W2V_BERT_2 = dict(layers=24, d_model=1024, heads=16, d_ff=4096, input_dim=160,
+                  depthwise=31, left=64, right=8, adapter_layers=1, vocab=32)
+SPEECH_BATCH = 4  # Whisper: 4 x 30 s
+WHISPER_FRAMES = 3000
+WHISPER_MAX_LENGTH = 448
+WHISPER_SHORT_LENGTH = 128  # the previous-text and greedy calls: 64 steps
+WHISPER_PREV_TOKENS = 32  # the <|startofprev|> prompt, SOT tokens included
+WHISPER_ALIGN_TOKENS = 32
+W2V_BATCH, W2V_SAMPLES = 8, 320_000  # 8 x 20 s at 16 kHz: 999 frames
+W2V_BERT_BATCH, W2V_BERT_FRAMES = 8, 1000
+AB_WHISPER_BATCH, AB_WHISPER_MAX_LENGTH = 2, 96
+AB_W2V_SAMPLES = 80_000
+
+
+def _conv_payload(job):
+    """An int8 convolution weight of (scope, shape, seed): as ``_int8_payload``,
+    one scale an output channel."""
+    import numpy as np
+
+    scope, shape, seed = job
+    q = np.random.default_rng(seed).integers(-127, 128, shape, dtype=np.int8)
+    return scope, {"weight": q,
+                   "weight_scale": np.full((shape[0],), 127.0 / 0.05, np.float32)}
+
+
+def _speech_file(spec_name, revision, config, attrs, norms, jobs, convs, floats,
+                 zeroed=()):
+    """``_family_file`` with int8 convolution payloads (``convs``: scope,
+    shape, seed) and float arrays (``floats``: name, shape, seed, scale),
+    which the speech layouts add: biases, position tables, relative keys;
+    ``zeroed`` (name, slice) pairs are set to zero."""
+    import numpy as np
+    from ctranslate2_tpu_torch.formats.model_file import make_variable
+
+    mf = _family_file(spec_name, revision, config, attrs, norms, jobs)
+    _draw_into(mf, convs, _conv_payload)
+    zero = dict(zeroed)
+    for name, shape, seed, scale in floats:
+        value = np.random.default_rng(seed).standard_normal(shape, dtype=np.float32) * scale
+        if name in zero:
+            value[zero[name]] = 0.0
+        mf.variables[name] = make_variable(name, value)
+    return mf
+
+
+def whisper_vocab(cfg=WHISPER_LARGE_V3):
+    """The vocabulary of ``build_whisper_modelfile`` in the reference layout
+    (as ``converters/builder.py::build_whisper_model`` lays it out)."""
+    vocab = [""] + [f"w{i}" for i in range(cfg["text_tokens"] - 1)]
+    vocab += ["<|endoftext|>", "<|startoftranscript|>"]
+    vocab += ["<|en|>"] + [f"<|l{i}|>" for i in range(1, cfg["languages"])]
+    vocab += ["<|translate|>", "<|transcribe|>", "<|startoflm|>", "<|startofprev|>",
+              "<|nospeech|>", "<|notimestamps|>"]
+    vocab += [f"<|{i * 0.02:.2f}|>" for i in range(cfg["timestamps"])]
+    return vocab
+
+
+def build_whisper_modelfile(layers, cfg=WHISPER_LARGE_V3):
+    """openai/whisper-large-v3 as the JAX converter writes it
+    (``load_whisper``), int8: the two convolutions, learned position tables,
+    the fused self-QKV, the cross-attention's ``linear_1`` with K's half of
+    the bias zero, the projection tied to the embeddings, and the
+    suppression, language and alignment-head lists in the config. Returns
+    (ModelFile, vocabulary)."""
+    from ctranslate2_tpu_torch.formats.model_file import make_variable
+
+    vocab = whisper_vocab(cfg)
+    d, ff, V = cfg["d_model"], cfg["d_ff"], len(vocab)
+    sot = vocab.index("<|startoftranscript|>")
+    attrs = {"encoder/num_heads": (cfg["heads"], "int16"),
+             "decoder/num_heads": (cfg["heads"], "int16"),
+             "decoder/pre_norm": (1, "int8"), "decoder/activation": (3, "int8")}
+    norms = {"encoder/layer_norm": (d, True), "decoder/layer_norm": (d, True)}
+    jobs = [("decoder/embeddings", V, d, 0)]
+    convs = [("encoder/conv1", (d, cfg["n_mels"], 3), 1), ("encoder/conv2", (d, d, 3), 2)]
+    floats = [("encoder/conv1/bias", (d,), 3, 0.02), ("encoder/conv2/bias", (d,), 4, 0.02),
+              ("encoder/position_encodings/encodings", (cfg["source_positions"], d), 5, 0.5),
+              ("decoder/position_encodings/encodings", (cfg["target_positions"], d), 6, 0.5)]
+    zero_k = []
+    for side in ("encoder", "decoder"):
+        for i in range(layers):
+            ls = f"{side}/layer_{i}"
+            seed = (0 if side == "encoder" else 100000) + 10 * i
+            asc = f"{ls}/self_attention"
+            norms.update({f"{asc}/layer_norm": (d, True), f"{ls}/ffn/layer_norm": (d, True)})
+            jobs += [(f"{asc}/linear_0", 3 * d, d, 10 + seed), (f"{asc}/linear_1", d, d, 11 + seed),
+                     (f"{ls}/ffn/linear_0", ff, d, 12 + seed), (f"{ls}/ffn/linear_1", d, ff, 13 + seed)]
+            floats += [(f"{asc}/linear_0/bias", (3 * d,), 20 + seed, 0.02),
+                       (f"{asc}/linear_1/bias", (d,), 21 + seed, 0.02),
+                       (f"{ls}/ffn/linear_0/bias", (ff,), 22 + seed, 0.02),
+                       (f"{ls}/ffn/linear_1/bias", (d,), 23 + seed, 0.02)]
+            zero_k.append((f"{asc}/linear_0/bias", slice(d, 2 * d)))
+            if side == "decoder":
+                csc = f"{ls}/attention"
+                norms[f"{csc}/layer_norm"] = (d, True)
+                jobs += [(f"{csc}/linear_0", d, d, 14 + seed), (f"{csc}/linear_1", 2 * d, d, 15 + seed),
+                         (f"{csc}/linear_2", d, d, 16 + seed)]
+                floats += [(f"{csc}/linear_0/bias", (d,), 24 + seed, 0.02),
+                           (f"{csc}/linear_1/bias", (2 * d,), 25 + seed, 0.02),
+                           (f"{csc}/linear_2/bias", (d,), 26 + seed, 0.02)]
+                zero_k.append((f"{csc}/linear_1/bias", slice(0, d)))
+    config = {"suppress_ids": [1, 2, 7, 8, 9, 10, 14, 25, 26, 27, 28, 29, 31, 58, 59, 60],
+              "suppress_ids_begin": [220, vocab.index("<|endoftext|>")],
+              "lang_ids": list(range(sot + 1, sot + 1 + cfg["languages"])),
+              "alignment_heads": [list(p) for p in cfg["alignment_heads"]
+                                  if p[0] < layers] or [[layers - 1, 0]]}
+    # Whisper's K projections have no bias: their half of the fused bias is
+    # zero. The projection is the embedding.
+    mf = _speech_file("WhisperSpec", 3, config, attrs, norms, jobs, convs, floats,
+                      zeroed=zero_k)
+    for suffix in ("weight", "weight_scale"):
+        mf.variables[f"decoder/projection/{suffix}"] = make_variable(
+            f"decoder/projection/{suffix}", mf.variables[f"decoder/embeddings/{suffix}"].array)
+    return mf, vocab
+
+
+def save_whisper(mf, vocab, directory):
+    """Whisper reads its vocabulary from its directory: the model and
+    ``vocabulary.json`` written there."""
+    mf.save(directory)
+    with open(os.path.join(directory, "vocabulary.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f)
+    return directory
+
+
+def build_wav2vec2_modelfile(layers, cfg=WAV2VEC2_LARGE):
+    """facebook/wav2vec2-large-960h-lv60-self as the JAX converter writes it
+    (``load_wav2vec2``), int8: the layer-normed feature convolutions, the
+    feature projection, the grouped positional convolution, the pre-norm
+    stack and the CTC head."""
+    d, ff, c = cfg["d_model"], cfg["d_ff"], cfg["conv_dim"]
+    sc = "encoder"
+    attrs = {f"{sc}/num_heads": (cfg["heads"], "int16")}
+    norms = {f"{sc}/fp_layer_norm": (c, True), f"{sc}/layer_norm": (d, True)}
+    convs, floats = [], []
+    for i, k in enumerate(cfg["conv_kernel"]):
+        scope = f"{sc}/feat_layer0" if i == 0 else f"{sc}/feat_layer_{i - 1}"
+        convs.append((f"{scope}/conv", (c, 1 if i == 0 else c, k), 50 + i))
+        floats.append((f"{scope}/conv/bias", (c,), 60 + i, 0.02))
+        norms[f"{scope}/layer_norm"] = (c, True)
+    convs.append((f"{sc}/pos_conv_embed/conv", (d, d // cfg["pos_groups"], cfg["pos_taps"]), 70))
+    floats += [(f"{sc}/pos_conv_embed/conv/bias", (d,), 71, 0.02),
+               (f"{sc}/fp_projection/bias", (d,), 72, 0.02),
+               (f"{sc}/lm_head/bias", (cfg["vocab"],), 73, 0.02)]
+    jobs = [(f"{sc}/fp_projection", d, c, 74), (f"{sc}/lm_head", cfg["vocab"], d, 75)]
+    for i in range(layers):
+        ls = f"{sc}/layer_{i}"
+        asc = f"{ls}/self_attention"
+        norms.update({f"{asc}/layer_norm": (d, True), f"{ls}/ffn/layer_norm": (d, True)})
+        jobs += [(f"{asc}/linear_0", 3 * d, d, 100 + 10 * i), (f"{asc}/linear_1", d, d, 101 + 10 * i),
+                 (f"{ls}/ffn/linear_0", ff, d, 102 + 10 * i), (f"{ls}/ffn/linear_1", d, ff, 103 + 10 * i)]
+        floats += [(f"{asc}/linear_0/bias", (3 * d,), 104 + 10 * i, 0.02),
+                   (f"{ls}/ffn/linear_0/bias", (ff,), 105 + 10 * i, 0.02)]
+    return _speech_file("Wav2Vec2Spec", 3, {"layer_norm_epsilon": cfg["eps"]}, attrs, norms,
+                        jobs, convs, floats)
+
+
+def build_w2v_bert_modelfile(layers, cfg=W2V_BERT_2):
+    """facebook/w2v-bert-2.0 with one adapter layer and a CTC head as the JAX
+    converter writes it (``load_wav2vec2bert``), int8: the feature
+    projection, the conformer layers (relative keys of 64 left / 8 right,
+    the pointwise / depthwise / pointwise convolutions without biases), the
+    stride-2 adapter and the head."""
+    d, ff, h = cfg["d_model"], cfg["d_ff"], cfg["heads"]
+    sc = "encoder"
+    attrs, norms, convs, floats = {}, {f"{sc}/fp_layer_norm": (cfg["input_dim"], True)}, [], []
+    jobs = [(f"{sc}/fp_projection", d, cfg["input_dim"], 80), (f"{sc}/lm_head", cfg["vocab"], d, 81)]
+    floats += [(f"{sc}/fp_projection/bias", (d,), 82, 0.02),
+               (f"{sc}/lm_head/bias", (cfg["vocab"],), 83, 0.02)]
+
+    def attention(scope, seed, rel):
+        nonlocal jobs, floats
+        jobs += [(f"{scope}/linear_0", 3 * d, d, seed), (f"{scope}/linear_1", d, d, seed + 1)]
+        floats.append((f"{scope}/linear_0/bias", (3 * d,), seed + 2, 0.02))
+        attrs[f"{scope}/num_heads"] = (h, "int16")
+        if rel:
+            floats.append((f"{scope}/relative_asymmetric_position_keys",
+                           (cfg["left"] + cfg["right"] + 1, d // h), seed + 3, 0.5))
+            attrs[f"{scope}/relative_left_max_position"] = (cfg["left"], "int32")
+            attrs[f"{scope}/relative_right_max_position"] = (cfg["right"], "int32")
+
+    for i in range(layers):
+        ls = f"{sc}/encoder_layers_{i}"
+        s = 1000 + 20 * i
+        for name in ("enc_ffn1", "enc_ffn2"):
+            jobs += [(f"{ls}/{name}/linear_0", ff, d, s), (f"{ls}/{name}/linear_1", d, ff, s + 1)]
+            s += 2
+        attention(f"{ls}/enc_attn", s, True)
+        convs += [(f"{ls}/enc_conv_pointwise_conv1", (2 * d, d, 1), s + 4),
+                  (f"{ls}/enc_conv_depthwise_conv", (d, 1, cfg["depthwise"]), s + 5),
+                  (f"{ls}/enc_conv_pointwise_conv2", (d, d, 1), s + 6)]
+        for name in ("enc_ffn1_layer_norm", "enc_attn_layer_norm", "enc_conv_layer_norm",
+                     "enc_conv_depthwise_layer_norm", "enc_ffn2_layer_norm",
+                     "enc_final_layer_norm"):
+            norms[f"{ls}/{name}"] = (d, True)
+    for i in range(cfg["adapter_layers"]):
+        ls = f"{sc}/adapter_layers_{i}"
+        s = 5000 + 20 * i
+        for name in ("adpt_residual_conv", "adpt_attn_conv"):
+            convs.append((f"{ls}/{name}", (2 * d, d, 3), s))
+            floats.append((f"{ls}/{name}/bias", (2 * d,), s + 1, 0.02))
+            s += 2
+        attention(f"{ls}/adpt_attn_layer", s, False)
+        jobs += [(f"{ls}/adpt_ffn/linear_0", ff, d, s + 4), (f"{ls}/adpt_ffn/linear_1", d, ff, s + 5)]
+        for name in ("adpt_residual_layer_norm", "adpt_attn_layer_norm", "adpt_ffn_layer_norm"):
+            norms[f"{ls}/{name}"] = (d, True)
+    return _speech_file("Wav2Vec2BertSpec", 1, {}, attrs, norms, jobs, convs, floats)
+
+
+def _timed_forwards(T):
+    """A ``patched`` wrapper for ``models.transformer.decoder_forward``: the
+    synced seconds of every multi-token call (a prefill) and the count of
+    single-token calls (decode steps)."""
+    import torch
+
+    stats = {"prefill_s": 0.0, "prefills": 0, "steps": 0}
+
+    def wrap(orig):
+        def wrapped(arch, params, consts, ids, *args, **kwargs):
+            if ids.shape[-1] == 1:
+                stats["steps"] += 1
+                return orig(arch, params, consts, ids, *args, **kwargs)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = orig(arch, params, consts, ids, *args, **kwargs)
+            torch.cuda.synchronize()
+            stats["prefill_s"] += time.perf_counter() - start
+            stats["prefills"] += 1
+            return out
+        return wrapped
+    return stats, wrap
+
+
+def file_helpers_translator(tt, model_dir, batches, work, checks, logs):
+    """``Translator.translate_file`` of the four phase-2 batches (256
+    sentences) at ``max_batch_size`` 64 against ``translate_batch``'s
+    hypotheses, with scores, and with read windows of 64 against the default
+    (1,024); ``score_file`` on the pair against ``score_batch``'s means;
+    ``translate_iterable`` against the batch calls."""
+    tr = tt.Translator(model_dir, compute_type="int8")
+    sents = [s for b in batches[:4] for s in b]
+    src = os.path.join(work, "file_src.txt")
+    with open(src, "w", encoding="utf-8") as f:
+        f.write("".join(" ".join(s) + "\n" for s in sents))
+    opts = dict(OPTS, max_batch_size=BATCH)
+    tr.translate_batch(batches[0], **OPTS)  # warm-up
+    ref, batch_s = synced_seconds(lambda: tr.translate_batch(sents, **opts))
+    out = {}
+    for label, kw in (("plain", {}), ("with_scores", dict(with_scores=True)),
+                      ("read_batch_64", dict(read_batch_size=BATCH))):
+        path = os.path.join(work, f"file_out_{label}.txt")
+        plain = {}
+        with watched(logs, plain):
+            stats, seconds = synced_seconds(lambda: tr.translate_file(src, path, **opts, **kw))
+            counts = tt.launch_counts()
+        check_path(f"file_helpers translate_file {label}", counts,
+                   ["matmul_w8a8", "fused_norm"], plain, checks)
+        with open(path, encoding="utf-8") as f:
+            lines = f.read().splitlines()
+        texts = [line.split(" ||| ", 1)[1] if kw.get("with_scores") else line for line in lines]
+        same = sum(t == " ".join(r.hypotheses[0]) for t, r in zip(texts, ref))
+        need = FILE_SENTENCES if label != "read_batch_64" else FILE_SAME_SHARE * FILE_SENTENCES
+        checks(len(lines) == FILE_SENTENCES and same >= need,
+               f"file_helpers translate_file {label}: {same} of {len(lines)} lines equal "
+               f"to translate_batch's hypotheses (at least {need})")
+        if kw.get("with_scores"):
+            diff = max(abs(float(line.split(" ||| ")[0]) - r.scores[0])
+                       for line, r in zip(lines, ref))
+            checks(diff <= 1e-6, f"file_helpers translate_file with_scores: scores "
+                                 f"equal to translate_batch's (max abs diff {diff})")
+        out[label] = {"seconds": seconds, "target_tokens": stats.num_tokens,
+                      "target_tokens_per_s": stats.num_tokens / seconds,
+                      "lines_equal_to_batch": same, "launches": counts,
+                      "stats_ms": stats.total_time_in_ms}
+    tokens = sum(len(r.hypotheses[0]) for r in ref)
+    out["translate_batch"] = {"seconds": batch_s, "target_tokens": tokens,
+                              "target_tokens_per_s": tokens / batch_s}
+
+    # score_file on (source, its translations) against score_batch.
+    tgt = os.path.join(work, "file_out_plain.txt")
+    scored = os.path.join(work, "file_scores.txt")
+    plain = {}
+    with watched(logs, plain):
+        _, seconds = synced_seconds(lambda: tr.score_file(src, tgt, scored))
+        counts = tt.launch_counts()
+    check_path("file_helpers score_file", counts, ["matmul_w8a8", "fused_norm"], plain, checks)
+    with open(tgt, encoding="utf-8") as f:
+        targets = [line.split() for line in f.read().splitlines()]
+    ref_scores = tr.score_batch(sents, targets, max_batch_size=32)
+    with open(scored, encoding="utf-8") as f:
+        means = [float(line.split(" ||| ")[0]) for line in f.read().splitlines()]
+    diff = max(abs(m - r.normalized_score()) for m, r in zip(means, ref_scores))
+    checks(len(means) == FILE_SENTENCES and diff <= 1e-6,
+           f"file_helpers score_file: means equal to score_batch's to 1e-6 ({diff})")
+    out["score_file"] = {"seconds": seconds, "max_abs_diff": diff, "launches": counts}
+
+    # translate_iterable against the batch calls on the same batches.
+    plain = {}
+    with watched(logs, plain):
+        it, seconds = synced_seconds(lambda: list(tr.translate_iterable(
+            iter(sents), max_batch_size=BATCH, **OPTS)))
+        counts = tt.launch_counts()
+    check_path("file_helpers translate_iterable", counts, ["matmul_w8a8", "fused_norm"],
+               plain, checks)
+    per_batch = [r for b in batches[:4] for r in tr.translate_batch(b, **OPTS)]
+    checks([r.hypotheses for r in it] == [r.hypotheses for r in per_batch],
+           "file_helpers translate_iterable: the batch calls' hypotheses, in order")
+    out["translate_iterable"] = {"seconds": seconds, "launches": counts}
+    emit({"phase": "file_helpers_translator", "sentences": FILE_SENTENCES,
+          "max_batch_size": BATCH, **out})
+    del tr
+
+
+def file_helpers_generator(tt, gen, vocab, checks, logs):
+    """On the int8 Llama with the int8 KV cache: ``generate_tokens`` on one
+    2,049-token prompt, 64 new tokens, against ``generate_batch``'s greedy
+    tokens, with the time to the first token and the ms a step;
+    ``generate_iterable`` over the 4 prompts; ``async_generate_tokens``."""
+    import asyncio
+
+    prompts = make_prompts(vocab, GEN_PROMPT, 5)
+    kw = dict(max_length=FILE_STREAM_NEW, min_length=FILE_STREAM_NEW,
+              include_prompt_in_result=False)
+    out = {}
+    with environ(CT2TPU_KV_CACHE="int8"):
+        ref = gen.generate_batch(prompts[:1], **kw)[0].sequences_ids[0]
+        plain = {}
+        with watched(logs, plain):
+            import torch
+
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            stream = gen.generate_tokens(prompts[0], **kw)
+            first = next(stream)
+            ttft = time.perf_counter() - start
+            steps = [first] + list(stream)
+            seconds = time.perf_counter() - start
+            counts = tt.launch_counts()
+        check_path("file_helpers generate_tokens", counts,
+                   ["matmul_w8a8", "flash_attention", "decode_attention_int8", "fused_norm"],
+                   plain, checks)
+        ids = [s.token_id for s in steps]
+        checks(ids == ref and steps[-1].is_last,
+               f"file_helpers generate_tokens: the {len(ids)} streamed tokens equal "
+               "generate_batch's greedy ones")
+        out["generate_tokens"] = {
+            "prompt": GEN_PROMPT, "new_tokens": len(ids), "seconds": seconds,
+            "time_to_first_token_ms": ttft * 1e3,
+            "ms_per_step_after_first": (seconds - ttft) / max(len(ids) - 1, 1) * 1e3,
+            "launches": counts}
+
+        small = dict(kw, max_length=FILE_ITERABLE_NEW, min_length=FILE_ITERABLE_NEW)
+        ref_all = gen.generate_batch(prompts, max_batch_size=2, **small)
+        plain = {}
+        with watched(logs, plain):
+            it, seconds = synced_seconds(lambda: list(gen.generate_iterable(
+                iter(prompts), max_batch_size=2, **small)))
+            counts = tt.launch_counts()
+        check_path("file_helpers generate_iterable", counts,
+                   ["matmul_w8a8", "flash_attention", "decode_attention_int8", "fused_norm"],
+                   plain, checks)
+        checks([r.sequences_ids for r in it] == [r.sequences_ids for r in ref_all],
+               "file_helpers generate_iterable: generate_batch's sequences, in order")
+        out["generate_iterable"] = {"prompts": len(prompts), "new_tokens": FILE_ITERABLE_NEW,
+                                    "seconds": seconds, "launches": counts}
+
+        async def collect():
+            return [s.token_id async for s in gen.async_generate_tokens(prompts[1], **small)]
+
+        # Against the same prompt alone: a batch of one runs other kernel
+        # plans than a batch of two, and 32 random int8 layers part them.
+        ref_one = gen.generate_batch(prompts[1:2], **small)[0].sequences_ids[0]
+        streamed, seconds = synced_seconds(lambda: asyncio.run(collect()))
+        checks(streamed == ref_one,
+               "file_helpers async_generate_tokens: generate_batch's tokens")
+        out["async_generate_tokens"] = {"new_tokens": len(streamed), "seconds": seconds}
+    emit({"phase": "file_helpers_generator", **out})
+
+
+def whisper_features(batch, frames, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((batch, WHISPER_LARGE_V3["n_mels"], frames), generator=g,
+                       device="cuda")
+
+
+def whisper_prompts(vocab):
+    ids = {t: vocab.index(t) for t in ("<|startoftranscript|>", "<|en|>", "<|transcribe|>",
+                                       "<|notimestamps|>", "<|startofprev|>")}
+    sot = ["<|startoftranscript|>", "<|en|>", "<|transcribe|>"]
+    prev = (["<|startofprev|>"] + [f"w{100 + 7 * i}" for i in range(WHISPER_PREV_TOKENS - 4)]
+            + sot)
+    return ids, sot, prev, sot + ["<|notimestamps|>"]
+
+
+def whisper_phase(tt, work, checks, logs):
+    """Whisper-large-v3 (``WHISPER_LARGE_V3``, 32 + 32 layers) in int8 with
+    the int8 KV cache: ``encode`` of 4 x 30 s, ``generate`` at beam 5 with
+    timestamps (the cached prefill of its prompt, the gather kernel every
+    step, the decode kernel, the W8A8 projection at N 51,866), the
+    ``<|startofprev|>`` call with the no-speech probability, a greedy
+    ``<|notimestamps|>`` call, ``detect_language``, ``align``; then
+    ``encode`` with ``flash_attention=True`` fed the plain run's int8
+    activations."""
+    import numpy as np
+    import torch
+    import ctranslate2_tpu_torch.ops.linear as L
+    from ctranslate2_tpu_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    mf, vocab = build_whisper_modelfile(WHISPER_LARGE_V3["layers"])
+    path = save_whisper(mf, vocab, os.path.join(work, "whisper"))
+    del mf
+    emit({"phase": "whisper_model", "config": {k: v for k, v in WHISPER_LARGE_V3.items()
+                                               if k != "alignment_heads"},
+          "vocabulary": len(vocab), "seconds": time.perf_counter() - t0})
+    ids, sot, prev, no_ts = whisper_prompts(vocab)
+    ts_begin = ids["<|notimestamps|>"] + 1
+    B = SPEECH_BATCH
+    out = {}
+    with environ(CT2TPU_KV_CACHE="int8"):
+        wh = tt.Whisper(path, compute_type="int8")
+        feats = whisper_features(B, WHISPER_FRAMES, 1)
+        wh.encode(feats[:1])  # warm-up
+        recorded = []
+        with patched(L, "int8_activations", record_quantized(recorded)):
+            memory, _, counts, peak = arch_call("whisper encode", tt, lambda: wh.encode(feats),
+                                                ["matmul_w8a8", "fused_norm"], logs, checks)
+        _, seconds = synced_seconds(lambda: wh.encode(feats))
+        checks(tuple(memory.shape) == (B, WHISPER_FRAMES // 2, WHISPER_LARGE_V3["d_model"])
+               and bool(torch.isfinite(memory).all()),
+               f"whisper encode: finite [4, 1500, 1280] ({tuple(memory.shape)})")
+        out["encode"] = {"features": list(feats.shape), "ms": seconds * 1e3,
+                         "seconds_per_30s_audio": seconds / B, "launches": counts,
+                         "peak_memory_bytes": peak}
+
+        calls = {"beam5_timestamps": ([sot] * B, dict(beam_size=5,
+                                                       max_length=WHISPER_MAX_LENGTH)),
+                 "previous_text_no_speech": ([prev] * B, dict(
+                     beam_size=5, return_no_speech_prob=True,
+                     max_length=WHISPER_SHORT_LENGTH)),
+                 "greedy_no_timestamps": ([no_ts] * B, dict(
+                     beam_size=1, max_length=WHISPER_SHORT_LENGTH))}
+        for label, (prompts, kw) in calls.items():
+            stats, wrap = _timed_forwards(T)
+            kernels = ["matmul_w8a8", "fused_norm", "decode_attention_int8"]
+            if kw["beam_size"] > 1:
+                kernels.append("gather_rows_fused")
+            with patched(T, "decoder_forward", wrap):
+                res, seconds, counts, peak = arch_call(
+                    f"whisper generate {label}", tt,
+                    lambda: wh.generate(memory, prompts, return_scores=True, **kw),
+                    kernels, logs, checks)
+            seqs = [r.sequences_ids[0] for r in res]
+            tokens = sum(len(s) for s in seqs)
+            stamps = [[t for t in s if t >= ts_begin] for s in seqs]
+            ok = len(res) == B and all(math.isfinite(r.scores[0]) for r in res)
+            if label == "greedy_no_timestamps":
+                ok = ok and not any(stamps)
+            else:
+                ok = ok and all(s == sorted(s) for s in stamps)
+            if kw.get("return_no_speech_prob"):
+                ok = ok and all(0.0 < r.no_speech_prob < 1.0 for r in res)
+            checks(ok, f"whisper generate {label}: finite scores, timestamps by the rules")
+            decode_s = seconds - stats["prefill_s"]
+            out[label] = {
+                "prompt_tokens": len(prompts[0]), "beam": kw["beam_size"],
+                "max_length": kw["max_length"],
+                "tokens": tokens, "seconds": seconds, "prefill_ms": stats["prefill_s"] * 1e3,
+                "decode_steps": stats["steps"],
+                "decode_ms_per_step": decode_s / max(stats["steps"], 1) * 1e3,
+                "tokens_per_s": tokens / seconds, "timestamp_tokens": sum(map(len, stamps)),
+                "no_speech_prob": [r.no_speech_prob for r in res] if kw.get(
+                    "return_no_speech_prob") else None,
+                "launches": counts, "peak_memory_bytes": peak}
+
+        langs, seconds, counts, _ = arch_call(
+            "whisper detect_language", tt, lambda: wh.detect_language(memory),
+            ["matmul_w8a8", "fused_norm", "decode_attention_int8"], logs, checks)
+        checks(all(len(p) == WHISPER_LARGE_V3["languages"]
+                   and abs(sum(x for _, x in p) - 1.0) < 1e-3 for p in langs),
+               "whisper detect_language: 100 probabilities summing to 1")
+        out["detect_language"] = {"ms": seconds * 1e3, "top": langs[0][:3], "launches": counts}
+
+        texts = [[int(t) for t in np.random.default_rng(40 + b).integers(
+            100, 50000, WHISPER_ALIGN_TOKENS)] for b in range(B)]
+        start = [ids[t] for t in sot]
+        al, seconds, counts, peak = arch_call(
+            "whisper align", tt, lambda: wh.align(memory, start, texts, WHISPER_FRAMES),
+            ["matmul_w8a8", "fused_norm"], logs, checks)
+        checks(all(len(a.text_token_probs) == WHISPER_ALIGN_TOKENS and a.alignments
+                   and a.alignments[-1][1] == WHISPER_FRAMES // 2 - 1 for a in al),
+               "whisper align: 32 token probabilities and a full warp path a row")
+        out["align"] = {"ms": seconds * 1e3, "texts": B, "tokens": WHISPER_ALIGN_TOKENS,
+                        "launches": counts, "peak_memory_bytes": peak}
+        del wh
+        free_card()
+
+        # The encoder with flash_attention=True, fed the plain run's int8
+        # activations: only the attention outputs may differ.
+        wf = tt.Whisper(path, compute_type="int8", flash_attention=True)
+        replay = ReplayQuantized(recorded)
+        with patched(L, "int8_activations", replay):
+            fmem, seconds, counts, _ = arch_call(
+                "whisper encode flash", tt, lambda: wf.encode(feats),
+                ["matmul_w8a8", "fused_norm", "flash_attention"], logs, checks)
+        layers = WHISPER_LARGE_V3["layers"]
+        checks(replay.calls == len(recorded) and counts["flash_attention"] == layers,
+               f"whisper encode flash: {layers} flash launches, the same linears "
+               f"({replay.calls} of {len(recorded)})")
+        checks(replay.calls_differing <= layers and replay.max_step <= 1
+               and replay.worst_share <= FED_STEP_SHARE,
+               f"whisper encode flash: only the attention outputs differ, by at most "
+               f"one int8 step on at most {FED_STEP_SHARE} of the entries "
+               f"({replay.calls_differing}, {replay.max_step}, {replay.worst_share})")
+        checks(bool(torch.isfinite(fmem).all()), "whisper encode flash: finite")
+        _, fseconds = synced_seconds(lambda: wf.encode(feats))
+        out["encode_flash"] = {"ms": fseconds * 1e3, "ms_fed": seconds * 1e3,
+                               "launches": counts,
+                               "linears_with_differing_inputs": replay.calls_differing,
+                               "int8_max_step": replay.max_step,
+                               "worst_linear_share_differing": replay.worst_share}
+        del wf, memory, fmem
+    emit({"phase": "whisper", "model": "WHISPER_LARGE_V3", "compute_type": "int8",
+          "kv_cache": "int8", "batch": B, **out})
+    free_card()
+
+
+def wav2vec2_phase(tt, checks, logs):
+    """Wav2Vec2 at wav2vec2-large-lv60's widths in int8: ``encode`` of 8 x
+    20 s of 16 kHz audio (999 frames), then with ``flash_attention=True``
+    fed the first run's int8 activations."""
+    import torch
+    import ctranslate2_tpu_torch.ops.linear as L
+
+    t0 = time.perf_counter()
+    mf = build_wav2vec2_modelfile(WAV2VEC2_LARGE["layers"])
+    emit({"phase": "wav2vec2_model", "config": WAV2VEC2_LARGE,
+          "seconds": time.perf_counter() - t0})
+    g = torch.Generator(device="cuda").manual_seed(2)
+    audio = torch.randn((W2V_BATCH, 1, W2V_SAMPLES), generator=g, device="cuda")
+    w = tt.Wav2Vec2(mf, compute_type="int8")
+    w.encode(audio[:1])  # warm-up
+    recorded = []
+    with patched(L, "int8_activations", record_quantized(recorded)):
+        logits, _, counts, peak = arch_call("wav2vec2 encode", tt, lambda: w.encode(audio),
+                                            ["matmul_w8a8", "fused_norm"], logs, checks)
+    _, seconds = synced_seconds(lambda: w.encode(audio))
+    checks(tuple(logits.shape) == (W2V_BATCH, 999, WAV2VEC2_LARGE["vocab"])
+           and bool(torch.isfinite(logits).all()),
+           f"wav2vec2 encode: finite [8, 999, 32] logits ({tuple(logits.shape)})")
+    del w
+    free_card()
+    wf = tt.Wav2Vec2(mf, compute_type="int8", flash_attention=True)
+    replay = ReplayQuantized(recorded)
+    with patched(L, "int8_activations", replay):
+        flogits, _, fcounts, _ = arch_call(
+            "wav2vec2 encode flash", tt, lambda: wf.encode(audio),
+            ["matmul_w8a8", "fused_norm", "flash_attention"], logs, checks)
+    layers = WAV2VEC2_LARGE["layers"]
+    checks(replay.calls == len(recorded) and fcounts["flash_attention"] == layers
+           and replay.calls_differing <= layers and replay.max_step <= 1
+           and replay.worst_share <= FED_STEP_SHARE,
+           f"wav2vec2 encode flash: {layers} flash launches; fed, only the attention "
+           f"outputs differ by at most one int8 step ({replay.calls_differing}, "
+           f"{replay.max_step}, {replay.worst_share})")
+    _, fseconds = synced_seconds(lambda: wf.encode(audio))
+    emit({"phase": "wav2vec2", "model": "WAV2VEC2_LARGE", "compute_type": "int8",
+          "audio": list(audio.shape), "frames": logits.shape[1], "seconds": seconds,
+          "sequences_per_s": W2V_BATCH / seconds, "flash_seconds": fseconds,
+          "flash_sequences_per_s": W2V_BATCH / fseconds, "launches": counts,
+          "flash_launches": fcounts, "peak_memory_bytes": peak,
+          "flash_fed": {"linears_with_differing_inputs": replay.calls_differing,
+                        "int8_max_step": replay.max_step,
+                        "worst_linear_share_differing": replay.worst_share}})
+    del wf, mf, logits, flogits
+    free_card()
+
+
+def w2v_bert_phase(tt, checks, logs):
+    """Wav2Vec2Bert at w2v-bert-2.0's widths in int8: ``encode`` of 8 x 1,000
+    frames of 160 features."""
+    import torch
+
+    t0 = time.perf_counter()
+    mf = build_w2v_bert_modelfile(W2V_BERT_2["layers"])
+    emit({"phase": "w2v_bert_model", "config": W2V_BERT_2,
+          "seconds": time.perf_counter() - t0})
+    g = torch.Generator(device="cuda").manual_seed(3)
+    feats = torch.randn((W2V_BERT_BATCH, W2V_BERT_FRAMES, W2V_BERT_2["input_dim"]),
+                        generator=g, device="cuda")
+    enc = tt.Wav2Vec2Bert(mf, compute_type="int8")
+    enc.encode(feats[:1])  # warm-up
+    logits, _, counts, peak = arch_call("w2v_bert encode", tt, lambda: enc.encode(feats),
+                                        ["matmul_w8a8", "fused_norm"], logs, checks)
+    _, seconds = synced_seconds(lambda: enc.encode(feats))
+    checks(tuple(logits.shape) == (W2V_BERT_BATCH, W2V_BERT_FRAMES // 2, W2V_BERT_2["vocab"])
+           and bool(torch.isfinite(logits).all()),
+           f"w2v_bert encode: finite [8, 500, 32] logits ({tuple(logits.shape)})")
+    emit({"phase": "w2v_bert", "model": "W2V_BERT_2", "compute_type": "int8",
+          "features": list(feats.shape), "seconds": seconds,
+          "sequences_per_s": W2V_BERT_BATCH / seconds, "launches": counts,
+          "peak_memory_bytes": peak})
+    del enc, mf, logits
+    free_card()
+
+
+def speech_card_vs_cpu(tt, work, checks):
+    """At ``AB_LAYERS`` layers of the three geometries, float32: the card
+    (the norm kernel, the gather kernel, flash where asked) against the port
+    on the CPU. Whisper's tokens identical (beam 5 with timestamps, the
+    ``<|startofprev|>`` call, greedy), its encoder output, no-speech and
+    language probabilities and the Wav2Vec2 / W2V-BERT logits within
+    ``LOGPROB_TOL``, the alignments identical and their probabilities within
+    it."""
+    import numpy as np
+    import torch
+
+    out = {}
+    mf, vocab = build_whisper_modelfile(AB_LAYERS)
+    path = save_whisper(mf, vocab, os.path.join(work, "whisper_ab"))
+    del mf
+    card = tt.Whisper(path, compute_type="float32")
+    flash = tt.Whisper(path, compute_type="float32", flash_attention=True)
+    cpu = tt.Whisper(path, device="cpu", compute_type="float32")
+    feats = whisper_features(AB_WHISPER_BATCH, WHISPER_FRAMES, 4)
+    mem = card.encode(feats)
+    mem_cpu = cpu.encode(feats.cpu())
+    d_enc = (mem.cpu() - mem_cpu).abs().max().item()
+    fmem = flash.encode(feats)
+    d_flash = (fmem.cpu() - mem_cpu).abs().max().item()
+    checks(d_enc <= LOGPROB_TOL and d_flash <= LOGPROB_TOL,
+           f"speech_card_vs_cpu whisper encode within {LOGPROB_TOL} ({d_enc}; "
+           f"flash {d_flash})")
+    ids, sot, prev, no_ts = whisper_prompts(vocab)
+    gens = {}
+    for label, (prompt, kw) in {
+            "beam5_timestamps": (sot, dict(beam_size=5)),
+            "previous_text_no_speech": (prev, dict(beam_size=5, return_no_speech_prob=True)),
+            "greedy_no_timestamps": (no_ts, dict(beam_size=1))}.items():
+        opts = dict(max_length=AB_WHISPER_MAX_LENGTH, return_scores=True, **kw)
+        a = card.generate(mem, [prompt] * AB_WHISPER_BATCH, **opts)
+        b = cpu.generate(mem_cpu, [prompt] * AB_WHISPER_BATCH, **opts)
+        same = [x.sequences_ids for x in a] == [x.sequences_ids for x in b]
+        diff = max(abs(x.scores[0] - y.scores[0]) for x, y in zip(a, b))
+        ns = max(abs(x.no_speech_prob - y.no_speech_prob) for x, y in zip(a, b))
+        checks(same and diff <= LOGPROB_TOL and ns <= LOGPROB_TOL,
+               f"speech_card_vs_cpu whisper {label}: identical tokens, scores and "
+               f"no-speech probabilities within {LOGPROB_TOL} ({same}, {diff}, {ns})")
+        gens[label] = {"identical": same, "score_max_abs_diff": diff,
+                       "no_speech_max_abs_diff": ns,
+                       "tokens": sum(len(x.sequences_ids[0]) for x in a)}
+    la, lb = card.detect_language(mem), cpu.detect_language(mem_cpu)
+    d_lang = max(abs(dict(xa)[t] - p) for xa, xb in zip(la, lb) for t, p in xb)
+    checks(d_lang <= LOGPROB_TOL, f"speech_card_vs_cpu whisper detect_language "
+                                  f"within {LOGPROB_TOL} ({d_lang})")
+    texts = [[int(t) for t in np.random.default_rng(50 + b).integers(100, 50000, 16)]
+             for b in range(AB_WHISPER_BATCH)]
+    start = [ids[t] for t in sot]
+    aa = card.align(mem, start, texts, [WHISPER_FRAMES, WHISPER_FRAMES // 2])
+    ab = cpu.align(mem_cpu, start, texts, [WHISPER_FRAMES, WHISPER_FRAMES // 2])
+    same_al = [x.alignments for x in aa] == [x.alignments for x in ab]
+    d_al = max(abs(p - q) for x, y in zip(aa, ab)
+               for p, q in zip(x.text_token_probs, y.text_token_probs))
+    checks(same_al and d_al <= LOGPROB_TOL,
+           f"speech_card_vs_cpu whisper align: identical alignments, probabilities "
+           f"within {LOGPROB_TOL} ({same_al}, {d_al})")
+    out["whisper"] = {"encode_max_abs_diff": d_enc, "encode_flash_max_abs_diff": d_flash,
+                      "generate": gens, "detect_language_max_abs_diff": d_lang,
+                      "align_identical": same_al, "align_prob_max_abs_diff": d_al}
+    del card, flash, cpu, mem, fmem
+    free_card()
+
+    mf = build_wav2vec2_modelfile(AB_LAYERS)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    audio = torch.randn((2, 1, AB_W2V_SAMPLES), generator=g, device="cuda")
+    ref = tt.Wav2Vec2(mf, device="cpu", compute_type="float32").encode(audio.cpu())
+    d = {}
+    for flag in (False, True):
+        w = tt.Wav2Vec2(mf, compute_type="float32", flash_attention=flag)
+        d[flag] = (w.encode(audio, to_cpu=True) - ref).abs().max().item()
+    checks(max(d.values()) <= LOGPROB_TOL,
+           f"speech_card_vs_cpu wav2vec2 logits within {LOGPROB_TOL} ({d})")
+    out["wav2vec2"] = {"logits_max_abs_diff": d[False], "flash_logits_max_abs_diff": d[True]}
+
+    mf = build_w2v_bert_modelfile(AB_LAYERS)
+    feats = torch.randn((2, W2V_BERT_FRAMES, W2V_BERT_2["input_dim"]), generator=g,
+                        device="cuda")
+    ref = tt.Wav2Vec2Bert(mf, device="cpu", compute_type="float32").encode(feats.cpu())
+    dd = (tt.Wav2Vec2Bert(mf, compute_type="float32").encode(feats, to_cpu=True)
+          - ref).abs().max().item()
+    checks(dd <= LOGPROB_TOL, f"speech_card_vs_cpu w2v_bert logits within "
+                              f"{LOGPROB_TOL} ({dd})")
+    out["w2v_bert"] = {"logits_max_abs_diff": dd}
+    emit({"phase": "speech_card_vs_cpu", "layers": AB_LAYERS, "compute_type": "float32", **out})
+    free_card()
 
 
 def main():
@@ -3972,6 +4757,8 @@ def main():
         free_card()
         host_loop_translator(tt, int8_dir, vocab, batches[1], checks, new_logs)
         free_card()
+        file_helpers_translator(tt, int8_dir, batches, work, checks, new_logs)
+        free_card()
 
         # ---- main path 2: Generator ----
         t0 = time.perf_counter()
@@ -3996,6 +4783,8 @@ def main():
         sampling_phase(tt, gen, llama_vocab, int8_dir, batches[1], checks, new_logs)
         free_card()
         host_loop_generator(tt, gen, llama_vocab, checks, new_logs)
+        free_card()
+        file_helpers_generator(tt, gen, llama_vocab, checks, new_logs)
         del gen
         small_llama = llama_subset(llama, AB_LAYERS)
         del llama
@@ -4034,6 +4823,15 @@ def main():
         # ---- the architecture features at four families' widths ----
         arch_logs = {}
         architectures_phase(tt, work, checks, arch_logs)
+        free_card()
+
+        # ---- the speech models at their published widths ----
+        speech_logs = {"whisper": {}, "wav2vec2": {}, "w2v_bert": {}}
+        t0 = time.perf_counter()
+        whisper_phase(tt, work, checks, speech_logs["whisper"])
+        wav2vec2_phase(tt, checks, speech_logs["wav2vec2"])
+        w2v_bert_phase(tt, checks, speech_logs["w2v_bert"])
+        emit({"phase": "speech", "seconds": time.perf_counter() - t0})
 
         # ---- every kernel against its plain version ----
         w8 = bench_w8a8(logs["matmul_w8a8"], checks)
@@ -4053,7 +4851,7 @@ def main():
         fresh = new_shapes(new_logs, logs)
         extra = dict(summed=False, paths="score_generator, score_translator, encoder, "
                                          "sampling, host_loop_translator, "
-                                         "host_loop_generator")
+                                         "host_loop_generator, file_helpers")
         bench_w8a8(fresh.get("matmul_w8a8", {}), checks, **extra)
         free_card()
         bench_flash(fresh.get("flash_attention", {}), checks, **extra)
@@ -4066,7 +4864,8 @@ def main():
         seen = {name: {**logs.get(name, {}), **new_logs.get(name, {}),
                        **awq_logs.get(name, {})}
                 for name in set(logs) | set(new_logs) | set(awq_logs)}
-        arch_benches(arch_logs, seen, checks)
+        seen = arch_benches(arch_logs, seen, checks)
+        arch_benches(speech_logs, seen, checks, prefix="")
 
         # ---- the other Translator runs ----
         f16_counts = main_path(tt, float_dir, "float16", batches, checks, "float16", {})
@@ -4091,6 +4890,8 @@ def main():
         del pair
         free_card()
         architectures_card_vs_cpu(tt, work, checks)
+        free_card()
+        speech_card_vs_cpu(tt, work, checks)
 
         def entry(name, source, replaces, tot, library_ms, launches=None, **extra):
             """One kernel's line; ``launches`` defaults to the Translator and

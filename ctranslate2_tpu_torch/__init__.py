@@ -1,12 +1,14 @@
 """ctranslate2_tpu_torch: the PyTorch and CUDA port of ctranslate2_tpu.
 
 It reads the same CTranslate2 model directories and runs
-``Translator.translate_batch`` / ``score_batch``,
-``Generator.generate_batch`` / ``score_batch`` / ``forward_batch`` (argmax
-or random sampling in both decode loops; attention, alignment, coverage,
-prefix bias, vocabulary logits, alternatives, vocabulary maps, step
-callbacks and static prompts through the host decode loops) and
-``Encoder.forward_batch`` on
+``Translator.translate_batch`` / ``score_batch`` / ``translate_file`` /
+``score_file``, ``Generator.generate_batch`` / ``score_batch`` /
+``forward_batch`` (argmax or random sampling in both decode loops;
+attention, alignment, coverage, prefix bias, vocabulary logits,
+alternatives, vocabulary maps, step callbacks and static prompts through
+the host decode loops), the iterable and token-streaming helpers,
+``Encoder.forward_batch`` and the speech models ``Whisper``, ``Wav2Vec2``
+and ``Wav2Vec2Bert`` on
 one NVIDIA Hopper card (or on the CPU when asked), with hand-written CUDA
 kernels for the int8 matmul, the AWQ 4-bit matmuls, the beam reorder,
 flash attention, decode attention over an int8 KV cache and the norms. It
@@ -18,7 +20,10 @@ __version__ = "0.1.0"
 from .runtime.encoder import Encoder, EncoderForwardOutput
 from .runtime.generator import Generator
 from .runtime.translator import Translator
-from .runtime.results import (AsyncResult, GenerationResult,
+from .runtime.wav2vec2 import Wav2Vec2, Wav2Vec2Bert
+from .runtime.whisper import (Whisper, WhisperAlignmentResult,
+                              WhisperGenerationResult)
+from .runtime.results import (AsyncResult, ExecutionStats, GenerationResult,
                               GenerationStepResult, ScoringResult,
                               TranslationResult)
 from .models.loader import LoadedModel, load_model
@@ -28,6 +33,7 @@ __all__ = [
     "AsyncResult",
     "Encoder",
     "EncoderForwardOutput",
+    "ExecutionStats",
     "GenerationResult",
     "GenerationStepResult",
     "Generator",
@@ -35,6 +41,11 @@ __all__ = [
     "ScoringResult",
     "Translator",
     "TranslationResult",
+    "Wav2Vec2",
+    "Wav2Vec2Bert",
+    "Whisper",
+    "WhisperAlignmentResult",
+    "WhisperGenerationResult",
     "launch_counts",
     "load_model",
     "reset_launches",

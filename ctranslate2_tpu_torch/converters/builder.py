@@ -1,12 +1,12 @@
 """Programmatic model-directory builder (numpy only).
 
-A copy of the encoder-decoder builder and of the decoder-only builder of
-``ctranslate2_tpu/converters/builder.py``, with every argument of theirs
-(ALiBi, parallel residual, sliding windows and Gemma-style hybrid stacks,
-Shaw and T5 relative positions, merged self+cross attention, source
-features): each writes the same CTranslate2-format model directory, byte
-for byte, from the same seed, so a model can be fabricated without
-importing the JAX package.
+A copy of the encoder-decoder builder, the decoder-only builder and the
+Whisper builder of ``ctranslate2_tpu/converters/builder.py``, with every
+argument of theirs (ALiBi, parallel residual, sliding windows and
+Gemma-style hybrid stacks, Shaw and T5 relative positions, merged
+self+cross attention, source features): each writes the same
+CTranslate2-format model directory, byte for byte, from the same seed, so
+a model can be fabricated without importing the JAX package.
 """
 
 from __future__ import annotations
@@ -386,6 +386,87 @@ def build_seq2seq_model(
         b.save(directory, config=config,
                vocabulary=default_vocab(vocab_size))
     return directory
+
+
+def build_whisper_model(
+    directory: str,
+    *,
+    n_mels: int = 24,
+    num_layers: int = 2,
+    num_heads: int = 4,
+    d_model: int = 32,
+    d_ff: int = 64,
+    num_text_tokens: int = 20,
+    num_languages: int = 2,
+    num_timestamps: int = 11,
+    max_positions: int = 64,
+    seed: int = 1234,
+    quantization: Optional[str] = None,
+):
+    """Fabricate a WhisperSpec model directory with the reference vocabulary
+    layout (reference: src/models/whisper.cc:74-78). Returns (directory,
+    vocabulary)."""
+    rng = np.random.default_rng(seed)
+    b = SpecBuilder("WhisperSpec", 3)
+
+    # Vocabulary layout: text..., <|endoftext|>, <|startoftranscript|>,
+    # languages..., <|translate|>, <|transcribe|>, <|startoflm|>,
+    # <|startofprev|>, <|nospeech|>, <|notimestamps|>, timestamps...
+    vocab = [""] + [f"w{i}" for i in range(num_text_tokens - 1)]
+    vocab.append("<|endoftext|>")
+    vocab.append("<|startoftranscript|>")
+    langs = ["en", "fr", "de", "es", "ja"][:num_languages]
+    lang_ids = []
+    for lang in langs:
+        lang_ids.append(len(vocab))
+        vocab.append(f"<|{lang}|>")
+    vocab += ["<|translate|>", "<|transcribe|>", "<|startoflm|>",
+              "<|startofprev|>", "<|nospeech|>", "<|notimestamps|>"]
+    for i in range(num_timestamps):
+        vocab.append(f"<|{i * 0.02:.2f}|>")
+    vocab_size = len(vocab)
+
+    for sc in ("encoder", "decoder"):
+        b.add_attr(f"{sc}/num_heads", num_heads, "int16")
+
+    # Encoder: the convolution frontend and a Transformer stack.
+    b.add("encoder/conv1/weight", _rand(rng, d_model, n_mels, 3))
+    b.add("encoder/conv1/bias", _rand(rng, d_model))
+    b.add("encoder/conv2/weight", _rand(rng, d_model, d_model, 3))
+    b.add("encoder/conv2/bias", _rand(rng, d_model))
+    b.add("encoder/position_encodings/encodings", _rand(rng, max_positions, d_model))
+    b.add("encoder/layer_norm/gamma", np.ones(d_model, np.float32))
+    b.add("encoder/layer_norm/beta", np.zeros(d_model, np.float32))
+    for i in range(num_layers):
+        ls = f"encoder/layer_{i}"
+        _add_attention(b, f"{ls}/self_attention", rng, d_model, num_heads, True)
+        _add_ffn(b, f"{ls}/ffn", rng, d_model, d_ff)
+
+    # Decoder.
+    b.add_attr("decoder/pre_norm", 1, "int8")
+    b.add_attr("decoder/activation", ACTIVATION_IDS["gelu"], "int8")
+    b.add("decoder/embeddings/weight", _rand(rng, vocab_size, d_model))
+    b.add("decoder/position_encodings/encodings", _rand(rng, max_positions, d_model))
+    b.add("decoder/layer_norm/gamma", np.ones(d_model, np.float32))
+    b.add("decoder/layer_norm/beta", np.zeros(d_model, np.float32))
+    b.add("decoder/projection/weight", _rand(rng, vocab_size, d_model))
+    for i in range(num_layers):
+        ls = f"decoder/layer_{i}"
+        _add_attention(b, f"{ls}/self_attention", rng, d_model, num_heads, True)
+        _add_attention(b, f"{ls}/attention", rng, d_model, num_heads, False)
+        _add_ffn(b, f"{ls}/ffn", rng, d_model, d_ff)
+
+    b.quantize(quantization)
+    config = {
+        "suppress_ids": [1, 2],
+        "suppress_ids_begin": [vocab.index("<|notimestamps|>") - 1],
+        "lang_ids": lang_ids,
+        "alignment_heads": [[num_layers - 1, h] for h in range(num_heads // 2)],
+    }
+    b.save(directory, config=config)
+    with open(os.path.join(directory, "vocabulary.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f)
+    return directory, vocab
 
 
 def default_vocab(vocab_size: int):

@@ -57,10 +57,12 @@ def _self_cache(model, cache, rows: int, capacity: int, ring: bool = False):
     return cache
 
 
-def apply_processors(sig, l, step: int, disable_end, alive_flat):
+def apply_processors(sig, l, step: int, disable_end, alive_flat, sample_begin=None):
     """The logits processors of one step: ``l`` [N, V] float32,
     ``disable_end`` bool [N] (the rows whose end tokens are off this step),
-    ``alive_flat`` [N, L] the tokens generated so far."""
+    ``alive_flat`` [N, L] the tokens generated so far, ``sample_begin``
+    [N] the forced prefix steps of each row for Whisper's timestamp rules
+    (zeros when None)."""
     l = proc.disable_tokens(l, sig.suppress_ids)
     if sig.begin_suppress_ids and step == 0:
         l = proc.disable_tokens(l, sig.begin_suppress_ids)
@@ -73,6 +75,11 @@ def apply_processors(sig, l, step: int, disable_end, alive_flat):
             l = proc.no_repeat_ngram(l, alive_flat, step, sig.no_repeat_ngram_size)
         if sig.suppress_sequences:
             l = proc.suppress_sequences_mask(l, alive_flat, step, sig.suppress_sequences)
+        if sig.whisper_ts is not None:
+            if sample_begin is None:
+                sample_begin = torch.zeros(l.shape[0], dtype=torch.long, device=l.device)
+            l = proc.whisper_timestamp_rules(l, alive_flat, step, sample_begin,
+                                             *sig.whisper_ts)
     return l
 
 
@@ -149,6 +156,7 @@ def beam_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
     last_step_of = max_length + plen_off
     start_off = plen_off if not return_prefix else zeros_b
     min_rows = min_steps.repeat_interleave(K)
+    plen_rows = prefix_len.repeat_interleave(K)  # Whisper's sample_begin
     cand_idx = torch.arange(K2, device=device)[None, :]
     slots = torch.arange(M, device=device)[None, :]
 
@@ -163,7 +171,8 @@ def beam_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
             out_dtype=model.out_dtype, beam_chain=chain)
         l = logits[:, -1].float()  # [N, V]
         V = l.shape[-1]
-        l = apply_processors(sig, l, step, step < min_rows, alive.reshape(N, L))
+        l = apply_processors(sig, l, step, step < min_rows, alive.reshape(N, L),
+                             sample_begin=plen_rows)
 
         log_probs = torch.log_softmax(l, dim=-1)
         total = log_probs + scores.reshape(N)[:, None]
@@ -283,7 +292,8 @@ def greedy_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
             quantize_acts=model.policy.quantize_activations,
             out_dtype=model.out_dtype)
         l = logits[:, -1].float()
-        l = apply_processors(sig, l, step, step < min_steps, out_buf)
+        l = apply_processors(sig, l, step, step < min_steps, out_buf,
+                             sample_begin=prefix_len)
         log_probs = torch.log_softmax(l, dim=-1)
         if sig.greedy_sampler:
             sampled, sampled_scores = greedy_tokens(log_probs)

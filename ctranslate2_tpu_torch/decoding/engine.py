@@ -64,6 +64,9 @@ class StepSig:
     return_attention: bool = False  # the alignment layer's cross-attention
     use_bias_token: bool = False  # prefix-biased decoding
     prefix_bias_beta: float = 0.0
+    # Whisper's timestamp rules: (eot, no_timestamps, timestamp_begin,
+    # timestamp_end, max_initial_timestamp), or None.
+    whisper_ts: Optional[Tuple[int, int, int, int, int]] = None
 
 
 def _round_up(x: int, multiple: int) -> int:
@@ -233,7 +236,8 @@ class DecodingEngine:
             no_repeat_ngram_size=options.no_repeat_ngram_size,
             use_alive_seq=(options.repetition_penalty != 1.0
                            or options.no_repeat_ngram_size > 0
-                           or bool(options.suppress_sequences)),
+                           or bool(options.suppress_sequences)
+                           or options.whisper_ts is not None),
             greedy_sampler=greedy_sampler,
             sampling_topk=options.sampling_topk,
             sampling_topp=options.sampling_topp,
@@ -242,6 +246,7 @@ class DecodingEngine:
                               or options.coverage_penalty != 0),
             use_bias_token=use_bias,
             prefix_bias_beta=options.prefix_bias_beta if use_bias else 0.0,
+            whisper_ts=options.whisper_ts,
         )
 
     @staticmethod

@@ -6,7 +6,7 @@ include/ctranslate2/generation.h:14-78). ``speculation_k`` is not ported:
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 
 @dataclass
@@ -39,6 +39,9 @@ class DecodingOptions:
     return_alternatives: bool = False
     min_alternative_expansion_prob: float = 0.0
     seed: int = 0  # the random sampler's stream
+    # Whisper's timestamp rules (eot, no_timestamps, timestamp_begin,
+    # timestamp_end, max_initial_timestamp), or None.
+    whisper_ts: Optional[Tuple[int, int, int, int, int]] = None
 
 
 @dataclass

@@ -1,8 +1,7 @@
 """Vectorized logits processors (the ones the device loops apply).
 
 Port of ``ctranslate2_tpu/decoding/processors.py``: masked tensor ops on
-the device, no per-step host synchronization. Whisper's timestamp rules
-are not ported yet.
+the device, no per-step host synchronization.
 """
 
 from __future__ import annotations
@@ -107,3 +106,74 @@ def suppress_sequences_mask(logits, alive_seq, seq_len: int,
         hit = match[:, None] & (torch.arange(V, device=device) == seq[-1])[None, :]
         logits = torch.where(hit, DISABLE, logits)
     return logits
+
+
+def whisper_timestamp_rules(logits, alive_seq, gen_len: int, sample_begin,
+                            eot_id: int, no_timestamps_id: int,
+                            timestamp_begin_id: int, timestamp_end_id: int,
+                            max_initial_timestamp_id: int):
+    """Whisper's timestamp rules on the device (reference:
+    src/models/whisper.cc:742-865 ApplyTimestampRules):
+
+    - <|notimestamps|> is always disabled;
+    - at the very first sample (no forced text) only timestamps up to
+      ``max_initial_timestamp_id`` are allowed;
+    - timestamps come in pairs (except before the end token);
+    - timestamps never decrease;
+    - where the timestamps' total probability beats every text token, a
+      timestamp is forced.
+
+    ``logits`` [N, V] float32, ``alive_seq`` [N, L] the tokens so far,
+    ``gen_len`` the step, ``sample_begin`` [N] the forced (prefix) steps of
+    each row. The log-sum-exp over the timestamps and the best text token
+    are compared in float32, as in the JAX package.
+    """
+    N, V = logits.shape
+    L = alive_seq.shape[1]
+    device = logits.device
+    l = logits
+    tok = torch.arange(V, device=device)[None, :]
+    is_ts_vocab = tok >= timestamp_begin_id
+    gen_len = torch.full((N,), gen_len, dtype=torch.long, device=device)
+    sample_begin = sample_begin.to(device=device, dtype=torch.long)
+
+    l = torch.where(tok == no_timestamps_id, DISABLE, l)
+
+    # The first step: only timestamps, up to max_initial.
+    at_init = (gen_len == 0) & (sample_begin == 0)
+    init_mask = (tok < timestamp_begin_id) | (tok > max_initial_timestamp_id)
+    l = torch.where(at_init[:, None] & init_mask, DISABLE, l)
+
+    applies = gen_len > sample_begin
+    rows = torch.arange(N, device=device)
+    last = alive_seq[rows, (gen_len - 1).clamp(0, L - 1)]
+    penult_raw = alive_seq[rows, (gen_len - 2).clamp(0, L - 1)]
+    penult = torch.where(gen_len - 1 > sample_begin, penult_raw, last)
+    last_is_ts = last >= timestamp_begin_id
+    pen_is_ts = penult >= timestamp_begin_id
+
+    # Pairs.
+    rule_a = applies & last_is_ts & pen_is_ts
+    l = torch.where(rule_a[:, None] & is_ts_vocab, DISABLE, l)
+    rule_b = applies & last_is_ts & ~pen_is_ts
+    mask_b = (tok < eot_id) | (is_ts_vocab & (tok < last[:, None]))
+    l = torch.where(rule_b[:, None] & mask_b, DISABLE, l)
+
+    # Non-decreasing timestamps.
+    pos = torch.arange(L, device=device)[None, :]
+    in_window = (pos < gen_len[:, None]) & (pos >= sample_begin[:, None])
+    is_ts_hist = (alive_seq >= timestamp_begin_id) & in_window
+    latest_pos = torch.where(is_ts_hist, pos, -1).max(dim=1).values
+    has_ts = latest_pos >= 0
+    latest_tok = alive_seq[rows, latest_pos.clamp(0, L - 1)]
+    rule_c = applies & ~last_is_ts & has_ts
+    mask_c = is_ts_vocab & (tok <= latest_tok[:, None])
+    l = torch.where(rule_c[:, None] & mask_c, DISABLE, l)
+
+    # Probability: the timestamps' total against the best text token.
+    check = applies & (rule_b | ~last_is_ts)
+    lp = torch.log_softmax(l.float(), dim=-1)
+    max_text = torch.where(tok < timestamp_begin_id, lp, -torch.inf).max(dim=1).values
+    ts_lse = torch.logsumexp(torch.where(is_ts_vocab, lp, -torch.inf), dim=1)
+    force_ts = check & (ts_lse > max_text)
+    return torch.where(force_ts[:, None] & (tok < timestamp_begin_id), DISABLE, l)

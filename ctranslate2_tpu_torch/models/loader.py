@@ -203,11 +203,17 @@ def load_model(
     params = build_params(mf, arch, policy, device)
     consts = transformer.make_consts(arch, params, max_positions, device)
 
-    info = VocabularyInfo(
-        unk_token=mf.config.get("unk_token", "<unk>"),
-        bos_token=mf.config.get("bos_token", "<s>"),
-        eos_token=mf.config.get("eos_token", "</s>"),
-    )
+    if mf.spec_name == "WhisperSpec":
+        # Whisper's special tokens (reference: src/models/whisper.cc:25-29).
+        info = VocabularyInfo(unk_token="<|endoftext|>",
+                              bos_token="<|startoftranscript|>",
+                              eos_token="<|endoftext|>")
+    else:
+        info = VocabularyInfo(
+            unk_token=mf.config.get("unk_token", "<unk>"),
+            bos_token=mf.config.get("bos_token", "<s>"),
+            eos_token=mf.config.get("eos_token", "</s>"),
+        )
     if files is not None:
         def _load_vocab(name):
             return Vocabulary.load_from_files(files, name, info)

@@ -19,7 +19,10 @@ tensors on one device:
 - the relative-position tables (Shaw keys/values, the T5 bucket table) stay
   float32; merged attention's ``memory_kv`` is one fused linear; the
   layer-level norms of sandwich and parallel-residual layers sit in the
-  layer's dict under their artifact names.
+  layer's dict under their artifact names;
+- convolution weights (the speech frontends) are float32 [C_out,
+  C_in/groups, K], dequantized on load when the artifact stores them in
+  int8, as the JAX package keeps them.
 
 ``params_from_numpy`` converts the JAX package's parameter tree (as numpy
 arrays) into the same layout, so both packages can run on identical
@@ -147,6 +150,18 @@ class ParamsBuilder:
             var.array, scale.as_float32(), zero.array, quant_type,
             packed=use_packed and payload_in % 2 == 0, device=self.device)
 
+    def conv(self, scope: str) -> Optional[dict]:
+        var = self.mf.get(scope + "/weight")
+        if var is None:
+            return None
+        w = (_dequantize(var, self.mf.get(scope + "/weight_scale"))
+             if var.dtype_name in ("int8", "int16") else var.as_float32())
+        out = {"w": self.tensor(w, torch.float32)}
+        bias = self.mf.get(scope + "/bias")
+        if bias is not None:
+            out["b"] = self.tensor(bias.as_float32(), torch.float32)
+        return out
+
     def norm(self, scope: str) -> Optional[dict]:
         gamma = self.mf.get(scope + "/gamma")
         if gamma is None:
@@ -270,9 +285,6 @@ class ParamsBuilder:
         return out
 
     def encoder(self, spec: EncoderSpec, scope: str = "encoder") -> dict:
-        if spec.num_conv_layers or spec.is_wav2vec2:
-            raise NotImplementedError("speech encoders are not ported yet")
-
         def layer_fn(lscope, layer):
             return self.layer_norms(
                 {"self_attention": self.attention(
@@ -280,7 +292,35 @@ class ParamsBuilder:
                  "ffn": self.ffn(f"{lscope}/ffn")},
                 lscope, ENCODER_LAYER_NORMS)
 
-        return self._side(spec, scope, layer_fn)
+        if not (spec.num_conv_layers or spec.is_wav2vec2):
+            return self._side(spec, scope, layer_fn)
+        # A speech encoder: a convolution frontend in place of embeddings.
+        out: dict = {"layers": [layer_fn(f"{scope}/layer_{i}", layer)
+                                for i, layer in enumerate(spec.layers)]}
+        if spec.is_wav2vec2:
+            # Wav2Vec2 (reference: src/layers/wav2vec2.cc:48-72).
+            def feat(name):
+                return {"conv": self.conv(f"{scope}/{name}/conv"),
+                        "layer_norm": self.norm(f"{scope}/{name}/layer_norm")}
+            out["feat_layer0"] = feat("feat_layer0")
+            out["feat_layers"] = [feat(f"feat_layer_{i}")
+                                  for i in range(spec.num_feat_layers)]
+            out["fp_layer_norm"] = self.norm(f"{scope}/fp_layer_norm")
+            out["fp_projection"] = self.linear(f"{scope}/fp_projection")
+            out["pos_conv_embed"] = {"conv": self.conv(f"{scope}/pos_conv_embed/conv")}
+            if spec.has_lm_head:
+                out["lm_head"] = self.linear(f"{scope}/lm_head")
+        else:
+            # Whisper (reference: src/layers/whisper.cc:8-23).
+            out["convs"] = [self.conv(f"{scope}/conv{i + 1}")
+                            for i in range(spec.num_conv_layers)]
+        if spec.has_position_embedding:
+            out["position_encodings"] = self.array(
+                f"{scope}/position_encodings/encodings")
+        norm = self.norm(f"{scope}/layer_norm")
+        if norm is not None:
+            out["layer_norm"] = norm
+        return out
 
     def decoder(self, spec: DecoderSpec, scope: str = "decoder") -> dict:
         def layer_fn(lscope, layer):

@@ -22,7 +22,10 @@ self+cross attention (T5Gemma2), sandwich-norm (Gemma-2/3, T5Gemma) and
 parallel-residual (GPT-J, GPT-NeoX, Falcon) layers. The JAX package's
 stacked (scan) layers are an XLA compile-time device; the port's per-layer
 loop is their counterpart and reads their stacked parameters
-(``params_from_numpy``). Speech encoders raise ``NotImplementedError``.
+(``params_from_numpy``). Whisper's encoder (two GELU convolutions, a
+learned position table, a pre-norm stack: ``speech_encoder_forward``) runs
+here; ``decoder_forward`` also returns the pre-softmax cross-attention
+scores of chosen (layer, head) pairs for Whisper's alignment.
 """
 
 from __future__ import annotations
@@ -39,26 +42,13 @@ from ..kernels.decode_attention import (DECODE_MAX_D, decode_attention_int8,
 from ..kernels.flash_attention import HEAD_DIMS, flash_attention
 from ..kernels.gather_rows import gather_rows_fused
 from ..ops import attention as attn_ops
-from ..ops.activations import get_activation
+from ..ops.activations import gelu, get_activation
+from ..ops.conv import conv1d
 from ..ops.linear import linear, quantize_input
 from ..ops.norms import add_and_norm, apply_norm
 from ..ops.positions import (alibi_slopes, apply_rotary, rotary_tables,
                              sinusoidal_position_encoding)
 from .spec import ArchSpec, AttentionSpec
-
-
-# ---------------------------------------------------------------------------
-# Supported architectures.
-# ---------------------------------------------------------------------------
-
-
-def check_supported(arch: ArchSpec) -> None:
-    """Raise NotImplementedError for the architectures this port does not
-    run yet: speech encoders."""
-    enc = arch.encoder
-    if enc is not None and (getattr(enc, "num_conv_layers", 0)
-                            or getattr(enc, "is_wav2vec2", False)):
-        raise NotImplementedError("speech encoders are not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -679,12 +669,13 @@ def cross_attention_block(
     pre_norm: bool = True,
     quantize_acts: bool = True,
     delta=None,  # the previous block's output, not yet added to ``x``
-    return_weights: bool = False,
+    return_weights=False,  # False | True | "logits" (the pre-softmax scores)
     wrap_norm: bool = True,  # False: ``x`` is normed already, no residual
 ):
     """Cross-attention with beam-shared memory; returns (x, delta, weights):
     (x, delta) as ``self_attention_block`` does, and with
-    ``return_weights`` the softmax weights [B*beam, Hq, T, S] (else None).
+    ``return_weights`` the softmax weights [B*beam, Hq, T, S], or with
+    ``"logits"`` the scores before the softmax (else None).
     The weights leave the residual stream as it is.
 
     ``x``: [B*beam, T, D_model]; ``mem_kv["k"]``: [B, Hkv, S, Dh]. The beam
@@ -758,7 +749,6 @@ def _ffn_firsts(spec, fp: dict):
 def encoder_forward(arch: ArchSpec, params: dict, consts: dict, ids, lengths,
                     quantize_acts: bool = True, out_dtype=torch.float32):
     """Full encoder pass. ids [B, S], lengths [B] -> [B, S, D]."""
-    check_supported(arch)
     spec = arch.encoder
     ep = params["encoder"]
     ec = consts.get("encoder", {})
@@ -833,6 +823,43 @@ def _sandwich_ffn(arch, fspec, lp: dict, x, delta, pre_norm: bool, quantize_acts
 # ---------------------------------------------------------------------------
 # Decoder cache.
 # ---------------------------------------------------------------------------
+
+
+def pre_norm_stack(arch: ArchSpec, spec, ep: dict, x, quantize_acts: bool,
+                   after=None):
+    """A speech encoder's stack of plain pre-norm layers (no mask, no
+    positions) and its output norm, which under W8A8 quantizes for the
+    linear ``after`` when one reads it (Wav2Vec2's CTC head)."""
+    delta = None
+    for i, layer in enumerate(spec.layers):
+        lp = ep["layers"][i]
+        x, delta, _ = self_attention_block(
+            arch, layer.self_attention, lp["self_attention"], x, bias=None,
+            pre_norm=spec.pre_norm, quantize_acts=quantize_acts, delta=delta)
+        x, delta = ffn_block(arch, layer.ffn, lp["ffn"], x, spec.pre_norm,
+                             quantize_acts, delta=delta)
+    if ep.get("layer_norm") is None:
+        return _settle(x, delta)
+    quantize = after is not None and _int8_fed(quantize_acts, after)
+    return _add_norm(arch, ep["layer_norm"], x, delta, quantize, keep_sum=False)[1]
+
+
+def speech_encoder_forward(arch: ArchSpec, params: dict, consts: dict, features,
+                           quantize_acts: bool = True, out_dtype=torch.float32):
+    """Whisper's encoder (reference: src/layers/whisper.cc:25-62): two
+    convolutions of width 3 with GELU, the second of stride 2, the learned
+    position table cut to the output length, the pre-norm stack and the
+    output norm. ``features`` [B, n_mels, T] -> [B, T // 2, D]."""
+    spec = arch.encoder
+    ep = params["encoder"]
+    x = features
+    convs = ep["convs"]
+    for i, conv in enumerate(convs):
+        x = conv1d(x, conv["w"], conv.get("b"), stride=2 if i == len(convs) - 1 else 1,
+                   padding=1, activation=gelu)
+    x = x.transpose(1, 2).to(out_dtype)
+    x = x + ep["position_encodings"][:x.shape[1]].to(x.dtype)[None]
+    return pre_norm_stack(arch, spec, ep, x, quantize_acts)
 
 
 def layer_cache_capacity(arch: ArchSpec, aspec: AttentionSpec, capacity: int,
@@ -1075,6 +1102,9 @@ def decoder_forward(
     # first positions: prefill attention runs over the fresh tensors only
     # (O(T^2), flash-eligible) while still writing the cache
     return_attention: bool = False,
+    alignment_pairs=None,  # tuple of (layer, head): collect these heads'
+    # cross-attention
+    raw_attention: bool = False,  # the pairs' pre-softmax scores
 ):
     """Decoder pass covering both modes:
 
@@ -1088,8 +1118,11 @@ def decoder_forward(
     of layer ``spec.alignment_layer`` averaged over its first
     ``spec.alignment_heads`` heads, float32 [B*beam, T, S] (None without a
     cross-attention there) (reference: src/layers/transformer.cc:565-603).
+    With ``alignment_pairs`` the third output is instead the cross-attention
+    of those (layer, head) pairs, [B*beam, P, T, S] in pair order: the
+    float32 softmax weights, or with ``raw_attention`` the scores before it
+    (Whisper's alignment, reference: src/models/whisper.cc:495-556).
     """
-    check_supported(arch)
     if getattr(pos, "ndim", 0) > 0:
         raise NotImplementedError(
             "per-row positions (continuous batching) are not ported yet")
@@ -1132,6 +1165,10 @@ def decoder_forward(
     delta = None
     attention = None
     position_bias = None
+    pair_heads: dict = {}
+    for li, hi in alignment_pairs or ():
+        pair_heads.setdefault(li, []).append(hi)
+    collected = []
     for i, layer in enumerate(spec.layers):
         lp = dp["layers"][i]
         aspec = layer.self_attention
@@ -1151,7 +1188,10 @@ def decoder_forward(
                        alibi_slopes=flash_alibi,
                        alibi_positive=spec.alibi_use_positive_positions,
                        fresh_prefill=fresh, kv_lengths=kv_lengths)
-        want = return_attention and i == spec.alignment_layer
+        if alignment_pairs is not None:
+            want = ("logits" if raw_attention else True) if i in pair_heads else False
+        else:
+            want = return_attention and i == spec.alignment_layer
         weights = None
         if layer.sandwich_norm:
             x, h = _add_norm(arch, lp["input_layer_norm"], x, delta,
@@ -1222,7 +1262,10 @@ def decoder_forward(
             x, delta = ffn_block(arch, layer.ffn, lp["ffn"], x, spec.pre_norm, qa,
                                  delta=delta)
         if want and weights is not None:
-            attention = weights[:, :spec.alignment_heads].mean(dim=1)
+            if alignment_pairs is not None:
+                collected += [weights[:, h:h + 1] for h in pair_heads[i]]
+            else:
+                attention = weights[:, :spec.alignment_heads].mean(dim=1)
 
     if spec.has_output_norm:
         # Under W8A8 the norm quantizes for the linear that reads its output.
@@ -1244,6 +1287,8 @@ def decoder_forward(
         if spec.final_logit_softcapping:
             cap = spec.final_logit_softcapping
             x = torch.tanh(x / cap) * cap
+    if alignment_pairs is not None:
+        return x, self_cache, (torch.cat(collected, dim=1) if collected else None)
     if return_attention:
         return x, self_cache, attention
     return x, self_cache

@@ -141,13 +141,15 @@ def dot_product_attention(
     v,  # [B, Hkv, Tk, D]
     bias=None,  # additive f32, broadcastable to [B, Hq, Tq, Tk]
     queries_scale: float = 1.0,
-    return_weights: bool = False,
+    return_weights=False,  # False | True (the softmax) | "logits"
     rel_position_keys=None,  # [2P+1, D] Shaw tables (float32)
     rel_position_values=None,
     rel_positions=None,  # [Tq, Tk] int indices into the tables
 ):
     """The attention output [B, Hq, Tq, D]; with ``return_weights``, also
-    the float32 softmax weights [B, Hq, Tq, Tk]. The Shaw tables add
+    the float32 softmax weights [B, Hq, Tq, Tk] (with ``"logits"`` the
+    pre-softmax scores, bias added, for consumers that re-normalize after
+    removing padding: reference src/models/whisper.cc:520-556). The Shaw tables add
     ``q . rel_keys[rel]`` to the logits and ``weights . rel_values[rel]``
     to the output, in float32 (reference: src/layers/attention.cc:128-165)."""
     B, Hq, Tq, D = q.shape
@@ -169,6 +171,8 @@ def dot_product_attention(
         out = out.float() + torch.einsum(
             "bhgqk,qkd->bhgqd", weights.to(v.dtype).float(), rel_rep_v)
     out = out.reshape(B, Hq, Tq, D).to(q.dtype)
+    if return_weights == "logits":
+        return out, logits.reshape(B, Hq, Tq, -1)
     if return_weights:
         return out, weights.reshape(B, Hq, Tq, -1)
     return out

@@ -120,7 +120,10 @@ def linear(
         if quantize_activations:
             a = x if prequantized else quantize_input(x)
             N, K = wq.shape
-            y = matmul_w8a8(a.q.reshape(-1, K), wq, a.scale.reshape(-1),
+            # The kernel takes contiguous rows: a strided input (a transposed
+            # convolution output) quantizes into a strided q.
+            y = matmul_w8a8(a.q.reshape(-1, K).contiguous(), wq,
+                            a.scale.reshape(-1).contiguous(),
                             w_scale).reshape(*a.shape[:-1], N)
         else:
             w = wq.float() / w_scale[:, None]

@@ -8,6 +8,7 @@ as the JAX package does, so both packages see the same padded inputs.
 
 from __future__ import annotations
 
+import collections
 import numbers
 from typing import List, Sequence, Tuple
 
@@ -69,6 +70,53 @@ def pad_batch(
     max_len = round_up(max_len, length_multiple)
     padded = [list(x) + [pad_id] * (max_len - len(x)) for x in ids]
     return padded, lengths
+
+
+def default_read_batch_size(read_batch_size: int, max_batch_size: int):
+    """The reference's read-window default: 16 batches' worth, or the batch
+    itself at batch size 1 (replica_pool.h:210-211). None for an unbounded
+    window (``max_batch_size`` 0)."""
+    if read_batch_size > 0:
+        return read_batch_size
+    size = max_batch_size if max_batch_size == 1 else max_batch_size * 16
+    return size if size > 0 else None
+
+
+def consume_stream(read_window, submit, write, max_pending: int = 0):
+    """The reference's consume_batches loop (replica_pool.h:191-226): read a
+    window of examples, submit it asynchronously, and write the finished
+    results in submission order, so reading, computing and writing overlap.
+
+    ``read_window()`` returns the next window (falsy at the end);
+    ``submit`` maps a window to a sequence of AsyncResults; ``write`` takes
+    one resolved result. ``max_pending`` (> 0) bounds the results in flight
+    by waiting on the oldest: the reference's max_queued_batches
+    backpressure. On an error the results in flight settle before it
+    propagates, so no worker is left computing for a closed file.
+    """
+    pending = collections.deque()
+
+    def drain(blocking):
+        while pending and (blocking or pending[0].done()):
+            write(pending.popleft().result())
+
+    try:
+        while True:
+            window = read_window()
+            if not window:
+                break
+            pending.extend(submit(window))
+            drain(blocking=False)
+            while max_pending and len(pending) > max_pending:
+                write(pending.popleft().result())
+        drain(blocking=True)
+    except BaseException:
+        while pending:
+            try:
+                pending.popleft().result()
+            except Exception:
+                pass
+        raise
 
 
 def normalize_input_ids(inputs, vocab, lengths=None):

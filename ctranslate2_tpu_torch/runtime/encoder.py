@@ -62,12 +62,12 @@ class Encoder(TaskAPIMixin):
         if self.model.arch.encoder is None:
             raise ValueError(
                 f"The model at {model_path} does not have an encoder")
-        T.check_supported(self.model.arch)
         self._apply_flash_flag(kwargs)
         self._pool = WorkerPool(
             num_workers=max(1, inter_threads),
             max_queued_batches=resolve_max_queued_batches(
-                kwargs, max_queued_batches))
+                kwargs, max_queued_batches),
+            device=self.model.device)
         self._pooler = self._load_pooler()
 
     def _load_pooler(self):

@@ -5,9 +5,10 @@ src/models/language_model.cc:105-300).
 Runs on one CUDA card by default, or on the CPU when ``device="cpu"``.
 ``generate_batch`` (beam or greedy, argmax or random sampling, with a
 static prompt prefilled once and cached, step callbacks, alternatives and
-vocabulary logits), ``score_batch``, ``forward_batch`` and
-``score_iterable`` are ported; ``speculation_k``, ``generate_tokens`` and
-``generate_iterable`` are not yet.
+vocabulary logits), ``score_batch``, ``forward_batch`` and the streaming
+helpers ``generate_iterable``, ``generate_tokens``,
+``async_generate_tokens`` and ``score_iterable`` are ported;
+``speculation_k`` is not yet.
 """
 
 from __future__ import annotations
@@ -57,12 +58,12 @@ class Generator(TaskAPIMixin):
             raise ValueError(
                 f"The model at {model_path} is not a decoder-only model "
                 "that can be used with Generator")
-        T.check_supported(self.model.arch)
         self._apply_flash_flag(kwargs)
         self._pool = WorkerPool(
             num_workers=max(1, inter_threads),
             max_queued_batches=resolve_max_queued_batches(
-                kwargs, max_queued_batches))
+                kwargs, max_queued_batches),
+            device=self.model.device)
         self.engine = DecodingEngine(self.model)
         # Prefilled static prompts: (token ids, ring) -> (1-row cache, capacity)
         # (reference: include/ctranslate2/layers/decoder.h:102-110).
@@ -365,8 +366,25 @@ class Generator(TaskAPIMixin):
             return torch.log_softmax(logits.float(), dim=-1)
         return logits
 
-    def generate_tokens(self, *args, **kwargs):
-        raise NotImplementedError("Generator.generate_tokens is not ported yet")
+    # ------------------------------------------------------------------
+    # Streaming sugar (reference: python/ctranslate2/extensions.py).
+    # ------------------------------------------------------------------
 
-    def generate_iterable(self, *args, **kwargs):
-        raise NotImplementedError("Generator.generate_iterable is not ported yet")
+    def generate_iterable(self, start_tokens, max_batch_size=32,
+                          batch_type="examples", **kwargs):
+        from .extensions import generate_iterable
+
+        return generate_iterable(self, start_tokens, max_batch_size, batch_type,
+                                 **kwargs)
+
+    def generate_tokens(self, prompt, **kwargs):
+        from .extensions import generate_tokens
+
+        if kwargs.pop("return_log_prob", False):
+            kwargs["return_scores"] = True
+        return generate_tokens(self, prompt, **kwargs)
+
+    def async_generate_tokens(self, prompt, **kwargs):
+        from .extensions import async_generate_tokens
+
+        return async_generate_tokens(self, prompt, **kwargs)

@@ -13,6 +13,8 @@ import threading
 from concurrent.futures import Future
 from typing import Callable, Optional
 
+import torch
+
 
 def resolve_max_queued_batches(kwargs: dict, max_queued_batches: int) -> int:
     """Resolve the ctor arg, honoring the legacy ``max_queue_size`` alias
@@ -28,10 +30,13 @@ class WorkerPool:
 
     ``submit`` blocks while ``max_queued_batches`` jobs are pending
     (reference value convention, replica_pool.h:252-255: 0 = automatic,
-    4 per worker; -1 = unlimited; >0 = that bound).
+    4 per worker; -1 = unlimited; >0 = that bound). With a CUDA ``device``
+    each worker makes it its current device before its first job (a new
+    thread has no current CUDA context; cuBLAS warns and takes card 0's).
     """
 
-    def __init__(self, num_workers: int = 1, max_queued_batches: int = 0):
+    def __init__(self, num_workers: int = 1, max_queued_batches: int = 0,
+                 device: Optional[torch.device] = None):
         if max_queued_batches == 0:
             maxsize = 4 * max(1, num_workers)
         elif max_queued_batches < 0:
@@ -42,6 +47,7 @@ class WorkerPool:
         self._closed = False
         self._active = 0
         self._lock = threading.Lock()
+        self._device = device
         self._workers = []
         for i in range(max(1, num_workers)):
             t = threading.Thread(target=self._run, daemon=True,
@@ -90,6 +96,8 @@ class WorkerPool:
             pass
 
     def _run(self):
+        if self._device is not None and self._device.type == "cuda":
+            torch.cuda.set_device(self._device)
         while True:
             try:
                 job = self._queue.get(timeout=0.5)

@@ -105,6 +105,21 @@ class GenerationStepResult:
         return self.score
 
 
+@dataclass
+class ExecutionStats:
+    """What a file call did (reference: include/ctranslate2/translator.h
+    ExecutionStats): the target tokens written (the first hypothesis of
+    each example), the examples and the wall time."""
+    num_tokens: int = 0
+    num_examples: int = 0
+    total_time_in_ms: float = 0.0
+
+    def __repr__(self):
+        return (f"ExecutionStats(num_tokens={self.num_tokens}, "
+                f"num_examples={self.num_examples}, "
+                f"total_time_in_ms={self.total_time_in_ms})")
+
+
 class AsyncResult:
     """Future-backed async handle (reference: the pybind AsyncTranslation /
     AsyncGeneration wrappers over std::future,

@@ -6,13 +6,18 @@ Runs on one CUDA card by default, or on the CPU when ``device="cpu"``.
 ``translate_batch`` (beam or greedy, argmax or random sampling, with every
 option: attention and ``replace_unknowns``, the coverage penalty,
 prefix-biased decoding, vocabulary logits, alternatives, a vocabulary map
-and step callbacks), ``score_batch`` and ``score_iterable`` are ported;
-``translate_file`` and ``translate_iterable`` are not yet.
+and step callbacks), ``score_batch``, the file helpers ``translate_file``
+and ``score_file``, and the streaming helpers ``translate_iterable``,
+``score_iterable`` and ``translate_tokens`` (``generate_tokens``) are
+ported.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import sys
+import time
 from concurrent.futures import Future
 from typing import List, Optional, Sequence
 
@@ -28,10 +33,11 @@ from ..models import transformer as T
 from ..models.loader import LoadedModel, load_model, resolve_device
 from ..ops import attention as attn_ops
 from .base import TaskAPIMixin
-from .batching import bucket_length, pad_batch
+from .batching import (bucket_length, consume_stream, default_read_batch_size,
+                       pad_batch)
 from .pool import WorkerPool, resolve_max_queued_batches
-from .results import (AsyncResult, GenerationStepResult, ScoringResult,
-                      TranslationResult)
+from .results import (AsyncResult, ExecutionStats, GenerationStepResult,
+                      ScoringResult, TranslationResult)
 from .scoring import teacher_forced_scores
 
 # Source-factor separator (reference: include/ctranslate2/utils.h:33).
@@ -88,12 +94,12 @@ class Translator(TaskAPIMixin):
             raise ValueError(
                 f"The model at {model_path} is not an encoder-decoder model "
                 "that can be used with Translator")
-        T.check_supported(self.model.arch)
         self._apply_flash_flag(kwargs)
         self._pool = WorkerPool(
             num_workers=max(1, inter_threads),
             max_queued_batches=resolve_max_queued_batches(
-                kwargs, max_queued_batches))
+                kwargs, max_queued_batches),
+            device=self.model.device)
         self.engine = DecodingEngine(self.model)
         self._vmap = (None if self.model.vmap_lines is None else
                       VocabularyMap.from_lines(self.model.vmap_lines,
@@ -447,6 +453,156 @@ class Translator(TaskAPIMixin):
                 attention=attention if return_attention else [],
                 logits=dr.logits if options.return_logits_vocab else []))
         return out
+
+    # ------------------------------------------------------------------
+    # Streaming sugar (reference: python/ctranslate2/extensions.py).
+    # ------------------------------------------------------------------
+
+    def translate_iterable(self, source, target_prefix=None, max_batch_size=32,
+                           batch_type="examples", **kwargs):
+        from .extensions import translate_iterable
+
+        return translate_iterable(self, source, target_prefix, max_batch_size,
+                                  batch_type, **kwargs)
+
+    def translate_tokens(self, source, target_prefix=None, **kwargs):
+        from .extensions import translate_tokens
+
+        if kwargs.pop("return_log_prob", False):
+            kwargs["return_scores"] = True
+        return translate_tokens(self, source, target_prefix, **kwargs)
+
+    # The reference's name for token streaming on a translator
+    # (python/ctranslate2/extensions.py translator_generate_tokens).
+    generate_tokens = translate_tokens
+
+    # ------------------------------------------------------------------
+    # Files (reference: include/ctranslate2/translator.h:68-211,
+    # python/cpp/translator.cc translate_file / score_file).
+    # ------------------------------------------------------------------
+
+    def translate_file(self, source_path: str, output_path: str,
+                       target_path: Optional[str] = None,
+                       max_batch_size: int = 32, read_batch_size: int = 0,
+                       batch_type: str = "examples", with_scores: bool = False,
+                       source_tokenize_fn=None, target_tokenize_fn=None,
+                       target_detokenize_fn=None, **kwargs) -> ExecutionStats:
+        """Translate a tokenized text file (or, with the tokenize and
+        detokenize callbacks, a raw one), one output line a hypothesis,
+        ``"{score} ||| {line}"`` with ``with_scores``. Windows of
+        ``read_batch_size`` lines are submitted asynchronously through the
+        worker pool and written in order; ``target_path`` gives each line a
+        target prefix."""
+        if bool(source_tokenize_fn) != bool(target_detokenize_fn):
+            raise ValueError("source_tokenize_fn and target_detokenize_fn should "
+                             "both be set or none at all")
+        if target_path and source_tokenize_fn and not target_tokenize_fn:
+            raise ValueError("target_tokenize_fn should be set when passing a "
+                             "target file")
+        start = time.time()
+        stats = ExecutionStats()
+        src_tok = source_tokenize_fn or str.split
+        tgt_tok = target_tokenize_fn or str.split
+        detok = target_detokenize_fn or " ".join
+        if with_scores:
+            kwargs.setdefault("return_scores", True)
+        read_batch_size = default_read_batch_size(read_batch_size, max_batch_size)
+
+        with contextlib.ExitStack() as stack:
+            fin = stack.enter_context(open(source_path, encoding="utf-8"))
+            fin_tgt = (stack.enter_context(open(target_path, encoding="utf-8"))
+                       if target_path is not None else None)
+            fout = stack.enter_context(open(output_path, "w", encoding="utf-8"))
+
+            def read_window():
+                window = list(itertools.islice(fin, read_batch_size))
+                if not window:
+                    if fin_tgt is not None and fin_tgt.readline():
+                        raise ValueError("source and target files do not have "
+                                         "the same number of lines")
+                    return None
+                lines = [src_tok(line.rstrip("\n")) for line in window]
+                prefix = None
+                if fin_tgt is not None:
+                    tgt_window = list(itertools.islice(fin_tgt, len(window)))
+                    if len(tgt_window) != len(window):
+                        raise ValueError("source and target files do not have "
+                                         "the same number of lines")
+                    prefix = [tgt_tok(line.rstrip("\n")) for line in tgt_window]
+                return lines, prefix
+
+            def submit(window):
+                lines, prefix = window
+                return self.translate_batch(
+                    lines, target_prefix=prefix, max_batch_size=max_batch_size,
+                    batch_type=batch_type, asynchronous=True, **kwargs)
+
+            def write(r):
+                hypotheses = r.hypotheses or [[]]
+                stats.num_tokens += len(hypotheses[0])
+                stats.num_examples += 1
+                for n, tokens in enumerate(hypotheses):
+                    line = detok(tokens)
+                    if with_scores:
+                        line = f"{r.scores[n] if r.scores else 0} ||| {line}"
+                    fout.write(line + "\n")
+
+            consume_stream(read_window, submit, write,
+                           max_pending=4 * (read_batch_size or 0))
+        stats.total_time_in_ms = (time.time() - start) * 1000.0
+        return stats
+
+    def score_file(self, source_path: str, target_path: str, output_path: str,
+                   max_batch_size: int = 32, read_batch_size: int = 0,
+                   batch_type: str = "examples", with_tokens_score: bool = False,
+                   **kwargs) -> ExecutionStats:
+        """Score a parallel pair of tokenized files, one
+        ``"{mean:.6f} ||| tokens"`` line an example (``" ||| "`` and each
+        token's score added with ``with_tokens_score``), streamed as
+        ``translate_file`` streams."""
+        start = time.time()
+        stats = ExecutionStats()
+        read_batch_size = default_read_batch_size(read_batch_size, max_batch_size)
+
+        with open(source_path, encoding="utf-8") as fsrc, \
+                open(target_path, encoding="utf-8") as ftgt, \
+                open(output_path, "w", encoding="utf-8") as fout:
+
+            def read_window():
+                src_window = list(itertools.islice(fsrc, read_batch_size))
+                if not src_window:
+                    if ftgt.readline():
+                        raise ValueError("source and target files do not have "
+                                         "the same number of lines")
+                    return None
+                tgt_window = list(itertools.islice(ftgt, len(src_window)))
+                if len(tgt_window) != len(src_window):
+                    raise ValueError("source and target files do not have the "
+                                     "same number of lines")
+                return src_window, tgt_window
+
+            def submit(window):
+                src_window, tgt_window = window
+                return self.score_batch(
+                    [line.split() for line in src_window],
+                    [line.split() for line in tgt_window],
+                    max_batch_size=max_batch_size, batch_type=batch_type,
+                    asynchronous=True, **kwargs)
+
+            def write(r):
+                stats.num_tokens += len(r.tokens)
+                stats.num_examples += 1
+                mean = (sum(r.tokens_score) / len(r.tokens_score)
+                        if r.tokens_score else 0.0)
+                line = f"{mean:.6f} ||| {' '.join(r.tokens)}"
+                if with_tokens_score:
+                    line += " ||| " + " ".join(f"{s:.6f}" for s in r.tokens_score)
+                fout.write(line + "\n")
+
+            consume_stream(read_window, submit, write,
+                           max_pending=4 * (read_batch_size or 0))
+        stats.total_time_in_ms = (time.time() - start) * 1000.0
+        return stats
 
     # ------------------------------------------------------------------
     # Scoring (reference: src/scoring.cc:5-68).

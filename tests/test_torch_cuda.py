@@ -1807,3 +1807,204 @@ def test_architecture_translator_on_card_matches_cpu(tmp_path, model, beam_size)
     # Shaw keys and values decline the flash kernel; the others' encoders take it.
     assert (counts["flash_attention"] > 0) == (model != "shaw")
     _same_on_card(out, cpu.translate_batch(sources, **opts), "float", hyps="hypotheses")
+
+
+# ---------------------------------------------------------------------------
+# The file and streaming helpers and the speech models on the card against
+# the port on the CPU (float32), and the kernels at the shapes the speech
+# paths give them.
+# ---------------------------------------------------------------------------
+
+# (M, K, N) of the speech paths: Whisper-large-v3's projection (N 51,866, off
+# a multiple of 8) at beam 5 x 4 rows and at the prefill, its encoder
+# linears at 4 x 1,500 frames, Wav2Vec2's CTC head at 8 x 999 frames.
+W8A8_SPEECH_CASES = [(20, 1280, 51866), (8, 1280, 51866), (148, 1280, 51866),
+                     (1, 1280, 51866), (6000, 1280, 1280), (6000, 1280, 3840),
+                     (6000, 5120, 1280), (7992, 1024, 32), (7992, 512, 1024),
+                     (8, 1024, 32), (4000, 1024, 2048), (20, 1280, 2561)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", W8A8_SPEECH_CASES)
+def test_w8a8_speech_shapes_bit_equal_on_card(M, K, N):
+    dev = _card()
+    args = [torch.from_numpy(a).to(dev) for a in _w8a8_inputs(M, K, N, seed=M + N)]
+    out = matmul_w8a8(*args)
+    torch.cuda.synchronize()
+    assert out.shape == (M, N) and torch.equal(out, matmul_w8a8_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [512, 1280, 160])
+def test_norm_on_transposed_conv_rows_on_card(width):
+    """The feature convolutions' [B, C, T] output read as [B, T, C] rows:
+    the wrapper takes the strided view."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(width)
+    x = torch.randn((3, width, 77), generator=g, device=dev).transpose(1, 2)
+    gamma = torch.randn(width, generator=g, device=dev)
+    beta = torch.randn(width, generator=g, device=dev)
+    out = fused_norm(x, gamma, beta, eps=1e-5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, fused_norm_plain(x, gamma, beta, eps=1e-5),
+                               atol=1e-5, rtol=1e-5)
+
+
+def _whisper_pair(tmp_path, kv, monkeypatch):
+    from ctranslate2_tpu_torch.converters.builder import build_whisper_model
+
+    if kv == "int8":
+        monkeypatch.setenv("CT2TPU_KV_CACHE", "int8")
+    else:
+        monkeypatch.delenv("CT2TPU_KV_CACHE", raising=False)
+    path, vocab = build_whisper_model(str(tmp_path / "whisper"), d_model=64, d_ff=128,
+                                      num_layers=2, max_positions=128)
+    card = tt.Whisper(path, compute_type="float32")
+    cpu = tt.Whisper(path, device="cpu", compute_type="float32")
+    return card, cpu, vocab
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float", "int8"])
+def test_whisper_on_card_matches_cpu(tmp_path, monkeypatch, kv):
+    _card()
+    card, cpu, vocab = _whisper_pair(tmp_path, kv, monkeypatch)
+    feats = np.random.default_rng(3).standard_normal((3, 24, 200)).astype(np.float32)
+    mem, mem_cpu = card.encode(feats), cpu.encode(feats)
+    torch.testing.assert_close(mem.cpu(), mem_cpu, atol=1e-4, rtol=1e-4)
+    sot = ["<|startoftranscript|>", "<|en|>", "<|transcribe|>"]
+    prev = ["<|startofprev|>", "w3", "w9", "w4"] + sot
+    tol = 1e-4 if kv == "float" else 5e-2
+    for prompt, kw in ((sot, dict(beam_size=2)), (prev, dict(beam_size=3)),
+                       (sot + ["<|notimestamps|>"], dict(beam_size=1)),
+                       ([sot[0]], dict(beam_size=1))):
+        opts = dict(max_length=40, return_scores=True, return_no_speech_prob=True, **kw)
+        kernels.reset_launches()
+        a = card.generate(mem, [prompt] * 3, **opts)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        b = cpu.generate(mem_cpu, [prompt] * 3, **opts)
+        assert [x.sequences_ids for x in a] == [x.sequences_ids for x in b]
+        np.testing.assert_allclose([x.scores[0] for x in a], [x.scores[0] for x in b],
+                                   atol=tol, rtol=0)
+        np.testing.assert_allclose([x.no_speech_prob for x in a],
+                                   [x.no_speech_prob for x in b], atol=1e-4, rtol=0)
+        assert counts["fused_norm"] > 0
+        assert (counts["decode_attention_int8"] > 0) == (kv == "int8")
+        if kw["beam_size"] > 1 and len(prompt) > 1:  # a cached prompt: no chain mask
+            assert counts["gather_rows_fused"] > 0
+    la, lb = card.detect_language(mem), cpu.detect_language(mem_cpu)
+    for x, y in zip(la, lb):
+        np.testing.assert_allclose([p for _, p in x], [dict(y)[t] for t, _ in x],
+                                   atol=1e-4, rtol=0)
+    start = [vocab.index(t) for t in sot]
+    texts = [[3, 4, 5, 6], [7, 8], [9, 10, 11]]
+    aa = card.align(mem, start, texts, [200, 120, 0])
+    ab = cpu.align(mem_cpu, start, texts, [200, 120, 0])
+    assert [x.alignments for x in aa] == [x.alignments for x in ab]
+    np.testing.assert_allclose([p for x in aa for p in x.text_token_probs],
+                               [p for x in ab for p in x.text_token_probs], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flash", [False, True])
+def test_speech_encoders_on_card_match_cpu(flash):
+    _card()
+    cs = _chip_smoke()
+    mf = cs.build_wav2vec2_modelfile(2, dict(cs.WAV2VEC2_LARGE, d_model=64, heads=4,
+                                             d_ff=128, conv_dim=32))
+    audio = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 1, 16000)).astype(np.float32))
+    kernels.reset_launches()
+    out = tt.Wav2Vec2(mf, compute_type="float32", flash_attention=flash).encode(
+        audio, to_cpu=True)
+    counts = kernels.launch_counts()
+    ref = tt.Wav2Vec2(mf, device="cpu", compute_type="float32").encode(audio)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    assert counts["fused_norm"] > 0 and (counts["flash_attention"] == 2) == flash
+    mf = cs.build_w2v_bert_modelfile(2, dict(cs.W2V_BERT_2, d_model=64, heads=4, d_ff=128,
+                                             input_dim=24, left=8, right=4))
+    feats = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 75, 24)).astype(np.float32))
+    out = tt.Wav2Vec2Bert(mf, compute_type="float32").encode(feats, to_cpu=True)
+    ref = tt.Wav2Vec2Bert(mf, device="cpu", compute_type="float32").encode(feats)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_file_and_stream_helpers_on_card_match_cpu(tmp_path):
+    _card()
+    path = build_seq2seq_model(str(tmp_path / "s2s"), vocab_size=128, num_layers=2,
+                               num_heads=4, d_model=64, d_ff=128)
+    card = tt.Translator(path, compute_type="float32")
+    cpu = tt.Translator(path, device="cpu", compute_type="float32")
+    rng = np.random.default_rng(4)
+    lines = [" ".join(f"tok{int(t)}" for t in rng.integers(0, 120, rng.integers(2, 15)))
+             for _ in range(21)]
+    src = tmp_path / "src.txt"
+    src.write_text("".join(line + "\n" for line in lines))
+    outs = []
+    for tr, name in ((card, "card.txt"), (cpu, "cpu.txt")):
+        tr.translate_file(str(src), str(tmp_path / name), read_batch_size=4,
+                          max_batch_size=3, beam_size=2, max_decoding_length=10,
+                          with_scores=True)
+        outs.append([line.split(" ||| ") for line in
+                     (tmp_path / name).read_text().splitlines()])
+    assert [t for _, t in outs[0]] == [t for _, t in outs[1]]
+    np.testing.assert_allclose([float(s) for s, _ in outs[0]], [float(s) for s, _ in outs[1]],
+                               atol=1e-4, rtol=0)
+    gpath = build_decoder_only_model(str(tmp_path / "dec"), vocab_size=96, num_layers=2,
+                                     num_heads=4, d_model=64, d_ff=96)
+    gc_, gp = tt.Generator(gpath, compute_type="float32"), tt.Generator(
+        gpath, device="cpu", compute_type="float32")
+    prompt = ["<s>", "tok4", "tok17"]
+    a = [(s.token_id, s.log_prob) for s in gc_.generate_tokens(prompt, max_length=12,
+                                                              return_log_prob=True)]
+    b = [(s.token_id, s.log_prob) for s in gp.generate_tokens(prompt, max_length=12,
+                                                             return_log_prob=True)]
+    assert [t for t, _ in a] == [t for t, _ in b]
+    np.testing.assert_allclose([p for _, p in a], [p for _, p in b], atol=1e-4, rtol=0)
+    stream = gc_.generate_tokens(prompt, max_length=40, min_length=40)
+    next(stream)
+    stream.close()
+    assert not stream._thread.is_alive()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 3])
+def test_w8a8_linear_takes_strided_activations_on_card(rows):
+    """A transposed convolution output ([B, C, T] read as [B, T, C]) into an
+    int8 linear: one batch row quantizes into a strided q, which the linear
+    hands the kernel as contiguous rows."""
+    from ctranslate2_tpu_torch.ops.linear import linear
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(rows)
+    x = torch.randn((rows, 64, 30), generator=g, device=dev).transpose(1, 2)
+    params = {"wq": torch.randint(-127, 128, (48, 64), generator=g, device=dev,
+                                  dtype=torch.int8),
+              "scale": torch.rand(48, generator=g, device=dev) + 0.5}
+    out = linear(params, x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, linear(params, x.contiguous()))
+
+
+@pytest.mark.cuda
+def test_conv1d_is_ieee_float32_on_card():
+    """With TF32 allowed for cuDNN (its default), the convolution still
+    runs in IEEE float32, and the setting is left as it was."""
+    from ctranslate2_tpu_torch.ops.conv import conv1d
+
+    dev = _card()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 128, 300)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((256, 128, 3)).astype(np.float32))
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out = conv1d(x.to(dev), w.to(dev), stride=2, padding=1)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    torch.testing.assert_close(out.cpu(), conv1d(x, w, stride=2, padding=1),
+                               atol=1e-4, rtol=1e-5)

@@ -507,9 +507,15 @@ def test_unported_generator_options_raise(model_dirs, option):
 
 @pytest.mark.parametrize("method", ["generate_tokens", "generate_iterable"])
 def test_unported_generator_methods_raise(model_dirs, method):
+    """Both raised until the streaming helpers came; now each runs
+    (tests/test_torch_file_helpers.py holds them against the JAX package)."""
     tg = tt.Generator(model_dirs["float32"], device="cpu")
-    with pytest.raises(NotImplementedError):
-        getattr(tg, method)([["tok1"]])
+    if method == "generate_tokens":
+        steps = list(tg.generate_tokens(["tok1"], max_length=4))
+        assert steps and steps[-1].is_last and len(steps) <= 4
+    else:
+        out = list(tg.generate_iterable([["tok1"], ["tok2", "tok3"]], max_length=4))
+        assert len(out) == 2 and all(r.sequences_ids for r in out)
 
 
 def test_generator_entry_checks(model_dirs, tmp_path):

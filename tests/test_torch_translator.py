@@ -142,11 +142,15 @@ def test_unported_options_raise(translators, option):
 
 
 def test_import_does_not_load_jax():
-    code = ("import sys, ctranslate2_tpu_torch, "
-            "ctranslate2_tpu_torch.converters.builder; "
+    """Every module of the port, the lazily imported ones too (the
+    streaming helpers, the decode loops, the speech modules), imports
+    neither JAX nor the JAX package."""
+    code = ("import importlib, pkgutil, sys, ctranslate2_tpu_torch as p; "
+            "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]; "
+            "[importlib.import_module(n) for n in names]; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'ctranslate2_tpu' or m.startswith('ctranslate2_tpu.')]; "
-            "print(bad); sys.exit(1 if bad else 0)")
+            "print(len(names), bad); sys.exit(1 if bad or len(names) < 40 else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
