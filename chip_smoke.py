@@ -45,7 +45,8 @@ Phases, one JSON object per line:
    layer's attention then gets the kernel run's inputs,
    and its output is compared where the output projection quantizes it: at
    most one int8 step apart, on at most ``FED_STEP_SHARE`` of the entries.
-4. AWQ Generator main path: the same geometry in AutoAWQ's GEMM layout
+4. AWQ Generator main path: the same widths at half the depth
+   (``AWQ_LAYERS``) in AutoAWQ's GEMM layout
    (group 128, zero points; float16 embeddings and projection), fabricated
    in memory; ``Generator(...).generate_batch`` with the card's defaults
    (float16 activations, packed W4) and ``CT2TPU_KV_CACHE=int8``, the same
@@ -184,7 +185,8 @@ Phases, one JSON object per line:
    64 new tokens equal to ``generate_batch``'s, its time to the first token
    and ms a step; ``generate_iterable`` over the 4 prompts;
    ``async_generate_tokens``); ``whisper`` (``WHISPER_LARGE_V3``,
-   openai/whisper-large-v3's widths, int8 with the int8 KV cache: ``encode``
+   openai/whisper-large-v3's widths at ``WHISPER_LAYERS`` + ``WHISPER_LAYERS``
+   layers, int8 with the int8 KV cache: ``encode``
    of 4 x 30 s; ``generate`` at beam 5 with timestamps, max_length 448; a
    32-token ``<|startofprev|>`` prompt with the no-speech probability and a
    greedy ``<|notimestamps|>`` call, max_length ``WHISPER_SHORT_LENGTH``;
@@ -202,6 +204,43 @@ Phases, one JSON object per line:
    the alignments identical. The kernel phase benches every shape these
    paths gave a kernel that no earlier path did, in rows of their own
    (``"summed": false``).
+
+13. Serving, each run with the launch counters zeroed just before
+   and read just after, the kernels' call shapes logged and their plain
+   versions' calls on the card counted (none allowed):
+   ``serving_translator`` (after ``file_helpers_translator``:
+   ``BufferedTranslationWrapper`` and ``translation_scheduler`` on the
+   four phase-2 batches submitted one sentence at a time, at least
+   ``FILE_SAME_SHARE`` of the hypotheses equal to ``translate_batch``'s,
+   target tok/s beside its) and ``residency_translator``
+   (``unload_model(to_cpu=True)`` / ``load_model()`` timed, the allocated
+   memory falling by at least the int8 payloads, the same hypotheses after
+   the reload, a reload without a host copy raising);
+   ``serving_generator`` (after ``file_helpers_generator``, the int8 Llama
+   with the int8 KV cache behind ``ContinuousBatcher``: ``SERVE_SLOTS``
+   slots of ``SERVE_CAPACITY``, ``SERVE_STEPS`` steps a block;
+   ``SERVE_REQUESTS`` requests submitted at once, a quarter of the prompts
+   2,048 long (flash in the admit prefill), the rest 16-512, replies 4-16
+   or 64-128 tokens; at pipeline depth 1 and 2: tokens/s, time to first
+   token and latency p50 / p95, slot occupancy, ms a block; the same
+   requests run to completion in batches of 8 on the same engine; one
+   profiled block: launches a step and the busy share; each request's
+   first token and log-prob
+   against a teacher-forced prefill of its prompt padded alike, within
+   ``SERVE_FIRST_LOGPROB_TOL``), then ``residency_generator`` (as the
+   Translator's, at least the 8.03 GB of int8 payloads freed);
+   ``serving_card_vs_cpu`` (after ``host_loop_card_vs_cpu``, ``AB_LAYERS``
+   layers in float32: the batcher on the card against the batcher on the
+   CPU, float and int8 KV, every per-request option, sampling fed the same
+   noise; tokens identical, scores within ``LOGPROB_TOL`` /
+   ``INT8_KV_LOGPROB_TOL`` a token; a batcher and a ``generate_batch`` call
+   at the same time on one model). The kernel phase holds the serving
+   shapes against the plain versions in rows of their own
+   (``serving_benches``, ``"summed": false``): the decode kernel over 8
+   slots with lengths 0 to capacity - block, flash at the 1-row 2,048
+   prefill, W8A8 and the norm at the decode M and at the smallest, median
+   and largest padded prompt (every other W8A8 prefill shape held
+   bit-equal, untimed).
 
 The line before the last is ``{"kernels": [...]}`` (times are sums over
 the ``launches`` counted on the main paths), the last
@@ -273,6 +312,10 @@ GEN_BATCH = 4
 GEMMA2_ATTENTION = dict(batch=4, heads=16, heads_kv=8, head_dim=256)
 GEN_PROMPT = 2049  # the prefill is 2,048 long: the flash kernel's threshold
 GEN_NEW = 64
+# The profiled Generator calls' new tokens (fewer than GEN_NEW: their
+# launches a step are the same, and the profiler's cost grows with the
+# events it records, which the run's time limit bounds).
+PROFILE_NEW = 8
 AB_NEW = 8
 AB_LAYERS = 2
 CPU_PROMPT = 513
@@ -304,12 +347,17 @@ W4_CROSSOVER_MS = (65, 128, 256, 512, 1024, 2048, 8192)
 W4_FORMS = (("matmul_w4p", True, False), ("matmul_w4p_fold", True, True),
             ("matmul_w4a16", False, False), ("matmul_w4a16_fold", False, True))
 W4_CROSSOVER_KN = ((4096, 4096), (4096, 6144), (4096, 14336), (14336, 4096))
+# The AWQ Generator's depth: half of Llama-3-8B's 32 layers (the run's
+# time limit), at its full widths.
+AWQ_LAYERS = LLAMA["layers"] // 2
 # Expected launches of one AWQ generate_batch call (4 prompts of 2,049, 64
-# new tokens): 5 W4 linears in each of 32 layers, for the prefill and each
-# of the 64 steps; 64 x 32 decode-kernel launches; 65 norms a forward pass.
-AWQ_LAUNCHES_PER_CALL = {"w4": 32 * 5 * (1 + GEN_NEW), "flash_attention": 32,
-                         "decode_attention_int8": GEN_NEW * 32,
-                         "fused_norm": 65 * (1 + GEN_NEW), "matmul_w8a8": 0}
+# new tokens): 5 W4 linears in each layer, for the prefill and each of the
+# 64 steps; a decode-kernel launch a layer and step; 2 norms a layer and
+# the output norm a forward pass.
+AWQ_LAUNCHES_PER_CALL = {"w4": AWQ_LAYERS * 5 * (1 + GEN_NEW), "flash_attention": AWQ_LAYERS,
+                         "decode_attention_int8": GEN_NEW * AWQ_LAYERS,
+                         "fused_norm": (2 * AWQ_LAYERS + 1) * (1 + GEN_NEW),
+                         "matmul_w8a8": 0}
 # The Encoder's model: bert-base-uncased's published widths (its
 # config.json: hidden_size 768, num_hidden_layers 12, num_attention_heads 12,
 # intermediate_size 3072, vocab_size 30522, max_position_embeddings 512,
@@ -366,7 +414,7 @@ ARCH_AB = dict(vocab_size=512, num_heads=4, d_model=256, d_ff=512)
 # The architecture phases run their families at half their published depth
 # (widths as published): the speech phases' time comes out of theirs, so
 # the whole run stays inside its limit on a slow host.
-ARCH_DEPTH_DIVISOR = 2
+ARCH_DEPTH_DIVISOR = 4  # a quarter of each family's depth: the run's time limit
 
 
 def arch_depth(cfg):
@@ -623,8 +671,14 @@ def profile_call(call, label):
         call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
+    from torch.autograd import DeviceType
+
     rows = []
     for e in prof.key_averages():
+        # Kernels only: a CPU op issued from this thread carries its
+        # kernels' device time too, and they are rows of their own.
+        if getattr(e, "device_type", DeviceType.CUDA) != DeviceType.CUDA:
+            continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0)
@@ -641,25 +695,30 @@ def profile_call(call, label):
     return line
 
 
-def profile_launches(call, first_token_call, steps, label):
+def profile_launches(call, first_token_call, steps, label, full_steps=None):
     """``profile_call`` of a whole call and of the same call cut to its
     first token: the launches a call, and a decode step as the difference
     over the ``steps - 1`` steps the cut call leaves out; with the norm
     kernel's fused forms (the default) and with ``CT2TPU_PALLAS_NORMS=0``
-    (the plain sequence: add, norm, quantization, each eager). Returns
-    {"fused" | "plain_norms": {...}}."""
+    (the plain sequence: add, norm, quantization, each eager). With
+    ``full_steps``, also the launches of a call of that many steps (the
+    first token's plus the steps'). Returns {"fused" | "plain_norms": {...}}."""
     out = {}
     for arm, norms in (("fused", "1"), ("plain_norms", "0")):
         suffix = "" if arm == "fused" else "_plain_norms"
         with environ(CT2TPU_PALLAS_NORMS=norms):
             whole = profile_call(call, label + suffix)
             first = profile_call(first_token_call, f"{label}{suffix}_first_token")
+        per_step = (whole["kernel_launches_profiled"]
+                    - first["kernel_launches_profiled"]) / (steps - 1)
         out[arm] = {
             "launches_per_call": whole["kernel_launches_profiled"],
-            "launches_per_decode_step": (whole["kernel_launches_profiled"]
-                                         - first["kernel_launches_profiled"]) / (steps - 1),
+            "launches_per_decode_step": per_step,
             "device_busy_share": whole["device_busy_share"],
             "wall_ms_profiled": whole["wall_ms_profiled"]}
+        if full_steps:
+            out[arm][f"launches_per_call_of_{full_steps}_steps"] = (
+                first["kernel_launches_profiled"] + (full_steps - 1) * per_step)
     emit({"phase": f"launches_{label}", **out})
     return out
 
@@ -1663,9 +1722,9 @@ def generator_main_path(tt, mf, vocab, checks, logs):
             counts = tt.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         check_logs_cover(counts, logs, logged_before, "generator", checks)
-        launches = profile_launches(lambda: generate_run(gen, prompts[1]),
+        launches = profile_launches(lambda: generate_run(gen, prompts[1], PROFILE_NEW),
                                     lambda: generate_run(gen, prompts[1], 1),
-                                    GEN_NEW, "generator_int8")
+                                    PROFILE_NEW, "generator_int8", GEN_NEW)
         with environ(CT2TPU_PALLAS_NORMS="0"):
             plain_norms = generate_run(gen, prompts[1])
         layers = len(gen.model.arch.decoder.layers)
@@ -1929,9 +1988,9 @@ def generator_awq_main_path(tt, mf, vocab, checks, logs):
             counts = tt.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         check_logs_cover(counts, logs, logged_before, "awq generator", checks)
-        launches = profile_launches(lambda: generate_run(gen, prompts[1]),
+        launches = profile_launches(lambda: generate_run(gen, prompts[1], PROFILE_NEW),
                                     lambda: generate_run(gen, prompts[1], 1),
-                                    GEN_NEW, "generator_awq")
+                                    PROFILE_NEW, "generator_awq", GEN_NEW)
         with environ(CT2TPU_PALLAS_NORMS="0"):
             plain_norms = generate_run(gen, prompts[1])
         del gen
@@ -1971,7 +2030,7 @@ def generator_awq_main_path(tt, mf, vocab, checks, logs):
     tokens = sum(len(r.sequences_ids[0]) for run in runs for r in run[0])
     emit({"phase": "main_generator_awq", "compute_type": "float16",
           "kv_cache": "int8", "w4_layout": "packed (w4p)",
-          "model": dict(LLAMA, awq_group=AWQ_GROUP),
+          "model": dict(LLAMA, layers=AWQ_LAYERS, awq_group=AWQ_GROUP),
           "load_seconds": load_seconds, "load_peak_memory_bytes": load_peak,
           "calls": calls, "prompts_per_call": GEN_BATCH, "prompt_tokens": GEN_PROMPT,
           "new_tokens_per_prompt": GEN_NEW, "target_tokens": tokens,
@@ -3998,6 +4057,10 @@ WHISPER_LARGE_V3 = dict(layers=32, d_model=1280, heads=20, d_ff=5120, n_mels=128
                         languages=100, timestamps=1502,
                         alignment_heads=((7, 0), (10, 17), (12, 18), (13, 12), (16, 1),
                                          (17, 14), (19, 11), (21, 4), (24, 1), (25, 6)))
+# The Whisper phase's depth: a quarter of large-v3's 32 + 32 layers at
+# its published widths (the run's time limit); the alignment heads of the
+# layers kept.
+WHISPER_LAYERS = WHISPER_LARGE_V3["layers"] // 4
 # facebook/wav2vec2-large-960h-lv60-self (config.json): 7 layer-normed
 # feature convolutions of 512 channels, 24 layers, d_model 1,024, 16 heads,
 # ffn 4,096, a 128-tap positional convolution in 16 groups, 32 CTC symbols.
@@ -4405,7 +4468,8 @@ def whisper_prompts(vocab):
 
 
 def whisper_phase(tt, work, checks, logs):
-    """Whisper-large-v3 (``WHISPER_LARGE_V3``, 32 + 32 layers) in int8 with
+    """Whisper-large-v3's widths (``WHISPER_LARGE_V3``) at ``WHISPER_LAYERS`` +
+    ``WHISPER_LAYERS`` layers, in int8 with
     the int8 KV cache: ``encode`` of 4 x 30 s, ``generate`` at beam 5 with
     timestamps (the cached prefill of its prompt, the gather kernel every
     step, the decode kernel, the W8A8 projection at N 51,866), the
@@ -4419,11 +4483,12 @@ def whisper_phase(tt, work, checks, logs):
     from ctranslate2_tpu_torch.models import transformer as T
 
     t0 = time.perf_counter()
-    mf, vocab = build_whisper_modelfile(WHISPER_LARGE_V3["layers"])
+    mf, vocab = build_whisper_modelfile(WHISPER_LAYERS)
     path = save_whisper(mf, vocab, os.path.join(work, "whisper"))
     del mf
-    emit({"phase": "whisper_model", "config": {k: v for k, v in WHISPER_LARGE_V3.items()
-                                               if k != "alignment_heads"},
+    emit({"phase": "whisper_model", "config": {**{k: v for k, v in WHISPER_LARGE_V3.items()
+                                                  if k != "alignment_heads"},
+                                               "layers": WHISPER_LAYERS},
           "vocabulary": len(vocab), "seconds": time.perf_counter() - t0})
     ids, sot, prev, no_ts = whisper_prompts(vocab)
     ts_begin = ids["<|notimestamps|>"] + 1
@@ -4515,7 +4580,7 @@ def whisper_phase(tt, work, checks, logs):
             fmem, seconds, counts, _ = arch_call(
                 "whisper encode flash", tt, lambda: wf.encode(feats),
                 ["matmul_w8a8", "fused_norm", "flash_attention"], logs, checks)
-        layers = WHISPER_LARGE_V3["layers"]
+        layers = WHISPER_LAYERS
         checks(replay.calls == len(recorded) and counts["flash_attention"] == layers,
                f"whisper encode flash: {layers} flash launches, the same linears "
                f"({replay.calls} of {len(recorded)})")
@@ -4707,6 +4772,555 @@ def speech_card_vs_cpu(tt, work, checks):
     free_card()
 
 
+# ---------------------------------------------------------------------------
+# Serving: model residency, the continuous batcher, the micro-batching
+# scheduler.
+# ---------------------------------------------------------------------------
+
+SERVE_SLOTS = 8
+SERVE_CAPACITY = 2304
+SERVE_STEPS = 8  # steps_per_sync
+SERVE_REQUESTS = 48
+SERVE_LONG_PROMPT = 2048  # every fourth prompt: its admit prefill takes flash
+SERVE_SHORT_PROMPT = (16, 512)
+SERVE_NEW = ((4, 16), (64, 128))  # short and long replies, as tools/bench_serving.py
+SERVE_LONG_SHARE = 0.3  # of replies drawn long, as tools/bench_serving.py
+SERVE_SEED = 16
+SERVE_PREFILL_BUCKET = 16  # the admit pads a prompt to a multiple of this
+# The batcher's first token of a request against a teacher-forced prefill
+# of its prompt alone, padded alike: the same kernels at the same shapes,
+# 0.0 apart over the 48 requests on an H100 80GB HBM3. Prompts batched
+# by padded length would not be: a batch changes the kernels' rounding,
+# and 32 random int8 layers amplify it.
+SERVE_FIRST_LOGPROB_TOL = 1e-6
+RESIDENCY_PROMPT = 64
+RESIDENCY_NEW = 16
+SERVE_AB_PROMPTS = (16, 24, 19, 21, 17, 23)  # serving_card_vs_cpu prompt lengths
+SERVE_AB_NEW = 8
+
+
+def serving_traffic(vocab_size, seed=SERVE_SEED):
+    """The serving phase's requests: (prompt ids, new tokens), a quarter
+    of the prompts exactly ``SERVE_LONG_PROMPT`` long (every fourth), the
+    rest uniform in ``SERVE_SHORT_PROMPT``; replies bimodal."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(SERVE_REQUESTS):
+        n = (SERVE_LONG_PROMPT if i % 4 == 3
+             else int(rng.integers(SERVE_SHORT_PROMPT[0], SERVE_SHORT_PROMPT[1] + 1)))
+        lo, hi = SERVE_NEW[int(rng.random() < SERVE_LONG_SHARE)]
+        prompt = [int(t) for t in rng.integers(10, vocab_size - 10, n)]
+        out.append((prompt, int(rng.integers(lo, hi + 1))))
+    return out
+
+
+def _percentiles(values):
+    import numpy as np
+
+    v = np.asarray(values, np.float64) * 1e3
+    return {"p50_ms": float(np.percentile(v, 50)), "p95_ms": float(np.percentile(v, 95)),
+            "mean_ms": float(v.mean())}
+
+
+def _serving_batcher(tt, gen, depth, **kw):
+    with environ(CT2TPU_KV_CACHE="int8"):
+        return tt.ContinuousBatcher(gen, num_slots=SERVE_SLOTS, capacity=SERVE_CAPACITY,
+                                    steps_per_sync=SERVE_STEPS, pipeline_depth=depth,
+                                    prefill_bucket=SERVE_PREFILL_BUCKET, **kw)
+
+
+def serve_run(tt, gen, traffic, depth, logs, checks, label):
+    """All requests submitted at once to a batcher of ``pipeline_depth``
+    ``depth``, after a warm-up request; every kernel's call shapes logged
+    and its plain version's calls on the card counted. Returns the run's
+    line (and the per-request first tokens and scores)."""
+    import torch
+
+    cb = _serving_batcher(tt, gen, depth)
+    consumes, admits = [], [0]
+    consume, admit = cb._consume_block, cb._prefill_into_slot
+
+    def timed_consume(handle):
+        consume(handle)
+        consumes.append((time.perf_counter(), admits[0]))
+        admits[0] = 0
+
+    def counted_admit(slot, req):
+        admits[0] += 1
+        return admit(slot, req)
+
+    cb._consume_block, cb._prefill_into_slot = timed_consume, counted_admit
+    n = len(traffic)
+    first, streamed, done = [None] * n, [[] for _ in traffic], [None] * n
+
+    def on_token(i):
+        def record(sr):
+            if first[i] is None:
+                first[i] = time.perf_counter()
+            streamed[i].append((sr.token_id, sr.score))
+            return False
+        return record
+
+    plain = {}
+    try:
+        cb.submit(traffic[0][0][:64], max_length=SERVE_STEPS).result(timeout=600)
+        steps0, blocks0, slot_steps0 = cb.num_steps, cb._blocks, cb._slot_steps
+        consumes.clear()
+        with watched(logs, plain):
+            t0 = time.perf_counter()
+            futures = [cb.submit([gen._vocab.to_token(t) for t in p], max_length=new,
+                                 callback=on_token(i))
+                       for i, (p, new) in enumerate(traffic)]
+            for i, f in enumerate(futures):
+                f.add_done_callback(lambda f, i=i: done.__setitem__(i, time.perf_counter()))
+            results = [f.result(timeout=1200) for f in futures]
+            seconds = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = tt.launch_counts()
+        steps = cb.num_steps - steps0
+        blocks = cb._blocks - blocks0
+        occupancy = (cb._slot_steps - slot_steps0) / max(steps * SERVE_SLOTS, 1)
+    finally:
+        cb.close()
+    ids = [r.sequences_ids[0] for r in results]
+    tokens = sum(len(x) for x in ids)
+    eos = gen._vocab.eos_id
+    ended = [len(x) == new or (len(x) < new and streamed[i][len(x)][0] == eos)
+             for i, (x, (_, new)) in enumerate(zip(ids, traffic))]
+    checks(all(ended), f"{label}: every request ends at its max_length or at an end "
+                       f"token ({sum(ended)}/{n})")
+    checks(all(math.isfinite(r.scores[0]) for r in results),
+           f"{label}: every score is finite")
+    # A short request admitted while a long one decodes finishes first.
+    overtakes = sum(1 for i in range(n) for j in range(n)
+                    if traffic[i][1] >= SERVE_NEW[1][0] and traffic[j][1] <= SERVE_NEW[0][1]
+                    and first[i] < first[j] < done[i] and done[j] < done[i])
+    checks(overtakes > 0, f"{label}: a short request admitted mid-decode finished "
+                          f"before a long one ({overtakes} pairs)")
+    check_path(label, counts, ("matmul_w8a8", "flash_attention", "decode_attention_int8",
+                               "fused_norm"), plain, checks)
+    layers = len(gen.model.arch.decoder.layers)
+    checks(counts["decode_attention_int8"] == layers * steps,
+           f"{label}: one decode launch a layer and step ({counts['decode_attention_int8']} "
+           f"for {steps} steps)")
+    quiet = [b - a for (a, _), (b, k) in zip(consumes, consumes[1:]) if k == 0]
+    quiet.sort()
+    line = {"phase": label, "pipeline_depth": depth, "requests": n, "seconds": seconds,
+            "generated_tokens": tokens, "tokens_per_s": tokens / seconds,
+            "time_to_first_token": _percentiles([f - t0 for f in first]),
+            "request_latency": _percentiles([d - t0 for d in done]),
+            "mean_slot_occupancy": occupancy, "decode_steps": steps, "blocks": blocks,
+            "ms_per_block": quiet[len(quiet) // 2] * 1e3 if quiet else None,
+            "blocks_timed_without_admits": len(quiet),
+            "short_before_long_pairs": overtakes, "launches": counts,
+            "plain_calls_on_card": plain}
+    return line, [s[0] for s in streamed]
+
+
+def serve_static_run(tt, gen, traffic, depth):
+    """Run-to-completion batching of the same requests on the same engine:
+    batches of ``SERVE_SLOTS`` in submission order, each admitted whole and
+    run until its longest reply ends before the next one starts; every
+    request available at the start, so a batch's requests finish when the
+    batch does. (``generate_batch`` in such batches, as
+    ``tools/bench_serving.py`` runs them, prefills only the shortest prompt
+    and forces every other prompt token through a decode step: with
+    2,048-token prompts beside 16-token ones, about 2,000 steps a batch.)"""
+    import torch
+
+    cb = _serving_batcher(tt, gen, depth)
+    try:
+        cb.submit([gen._vocab.to_token(t) for t in traffic[0][0][:64]],
+                  max_length=SERVE_STEPS).result(timeout=600)
+        firsts, latencies, tokens = [], [], 0
+        t0 = time.perf_counter()
+        for b in range(0, len(traffic), SERVE_SLOTS):
+            group = traffic[b:b + SERVE_SLOTS]
+            seen = [None] * len(group)
+
+            def on_token(i):
+                def record(sr):
+                    if seen[i] is None:
+                        seen[i] = time.perf_counter()
+                    return False
+                return record
+
+            futures = [cb.submit([gen._vocab.to_token(t) for t in p], max_length=new,
+                                 callback=on_token(i))
+                       for i, (p, new) in enumerate(group)]
+            tokens += sum(len(f.result(timeout=1200).sequences_ids[0]) for f in futures)
+            end = time.perf_counter() - t0
+            latencies += [end] * len(group)
+            firsts += [s - t0 for s in seen]
+        seconds = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    finally:
+        cb.close()
+    return {"schedule": "run to completion, batches of 8 in submission order",
+            "pipeline_depth": cb._depth, "seconds": seconds, "generated_tokens": tokens, "tokens_per_s": tokens / seconds,
+            "time_to_first_token": _percentiles(firsts),
+            "request_latency": _percentiles(latencies)}
+
+
+def profile_serving_block(tt, gen, traffic):
+    """One decode block of a full batcher, profiled alone: its kernel
+    launches a step and the card's busy share. The batcher's thread is
+    stopped; the block is driven from here after admitting ``SERVE_SLOTS``
+    requests."""
+    from ctranslate2_tpu_torch.runtime.continuous import _Request
+
+    cb = _serving_batcher(tt, gen, 1)
+    cb.close()
+    for slot, (p, _) in enumerate(traffic[:SERVE_SLOTS]):
+        cb._prefill_into_slot(slot, _Request(prompt_ids=list(p), max_length=512,
+                                             min_length=512))
+    active = list(range(SERVE_SLOTS))
+    cb._consume_block(cb._dispatch_block(active))  # warm-up
+    prof = profile_call(lambda: cb._consume_block(cb._dispatch_block(active)),
+                        "serving_block")
+    return {"launches_per_decode_step": prof["kernel_launches_profiled"] / SERVE_STEPS,
+            "device_busy_share": prof["device_busy_share"],
+            "wall_ms_profiled": prof["wall_ms_profiled"]}
+
+
+def serving_first_tokens(gen, traffic, firsts, checks):
+    """Each request's first token and its log-prob against the same
+    computation outside the batcher: a teacher-forced prefill of the prompt
+    alone (``decoder_forward`` with ``fresh_prefill`` and the prompt's
+    length, padded to ``SERVE_PREFILL_BUCKET`` as the admit pads it, int8
+    KV cache) and the log-softmax of the last prompt position's logits.
+    Each prompt goes alone: rows batched together change the kernels'
+    rounding, which 32 random int8 layers amplify."""
+    import torch
+    from ctranslate2_tpu_torch.models import transformer as T
+
+    m = gen.model
+    qa = m.policy.quantize_activations
+    diffs, same, compared = [], 0, 0
+    with environ(CT2TPU_KV_CACHE="int8"):
+        m.ensure_consts(SERVE_CAPACITY)
+        for (p, _), (tok, score) in zip(traffic, firsts):
+            padded = -(-len(p) // SERVE_PREFILL_BUCKET) * SERVE_PREFILL_BUCKET
+            ids = torch.zeros((1, padded), dtype=torch.long)
+            ids[0, :len(p)] = torch.tensor(p)
+            cache = T.init_self_cache(m.arch, 1, padded, dtype=m.kv_dtype, device=m.device,
+                                      ring=True)
+            h, _ = T.decoder_forward(
+                m.arch, m.params, m.consts, ids.to(m.device), 0, cache,
+                lengths=torch.tensor([len(p)], device=m.device), quantize_acts=qa,
+                out_dtype=m.out_dtype, return_logits=False, fresh_prefill=True)
+            lp = torch.log_softmax(
+                T.project_logits(m.arch, m.params, h[:, len(p) - 1], qa).float(), -1)[0]
+            diffs.append(abs(lp[tok].item() - score))
+            top = torch.topk(lp, 2).values
+            if (top[0] - top[1]).item() > SERVE_FIRST_LOGPROB_TOL:
+                compared += 1
+                same += int(lp.argmax().item() == tok)
+            del cache, h
+    checks(max(diffs) <= SERVE_FIRST_LOGPROB_TOL,
+           f"serving: each first token's log-prob within {SERVE_FIRST_LOGPROB_TOL} of "
+           f"the teacher-forced prefill's (max {max(diffs)})")
+    checks(same == compared, f"serving: the first token is the teacher-forced prefill's "
+                             f"wherever its best two are apart ({same}/{compared})")
+    return {"reference": "teacher-forced prefill of the prompt alone, padded as the admit",
+            "max_abs_logprob_diff": max(diffs), "mean_abs_logprob_diff": sum(diffs) / len(diffs),
+            "tolerance": SERVE_FIRST_LOGPROB_TOL, "tokens_compared": compared,
+            "tokens_equal": same}
+
+
+def serving_generator(tt, gen, vocab, checks, logs):
+    """The int8 Llama with the int8 KV cache behind ``ContinuousBatcher``
+    (8 slots of 2,304, 8 steps a block): the same 48 requests at pipeline
+    depth 1 and 2, run to completion in batches of 8, one profiled block,
+    and each request's first token against a teacher-forced prefill."""
+    traffic = serving_traffic(LLAMA["vocab"])
+    runs = {}
+    for depth in (1, 2):
+        runs[depth], firsts = serve_run(tt, gen, traffic, depth, logs, checks,
+                                        f"serving_generator_depth{depth}")
+        free_card()
+    static = serve_static_run(tt, gen, traffic, None)  # the default depth
+    block = profile_serving_block(tt, gen, traffic)
+    free_card()
+    first = serving_first_tokens(gen, traffic, firsts, checks)
+    for depth in (1, 2):
+        emit(dict(runs[depth], profiled_block=block if depth == 2 else None))
+    best = max((1, 2), key=lambda d: runs[d]["tokens_per_s"])
+    emit({"phase": "serving_generator", "compute_type": gen.compute_type,
+          "kv_cache": "int8", "slots": SERVE_SLOTS, "capacity": SERVE_CAPACITY,
+          "steps_per_sync": SERVE_STEPS, "requests": SERVE_REQUESTS,
+          "prompt_tokens": sum(len(p) for p, _ in traffic),
+          "long_prompts": sum(len(p) == SERVE_LONG_PROMPT for p, _ in traffic),
+          "tokens_per_s_by_depth": {d: runs[d]["tokens_per_s"] for d in (1, 2)},
+          "faster_depth": best, "run_to_completion": static,
+          "first_tokens_vs_teacher_forced_prefill": first, "profiled_block": block})
+
+
+def residency_cycle(obj, call, must_free, label, checks):
+    """unload_model(to_cpu=True) and load_model() around ``call()``, timed,
+    with the card's allocated memory before and after each; then an unload
+    without a host copy, whose load_model() must raise."""
+    import torch
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        if isinstance(tree, (list, tuple)):
+            return [x for v in tree for x in leaves(v)]
+        return [tree] if torch.is_tensor(tree) else []
+
+    before = call()
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves(obj.model.params))
+    int8_bytes = sum(t.numel() for t in leaves(obj.model.params) if t.dtype == torch.int8)
+    torch.cuda.synchronize()
+    loaded = torch.cuda.memory_allocated()
+    (_, unload_s) = synced_seconds(lambda: obj.unload_model(to_cpu=True))
+    unloaded = torch.cuda.memory_allocated()
+    (_, load_s) = synced_seconds(obj.load_model)
+    reloaded = torch.cuda.memory_allocated()
+    after = call()
+    checks(loaded - unloaded >= max(must_free, param_bytes),
+           f"{label}: unload_model(to_cpu=True) frees at least the weights' bytes "
+           f"({loaded - unloaded} of {max(must_free, param_bytes)} bytes)")
+    checks(reloaded - unloaded >= param_bytes,
+           f"{label}: load_model() puts the weights back ({reloaded - unloaded} bytes)")
+    checks(after == before, f"{label}: the reloaded model gives the same tokens")
+    obj.unload_model()
+    raised = False
+    try:
+        obj.load_model()
+    except RuntimeError:
+        raised = True
+    checks(raised, f"{label}: load_model() after unload_model() without a copy raises")
+    emit({"phase": f"residency_{label}", "param_bytes": param_bytes,
+          "int8_payload_bytes": int8_bytes, "allocated_loaded": loaded,
+          "allocated_unloaded": unloaded, "allocated_reloaded": reloaded,
+          "unload_seconds": unload_s, "load_seconds": load_s,
+          "unload_gbytes_per_s": param_bytes / unload_s / 1e9,
+          "load_gbytes_per_s": param_bytes / load_s / 1e9,
+          "same_tokens_after_reload": after == before})
+
+
+def residency_generator(tt, gen, vocab, payload_bytes, checks):
+    prompts = make_prompts(vocab, RESIDENCY_PROMPT, 30)
+    kw = dict(max_length=RESIDENCY_NEW, min_length=RESIDENCY_NEW,
+              include_prompt_in_result=False)
+    with environ(CT2TPU_KV_CACHE="int8"):
+        residency_cycle(gen, lambda: [r.sequences_ids for r in gen.generate_batch(
+            prompts, **kw)], payload_bytes, "generator", checks)
+
+
+def residency_translator(tt, model_dir, batch, checks):
+    tr = tt.Translator(model_dir, compute_type="int8")
+    residency_cycle(tr, lambda: [r.hypotheses for r in tr.translate_batch(batch, **OPTS)],
+                    0, "translator", checks)
+    del tr
+
+
+def serving_translator(tt, model_dir, batches, checks, logs):
+    """``BufferedTranslationWrapper`` and ``translation_scheduler`` on the
+    four phase-2 batches, submitted one sentence at a time, against
+    ``translate_batch`` of the same sentences."""
+    tr = tt.Translator(model_dir, compute_type="int8")
+    sents = [s for b in batches[:4] for s in b]
+    tr.translate_batch(batches[0], **OPTS)  # warm-up
+    ref, batch_s = synced_seconds(
+        lambda: tr.translate_batch(sents, max_batch_size=BATCH, **OPTS))
+    tokens = sum(len(r.hypotheses[0]) for r in ref)
+    out = {"translate_batch": {"seconds": batch_s, "target_tokens_per_s": tokens / batch_s}}
+    for label in ("buffered_wrapper", "translation_scheduler"):
+        front = (tt.BufferedTranslationWrapper(tr, max_batch_size=BATCH)
+                 if label == "buffered_wrapper"
+                 else tt.translation_scheduler(tr, max_batch_size=BATCH))
+        submit = front.translate_async if label == "buffered_wrapper" else front.submit
+        plain = {}
+        try:
+            with watched(logs, plain):
+                got, seconds = synced_seconds(
+                    lambda: [f.result(timeout=600) for f in [submit(s, **OPTS)
+                                                             for s in sents]])
+                counts = tt.launch_counts()
+        finally:
+            front.close()
+        check_path(f"serving_translator {label}", counts, ("matmul_w8a8", "fused_norm"),
+                   plain, checks)
+        same = sum(g.hypotheses[0] == r.hypotheses[0] for g, r in zip(got, ref))
+        checks(same >= FILE_SAME_SHARE * len(sents),
+               f"serving_translator {label}: {same} of {len(sents)} hypotheses equal to "
+               f"translate_batch's (at least {FILE_SAME_SHARE} of them)")
+        toks = sum(len(g.hypotheses[0]) for g in got)
+        out[label] = {"seconds": seconds, "target_tokens_per_s": toks / seconds,
+                      "hypotheses_equal_to_batch": same, "launches": counts}
+    emit({"phase": "serving_translator", "sentences": len(sents), "max_batch_size": BATCH,
+          "options": OPTS, **out})
+    del tr
+
+
+@contextlib.contextmanager
+def fed_serving_noise():
+    """Gives every sampling slot of a batcher, on the card or the CPU, the
+    same noise: a CPU ``torch.Generator`` seeded as the slot's own, its
+    draws moved to the model's device."""
+    import torch
+    import ctranslate2_tpu_torch.runtime.continuous as C
+    from ctranslate2_tpu_torch.decoding.sampling import draw_gumbel
+
+    def set_sampling(orig):
+        def wrapped(self, slot, req):
+            orig(self, slot, req)
+            if self._gens[slot] is not None:
+                g = torch.Generator()
+                g.manual_seed(self._gens[slot].initial_seed())
+                self._gens[slot] = g
+        return wrapped
+
+    def noise(gens, vocab, device):
+        return torch.cat([draw_gumbel(g, (1, vocab), "cpu") if g is not None
+                          else torch.zeros((1, vocab)) for g in gens]).to(device)
+
+    with patched(C.ContinuousBatcher, "_set_slot_sampling", set_sampling), \
+            patched(C, "slot_noise", lambda orig: noise):
+        yield
+
+
+def serving_card_vs_cpu(tt, generators, vocab, checks):
+    """At ``AB_LAYERS`` layers, float32: the batcher on the card against the
+    batcher on the CPU and against generate_batch on the card, in the float
+    and the int8 KV cache, with every per-request option (sampling fed the
+    same noise, penalties, suppressed and end tokens, stop sequences,
+    min_length, callbacks, ``stream``); and a batcher and a generate_batch
+    call at the same time on one model."""
+    import numpy as np
+    import threading
+
+    card, cpu = generators
+    rng = np.random.default_rng(61)
+    prompts = [[vocab.to_token(int(t)) for t in rng.integers(10, LLAMA["vocab"] - 10, n)]
+               for n in SERVE_AB_PROMPTS]
+    base = dict(max_length=SERVE_AB_NEW)
+    greedy = [r.sequences_ids[0] for r in card.generate_batch(
+        prompts, include_prompt_in_result=False, **base)]
+
+    def recorder(calls):
+        def record(sr):
+            calls.append(sr.token_id)
+            return False
+        return record
+
+    reqs = [(prompts[0], base),
+            (prompts[1], dict(base, sampling_topk=20, sampling_temperature=0.8, seed=3)),
+            (prompts[2], dict(base, repetition_penalty=1.3, no_repeat_ngram_size=2)),
+            (prompts[3], dict(base, min_length=6, end_token=[vocab.to_token(greedy[3][1])],
+                              suppress_tokens=[vocab.to_token(greedy[3][0])])),
+            (prompts[4], dict(base, stop_sequences=[greedy[4][2:4]])),
+            (prompts[5], dict(base, sampling_topp=0.9, sampling_temperature=1.2, seed=4))]
+    out = {}
+    t0 = time.perf_counter()
+    for kv in ("", "int8"):
+        side = {}
+        with environ(CT2TPU_KV_CACHE=kv):
+            ref0 = card.generate_batch(prompts[:1], include_prompt_in_result=False,
+                                       **base)[0].sequences_ids[0]
+        for name, gen in (("card", card), ("cpu", cpu)):
+            with environ(CT2TPU_KV_CACHE=kv):
+                cb = tt.ContinuousBatcher(gen, num_slots=4, capacity=128, steps_per_sync=4)
+            try:
+                with fed_serving_noise():
+                    calls = [[] for _ in reqs]
+                    fs = [cb.submit(p, callback=recorder(calls[i]), **o)
+                          for i, (p, o) in enumerate(reqs)]
+                    res = [f.result(timeout=600) for f in fs]
+                    stream = [s.token_id for s in cb.stream(prompts[0], **base)]
+            finally:
+                cb.close()
+            side[name] = (res, calls, stream)
+        (cres, ccalls, cstream), (pres, pcalls, pstream) = side["card"], side["cpu"]
+        tol = INT8_KV_LOGPROB_TOL if kv else LOGPROB_TOL
+        same = [c.sequences_ids == p.sequences_ids for c, p in zip(cres, pres)]
+        diff = max(abs(c.scores[0] - p.scores[0]) for c, p in zip(cres, pres))
+        label = f"serving card vs CPU ({'int8' if kv else 'float'} KV)"
+        checks(all(same), f"{label}: the batcher's tokens equal on every request ({same})")
+        # A score sums up to SERVE_AB_NEW token log-probs.
+        checks(diff <= tol * SERVE_AB_NEW,
+               f"{label}: scores within {tol} a token (max diff {diff})")
+        checks(ccalls == pcalls and cstream == pstream,
+               f"{label}: callbacks and stream give the same tokens")
+        checks(cres[0].sequences_ids[0] == ref0 and cstream[:len(ref0)] == ref0,
+               f"{label}: the greedy request equals generate_batch on the card")
+        checks(len(cres[3].sequences_ids[0]) >= 6,
+               f"{label}: min_length holds ({len(cres[3].sequences_ids[0])})")
+        out["int8_kv" if kv else "float_kv"] = {"max_score_diff": diff, "tolerance": tol,
+                                               "same_tokens": same}
+    # A batcher and a generate_batch call at the same time on one model.
+    with environ(CT2TPU_KV_CACHE="int8"):
+        ref = [r.sequences_ids[0] for r in card.generate_batch(
+            prompts, include_prompt_in_result=False, **base)]
+        cb = tt.ContinuousBatcher(card, num_slots=3, capacity=128, steps_per_sync=2)
+        try:
+            fs = [cb.submit(p, **base) for p in prompts * 2]
+            side_by_side = []
+            worker = threading.Thread(target=lambda: side_by_side.append(
+                [r.sequences_ids[0] for r in card.generate_batch(
+                    prompts, include_prompt_in_result=False, **base)]))
+            worker.start()
+            served = [f.result(timeout=600).sequences_ids[0] for f in fs]
+            worker.join(timeout=600)
+        finally:
+            cb.close()
+    checks(side_by_side and side_by_side[0] == ref,
+           "serving: generate_batch beside a running batcher gives its own tokens")
+    checks(served[:len(prompts)] == served[len(prompts):],
+           "serving: the batcher beside generate_batch serves each prompt alike twice")
+    emit({"phase": "serving_card_vs_cpu", "layers": AB_LAYERS, "compute_type": "float32",
+          "requests": len(reqs), "new_tokens": SERVE_AB_NEW, **out,
+          "concurrent_generate_batch_ok": bool(side_by_side and side_by_side[0] == ref),
+          "seconds": time.perf_counter() - t0})
+
+
+def serving_benches(serve_logs, checks):
+    """The serving path's kernel shapes against their plain versions, in
+    rows of their own (``"summed": false``): the decode kernel over 8 slots
+    with lengths spread over [0, capacity - block] (rows of length 0 and
+    near capacity), flash at the 1-row admit prefill, W8A8 and the norm at
+    the decode M and at the smallest, median and largest padded prompt and
+    2,048; every other W8A8 prefill shape only held bit-equal."""
+    import torch
+    from ctranslate2_tpu_torch.kernels.quant_matmul import matmul_w8a8, matmul_w8a8_plain
+
+    extra = dict(summed=False, paths="serving_generator")
+    bench_decode(serve_logs.get("decode_attention_int8", {}), 0,
+                 SERVE_CAPACITY - SERVE_STEPS + 1, checks, **extra)
+    free_card()
+    bench_flash(serve_logs.get("flash_attention", {}), checks, **extra)
+    free_card()
+
+    def pick(shapes, rows_of):
+        prefill = sorted({rows_of(k) for k in shapes if rows_of(k) > SERVE_SLOTS})
+        keep = {1, SERVE_SLOTS, SERVE_LONG_PROMPT}  # 1: the admit's projection
+        if prefill:
+            keep |= {prefill[0], prefill[len(prefill) // 2], prefill[-1]}
+        return ({k: n for k, n in shapes.items() if rows_of(k) in keep},
+                {k: n for k, n in shapes.items() if rows_of(k) not in keep})
+
+    timed, rest = pick(serve_logs.get("matmul_w8a8", {}), lambda k: k[0])
+    bench_w8a8(timed, checks, **extra)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for (M, K, N) in sorted(rest):
+        q = torch.randint(-128, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
+        wq = torch.randint(-127, 128, (N, K), generator=g, device="cuda", dtype=torch.int8)
+        a_s = torch.rand(M, generator=g, device="cuda") + 0.5
+        w_s = torch.rand(N, generator=g, device="cuda") + 0.5
+        checks(torch.equal(matmul_w8a8(q, wq, a_s, w_s), matmul_w8a8_plain(q, wq, a_s, w_s)),
+               f"w8a8 bit-equal to plain at the serving prefill shape {(M, K, N)}")
+    emit({"phase": "kernel_w8a8_serving_checked", "shapes": sorted(rest)})
+    free_card()
+    timed, _ = pick(serve_logs.get("fused_norm", {}), lambda k: k[0])
+    bench_norm(timed, checks, **extra)
+    free_card()
+
+
 def main():
     import torch
 
@@ -4759,6 +5373,10 @@ def main():
         free_card()
         file_helpers_translator(tt, int8_dir, batches, work, checks, new_logs)
         free_card()
+        serving_translator(tt, int8_dir, batches, checks, new_logs)
+        free_card()
+        residency_translator(tt, int8_dir, batches[1], checks)
+        free_card()
 
         # ---- main path 2: Generator ----
         t0 = time.perf_counter()
@@ -4766,9 +5384,10 @@ def main():
         llama_vocab = Vocabulary(
             ["<unk>", "<s>", "</s>"] + [f"t{i}" for i in range(LLAMA["vocab"] - 3)],
             VocabularyInfo(unk_token="<unk>", bos_token="<s>", eos_token="</s>"))
+        llama_payload_bytes = sum(v.array.nbytes for n, v in llama.variables.items()
+                                  if n.endswith("/weight"))
         emit({"phase": "llama_model", "config": LLAMA,
-              "int8_weight_bytes": sum(v.array.nbytes for n, v in llama.variables.items()
-                                       if n.endswith("/weight")),
+              "int8_weight_bytes": llama_payload_bytes,
               "seconds": time.perf_counter() - t0})
         gen_counts, gen = generator_main_path(tt, llama, llama_vocab, checks, logs)
         for name in ("matmul_w8a8", "flash_attention", "decode_attention_int8",
@@ -4785,6 +5404,11 @@ def main():
         host_loop_generator(tt, gen, llama_vocab, checks, new_logs)
         free_card()
         file_helpers_generator(tt, gen, llama_vocab, checks, new_logs)
+        free_card()
+        serve_logs = {}
+        serving_generator(tt, gen, llama_vocab, checks, serve_logs)
+        free_card()
+        residency_generator(tt, gen, llama_vocab, llama_payload_bytes, checks)
         del gen
         small_llama = llama_subset(llama, AB_LAYERS)
         del llama
@@ -4792,8 +5416,8 @@ def main():
 
         # ---- main path 3: Generator on AWQ-W4 weights ----
         t0 = time.perf_counter()
-        awq = build_awq_llama_modelfile(LLAMA["layers"])
-        emit({"phase": "awq_model", "config": LLAMA, "group": AWQ_GROUP,
+        awq = build_awq_llama_modelfile(AWQ_LAYERS)
+        emit({"phase": "awq_model", "config": dict(LLAMA, layers=AWQ_LAYERS), "group": AWQ_GROUP,
               "layout": "AutoAWQ GEMM (quantization_type 1)",
               "host_bytes": sum(v.array.nbytes for v in awq.variables.values()),
               "seconds": time.perf_counter() - t0})
@@ -4866,6 +5490,7 @@ def main():
                 for name in set(logs) | set(new_logs) | set(awq_logs)}
         seen = arch_benches(arch_logs, seen, checks)
         arch_benches(speech_logs, seen, checks, prefix="")
+        serving_benches(serve_logs, checks)
 
         # ---- the other Translator runs ----
         f16_counts = main_path(tt, float_dir, "float16", batches, checks, "float16", {})
@@ -4887,6 +5512,8 @@ def main():
         small_dir = build_seq2seq_model(os.path.join(work, "small"),
                                         **dict(MODEL, num_layers=AB_LAYERS))
         host_loop_card_vs_cpu(tt, small_dir, pair, llama_vocab, vocab, batches[1], checks)
+        free_card()
+        serving_card_vs_cpu(tt, pair, llama_vocab, checks)
         del pair
         free_card()
         architectures_card_vs_cpu(tt, work, checks)

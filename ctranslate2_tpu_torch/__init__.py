@@ -8,7 +8,12 @@ attention, alignment, coverage, prefix bias, vocabulary logits,
 alternatives, vocabulary maps, step callbacks and static prompts through
 the host decode loops), the iterable and token-streaming helpers,
 ``Encoder.forward_batch`` and the speech models ``Whisper``, ``Wav2Vec2``
-and ``Wav2Vec2Bert`` on
+and ``Wav2Vec2Bert``, with model residency (``unload_model`` /
+``load_model``) on every task class, and serving: the
+``ContinuousBatcher`` (continuous batching of decoder-only models, greedy
+and sampled, per-request options), the micro-batching
+``ServingScheduler`` (``translation_scheduler``, ``generation_scheduler``)
+and ``BufferedTranslationWrapper``, on
 one NVIDIA Hopper card (or on the CPU when asked), with hand-written CUDA
 kernels for the int8 matmul, the AWQ 4-bit matmuls, the beam reorder,
 flash attention, decode attention over an int8 KV cache and the norms. It
@@ -17,12 +22,15 @@ imports neither JAX nor the JAX package.
 
 __version__ = "0.1.0"
 
+from .runtime.continuous import ContinuousBatcher
 from .runtime.encoder import Encoder, EncoderForwardOutput
 from .runtime.generator import Generator
 from .runtime.translator import Translator
 from .runtime.wav2vec2 import Wav2Vec2, Wav2Vec2Bert
 from .runtime.whisper import (Whisper, WhisperAlignmentResult,
                               WhisperGenerationResult)
+from .runtime.scheduler import (BufferedTranslationWrapper, ServingScheduler,
+                                generation_scheduler, translation_scheduler)
 from .runtime.results import (AsyncResult, ExecutionStats, GenerationResult,
                               GenerationStepResult, ScoringResult,
                               TranslationResult)
@@ -31,6 +39,8 @@ from .kernels import launch_counts, reset_launches
 
 __all__ = [
     "AsyncResult",
+    "BufferedTranslationWrapper",
+    "ContinuousBatcher",
     "Encoder",
     "EncoderForwardOutput",
     "ExecutionStats",
@@ -39,6 +49,7 @@ __all__ = [
     "Generator",
     "LoadedModel",
     "ScoringResult",
+    "ServingScheduler",
     "Translator",
     "TranslationResult",
     "Wav2Vec2",
@@ -46,7 +57,9 @@ __all__ = [
     "Whisper",
     "WhisperAlignmentResult",
     "WhisperGenerationResult",
+    "generation_scheduler",
     "launch_counts",
     "load_model",
     "reset_launches",
+    "translation_scheduler",
 ]

@@ -62,6 +62,56 @@ def repetition_penalty(logits, alive_seq, seq_len: int, penalty: float):
     return torch.where(seen, penalized, logits)
 
 
+def repetition_penalty_per_row(logits, seen, penalties):
+    """RepetitionPenalty with a penalty a row (the reference's per-call
+    options, include/ctranslate2/translation.h:11-86): ``seen`` [N, V]
+    bool presence, ``penalties`` float [N] (1.0 rows are an exact no-op)."""
+    p = penalties[:, None]
+    penalized = torch.where(logits > 0, logits / p, logits * p)
+    return torch.where(seen, penalized, logits)
+
+
+def no_repeat_ngram_per_row(logits, hist, seq_len, ngram_sizes, max_n: int):
+    """NoRepeatNgram with an n-gram size a row (0 turns a row off; sizes up
+    to ``max_n``). ``hist`` [N, L] each row's generated tokens, ``seq_len``
+    int [N] (or an int) how many.
+
+    End-position form: token ``hist[e]`` is banned for row r iff
+    ``hist[e - k] == hist[len - k]`` for every k in 1..n_r-1, the window
+    wholly inside the generated tokens; the bans of ``no_repeat_ngram``
+    when all rows share one size."""
+    N, V = logits.shape
+    L = hist.shape[1]
+    if max_n < 2:
+        return logits
+    device = logits.device
+    n = ngram_sizes.long()
+    if not torch.is_tensor(seq_len):
+        seq_len = torch.full((N,), seq_len, dtype=torch.long, device=device)
+    seq_len = seq_len.long()
+    e = torch.arange(L, device=device)
+    k = torch.arange(1, max_n, device=device)
+    he = hist[:, (e[:, None] - k[None, :]).clamp(0, L - 1)]  # [N, L, K]
+    ht = hist.gather(1, (seq_len[:, None] - k[None, :]).clamp(0, L - 1))  # [N, K]
+    lag_off = k[None, None, :] >= n[:, None, None]  # lags past n - 1 match
+    match = ((he == ht[:, None, :]) | lag_off).all(dim=-1)  # [N, L]
+    valid = ((e[None, :] >= n[:, None] - 1) & (e[None, :] < seq_len[:, None])
+             & (seq_len[:, None] >= n[:, None]) & (n[:, None] >= 2))
+    ban = _scatter_any(N, V, hist, match & valid)
+    return torch.where(ban, DISABLE, logits)
+
+
+def disable_tokens_per_row(logits, token_table):
+    """Disable a token set a row, given as an [N, W] id table (-1 entries
+    drop; W == 0 is a no-op)."""
+    if token_table.shape[1] == 0:
+        return logits
+    N, V = logits.shape
+    valid = token_table >= 0
+    mask = _scatter_any(N, V, token_table.clamp(min=0), valid)
+    return torch.where(mask, DISABLE, logits)
+
+
 def no_repeat_ngram(logits, alive_seq, seq_len: int, ngram_size: int):
     """Ban tokens that would complete an already-seen n-gram
     (reference: src/decoding_utils.cc NoRepeatNgram::apply)."""

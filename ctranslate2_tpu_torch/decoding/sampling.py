@@ -4,9 +4,10 @@ Port of ``ctranslate2_tpu/decoding/sampling.py``: argmax, and random
 sampling in the reference RandomSampler's order (reference:
 src/sampling.cc:35-101): top-k restriction, temperature, top-p (nucleus)
 mask, Gumbel-max draw, and the pick's score from the unmodified
-distribution. The per-row forms of the continuous engines are not ported,
-nor is ``gumbel_top_k``, the beam loop's random draw, which no entry point
-of either package reaches (their beam search builds an argmax signature).
+distribution; ``sample_tokens_per_row``, the continuous batcher's sampler,
+with every row's own top-k, top-p, temperature and noise. Not ported:
+``gumbel_top_k`` and ``gumbel_top_k_per_row``, the beam draws, which only
+beam serving reaches in the JAX package.
 
 The samplers take their Gumbel noise as an argument. The decode loops get
 it from a noise source, ``noise(step, shape, device)``, which
@@ -108,6 +109,47 @@ def sample_tokens(log_probs, noise, *, topk: int = 1, topp: float = 1.0,
     sampled = torch.argmax(scores + noise, dim=-1)
     ids = sampled if top_ids is None else top_ids.gather(1, sampled[:, None])[:, 0]
     return ids, log_probs.gather(1, ids[:, None])[:, 0]
+
+
+def sample_tokens_per_row(log_probs, noise, *, topks, topps, temps,
+                          max_topk: int):
+    """The continuous batcher's sampler: every row carries its own options
+    (the reference's per-call options through the buffered wrapper,
+    include/ctranslate2/translation.h:11-86). ``log_probs`` [S, V]
+    log-softmaxed scores; ``topks`` int [S] (0 the whole vocabulary, 1 the
+    argmax, k a top-k restriction, k <= ``max_topk``); ``topps`` float [S]
+    (1.0 off); ``temps`` float [S]; ``noise`` [S, V] Gumbel noise, one
+    field a row. Rows with topk 1 take the argmax. Returns (ids [S],
+    scores [S]), the scores the picks' log-probs.
+
+    The order of operations is the JAX package's (temperature, the k-th
+    value's threshold, the nucleus, the Gumbel-max draw): fed the same
+    noise, both draw the same tokens. The JAX package draws each row's
+    field from ``fold_in(key, seed)``; the batcher gives each slot a
+    ``torch.Generator`` of its own (``slot_noise``)."""
+    S, V = log_probs.shape
+    greedy_rows = topks == 1
+    work = log_probs / torch.clamp(temps, min=1e-6)[:, None]
+    if max_topk > 0:
+        vals, _ = small_top_k(work, min(max_topk, V))  # descending
+        kth = vals.gather(1, (topks.long() - 1).clamp(0, vals.shape[1] - 1)[:, None])
+        use_topk = ((topks > 1) & (topks < V))[:, None]
+        work = torch.where(use_topk & (work < kth), DISABLE, work)
+    masked = top_p_mask(work, torch.clamp(topps, max=1.0)[:, None])
+    work = torch.where((topps < 1.0)[:, None], masked, work)
+    sampled = torch.argmax(work + noise, dim=-1)
+    ids = torch.where(greedy_rows, torch.argmax(log_probs, dim=-1), sampled)
+    return ids, log_probs.gather(1, ids[:, None])[:, 0]
+
+
+def slot_noise(generators, vocab: int, device):
+    """[S, V] Gumbel noise for the batcher's slots: row s drawn from
+    ``generators[s]``, or zeros where it is None (a slot that does not
+    sample)."""
+    rows = [draw_gumbel(g, (1, vocab), device) if g is not None
+            else torch.zeros((1, vocab), dtype=torch.float32, device=device)
+            for g in generators]
+    return torch.cat(rows)
 
 
 def draw_gumbel(generator: torch.Generator, shape, device):

@@ -154,9 +154,17 @@ def embed(side_params: dict, spec, ids, out_dtype, merge: str = "concat"):
     return torch.cat(outs, dim=-1)
 
 
-def _apply_positions(side_params, side_consts, spec, x, offset: int):
-    """Add learned or sinusoidal position encodings at ``offset`` (the
-    sinusoidal row t encodes position t+1, the reference's convention)."""
+def _row_positions(pos, T: int, limit: int):
+    """[B, T] absolute positions ``pos[b] + t`` of per-row offsets, clipped
+    to a table of ``limit`` rows (the JAX package's gather clips as well)."""
+    t = torch.arange(T, device=pos.device)
+    return (pos.to(torch.int64)[:, None] + t[None, :]).clamp(0, limit - 1)
+
+
+def _apply_positions(side_params, side_consts, spec, x, offset):
+    """Add learned or sinusoidal position encodings at ``offset``, an int or
+    an int [B] tensor of per-row offsets (the sinusoidal row t encodes
+    position t+1, the reference's convention)."""
     T = x.shape[1]
     if spec.has_position_embedding:
         table = side_params["position_encodings"]
@@ -164,6 +172,8 @@ def _apply_positions(side_params, side_consts, spec, x, offset: int):
         table = side_consts["sinusoidal"]
     else:
         return x
+    if attn_ops.per_row(offset):
+        return x + table[_row_positions(offset, T, table.shape[0])].to(x.dtype)
     return x + table[offset:offset + T].to(x.dtype)[None]
 
 
@@ -232,16 +242,36 @@ def _project_qkv(arch, ap: dict, spec: AttentionSpec, x, quantize_acts: bool):
     return q, k, v
 
 
-def _maybe_rotary(spec: AttentionSpec, rot_consts, q, k, offset: int):
+def _maybe_rotary(spec: AttentionSpec, rot_consts, q, k, offset):
     if spec.rotary is None:
         return q, k
     T = q.shape[2]
     dim = spec.rotary.dim if spec.rotary.dim else spec.head_dim
-    sin = rot_consts["sin"][offset:offset + T]
-    cos = rot_consts["cos"][offset:offset + T]
+    if attn_ops.per_row(offset):  # gathered once a call (_per_call_rotary)
+        sin, cos = rot_consts["row_sin"], rot_consts["row_cos"]
+    else:
+        sin = rot_consts["sin"][offset:offset + T]
+        cos = rot_consts["cos"][offset:offset + T]
     q = apply_rotary(q, sin, cos, spec.rotary.interleave, dim)
     k = apply_rotary(k, sin, cos, spec.rotary.interleave, dim)
     return q, k
+
+
+def _per_call_rotary(rotary: dict, pos, T: int) -> dict:
+    """The decoder's rotary tables with each row's phases at per-row
+    positions ([B, 1, T, dim], broadcasting over the heads) as ``row_sin``
+    and ``row_cos``, gathered once a call for each distinct pair of tables,
+    not once a layer."""
+    gathered = {}
+    out = {}
+    for name, consts in rotary.items():
+        key = id(consts["sin"])
+        if key not in gathered:
+            rows = _row_positions(pos, T, consts["sin"].shape[0])
+            gathered[key] = dict(consts, row_sin=consts["sin"][rows][:, None],
+                                 row_cos=consts["cos"][rows][:, None])
+        out[name] = gathered[key]
+    return out
 
 
 def _decode_chunk() -> int:
@@ -332,12 +362,26 @@ def split_prefill_chunks(start: int, length: int, block: int):
     return out
 
 
-def _cache_write(buf, new, offset: int, ring: int = 0):
+def _cache_write(buf, new, offset, ring: int = 0):
     """Write ``new`` [B, H, T, D] into ``buf`` [B, H, C, D] at time slot
     ``offset``, in place; with ``ring`` the positions wrap at the ring's
-    end (window-aligned chunks never reach it)."""
+    end (window-aligned chunks never reach it). ``offset`` may be an int
+    [B] tensor: row b is written at its own ``offset[b]`` (a scatter;
+    ``ring`` wraps each written position)."""
     T = new.shape[2]
     new = new.to(buf.dtype)
+    if attn_ops.per_row(offset):
+        B = buf.shape[0]
+        rows = torch.arange(B, device=buf.device)
+        if T == 1:
+            buf[rows, :, offset.long()] = new[:, :, 0]
+            return buf
+        cols = offset.long()[:, None] + torch.arange(T, device=buf.device)[None, :]
+        if ring:
+            cols = torch.remainder(cols, ring)
+        # [B, T] indices around the heads' slice: the value is [B, T, H, D].
+        buf[rows[:, None], :, cols] = new.transpose(1, 2)
+        return buf
     if ring and offset + T > ring:
         head = ring - offset
         buf[:, :, offset:] = new[:, :, :head]
@@ -347,7 +391,7 @@ def _cache_write(buf, new, offset: int, ring: int = 0):
     return buf
 
 
-def _append_int8_cache(cache: dict, k8, ks, v8, vs, offset: int, ring: int = 0):
+def _append_int8_cache(cache: dict, k8, ks, v8, vs, offset, ring: int = 0):
     """Write quantized K/V [B, H, T, D] and their scales [B, H, T] into the
     int8 cache at time slot ``offset`` (wrapping as ``_cache_write``), in
     place."""
@@ -358,7 +402,7 @@ def _append_int8_cache(cache: dict, k8, ks, v8, vs, offset: int, ring: int = 0):
     return cache
 
 
-def _update_int8_cache(cache: dict, k, v, offset: int, ring: int = 0):
+def _update_int8_cache(cache: dict, k, v, offset, ring: int = 0):
     """Quantize and append new K/V vectors at ``offset``."""
     k8, ks = quantize_kv(k)
     v8, vs = quantize_kv(v)
@@ -414,13 +458,14 @@ def self_attention_block(
     *,
     bias,
     rot_consts=None,
-    offset: int = 0,
+    offset=0,  # an int, or an int [B] tensor of per-row positions
     cache: Optional[dict] = None,
     pre_norm: bool = True,
     quantize_acts: bool = True,
-    alibi_bias=None,  # [Hq, 1, Tk] float32
-    rel_positions=None,  # [Tq, Tk] Shaw indices
-    position_bias=None,  # [Hq, Tq, Tk] T5 bias, or a function that builds
+    alibi_bias=None,  # [Hq, 1, Tk] float32 ([B, Hq, T, Tk] per row)
+    rel_positions=None,  # [Tq, Tk] Shaw indices ([B, Tq, Tk] per row)
+    position_bias=None,  # [Hq, Tq, Tk] T5 bias ([B, Hq, Tq, Tk] per row), or a
+    # function that builds
     # it (called only where the plain attention runs)
     wrap_norm: bool = True,  # False: ``x`` is normed already, no residual
     causal: bool = False,
@@ -440,6 +485,8 @@ def self_attention_block(
     # flash-eligible); ``bias`` must then cover [*, T, T]
     kv_lengths=None,  # int32 [B] filled with ``offset`` (int8 decode kernel)
     delta=None,  # the previous block's output, not yet added to ``x``
+    pos_bound: Optional[int] = None,  # per-row ``offset``: a bound of its
+    # largest entry known on the host, for the length-adaptive cache read
 ):
     """Self-attention with an optional fixed-capacity KV cache.
 
@@ -487,8 +534,9 @@ def self_attention_block(
             k8, ks = quantize_kv(k)
             v8, vs = quantize_kv(v)
             if kv_lengths is None:
-                kv_lengths = torch.full((q.shape[0],), offset, dtype=torch.int32,
-                                        device=q.device)
+                kv_lengths = (offset.to(torch.int32) if attn_ops.per_row(offset)
+                              else torch.full((q.shape[0],), offset,
+                                              dtype=torch.int32, device=q.device))
             ctx = decode_attention_int8(
                 q, cache["k"], cache["k_scale"][:, :, 0, :],
                 cache["v"], cache["v_scale"][:, :, 0, :], kv_lengths,
@@ -526,7 +574,7 @@ def self_attention_block(
         elif chunk:
             ctx = attn_ops.chunked_decode_attention(
                 q, ck, cv, k_new, v_new, offset,
-                queries_scale=spec.queries_scale, chunk=chunk)
+                queries_scale=spec.queries_scale, chunk=chunk, pos_bound=pos_bound)
         else:
             ctx = attn_ops.decode_step_attention(
                 q, ck, cv, k_new, v_new, w_off,
@@ -953,6 +1001,32 @@ def cache_grow(cache, n_rows: int, capacity: int, arch: Optional[ArchSpec] = Non
              for name, a in layer.items()} for layer in cache]
 
 
+def cache_insert_row(cache, sub_cache, slot: int):
+    """Write a 1-row ``sub_cache`` into batch row ``slot`` of ``cache``, in
+    place; returns ``cache``. The sub-cache may have a smaller capacity (a
+    prompt-sized prefill cache): only its slots are written, and the stale
+    entries after them are never read, since the decode masks exclude
+    unwritten positions. The continuous batcher admits a prefilled request
+    into a free slot with it."""
+    for layer, sub in zip(cache, sub_cache):
+        for name, buf in layer.items():
+            src = sub[name]
+            axis = 3 if name.endswith("_scale") else 2
+            n = min(src.shape[axis], buf.shape[axis])
+            buf[slot].narrow(axis - 1, 0, n).copy_(src[0].narrow(axis - 1, 0, n))
+    return cache
+
+
+def project_logits(arch: ArchSpec, params: dict, x, quantize_acts: bool = True):
+    """The output projection of hidden states ``x`` [..., D] (the decoder's
+    last normed states), with the final logit soft-capping."""
+    x = linear(params["decoder"]["projection"], x, quantize_activations=quantize_acts)
+    cap = arch.decoder.final_logit_softcapping
+    if cap:
+        x = torch.tanh(x / cap) * cap
+    return x
+
+
 def precompute_memory(arch: ArchSpec, params: dict, memory, quantize_acts: bool = True):
     """Project encoder output into per-layer cross K/V (prefill-once): the
     cross-attention's K and V, or a merged attention's ``memory_kv``. Under
@@ -992,13 +1066,18 @@ class _LayerExtras:
     ``ring_window_bias``, which replaces them), the ALiBi bias, the Shaw
     indices, the T5 bias and the ring size. Each is built once per key
     length. A layer's key length is its own capacity, so a hybrid stack of
-    ring and linear layers (Gemma-2) gets each its own bias."""
+    ring and linear layers (Gemma-2) gets each its own bias. With per-row
+    positions (``pos`` an int [B] tensor) every position-dependent bias
+    gains a batch axis: the causal, window and ring biases [B, 1, T, Tk],
+    negative-convention ALiBi [B, H, T, Tk], the Shaw indices [B, T, Tk] and
+    the T5 bias [B, H, T, Tk]."""
 
-    def __init__(self, arch: ArchSpec, dc: dict, T: int, pos: int,
+    def __init__(self, arch: ArchSpec, dc: dict, T: int, pos,
                  attn_cached: bool, fresh: bool, lengths, device):
         self.arch, self.dc, self.T, self.pos = arch, dc, T, pos
         self.attn_cached, self.fresh = attn_cached, fresh
         self.lengths, self.device = lengths, device
+        self.pos_vec = attn_ops.per_row(pos)
         self.ring = ring_capacity(arch)
         self._memo: dict = {}
 
@@ -1050,14 +1129,22 @@ class _LayerExtras:
 
             def alibi():
                 positions = torch.arange(Tk, dtype=torch.float32, device=self.device)
+                slopes = self.dc["alibi_slopes"]
+                if (self.pos_vec and self.attn_cached
+                        and not spec.alibi_use_positive_positions):
+                    # Each query's keys end at 0 on the query itself, at
+                    # its row's own position: [B, H, T, Tk].
+                    q_pos = (pos.float()[:, None] + torch.arange(
+                        T, dtype=torch.float32, device=self.device)[None, :])
+                    rel = positions[None, None, :] - q_pos[:, :, None]
+                    return slopes[None, :, None, None] * rel[:, None] * scale
                 if not spec.alibi_use_positive_positions:
                     # Negative positions end at 0 on the last current key
                     # (reference: src/layers/attention_layer.cc:38-41).
                     cur_len = (pos + T) if self.attn_cached else T
                     positions = positions - (torch.tensor(
                         cur_len, dtype=torch.float32, device=self.device) - 1)
-                return (self.dc["alibi_slopes"][:, None, None]
-                        * positions[None, None, :] * scale)
+                return slopes[:, None, None] * positions[None, None, :] * scale
             alibi_bias = self._once(("alibi", Tk, scale), alibi)
 
         rel_positions = None
@@ -1066,14 +1153,14 @@ class _LayerExtras:
                 ("shaw", Tk, aspec.max_relative_position),
                 lambda: attn_ops.make_relative_positions(
                     T, Tk, aspec.max_relative_position,
-                    query_offset=pos if self.attn_cached else None,
+                    query_offset=pos if (self.attn_cached or self.pos_vec) else None,
                     device=self.device))
         pbias = None
         if aspec.has_rel_attention_bias and t5:
             pbias = attn_ops.t5_position_bias(
                 lp["self_attention"]["relative_attention_bias"], T, Tk,
                 aspec.rel_max_distance, bidirectional=False,
-                query_offset=pos if self.attn_cached else 0)
+                query_offset=pos if (self.attn_cached or self.pos_vec) else 0)
         if ring and (alibi_bias is not None or rel_positions is not None
                      or pbias is not None):
             raise NotImplementedError(
@@ -1087,7 +1174,7 @@ def decoder_forward(
     params: dict,
     consts: dict,
     ids,  # [B*beam, T]
-    pos: int,  # position of ids[:, 0]
+    pos,  # position of ids[:, 0]: an int, or an int [B*beam] tensor (per row)
     self_cache,  # list per layer of {"k","v"} [B*beam, Hkv, C, D], or None
     mem_kv=None,  # list per layer of {"k","v"} [B, Hkv, S, D] (beam-shared)
     memory_bias=None,  # [B, 1, 1, S] additive f32
@@ -1105,12 +1192,20 @@ def decoder_forward(
     alignment_pairs=None,  # tuple of (layer, head): collect these heads'
     # cross-attention
     raw_attention: bool = False,  # the pairs' pre-softmax scores
+    pos_bound: Optional[int] = None,  # per-row ``pos``: a bound of its
+    # largest entry known on the host (the length-adaptive cache read's
+    # trip count; the whole capacity when None)
 ):
     """Decoder pass covering both modes:
 
     - cached step/prefill: ``self_cache`` given; keys live at [0, pos+T)
       and this call's keys are written in place;
     - full sequence (scoring): ``self_cache=None``; plain causal masking.
+
+    ``pos`` may be an int [B*beam] tensor on the model's device: each row
+    then sits at its own position (continuous batching), for the position
+    tables, the rotary phases, the cache writes, every bias and the decode
+    attention's lengths, as in the JAX package.
 
     ``mem_kv`` is None for a decoder-only model. Returns (logits
     [B*beam, T, V] (or the hidden states when ``return_logits`` is False),
@@ -1123,17 +1218,26 @@ def decoder_forward(
     float32 softmax weights, or with ``raw_attention`` the scores before it
     (Whisper's alignment, reference: src/models/whisper.cc:495-556).
     """
-    if getattr(pos, "ndim", 0) > 0:
-        raise NotImplementedError(
-            "per-row positions (continuous batching) are not ported yet")
     spec = arch.decoder
     dp = params["decoder"]
     dc = consts.get("decoder", {})
-    T = ids.shape[-1]
-    device = (ids[0] if isinstance(ids, (tuple, list)) else ids).device
+    main_ids = ids[0] if isinstance(ids, (tuple, list)) else ids
+    T = main_ids.shape[-1]
+    device = main_ids.device
+    pos_vec = attn_ops.per_row(pos)
+    if pos_vec and tuple(pos.shape) != (main_ids.shape[0],):
+        raise ValueError(
+            f"per-row positions take one entry a row: pos {tuple(pos.shape)} "
+            f"for {main_ids.shape[0]} rows")
+    if pos_vec:
+        pos = pos.long()  # one conversion for every index built from it
 
     x = embed(dp, spec, ids, out_dtype, spec.embeddings.merge)
-    if spec.start_from_zero_embedding and pos == 0:
+    if spec.start_from_zero_embedding and pos_vec:
+        # The rows whose step is at position 0.
+        t_idx = pos.long()[:, None] + torch.arange(T, device=device)[None, :]
+        x = torch.where((t_idx == 0)[:, :, None], torch.zeros_like(x), x)
+    elif spec.start_from_zero_embedding and pos == 0:
         # Zero the embedding of the BOS timestep at step 0
         # (reference: src/layers/transformer.cc:637-640).
         x = x.clone()
@@ -1151,7 +1255,8 @@ def decoder_forward(
     kv_lengths = None
     causal_only = attn_cached and T == 1 and lengths is None
     if attn_cached and T == 1 and "k_scale" in self_cache[0]:
-        kv_lengths = torch.full((x.shape[0],), pos, dtype=torch.int32, device=device)
+        kv_lengths = (pos.to(torch.int32) if pos_vec else
+                      torch.full((x.shape[0],), pos, dtype=torch.int32, device=device))
     extras = _LayerExtras(arch, dc, T, pos, attn_cached, fresh, lengths, device)
     flash_alibi = None
     if spec.alibi:
@@ -1161,6 +1266,8 @@ def decoder_forward(
             flash_alibi = flash_alibi * spec.layers[0].self_attention.queries_scale
 
     rotary = dc.get("rotary", {})
+    if pos_vec and rotary:
+        rotary = _per_call_rotary(rotary, pos, T)
     qa = quantize_acts
     delta = None
     attention = None
@@ -1187,7 +1294,7 @@ def decoder_forward(
                        beam_chain=beam_chain, beam_chain_size=beam_size, ring=ring,
                        alibi_slopes=flash_alibi,
                        alibi_positive=spec.alibi_use_positive_positions,
-                       fresh_prefill=fresh, kv_lengths=kv_lengths)
+                       fresh_prefill=fresh, kv_lengths=kv_lengths, pos_bound=pos_bound)
         if alignment_pairs is not None:
             want = ("logits" if raw_attention else True) if i in pair_heads else False
         else:
@@ -1283,10 +1390,7 @@ def decoder_forward(
     if spec.has_outputs_scale:
         x = x * dp["scale_outputs"].to(x.dtype)
     if return_logits and spec.has_projection:
-        x = linear(dp["projection"], x, quantize_activations=quantize_acts)
-        if spec.final_logit_softcapping:
-            cap = spec.final_logit_softcapping
-            x = torch.tanh(x / cap) * cap
+        x = project_logits(arch, params, x, quantize_acts)
     if alignment_pairs is not None:
         return x, self_cache, (torch.cat(collected, dim=1) if collected else None)
     if return_attention:

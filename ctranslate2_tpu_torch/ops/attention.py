@@ -9,8 +9,10 @@ float32, as the JAX package's ``preferred_element_type=float32`` does.
 Sliding windows, ring-buffer windows, ALiBi, and the relative-position
 schemes (Shaw keys/values, T5 buckets; reference:
 src/layers/attention.cc:16-165) build the same biases and indices as the
-JAX package, bit for bit. Positions are shared by the batch (per-row
-positions come with continuous batching).
+JAX package, bit for bit. Every position may be a Python int shared by
+the batch or an int [B] tensor of per-row positions (continuous batching:
+each slot decodes at its own position); the per-row forms gain a leading
+batch axis.
 """
 
 from __future__ import annotations
@@ -38,28 +40,50 @@ def length_mask_bias(lengths, num_keys: int):
     return _where_bias(valid)[:, None, None, :]
 
 
-def causal_mask_bias(num_queries: int, num_keys: int, offset: int = 0,
-                     device=None):
-    """[1, 1, Tq, Tk] causal bias; query i attends keys <= i + offset."""
-    q_pos = torch.arange(num_queries, device=device)[:, None] + offset
-    k_pos = torch.arange(num_keys, device=device)[None, :]
-    return _where_bias(k_pos <= q_pos)[None, None]
+def per_row(offset) -> bool:
+    """Whether ``offset`` is a [B] tensor of per-row positions."""
+    return getattr(offset, "ndim", 0) > 0
+
+
+def _query_positions(num_queries: int, offset, device):
+    """Absolute query positions: [Tq, 1] for a shared offset, [B, Tq, 1]
+    for per-row offsets (row b's query i sits at ``offset[b] + i``)."""
+    if per_row(offset):
+        return (offset.to(torch.int64)[:, None, None]
+                + torch.arange(num_queries, device=offset.device)[None, :, None])
+    return torch.arange(num_queries, device=device)[:, None] + offset
+
+
+def _bias_rows(valid):
+    """[1, 1, Tq, Tk] from a shared [Tq, Tk] mask, [B, 1, Tq, Tk] from a
+    per-row [B, Tq, Tk] one."""
+    b = _where_bias(valid)
+    return b[:, None] if b.dim() == 3 else b[None, None]
+
+
+def causal_mask_bias(num_queries: int, num_keys: int, offset=0, device=None):
+    """[1, 1, Tq, Tk] causal bias, query i attending keys <= i + offset;
+    [B, 1, Tq, Tk] for per-row offsets."""
+    q_pos = _query_positions(num_queries, offset, device)
+    k_pos = torch.arange(num_keys, device=q_pos.device)
+    return _bias_rows(k_pos <= q_pos)
 
 
 def sliding_window_bias(num_queries: int, num_keys: int, window: int,
-                        offset: int = 0, device=None):
-    """[1, 1, Tq, Tk]: restrict attention to the last ``window`` keys
-    (inclusive of self)."""
-    q_pos = torch.arange(num_queries, device=device)[:, None] + offset
-    k_pos = torch.arange(num_keys, device=device)[None, :]
-    return _where_bias(k_pos > q_pos - window)[None, None]
+                        offset=0, device=None):
+    """[1, 1, Tq, Tk] ([B, 1, Tq, Tk] for per-row offsets): restrict
+    attention to the last ``window`` keys (inclusive of self)."""
+    q_pos = _query_positions(num_queries, offset, device)
+    k_pos = torch.arange(num_keys, device=q_pos.device)
+    return _bias_rows(k_pos > q_pos - window)
 
 
-def ring_window_bias(num_queries: int, ring: int, window: int, offset: int = 0,
+def ring_window_bias(num_queries: int, ring: int, window: int, offset=0,
                      device=None):
-    """[1, 1, Tq, ring]: the bias of a RING KV buffer of ``ring`` slots
-    holding a sliding window of ``window`` positions (the reference evicts
-    instead: src/layers/attention.cc:536-557, 587-595).
+    """[1, 1, Tq, ring] ([B, 1, Tq, ring] for per-row offsets): the bias of
+    a RING KV buffer of ``ring`` slots holding a sliding window of
+    ``window`` positions (the reference evicts instead:
+    src/layers/attention.cc:536-557, 587-595).
 
     Keys are written at ``position % ring``. For a query at absolute
     position q, slot j holds position ``q - d``, ``d = (q - j) mod ring``;
@@ -70,10 +94,10 @@ def ring_window_bias(num_queries: int, ring: int, window: int, offset: int = 0,
     mask too: it replaces the causal bias, never adds to it. The slot of
     d == 0 is the query's own: decode-step callers attend the fresh token
     separately and exclude that stale slot themselves."""
-    j = torch.arange(ring, device=device)
-    q = torch.arange(num_queries, device=device)[:, None] + offset
-    d = torch.remainder(q - j[None, :], ring)
-    return _where_bias((d < window) & (d <= q))[None, None]
+    q = _query_positions(num_queries, offset, device)
+    j = torch.arange(ring, device=q.device)
+    d = torch.remainder(q - j, ring)
+    return _bias_rows((d < window) & (d <= q))
 
 
 def combine_bias(*biases):
@@ -93,9 +117,15 @@ def make_relative_positions(num_queries: int, num_keys: int, max_position: int,
                             asymmetric: bool = False, left_max: int = 0,
                             right_max: int = 0, query_offset=None, device=None):
     """Clipped relative-position index matrix [Tq, Tk], int32
-    (reference: src/layers/attention.cc:16-49). ``query_offset`` is the
-    absolute position of query 0; None right-aligns the queries with the
-    keys (offset Tk - Tq), the full-sequence convention."""
+    (reference: src/layers/attention.cc:16-49); [B, Tq, Tk] for a per-row
+    ``query_offset``. ``query_offset`` is the absolute position of query 0;
+    None right-aligns the queries with the keys (offset Tk - Tq), the
+    full-sequence convention."""
+    if not asymmetric and per_row(query_offset):
+        q_pos = _query_positions(num_queries, query_offset, device)
+        j = torch.arange(num_keys, device=q_pos.device)
+        rel = torch.clamp(j - q_pos, -max_position, max_position) + max_position
+        return rel.to(torch.int32)
     i = torch.arange(num_queries, device=device)[:, None]
     j = torch.arange(num_keys, device=device)[None, :]
     if asymmetric:
@@ -107,15 +137,18 @@ def make_relative_positions(num_queries: int, num_keys: int, max_position: int,
 
 
 def t5_position_bias(rel_attention_bias, num_queries: int, num_keys: int,
-                     max_distance: int, bidirectional: bool, query_offset: int = 0):
+                     max_distance: int, bidirectional: bool, query_offset=0):
     """[H, Tq, Tk] float32 additive bias from the learned [num_buckets, H]
-    table; the buckets are the flash kernel's plain version's."""
+    table ([B, H, Tq, Tk] for a per-row ``query_offset``); the buckets are
+    the flash kernel's plain version's."""
     device = rel_attention_bias.device
-    i = torch.arange(num_queries, device=device)[:, None] + query_offset
-    j = torch.arange(num_keys, device=device)[None, :]
+    i = _query_positions(num_queries, query_offset, device)
+    j = torch.arange(num_keys, device=device)
     buckets = relative_position_bucket(
         j - i, rel_attention_bias.shape[0], max_distance, bidirectional)
-    values = rel_attention_bias[buckets.long()]  # [Tq, Tk, H]
+    values = rel_attention_bias[buckets.long()]  # [(B,) Tq, Tk, H]
+    if values.dim() == 4:
+        return values.permute(0, 3, 1, 2).float()
     return values.permute(2, 0, 1).float()
 
 
@@ -144,7 +177,7 @@ def dot_product_attention(
     return_weights=False,  # False | True (the softmax) | "logits"
     rel_position_keys=None,  # [2P+1, D] Shaw tables (float32)
     rel_position_values=None,
-    rel_positions=None,  # [Tq, Tk] int indices into the tables
+    rel_positions=None,  # [Tq, Tk] ([B, Tq, Tk] per row) indices into the tables
 ):
     """The attention output [B, Hq, Tq, D]; with ``return_weights``, also
     the float32 softmax weights [B, Hq, Tq, Tk] (with ``"logits"`` the
@@ -159,17 +192,17 @@ def dot_product_attention(
     qg = q.reshape(B, Hkv, group, Tq, D)
     logits = torch.matmul(qg, k[:, :, None].transpose(-1, -2)).float() * queries_scale
     if rel_position_keys is not None:
-        rel_rep = rel_position_keys.float()[rel_positions.long()]  # [Tq, Tk, D]
-        logits = logits + torch.einsum(
-            "bhgqd,qkd->bhgqk", qg.float(), rel_rep) * queries_scale
+        rel_rep = rel_position_keys.float()[rel_positions.long()]  # [(B,) Tq, Tk, D]
+        eq = "bhgqd,bqkd->bhgqk" if rel_positions.dim() == 3 else "bhgqd,qkd->bhgqk"
+        logits = logits + torch.einsum(eq, qg.float(), rel_rep) * queries_scale
     if bias is not None:
         logits = logits + _group_bias(bias, Hkv, group)
     weights = torch.softmax(logits, dim=-1)
     out = torch.matmul(weights.to(v.dtype), v[:, :, None])
     if rel_position_values is not None:
         rel_rep_v = rel_position_values.float()[rel_positions.long()]
-        out = out.float() + torch.einsum(
-            "bhgqk,qkd->bhgqd", weights.to(v.dtype).float(), rel_rep_v)
+        eq = "bhgqk,bqkd->bhgqd" if rel_positions.dim() == 3 else "bhgqk,qkd->bhgqd"
+        out = out.float() + torch.einsum(eq, weights.to(v.dtype).float(), rel_rep_v)
     out = out.reshape(B, Hq, Tq, D).to(q.dtype)
     if return_weights == "logits":
         return out, logits.reshape(B, Hq, Tq, -1)
@@ -317,11 +350,11 @@ def decode_step_attention(
     v_pre,
     k_new,  # [B, Hkv, 1, D] this step's key/value
     v_new,
-    pos: int,  # slot the fresh token occupies
+    pos,  # slot the fresh token occupies: an int, or int [B] per row
     *,
     queries_scale: float = 1.0,
     bias=None,  # additive over cache slots, broadcastable [.., 1, C]
-    alibi_bias=None,  # [Hq, Tq, C]
+    alibi_bias=None,  # [Hq, Tq, C] shared or [B, Hq, Tq, C] per row
 ):
     """Single-token decode attention over [pre-update cache | fresh token].
 
@@ -337,15 +370,27 @@ def decode_step_attention(
     lc = torch.matmul(qg, k_pre[:, :, None].transpose(-1, -2)).float() * queries_scale
     lf = torch.einsum("bhgqd,bhd->bhgq", qg, k_new[:, :, 0]).float() * queries_scale
 
-    excl = torch.where(torch.arange(C, device=q.device) == pos, -1e30, 0.0)
+    slots = torch.arange(C, device=q.device)
+    if per_row(pos):
+        excl = torch.where(slots[None, :] == pos[:, None], -1e30, 0.0).reshape(
+            B, 1, 1, 1, C)
+    else:
+        excl = torch.where(slots == pos, -1e30, 0.0)
     lc = lc + excl.to(torch.float32)
     if bias is not None:
         lc = lc + _group_bias(bias, Hkv, group)
     if alibi_bias is not None:
         ab = alibi_bias.float()
-        lc = lc + ab.reshape(1, Hkv, group, Tq, C)
+        if ab.dim() == 3:
+            ab = ab[None]
+        lc = lc + ab.reshape(ab.shape[0], Hkv, group, Tq, C)
         # The fresh token sits at slot ``pos``: its column of the bias.
-        lf = lf + ab[..., pos].reshape(1, Hkv, group, Tq)
+        if per_row(pos):
+            col = ab.expand(B, Hq, Tq, C).gather(
+                -1, pos.long().reshape(B, 1, 1, 1).expand(B, Hq, Tq, 1))[..., 0]
+            lf = lf + col.reshape(B, Hkv, group, Tq)
+        else:
+            lf = lf + ab[..., pos].reshape(ab.shape[0], Hkv, group, Tq)
 
     full = torch.cat([lc, lf[..., None]], dim=-1)  # [..., C+1]
     w = torch.softmax(full, dim=-1)
@@ -361,14 +406,20 @@ def chunked_decode_attention(
     v_pre,
     k_new,  # [B, Hkv, 1, D]
     v_new,
-    pos: int,  # number of valid cached slots (< pos)
+    pos,  # number of valid cached slots (< pos): an int, or int [B] per row
     *,
     queries_scale: float = 1.0,
     chunk: int = 128,
+    pos_bound: int = None,
 ):
     """``decode_step_attention`` that only READS the written cache prefix:
     an online-softmax loop over ``ceil(pos/chunk)`` chunks, so per-step
-    traffic scales with the actual length."""
+    traffic scales with the actual length.
+
+    With per-row ``pos`` each row is masked at its own length and the loop
+    walks to ``pos_bound``, a bound of ``max(pos)`` known on the host (the
+    whole capacity when None): the loop's trip count never reads the
+    device, so a decode step does not wait for the card."""
     B, Hq, Tq, D = q.shape
     Hkv, C = k_pre.shape[1], k_pre.shape[2]
     group = Hq // Hkv
@@ -381,12 +432,18 @@ def chunked_decode_attention(
     l = torch.ones_like(lf)
     acc = v_new[:, :, None, 0].float().expand(B, Hkv, group, D)
 
-    for start in range(0, pos, chunk):
+    rows = per_row(pos)
+    end = min(C if pos_bound is None else pos_bound, C) if rows else pos
+    for start in range(0, end, chunk):
         kc = k_pre[:, :, start:start + chunk]
         vc = v_pre[:, :, start:start + chunk]
         s = torch.einsum("bhgd,bhcd->bhgc", qg, kc).float() * queries_scale
-        valid = (start + torch.arange(kc.shape[2], device=q.device)) < pos
-        s = torch.where(valid[None, None, None, :], s, -1e30)
+        cols = start + torch.arange(kc.shape[2], device=q.device)
+        if rows:
+            valid = (cols[None, :] < pos[:, None])[:, None, None, :]
+        else:
+            valid = (cols < pos)[None, None, None, :]
+        s = torch.where(valid, s, -1e30)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)

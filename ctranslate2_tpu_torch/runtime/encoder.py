@@ -20,7 +20,7 @@ from ..models.loader import LoadedModel, load_model, resolve_device
 from ..models.params import ParamsBuilder
 from ..ops.activations import get_activation
 from ..ops.linear import linear
-from .base import TaskAPIMixin
+from .base import TaskAPIMixin, move_tree
 from .batching import normalize_input_ids, pad_batch
 from .pool import WorkerPool, resolve_max_queued_batches
 from .results import AsyncResult
@@ -82,6 +82,20 @@ class Encoder(TaskAPIMixin):
             return None
         params = ParamsBuilder(mf, self.model.policy, self.model.device).linear(scope)
         return params, get_activation(int(mf.attribute("pooler_activation", TANH)))
+
+    def _unload_extra(self, to_cpu: bool) -> None:
+        # The pooler's weights live beside the model's params.
+        if self._pooler is not None:
+            params, activation = self._pooler
+            self._unloaded_pooler = (move_tree(params, "cpu") if to_cpu else None,
+                                     activation)
+            self._pooler = None
+
+    def _load_extra(self, device) -> None:
+        kept = getattr(self, "_unloaded_pooler", None)
+        if kept is not None:
+            self._pooler = (move_tree(kept[0], device), kept[1])
+            self._unloaded_pooler = None
 
     def forward_batch_async(self, inputs, lengths=None, token_type_ids=None):
         """``forward_batch`` on the worker pool (reference:

@@ -74,6 +74,11 @@ class Generator(TaskAPIMixin):
     def num_generators(self) -> int:
         return self._pool.num_workers
 
+    def _unload_extra(self, to_cpu: bool) -> None:
+        # The prefilled static prompts hold K/V computed from the weights.
+        with self._static_prompt_lock:
+            self._static_prompt_cache.clear()
+
     @property
     def _vocab(self):
         return self.model.target_vocabulary

@@ -11,7 +11,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import Future
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -76,6 +76,12 @@ class WorkerPool:
         future: Future = Future()
         self._queue.put((future, fn, args, kwargs))
         return future
+
+    def map_ordered(self, fn: Callable, items: Sequence) -> List:
+        """Submits one job an item and waits; the results keep the items'
+        order."""
+        futures = [self.submit(fn, item) for item in items]
+        return [f.result() for f in futures]
 
     def close(self, timeout: Optional[float] = 5.0):
         if self._closed:

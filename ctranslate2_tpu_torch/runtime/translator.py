@@ -106,6 +106,10 @@ class Translator(TaskAPIMixin):
                                                self.model.target_vocabulary))
 
     @property
+    def num_translators(self) -> int:
+        return self._pool.num_workers
+
+    @property
     def _source_vocab(self):
         return self.model.source_vocabularies[0]
 

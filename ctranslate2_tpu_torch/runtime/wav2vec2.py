@@ -20,7 +20,7 @@ from ..ops.activations import gelu
 from ..ops.conv import conv1d
 from ..ops.linear import linear
 from ..utils.dtypes import resolve_compute_type
-from .base import TaskAPIMixin
+from .base import ModelResidency, TaskAPIMixin
 from .pool import WorkerPool, resolve_max_queued_batches
 
 
@@ -100,11 +100,12 @@ class Wav2Vec2(TaskAPIMixin):
         return out.cpu() if to_cpu else out
 
 
-class Wav2Vec2Bert:
+class Wav2Vec2Bert(ModelResidency):
     """The conformer speech encoder (reference: src/models/wav2vec2bert.cc,
     python/cpp/wav2vec2bert.cc): features -> CTC logits or hidden states.
     ``device`` is ``"cuda"`` (the default; raises without CUDA) or
-    ``"cpu"``."""
+    ``"cpu"``. Its weights are ``self.params``; ``encode`` runs in the
+    caller's thread, so no batch is ever pending on an unload."""
 
     def __init__(self, model_path: str, device: Optional[str] = None,
                  compute_type: str = "default", device_index=0, **kwargs):
@@ -135,9 +136,15 @@ class Wav2Vec2Bert:
                     if p.activation_dtype != "float32" else "int8")
         return p.weight_dtype
 
+    def _resident(self):
+        return self
+
+    def _resident_device(self) -> torch.device:
+        return self._device
+
     @property
-    def tensor_parallel(self) -> bool:
-        return False
+    def num_active_batches(self) -> int:
+        return 0
 
     def encode(self, features, to_cpu: bool = False):
         """[B, T, C_feat] input features -> logits [B, T', vocabulary] (or

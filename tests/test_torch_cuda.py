@@ -2008,3 +2008,120 @@ def test_conv1d_is_ieee_float32_on_card():
         torch.backends.cudnn.allow_tf32 = allow
     torch.testing.assert_close(out.cpu(), conv1d(x, w, stride=2, padding=1),
                                atol=1e-4, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Serving: per-row positions, the continuous batcher, model residency.
+# ---------------------------------------------------------------------------
+
+def _per_row_step(model, lengths, capacity, kv, seed=0):
+    """Per-row decode on ``model``: each row prefilled alone to its length
+    (0: empty) and inserted into a slot cache, then two steps at a
+    position vector. Returns the two steps' logits (float32, on the CPU)."""
+    from ctranslate2_tpu_torch.models import transformer as T
+
+    dev = model.device
+    dtype = torch.int8 if kv == "int8" else torch.float32
+    rng = np.random.default_rng(seed)
+    cache = T.init_self_cache(model.arch, len(lengths), capacity, dtype=dtype,
+                              device=dev, ring=True)
+    for r, n in enumerate(lengths):
+        if n:
+            sub = T.init_self_cache(model.arch, 1, n, dtype=dtype, device=dev, ring=True)
+            ids = torch.from_numpy(rng.integers(3, 190, (1, n))).to(dev)
+            T.decoder_forward(model.arch, model.params, model.consts, ids, 0, sub,
+                              quantize_acts=False, return_logits=False,
+                              fresh_prefill=True)
+            T.cache_insert_row(cache, sub, r)
+    out = []
+    for step in range(2):
+        pos = torch.tensor(lengths, dtype=torch.int32) + step
+        ids = torch.from_numpy(rng.integers(3, 190, (len(lengths), 1)))
+        logits, cache = T.decoder_forward(
+            model.arch, model.params, model.consts, ids.to(dev), pos.to(dev), cache,
+            quantize_acts=False, pos_bound=int(pos.max()))
+        out.append(logits.float().cpu())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float", "int8"])
+def test_per_row_decode_on_card_matches_cpu(small_decoder, kv):
+    """Rows of lengths 0, 1, 130 and 300 in a 384-slot cache: the int8
+    cache through the decode kernel's per-row lengths, the float cache
+    through the length-adaptive read, against the CPU."""
+    _card()
+    card = tt.load_model(small_decoder, compute_type="float32", device="cuda")
+    cpu = tt.load_model(small_decoder, compute_type="float32", device="cpu")
+    lengths = [0, 1, 130, 300]
+    kernels.reset_launches()
+    got = _per_row_step(card, lengths, 384, kv)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    ref = _per_row_step(cpu, lengths, 384, kv)
+    # Two steps a layer, and the one-token row's prefill, a decode step too.
+    layers = len(card.arch.decoder.layers)
+    assert counts["decode_attention_int8"] == (3 * layers if kv == "int8" else 0)
+    tol = 5e-2 if kv == "int8" else 1e-3
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float", "int8"])
+def test_continuous_batcher_on_card_matches_generate_batch(small_decoder, monkeypatch, kv):
+    """float32: the batcher's greedy tokens equal ``generate_batch``'s on the
+    card, request by request, with more requests than slots; a sampled
+    request repeats itself under its seed."""
+    _card()
+    if kv == "int8":
+        monkeypatch.setenv("CT2TPU_KV_CACHE", "int8")
+    gen = tt.Generator(small_decoder, compute_type="float32")
+    rng = np.random.default_rng(8)
+    prompts = [[f"tok{int(t)}" for t in rng.integers(0, 190, n)] for n in (5, 40, 17, 3, 64)]
+    refs = [gen.generate_batch([p], max_length=16, include_prompt_in_result=False)[0]
+            for p in prompts]
+    cb = tt.ContinuousBatcher(gen, num_slots=3, capacity=256, steps_per_sync=4)
+    try:
+        kernels.reset_launches()
+        futures = [cb.submit(p, max_length=16) for p in prompts]
+        sampled = [cb.submit(prompts[0], max_length=16, sampling_topk=0, seed=3)
+                   for _ in range(2)]
+        out = [f.result(timeout=300) for f in futures]
+        a, b = (f.result(timeout=300).sequences_ids for f in sampled)
+        counts = kernels.launch_counts()
+    finally:
+        cb.close()
+    assert [o.sequences_ids for o in out] == [r.sequences_ids for r in refs]
+    assert a == b
+    assert counts["fused_norm"] > 0
+    assert (counts["decode_attention_int8"] > 0) == (kv == "int8")
+
+
+@pytest.mark.cuda
+def test_unload_frees_the_card_and_load_restores(small_decoder):
+    _card()
+    gen = tt.Generator(small_decoder, compute_type="float32")
+    prompt = [["tok4", "tok9", "tok2"]]
+    before = gen.generate_batch(prompt, max_length=8, static_prompt=["tok7"])
+    weights = sum(t.numel() * t.element_size() for t in _tensors(gen.model.params))
+    torch.cuda.synchronize()
+    loaded = torch.cuda.memory_allocated()
+    gen.unload_model(to_cpu=True)
+    unloaded = torch.cuda.memory_allocated()
+    assert loaded - unloaded >= weights
+    assert all(t.device.type == "cpu" for t in _tensors(gen._unloaded_params))
+    gen.load_model()
+    assert torch.cuda.memory_allocated() - unloaded >= weights
+    assert all(t.is_cuda for t in _tensors(gen.model.params))
+    assert gen.generate_batch(prompt, max_length=8,
+                              static_prompt=["tok7"])[0].sequences_ids == \
+        before[0].sequences_ids
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree] if torch.is_tensor(tree) else []

@@ -287,11 +287,14 @@ def test_decoder_forward_fresh_prefill_matches(model_dirs, kv, with_lengths):
 
 
 def test_decoder_forward_per_row_positions_raise(model_dirs):
+    """Per-row positions run since continuous batching came
+    (tests/test_torch_per_row_positions.py holds them against the JAX
+    package); a position vector must have one entry a row."""
     tm = tt.load_model(model_dirs["float32"], device="cpu")
-    with pytest.raises(NotImplementedError, match="per-row"):
+    with pytest.raises(ValueError, match="per-row"):
         TT.decoder_forward(tm.arch, tm.params, tm.consts,
                            torch.zeros((2, 1), dtype=torch.long),
-                           torch.tensor([1, 2]), None)
+                           torch.tensor([1, 2, 3]), None)
 
 
 # ---------------------------------------------------------------------------

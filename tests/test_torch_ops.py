@@ -81,9 +81,11 @@ def test_linear_awq_raises():
     """AWQ linears are ported (tests/test_torch_awq.py holds them against the
     JAX package); ``linear`` raises on W4 operands that do not fit together
     instead of computing something else."""
-    w4 = torch.randint(-15, 16, (64, 8), dtype=torch.int8)
-    x = torch.randn(2, 64)
-    good = {"w4": w4, "g_scale": torch.rand(2, 8)}
+    # A generator of its own: the draws do not hang on the tests run before.
+    g = torch.Generator().manual_seed(0)
+    w4 = torch.randint(-15, 16, (64, 8), dtype=torch.int8, generator=g)
+    x = torch.randn(2, 64, generator=g)
+    good = {"w4": w4, "g_scale": torch.rand(2, 8, generator=g)}
     ref = x @ (w4.float() * good["g_scale"].repeat_interleave(32, 0))
     torch.testing.assert_close(tlin.linear(good, x), ref, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
