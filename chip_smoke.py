@@ -45,7 +45,7 @@ Phases, one JSON object per line:
    layer's attention then gets the kernel run's inputs,
    and its output is compared where the output projection quantizes it: at
    most one int8 step apart, on at most ``FED_STEP_SHARE`` of the entries.
-4. AWQ Generator main path: the same widths at half the depth
+4. AWQ Generator main path: the same widths at a quarter of the depth
    (``AWQ_LAYERS``) in AutoAWQ's GEMM layout
    (group 128, zero points; float16 embeddings and projection), fabricated
    in memory; ``Generator(...).generate_batch`` with the card's defaults
@@ -217,7 +217,8 @@ Phases, one JSON object per line:
    memory falling by at least the int8 payloads, the same hypotheses after
    the reload, a reload without a host copy raising);
    ``serving_generator`` (after ``file_helpers_generator``, the int8 Llama
-   with the int8 KV cache behind ``ContinuousBatcher``: ``SERVE_SLOTS``
+   with the int8 KV cache
+   behind ``ContinuousBatcher``: ``SERVE_SLOTS``
    slots of ``SERVE_CAPACITY``, ``SERVE_STEPS`` steps a block;
    ``SERVE_REQUESTS`` requests submitted at once, a quarter of the prompts
    2,048 long (flash in the admit prefill), the rest 16-512, replies 4-16
@@ -241,6 +242,31 @@ Phases, one JSON object per line:
    prefill, W8A8 and the norm at the decode M and at the smallest, median
    and largest padded prompt (every other W8A8 prefill shape held
    bit-equal, untimed).
+14. Serving, part 2 (PR 17), each run's launch counters zeroed before and
+   read after, no plain version on the card, one gather launch a beam
+   step: ``continuous_translator`` (after ``residency_translator``: the
+   int8 Transformer-base behind ``ContinuousTranslator``, ``CT_SLOTS``
+   slots, the 256 phase-2 sentences at once, beam 2 and beam 1, exactly
+   32 target tokens; target tok/s against ``translate_batch``'s, ms a
+   block, launches a beam step, one profiled block; at least
+   ``FILE_SAME_SHARE`` of the hypotheses equal to ``translate_batch``'s,
+   a parted one logged with its step and the two candidates' log-prob
+   gap); ``serving_generator_beam`` (after ``serving_generator``: the
+   int8 Llama behind ``ContinuousBatcher(beam_size=4)``, the first 16 of
+   ``serving_traffic``, then greedy at depth 1; tok/s, first delivery and
+   latency p50 / p95, ms a block, one profiled block, the gather over the
+   4.8 GB slot cache a step against its bound); ``continuous_whisper``
+   (after ``whisper``: 8 segments of 3,000 frames, 4 slots, beam 5, half
+   with timestamp rules; segments/s, ms a block, the share equal to
+   ``Whisper.generate``'s, well-formed timestamps);
+   ``serving_beam_card_vs_cpu`` (after ``serving_card_vs_cpu``, 2 layers
+   in float32: beam 2 serving of 6 Llama requests up to 513 tokens with
+   a stop sequence and two hypotheses, float and int8 KV; the 2-layer
+   ``ContinuousTranslator`` beam 2 with a target prefix) and
+   ``continuous_whisper_card_vs_cpu`` (last: Whisper at 2 + 2 layers,
+   beam 2, with and without timestamps). The kernel phase times the
+   gather at the three slot-cache shapes and the W8A8 and norm shapes no
+   earlier path gave (``serving_beam_benches``, ``"summed": false``).
 
 The line before the last is ``{"kernels": [...]}`` (times are sums over
 the ``launches`` counted on the main paths), the last
@@ -347,9 +373,10 @@ W4_CROSSOVER_MS = (65, 128, 256, 512, 1024, 2048, 8192)
 W4_FORMS = (("matmul_w4p", True, False), ("matmul_w4p_fold", True, True),
             ("matmul_w4a16", False, False), ("matmul_w4a16_fold", False, True))
 W4_CROSSOVER_KN = ((4096, 4096), (4096, 6144), (4096, 14336), (14336, 4096))
-# The AWQ Generator's depth: half of Llama-3-8B's 32 layers (the run's
-# time limit), at its full widths.
-AWQ_LAYERS = LLAMA["layers"] // 2
+# The AWQ Generator's depth: a quarter of Llama-3-8B's 32 layers (the
+# run's time limit: half since PR 16, a quarter since the beam serving
+# phases of PR 17), at its full widths.
+AWQ_LAYERS = LLAMA["layers"] // 4
 # Expected launches of one AWQ generate_batch call (4 prompts of 2,049, 64
 # new tokens): 5 W4 linears in each layer, for the prefill and each of the
 # 64 steps; a decode-kernel launch a layer and step; 2 norms a layer and
@@ -926,6 +953,16 @@ def bench_w8a8(shapes, checks, **extra):
     return tot
 
 
+def _random_array(shape, dtype, g):
+    """Random values of ``dtype`` made in that type (a slot cache of
+    gigabytes must not pass through float32)."""
+    import torch
+
+    if dtype.is_floating_point:
+        return torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+    return torch.randint(-100, 100, shape, generator=g, device="cuda", dtype=dtype)
+
+
 def bench_gather(shapes, checks, **extra):
     """Kernel vs plain (= the library's index_select loop) at each call
     shape, weighted by its launches on the main path; returns the sums."""
@@ -937,7 +974,7 @@ def bench_gather(shapes, checks, **extra):
     tot = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0)
     max_err = 0.0
     for (specs, n_rows), n in sorted(shapes.items()):
-        arrays = [torch.randn(shape, generator=g, device="cuda").to(getattr(torch, dt.split(".")[1]))
+        arrays = [_random_array(shape, getattr(torch, dt.split(".")[1]), g)
                   for shape, dt in specs]
         rows = torch.randint(0, specs[0][0][0], (n_rows,), generator=g,
                              device="cuda", dtype=torch.int32)
@@ -4458,6 +4495,36 @@ def whisper_features(batch, frames, seed):
                        device="cuda")
 
 
+def timestamps_well_formed(tokens, ts_begin, eot_id, max_initial=50):
+    """Whether the tokens sampled after a timestamped Whisper prompt keep
+    the timestamp rules that show in the output (reference:
+    src/models/whisper.cc:742-865): a timestamp first, at most
+    ``max_initial`` past the first; that one stands as a pair, so no
+    timestamp follows it; no timestamp after a pair, no text token after a
+    lone timestamp; a pair's second timestamp not below its first, any
+    other above every earlier one; no ``<|notimestamps|>``. Whether a pair
+    appears at all is the model's choice."""
+    if not tokens or not ts_begin <= tokens[0] <= ts_begin + max_initial:
+        return False
+    latest = tokens[0]
+    for i in range(1, len(tokens)):
+        x, last = tokens[i], tokens[i - 1]
+        penult = tokens[i - 2] if i >= 2 else last  # the first timestamp stands as a pair
+        if x == ts_begin - 1:  # <|notimestamps|>
+            return False
+        if last >= ts_begin and penult >= ts_begin:
+            bad = x >= ts_begin  # text after a pair
+        elif last >= ts_begin:
+            bad = x < eot_id or ts_begin <= x < last  # no text after a lone timestamp
+        else:
+            bad = ts_begin <= x <= latest  # a new timestamp goes past every earlier one
+        if bad:
+            return False
+        if x >= ts_begin:
+            latest = x
+    return True
+
+
 def whisper_prompts(vocab):
     ids = {t: vocab.index(t) for t in ("<|startoftranscript|>", "<|en|>", "<|transcribe|>",
                                        "<|notimestamps|>", "<|startofprev|>")}
@@ -4831,6 +4898,47 @@ def _serving_batcher(tt, gen, depth, **kw):
                                     prefill_bucket=SERVE_PREFILL_BUCKET, **kw)
 
 
+def _block_timer(cb):
+    """Patches a batcher's consume and admit on the instance; returns the
+    list that gets (time, admits since the previous consume) at every
+    consumed block."""
+    consumes, admits = [], [0]
+    consume, admit = cb._consume_any, cb._prefill_into_slot
+
+    def timed(handle):
+        consume(handle)
+        consumes.append((time.perf_counter(), admits[0]))
+        admits[0] = 0
+
+    def counted(slot, req):
+        admits[0] += 1
+        return admit(slot, req)
+
+    cb._consume_any, cb._prefill_into_slot = timed, counted
+    return consumes
+
+
+def _quiet_block_ms(consumes):
+    """The median time between two consumed blocks with no admit between
+    them (ms), and how many such blocks there were."""
+    quiet = sorted(b - a for (a, _), (b, k) in zip(consumes, consumes[1:]) if k == 0)
+    return (quiet[len(quiet) // 2] * 1e3 if quiet else None), len(quiet)
+
+
+def _profile_block(cb, admit, label, steps):
+    """One block of a stopped batcher, profiled alone: ``admit(cb)`` fills
+    its slots, one block warms up, the next is profiled. Returns the
+    launches a step and the card's busy share."""
+    cb.close()
+    active = admit(cb)
+    cb._consume_any(cb._dispatch_any(active))  # warm-up
+    prof = profile_call(lambda: cb._consume_any(cb._dispatch_any(active)), label)
+    return {"launches_per_decode_step": prof["kernel_launches_profiled"] / steps,
+            "device_busy_share": prof["device_busy_share"],
+            "wall_ms_profiled": prof["wall_ms_profiled"],
+            "top_device_ms": prof["top_device_ms"]}
+
+
 def serve_run(tt, gen, traffic, depth, logs, checks, label):
     """All requests submitted at once to a batcher of ``pipeline_depth``
     ``depth``, after a warm-up request; every kernel's call shapes logged
@@ -4839,19 +4947,7 @@ def serve_run(tt, gen, traffic, depth, logs, checks, label):
     import torch
 
     cb = _serving_batcher(tt, gen, depth)
-    consumes, admits = [], [0]
-    consume, admit = cb._consume_block, cb._prefill_into_slot
-
-    def timed_consume(handle):
-        consume(handle)
-        consumes.append((time.perf_counter(), admits[0]))
-        admits[0] = 0
-
-    def counted_admit(slot, req):
-        admits[0] += 1
-        return admit(slot, req)
-
-    cb._consume_block, cb._prefill_into_slot = timed_consume, counted_admit
+    consumes = _block_timer(cb)
     n = len(traffic)
     first, streamed, done = [None] * n, [[] for _ in traffic], [None] * n
 
@@ -4905,15 +5001,13 @@ def serve_run(tt, gen, traffic, depth, logs, checks, label):
     checks(counts["decode_attention_int8"] == layers * steps,
            f"{label}: one decode launch a layer and step ({counts['decode_attention_int8']} "
            f"for {steps} steps)")
-    quiet = [b - a for (a, _), (b, k) in zip(consumes, consumes[1:]) if k == 0]
-    quiet.sort()
+    block_ms, quiet = _quiet_block_ms(consumes)
     line = {"phase": label, "pipeline_depth": depth, "requests": n, "seconds": seconds,
             "generated_tokens": tokens, "tokens_per_s": tokens / seconds,
             "time_to_first_token": _percentiles([f - t0 for f in first]),
             "request_latency": _percentiles([d - t0 for d in done]),
             "mean_slot_occupancy": occupancy, "decode_steps": steps, "blocks": blocks,
-            "ms_per_block": quiet[len(quiet) // 2] * 1e3 if quiet else None,
-            "blocks_timed_without_admits": len(quiet),
+            "ms_per_block": block_ms, "blocks_timed_without_admits": quiet,
             "short_before_long_pairs": overtakes, "launches": counts,
             "plain_calls_on_card": plain}
     return line, [s[0] for s in streamed]
@@ -4969,20 +5063,19 @@ def profile_serving_block(tt, gen, traffic):
     launches a step and the card's busy share. The batcher's thread is
     stopped; the block is driven from here after admitting ``SERVE_SLOTS``
     requests."""
+    return _profile_block(_serving_batcher(tt, gen, 1), lambda cb: _admit_traffic(cb, traffic),
+                          "serving_block", SERVE_STEPS)
+
+
+def _admit_traffic(cb, traffic):
+    """Admits the first ``SERVE_SLOTS`` prompts of ``traffic`` into a stopped
+    batcher's slots, each to decode 512 tokens; returns the slots."""
     from ctranslate2_tpu_torch.runtime.continuous import _Request
 
-    cb = _serving_batcher(tt, gen, 1)
-    cb.close()
     for slot, (p, _) in enumerate(traffic[:SERVE_SLOTS]):
         cb._prefill_into_slot(slot, _Request(prompt_ids=list(p), max_length=512,
                                              min_length=512))
-    active = list(range(SERVE_SLOTS))
-    cb._consume_block(cb._dispatch_block(active))  # warm-up
-    prof = profile_call(lambda: cb._consume_block(cb._dispatch_block(active)),
-                        "serving_block")
-    return {"launches_per_decode_step": prof["kernel_launches_profiled"] / SERVE_STEPS,
-            "device_busy_share": prof["device_busy_share"],
-            "wall_ms_profiled": prof["wall_ms_profiled"]}
+    return list(range(SERVE_SLOTS))
 
 
 def serving_first_tokens(gen, traffic, firsts, checks):
@@ -5321,6 +5414,424 @@ def serving_benches(serve_logs, checks):
     free_card()
 
 
+# ---------------------------------------------------------------------------
+# Serving, part 2: beam serving, ContinuousTranslator, ContinuousWhisper.
+# ---------------------------------------------------------------------------
+
+CT_SLOTS = 64  # ContinuousTranslator: the phase-2 batch size
+CT_CAPACITY = 64
+CT_SOURCE = 64  # max_source_len: the phase-2 sources are 20-30 tokens
+CT_STEPS = 8
+CT_PARTED_LOGGED = 16
+BEAM_SERVE_WIDTH = 4
+BEAM_SERVE_REQUESTS = 16  # the first of serving_traffic's requests
+CW_SEGMENTS = 8
+CW_SLOTS = 4
+CW_BEAM = 5
+CW_MAX_LENGTH = 64
+CW_CAPACITY = 128
+CW_STEPS = 8
+BEAM_AB_PROMPTS = (513, 17, 64, 200, 33, 9)  # serving_beam_card_vs_cpu
+BEAM_AB_NEW = 8
+CW_AB_MAX_LENGTH = 32
+
+
+def _gather_ms_per_step(cb, checks, label):
+    """The gather kernel over the batcher's whole slot cache (every beam
+    step's reorder), timed in a CUDA graph, beside its bound: each byte of
+    the cache read once and written once."""
+    import torch
+    from ctranslate2_tpu_torch.models import transformer as T
+
+    rows = torch.arange(cb._num_slots * cb._beam, device="cuda", dtype=torch.int32)
+    out = T.cache_gather_rows(cb._cache, rows)
+    checks(all(torch.equal(a, b) for la, lb in zip(out, cb._cache) for a, b in
+               zip(la.values(), lb.values())), f"{label}: the gather copies the cache")
+    del out
+    nbytes = sum(a.numel() * a.element_size() for layer in cb._cache for a in layer.values())
+    ms = cuda_time_ms(lambda: T.cache_gather_rows(cb._cache, rows), 10)
+    return {"ms": ms, "cache_bytes": nbytes, "bound_ms": 2 * nbytes / PEAK_BYTES * 1e3,
+            "bound_by": "bytes"}
+
+
+def _check_beam_launches(label, counts, steps, plain, kernels, checks):
+    check_path(label, counts, kernels, plain, checks)
+    checks(steps > 0 and counts["gather_rows_fused"] == steps,
+           f"{label}: one gather launch a beam step ({counts['gather_rows_fused']} for "
+           f"{steps} steps)")
+
+
+def continuous_translator(tt, model_dir, batches, checks, logs):
+    """The int8 Transformer-base behind ``ContinuousTranslator``: the 256
+    phase-2 sentences submitted at once to ``CT_SLOTS`` slots, beam 2 and
+    beam 1, exactly ``MAX_DEC`` target tokens, against ``translate_batch``
+    (beam 2, batches of 64) on the same sentences; one profiled block."""
+    import torch
+    from ctranslate2_tpu_torch.runtime.continuous import _Request
+
+    tr = tt.Translator(model_dir, compute_type="int8")
+    sents = [s for b in batches[:4] for s in b]
+    tr.translate_batch(batches[0], **OPTS)  # warm-up
+    ref, batch_s = synced_seconds(
+        lambda: tr.translate_batch(sents, max_batch_size=BATCH, **OPTS))
+    ref_tokens = sum(len(r.hypotheses[0]) for r in ref)
+    out = {"translate_batch": {"seconds": batch_s, "target_tokens_per_s": ref_tokens / batch_s}}
+    kw = dict(max_length=MAX_DEC, min_length=MAX_DEC)
+    for beam in (BEAM, 1):
+        label = f"continuous_translator beam {beam}"
+        cb = tt.ContinuousTranslator(tr, num_slots=CT_SLOTS, capacity=CT_CAPACITY,
+                                     max_source_len=CT_SOURCE, steps_per_sync=CT_STEPS,
+                                     beam_size=beam)
+        consumes = _block_timer(cb)
+        plain = {}
+        try:
+            cb.submit(sents[0], **kw).result(timeout=600)  # warm-up
+            consumes.clear()
+            steps0, blocks0 = cb.num_steps, cb._blocks
+            with watched(logs, plain):
+                got, seconds = synced_seconds(
+                    lambda: [f.result(timeout=900) for f in [cb.submit(s, **kw)
+                                                             for s in sents]])
+                counts = tt.launch_counts()
+            steps, blocks = cb.num_steps - steps0, cb._blocks - blocks0
+        finally:
+            cb.close()
+        if beam > 1:
+            _check_beam_launches(label, counts, steps, plain,
+                                 ("matmul_w8a8", "fused_norm", "gather_rows_fused"), checks)
+        else:
+            check_path(label, counts, ("matmul_w8a8", "fused_norm"), plain, checks)
+        hyps = [g.sequences[0] for g in got]
+        checks(all(len(h) == MAX_DEC for h in hyps)
+               and all(math.isfinite(g.scores[0]) for g in got),
+               f"{label}: {MAX_DEC} target tokens a sentence, finite scores")
+        tokens = sum(len(h) for h in hyps)
+        block_ms, quiet = _quiet_block_ms(consumes)
+        line = {"seconds": seconds, "target_tokens_per_s": tokens / seconds,
+                "decode_steps": steps, "blocks": blocks, "ms_per_block": block_ms,
+                "blocks_timed_without_admits": quiet, "launches": counts,
+                "plain_calls_on_card": plain}
+        if beam > 1:
+            same = [h == r.hypotheses[0] for h, r in zip(hyps, ref)]
+            checks(sum(same) >= FILE_SAME_SHARE * len(sents),
+                   f"{label}: {sum(same)} of {len(sents)} hypotheses equal to "
+                   f"translate_batch's (at least {FILE_SAME_SHARE} of them)")
+            parted = []
+            for i in [i for i, s in enumerate(same) if not s][:CT_PARTED_LOGGED]:
+                a, b = hyps[i], ref[i].hypotheses[0]
+                t = next(j for j in range(min(len(a), len(b))) if a[j] != b[j])
+                # The two tokens' teacher-forced log-probs after the common
+                # prefix: the gap between the two best candidates there.
+                sa, sb = (tr.score_batch([sents[i]], [a[:t + 1]])[0].tokens_score[t],
+                          tr.score_batch([sents[i]], [b[:t + 1]])[0].tokens_score[t])
+                parted.append({"sentence": i, "step": t, "logprob_gap": abs(sa - sb)})
+            line.update(hypotheses_equal_to_batch=sum(same), parted=parted,
+                        launches_per_beam_step={k: v / steps for k, v in counts.items()})
+        out[f"beam{beam}"] = line
+    cb = tt.ContinuousTranslator(tr, num_slots=CT_SLOTS, capacity=CT_CAPACITY,
+                                 max_source_len=CT_SOURCE, steps_per_sync=CT_STEPS,
+                                 beam_size=BEAM)
+
+    def admit(cb):
+        for slot in range(CT_SLOTS):
+            ids = cb._src_vocab.tokens_to_ids([sents[slot]])[0]
+            cb._prefill_into_slot(slot, _Request(prompt_ids=ids, start_id=cb._start_id, **kw))
+        return list(range(CT_SLOTS))
+
+    out["profiled_block"] = _profile_block(cb, admit, "continuous_translator_block", CT_STEPS)
+    out["gather_per_step"] = _gather_ms_per_step(cb, checks, "continuous_translator")
+    del cb
+    emit({"phase": "continuous_translator", "compute_type": "int8", "sentences": len(sents),
+          "slots": CT_SLOTS, "capacity": CT_CAPACITY, "max_source_len": CT_SOURCE,
+          "steps_per_sync": CT_STEPS, "max_length": MAX_DEC, "beam": BEAM, **out})
+    del tr
+
+
+def _serve_traffic(tt, cb, gen, traffic, logs, label, checks):
+    """Every request of ``traffic`` submitted at once to ``cb`` after a
+    warm-up request, with a streaming callback each (under beam search the
+    first delivery is the first committed token). Returns the run's line."""
+    import torch
+
+    consumes = _block_timer(cb)
+    n = len(traffic)
+    first, done = [None] * n, [None] * n
+
+    def on_token(i):
+        def record(sr):
+            if first[i] is None:
+                first[i] = time.perf_counter()
+            return False
+        return record
+
+    plain = {}
+    try:
+        cb.submit([gen._vocab.to_token(t) for t in traffic[0][0][:64]],
+                  max_length=SERVE_STEPS).result(timeout=600)
+        consumes.clear()
+        steps0, blocks0 = cb.num_steps, cb._blocks
+        with watched(logs, plain):
+            t0 = time.perf_counter()
+            futures = [cb.submit([gen._vocab.to_token(t) for t in p], max_length=new,
+                                 callback=on_token(i))
+                       for i, (p, new) in enumerate(traffic)]
+            for i, f in enumerate(futures):
+                f.add_done_callback(lambda f, i=i: done.__setitem__(i, time.perf_counter()))
+            results = [f.result(timeout=1200) for f in futures]
+            seconds = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = tt.launch_counts()
+        steps, blocks = cb.num_steps - steps0, cb._blocks - blocks0
+    finally:
+        cb.close()
+    ids = [r.sequences_ids[0] for r in results]
+    tokens = sum(len(x) for x in ids)
+    checks(all(len(x) <= new for x, (_, new) in zip(ids, traffic))
+           and all(math.isfinite(r.scores[0]) for r in results),
+           f"{label}: every request's best hypothesis within its max_length, finite scores")
+    checks(all(f is not None for f in first), f"{label}: every request streamed a token")
+    layers = len(gen.model.arch.decoder.layers)
+    checks(counts["decode_attention_int8"] == layers * steps,
+           f"{label}: one decode launch a layer and step ({counts['decode_attention_int8']} "
+           f"for {steps} steps)")
+    block_ms, quiet = _quiet_block_ms(consumes)
+    return {"requests": n, "seconds": seconds, "generated_tokens": tokens,
+            "tokens_per_s": tokens / seconds,
+            "time_to_first_token": _percentiles([f - t0 for f in first]),
+            "request_latency": _percentiles([d - t0 for d in done]),
+            "decode_steps": steps, "blocks": blocks, "ms_per_block": block_ms,
+            "blocks_timed_without_admits": quiet, "launches": counts,
+            "plain_calls_on_card": plain}, counts, steps, plain
+
+
+def serving_generator_beam(tt, gen, checks, logs):
+    """The int8 Llama with the int8 KV cache behind
+    ``ContinuousBatcher(beam_size=4)`` (``SERVE_SLOTS`` slots of
+    ``SERVE_CAPACITY``, ``SERVE_STEPS`` steps a block): the first
+    ``BEAM_SERVE_REQUESTS`` requests of ``serving_traffic`` submitted at
+    once, then the same requests greedy at depth 1; one profiled beam
+    block and the gather over the whole slot cache."""
+    traffic = serving_traffic(LLAMA["vocab"])[:BEAM_SERVE_REQUESTS]
+    label = f"serving_generator_beam beam {BEAM_SERVE_WIDTH}"
+    beam, counts, steps, plain = _serve_traffic(
+        tt, _serving_batcher(tt, gen, 1, beam_size=BEAM_SERVE_WIDTH), gen, traffic, logs,
+        label, checks)
+    _check_beam_launches(label, counts, steps, plain,
+                         ("matmul_w8a8", "fused_norm", "gather_rows_fused",
+                          "decode_attention_int8", "flash_attention"), checks)
+    beam["launches_per_beam_step"] = {k: v / steps for k, v in counts.items()}
+    free_card()
+    greedy, counts, _, plain = _serve_traffic(
+        tt, _serving_batcher(tt, gen, 1), gen, traffic, logs, "serving_generator_beam greedy",
+        checks)
+    check_path("serving_generator_beam greedy", counts,
+               ("matmul_w8a8", "fused_norm", "decode_attention_int8", "flash_attention"),
+               plain, checks)
+    free_card()
+    cb = _serving_batcher(tt, gen, 1, beam_size=BEAM_SERVE_WIDTH)
+    block = _profile_block(cb, lambda cb: _admit_traffic(cb, traffic),
+                           "serving_generator_beam_block", SERVE_STEPS)
+    gather = _gather_ms_per_step(cb, checks, "serving_generator_beam")
+    del cb
+    free_card()
+    emit({"phase": "serving_generator_beam", "compute_type": gen.compute_type,
+          "kv_cache": "int8", "slots": SERVE_SLOTS, "beam": BEAM_SERVE_WIDTH,
+          "capacity": SERVE_CAPACITY, "steps_per_sync": SERVE_STEPS,
+          "requests": len(traffic), "prompt_tokens": sum(len(p) for p, _ in traffic),
+          "long_prompts": sum(len(p) == SERVE_LONG_PROMPT for p, _ in traffic),
+          "beam_run": beam, "greedy_run_depth1": greedy, "profiled_block": block,
+          "gather_per_step": gather})
+
+
+def continuous_whisper(tt, work, checks, logs):
+    """Whisper-large-v3 widths at ``WHISPER_LAYERS`` + ``WHISPER_LAYERS``
+    layers, int8 with the int8 KV cache, behind ``ContinuousWhisper``:
+    ``CW_SEGMENTS`` segments of 3,000 frames, ``CW_SLOTS`` slots, beam
+    ``CW_BEAM``, half with timestamp rules; against ``Whisper.generate``
+    (beam ``CW_BEAM``) on the same segments."""
+    import torch
+
+    path = os.path.join(work, "whisper")
+    with open(os.path.join(path, "vocabulary.json")) as f:
+        vocab = json.load(f)
+    ids, sot, _, no_ts = whisper_prompts(vocab)
+    ts_begin = ids["<|notimestamps|>"] + 1
+    prompts = [sot if i % 2 == 0 else no_ts for i in range(CW_SEGMENTS)]
+    out = {}
+    with environ(CT2TPU_KV_CACHE="int8"):
+        wh = tt.Whisper(path, compute_type="int8")
+        feats = whisper_features(CW_SEGMENTS, WHISPER_FRAMES, 7)
+        segs = [feats[i].cpu().numpy() for i in range(CW_SEGMENTS)]
+        cb = tt.ContinuousWhisper(wh, num_slots=CW_SLOTS, capacity=CW_CAPACITY,
+                                  beam_size=CW_BEAM, steps_per_sync=CW_STEPS)
+        consumes = _block_timer(cb)
+        plain = {}
+        label = "continuous_whisper"
+        try:
+            cb.submit(segs[0], no_ts, max_length=CW_STEPS).result(timeout=600)  # warm-up
+            consumes.clear()
+            steps0 = cb.num_steps
+            with watched(logs, plain):
+                got, seconds = synced_seconds(
+                    lambda: [f.result(timeout=900) for f in [
+                        cb.submit(x, p, max_length=CW_MAX_LENGTH)
+                        for x, p in zip(segs, prompts)]])
+                counts = tt.launch_counts()
+            steps = cb.num_steps - steps0
+        finally:
+            cb.close()
+        _check_beam_launches(label, counts, steps, plain,
+                             ("matmul_w8a8", "fused_norm", "gather_rows_fused",
+                              "decode_attention_int8"), checks)
+        texts = [g.sequences_ids[0][len(p) - 1:] for g, p in zip(got, prompts)]
+        eot = vocab.index("<|endoftext|>")
+        well_formed = [timestamps_well_formed(t, ts_begin, eot)
+                       for t, p in zip(texts, prompts) if p is sot]
+        checks(all(well_formed) and all(math.isfinite(g.scores[0]) for g in got),
+               f"{label}: finite scores; every timestamped result starts with a timestamp "
+               f"and keeps the timestamp rules ({well_formed})")
+        block_ms, quiet = _quiet_block_ms(consumes)
+        # Whisper.generate on the same segments: its max_length covers the
+        # same decode steps (it prefills the prompt, serving forces it).
+        equal = {}
+        for name, p in (("timestamps", sot), ("no_timestamps", no_ts)):
+            idx = [i for i, q in enumerate(prompts) if q is p]
+            ref = wh.generate(feats[idx], [p] * len(idx), beam_size=CW_BEAM,
+                              max_length=2 * (CW_MAX_LENGTH - len(p) + 1),
+                              suppress_blank=False)
+            equal[name] = sum(texts[i] == r.sequences_ids[0] for i, r in zip(idx, ref))
+        out = {"segments": CW_SEGMENTS, "seconds": seconds,
+               "segments_per_s": CW_SEGMENTS / seconds,
+               "generated_tokens": sum(len(t) for t in texts), "decode_steps": steps,
+               "ms_per_block": block_ms, "blocks_timed_without_admits": quiet,
+               "launches": counts, "launches_per_beam_step": {
+                   k: v / steps for k, v in counts.items()},
+               "equal_to_generate": equal, "segments_per_prompt": CW_SEGMENTS // 2,
+               "timestamp_tokens": sum(x >= ts_begin for t in texts for x in t)}
+        del cb, wh, feats
+    emit({"phase": "continuous_whisper", "model": "WHISPER_LARGE_V3",
+          "layers": WHISPER_LAYERS, "compute_type": "int8", "kv_cache": "int8",
+          "slots": CW_SLOTS, "beam": CW_BEAM, "max_length": CW_MAX_LENGTH,
+          "frames": WHISPER_FRAMES, **out})
+    free_card()
+
+
+def serving_beam_card_vs_cpu(tt, generators, small_dir, vocab, tvocab, checks):
+    """At ``AB_LAYERS`` layers in float32: beam serving on the card against
+    the CPU. The Llama pair, beam 2, 6 requests with prompts up to 513
+    tokens, a stop sequence and one ``num_hypotheses=2``, with the float
+    and the int8 KV cache; ``ContinuousTranslator`` beam 2 on the small
+    seq2seq model with a target prefix. Tokens identical, normalized scores
+    within ``LOGPROB_TOL`` (``INT8_KV_LOGPROB_TOL`` with the int8 cache)."""
+    import numpy as np
+
+    card, cpu = generators
+    rng = np.random.default_rng(71)
+    prompts = [[vocab.to_token(int(t)) for t in rng.integers(10, LLAMA["vocab"] - 10, n)]
+               for n in BEAM_AB_PROMPTS]
+    base = dict(max_length=BEAM_AB_NEW)
+    best = card.generate_batch(prompts[1:2], beam_size=2, include_prompt_in_result=False,
+                               **base)[0].sequences_ids[0]
+    reqs = [(p, dict(base)) for p in prompts]
+    reqs[1] = (prompts[1], dict(base, stop_sequences=[best[2:4]]))
+    reqs[2] = (prompts[2], dict(base, num_hypotheses=2))
+    out = {}
+    t0 = time.perf_counter()
+    for kv in ("", "int8"):
+        side = {}
+        for name, gen in (("card", card), ("cpu", cpu)):
+            with environ(CT2TPU_KV_CACHE=kv):
+                cb = tt.ContinuousBatcher(gen, num_slots=3, capacity=640, steps_per_sync=4,
+                                          beam_size=2)
+            try:
+                side[name] = [f.result(timeout=900) for f in [cb.submit(p, **o)
+                                                              for p, o in reqs]]
+            finally:
+                cb.close()
+        tol = INT8_KV_LOGPROB_TOL if kv else LOGPROB_TOL
+        same = [c.sequences_ids == p.sequences_ids for c, p in zip(side["card"], side["cpu"])]
+        diff = max(abs(a - b) for c, p in zip(side["card"], side["cpu"])
+                   for a, b in zip(c.scores, p.scores))
+        label = f"beam serving card vs CPU ({'int8' if kv else 'float'} KV)"
+        checks(all(same), f"{label}: the tokens equal on every request ({same})")
+        checks(diff <= tol, f"{label}: normalized scores within {tol} (max diff {diff})")
+        checks(len(side["card"][2].sequences_ids) == 2, f"{label}: two hypotheses")
+        out["int8_kv" if kv else "float_kv"] = {"max_score_diff": diff, "tolerance": tol,
+                                               "same_tokens": same}
+    srcs = [s[:12] for s in make_batch(tvocab, 3)[:4]]
+    side = {}
+    for name, device in (("card", "cuda"), ("cpu", "cpu")):
+        tr = tt.Translator(small_dir, compute_type="float32", device=device)
+        cb = tt.ContinuousTranslator(tr, num_slots=2, capacity=64, max_source_len=16,
+                                     steps_per_sync=4, beam_size=2)
+        try:
+            fs = [cb.submit(s, max_length=16) for s in srcs]
+            fs.append(cb.submit(srcs[0], max_length=16, target_prefix=srcs[1][:3]))
+            side[name] = [f.result(timeout=600) for f in fs]
+        finally:
+            cb.close()
+    same = [c.sequences_ids == p.sequences_ids for c, p in zip(side["card"], side["cpu"])]
+    diff = max(abs(c.scores[0] - p.scores[0]) for c, p in zip(side["card"], side["cpu"]))
+    checks(all(same) and diff <= LOGPROB_TOL,
+           f"continuous translator card vs CPU: identical tokens, scores within "
+           f"{LOGPROB_TOL} ({same}, {diff})")
+    checks(side["card"][-1].sequences[0][:3] == srcs[1][:3],
+           "continuous translator card vs CPU: the target prefix is forced")
+    out["translator"] = {"max_score_diff": diff, "same_tokens": same}
+    emit({"phase": "serving_beam_card_vs_cpu", "layers": AB_LAYERS, "compute_type": "float32",
+          "requests": len(reqs), "new_tokens": BEAM_AB_NEW, **out,
+          "seconds": time.perf_counter() - t0})
+
+
+def continuous_whisper_card_vs_cpu(tt, work, checks):
+    """``ContinuousWhisper`` beam 2 at ``AB_LAYERS`` + ``AB_LAYERS`` layers in
+    float32 (``speech_card_vs_cpu``'s model) on the card against the CPU,
+    with and without timestamp rules: tokens identical, scores within
+    ``LOGPROB_TOL``."""
+    path = os.path.join(work, "whisper_ab")
+    with open(os.path.join(path, "vocabulary.json")) as f:
+        vocab = json.load(f)
+    _, sot, _, no_ts = whisper_prompts(vocab)
+    feats = whisper_features(2, WHISPER_FRAMES, 8)
+    segs = [feats[i].cpu().numpy() for i in range(2)]
+    side = {}
+    t0 = time.perf_counter()
+    for name, device in (("card", "cuda"), ("cpu", "cpu")):
+        w = tt.Whisper(path, compute_type="float32", device=device)
+        cb = tt.ContinuousWhisper(w, num_slots=2, capacity=64, beam_size=2, steps_per_sync=4)
+        try:
+            side[name] = [f.result(timeout=900) for f in [
+                cb.submit(x, p, max_length=CW_AB_MAX_LENGTH)
+                for x in segs for p in (sot, no_ts)]]
+        finally:
+            cb.close()
+        del w
+    same = [c.sequences_ids == p.sequences_ids for c, p in zip(side["card"], side["cpu"])]
+    diff = max(abs(c.scores[0] - p.scores[0]) for c, p in zip(side["card"], side["cpu"]))
+    checks(all(same) and diff <= LOGPROB_TOL,
+           f"continuous whisper card vs CPU: identical tokens, scores within {LOGPROB_TOL} "
+           f"({same}, {diff})")
+    emit({"phase": "continuous_whisper_card_vs_cpu", "layers": AB_LAYERS,
+          "compute_type": "float32", "beam": 2, "max_length": CW_AB_MAX_LENGTH,
+          "same_tokens": same, "max_score_diff": diff, "seconds": time.perf_counter() - t0})
+    free_card()
+
+
+def serving_beam_benches(beam_logs, seen, checks):
+    """The PR 17 rows (``"summed": false``): the gather at the three beam
+    paths' slot-cache shapes, and the W8A8 and norm shapes of their admits
+    and steps that no earlier path gave the kernels."""
+    fresh = new_shapes(beam_logs, seen)
+    extra = dict(summed=False, paths="PR 17: continuous_translator, "
+                                     "serving_generator_beam, continuous_whisper")
+    bench_gather(beam_logs.get("gather_rows_fused", {}), checks, **extra)
+    free_card()
+    bench_w8a8(fresh.get("matmul_w8a8", {}), checks, **extra)
+    free_card()
+    bench_norm(fresh.get("fused_norm", {}), checks, **extra)
+    free_card()
+
+
 def main():
     import torch
 
@@ -5377,6 +5888,9 @@ def main():
         free_card()
         residency_translator(tt, int8_dir, batches[1], checks)
         free_card()
+        beam_logs = {}
+        continuous_translator(tt, int8_dir, batches, checks, beam_logs)
+        free_card()
 
         # ---- main path 2: Generator ----
         t0 = time.perf_counter()
@@ -5407,6 +5921,8 @@ def main():
         free_card()
         serve_logs = {}
         serving_generator(tt, gen, llama_vocab, checks, serve_logs)
+        free_card()
+        serving_generator_beam(tt, gen, checks, beam_logs)
         free_card()
         residency_generator(tt, gen, llama_vocab, llama_payload_bytes, checks)
         del gen
@@ -5453,6 +5969,7 @@ def main():
         speech_logs = {"whisper": {}, "wav2vec2": {}, "w2v_bert": {}}
         t0 = time.perf_counter()
         whisper_phase(tt, work, checks, speech_logs["whisper"])
+        continuous_whisper(tt, work, checks, beam_logs)
         wav2vec2_phase(tt, checks, speech_logs["wav2vec2"])
         w2v_bert_phase(tt, checks, speech_logs["w2v_bert"])
         emit({"phase": "speech", "seconds": time.perf_counter() - t0})
@@ -5489,8 +6006,10 @@ def main():
                        **awq_logs.get(name, {})}
                 for name in set(logs) | set(new_logs) | set(awq_logs)}
         seen = arch_benches(arch_logs, seen, checks)
-        arch_benches(speech_logs, seen, checks, prefix="")
+        seen = arch_benches(speech_logs, seen, checks, prefix="")
         serving_benches(serve_logs, checks)
+        serving_beam_benches(beam_logs, {name: {**seen.get(name, {}), **serve_logs.get(name, {})}
+                                         for name in set(seen) | set(serve_logs)}, checks)
 
         # ---- the other Translator runs ----
         f16_counts = main_path(tt, float_dir, "float16", batches, checks, "float16", {})
@@ -5514,11 +6033,13 @@ def main():
         host_loop_card_vs_cpu(tt, small_dir, pair, llama_vocab, vocab, batches[1], checks)
         free_card()
         serving_card_vs_cpu(tt, pair, llama_vocab, checks)
+        serving_beam_card_vs_cpu(tt, pair, small_dir, llama_vocab, vocab, checks)
         del pair
         free_card()
         architectures_card_vs_cpu(tt, work, checks)
         free_card()
         speech_card_vs_cpu(tt, work, checks)
+        continuous_whisper_card_vs_cpu(tt, work, checks)
 
         def entry(name, source, replaces, tot, library_ms, launches=None, **extra):
             """One kernel's line; ``launches`` defaults to the Translator and

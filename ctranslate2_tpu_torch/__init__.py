@@ -10,8 +10,9 @@ the host decode loops), the iterable and token-streaming helpers,
 ``Encoder.forward_batch`` and the speech models ``Whisper``, ``Wav2Vec2``
 and ``Wav2Vec2Bert``, with model residency (``unload_model`` /
 ``load_model``) on every task class, and serving: the
-``ContinuousBatcher`` (continuous batching of decoder-only models, greedy
-and sampled, per-request options), the micro-batching
+``ContinuousBatcher``, ``ContinuousTranslator`` and ``ContinuousWhisper``
+(continuous batching of decoder-only, encoder-decoder and Whisper models;
+greedy, sampled and beam search, per-request options), the micro-batching
 ``ServingScheduler`` (``translation_scheduler``, ``generation_scheduler``)
 and ``BufferedTranslationWrapper``, on
 one NVIDIA Hopper card (or on the CPU when asked), with hand-written CUDA
@@ -22,7 +23,8 @@ imports neither JAX nor the JAX package.
 
 __version__ = "0.1.0"
 
-from .runtime.continuous import ContinuousBatcher
+from .runtime.continuous import (ContinuousBatcher, ContinuousTranslator,
+                                 ContinuousWhisper)
 from .runtime.encoder import Encoder, EncoderForwardOutput
 from .runtime.generator import Generator
 from .runtime.translator import Translator
@@ -41,6 +43,8 @@ __all__ = [
     "AsyncResult",
     "BufferedTranslationWrapper",
     "ContinuousBatcher",
+    "ContinuousTranslator",
+    "ContinuousWhisper",
     "Encoder",
     "EncoderForwardOutput",
     "ExecutionStats",

@@ -101,15 +101,27 @@ def no_repeat_ngram_per_row(logits, hist, seq_len, ngram_sizes, max_n: int):
     return torch.where(ban, DISABLE, logits)
 
 
+def token_table_mask(token_table, vocab_size: int):
+    """[N, V] bool: row r's ids in row r of an [N, W] id table (-1 entries
+    drop)."""
+    return _scatter_any(token_table.shape[0], vocab_size, token_table.clamp(min=0),
+                        token_table >= 0)
+
+
+def presence_per_row(history, lengths, vocab_size: int):
+    """[N, V] bool: the ids among the first ``lengths[r]`` entries of row r
+    of ``history`` [N, L]."""
+    N, L = history.shape
+    valid = torch.arange(L, device=history.device)[None, :] < lengths[:, None]
+    return _scatter_any(N, vocab_size, history, valid)
+
+
 def disable_tokens_per_row(logits, token_table):
     """Disable a token set a row, given as an [N, W] id table (-1 entries
     drop; W == 0 is a no-op)."""
     if token_table.shape[1] == 0:
         return logits
-    N, V = logits.shape
-    valid = token_table >= 0
-    mask = _scatter_any(N, V, token_table.clamp(min=0), valid)
-    return torch.where(mask, DISABLE, logits)
+    return torch.where(token_table_mask(token_table, logits.shape[1]), DISABLE, logits)
 
 
 def no_repeat_ngram(logits, alive_seq, seq_len: int, ngram_size: int):
@@ -158,7 +170,7 @@ def suppress_sequences_mask(logits, alive_seq, seq_len: int,
     return logits
 
 
-def whisper_timestamp_rules(logits, alive_seq, gen_len: int, sample_begin,
+def whisper_timestamp_rules(logits, alive_seq, gen_len, sample_begin,
                             eot_id: int, no_timestamps_id: int,
                             timestamp_begin_id: int, timestamp_end_id: int,
                             max_initial_timestamp_id: int):
@@ -174,9 +186,10 @@ def whisper_timestamp_rules(logits, alive_seq, gen_len: int, sample_begin,
       timestamp is forced.
 
     ``logits`` [N, V] float32, ``alive_seq`` [N, L] the tokens so far,
-    ``gen_len`` the step, ``sample_begin`` [N] the forced (prefix) steps of
-    each row. The log-sum-exp over the timestamps and the best text token
-    are compared in float32, as in the JAX package.
+    ``gen_len`` the step and ``sample_begin`` the forced (prefix) steps:
+    each an int (every row alike) or an int [N] tensor (a row each, as the
+    continuous batchers give them). The log-sum-exp over the timestamps and
+    the best text token are compared in float32, as in the JAX package.
     """
     N, V = logits.shape
     L = alive_seq.shape[1]
@@ -184,8 +197,10 @@ def whisper_timestamp_rules(logits, alive_seq, gen_len: int, sample_begin,
     l = logits
     tok = torch.arange(V, device=device)[None, :]
     is_ts_vocab = tok >= timestamp_begin_id
-    gen_len = torch.full((N,), gen_len, dtype=torch.long, device=device)
-    sample_begin = sample_begin.to(device=device, dtype=torch.long)
+    gen_len, sample_begin = (
+        x.to(device=device, dtype=torch.long).expand(N) if torch.is_tensor(x)
+        else torch.full((N,), int(x), dtype=torch.long, device=device)
+        for x in (gen_len, sample_begin))
 
     l = torch.where(tok == no_timestamps_id, DISABLE, l)
 

@@ -5,9 +5,9 @@ sampling in the reference RandomSampler's order (reference:
 src/sampling.cc:35-101): top-k restriction, temperature, top-p (nucleus)
 mask, Gumbel-max draw, and the pick's score from the unmodified
 distribution; ``sample_tokens_per_row``, the continuous batcher's sampler,
-with every row's own top-k, top-p, temperature and noise. Not ported:
-``gumbel_top_k`` and ``gumbel_top_k_per_row``, the beam draws, which only
-beam serving reaches in the JAX package.
+with every row's own top-k, top-p, temperature and noise; and the beam
+draws without replacement, ``gumbel_top_k`` and ``gumbel_top_k_per_row``
+(the latter beam serving's candidate draw).
 
 The samplers take their Gumbel noise as an argument. The decode loops get
 it from a noise source, ``noise(step, shape, device)``, which
@@ -140,6 +140,61 @@ def sample_tokens_per_row(log_probs, noise, *, topks, topps, temps,
     sampled = torch.argmax(work + noise, dim=-1)
     ids = torch.where(greedy_rows, torch.argmax(log_probs, dim=-1), sampled)
     return ids, log_probs.gather(1, ids[:, None])[:, 0]
+
+
+def gumbel_top_k_per_row(flat_scores, noise, k: int, *, topks, topps, temps,
+                         max_topk: int):
+    """Beam serving's candidate draw: ``k`` draws without replacement a row
+    (the reference's RandomSampler composed with beam search,
+    src/sampling.cc:60-92), every row with its own options.
+    ``flat_scores`` [S, W] (a slot's K beams' running scores over the
+    vocabulary, flattened); ``noise`` [S, W] Gumbel noise; ``topks``,
+    ``topps``, ``temps`` as in ``sample_tokens_per_row``. Rows with topk 1
+    take the deterministic top-k picks and read no noise (a row of zeros
+    will do). Returns (scores [S, k], indices [S, k]), the scores from the
+    unperturbed ``flat_scores``.
+
+    The batcher draws each sampled slot's [W] noise from the slot's own
+    ``torch.Generator`` (``slot_noise``); the JAX package draws row s's from
+    ``fold_in(fold_in(key, step), seed_s)``. Fed the same noise, both pick
+    the same candidates."""
+    W = flat_scores.shape[-1]
+    greedy_rows = topks == 1
+    work = flat_scores / torch.clamp(temps, min=1e-6)[:, None]
+    if max_topk > 0:
+        vals, _ = small_top_k(work, min(max_topk, W))  # descending
+        kth = vals.gather(1, (topks.long() - 1).clamp(0, vals.shape[1] - 1)[:, None])
+        use_topk = ((topks > 1) & (topks < W))[:, None]
+        work = torch.where(use_topk & (work < kth), DISABLE, work)
+    masked = top_p_mask(work, torch.clamp(topps, max=1.0)[:, None])
+    work = torch.where((topps < 1.0)[:, None], masked, work)
+    noisy = torch.where(work <= DISABLE / 2, DISABLE, work + noise)
+    det_i = small_top_k(flat_scores, k)[1]
+    smp_i = small_top_k(noisy, k)[1]
+    idx = torch.where(greedy_rows[:, None], det_i, smp_i)
+    return flat_scores.gather(-1, idx), idx
+
+
+def gumbel_top_k(flat_scores, uniform, k: int, *, topk: int = 0, topp: float = 1.0,
+                 temperature: float = 1.0):
+    """``k`` draws without replacement by the Gumbel-max trick (reference:
+    src/ops/gumbel_max.cc, which RandomSampler uses when it draws more than
+    one sample, src/sampling.cc:60-92). ``uniform`` is a uniform draw in
+    [1e-20, 1) of ``flat_scores``' shape (the JAX package's
+    ``jax.random.uniform(key, shape, minval=1e-20)``). Returns (scores,
+    indices), the scores from the unperturbed ``flat_scores``."""
+    work = flat_scores
+    if topk and topk < work.shape[-1]:
+        kth = small_top_k(work, topk)[0][..., -1:]
+        work = torch.where(work >= kth, work, DISABLE)
+    if temperature != 1.0:
+        work = _divide(work, temperature)
+    if topp < 1.0:
+        work = top_p_mask(work, topp)
+    gumbel = -torch.log(-torch.log(uniform))
+    noisy = torch.where(work <= DISABLE / 2, DISABLE, work + gumbel)
+    idx = small_top_k(noisy, k)[1]
+    return flat_scores.gather(-1, idx), idx
 
 
 def slot_noise(generators, vocab: int, device):

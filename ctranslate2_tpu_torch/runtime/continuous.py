@@ -1,29 +1,35 @@
-"""Iteration-level (continuous) batching for decoder-only models.
+"""Iteration-level (continuous) batching: decoder-only models
+(``ContinuousBatcher``), encoder-decoder models (``ContinuousTranslator``)
+and Whisper (``ContinuousWhisper``).
 
-Port of the greedy and sampled ``ContinuousBatcher`` of
-``ctranslate2_tpu/runtime/continuous.py`` (the serving capability the
-reference approximates with a replica pool and a buffered batcher:
+Port of ``ctranslate2_tpu/runtime/continuous.py`` (the serving capability
+the reference approximates with a replica pool and a buffered batcher:
 include/ctranslate2/replica_pool.h:19-300,
 src/buffered_translation_wrapper.cc:68-111). A fixed set of slots decodes
 one token a step; between blocks of ``steps_per_sync`` steps the host
-frees finished slots and admits queued requests into them (the admit
-prefills the prompt into a prompt-sized cache and copies it into the slot's
-cache row). A request submitted while others decode joins them at the
-next block.
+frees finished slots and admits queued requests into them. A request
+submitted while others decode joins them at the next block.
 
-- ``num_slots`` rows of ``capacity`` KV slots, allocated once;
+- ``num_slots`` rows of ``capacity`` KV slots (``num_slots * beam_size``
+  under beam search), allocated once;
 - per-slot positions: every slot decodes at its own position, an int
-  [num_slots] tensor through ``decoder_forward`` (position tables, rotary
-  phases, cache scatters, biases, the decode attention's lengths);
-- the slot state (tokens, positions, generated counts) stays on the
-  device between blocks, so block N+1 is queued before the host has read
-  block N's tokens (``pipeline_depth`` blocks in flight). A block's ids
-  and scores come back through pinned host memory behind a CUDA event;
-  no step reads the device.
+  tensor through ``decoder_forward`` (position tables, rotary phases,
+  cache scatters, biases, the decode attention's lengths);
+- the slot state stays on the device between blocks, so block N+1 is
+  queued before the host has read block N (``pipeline_depth`` blocks in
+  flight). A greedy block's ids and scores, or a beam block's [S] active
+  flags, come back through pinned host memory behind a CUDA event; no
+  step reads the device.
 
-Not ported yet (each raises ``NotImplementedError``): beam serving
-(``beam_size > 1``), speculation (``speculation_k > 1``, ``draft_model``)
-and multi-host serving.
+Greedy and sampled decoding emit one token a slot and step. Beam search
+(``beam_size`` > 1, the reference's serving default, src/decoding.cc:
+411-720) keeps K rows a slot and the whole candidate bookkeeping on the
+device: every step selects each slot's next K beams from its top 2K
+candidates, harvests finished hypotheses into a per-slot store and
+reorders the slot cache through the gather kernel (``cache_gather_rows``).
+
+Not ported yet (each raises ``NotImplementedError``): speculation
+(``speculation_k > 1``, ``draft_model``) and multi-host serving.
 """
 
 from __future__ import annotations
@@ -39,11 +45,13 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..decoding import processors as proc
-from ..decoding.sampling import (greedy_tokens, sample_tokens_per_row,
-                                 slot_noise)
+from ..decoding.sampling import (greedy_tokens, gumbel_top_k_per_row,
+                                 sample_tokens_per_row, slot_noise, small_top_k)
 from ..models import transformer as T
+from ..ops import attention as attn_ops
 from .results import GenerationResult, GenerationStepResult
 
 # Blocks in flight; ``CT2TPU_PIPELINE_DEPTH`` or ``pipeline_depth=`` set
@@ -51,6 +59,8 @@ from .results import GenerationResult, GenerationStepResult
 # in flight gave the same tokens/s and latencies within their spread, and
 # decoded 12% more steps (slots that ended while a block was in flight).
 DEFAULT_PIPELINE_DEPTH = 1
+# A dead beam's running score (the batch engine's).
+NEG = -1e10
 
 
 def _round_up(x: int, m: int) -> int:
@@ -76,8 +86,22 @@ class _Request:
     # Token-streaming callback: return True to stop this request early.
     callback: Optional[object] = None
     # Multi-token stop sequences (token id tuples), matched on the
-    # generated tail and trimmed from the result.
+    # generated tail (greedy) or among the beam candidates (beam) and
+    # trimmed from the result.
     stop_sequences: tuple = ()
+    # Beam serving: the hypotheses returned (None = the batcher's default)
+    # and the committed tokens already streamed.
+    num_hypotheses: Optional[int] = None
+    streamed: int = 0
+    # Encoder-decoder requests: the decoder start token, the forced target
+    # prefix (its length ``forced_len``), the source-factor id streams and
+    # Whisper's mel features and timestamp-rules switch.
+    start_id: Optional[int] = None
+    prefix_ids: List[int] = field(default_factory=list)
+    forced_len: int = 0
+    feature_ids: Optional[list] = None
+    features: Optional[np.ndarray] = None
+    ts_on: bool = False
     # Filled while decoding:
     generated: List[int] = field(default_factory=list)
     score: float = 0.0
@@ -104,10 +128,11 @@ class ContinuousBatcher:
     ALiBi, the T5 bias, Shaw positions and sliding windows over ring caches
     (each slot's biases are built from its own position every step).
 
-    Construction fixes the defaults; sampling (topk/topp/temperature/seed),
-    end tokens, stop sequences, streaming callbacks, repetition_penalty,
-    no_repeat_ngram_size and suppress_tokens are per request on
-    ``submit`` (the reference's per-call options,
+    Construction fixes the defaults and the beam width; sampling
+    (topk/topp/temperature/seed), end tokens, stop sequences, streaming
+    callbacks, repetition_penalty, no_repeat_ngram_size, suppress_tokens
+    and, under beam search, num_hypotheses are per request on ``submit``
+    (the reference's per-call options,
     include/ctranslate2/generation.h:14-78).
 
     Sampling draws each slot's Gumbel noise from a ``torch.Generator`` of
@@ -117,8 +142,13 @@ class ContinuousBatcher:
     with the batcher's step count folded into ``key``; the same seed gives
     other tokens there, and the tokens of the two packages agree only when
     fed the same noise.) A request without a seed gets a new stream at
-    every admit.
+    every admit. Under beam search a sampled slot draws [K * V] noise a
+    step, for ``gumbel_top_k_per_row``'s 2K candidates; a slot with topk 1
+    keeps the deterministic candidates and draws nothing.
     """
+
+    _seq2seq = False  # the encoder-decoder batchers carry per-slot memory
+    _wts = None  # Whisper's timestamp-rule ids (ContinuousWhisper sets them)
 
     def __init__(self, generator, **kw):
         model = generator.model
@@ -153,8 +183,15 @@ class ContinuousBatcher:
         patience: float = 1.0,
         pipeline_depth: int = None,
     ):
-        if beam_size > 1:
-            raise NotImplementedError("beam serving (beam_size > 1) is not ported yet")
+        self._beam = max(1, int(beam_size))
+        # The scheduler loop's three calls, greedy or beam for the batcher's life.
+        self._harvest_any, self._dispatch_any, self._consume_any = (
+            (self._harvest_beam, self._decode_step_beam, self._consume_beam)
+            if self._beam > 1 else (self._harvest, self._dispatch_block, self._consume_block))
+        if self._beam > 1 and (speculation_k or draft_model is not None):
+            raise NotImplementedError(
+                "speculation requires greedy decoding (beam_size=1): beam serving "
+                "takes no speculation_k or draft_model")
         if speculation_k > 1:
             raise NotImplementedError("speculation (speculation_k > 1) is not ported yet")
         if draft_model is not None:
@@ -162,6 +199,12 @@ class ContinuousBatcher:
         if (torch.distributed.is_available() and torch.distributed.is_initialized()
                 and torch.distributed.get_world_size() > 1):
             raise NotImplementedError("multi-host continuous serving is not ported yet")
+        if self._beam > 1 and not 1 <= num_hypotheses <= self._beam:
+            raise ValueError("num_hypotheses must be in [1, beam_size]")
+        self._num_hyp = int(num_hypotheses)
+        self._length_penalty = float(length_penalty)
+        self._max_candidates = max(1, round(self._beam * patience))
+        self._allow_early_exit = length_penalty == 0
         self.model = model
         self._device = model.device
         self._vocab = model.target_vocabulary
@@ -188,28 +231,29 @@ class ContinuousBatcher:
         self._suppress_ids = tuple(v.to_id(t, allow_unk=False) for t in suppress_tokens)
         model.ensure_consts(capacity)
 
-        S, V, dev = num_slots, len(v), self._device
+        S, K, V, dev = num_slots, self._beam, len(v), self._device
         # Penalty tables: [S, V] generated-token presence (repetition
         # penalty) and [S, capacity + 1] generated-token history
         # (no-repeat-ngram; entry t the t-th generated token, the last
         # column where a slot past its capacity writes). Zero rows mean
         # "penalties off": allocated at construction, or on the first
-        # request that asks for a penalty.
-        pen_rows = S if (self._rep_penalty != 1.0 or self._ngram) else 0
+        # request that asks for a penalty. Beam rows penalize over their
+        # own alive history instead.
+        pen_rows = S if (K == 1 and (self._rep_penalty != 1.0 or self._ngram)) else 0
         self._seen = torch.zeros((pen_rows, V), dtype=torch.bool, device=dev)
         self._hist = torch.zeros((pen_rows, capacity + 1), dtype=torch.long, device=dev)
 
         # The KV cache's type is fixed here (``CT2TPU_KV_CACHE`` is read once):
         # every admit's prefill cache takes it too.
         self._kv_dtype = model.kv_dtype
-        self._cache = T.init_self_cache(model.arch, S, capacity, dtype=self._kv_dtype,
+        self._cache = T.init_self_cache(model.arch, S * K, capacity, dtype=self._kv_dtype,
                                         device=dev, ring=True)
         self._rows = torch.arange(S, device=dev)
         # Device slot state, read and written by the queued work only.
         self._dstate = {"tokens": torch.zeros(S, dtype=torch.long, device=dev),
                         "pos": torch.zeros(S, dtype=torch.int32, device=dev),
                         "gen": torch.zeros(S, dtype=torch.int32, device=dev)}
-        # The host's copy of each slot's device position after every block
+        # The host's bound of each slot's device position after every block
         # queued so far: the length-adaptive attention's trip count.
         self._dpos = np.zeros(S, np.int64)
 
@@ -239,6 +283,11 @@ class ContinuousBatcher:
         self._ngrams = np.full(S, self._ngram, np.int32)
         # Per-request suppress_tokens [S, W]; zero width is a no-op.
         self._sup_table = np.full((S, 0), -1, np.int32)
+        # Forced target prefixes (the encoder-decoder batchers widen the
+        # table), their lengths and the timestamp-rules switch, a slot each.
+        self._prefix = np.zeros((S, 1), np.int64)
+        self._plen = np.zeros(S, np.int32)
+        self._ts_on = np.zeros(S, bool)
         self._dopts = None  # the device copy of the per-slot options
         self._step_count = 0
         self._blocks = 0
@@ -246,11 +295,56 @@ class ContinuousBatcher:
         self._requests_done = 0
         self._slot_steps = 0
         self._started_at = time.monotonic()
+        if K > 1:
+            self._init_beam()
+        else:
+            self._step_fn = self._build_step()
 
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         self._admitting: Optional[_Request] = None
         self._closed = False
         self._wake = threading.Event()
+
+    def _init_beam(self):
+        """The beam state: ``num_slots`` x K rows, the hypothesis store (K
+        hypotheses a slot, the per-request num_hypotheses ceiling) and the
+        per-slot beam options."""
+        S, K, L, dev = self._num_slots, self._beam, self._capacity, self._device
+
+        def full(shape, value, dtype):
+            return torch.full(shape, value, dtype=dtype, device=dev)
+
+        i64, f32 = torch.long, torch.float32
+        self._bstate = {
+            "tokens": full((S, K), 0, i64),
+            "pos": full((S,), 0, i64),
+            "gen": full((S,), 0, i64),
+            "scores": full((S, K), NEG, f32),
+            "alive": full((S, K, L), 0, i64),
+            # Per-position cumulative scores along each alive beam and
+            # stored hypothesis: stop-sequence trimming refunds the matched
+            # suffix and streaming reports per-token scores.
+            "alive_sc": full((S, K, L), 0.0, f32),
+            "store_seqs": full((S, K, L), 0, i64),
+            "store_sc": full((S, K, L), 0.0, f32),
+            "store_lens": full((S, K), 0, i64),
+            "store_scores": full((S, K), -float("inf"), f32),
+            "store_count": full((S,), 0, i64),
+            "top_fin": full((S,), False, torch.bool),
+            "active": full((S,), False, torch.bool),
+        }
+        self._b_active_host = np.zeros(S, bool)
+        self._max_lens = np.ones(S, np.int32)
+        self._nhyps = np.full(S, self._num_hyp, np.int32)
+        # Stop-sequence tables [S, NS, LS] and lengths [S, NS]: zero size (no
+        # matching) until a request brings stop sequences.
+        self._bstop_tab = np.full((S, 0, 0), -1, np.int64)
+        self._bstop_len = np.zeros((S, 0), np.int64)
+        # Per-beam-row penalties (over the alive table) once any request or
+        # the batcher's defaults ask for them.
+        self._bpen = self._rep_penalty != 1.0 or self._ngram > 0
+        self._beam_step_fn = self._build_beam_step()
+        self._beam_reset_fn = self._build_beam_reset()
 
     def _start_loop(self):
         self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -281,7 +375,8 @@ class ContinuousBatcher:
         generated token from the scheduler thread (keep it cheap: it blocks
         the decode loop); return True to stop this request early. A
         callback exception cancels the request and surfaces through its
-        future."""
+        future. Under beam search it streams the committed tokens, those
+        every surviving hypothesis shares."""
         if self._closed:
             raise RuntimeError("The batcher is closed")
         if not prompt:
@@ -303,8 +398,11 @@ class ContinuousBatcher:
                        topk=sampling_topk, topp=sampling_topp, seed=seed,
                        end_ids=self._resolve_request_end_ids(end_token),
                        rep_penalty=rep, ngram=ngram, suppress_ids=sup_ids,
-                       callback=callback,
+                       num_hypotheses=num_hypotheses, callback=callback,
                        stop_sequences=self._stop_ids(stop_sequences))
+        return self._enqueue(req)
+
+    def _enqueue(self, req: _Request) -> Future:
         self._queue.put(req)
         self._wake.set()
         return req.future
@@ -391,7 +489,8 @@ class ContinuousBatcher:
     def stats(self) -> dict:
         """Serving counters since construction: generated tokens, finished
         requests, decode steps and blocks, mean slot occupancy, tokens/s
-        and time-to-first-token percentiles."""
+        and time-to-first-token percentiles (under beam search the first
+        delivery: a streamed commit, else the finish)."""
         dt = max(time.monotonic() - self._started_at, 1e-9)
         tt = np.asarray(self._ttfts, np.float64)
         return {
@@ -472,11 +571,19 @@ class ContinuousBatcher:
                             for t in suppress_tokens)
         return rep_penalty, ngram, sup_ids
 
-    @staticmethod
-    def _validate_beam_request(num_hypotheses) -> None:
-        if num_hypotheses is not None and num_hypotheses != 1:
+    def _validate_beam_request(self, num_hypotheses) -> None:
+        """Under beam search any num_hypotheses in [1, beam_size]; greedy
+        and sampled decoding return one hypothesis."""
+        if num_hypotheses is None:
+            return
+        if self._beam > 1:
+            if not 1 <= num_hypotheses <= self._beam:
+                raise ValueError(f"num_hypotheses must be in [1, beam_size] "
+                                 f"(= [1, {self._beam}])")
+        elif num_hypotheses != 1:
             raise NotImplementedError(
-                "num_hypotheses > 1 needs beam serving, which is not ported yet")
+                "num_hypotheses > 1 requires beam serving (construct with "
+                "beam_size > 1) or the batch APIs")
 
     def _stop_ids(self, stop_sequences) -> tuple:
         v = self._vocab
@@ -493,6 +600,15 @@ class ContinuousBatcher:
         """The request's options into the slot's row of the option tables
         (the batcher's options where the request gives none), and the
         slot's noise generator when it samples."""
+        self._set_slot_common(slot, req)
+        rp, ng = self._rep_pens[slot], self._ngrams[slot]
+        if rp != 1.0 or ng:
+            self._ensure_pen_tables()
+
+    def _set_slot_common(self, slot: int, req: _Request) -> None:
+        """The options greedy and beam slots share: sampling (and the
+        slot's noise generator), end tokens, min_length, penalties and
+        suppressed tokens."""
         self._temps[slot] = req.temperature or self._temperature or 1.0
         self._topks[slot] = req.topk if req.topk is not None else max(self._topk, 0)
         self._topps[slot] = req.topp if req.topp is not None else min(self._topp, 1.0)
@@ -500,12 +616,9 @@ class ContinuousBatcher:
         for e, eid in enumerate(self._req_end_ids(req)):
             self._end_table[slot, e] = eid
         self._min_lens[slot] = req.min_length
-        rp = req.rep_penalty if req.rep_penalty is not None else self._rep_penalty
-        ng = req.ngram if req.ngram is not None else self._ngram
-        if rp != 1.0 or ng:
-            self._ensure_pen_tables()
-        self._rep_pens[slot] = rp
-        self._ngrams[slot] = ng
+        self._rep_pens[slot] = (req.rep_penalty if req.rep_penalty is not None
+                                else self._rep_penalty)
+        self._ngrams[slot] = req.ngram if req.ngram is not None else self._ngram
         sup = req.suppress_ids or ()
         if len(sup) > self._sup_table.shape[1]:
             grown = np.full((self._num_slots, _round_up(len(sup), 4)), -1, np.int32)
@@ -521,6 +634,31 @@ class ContinuousBatcher:
             g.manual_seed((self._seed * 0x9E3779B1 + stream) % (1 << 63))
             self._gens[slot] = g
         self._dopts = None
+
+    def _set_beam_slot_options(self, slot: int, req: _Request) -> None:
+        """A beam slot's options: those greedy slots take, the request's
+        max_length, hypothesis count and stop sequences (the stop tables
+        grow on demand)."""
+        self._set_slot_common(slot, req)
+        self._max_lens[slot] = req.max_length
+        self._nhyps[slot] = req.num_hypotheses or self._num_hyp
+        if self._rep_pens[slot] != 1.0 or self._ngrams[slot]:
+            self._bpen = True
+        stops = req.stop_sequences
+        ns, ls = len(stops), max((len(s) for s in stops), default=0)
+        NS, LS = self._bstop_tab.shape[1], self._bstop_tab.shape[2]
+        if ns > NS or ls > LS:
+            NSn, LSn = max(ns, NS, 1), max(_round_up(ls, 2), LS, 2)
+            grown = np.full((self._num_slots, NSn, LSn), -1, np.int64)
+            lens = np.zeros((self._num_slots, NSn), np.int64)
+            grown[:, :NS, :LS] = self._bstop_tab
+            lens[:, :NS] = self._bstop_len
+            self._bstop_tab, self._bstop_len = grown, lens
+        self._bstop_tab[slot] = -1
+        self._bstop_len[slot] = 0
+        for j, seq in enumerate(stops):
+            self._bstop_tab[slot, j, :len(seq)] = seq
+            self._bstop_len[slot, j] = len(seq)
 
     def _ensure_pen_tables(self) -> None:
         """Allocates the penalty tables on first use, backfilling every
@@ -551,30 +689,60 @@ class ContinuousBatcher:
         """The per-slot option tables on the device, uploaded again after an
         admit changed them."""
         if self._dopts is None:
-            self._dopts = {
-                "temps": self._upload(self._temps),
-                "topks": self._upload(self._topks.astype(np.int64)),
-                "topps": self._upload(self._topps),
-                "min_len": self._upload(self._min_lens),
-                "rep_pens": self._upload(self._rep_pens),
-                "ngrams": self._upload(self._ngrams.astype(np.int64)),
-                "end_table": self._upload(self._end_table.astype(np.int64)),
-                "sup_table": self._upload(self._sup_table.astype(np.int64)),
-            }
+            up = self._upload
+            o = {"temps": up(self._temps),
+                 "topks": up(self._topks.astype(np.int64)),
+                 "topps": up(self._topps),
+                 "min_len": up(self._min_lens.astype(np.int64)),
+                 "rep_pens": up(self._rep_pens),
+                 "ngrams": up(self._ngrams.astype(np.int64)),
+                 "end_table": up(self._end_table.astype(np.int64)),
+                 "sup_table": up(self._sup_table.astype(np.int64))}
+            if self._beam > 1 or self._seq2seq:
+                o["prefix"] = up(self._prefix)
+                o["plen"] = up(self._plen.astype(np.int64))
+            if self._wts is not None:
+                o["ts_on"] = up(self._ts_on)
+            if self._beam > 1:
+                o["max_len"] = up(self._max_lens.astype(np.int64))
+                o["nhyps"] = up(self._nhyps.astype(np.int64))
+                o["stop_tab"] = up(self._bstop_tab)
+                o["stop_len"] = up(self._bstop_len)
+            self._dopts = o
         return self._dopts
+
+    def _memory(self, opts):
+        """(per-layer memory K/V, memory bias) of the slots; None for a
+        decoder-only model."""
+        return None, None
 
     # ------------------------------------------------------------------
     # Token selection.
     # ------------------------------------------------------------------
 
-    def _select(self, l, disable_end, opts, gens):
-        """Tokens of float32 logits ``l`` [S, V] with the slots' suppressed
-        tokens and, where ``disable_end``, their end tokens disabled."""
+    def _disable(self, l, disable_end, opts):
+        """``l`` [S, V] with the batcher's and the slots' suppressed tokens
+        disabled and, where ``disable_end``, the slots' end tokens."""
         l = proc.disable_tokens(l, self._suppress_ids)
         l = proc.disable_tokens_per_row(l, opts["sup_table"])
         ends = torch.where(disable_end[:, None], opts["end_table"], -1)
-        l = proc.disable_tokens_per_row(l, ends)
-        return self._pick(l, gens, opts)
+        return proc.disable_tokens_per_row(l, ends)
+
+    def _timestamp_rules(self, l, hist, gen, plen):
+        """Whisper's timestamp rules on rows whose history ``hist`` [N, L]
+        holds the forced prompt (``plen`` [N] tokens) and then the sampled
+        tokens, at step ``gen`` [N]. The rules see only the steps past the
+        prompt, as ``Whisper.generate`` (which prefills the prompt) and the
+        reference (src/models/whisper.cc:742-865: the first sampled step
+        takes only timestamps) do."""
+        L = hist.shape[1]
+        past = (torch.arange(L, device=hist.device)[None, :] + plen[:, None]).clamp(max=L - 1)
+        return proc.whisper_timestamp_rules(l, hist.gather(1, past), gen - plen, 0, *self._wts)
+
+    def _select(self, l, disable_end, opts, gens):
+        """Tokens of float32 logits ``l`` [S, V] with the slots' suppressed
+        tokens and, where ``disable_end``, their end tokens disabled."""
+        return self._pick(self._disable(l, disable_end, opts), gens, opts)
 
     def _pick(self, l, gens, opts):
         """The argmax of the log-softmax of ``l`` (``gens`` None: no row
@@ -604,6 +772,13 @@ class ContinuousBatcher:
                 "temps": torch.full((1,), float(self._temps[slot]), device=dev)}
         return self._pick(l, [self._gens[slot]], opts)
 
+    def _sampling_gens(self, active):
+        """The slots' noise generators (None where a slot keeps to the
+        argmax), or None when no active slot samples."""
+        if not any(self._topks[i] != 1 for i in active):
+            return None
+        return [g if self._topks[s] != 1 else None for s, g in enumerate(self._gens)]
+
     # ------------------------------------------------------------------
     # Streaming and bookkeeping.
     # ------------------------------------------------------------------
@@ -621,7 +796,10 @@ class ContinuousBatcher:
             del req.recent_scores[:-req.max_stop_len]
             for seq in req.stop_sequences:
                 n = len(seq)
-                if len(req.generated) >= n and tuple(req.generated[-n:]) == seq:
+                # A stop applies to generated tokens only: the matched
+                # suffix lies wholly past the forced prefix.
+                if (len(req.generated) >= req.forced_len + n
+                        and tuple(req.generated[-n:]) == seq):
                     del req.generated[-n:]
                     req.score -= sum(req.recent_scores[-n:])
                     req.stopped = True
@@ -711,50 +889,72 @@ class ContinuousBatcher:
     # Admit: the prompt's prefill into a free slot.
     # ------------------------------------------------------------------
 
+    def _get_cache_prefill(self, padded_len: int):
+        """The prefill of one prompt padded to ``padded_len`` into a cache of
+        that size (``fresh_prefill``, masked at the prompt's length): a
+        function (ids [1, padded_len], length) -> (hidden states, the 1-row
+        cache). A beam admit keeps only the cache."""
+        model = self.model
+
+        def prefill(ids, length: int):
+            cache = T.init_self_cache(model.arch, 1, padded_len, dtype=self._kv_dtype,
+                                      device=self._device, ring=True)
+            return T.decoder_forward(
+                model.arch, model.params, model.consts, ids.to(self._device), 0, cache,
+                lengths=torch.tensor([length], dtype=torch.long).to(self._device),
+                quantize_acts=model.policy.quantize_activations,
+                out_dtype=model.out_dtype, return_logits=False, fresh_prefill=True)
+
+        return prefill
+
+    def _padded(self, ids: List[int], size: int):
+        """``ids`` as a [1, size] id tensor, zero-padded, on the host."""
+        out = torch.zeros((1, size), dtype=torch.long)
+        out[0, :len(ids)] = torch.tensor(ids, dtype=torch.long)
+        return out
+
     def _prefill_logits(self, ids: List[int]):
-        """Prefill of one prompt into a prompt-sized cache (``fresh_prefill``,
-        padded to ``prefill_bucket``, masked at its length): (the last
+        """The prompt's prefill (padded to ``prefill_bucket``): (the last
         prompt position's float32 logits [1, V], the 1-row cache)."""
         model = self.model
-        dev = self._device
         L = len(ids)
         P = _round_up(L, self._prefill_bucket)
-        padded = torch.zeros((1, P), dtype=torch.long)
-        padded[0, :L] = torch.tensor(ids, dtype=torch.long)
-        cache = T.init_self_cache(model.arch, 1, P, dtype=self._kv_dtype, device=dev,
-                                  ring=True)
+        h, cache = self._get_cache_prefill(P)(self._padded(ids, P), L)
         qa = model.policy.quantize_activations
-        h, cache = T.decoder_forward(
-            model.arch, model.params, model.consts, padded.to(dev), 0, cache,
-            lengths=torch.tensor([L], dtype=torch.long).to(dev), quantize_acts=qa,
-            out_dtype=model.out_dtype, return_logits=False, fresh_prefill=True)
         return T.project_logits(model.arch, model.params, h[:, L - 1], qa).float(), cache
 
-    def _prefill_chunked(self, ids: List[int], rb: int):
+    def _prefill_chunked(self, ids: List[int], rb: int, logits: bool = True):
         """A window model's prompt longer than one ring block: the
         reference's chunked prefill (chunks split at multiples of the ring
-        block) through a 1-row ring cache of the slot's shape."""
+        block) through a 1-row ring cache of the slot's shape: (the last
+        prompt position's float32 logits [1, V], or None without
+        ``logits``, and the cache)."""
         model = self.model
-        dev = self._device
         qa = model.policy.quantize_activations
         cache = T.init_self_cache(model.arch, 1, self._capacity, dtype=self._kv_dtype,
-                                  device=dev, ring=True)
+                                  device=self._device, ring=True)
         h = last = None
         for off, size in T.split_prefill_chunks(0, len(ids), rb):
-            chunk = torch.zeros((1, _round_up(size, self._prefill_bucket)),
-                                dtype=torch.long)
-            chunk[0, :size] = torch.tensor(ids[off:off + size], dtype=torch.long)
+            chunk = self._padded(ids[off:off + size], _round_up(size, self._prefill_bucket))
             # No lengths mask: it would mask the earlier chunks' keys. The
             # padded tail writes positions past the prompt, which decode
             # overwrites before they become visible.
             h, cache = T.decoder_forward(
-                model.arch, model.params, model.consts, chunk.to(dev), off, cache,
+                model.arch, model.params, model.consts, chunk.to(self._device), off, cache,
                 quantize_acts=qa, out_dtype=model.out_dtype, return_logits=False,
                 fresh_prefill=(off == 0))
             last = size
+        if not logits:
+            return None, cache
         return T.project_logits(model.arch, model.params, h[:, last - 1], qa).float(), cache
 
+    def _beam_cache_chunked(self, ids: List[int]):
+        """``_prefill_chunked``'s cache alone (a beam admit)."""
+        return self._prefill_chunked(ids, T.ring_block(self.model.arch), logits=False)[1]
+
     def _prefill_into_slot(self, slot: int, req: _Request):
+        if self._beam > 1:
+            return self._prefill_into_slot_beam(slot, req)
         ids = req.prompt_ids
         rb = T.ring_block(self.model.arch)
         self._set_slot_sampling(slot, req)
@@ -781,47 +981,129 @@ class ContinuousBatcher:
         self._dstate["gen"][slot] = 1
         self._dpos[slot] = len(ids)
 
+    def _prefill_into_slot_beam(self, slot: int, req: _Request):
+        """Decoder-only beam admit: the prompt but its last token into all K
+        rows of the slot, then every beam starts from the last prompt token
+        at its position. The first step recomputes that token's keys and
+        values, and the beam expansion falls out of the candidate step
+        (only beam 0 carries score 0)."""
+        ids = req.prompt_ids
+        K = self._beam
+        pos0 = len(ids) - 1
+        if pos0 > 0:
+            rb = T.ring_block(self.model.arch)
+            if rb and pos0 > rb:
+                sub = self._beam_cache_chunked(ids[:-1])
+            else:
+                P = _round_up(pos0, self._prefill_bucket)
+                _, sub = self._get_cache_prefill(P)(self._padded(ids[:-1], P), pos0)
+            for k in range(K):
+                T.cache_insert_row(self._cache, sub, slot * K + k)
+            del sub
+        self._set_beam_slot_options(slot, req)
+        self._beam_reset_fn(slot, ids[-1], pos0)
+        self._slots[slot] = req
+        self._pos[slot] = pos0
+
+    def _build_beam_reset(self):
+        """A function (slot, start token, start position) that writes one
+        slot's rows of the beam state in place (queued after the blocks in
+        flight): K beams on the start token, beam 0 at score 0 and the rest
+        dead, an empty history and store."""
+        def reset(slot: int, start_tok: int, pos0: int) -> None:
+            st = self._bstate
+            st["tokens"][slot] = start_tok
+            st["pos"][slot] = pos0
+            st["gen"][slot] = 0
+            st["scores"][slot] = NEG
+            st["scores"][slot, 0] = 0.0
+            for name in ("alive", "alive_sc", "store_seqs", "store_sc", "store_lens",
+                         "store_count"):
+                st[name][slot] = 0
+            st["store_scores"][slot] = -float("inf")
+            st["top_fin"][slot] = False
+            st["active"][slot] = True
+            self._b_active_host[slot] = True
+            self._dpos[slot] = pos0
+
+        return reset
+
     # ------------------------------------------------------------------
     # Decode blocks.
     # ------------------------------------------------------------------
+
+    def _block_bounds(self, clamp: int):
+        """The host's position bound of this block's first step (the slots'
+        bounds clamped at ``clamp``), advanced past the block."""
+        starts = np.minimum(self._dpos, clamp)
+        self._dpos = starts + self._block
+        return int(starts.max())
+
+    def _build_step(self):
+        """The greedy and sampled step: a function (tokens, positions,
+        generated counts, options, memory, memory bias, noise generators,
+        position bound) -> (ids, scores) [S] that decodes one token a slot,
+        writing the slot cache and the penalty tables in place."""
+        model = self.model
+        arch, qa = model.arch, model.policy.quantize_activations
+        cap = self._capacity
+
+        def step(tokens, pos, gen, opts, mem, mem_bias, gens, pos_bound):
+            logits, self._cache = T.decoder_forward(
+                arch, model.params, model.consts, tokens[:, None], pos, self._cache,
+                mem, mem_bias, quantize_acts=qa, out_dtype=model.out_dtype,
+                pos_bound=pos_bound)
+            l = logits[:, -1].float()
+            seen, hist = self._seen, self._hist
+            pen = seen.shape[0] > 0
+            if pen:
+                l = proc.repetition_penalty_per_row(l, seen, opts["rep_pens"])
+                l = proc.no_repeat_ngram_per_row(l, hist[:, :cap], gen, opts["ngrams"],
+                                                 self._max_ngram)
+            disable_end = gen < opts["min_len"]
+            if self._wts is not None and pen:
+                # Whisper's timestamp rules per slot over its generated
+                # history (the penalty table), applied to what the sampler
+                # would see and switched per slot by its prompt.
+                lp = self._disable(l, disable_end, opts)
+                lp = self._timestamp_rules(lp, hist[:, :cap], gen, opts["plen"])
+                l = torch.where(opts["ts_on"][:, None], lp, l)
+            ids, scores = self._select(l, disable_end, opts, gens)
+            if self._seq2seq:
+                # The hard target prefix: its token is what gets fed, so the
+                # cache holds the forced prefix.
+                use = gen < opts["plen"]
+                prefix = opts["prefix"]
+                forced = prefix.gather(
+                    1, torch.clamp(gen, max=prefix.shape[1] - 1).long()[:, None])[:, 0]
+                ids = torch.where(use, forced, ids)
+                scores = torch.where(use, torch.zeros_like(scores), scores)
+            if pen:
+                seen[self._rows, ids] = True
+                hist[self._rows, torch.clamp(gen, max=cap).long()] = ids
+            return ids, scores
+
+        return step
 
     def _dispatch_block(self, active: List[int]):
         """Queues one block of ``steps_per_sync`` decode steps from the
         device slot state, without waiting for the card. Returns the
         handle ``_consume_block`` reads the block's tokens from (possibly
         after the NEXT block has been queued)."""
-        model = self.model
-        arch, qa = model.arch, model.policy.quantize_activations
         cap, block = self._capacity, self._block
         binding = {i: self._slots[i] for i in active}
         opts = self._device_options()
-        sampled = any(self._topks[i] != 1 for i in active)
-        gens = [g if self._topks[s] != 1 else None
-                for s, g in enumerate(self._gens)] if sampled else None
+        mem, mem_bias = self._memory(opts)
+        gens = self._sampling_gens(active)
         tokens, gen = self._dstate["tokens"], self._dstate["gen"]
         # Overshoot clamp: a slot that finished while a block was in
         # flight keeps advancing until re-admitted; its writes stay inside
         # its row (the admit resets it).
         pos = torch.clamp(self._dstate["pos"], max=cap - block)
-        starts = np.minimum(self._dpos, cap - block)
-        top = int(starts.max())
-        self._dpos = starts + block
-        seen, hist = self._seen, self._hist
-        pen = seen.shape[0] > 0
+        top = self._block_bounds(cap - block)
         ids_k, scores_k = [], []
         for i in range(block):
-            logits, self._cache = T.decoder_forward(
-                arch, model.params, model.consts, tokens[:, None], pos, self._cache,
-                quantize_acts=qa, out_dtype=model.out_dtype, pos_bound=top + i)
-            l = logits[:, -1].float()
-            if pen:
-                l = proc.repetition_penalty_per_row(l, seen, opts["rep_pens"])
-                l = proc.no_repeat_ngram_per_row(l, hist[:, :cap], gen, opts["ngrams"],
-                                                 self._max_ngram)
-            ids, scores = self._select(l, gen < opts["min_len"], opts, gens)
-            if pen:
-                seen[self._rows, ids] = True
-                hist[self._rows, torch.clamp(gen, max=cap).long()] = ids
+            ids, scores = self._step_fn(tokens, pos, gen, opts, mem, mem_bias, gens, top + i)
             ids_k.append(ids)
             scores_k.append(scores)
             tokens, pos, gen = ids, pos + 1, gen + 1
@@ -831,18 +1113,19 @@ class ContinuousBatcher:
         self._slot_steps += len(active) * block
         return self._to_host(torch.stack(ids_k), torch.stack(scores_k)) + (binding,)
 
-    def _to_host(self, ids, scores):
-        """Copies of a block's ids and scores [block, S] that the host can
-        read once the returned event (None on the CPU) has completed."""
+    def _to_host(self, *tensors):
+        """Copies of ``tensors`` that the host can read once the returned
+        event (None on the CPU) has completed, followed by that event."""
         if self._device.type != "cuda":
-            return ids, scores, None
-        host_ids = torch.empty(ids.shape, dtype=ids.dtype, pin_memory=True)
-        host_scores = torch.empty(scores.shape, dtype=scores.dtype, pin_memory=True)
-        host_ids.copy_(ids, non_blocking=True)
-        host_scores.copy_(scores, non_blocking=True)
+            return tensors + (None,)
+        out = []
+        for t in tensors:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            out.append(h)
         done = torch.cuda.Event()
         done.record()
-        return host_ids, host_scores, done
+        return tuple(out) + (done,)
 
     def _consume_block(self, handle):
         """Waits for one block's tokens and emits them. A slot whose request
@@ -871,6 +1154,353 @@ class ContinuousBatcher:
                     break
 
     # ------------------------------------------------------------------
+    # Beam search: K rows a slot, the candidate bookkeeping of the batch
+    # engine's beam loop with a step counter a slot, all on the device. The
+    # host reads only the [S] active flags a block, and a slot's store when
+    # it finishes (or, for streaming, a snapshot).
+    # ------------------------------------------------------------------
+
+    def _build_beam_step(self):
+        """The beam step: a function (cache, state, options, memory, memory
+        bias, noise generators, position bound) -> (cache, state) that runs
+        one decode step of every slot's K beams."""
+        model = self.model
+        S, K, dev = self._num_slots, self._beam, self._device
+        K2 = 2 * K
+
+        def rep(x):  # a slot's value on each of its K rows
+            return x.repeat_interleave(K, dim=0)
+
+        def step(cache, st, o, mem, mem_bias, gens, pos_bound):
+            tokens, pos, gen = st["tokens"], st["pos"], st["gen"]
+            scores, alive, alive_sc, active = (st["scores"], st["alive"], st["alive_sc"],
+                                               st["active"])
+            Lb = alive.shape[2]
+            plen, prefix = o["plen"], o["prefix"]
+            pos_rows = rep(torch.clamp(pos, max=self._capacity - 1))
+            logits, cache = T.decoder_forward(
+                model.arch, model.params, model.consts, tokens.reshape(S * K)[:, None],
+                pos_rows, cache, mem, mem_bias, beam_size=K,
+                quantize_acts=model.policy.quantize_activations, out_dtype=model.out_dtype,
+                pos_bound=pos_bound)
+            l = logits[:, -1].float()  # [S*K, V]
+            V = l.shape[-1]
+            l = proc.disable_tokens(l, self._suppress_ids)
+            if o["sup_table"].shape[1]:
+                l = proc.disable_tokens_per_row(l, rep(o["sup_table"]))
+            alive_flat = alive.reshape(S * K, Lb)
+            gen_rows = rep(gen)
+            if self._bpen:
+                # Per-beam-row penalties over each row's own alive history (the
+                # batch engine's alive_seq: generated tokens only).
+                seen = proc.presence_per_row(alive_flat, gen_rows, V)
+                l = proc.repetition_penalty_per_row(l, seen, rep(o["rep_pens"]))
+                l = proc.no_repeat_ngram_per_row(l, alive_flat, gen_rows, rep(o["ngrams"]),
+                                                 self._max_ngram)
+            min_end = rep((gen < o["min_len"])[:, None] & proc.token_table_mask(o["end_table"], V))
+            if self._wts is not None:
+                # Whisper's timestamp rules on each beam row over its own alive
+                # history, over the state the batch loop sees, switched per slot.
+                lp = torch.where(min_end, proc.DISABLE, l)
+                lp = self._timestamp_rules(lp, alive_flat, gen_rows, rep(plen))
+                l = torch.where(rep(o["ts_on"])[:, None], lp, l)
+            l = torch.where(min_end, proc.DISABLE, l)
+
+            log_probs = torch.log_softmax(l, dim=-1)
+            flat = (log_probs + scores.reshape(S * K)[:, None]).reshape(S, K * V)
+            if gens is not None:
+                # Gumbel-top-2K draws for the sampled slots; the others keep
+                # the deterministic candidates.
+                ts, ti = gumbel_top_k_per_row(
+                    flat, slot_noise(gens, K * V, dev), K2, topks=o["topks"], topps=o["topps"],
+                    temps=o["temps"], max_topk=self._max_topk)
+            else:
+                ts, ti = small_top_k(flat, K2)  # [S, 2K]
+            words, origins = ti % V, ti // V
+            cand = torch.arange(K2, device=dev)[None, :]
+            end_table = o["end_table"]
+
+            def is_end(tok):  # [S, C] -> [S, C]: any of the slot's end ids
+                return (tok[:, :, None] == end_table[:, None, :]).any(dim=-1)
+
+            # The hard prefix (reference update_sample_with_prefix,
+            # src/decoding.cc:21-67): the prefix token as candidate 0 at score
+            # 0 while gen < plen; an end token among the other candidates is
+            # dropped at the first free step.
+            forced = (gen < plen)[:, None]
+            ptok = prefix.gather(1, torch.clamp(gen, max=prefix.shape[1] - 1)[:, None])
+            words = torch.where(forced, ptok, words)
+            ts = torch.where(forced, torch.where(cand == 0, 0.0, NEG), ts)
+            origins = torch.where(forced, 0, origins)
+            eos_k = is_end(words) & (cand > 0) & (gen == plen)[:, None]
+            words = torch.where(eos_k, 0, words)
+            ts = torch.where(eos_k, NEG, ts)
+
+            is_eos_cand = is_end(words)
+            past_prefix = (gen >= plen)[:, None]
+            last_step = (gen + 1) >= o["max_len"]
+            wcol = torch.clamp(gen, max=Lb - 1)
+
+            stop_tab, n_st = o["stop_tab"], o["stop_len"]
+            NS, LS = stop_tab.shape[1], stop_tab.shape[2]
+            if NS and LS:
+                # Stop sequences: a candidate whose tail [gen-n+1 .. gen] equals
+                # one finishes like an end token, the matched suffix trimmed and
+                # its scores refunded from the cumulative-score table.
+                i_idx = torch.arange(LS, device=dev)
+                p_idx = (gen[:, None, None, None] - n_st[:, None, :, None] + 1
+                         + i_idx[None, None, None, :])  # [S, 1, NS, LS]
+                seqs = alive.gather(1, origins[:, :, None].expand(S, K2, Lb))  # [S, 2K, L]
+                pc = torch.clamp(p_idx, 0, Lb - 1).expand(S, K2, NS, LS)
+                toks = seqs.gather(2, pc.reshape(S, K2, NS * LS)).reshape(S, K2, NS, LS)
+                tok_p = torch.where(p_idx == gen[:, None, None, None],
+                                    words[:, :, None, None], toks)
+                valid_i = i_idx[None, None, None, :] < n_st[:, None, :, None]
+                eq_all = ((tok_p == stop_tab[:, None, :, :]) | ~valid_i).all(dim=-1)
+                # A match fits the generated range and lies past the prefix.
+                okn = ((n_st > 0) & ((gen[:, None] + 1) >= n_st)
+                       & ((gen[:, None] + 1 - n_st) >= plen[:, None]))  # [S, NS]
+                stop_n = torch.where(eq_all & okn[:, None, :], n_st[:, None, :], 0).amax(dim=-1)
+            else:
+                stop_n = torch.zeros((S, K2), dtype=torch.long, device=dev)
+            stopped_cand = stop_n > 0
+            dead_cand = is_eos_cand | stopped_cand
+
+            # Harvest finished hypotheses among the first K candidates.
+            finish_k = active[:, None] & ((is_eos_cand[:, :K] & past_prefix)
+                                          | stopped_cand[:, :K] | last_step[:, None])
+            top_fin = st["top_fin"] | finish_k[:, 0]
+            sseq, s_sc, slen = st["store_seqs"], st["store_sc"], st["store_lens"]
+            ssc, scount = st["store_scores"], st["store_count"]
+            rows_s = torch.arange(S, device=dev)
+            hyp_slots = torch.arange(K, device=dev)[None, :]
+            for k in range(K):
+                o_k = origins[:, k]
+                seq = alive[rows_s, o_k]  # [S, L] (a copy)
+                seq_sc = alive_sc[rows_s, o_k]
+                seq[rows_s, wcol] = words[:, k]
+                seq_sc[rows_s, wcol] = ts[:, k]
+                # The end token never lands in the hypothesis, but the length
+                # normalization counts it (the reference's defaults). A stop
+                # match trims the suffix and refunds its scores.
+                sn = stop_n[:, k]
+                stp = sn > 0
+                hyp_len = torch.where(stp, gen + 1 - sn,
+                                      torch.where(is_eos_cand[:, k], gen, gen + 1))
+                kept = torch.clamp(gen - sn, 0, Lb - 1)
+                cum_kept = seq_sc.gather(1, kept[:, None])[:, 0]
+                raw = torch.where(stp, torch.where(gen - sn >= 0, cum_kept, 0.0), ts[:, k])
+                norm_len = torch.clamp(torch.where(stp, hyp_len, gen + 1), min=1).float()
+                norm_score = raw / torch.pow(norm_len, self._length_penalty)
+                worst = torch.argmin(ssc, dim=1)  # [S]
+                cur_min = ssc.gather(1, worst[:, None])[:, 0]
+                do = finish_k[:, k] & (norm_score > cur_min)
+                hit = (hyp_slots == worst[:, None]) & do[:, None]
+                ssc = torch.where(hit, norm_score[:, None], ssc)
+                slen = torch.where(hit, hyp_len[:, None], slen)
+                sseq = torch.where(hit[:, :, None], seq[:, None, :], sseq)
+                s_sc = torch.where(hit[:, :, None], seq_sc[:, None, :], s_sc)
+                scount = scount + finish_k[:, k].long()
+
+            if self._allow_early_exit:
+                finished = top_fin & (scount >= o["nhyps"])
+            else:
+                finished = scount >= self._max_candidates
+            # A stop match on the top candidate ends the request at this step
+            # (the emitted stream matched), instead of letting longer
+            # continuations outscore the trimmed hypothesis.
+            finished = finished | stopped_cand[:, 0]
+            new_active = active & ~(finished | last_step)
+
+            # The next K beams: live candidates first, in order.
+            order = torch.argsort(dead_cand.int(), dim=1, stable=True)[:, :K]
+            new_words = words.gather(1, order)
+            new_scores = ts.gather(1, order)
+            new_origins = origins.gather(1, order)
+            rows = (rows_s[:, None] * K + new_origins).reshape(S * K).to(torch.int32)
+            cache = T.cache_gather_rows(cache, rows)
+            where = new_origins[:, :, None].expand(S, K, Lb)
+            col = wcol[:, None, None].expand(S, K, 1)
+            new_alive = alive.gather(1, where).scatter_(2, col, new_words[:, :, None])
+            new_alive_sc = alive_sc.gather(1, where).scatter_(2, col, new_scores[:, :, None])
+            a1, a3 = active[:, None], active[:, None, None]
+            step = active.long()
+            return cache, {
+                "tokens": torch.where(a1, new_words, tokens), "pos": pos + step,
+                "gen": gen + step, "scores": torch.where(a1, new_scores, scores),
+                "alive": torch.where(a3, new_alive, alive),
+                "alive_sc": torch.where(a3, new_alive_sc, alive_sc),
+                "store_seqs": sseq, "store_sc": s_sc, "store_lens": slen,
+                "store_scores": ssc, "store_count": scount, "top_fin": top_fin,
+                "active": new_active}
+
+        return step
+
+    def _decode_step_beam(self, active: List[int]):
+        """Queues one block of beam steps; returns the handle of the block's
+        [S] active flags (read back through pinned memory) and the slots'
+        requests at dispatch."""
+        binding = {i: self._slots[i] for i in active}
+        opts = self._device_options()
+        mem, mem_bias = self._memory(opts)
+        gens = self._sampling_gens(active)
+        cap = self._capacity
+        top = self._block_bounds(cap - 1)
+        cache, st = self._cache, self._bstate
+        for i in range(self._block):
+            cache, st = self._beam_step_fn(cache, st, opts, mem, mem_bias, gens,
+                                           min(top + i, cap - 1))
+        self._cache, self._bstate = cache, st
+        self._step_count += self._block
+        self._blocks += 1
+        self._slot_steps += len(active) * self._block
+        return self._to_host(st["active"]) + (binding,)
+
+    def _consume_beam(self, handle):
+        """Reads a block's active flags. A slot admitted after the dispatch
+        keeps its own flag: the block saw the slot's previous request."""
+        flags, done, binding = handle
+        if done is not None:
+            done.synchronize()
+        flags = flags.numpy()
+        for i, req in binding.items():
+            if self._slots[i] is req:
+                self._b_active_host[i] = bool(flags[i])
+
+    _BEAM_SNAP_KEYS = ("alive", "alive_sc", "gen", "scores", "store_seqs", "store_sc",
+                       "store_lens", "store_scores")
+
+    def _beam_snapshot(self):
+        return {k: self._bstate[k].cpu().numpy() for k in self._BEAM_SNAP_KEYS}
+
+    def _harvest_beam(self):
+        need = any(r is not None and (r.callback is not None or r.stopped)
+                   for r in self._slots)
+        snap = self._beam_snapshot() if need else None
+        for i, req in enumerate(self._slots):
+            if req is None:
+                continue
+            if not self._b_active_host[i]:
+                self._finish_beam(i, req, snap)
+                continue
+            if req.callback is not None and not req.stopped:
+                self._stream_beam_slot(i, req, snap)
+            if req.stopped:
+                # A callback's stop (or error): the slot goes inactive and
+                # finishes with its best hypothesis so far.
+                self._bstate["active"][i] = False
+                self._b_active_host[i] = False
+                self._finish_beam(i, req, snap)
+
+    def _stream_beam_slot(self, slot: int, req: _Request, snap) -> None:
+        """Streams the COMMITTED tokens: the longest prefix that every alive
+        beam shares and every stored hypothesis agrees with. Every later
+        finished hypothesis descends from an alive row, so a committed
+        token is a prefix of the request's final best hypothesis. The
+        stop-sequence window (at least 1 token, so that ``is_last`` comes
+        at the finish) is held back against a later stop-suffix trim."""
+        gen = int(snap["gen"][slot])
+        hold = max(1, req.max_stop_len)
+        cap = gen - hold
+        if cap <= req.streamed:
+            return
+        alive = snap["alive"][slot]  # [K, L]
+        ne = np.flatnonzero(~(alive[:1, :cap] == alive[:, :cap]).all(axis=0))
+        lcp = int(ne[0]) if ne.size else cap
+        ssc, slen = snap["store_scores"][slot], snap["store_lens"][slot]
+        sseq = snap["store_seqs"][slot]
+        for j in np.flatnonzero(np.isfinite(ssc)):
+            # A finished hypothesis may win the final ranking: commit only
+            # what matches it, short of its end.
+            m = max(min(int(slen[j]) - 1, lcp), 0)
+            dif = np.flatnonzero(sseq[j, :m] != alive[0, :m])
+            lcp = int(dif[0]) if dif.size else m
+        if lcp <= req.streamed:
+            return
+        cum = snap["alive_sc"][slot, 0]
+        v = self._vocab
+        if req.t_first is None:
+            req.t_first = time.monotonic()
+            self._ttfts.append(req.t_first - req.t_submit)
+        for t in range(req.streamed, lcp):
+            prev = float(cum[t - 1]) if t > 0 else 0.0
+            tok = int(alive[0, t])
+            try:
+                stop = req.callback(GenerationStepResult(
+                    step=t, batch_id=0, token_id=tok, hypothesis_id=0,
+                    token=v.to_token(tok), score=float(cum[t]) - prev, is_last=False))
+            except BaseException as e:  # noqa: BLE001
+                req.callback_error = e
+                req.stopped = True
+                return
+            req.streamed = t + 1
+            if stop:
+                req.stopped = True
+                return
+
+    def _finish_beam(self, slot: int, req: _Request, snap=None):
+        v = self._vocab
+        if req.t_first is None:
+            # Beam TTFT is delivery-based: the first streamed commit, else
+            # the finish that materializes the hypotheses.
+            req.t_first = time.monotonic()
+            self._ttfts.append(req.t_first - req.t_submit)
+        if snap is not None:
+            def get(k):
+                return snap[k][slot]
+        else:
+            def get(k):
+                return self._bstate[k][slot].cpu().numpy()
+        sseq, slen = get("store_seqs"), get("store_lens")
+        ssc, s_sc = get("store_scores"), get("store_sc")
+        self._slots[slot] = None
+        hyps, scores, hyp_sc = [], [], []
+        for j in np.argsort(-ssc, kind="stable"):
+            if not np.isfinite(ssc[j]):
+                continue
+            hyps.append([int(t) for t in sseq[j, :slen[j]]])
+            scores.append(float(ssc[j]))
+            hyp_sc.append(s_sc[j])
+        if not hyps:
+            # Stopped early with nothing stored yet: the best alive beam so
+            # far, normalized like a finished one.
+            alive, bsc = get("alive"), get("scores")
+            gen = int(get("gen"))
+            b = int(np.argmax(bsc))
+            hyps = [[int(t) for t in alive[b, :gen]]]
+            scores = [float(bsc[b]) / max(gen, 1) ** self._length_penalty]
+            hyp_sc = [get("alive_sc")[b]]
+        nh = req.num_hypotheses or self._num_hyp
+        hyps, scores = hyps[:nh], scores[:nh]
+        self._tokens_out += len(hyps[0])
+        self._requests_done += 1
+        if req.callback is not None and not req.stopped and req.callback_error is None:
+            # The final best hypothesis's tail through the callback (the
+            # streaming holds back at least one token, so ``is_last`` is
+            # always delivered here).
+            cum = hyp_sc[0]
+            for t in range(req.streamed, len(hyps[0])):
+                prev = float(cum[t - 1]) if t > 0 else 0.0
+                try:
+                    req.callback(GenerationStepResult(
+                        step=t, batch_id=0, token_id=hyps[0][t], hypothesis_id=0,
+                        token=v.to_token(hyps[0][t]), score=float(cum[t]) - prev,
+                        is_last=(t == len(hyps[0]) - 1)))
+                except BaseException as e:  # noqa: BLE001
+                    req.callback_error = e
+                    break
+            req.streamed = len(hyps[0])
+        if req.callback_error is not None:
+            if not req.future.done():
+                req.future.set_exception(req.callback_error)
+            return
+        result = GenerationResult(
+            sequences=[[v.to_token(t) for t in h] for h in hyps],
+            sequences_ids=[list(h) for h in hyps], scores=scores)
+        if not req.future.done():
+            req.future.set_result(result)
+
+    # ------------------------------------------------------------------
     # Scheduler loop.
     # ------------------------------------------------------------------
 
@@ -878,11 +1508,11 @@ class ContinuousBatcher:
         try:
             if self._device.type == "cuda":
                 torch.cuda.set_device(self._device)
-            # Up to self._depth blocks in flight: the host reads block N's
-            # tokens while block N+1 runs on the card.
+            # Up to self._depth blocks in flight: the host reads block N
+            # while block N+1 runs on the card.
             inflight = deque()
             while True:
-                self._harvest()
+                self._harvest_any()
                 for slot, req in self._collect_admits():
                     self._admitting = req  # failed with the rest if the admit raises
                     self._prefill_into_slot(slot, req)
@@ -896,11 +1526,341 @@ class ContinuousBatcher:
                     self._wake.clear()
                     continue
                 if active:
-                    inflight.append(self._dispatch_block(active))
-                while len(inflight) >= (self._depth if active else 1):
-                    self._consume_block(inflight.popleft())
+                    inflight.append(self._dispatch_any(active))
+                depth = self._depth
+                if self._beam > 1 and any(r is not None and r.callback is not None
+                                          for r in self._slots):
+                    # Beam streaming runs in lockstep: a callback's stop
+                    # finishes from the block the callback saw.
+                    depth = 1
+                while len(inflight) >= (depth if active else 1):
+                    self._consume_any(inflight.popleft())
         except BaseException as e:  # noqa: BLE001
             self._fail_pending(e)
             for s in self._slots + [self._admitting]:
                 if s is not None and not s.future.done():
                     s.future.set_exception(e)
+
+
+class ContinuousTranslator(ContinuousBatcher):
+    """Continuous batching of an encoder-decoder model (a ``Translator``'s).
+
+    Each slot owns cross-attention memory of a fixed shape: the admit
+    encodes the source, projects it through every layer's cross K/V (or
+    a merged layer's ``memory_kv``) and writes the result into the slot's
+    rows of [num_slots, Hkv, max_source_len, D] buffers, allocated once;
+    a per-slot length mask covers the padding. Decoding starts from the
+    decoder start token at position 0, so there is no decoder-side
+    prefill.
+
+    Serves every encoder-decoder family the batch path does: separate
+    cross-attention, merged self+cross attention (T5Gemma2), the T5 bias,
+    Shaw positions and source factors (``￨``-factored tokens, split at
+    submit). Target prefixes are forced while decoding, including on
+    models whose ``decoder_start_token`` is null, where the prefix's first
+    token takes the start token's role (reference:
+    src/models/sequence_to_sequence.cc:169-186).
+    """
+
+    _seq2seq = True
+
+    def __init__(self, translator, *, max_source_len: int = 128,
+                 max_target_prefix: int = 32, **kw):
+        model = translator.model
+        if not model.is_sequence_to_sequence:
+            raise ValueError("ContinuousTranslator requires an encoder-decoder model")
+        self._translator = translator
+        self._max_src = max_source_len
+        self._src_vocab = model.source_vocabularies[0]
+        self._num_features = model.arch.encoder.embeddings.num_features
+        start = model.config.get("decoder_start_token", "<s>")
+        self._start_id = None if start is None else model.target_vocabulary.to_id(start)
+        self._init_common(model, **kw)
+        self._init_seq2seq_state(max_target_prefix)
+        self._start_loop()
+
+    def _init_seq2seq_state(self, max_target_prefix: int):
+        """Per-slot cross-attention memory (zeros attend as masked) and the
+        forced target-prefix table."""
+        model = self.model
+        self.model.ensure_consts(max(self._capacity, self._max_src))
+        self._mem = []
+        for layer in model.arch.decoder.layers:
+            # A merged (T5Gemma2) layer carries its memory through the
+            # self-attention's memory_kv projection.
+            a = layer.cross_attention
+            if a is None and layer.self_attention.has_memory_kv:
+                a = layer.self_attention
+            if a is None:
+                self._mem.append(None)
+                continue
+            shape = (self._num_slots, a.num_heads_kv, self._max_src, a.head_dim)
+            self._mem.append({n: torch.zeros(shape, dtype=model.out_dtype,
+                                             device=self._device) for n in ("k", "v")})
+        self._src_len = np.zeros(self._num_slots, np.int64)
+        self._max_prefix = max_target_prefix
+        self._prefix = np.zeros((self._num_slots, max(1, max_target_prefix)), np.int64)
+
+    def submit(self, source: Sequence[str], *, max_length: int = 256,
+               min_length: int = 0,
+               sampling_temperature: float = None,
+               sampling_topk: int = None,
+               sampling_topp: float = None,
+               seed: int = None,
+               end_token=None,
+               repetition_penalty: float = None,
+               no_repeat_ngram_size: int = None,
+               suppress_tokens: Sequence = None,
+               num_hypotheses: int = None,
+               target_prefix: Sequence[str] = None,
+               callback=None,
+               stop_sequences: Sequence[Sequence] = None) -> Future:
+        """Queue one tokenized source sentence; the Future resolves to a
+        GenerationResult of the target tokens (the forced ``target_prefix``
+        included, as the reference's return_prefix). ``callback`` streams
+        target tokens, as ``ContinuousBatcher.submit``'s does."""
+        if self._closed:
+            raise RuntimeError("The batcher is closed")
+        if not source:
+            raise ValueError("The source must contain at least one token")
+        cfg = self.model.config
+        bos, eos = bool(cfg.get("add_source_bos", False)), bool(cfg.get("add_source_eos", False))
+        feature_ids = None
+        if self._num_features > 1:
+            from .translator import extract_features
+
+            streams = extract_features([list(source)], self._num_features)
+            feature_ids = [vocab.tokens_to_ids(stream, add_bos=bos, add_eos=eos)[0]
+                           for vocab, stream in zip(self.model.source_vocabularies, streams)]
+            ids = feature_ids[0]
+        else:
+            ids = self._src_vocab.tokens_to_ids([list(source)], add_bos=bos, add_eos=eos)[0]
+        if len(ids) > self._max_src:
+            raise ValueError(f"source length {len(ids)} (BOS and EOS included) exceeds "
+                             f"max_source_len ({self._max_src})")
+        if max_length + self._block > self._capacity:
+            raise ValueError("max_length exceeds the slot capacity")
+        prefix_ids = []
+        if target_prefix:
+            tv = self.model.target_vocabulary
+            prefix_ids = [tv.to_id(t) for t in target_prefix]
+        start_id = self._start_id
+        if start_id is None:
+            # No decoder start token: the prefix's first token is fed as one
+            # and the rest is forced (as translate_batch does).
+            if not prefix_ids:
+                raise ValueError(
+                    "The model requires a target prefix as the decoder start token")
+            start_id, prefix_ids = prefix_ids[0], prefix_ids[1:]
+        if len(prefix_ids) > self._max_prefix:
+            raise ValueError(f"target_prefix length {len(prefix_ids)} exceeds "
+                             f"max_target_prefix ({self._max_prefix})")
+        self._validate_request_sampling(sampling_topk)
+        self._validate_beam_request(num_hypotheses)
+        rep, ngram, sup_ids = self._validate_request_penalties(
+            repetition_penalty, no_repeat_ngram_size, suppress_tokens)
+        req = _Request(prompt_ids=ids, max_length=max_length,
+                       min_length=min_length + len(prefix_ids),
+                       temperature=sampling_temperature or 0.0,
+                       topk=sampling_topk, topp=sampling_topp, seed=seed,
+                       end_ids=self._resolve_request_end_ids(end_token),
+                       rep_penalty=rep, ngram=ngram, suppress_ids=sup_ids,
+                       num_hypotheses=num_hypotheses, callback=callback,
+                       stop_sequences=self._stop_ids(stop_sequences),
+                       start_id=start_id, prefix_ids=prefix_ids,
+                       forced_len=len(prefix_ids), feature_ids=feature_ids)
+        return self._enqueue(req)
+
+    def _memory(self, opts):
+        return self._mem, attn_ops.length_mask_bias(opts["src_len"], self._max_src)
+
+    def _device_options(self) -> dict:
+        if self._dopts is None:
+            o = super()._device_options()
+            o["src_len"] = self._upload(self._src_len)
+        return self._dopts
+
+    @staticmethod
+    def _mem_insert_impl(mem, sub, slot: int):
+        """Writes one request's per-layer memory K/V (``sub``, padded to the
+        buffers' length) into row ``slot`` of the memory buffers ``mem``, in
+        place."""
+        for buf, s in zip(mem, sub):
+            if buf is not None:
+                for name in buf:
+                    buf[name][slot].copy_(s[name][0])
+
+    def _get_encode(self, padded_len: int):
+        return self._make_encode_fn(self.model, padded_len)
+
+    def _make_encode_fn(self, model, padded_len: int, speech: bool = False):
+        """A function (encoder input, length) -> the per-layer memory K/V of
+        one request, [1, Hkv, max_source_len, D] each (zero-padded): source
+        ids ``padded_len`` long (a tuple of them with source factors), or
+        with ``speech`` mel features [1, n_mels, padded_len frames]."""
+        qa = model.policy.quantize_activations
+
+        def encode(ids, length=None):
+            if speech:
+                memory = T.speech_encoder_forward(model.arch, model.params, model.consts, ids,
+                                                  quantize_acts=qa, out_dtype=model.out_dtype)
+            else:
+                memory = T.encoder_forward(
+                    model.arch, model.params, model.consts, ids,
+                    torch.tensor([length], dtype=torch.long, device=self._device),
+                    quantize_acts=qa, out_dtype=model.out_dtype)
+            pad = self._max_src - memory.shape[1]
+            return [None if m is None else {k: F.pad(v, (0, 0, 0, pad)) for k, v in m.items()}
+                    for m in T.precompute_memory(model.arch, model.params, memory,
+                                                 quantize_acts=qa)]
+
+        return encode
+
+    def _prefill_into_slot(self, slot: int, req: _Request):
+        ids = req.prompt_ids
+        P = min(_round_up(max(len(ids), 1), self._prefill_bucket), self._max_src)
+
+        def pad_ids(row):
+            return self._padded(row[:P], P).to(self._device)
+
+        enc_ids = (tuple(pad_ids(f) for f in req.feature_ids)
+                   if req.feature_ids is not None else pad_ids(ids))
+        self._mem_insert_impl(self._mem, self._get_encode(P)(enc_ids, min(len(ids), P)), slot)
+        self._src_len[slot] = min(len(ids), P)
+        self._admit_decoder(slot, req, req.start_id)
+
+    def _admit_decoder(self, slot: int, req: _Request, start_id: int) -> None:
+        """The slot's decoder state: the start token at position 0 and the
+        forced prefix (beam rows all start from it; only beam 0 carries
+        score 0, so the first step's candidates expand the beams)."""
+        self._slots[slot] = req
+        self._pos[slot] = 0
+        self._prefix[slot, :] = 0
+        self._prefix[slot, :len(req.prefix_ids)] = req.prefix_ids
+        self._plen[slot] = len(req.prefix_ids)
+        self._ts_on[slot] = req.ts_on
+        if self._beam > 1:
+            self._set_beam_slot_options(slot, req)
+            self._beam_reset_fn(slot, start_id, 0)
+            return
+        if req.ts_on:
+            # The greedy rules read the generated history from the penalty
+            # table (1.0 / 0 penalty rows stay no-ops for the others).
+            self._ensure_pen_tables()
+        self._set_slot_sampling(slot, req)
+        self._dstate["tokens"][slot] = start_id
+        self._dstate["pos"][slot] = 0
+        self._dstate["gen"][slot] = 0
+        self._dpos[slot] = 0
+        if self._seen.shape[0]:
+            self._seen[slot] = False
+            self._hist[slot] = 0
+
+
+class ContinuousWhisper(ContinuousTranslator):
+    """Continuous batching of Whisper (a ``Whisper``'s model).
+
+    ``submit(features, prompt)`` encodes the request's mel features
+    [n_mels, frames] into the slot's cross-attention memory and forces the
+    prompt (the start-of-transcript sequence) as a target prefix.
+    Whisper's timestamp rules (reference: src/models/whisper.cc:742-865)
+    apply to a request whose prompt does not end with
+    ``<|notimestamps|>``, under greedy and beam search, over the steps past
+    the prompt, so the first sampled token is a timestamp, as in
+    ``Whisper.generate``; the model's config
+    ``suppress_ids`` are suppressed every step. The encoder attends every
+    frame, so serving feeds one fixed mel length (the 30 s window, padded
+    upstream as the reference does).
+    """
+
+    def __init__(self, whisper, *, max_target_prefix: int = 16,
+                 max_initial_timestamp_index: int = 50, **kw):
+        model = whisper.model
+        enc = model.arch.encoder
+        if enc is None or not enc.num_conv_layers:
+            raise ValueError("ContinuousWhisper requires a Whisper-style speech model")
+        v = model.target_vocabulary
+        if "<|notimestamps|>" in v and "<|endoftext|>" in v:
+            no_ts = v.to_id("<|notimestamps|>")
+            ts_begin = no_ts + 1
+            self._wts = (v.to_id("<|endoftext|>"), no_ts, ts_begin, len(v) - 1,
+                         ts_begin + max_initial_timestamp_index)
+        self._translator = whisper
+        # The encoder's output capacity: the position table's length
+        # (reference: src/layers/whisper.cc:44-49).
+        self._max_src = int(model.params["encoder"]["position_encodings"].shape[0])
+        self._src_vocab = None
+        self._start_id = None  # a request's prompt[0]
+        if "end_token" not in kw and "<|endoftext|>" in v:
+            kw["end_token"] = "<|endoftext|>"
+        self._init_common(model, **kw)
+        sup = tuple(int(i) for i in (model.config.get("suppress_ids") or ()))
+        self._suppress_ids = tuple(sorted(set(self._suppress_ids) | set(sup)))
+        self._init_seq2seq_state(max_target_prefix)
+        self._start_loop()
+
+    def submit(self, features, prompt: Sequence, *, max_length: int = 256,
+               min_length: int = 0,
+               sampling_temperature: float = None,
+               sampling_topk: int = None,
+               sampling_topp: float = None,
+               seed: int = None,
+               end_token=None,
+               repetition_penalty: float = None,
+               no_repeat_ngram_size: int = None,
+               suppress_tokens: Sequence = None,
+               num_hypotheses: int = None,
+               callback=None,
+               stop_sequences: Sequence[Sequence] = None) -> Future:
+        """Queue one audio segment: ``features`` [n_mels, frames], ``prompt``
+        the start-of-transcript tokens (or ids). The Future resolves to a
+        GenerationResult whose tokens start with the forced prompt tail
+        (``prompt[1:]``) and continue with the transcription."""
+        if self._closed:
+            raise RuntimeError("The batcher is closed")
+        if not prompt:
+            raise ValueError("The prompt must contain at least one token")
+        v = self._vocab
+        ids = [t if isinstance(t, int) else v.to_id(t, allow_unk=False) for t in prompt]
+        if len(ids) - 1 > self._max_prefix:
+            raise ValueError(f"prompt length {len(ids)} exceeds max_target_prefix + 1 "
+                             f"({self._max_prefix + 1})")
+        if max_length + self._block > self._capacity:
+            raise ValueError("max_length exceeds the slot capacity")
+        feats = np.asarray(features, np.float32)
+        if feats.ndim != 2:
+            raise ValueError("features must be one segment of shape [n_mels, frames]")
+        # The stride-2 convolution's output length is ceil(frames / 2).
+        if (feats.shape[-1] + 1) // 2 > self._max_src:
+            raise ValueError(f"features length {feats.shape[-1]} exceeds the encoder "
+                             f"capacity ({2 * self._max_src} frames)")
+        self._validate_request_sampling(sampling_topk)
+        self._validate_beam_request(num_hypotheses)
+        rep, ngram, sup_ids = self._validate_request_penalties(
+            repetition_penalty, no_repeat_ngram_size, suppress_tokens)
+        req = _Request(prompt_ids=[], max_length=max_length,
+                       min_length=min_length + (len(ids) - 1),
+                       temperature=sampling_temperature or 0.0,
+                       topk=sampling_topk, topp=sampling_topp, seed=seed,
+                       end_ids=self._resolve_request_end_ids(end_token),
+                       rep_penalty=rep, ngram=ngram, suppress_ids=sup_ids,
+                       num_hypotheses=num_hypotheses, callback=callback,
+                       stop_sequences=self._stop_ids(stop_sequences),
+                       start_id=ids[0], prefix_ids=ids[1:], forced_len=len(ids) - 1,
+                       features=feats,
+                       # The rules apply unless the prompt opts out.
+                       ts_on=self._wts is not None and ids[-1] != self._wts[1])
+        return self._enqueue(req)
+
+    def _get_speech_encode(self, frames: int):
+        # Serving feeds one fixed mel length (the 30 s window, padded
+        # upstream): the encoder attends every frame unmasked, so zero
+        # padding here would change the memory (reference:
+        # src/layers/whisper.cc:25-62).
+        return self._make_encode_fn(self.model, frames, speech=True)
+
+    def _prefill_into_slot(self, slot: int, req: _Request):
+        feats = torch.as_tensor(req.features[None]).to(self._device)
+        self._mem_insert_impl(self._mem, self._get_speech_encode(feats.shape[-1])(feats), slot)
+        self._src_len[slot] = min((feats.shape[-1] + 1) // 2, self._max_src)
+        self._admit_decoder(slot, req, req.start_id)

@@ -2125,3 +2125,73 @@ def _tensors(tree):
     if isinstance(tree, (list, tuple)):
         return [t for v in tree for t in _tensors(v)]
     return [tree] if torch.is_tensor(tree) else []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float", "int8"])
+def test_beam_batcher_on_card_gathers_once_a_step(small_decoder, monkeypatch, kv):
+    """float32, beam 2: the beam batcher's hypotheses and scores equal
+    ``generate_batch(beam_size=2)``'s on the card, with more requests than
+    slots; every beam step reorders the slot cache in exactly one gather
+    launch, and no kernel's plain version runs on the card."""
+    _card()
+    if kv == "int8":
+        monkeypatch.setenv("CT2TPU_KV_CACHE", "int8")
+    cs = _chip_smoke()
+    gen = tt.Generator(small_decoder, compute_type="float32")
+    rng = np.random.default_rng(9)
+    prompts = [[f"tok{int(t)}" for t in rng.integers(0, 190, n)] for n in (5, 40, 17, 3)]
+    refs = [gen.generate_batch([p], max_length=12, beam_size=2, return_scores=True,
+                               include_prompt_in_result=False)[0] for p in prompts]
+    cb = tt.ContinuousBatcher(gen, num_slots=2, capacity=128, steps_per_sync=4,
+                              beam_size=2)
+    plain = {}
+    try:
+        with cs.plain_calls_on_card(plain):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            steps0 = cb.num_steps
+            out = [f.result(timeout=300) for f in [cb.submit(p, max_length=12)
+                                                   for p in prompts]]
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            steps = cb.num_steps - steps0
+    finally:
+        cb.close()
+    for o, r in zip(out, refs):
+        assert o.sequences_ids[0] == r.sequences_ids[0]
+        assert abs(o.scores[0] - r.scores[0]) < (1e-3 if kv == "float" else 2e-2)
+    assert steps > 0 and counts["gather_rows_fused"] == steps
+    assert (counts["decode_attention_int8"] > 0) == (kv == "int8")
+    assert not plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam", [1, 2])
+def test_continuous_translator_on_card_matches_cpu(small_seq2seq, beam):
+    """float32: ``ContinuousTranslator`` on the card gives the CPU's tokens,
+    scores within 1e-3, with a target prefix; under beam search one gather
+    a step."""
+    _card()
+    rng = np.random.default_rng(12)
+    sources = [[f"tok{int(t)}" for t in rng.integers(3, 190, n)] for n in (6, 14, 3)]
+    kw = dict(num_slots=2, capacity=64, max_source_len=16, steps_per_sync=3,
+              beam_size=beam)
+    out = {}
+    for device in ("cuda", "cpu"):
+        tr = tt.Translator(small_seq2seq, compute_type="float32", device=device)
+        cb = tt.ContinuousTranslator(tr, **kw)
+        try:
+            kernels.reset_launches()
+            fs = [cb.submit(s, max_length=12) for s in sources]
+            fs.append(cb.submit(sources[0], max_length=12, target_prefix=["tok4", "tok8"]))
+            out[device] = ([f.result(timeout=300) for f in fs], kernels.launch_counts(),
+                           cb.num_steps)
+        finally:
+            cb.close()
+    (card, counts, steps), (cpu, _, _) = out["cuda"], out["cpu"]
+    for a, b in zip(card, cpu):
+        assert a.sequences_ids == b.sequences_ids
+        np.testing.assert_allclose(a.scores, b.scores, atol=1e-3, rtol=0)
+    assert counts["gather_rows_fused"] == (steps if beam > 1 else 0)
+    assert counts["fused_norm"] > 0

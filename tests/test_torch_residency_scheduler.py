@@ -13,8 +13,8 @@ left for later, on the CPU.
   and ``BufferedTranslationWrapper`` give the batch calls' results, one
   request at a time, as the JAX package's do; the queue blocks when full
   and wakes on close.
-- ``ContinuousBatcher`` raises ``NotImplementedError`` for beam serving,
-  speculation, draft models and multi-host serving.
+- ``ContinuousBatcher`` raises ``NotImplementedError`` for speculation
+  (under beam serving too), draft models and multi-host serving.
 """
 
 import threading
@@ -324,7 +324,7 @@ def test_py_queue_bounds_and_close():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(beam_size=2), "beam serving"),
+    (dict(beam_size=2, speculation_k=4), "beam serving"),
     (dict(speculation_k=4), "speculation"),
     (dict(speculation_k=4, draft_model="draft"), "speculation"),
     (dict(draft_model="draft"), "draft-model"),
