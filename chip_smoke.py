@@ -332,6 +332,11 @@ MODEL = dict(vocab_size=32000, num_layers=6, num_heads=8, d_model=512,
 # The Generator's model: Llama-3-8B's geometry at full width and depth.
 LLAMA = dict(layers=32, d_model=4096, heads=32, heads_kv=8, d_ff=14336,
              vocab=128256, rotary_base=500000.0)
+# The main Generator's depth, shared by every phase that runs ``gen`` (the
+# main path, beam and speculative serving, speculation, residency): half of
+# Llama-3-8B's 32 layers, at its full widths. At 32 the whole script ran
+# past its 1,200 s limit on a slower host (PERF.md section 4).
+MAIN_LAYERS = LLAMA["layers"] // 2
 GEN_BATCH = 4
 # Gemma-2-9B's attention (google/gemma-2-9b config.json: num_attention_heads
 # 16, num_key_value_heads 8, head_dim 256) at the Generator's batch.
@@ -1511,14 +1516,14 @@ def feature_checks(checks):
 # Generator: the Llama-3-8B geometry.
 # ---------------------------------------------------------------------------
 
-def _llama_file(layers, **config):
-    """The Llama-3-8B geometry's attributes and norms in a new in-memory
-    ModelFile (``config`` added to its config), and its weight matrices as
-    (scope, out_dim, in_dim, seed) jobs, embeddings and projection first."""
+def _llama_file(layers, cfg=LLAMA, seed=0, **config):
+    """A Llama geometry's (``cfg``, Llama-3-8B's by default) attributes and
+    norms in a new in-memory ModelFile (``config`` added to its config),
+    and its weight matrices as (scope, out_dim, in_dim, seed) jobs,
+    embeddings and projection first, their seeds offset by ``seed``."""
     import numpy as np
     from ctranslate2_tpu_torch.formats.model_file import ModelFile, make_variable
 
-    cfg = LLAMA
     d, heads, heads_kv = cfg["d_model"], cfg["heads"], cfg["heads_kv"]
     head_dim = d // heads
     mf = ModelFile(spec_name="TransformerDecoderSpec", spec_revision=8,
@@ -1535,21 +1540,21 @@ def _llama_file(layers, **config):
     add(f"{sc}/activation", 2, "int8")  # swish
     add(f"{sc}/scale_embeddings", 0, "int8")
     add(f"{sc}/layer_norm/gamma", np.ones(d, np.float32))
-    jobs = [(f"{sc}/embeddings", cfg["vocab"], d, 0),
-            (f"{sc}/projection", cfg["vocab"], d, 1)]
+    jobs = [(f"{sc}/embeddings", cfg["vocab"], d, seed),
+            (f"{sc}/projection", cfg["vocab"], d, seed + 1)]
     for i in range(layers):
         ls = f"{sc}/layer_{i}"
         asc = f"{ls}/self_attention"
-        jobs.append((f"{asc}/linear_0", (heads + 2 * heads_kv) * head_dim, d, 10 + i))
-        jobs.append((f"{asc}/linear_1", d, heads * head_dim, 1000 + i))
+        jobs.append((f"{asc}/linear_0", (heads + 2 * heads_kv) * head_dim, d, seed + 10 + i))
+        jobs.append((f"{asc}/linear_1", d, heads * head_dim, seed + 1000 + i))
         add(f"{asc}/layer_norm/gamma", np.ones(d, np.float32))
         add(f"{asc}/num_heads_kv", heads_kv, "int32")
         add(f"{asc}/rotary_dim", 0, "int32")
         add(f"{asc}/rotary_interleave", 0, "int8")
         add(f"{asc}/rotary_base", cfg["rotary_base"], "float32")
-        jobs.append((f"{ls}/ffn/linear_0", cfg["d_ff"], d, 2000 + i))
-        jobs.append((f"{ls}/ffn/linear_0_noact", cfg["d_ff"], d, 3000 + i))
-        jobs.append((f"{ls}/ffn/linear_1", d, cfg["d_ff"], 4000 + i))
+        jobs.append((f"{ls}/ffn/linear_0", cfg["d_ff"], d, seed + 2000 + i))
+        jobs.append((f"{ls}/ffn/linear_0_noact", cfg["d_ff"], d, seed + 3000 + i))
+        jobs.append((f"{ls}/ffn/linear_1", d, cfg["d_ff"], seed + 4000 + i))
         add(f"{ls}/ffn/layer_norm/gamma", np.ones(d, np.float32))
     return mf, jobs
 
@@ -1570,12 +1575,23 @@ def _draw_into(mf, jobs, draw):
     return mf
 
 
-def build_llama_modelfile(layers):
-    """The Llama-3-8B geometry fabricated directly as int8 payloads and
-    scales, in memory (no float intermediates): every linear's payload is
-    drawn from its own seed."""
-    mf, jobs = _llama_file(layers)
-    return _draw_into(mf, jobs, _int8_payload)
+def build_llama_modelfile(layers, cfg=LLAMA, seed=0, tied=False):
+    """A Llama geometry (Llama-3-8B's by default) fabricated directly as int8
+    payloads and scales, in memory (no float intermediates): every linear's
+    payload is drawn from its own seed. With ``tied`` the projection is the
+    embeddings' arrays, as the converter writes tied embeddings."""
+    from ctranslate2_tpu_torch.formats.model_file import make_variable
+
+    mf, jobs = _llama_file(layers, cfg, seed)
+    if tied:
+        jobs = [j for j in jobs if not j[0].endswith("/projection")]
+    mf = _draw_into(mf, jobs, _int8_payload)
+    if tied:
+        for suffix in ("weight", "weight_scale"):
+            name = f"decoder/projection/{suffix}"
+            mf.variables[name] = make_variable(
+                name, mf.variables[f"decoder/embeddings/{suffix}"].array)
+    return mf
 
 
 def _int8_payload(job):
@@ -1733,11 +1749,13 @@ def same_prefix_rows(a, b, n):
     return sum(x.sequences_ids[0][:n] == y.sequences_ids[0][:n] for x, y in zip(a, b))
 
 
-def generator_main_path(tt, mf, vocab, checks, logs):
+def generator_main_path(tt, mf, vocab, checks, logs, plain=None):
     """The Generator at full width and depth, int8 weights, int8 KV cache:
     timed calls with the launch counters zeroed before and read after, the
     profiler's busy share, the flash-off and decode-kernel-off runs fed the
-    kernel run's int8 activations, then the float16-KV call."""
+    kernel run's int8 activations, then the float16-KV call. With a dict
+    ``plain``, the int8-KV and float16-KV timed calls' (seconds, prefill
+    seconds, token ids) go into ``plain["int8"]`` / ``plain["float16"]``."""
     import torch
 
     t0 = time.perf_counter()
@@ -1789,6 +1807,10 @@ def generator_main_path(tt, mf, vocab, checks, logs):
     tt.reset_launches()
     f16_results, f16_seconds, f16_prefill = generate_run(gen, prompts[1])
     f16_counts = tt.launch_counts()
+    if plain is not None:
+        plain["int8"] = (runs[0][1], runs[0][2], [r.sequences_ids[0] for r in runs[0][0]])
+        plain["float16"] = (f16_seconds, f16_prefill,
+                            [r.sequences_ids[0] for r in f16_results])
 
     results = [r for run in runs for r in run[0]]
     seconds = sum(run[1] for run in runs)
@@ -1888,15 +1910,14 @@ def generator_ab(tt, mf, vocab, checks):
     emit(out)
 
 
-def generator_card_vs_cpu(tt, mf, vocab, checks):
-    """The port on the card against the port on the CPU: 2 layers, same
-    widths, float32, ``flash_attention=True`` so that the shorter prompts
-    still take the (float32) flash kernel on the card; with the float KV
-    cache and with the int8 one."""
+def generator_card_vs_cpu(tt, generators, vocab, checks):
+    """The port on the card against the port on the CPU (``generators``,
+    from ``card_cpu_generators``): 2 layers, same widths, float32,
+    ``flash_attention=True`` so that the shorter prompts still take the
+    (float32) flash kernel on the card; with the float KV cache and with
+    the int8 one."""
     prompts = make_prompts(vocab, CPU_PROMPT, 9)
-    card = make_generator(tt, mf, vocab, compute_type="float32", flash_attention=True)
-    cpu = make_generator(tt, mf, vocab, device="cpu", compute_type="float32",
-                         flash_attention=True)
+    card, cpu = generators
     logp, counts = {}, {}
     t0 = time.perf_counter()
     for kv in ("", "int8"):
@@ -2676,7 +2697,8 @@ def sampling_generator(tt, gen, vocab, checks, logs):
            "sampling: every row sampled, with finite scores")
     check_path("sampling generator", counts, ("decode_attention_int8", "matmul_w8a8",
                                               "flash_attention", "fused_norm"), plain, checks)
-    return {"prompts": GEN_BATCH, "new_tokens": tokens, "calls": len(runs),
+    return {"layers": len(gen.model.arch.decoder.layers),
+            "prompts": GEN_BATCH, "new_tokens": tokens, "calls": len(runs),
             "seconds_per_call": [sec for _, sec in runs],
             "sampled_tokens_per_s": tokens / runs[0][1], "launches_three_calls": counts,
             "plain_calls_on_card": plain}
@@ -3095,6 +3117,7 @@ def host_loop_generator(tt, gen, vocab, checks, logs):
     check_path(label, total, ("matmul_w8a8", "fused_norm", "flash_attention",
                               "decode_attention_int8"), plain, checks)
     emit({"phase": label, "compute_type": gen.compute_type, "kv_cache": "int8",
+          "layers": len(gen.model.arch.decoder.layers),
           "prompts": GEN_BATCH, "prompt_tokens": GEN_PROMPT, "new_tokens": GEN_NEW,
           "static_prompt_tokens": len(sp), "static_prompt_inputs": [GEN_BATCH, 64],
           "calls": out, "callbacks": len(steps), "launches": total,
@@ -4484,7 +4507,8 @@ def file_helpers_generator(tt, gen, vocab, checks, logs):
         checks(streamed == ref_one,
                "file_helpers async_generate_tokens: generate_batch's tokens")
         out["async_generate_tokens"] = {"new_tokens": len(streamed), "seconds": seconds}
-    emit({"phase": "file_helpers_generator", **out})
+    emit({"phase": "file_helpers_generator", "layers": len(gen.model.arch.decoder.layers),
+          **out})
 
 
 def whisper_features(batch, frames, seed):
@@ -4845,6 +4869,11 @@ def speech_card_vs_cpu(tt, work, checks):
 # ---------------------------------------------------------------------------
 
 SERVE_SLOTS = 8
+# The Generator's side paths (sampling, the host loops, the file helpers and
+# this serving phase) run on a SIDE_LAYERS-layer subset of the main path's
+# file: with them at 32 layers the whole script took 1,251.9 s on the H100
+# (PERF.md section 4).
+SIDE_LAYERS = LLAMA["layers"] // 8
 SERVE_CAPACITY = 2304
 SERVE_STEPS = 8  # steps_per_sync
 SERVE_REQUESTS = 48
@@ -5142,7 +5171,7 @@ def serving_generator(tt, gen, vocab, checks, logs):
         emit(dict(runs[depth], profiled_block=block if depth == 2 else None))
     best = max((1, 2), key=lambda d: runs[d]["tokens_per_s"])
     emit({"phase": "serving_generator", "compute_type": gen.compute_type,
-          "kv_cache": "int8", "slots": SERVE_SLOTS, "capacity": SERVE_CAPACITY,
+          "layers": len(gen.model.arch.decoder.layers), "kv_cache": "int8", "slots": SERVE_SLOTS, "capacity": SERVE_CAPACITY,
           "steps_per_sync": SERVE_STEPS, "requests": SERVE_REQUESTS,
           "prompt_tokens": sum(len(p) for p, _ in traffic),
           "long_prompts": sum(len(p) == SERVE_LONG_PROMPT for p, _ in traffic),
@@ -5465,7 +5494,8 @@ def continuous_translator(tt, model_dir, batches, checks, logs):
     """The int8 Transformer-base behind ``ContinuousTranslator``: the 256
     phase-2 sentences submitted at once to ``CT_SLOTS`` slots, beam 2 and
     beam 1, exactly ``MAX_DEC`` target tokens, against ``translate_batch``
-    (beam 2, batches of 64) on the same sentences; one profiled block."""
+    (beam 2, batches of 64) on the same sentences; one profiled block.
+    Returns the beam-1 run's line and hypotheses."""
     import torch
     from ctranslate2_tpu_torch.runtime.continuous import _Request
 
@@ -5528,6 +5558,7 @@ def continuous_translator(tt, model_dir, batches, checks, logs):
             line.update(hypotheses_equal_to_batch=sum(same), parted=parted,
                         launches_per_beam_step={k: v / steps for k, v in counts.items()})
         out[f"beam{beam}"] = line
+        greedy = (line, hyps)
     cb = tt.ContinuousTranslator(tr, num_slots=CT_SLOTS, capacity=CT_CAPACITY,
                                  max_source_len=CT_SOURCE, steps_per_sync=CT_STEPS,
                                  beam_size=BEAM)
@@ -5545,22 +5576,27 @@ def continuous_translator(tt, model_dir, batches, checks, logs):
           "slots": CT_SLOTS, "capacity": CT_CAPACITY, "max_source_len": CT_SOURCE,
           "steps_per_sync": CT_STEPS, "max_length": MAX_DEC, "beam": BEAM, **out})
     del tr
+    return greedy
 
 
-def _serve_traffic(tt, cb, gen, traffic, logs, label, checks):
+def _serve_traffic(tt, cb, gen, traffic, logs, label, checks, decode_per_step=None):
     """Every request of ``traffic`` submitted at once to ``cb`` after a
     warm-up request, with a streaming callback each (under beam search the
-    first delivery is the first committed token). Returns the run's line."""
+    first delivery is the first committed token). ``decode_per_step``: the
+    decode kernel's launches a step (a layer's by default). Returns the
+    run's line, the launch counts, the steps, the plain versions' calls on
+    the card and each request's streamed (token, score) pairs."""
     import torch
 
     consumes = _block_timer(cb)
     n = len(traffic)
-    first, done = [None] * n, [None] * n
+    first, done, streamed = [None] * n, [None] * n, [[] for _ in traffic]
 
     def on_token(i):
         def record(sr):
             if first[i] is None:
                 first[i] = time.perf_counter()
+            streamed[i].append((sr.token_id, sr.score))
             return False
         return record
 
@@ -5570,6 +5606,7 @@ def _serve_traffic(tt, cb, gen, traffic, logs, label, checks):
                   max_length=SERVE_STEPS).result(timeout=600)
         consumes.clear()
         steps0, blocks0 = cb.num_steps, cb._blocks
+        spec0 = (cb._accepted_tokens, cb._spec_dispatches)
         with watched(logs, plain):
             t0 = time.perf_counter()
             futures = [cb.submit([gen._vocab.to_token(t) for t in p], max_length=new,
@@ -5590,18 +5627,24 @@ def _serve_traffic(tt, cb, gen, traffic, logs, label, checks):
            and all(math.isfinite(r.scores[0]) for r in results),
            f"{label}: every request's best hypothesis within its max_length, finite scores")
     checks(all(f is not None for f in first), f"{label}: every request streamed a token")
-    layers = len(gen.model.arch.decoder.layers)
-    checks(counts["decode_attention_int8"] == layers * steps,
-           f"{label}: one decode launch a layer and step ({counts['decode_attention_int8']} "
-           f"for {steps} steps)")
+    if decode_per_step is None:
+        decode_per_step = len(gen.model.arch.decoder.layers)
+    checks(counts["decode_attention_int8"] == decode_per_step * steps,
+           f"{label}: {decode_per_step} decode launches a step "
+           f"({counts['decode_attention_int8']} for {steps} steps)")
     block_ms, quiet = _quiet_block_ms(consumes)
+    spec = None
+    if cb._spec_k > 1:
+        spec = ((cb._accepted_tokens - spec0[0])
+                / max(cb._spec_dispatches - spec0[1], 1))
     return {"requests": n, "seconds": seconds, "generated_tokens": tokens,
             "tokens_per_s": tokens / seconds,
             "time_to_first_token": _percentiles([f - t0 for f in first]),
             "request_latency": _percentiles([d - t0 for d in done]),
             "decode_steps": steps, "blocks": blocks, "ms_per_block": block_ms,
             "blocks_timed_without_admits": quiet, "launches": counts,
-            "plain_calls_on_card": plain}, counts, steps, plain
+            "spec_tokens_per_dispatch": spec,
+            "plain_calls_on_card": plain}, counts, steps, plain, streamed
 
 
 def serving_generator_beam(tt, gen, checks, logs):
@@ -5610,10 +5653,12 @@ def serving_generator_beam(tt, gen, checks, logs):
     ``SERVE_CAPACITY``, ``SERVE_STEPS`` steps a block): the first
     ``BEAM_SERVE_REQUESTS`` requests of ``serving_traffic`` submitted at
     once, then the same requests greedy at depth 1; one profiled beam
-    block and the gather over the whole slot cache."""
+    block and the gather over the whole slot cache. Returns the greedy
+    run's line and its streamed tokens (``serving_generator_spec`` compares
+    the speculative runs with them)."""
     traffic = serving_traffic(LLAMA["vocab"])[:BEAM_SERVE_REQUESTS]
     label = f"serving_generator_beam beam {BEAM_SERVE_WIDTH}"
-    beam, counts, steps, plain = _serve_traffic(
+    beam, counts, steps, plain, *_ = _serve_traffic(
         tt, _serving_batcher(tt, gen, 1, beam_size=BEAM_SERVE_WIDTH), gen, traffic, logs,
         label, checks)
     _check_beam_launches(label, counts, steps, plain,
@@ -5621,7 +5666,7 @@ def serving_generator_beam(tt, gen, checks, logs):
                           "decode_attention_int8", "flash_attention"), checks)
     beam["launches_per_beam_step"] = {k: v / steps for k, v in counts.items()}
     free_card()
-    greedy, counts, _, plain = _serve_traffic(
+    greedy, counts, _, plain, greedy_streamed = _serve_traffic(
         tt, _serving_batcher(tt, gen, 1), gen, traffic, logs, "serving_generator_beam greedy",
         checks)
     check_path("serving_generator_beam greedy", counts,
@@ -5641,6 +5686,7 @@ def serving_generator_beam(tt, gen, checks, logs):
           "long_prompts": sum(len(p) == SERVE_LONG_PROMPT for p, _ in traffic),
           "beam_run": beam, "greedy_run_depth1": greedy, "profiled_block": block,
           "gather_per_step": gather})
+    return greedy, [[t for t, _ in s] for s in greedy_streamed]
 
 
 def continuous_whisper(tt, work, checks, logs):
@@ -5832,6 +5878,771 @@ def serving_beam_benches(beam_logs, seen, checks):
     free_card()
 
 
+# ---------------------------------------------------------------------------
+# Lossless speculation: generate_batch(speculation_k) and the three
+# batchers with prompt-lookup and draft-model drafts.
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_REQUESTS = BEAM_SERVE_REQUESTS  # serving_traffic's first 16
+# meta-llama/Llama-3.2-1B config.json: 16 layers, hidden 2,048, 32 query and
+# 8 KV heads of 64, intermediate 8,192, vocabulary 128,256, rope_theta
+# 500,000, tied embeddings: the public draft model for Llama-3.1-8B.
+LLAMA_1B = dict(layers=16, d_model=2048, heads=32, heads_kv=8, d_ff=8192,
+                vocab=128256, rotary_base=500000.0)
+LLAMA_1B_SEED = 100000  # the draft's weights come from seeds of their own
+SPEC_PARTED_LOGGED = 16
+SPEC_AB_NEW = 8
+# generate_batch's card-against-CPU prompts: 6 up to CPU_PROMPT tokens, in
+# calls of equal lengths (no prompt token is forced through the loop).
+SPEC_AB_GROUPS = ((CPU_PROMPT,), (200, 200), (33, 33, 33))
+SPEC_TOP = 4  # the reference's best tokens recorded a pick
+
+
+@contextlib.contextmanager
+def verify_route():
+    """Plain greedy's one-token steps on the attention route of a verify
+    (``SPEC_K`` tokens a row), so that both compute the same arithmetic:
+    the int8 KV cache dequantized whole for the masked attention
+    (``CT2TPU_DECODE_KERNEL=0``: a step takes the decode kernel), a
+    float16 cache written first and then read whole by the masked
+    attention (``CT2TPU_DECODE_CHUNK=0``, and ``decode_step_attention``,
+    which reads the pre-append cache and the fresh token apart, rerouted to
+    it). Speculation on the card is held to plain greedy under this route,
+    where the two may part only at ties."""
+    import ctranslate2_tpu_torch.models.transformer as T
+    import ctranslate2_tpu_torch.ops.attention as A
+
+    def wrap(orig):
+        def step(q, k_pre, v_pre, k_new, v_new, pos, *, queries_scale=1.0, bias=None,
+                 alibi_bias=None):
+            T._cache_write(k_pre, k_new, pos)
+            T._cache_write(v_pre, v_new, pos)
+            return A.dot_product_attention(q, k_pre, v_pre,
+                                           bias=A.combine_bias(bias, alibi_bias),
+                                           queries_scale=queries_scale)
+        return step
+
+    with environ(CT2TPU_DECODE_KERNEL="0", CT2TPU_DECODE_CHUNK="0"), \
+            patched(A, "decode_step_attention", wrap):
+        yield
+
+
+@contextlib.contextmanager
+def recorded_picks(module, out, cb=None):
+    """Records every greedy pick (``module.greedy_tokens``: a plain step's,
+    an admit's, or a verify's) into ``out``: the picked ids and log-probs
+    and the ``SPEC_TOP`` best log-probs and their ids, left on the card;
+    for a batcher ``cb`` the request of each row (on a one-row call, the
+    request being admitted). Only untimed reference runs are recorded."""
+    import torch
+
+    def wrap(orig):
+        def wrapped(log_probs):
+            ids, scores = orig(log_probs)
+            top = torch.topk(log_probs, SPEC_TOP, dim=-1)
+            rec = {"ids": ids, "scores": scores, "top_v": top.values,
+                   "top_i": top.indices}
+            if cb is not None:
+                rec["owners"] = ([cb._admitting] if log_probs.shape[0] == 1
+                                 else list(cb._slots))
+            out.append(rec)
+            return ids, scores
+        return wrapped
+
+    with patched(module, "greedy_tokens", wrap):
+        yield out
+
+
+def _host(rec, name):
+    return rec[name].cpu().tolist()
+
+
+def batcher_series(picks, futures):
+    """Per request (by its future, in ``futures``' order), its picks' best
+    (log-probs, ids) in emission order: the admit's, then its slot's in
+    each later step (a step past the request's end is never read)."""
+    index = {id(f): i for i, f in enumerate(futures)}
+    out = [[] for _ in futures]
+    for rec in picks:
+        vals, idxs = _host(rec, "top_v"), _host(rec, "top_i")
+        for s, req in enumerate(rec["owners"]):
+            if req is not None and id(req.future) in index:
+                out[index[id(req.future)]].append((vals[s], idxs[s]))
+    return out
+
+
+def loop_streams(picks, rows, eos):
+    """A device loop's records (one [rows] pick a step): per row, its
+    tokens up to and with the end token and each step's best (log-probs,
+    ids)."""
+    toks, series = [[] for _ in range(rows)], [[] for _ in range(rows)]
+    ended = [False] * rows
+    for rec in picks:
+        ids, vals, idxs = (_host(rec, n) for n in ("ids", "top_v", "top_i"))
+        for i in range(rows):
+            if ended[i]:
+                continue
+            toks[i].append(ids[i])
+            series[i].append((vals[i], idxs[i]))
+            ended[i] = ids[i] == eos
+    return toks, series
+
+
+def _parted_at(a, b, eos):
+    """The first index where token lists ``a`` and ``b`` differ, and the two
+    tokens there (the end token where one list ended), or None."""
+    for t in range(max(len(a), len(b))):
+        x = a[t] if t < len(a) else eos
+        y = b[t] if t < len(b) else eos
+        if x != y:
+            return t, x, y
+    return None
+
+
+def judge_partings(spec, plain, series, tol, eos, label, checks):
+    """Holds every row's first parting from plain greedy (``plain``, its
+    picks' best log-probs and ids in ``series``) to a near-tie: there the
+    plain path's log-prob of the speculative token is below ``tol`` under
+    its best (so its two best log-probs' gap is too). Returns the report."""
+    parted = []
+    for i, (a, b) in enumerate(zip(spec, plain)):
+        where = _parted_at(a, b, eos)
+        if where is None:
+            continue
+        t, x, y = where
+        vals, idxs = series[i][t] if t < len(series[i]) else ([], [])
+        parted.append({"row": i, "step": t, "speculative": x, "plain": y,
+                       "plain_top2_gap": vals[0] - vals[1] if len(vals) > 1 else None,
+                       "gap_to_speculative": vals[0] - vals[idxs.index(x)] if x in idxs
+                       else None})
+    gaps = [p["gap_to_speculative"] for p in parted]
+    checks(all(g is not None and g < tol for g in gaps),
+           f"{label}: every parting from plain greedy on the verify's attention route is "
+           f"at a near-tie (the speculative token below {tol} under the best): {gaps}")
+    return {"rows": len(spec), "rows_parted": len(parted), "tolerance": tol,
+            "parted": parted[:SPEC_PARTED_LOGGED]}
+
+
+def default_route(spec, plain, eos):
+    """Where each row parts from plain greedy on a step's own attention
+    route (the decode kernel, or the chunked or split read of a float16
+    cache): reported, not judged (PERF.md section 5)."""
+    steps = [(_parted_at(a, b, eos) or (None,))[0] for a, b in zip(spec, plain)]
+    return {"rows_equal": steps.count(None), "parting_steps": steps}
+
+
+@contextlib.contextmanager
+def counted_verifies(out):
+    """Counts in ``out[0]`` the decoder calls of T = ``SPEC_K`` tokens a row
+    (``generate_batch``'s verify forwards)."""
+    import ctranslate2_tpu_torch.models.transformer as T
+
+    def wrap(orig):
+        def wrapped(arch, params, consts, ids, *args, **kwargs):
+            if getattr(ids, "ndim", 0) == 2 and ids.shape[1] == SPEC_K:
+                out[0] += 1
+            return orig(arch, params, consts, ids, *args, **kwargs)
+        return wrapped
+
+    with patched(T, "decoder_forward", wrap):
+        yield out
+
+
+def cut_decoder_layers(src, dst, keep):
+    """A copy of the model directory ``src`` in ``dst`` whose decoder keeps
+    only the layers ``keep``, renumbered from 0 (an early-exit draft: the
+    encoder, embeddings, projection and vocabularies are the source's)."""
+    from ctranslate2_tpu_torch.formats.model_file import load_model_file
+
+    shutil.copytree(src, dst)
+    mf = load_model_file(src)
+    for name in list(mf.variables):
+        m = re.match(r"decoder/layer_(\d+)/(.*)", name)
+        if m is None:
+            continue
+        var = mf.variables.pop(name)
+        if int(m.group(1)) in keep:
+            var.name = f"decoder/layer_{keep.index(int(m.group(1)))}/{m.group(2)}"
+            mf.variables[var.name] = var
+    mf.save(dst)
+    return dst
+
+
+def speculation_generator(tt, gen, vocab, checks, logs, plain):
+    """``generate_batch(speculation_k=4)`` on the main path's 4 prompts of
+    2,049 tokens, 64 new tokens, with the int8 and the float16 KV cache,
+    against the main path's plain greedy calls on the same prompts (their
+    times and tokens in ``plain``, from ``generator_main_path``): every
+    launch counted, the verify dispatches counted, one profiled call (int8
+    KV), and each row held to plain greedy on the verify's attention route
+    (``verify_route``, an untimed call with its picks recorded) up to
+    near-ties."""
+    import torch
+    import ctranslate2_tpu_torch.decoding.device_loop as DL
+
+    prompts = make_prompts(vocab, GEN_PROMPT, 1)  # the main path's timed call
+    eos = vocab.eos_id
+    t0 = time.perf_counter()
+    out = {}
+    for kv, tol in (("int8", INT8_KV_LOGPROB_TOL), ("", LOGPROB_TOL)):
+        name = "int8_kv" if kv else "float16_kv"
+        label = f"speculation_generator {name}"
+        plain_s, plain_pre, plain_ids = plain[kv or "float16"]
+        with environ(CT2TPU_KV_CACHE=kv):
+            verifies, pl = [0], {}
+            with watched(logs, pl), counted_verifies(verifies):
+                spec, seconds, prefill = generate_run(gen, prompts, speculation_k=SPEC_K)
+                torch.cuda.synchronize()
+                counts = tt.launch_counts()
+            profiled = {}
+            if kv:
+                for new in (PROFILE_NEW, 1):
+                    n = [0]
+                    with counted_verifies(n):
+                        profiled[new] = (profile_call(
+                            lambda: generate_run(gen, prompts, new, speculation_k=SPEC_K),
+                            f"speculation_generator_{name}_{new}"), n[0])
+            picks = []
+            with verify_route(), recorded_picks(DL, picks):
+                witness = generate_run(gen, prompts)[0]
+        check_path(label, counts, ("matmul_w8a8", "flash_attention", "fused_norm"), pl,
+                   checks)
+        checks(counts["decode_attention_int8"] == 0 and counts["gather_rows_fused"] == 0,
+               f"{label}: the verify (T = {SPEC_K}) launches no decode or gather kernel "
+               f"({counts['decode_attention_int8']}, {counts['gather_rows_fused']})")
+        ids = [r.sequences_ids[0] for r in spec]
+        checks(all(len(x) == GEN_NEW for x in ids)
+               and all(math.isfinite(r.scores[0]) for r in spec),
+               f"{label}: {GEN_NEW} tokens a row, finite scores")
+        w_ids = [r.sequences_ids[0] for r in witness]
+        w_toks, series = loop_streams(picks, GEN_BATCH, eos)
+        checks(w_toks == w_ids, f"{label}: the recorded picks replay the reference's tokens")
+        del picks
+        dispatches = verifies[0]
+        line = {
+            "ms_per_call": seconds * 1e3, "prefill_ms": prefill * 1e3,
+            "verify_dispatches": dispatches,
+            "tokens_per_row_per_dispatch": GEN_NEW / dispatches,
+            "ms_per_dispatch": (seconds - prefill) / dispatches * 1e3,
+            "launches": counts, "plain_calls_on_card": pl,
+            "partings": judge_partings(ids, w_ids, series, tol, eos, label, checks),
+            "rows_equal_to_plain_on_verify_route": sum(a == b for a, b in zip(ids, w_ids)),
+            "max_score_diff_to_plain_on_verify_route": max(
+                abs(a.scores[0] - b.scores[0]) for a, b in zip(spec, witness)),
+            "plain_default_route": default_route(ids, plain_ids, eos),
+            "plain_greedy": {"ms_per_call": plain_s * 1e3, "prefill_ms": plain_pre * 1e3,
+                             "decode_ms_per_step": (plain_s - plain_pre) / GEN_NEW * 1e3}}
+        if profiled:
+            (whole, n_whole), (first, n_first) = profiled[PROFILE_NEW], profiled[1]
+            line.update(
+                launches_per_dispatch=((whole["kernel_launches_profiled"]
+                                        - first["kernel_launches_profiled"])
+                                       / max(n_whole - n_first, 1)),
+                device_busy_share_profiled=whole["device_busy_share"],
+                profiled_new_tokens=PROFILE_NEW, profiled_dispatches=n_whole)
+        out[name] = line
+        free_card()
+    emit({"phase": "speculation_generator", "speculation_k": SPEC_K,
+          "compute_type": gen.compute_type, "layers": len(gen.model.arch.decoder.layers),
+          "prompts": GEN_BATCH, "prompt_tokens": GEN_PROMPT, "new_tokens": GEN_NEW, **out,
+          "seconds": time.perf_counter() - t0})
+
+
+def _spec_dispatch_profile(cb, traffic, label):
+    """One verify dispatch of a stopped batcher, profiled alone after
+    admitting ``SERVE_SLOTS`` requests, and four more timed with the draft
+    function synced on either side: its share of a dispatch."""
+    import torch
+
+    block = _profile_block(cb, lambda cb: _admit_traffic(cb, traffic), label, 1)
+    active = list(range(SERVE_SLOTS))
+    if cb._draft_model is None:
+        return block
+    draft, spent = cb._draft_fn, [0.0]
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = draft(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - start
+        return out
+
+    cb._draft_fn = timed
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(4):
+        cb._consume_any(cb._dispatch_any(active))
+    total = time.perf_counter() - start
+    cb._draft_fn = draft
+    return dict(block, synced_dispatch_ms=total / 4 * 1e3, draft_ms=spent[0] / 4 * 1e3,
+                draft_share=spent[0] / total)
+
+
+def serving_generator_spec(tt, gen, vocab, checks, logs, greedy):
+    """The int8 Llama with the int8 KV cache behind
+    ``ContinuousBatcher(speculation_k=4)`` (``SERVE_SLOTS`` slots of
+    ``SERVE_CAPACITY``): the first ``SPEC_REQUESTS`` requests of
+    ``serving_traffic`` submitted at once, drafted by prompt lookup and by a
+    Llama-3.2-1B-geometry draft (int8 weights and KV cache, its own seeds);
+    each against ``greedy`` (serving_generator_beam's greedy depth-1 run of
+    the same requests: its line and tokens) and held to the greedy batcher
+    on the verify's attention route (``verify_route``, an untimed run with
+    its picks recorded) up to near-ties."""
+    traffic = serving_traffic(LLAMA["vocab"])[:SPEC_REQUESTS]
+    g_line, g_tokens = greedy
+    eos = vocab.eos_id
+    t0 = time.perf_counter()
+    picks = []
+    with verify_route():
+        ref = _batcher_run(tt, _serving_batcher(tt, gen, 1),
+                           [(([vocab.to_token(t) for t in p],), dict(max_length=new))
+                            for p, new in traffic], {}, picks, warm_up=False)
+    witness, series = [[t for t, _ in s] for s in ref["streamed"]], ref["series"]
+    checks(ref["counts"]["decode_attention_int8"] == 0 and not ref["plain"],
+           f"serving_generator_spec: the reference runs no decode kernel and no plain "
+           f"version ({ref['counts']['decode_attention_int8']}, {ref['plain']})")
+    del picks
+    free_card()
+    t1 = time.perf_counter()
+    with environ(CT2TPU_KV_CACHE="int8"):
+        draft = make_generator(tt, build_llama_modelfile(
+            LLAMA_1B["layers"], LLAMA_1B, LLAMA_1B_SEED, tied=True), vocab,
+            compute_type="int8")
+    draft_seconds = time.perf_counter() - t1
+    draft_layers = len(draft.model.arch.decoder.layers)
+    out = {"plain_on_verify_route_seconds": ref["seconds"]}
+    for name, kw in (("prompt_lookup", {}), ("draft_llama_3_2_1b", dict(draft_model=draft))):
+        label = f"serving_generator_spec {name}"
+        cb = _serving_batcher(tt, gen, 1, speculation_k=SPEC_K, **kw)
+        line, counts, steps, pl, streamed = _serve_traffic(
+            tt, cb, gen, traffic, logs, label, checks,
+            decode_per_step=SPEC_K * draft_layers if kw else 0)
+        check_path(label, counts, ("matmul_w8a8", "fused_norm", "flash_attention")
+                   + (("decode_attention_int8",) if kw else ()), pl, checks)
+        checks(counts["gather_rows_fused"] == 0, f"{label}: no gather launch")
+        spec = [[t for t, _ in s] for s in streamed]
+        line["partings"] = judge_partings(spec, witness, series, INT8_KV_LOGPROB_TOL, eos,
+                                          label, checks)
+        line["requests_equal_to_plain_on_verify_route"] = sum(
+            a == b for a, b in zip(spec, witness))
+        line["plain_default_route"] = default_route(spec, g_tokens, eos)
+        line["launches_per_dispatch_counted"] = {k: v / steps for k, v in counts.items()}
+        free_card()
+        line["profiled_dispatch"] = _spec_dispatch_profile(
+            cb, traffic, f"serving_generator_spec_{name}_dispatch")
+        del cb
+        free_card()
+        out[name] = line
+    emit({"phase": "serving_generator_spec", "speculation_k": SPEC_K,
+          "compute_type": gen.compute_type, "kv_cache": "int8", "slots": SERVE_SLOTS,
+          "capacity": SERVE_CAPACITY, "requests": len(traffic),
+          "draft": dict(LLAMA_1B, compute_type="int8", kv_cache="int8", seed=LLAMA_1B_SEED,
+                        tied_embeddings=True, fabricate_seconds=draft_seconds),
+          **out, "greedy_depth1": {k: g_line[k] for k in (
+              "seconds", "tokens_per_s", "time_to_first_token", "request_latency",
+              "decode_steps", "ms_per_block")},
+          "seconds": time.perf_counter() - t0})
+    del draft
+
+
+def _batcher_run(tt, cb, submits, logs, picks=None, warm_up=True):
+    """``submits`` (a list of (args, kwargs)) into the batcher ``cb`` at
+    once, after a warm-up of the first unless ``warm_up`` is False, with
+    each request's (token, score) streamed; every greedy pick recorded into
+    ``picks`` when given. Returns the results, seconds, launch counts,
+    plain calls on the card, dispatches, tokens a speculative dispatch,
+    streams and per-request pick series (``batcher_series``)."""
+    import ctranslate2_tpu_torch.runtime.continuous as C
+
+    streamed = [[] for _ in submits]
+
+    def on_token(i):
+        def record(sr):
+            streamed[i].append((sr.token_id, sr.score))
+            return False
+        return record
+
+    plain = {}
+    try:
+        if warm_up:
+            args, kw = submits[0]
+            cb.submit(*args, **dict(kw, max_length=CT_STEPS, min_length=0)).result(
+                timeout=600)
+        steps0 = cb.num_steps
+        acc0 = (cb._accepted_tokens, cb._spec_dispatches)
+        with watched(logs, plain), contextlib.ExitStack() as stack:
+            if picks is not None:
+                stack.enter_context(recorded_picks(C, picks, cb))
+            futures = []
+
+            def run():
+                futures.extend(cb.submit(*a, callback=on_token(i), **k)
+                               for i, (a, k) in enumerate(submits))
+                return [f.result(timeout=900) for f in futures]
+
+            got, seconds = synced_seconds(run)
+            counts = tt.launch_counts()
+        steps = cb.num_steps - steps0
+        per = ((cb._accepted_tokens - acc0[0]) / max(cb._spec_dispatches - acc0[1], 1)
+               if cb._spec_k > 1 else None)
+    finally:
+        cb.close()
+    return {"results": got, "seconds": seconds, "counts": counts, "plain": plain,
+            "steps": steps, "per": per, "streamed": streamed,
+            "series": None if picks is None else batcher_series(picks, futures)}
+
+
+def continuous_translator_spec(tt, model_dir, batches, work, checks, logs, greedy):
+    """The int8 Transformer-base behind ``ContinuousTranslator(speculation_k=4)``
+    (``CT_SLOTS`` slots, ``max_source_len`` ``CT_SOURCE``): the 256 phase-2
+    sentences, exactly ``MAX_DEC`` target tokens, with prompt lookup and
+    with a draft cut from the target's own file (its encoder, embeddings
+    and decoder layer 0: self-speculation by early exit); against
+    ``greedy`` (continuous_translator's greedy run of the same sentences,
+    held here to ``translate_batch(beam_size=1)``) and held to the greedy
+    batcher on the verify's attention route (``verify_route``, an untimed
+    run with its picks recorded) up to near-ties."""
+    g_line, g_hyps = greedy
+    tr = tt.Translator(model_dir, compute_type="int8")
+    sents = [s for b in batches[:4] for s in b]
+    draft_dir = cut_decoder_layers(model_dir, os.path.join(work, "int8_layer0"), [0])
+    kw = dict(max_length=MAX_DEC, min_length=MAX_DEC)
+    submits = [((s,), kw) for s in sents]
+    ref, ref_s = synced_seconds(lambda: tr.translate_batch(
+        sents, max_batch_size=BATCH, beam_size=1, max_decoding_length=MAX_DEC,
+        min_decoding_length=MAX_DEC))
+    ref_hyps = [r.hypotheses[0] for r in ref]
+    same = sum(h == r for h, r in zip(g_hyps, ref_hyps))
+    checks(same == len(sents), f"continuous_translator_spec: every greedy batcher hypothesis "
+                               f"equal to translate_batch(beam_size=1)'s ({same})")
+    eos = tr.model.target_vocabulary.eos_id
+    picks = []
+    with verify_route():
+        witness = _batcher_run(tt, tt.ContinuousTranslator(
+            tr, num_slots=CT_SLOTS, capacity=CT_CAPACITY, max_source_len=CT_SOURCE,
+            steps_per_sync=CT_STEPS), submits, {}, picks, warm_up=False)
+    w_toks = [[t for t, _ in s] for s in witness["streamed"]]
+    del picks
+    out = {"translate_batch_beam1": {"seconds": ref_s, "target_tokens_per_s":
+                                     sum(len(h) for h in ref_hyps) / ref_s},
+           "greedy": {k: g_line[k] for k in ("seconds", "target_tokens_per_s", "decode_steps")},
+           "plain_on_verify_route_seconds": witness["seconds"]}
+    for name, spec in (("prompt_lookup", dict(speculation_k=SPEC_K)),
+                       ("draft_decoder_layer0", dict(speculation_k=SPEC_K,
+                                                     draft_model=draft_dir))):
+        label = f"continuous_translator_spec {name}"
+        cb = tt.ContinuousTranslator(tr, num_slots=CT_SLOTS, capacity=CT_CAPACITY,
+                                     max_source_len=CT_SOURCE, steps_per_sync=CT_STEPS, **spec)
+        run = _batcher_run(tt, cb, submits, logs)
+        counts = run["counts"]
+        check_path(label, counts, ("matmul_w8a8", "fused_norm"), run["plain"], checks)
+        checks(counts["decode_attention_int8"] == 0 and counts["gather_rows_fused"] == 0,
+               f"{label}: no decode or gather launch (a float16 KV cache)")
+        hyps = [g.sequences[0] for g in run["results"]]
+        checks(all(len(h) == MAX_DEC for h in hyps)
+               and all(math.isfinite(g.scores[0]) for g in run["results"]),
+               f"{label}: {MAX_DEC} target tokens a sentence, finite scores")
+        toks = [[t for t, _ in s] for s in run["streamed"]]
+        out[name] = {
+            "seconds": run["seconds"],
+            "target_tokens_per_s": sum(len(h) for h in hyps) / run["seconds"],
+            "dispatches": run["steps"], "launches": counts,
+            "spec_tokens_per_dispatch": run["per"],
+            "partings": judge_partings(toks, w_toks, witness["series"], LOGPROB_TOL, eos,
+                                       label, checks),
+            "equal_to_plain_on_verify_route": sum(a == b for a, b in zip(toks, w_toks)),
+            "plain_default_route": default_route(hyps, g_hyps, None)}
+        free_card()
+    emit({"phase": "continuous_translator_spec", "compute_type": "int8",
+          "speculation_k": SPEC_K, "sentences": len(sents), "slots": CT_SLOTS,
+          "capacity": CT_CAPACITY, "max_source_len": CT_SOURCE, "max_length": MAX_DEC,
+          **out})
+    del tr
+
+
+def continuous_whisper_spec(tt, work, checks, logs):
+    """Whisper-large-v3 widths at ``WHISPER_LAYERS`` + ``WHISPER_LAYERS``
+    layers, int8 with the int8 KV cache, behind
+    ``ContinuousWhisper(speculation_k=4)`` (``CW_SLOTS`` slots,
+    ``max_length`` ``CW_MAX_LENGTH``): ``CW_SEGMENTS`` segments with
+    ``<|notimestamps|>`` prompts, greedy without speculation, with prompt
+    lookup and with a draft of distil-large-v3's form cut from the target's
+    file (its encoder and its first and last decoder layers); against
+    ``Whisper.generate(beam_size=1)`` and held to the greedy batcher on the
+    verify's attention route (``verify_route``, an untimed run with its
+    picks recorded) up to near-ties. A timestamped request is refused
+    under speculation."""
+    path = os.path.join(work, "whisper")
+    with open(os.path.join(path, "vocabulary.json")) as f:
+        vocab = json.load(f)
+    _, sot, _, no_ts = whisper_prompts(vocab)
+    draft_dir = cut_decoder_layers(path, os.path.join(work, "whisper_distil"),
+                                   [0, WHISPER_LAYERS - 1])
+    eot = vocab.index("<|endoftext|>")
+    tail = len(no_ts) - 1  # the forced prompt tail each result starts with
+    out = {}
+    t0 = time.perf_counter()
+    with environ(CT2TPU_KV_CACHE="int8"):
+        wh = tt.Whisper(path, compute_type="int8")
+        feats = whisper_features(CW_SEGMENTS, WHISPER_FRAMES, 9)
+        segs = [feats[i].cpu().numpy() for i in range(CW_SEGMENTS)]
+        submits = [((x, no_ts), dict(max_length=CW_MAX_LENGTH)) for x in segs]
+        ref, ref_s = synced_seconds(lambda: wh.generate(
+            feats, [no_ts] * CW_SEGMENTS, beam_size=1,
+            max_length=2 * (CW_MAX_LENGTH - len(no_ts) + 1), suppress_blank=False))
+        # The serving results end at CW_MAX_LENGTH - tail generated tokens.
+        generated = [r.sequences_ids[0][:CW_MAX_LENGTH - tail] for r in ref]
+        out["generate_beam1"] = {"seconds": ref_s, "segments_per_s": CW_SEGMENTS / ref_s}
+        picks = []
+        with verify_route():
+            witness = _batcher_run(tt, tt.ContinuousWhisper(
+                wh, num_slots=CW_SLOTS, capacity=CW_CAPACITY, steps_per_sync=CW_STEPS),
+                submits, {}, picks, warm_up=False)
+        # The series has a pick for each forced prompt-tail token too, so the
+        # streams are judged whole (their forced tails are equal).
+        w_toks = [[t for t, _ in s] for s in witness["streamed"]]
+        del picks
+        out["plain_on_verify_route_seconds"] = witness["seconds"]
+        for name, spec in (("greedy", {}), ("prompt_lookup", dict(speculation_k=SPEC_K)),
+                           ("draft_distil_form", dict(speculation_k=SPEC_K,
+                                                      draft_model=draft_dir))):
+            label = f"continuous_whisper_spec {name}"
+            cb = tt.ContinuousWhisper(wh, num_slots=CW_SLOTS, capacity=CW_CAPACITY,
+                                      steps_per_sync=CW_STEPS, **spec)
+            if spec:
+                try:
+                    cb.submit(segs[0], sot, max_length=8)
+                    refused = False
+                except NotImplementedError:
+                    refused = True
+                checks(refused, f"{label}: a timestamped request is refused")
+            draft_layers = (len(cb._draft_model.arch.decoder.layers)
+                            if "draft_model" in spec else 0)
+            run = _batcher_run(tt, cb, submits, logs)
+            counts, steps = run["counts"], run["steps"]
+            expected = (SPEC_K * draft_layers if spec
+                        else len(wh.model.arch.decoder.layers)) * steps
+            check_path(label, counts, ("matmul_w8a8", "fused_norm"), run["plain"], checks)
+            checks(counts["decode_attention_int8"] == expected
+                   and counts["gather_rows_fused"] == 0,
+                   f"{label}: {expected} decode launches ({counts['decode_attention_int8']}), "
+                   f"no gather")
+            checks(all(math.isfinite(g.scores[0]) for g in run["results"]),
+                   f"{label}: finite scores")
+            toks = [[t for t, _ in s] for s in run["streamed"]]
+            texts = [g.sequences_ids[0][tail:] for g in run["results"]]
+            line = {"seconds": run["seconds"], "segments_per_s": CW_SEGMENTS / run["seconds"],
+                    "generated_tokens": sum(len(t) - tail for t in toks), "dispatches": steps,
+                    "launches": counts, "spec_tokens_per_dispatch": run["per"],
+                    "plain_default_route": default_route(texts, generated, eot)}
+            if spec:
+                line.update(
+                    partings=judge_partings(toks, w_toks, witness["series"],
+                                            INT8_KV_LOGPROB_TOL, eot, label, checks),
+                    equal_to_plain_on_verify_route=sum(a == b for a, b in zip(toks, w_toks)))
+            out[name] = line
+            free_card()
+        del wh, feats
+    emit({"phase": "continuous_whisper_spec", "model": "WHISPER_LARGE_V3",
+          "layers": WHISPER_LAYERS, "draft_decoder_layers": [0, WHISPER_LAYERS - 1],
+          "compute_type": "int8", "kv_cache": "int8", "speculation_k": SPEC_K,
+          "slots": CW_SLOTS, "max_length": CW_MAX_LENGTH, "frames": WHISPER_FRAMES,
+          "segments": CW_SEGMENTS, **out, "seconds": time.perf_counter() - t0})
+    free_card()
+
+
+def speculation_card_vs_cpu(tt, generators, small_llama, small_dir, vocab, tvocab, checks):
+    """At ``AB_LAYERS`` layers in float32, speculation on the card against
+    the CPU: on the Llama pair, ``generate_batch(speculation_k=4)`` over 6
+    prompts up to ``CPU_PROMPT`` tokens (``SPEC_AB_GROUPS``), and the
+    batcher with a 1-layer draft cut from the pair over 6 prompts up to
+    ``CPU_PROMPT`` tokens, one request with a stop sequence and one with
+    ``no_repeat_ngram_size``; ``ContinuousTranslator`` on the small seq2seq
+    model with a target prefix. Tokens identical, scores within
+    ``LOGPROB_TOL``. On the card alone, speculation is also held to plain
+    greedy on each step's own attention route, where in float32 the two
+    paths' arithmetic agree: ``generate_batch`` with the float32 cache
+    (a parting below ``LOGPROB_TOL``) and, with the int8 KV cache (plain
+    steps on the decode kernel, the verify on the dequantized cache),
+    ``generate_batch`` and the batcher's prompt lookup at per-row positions
+    (a parting below ``INT8_KV_LOGPROB_TOL``)."""
+    import numpy as np
+    import ctranslate2_tpu_torch.decoding.device_loop as DL
+
+    card, cpu = generators
+    rng = np.random.default_rng(81)
+
+    def draw(lengths):
+        return [[vocab.to_token(int(t)) for t in rng.integers(10, LLAMA["vocab"] - 10, n)]
+                for n in lengths]
+
+    t0 = time.perf_counter()
+    out = {}
+
+    def compare(name, side):
+        same = [c.sequences_ids == p.sequences_ids for c, p in zip(side["card"], side["cpu"])]
+        diff = max(abs(a - b) for c, p in zip(side["card"], side["cpu"])
+                   for a, b in zip(c.scores, p.scores))
+        checks(all(same) and diff <= LOGPROB_TOL,
+               f"speculation card vs CPU, {name}: identical tokens, scores within "
+               f"{LOGPROB_TOL} ({same}, {diff})")
+        out[name] = {"same_tokens": same, "max_score_diff": diff}
+
+    def held_to_plain(prompts, kv, tol):
+        """On the card: ``generate_batch`` plain (picks recorded) and
+        speculative, with the KV cache ``kv``; returns the speculative
+        results and the partings' report."""
+        picks = []
+        with environ(CT2TPU_KV_CACHE=kv):
+            before = tt.launch_counts()["decode_attention_int8"]
+            with recorded_picks(DL, picks):
+                plain = [r.sequences_ids[0] for r in card.generate_batch(prompts, **kw)]
+            stepped = tt.launch_counts()["decode_attention_int8"] - before
+            spec = card.generate_batch(prompts, speculation_k=SPEC_K, **kw)
+            verified = tt.launch_counts()["decode_attention_int8"] - before - stepped
+        if kv:
+            checks(stepped > 0 and verified == 0,
+                   f"speculation card, int8 KV: plain steps launch the decode kernel "
+                   f"({stepped}), the verify none ({verified})")
+        _, series = loop_streams(picks, len(prompts), vocab.eos_id)
+        return spec, judge_partings(
+            [r.sequences_ids[0] for r in spec], plain, series, tol, vocab.eos_id,
+            f"speculation card, {kv or 'float32'} KV, spec vs plain greedy "
+            f"{[len(p) for p in prompts]}", checks)
+
+    kw = dict(max_length=SPEC_AB_NEW, min_length=SPEC_AB_NEW, include_prompt_in_result=False,
+              return_scores=True)
+    side, judged, judged8 = {"card": [], "cpu": []}, [], []
+    for lengths in SPEC_AB_GROUPS:
+        prompts = draw(lengths)
+        spec, report = held_to_plain(prompts, "", LOGPROB_TOL)
+        side["card"] += spec
+        side["cpu"] += cpu.generate_batch(prompts, speculation_k=SPEC_K, **kw)
+        judged.append(report)
+        judged8.append(held_to_plain(prompts, "int8", INT8_KV_LOGPROB_TOL)[1])
+    compare("generate_batch", side)
+    out["card_spec_vs_plain"] = judged
+    out["card_int8_kv_spec_vs_plain"] = judged8
+    prompts = draw(BEAM_AB_PROMPTS)
+    best = card.generate_batch(prompts[1:2], max_length=SPEC_AB_NEW,
+                               include_prompt_in_result=False)[0].sequences_ids[0]
+    base = dict(max_length=SPEC_AB_NEW)
+    reqs = [((p,), dict(base)) for p in prompts]
+    # The int8 KV cache at per-row positions: the greedy batcher (the
+    # decode kernel) against prompt lookup (the dequantized cache).
+    with environ(CT2TPU_KV_CACHE="int8"):
+        runs = [_batcher_run(tt, tt.ContinuousBatcher(card, num_slots=3, capacity=640,
+                                                      steps_per_sync=4, **spec),
+                             reqs, {}, picks, warm_up=False)
+                for spec, picks in (({}, []), (dict(speculation_k=SPEC_K), None))]
+    stepped, verified = (r["counts"]["decode_attention_int8"] for r in runs)
+    checks(stepped > 0 and verified == 0,
+           f"speculation card, int8 KV batcher: greedy steps launch the decode kernel "
+           f"({stepped}), the verify none ({verified})")
+    greedy, spec = ([[t for t, _ in s] for s in r["streamed"]] for r in runs)
+    out["card_int8_kv_batcher_spec_vs_plain"] = judge_partings(
+        spec, greedy, runs[0]["series"], INT8_KV_LOGPROB_TOL, vocab.eos_id,
+        "speculation card, int8 KV batcher, prompt lookup vs greedy", checks)
+    reqs[1] = ((prompts[1],), dict(base, stop_sequences=[best[2:4]]))
+    reqs[2] = ((prompts[2],), dict(base, no_repeat_ngram_size=2))
+    draft_mf = llama_subset(small_llama, 1)
+    side = {}
+    for name, gen, device in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
+        draft = make_generator(tt, draft_mf, vocab, device=device, compute_type="float32",
+                               flash_attention=True)
+        cb = tt.ContinuousBatcher(gen, num_slots=3, capacity=640, steps_per_sync=4,
+                                  speculation_k=SPEC_K, draft_model=draft)
+        try:
+            side[name] = [f.result(timeout=900) for f in [cb.submit(*a, **o)
+                                                          for a, o in reqs]]
+        finally:
+            cb.close()
+        del draft
+    compare("batcher_with_1_layer_draft", side)
+    srcs = [s[:12] for s in make_batch(tvocab, 3)[:4]]
+    side = {}
+    for name, device in (("card", "cuda"), ("cpu", "cpu")):
+        tr = tt.Translator(small_dir, compute_type="float32", device=device)
+        cb = tt.ContinuousTranslator(tr, num_slots=2, capacity=64, max_source_len=16,
+                                     steps_per_sync=4, speculation_k=SPEC_K)
+        try:
+            fs = [cb.submit(s, max_length=16) for s in srcs]
+            fs.append(cb.submit(srcs[0], max_length=16, target_prefix=srcs[1][:3]))
+            side[name] = [f.result(timeout=600) for f in fs]
+        finally:
+            cb.close()
+    compare("continuous_translator", side)
+    checks(side["card"][-1].sequences[0][:3] == srcs[1][:3],
+           "speculation card vs CPU: the translator's target prefix is forced")
+    emit({"phase": "speculation_card_vs_cpu", "layers": AB_LAYERS, "compute_type": "float32",
+          "speculation_k": SPEC_K, **out, "seconds": time.perf_counter() - t0})
+    free_card()
+
+
+def speculation_whisper_card_vs_cpu(tt, work, checks):
+    """``ContinuousWhisper(speculation_k=4)`` at ``AB_LAYERS`` +
+    ``AB_LAYERS`` layers in float32 (``speech_card_vs_cpu``'s model) on the
+    card against the CPU, ``<|notimestamps|>`` prompts: tokens identical,
+    scores within ``LOGPROB_TOL``."""
+    t0 = time.perf_counter()
+    path = os.path.join(work, "whisper_ab")
+    with open(os.path.join(path, "vocabulary.json")) as f:
+        wvocab = json.load(f)
+    _, _, _, no_ts = whisper_prompts(wvocab)
+    feats = whisper_features(2, WHISPER_FRAMES, 8)
+    segs = [feats[i].cpu().numpy() for i in range(2)]
+    side = {}
+    for name, device in (("card", "cuda"), ("cpu", "cpu")):
+        w = tt.Whisper(path, compute_type="float32", device=device)
+        cb = tt.ContinuousWhisper(w, num_slots=2, capacity=64, steps_per_sync=4,
+                                  speculation_k=SPEC_K)
+        try:
+            side[name] = [f.result(timeout=900) for f in [
+                cb.submit(x, no_ts, max_length=CW_AB_MAX_LENGTH) for x in segs]]
+        finally:
+            cb.close()
+        del w
+    same = [c.sequences_ids == p.sequences_ids for c, p in zip(side["card"], side["cpu"])]
+    diff = max(abs(c.scores[0] - p.scores[0]) for c, p in zip(side["card"], side["cpu"]))
+    checks(all(same) and diff <= LOGPROB_TOL,
+           f"speculation card vs CPU, continuous whisper: identical tokens, scores within "
+           f"{LOGPROB_TOL} ({same}, {diff})")
+    emit({"phase": "speculation_whisper_card_vs_cpu", "layers": AB_LAYERS,
+          "compute_type": "float32", "speculation_k": SPEC_K, "same_tokens": same,
+          "max_score_diff": diff, "seconds": time.perf_counter() - t0})
+    free_card()
+
+
+def speculation_benches(spec_logs, seen, checks):
+    """The speculation rows (``"summed": false``), at the shapes of the
+    speculation phases that no earlier path gave a kernel: W8A8 and the
+    norm at the verify dispatches' M (rows x 4), flash and the decode
+    kernel at head dim 64 (the 1B draft's admit and feeds)."""
+    fresh = new_shapes(spec_logs, seen)
+    extra = dict(summed=False, paths="speculation: speculation_generator, serving_generator_spec, "
+                                     "continuous_translator_spec, continuous_whisper_spec")
+    verify_m = (GEN_BATCH * SPEC_K, SERVE_SLOTS * SPEC_K, CT_SLOTS * SPEC_K,
+                CW_SLOTS * SPEC_K)
+
+    def pick(name, keep):
+        return {k: n for k, n in fresh.get(name, {}).items() if keep(k)}
+
+    bench_w8a8(pick("matmul_w8a8", lambda k: k[0] in verify_m), checks, **extra)
+    free_card()
+    bench_norm(pick("fused_norm", lambda k: k[0] in verify_m), checks, **extra)
+    free_card()
+    draft_d = LLAMA_1B["d_model"] // LLAMA_1B["heads"]
+    bench_flash(pick("flash_attention", lambda k: k[0][3] == draft_d), checks, **extra)
+    free_card()
+    # The draft's feeds: the slots' cache lengths spread from a short
+    # prompt's to a long prompt's.
+    bench_decode(pick("decode_attention_int8", lambda k: k[0][3] == draft_d),
+                 SERVE_SHORT_PROMPT[0], SERVE_LONG_PROMPT, checks, **extra)
+    free_card()
+
+
 def main():
     import torch
 
@@ -5889,21 +6700,27 @@ def main():
         residency_translator(tt, int8_dir, batches[1], checks)
         free_card()
         beam_logs = {}
-        continuous_translator(tt, int8_dir, batches, checks, beam_logs)
+        ct_greedy = continuous_translator(tt, int8_dir, batches, checks, beam_logs)
+        free_card()
+        spec_logs = {}
+        continuous_translator_spec(tt, int8_dir, batches, work, checks, spec_logs, ct_greedy)
+        del ct_greedy
         free_card()
 
         # ---- main path 2: Generator ----
         t0 = time.perf_counter()
-        llama = build_llama_modelfile(LLAMA["layers"])
+        llama = build_llama_modelfile(MAIN_LAYERS)
         llama_vocab = Vocabulary(
             ["<unk>", "<s>", "</s>"] + [f"t{i}" for i in range(LLAMA["vocab"] - 3)],
             VocabularyInfo(unk_token="<unk>", bos_token="<s>", eos_token="</s>"))
         llama_payload_bytes = sum(v.array.nbytes for n, v in llama.variables.items()
                                   if n.endswith("/weight"))
-        emit({"phase": "llama_model", "config": LLAMA,
+        emit({"phase": "llama_model", "config": dict(LLAMA, layers=MAIN_LAYERS),
               "int8_weight_bytes": llama_payload_bytes,
               "seconds": time.perf_counter() - t0})
-        gen_counts, gen = generator_main_path(tt, llama, llama_vocab, checks, logs)
+        plain_calls = {}
+        gen_counts, gen = generator_main_path(tt, llama, llama_vocab, checks, logs,
+                                              plain_calls)
         for name in ("matmul_w8a8", "flash_attention", "decode_attention_int8",
                      "fused_norm"):
             checks(gen_counts[name] > 0,
@@ -5913,16 +6730,25 @@ def main():
         # ---- the teacher-forced and sampled paths on the same model ----
         score_generator(tt, gen, llama_vocab, checks, new_logs)
         free_card()
-        sampling_phase(tt, gen, llama_vocab, int8_dir, batches[1], checks, new_logs)
+        with environ(CT2TPU_KV_CACHE="int8"):
+            side_gen = make_generator(tt, llama_subset(llama, SIDE_LAYERS), llama_vocab,
+                                      compute_type="int8")
+        sampling_phase(tt, side_gen, llama_vocab, int8_dir, batches[1], checks, new_logs)
         free_card()
-        host_loop_generator(tt, gen, llama_vocab, checks, new_logs)
+        host_loop_generator(tt, side_gen, llama_vocab, checks, new_logs)
         free_card()
-        file_helpers_generator(tt, gen, llama_vocab, checks, new_logs)
+        file_helpers_generator(tt, side_gen, llama_vocab, checks, new_logs)
         free_card()
         serve_logs = {}
-        serving_generator(tt, gen, llama_vocab, checks, serve_logs)
+        serving_generator(tt, side_gen, llama_vocab, checks, serve_logs)
+        del side_gen
         free_card()
-        serving_generator_beam(tt, gen, checks, beam_logs)
+        greedy = serving_generator_beam(tt, gen, checks, beam_logs)
+        free_card()
+        speculation_generator(tt, gen, llama_vocab, checks, spec_logs, plain_calls)
+        del plain_calls
+        serving_generator_spec(tt, gen, llama_vocab, checks, spec_logs, greedy)
+        del greedy
         free_card()
         residency_generator(tt, gen, llama_vocab, llama_payload_bytes, checks)
         del gen
@@ -5970,6 +6796,7 @@ def main():
         t0 = time.perf_counter()
         whisper_phase(tt, work, checks, speech_logs["whisper"])
         continuous_whisper(tt, work, checks, beam_logs)
+        continuous_whisper_spec(tt, work, checks, spec_logs)
         wav2vec2_phase(tt, checks, speech_logs["wav2vec2"])
         w2v_bert_phase(tt, checks, speech_logs["w2v_bert"])
         emit({"phase": "speech", "seconds": time.perf_counter() - t0})
@@ -6008,8 +6835,11 @@ def main():
         seen = arch_benches(arch_logs, seen, checks)
         seen = arch_benches(speech_logs, seen, checks, prefix="")
         serving_benches(serve_logs, checks)
-        serving_beam_benches(beam_logs, {name: {**seen.get(name, {}), **serve_logs.get(name, {})}
-                                         for name in set(seen) | set(serve_logs)}, checks)
+        seen = {name: {**seen.get(name, {}), **serve_logs.get(name, {})}
+                for name in set(seen) | set(serve_logs)}
+        serving_beam_benches(beam_logs, seen, checks)
+        speculation_benches(spec_logs, {name: {**seen.get(name, {}), **beam_logs.get(name, {})}
+                                        for name in set(seen) | set(beam_logs)}, checks)
 
         # ---- the other Translator runs ----
         f16_counts = main_path(tt, float_dir, "float16", batches, checks, "float16", {})
@@ -6021,11 +6851,11 @@ def main():
         # ---- the other Generator runs ----
         generator_ab(tt, small_llama, llama_vocab, checks)
         free_card()
-        generator_card_vs_cpu(tt, small_llama, llama_vocab, checks)
+        pair = card_cpu_generators(tt, small_llama, llama_vocab)
+        generator_card_vs_cpu(tt, pair, llama_vocab, checks)
         free_card()
         generator_awq_checks(tt, small_awq, llama_vocab, checks)
         free_card()
-        pair = card_cpu_generators(tt, small_llama, llama_vocab)
         teacher_forced_card_vs_cpu(tt, pair, llama_vocab, small_bert, checks)
         free_card()
         small_dir = build_seq2seq_model(os.path.join(work, "small"),
@@ -6034,12 +6864,14 @@ def main():
         free_card()
         serving_card_vs_cpu(tt, pair, llama_vocab, checks)
         serving_beam_card_vs_cpu(tt, pair, small_dir, llama_vocab, vocab, checks)
+        speculation_card_vs_cpu(tt, pair, small_llama, small_dir, llama_vocab, vocab, checks)
         del pair
         free_card()
         architectures_card_vs_cpu(tt, work, checks)
         free_card()
         speech_card_vs_cpu(tt, work, checks)
         continuous_whisper_card_vs_cpu(tt, work, checks)
+        speculation_whisper_card_vs_cpu(tt, work, checks)
 
         def entry(name, source, replaces, tot, library_ms, launches=None, **extra):
             """One kernel's line; ``launches`` defaults to the Translator and

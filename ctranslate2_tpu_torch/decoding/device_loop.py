@@ -322,3 +322,134 @@ def greedy_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
         tokens = new_tok
 
     return out_buf.cpu(), num_steps.cpu(), scores.cpu()
+
+
+def draft_tokens(K: int, start_tokens, tokens, out_buf, gen, prefix=None,
+                 prefix_len=None):
+    """[N, K-1] prompt-lookup drafts on the device: the most recent n-gram
+    continuation of each row's own context [start token | emitted tokens],
+    padded with the row's last token; while a row's forced ``prefix``
+    lasts, its prefix tokens themselves, so the forced chunk is accepted
+    whole (chunked prefill). ``ContinuousBatcher._draft`` applies the same
+    rule on the host, where a request's context lives and its drafts ride
+    the dispatch's one upload; a test holds the two to each other. ``tokens`` [N] the last token of each row,
+    ``out_buf`` [N, L] the emitted tokens, ``gen`` [N] how many."""
+    N = out_buf.shape[0]
+    device = out_buf.device
+    ctx = torch.cat([start_tokens[:, None], out_buf], dim=1)
+    n = gen + 1  # the valid context length
+    a_tok = ctx.gather(1, (n - 2).clamp(min=0)[:, None])[:, 0]
+    j_idx = torch.arange(ctx.shape[1], device=device)[None, :]
+    prev = torch.cat([torch.zeros((N, 1), dtype=ctx.dtype, device=device), ctx[:, :-1]],
+                     dim=1)
+    match = ((j_idx >= 1) & (j_idx <= (n - 2)[:, None])
+             & (ctx == tokens[:, None]) & (prev == a_tok[:, None]) & (n >= 3)[:, None])
+    jbest = torch.where(match, j_idx, -1).max(dim=1).values  # [N]
+    offs = torch.arange(1, K, device=device)[None, :]  # [1, K-1]
+    gpos = jbest[:, None] + offs
+    valid = (jbest >= 0)[:, None] & (gpos < n[:, None])
+    gathered = ctx.gather(1, gpos.clamp(0, ctx.shape[1] - 1))
+    drafts = torch.where(valid, gathered, tokens[:, None])
+    if prefix is not None:
+        dpos = gen[:, None] + offs  # the generated index each draft lands on
+        ptok = prefix.gather(1, dpos.clamp(0, prefix.shape[1] - 1))
+        drafts = torch.where(dpos < prefix_len[:, None], ptok, drafts)
+    return drafts
+
+
+def spec_greedy_loop(model, params, consts, sig, *, max_steps: int, capacity: int,
+                     spec_k: int, has_prefix: bool, control, start_pos: int,
+                     cache=None):
+    """Whole-generation greedy loop with lossless self-speculation.
+
+    Each iteration drafts ``spec_k - 1`` tokens a row by prompt lookup on
+    the device (``draft_tokens``), verifies them in ONE decoder forward of
+    T = ``spec_k`` at per-row positions, and accepts the matched prefix plus
+    one bonus token: under the argmax each accepted token is the one the
+    sequential loop emits, while the verify's linears see M = N x spec_k
+    rows. Rows advance by different amounts, so the loop carries per-row
+    positions ``pos`` [N]; a rejected draft's cache write lies past its
+    row's position, masked by the per-row causal bias and overwritten by
+    a later verify. Every write is clamped to ``capacity - spec_k``: only
+    a finished row reaches past it (the capacity carries a spec_k margin).
+
+    ``control``, ``cache`` and the result as in ``greedy_loop``; the
+    forced prefix (the prompt remainder) is drafted and forced, so the
+    prompt goes in chunks of ``spec_k`` tokens."""
+    device = model.device
+    arch = model.arch
+    K = spec_k
+    L = max_steps
+    assert sig.greedy_sampler, "speculation requires greedy decoding"
+    assert not sig.use_alive_seq, "speculation takes no alive-seq logits processors"
+    end_ids = torch.as_tensor(sig.end_ids or (0,), dtype=torch.long, device=device)
+    has_end = bool(sig.end_ids)
+
+    control = control.to(device)
+    prefix_len = control[:, 0]
+    min_steps = control[:, 1]
+    start_tokens = control[:, 2]
+    prefix = control[:, 3:] if has_prefix else None
+    N = control.shape[0]
+    cache = _self_cache(model, cache, N, capacity, ring=True)
+
+    # Column L takes the writes of rejected and finished positions.
+    out_buf = torch.zeros((N, L + 1), dtype=torch.long, device=device)
+    scores = torch.zeros(N, dtype=torch.float32, device=device)
+    finished = torch.zeros(N, dtype=torch.bool, device=device)
+    gen = torch.zeros(N, dtype=torch.long, device=device)
+    pos = torch.full((N,), start_pos, dtype=torch.long, device=device)
+    tokens = start_tokens
+    kk = torch.arange(K, device=device)
+
+    for it in range(L):
+        if it and it % SYNC_EVERY == 0 and bool(finished.all()):
+            break
+        drafts = draft_tokens(K, start_tokens, tokens, out_buf[:, :L], gen, prefix,
+                              prefix_len)
+        fed = torch.cat([tokens[:, None], drafts], dim=1)  # [N, K]
+        logits, cache = T.decoder_forward(
+            arch, params, consts, fed, pos.clamp(max=capacity - K), cache,
+            beam_size=1, quantize_acts=model.policy.quantize_activations,
+            out_dtype=model.out_dtype)
+        l = logits.float()  # [N, K, V]
+        gpos = gen[:, None] + kk[None, :]  # [N, K] emit positions
+        l = proc.disable_tokens(l, sig.suppress_ids)
+        if sig.begin_suppress_ids:
+            l = torch.where((gpos == 0)[..., None],
+                            proc.disable_tokens(l, sig.begin_suppress_ids), l)
+        if has_end:
+            end_mask = proc._token_mask(sig.end_ids, l.shape[-1], device)
+            l = torch.where((gpos < min_steps[:, None])[..., None] & end_mask,
+                            proc.DISABLE, l)
+        greedy, picked = greedy_tokens(torch.log_softmax(l, dim=-1))  # [N, K]
+
+        if prefix is not None:
+            forced = gpos < prefix_len[:, None]
+            ptok = prefix.gather(1, gpos.clamp(0, prefix.shape[1] - 1))
+            greedy = torch.where(forced, ptok, greedy)
+            picked = torch.where(forced, 0.0, picked)
+        else:
+            forced = torch.zeros((N, K), dtype=torch.bool, device=device)
+
+        # Accept while each fed draft matched the previous greedy target;
+        # stop after an end token or the buffer edge.
+        match = fed[:, 1:] == greedy[:, :-1]  # [N, K-1]
+        chain_ok = torch.cat([torch.ones((N, 1), dtype=torch.bool, device=device),
+                              torch.cumprod(match.long(), dim=1).bool()], dim=1)
+        eos = ((greedy[..., None] == end_ids).any(dim=-1) & ~forced) if has_end \
+            else torch.zeros((N, K), dtype=torch.bool, device=device)
+        eos_before = torch.cat([torch.zeros((N, 1), dtype=torch.bool, device=device),
+                                torch.cumsum(eos.long(), dim=1)[:, :-1] > 0], dim=1)
+        accept = chain_ok & ~eos_before & (gpos < L) & ~finished[:, None]
+        counts = accept.sum(dim=1)  # [N]
+        out_buf.scatter_(1, torch.where(accept, gpos, L), greedy)
+        scores = scores + torch.where(accept, picked, 0.0).sum(dim=1)
+        hit_end = (accept & eos).any(dim=1)
+        last_tok = greedy.gather(1, (counts - 1).clamp(min=0)[:, None])[:, 0]
+        tokens = torch.where(counts > 0, last_tok, tokens)
+        pos = pos + counts
+        gen = gen + counts
+        finished = finished | hit_end | (gen >= L)
+
+    return out_buf[:, :L].cpu(), gen.cpu(), scores.cpu()

@@ -204,7 +204,10 @@ class DecodingEngine:
         max_step = options.max_length + (
             max_prefix if hard_prefix and not options.return_prefix else 0)
         if capacity is None:
-            capacity = _round_up(max(start_step + max_step, 16), 64)
+            # A verify chunk writes up to speculation_k - 1 slots past a
+            # row's last token: they stay inside the buffer.
+            capacity = _round_up(
+                max(start_step + max_step + options.speculation_k, 16), 64)
         consts = self.model.ensure_consts(capacity)
         return max_step, capacity, consts
 
@@ -649,11 +652,28 @@ class DecodingEngine:
         control[:, 1] = min_steps
         control[:, 2] = np.asarray(start_ids, np.int64)
         control[:, 3:] = prefix_arr
-        buf, num_steps, scores = device_loop.greedy_loop(
-            self.model, params, consts, sig, max_steps=max_step,
-            capacity=capacity, has_prefix=P > 0,
-            control=torch.from_numpy(control), start_pos=start_step,
-            memory=memory, cache=cache, noise=noise, token_map=token_map)
+        # Lossless self-speculation (prompt-lookup drafts verified in
+        # T = speculation_k chunks): greedy decoder-only runs with no
+        # alive-seq logits processors (the Generator validates the rest).
+        spec_k = options.speculation_k
+        use_spec = (spec_k > 1 and sig.greedy_sampler and not sig.use_alive_seq
+                    and token_map is None and memory[0] is None)
+        if use_spec:
+            if cache is None:
+                # The loop's own cache: the JAX package's capacity, with
+                # the speculation margin.
+                capacity = _round_up(max(start_step + max_step + spec_k, 16), 64)
+                consts = self.model.ensure_consts(capacity)
+            buf, num_steps, scores = device_loop.spec_greedy_loop(
+                self.model, params, consts, sig, max_steps=max_step,
+                capacity=capacity, spec_k=spec_k, has_prefix=P > 0,
+                control=torch.from_numpy(control), start_pos=start_step, cache=cache)
+        else:
+            buf, num_steps, scores = device_loop.greedy_loop(
+                self.model, params, consts, sig, max_steps=max_step,
+                capacity=capacity, has_prefix=P > 0,
+                control=torch.from_numpy(control), start_pos=start_step,
+                memory=memory, cache=cache, noise=noise, token_map=token_map)
         buf, num_steps, scores = buf.numpy(), num_steps.numpy(), scores.numpy()
 
         results = []

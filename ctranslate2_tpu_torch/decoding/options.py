@@ -1,7 +1,6 @@
 """Decoding options and result structures (API parity with the reference:
 include/ctranslate2/decoding.h:44-89, include/ctranslate2/translation.h:11-86,
-include/ctranslate2/generation.h:14-78). ``speculation_k`` is not ported:
-``Generator.generate_batch`` rejects it."""
+include/ctranslate2/generation.h:14-78)."""
 
 from __future__ import annotations
 
@@ -39,6 +38,10 @@ class DecodingOptions:
     return_alternatives: bool = False
     min_alternative_expansion_prob: float = 0.0
     seed: int = 0  # the random sampler's stream
+    # Lossless self-speculative decoding in the greedy device loop
+    # (prompt-lookup drafting; >1 enables): each iteration verifies a
+    # K-token chunk and accepts the matched prefix + one bonus token.
+    speculation_k: int = 0
     # Whisper's timestamp rules (eot, no_timestamps, timestamp_begin,
     # timestamp_end, max_initial_timestamp), or None.
     whisper_ts: Optional[Tuple[int, int, int, int, int]] = None

@@ -59,9 +59,10 @@ def small_top_k(x, k: int):
 
 
 def greedy_tokens(log_probs):
-    """Returns (ids [N], scores [N]): the argmax and its log-prob."""
+    """Returns (ids, scores): the argmax over the last axis of ``log_probs``
+    ([N, V] or [N, K, V]) and its log-prob."""
     ids = torch.argmax(log_probs, dim=-1)
-    return ids, log_probs.gather(1, ids[:, None])[:, 0]
+    return ids, log_probs.gather(-1, ids[..., None])[..., 0]
 
 
 def _divide(scores, temperature: float):

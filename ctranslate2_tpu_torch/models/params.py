@@ -44,18 +44,24 @@ from ..utils.dtypes import DTypePolicy
 from .spec import ArchSpec, AttentionSpec, DecoderSpec, EncoderSpec
 
 
-def _dequantize(var: Variable, scale: Optional[Variable]) -> np.ndarray:
-    q = var.array.astype(np.float32)
+def _dequantize(var: Variable, scale: Optional[Variable], device) -> torch.Tensor:
+    """An int8 or int16 payload as float32 on ``device``. It travels as
+    stored, a quarter or half of its float32 bytes, and is divided by its
+    scale there (an 8B model's int8 projection is 0.5 GB). The divisor is
+    always a float32 tensor, which gives numpy's ``q / s`` to the bit: a
+    Python-scalar divisor is multiplied by its reciprocal on the card."""
+    q = torch.from_numpy(np.ascontiguousarray(var.array)).to(device).to(torch.float32)
     if scale is None:
-        if var.dtype_name == "int16":
-            # Legacy int16 models carry no scale; the global scale is 1000
-            # (reference: src/models/model.cc:310-316).
-            return q / 1000.0
-        return q
-    s = scale.as_float32()
-    if s.ndim == 0 or s.size == 1:
-        return q / float(s.reshape(()))
-    return q / s.reshape(s.shape + (1,) * (q.ndim - s.ndim))
+        if var.dtype_name != "int16":
+            return q
+        # Legacy int16 models carry no scale; the global scale is 1000
+        # (reference: src/models/model.cc:310-316).
+        s = np.full((1,), 1000.0, np.float32)
+    else:
+        s = scale.as_float32()
+        s = (s.reshape(1) if s.size == 1
+             else s.reshape(s.shape + (1,) * (q.ndim - s.ndim)))
+    return q / torch.from_numpy(np.ascontiguousarray(s)).to(device)
 
 
 def _quantize_per_row(w: np.ndarray):
@@ -119,13 +125,14 @@ class ParamsBuilder:
                 s = scale.as_float32().reshape(-1)
                 s = np.broadcast_to(s, (var.shape[0],)) if s.size == 1 else s
             else:
-                w = (_dequantize(var, scale) if var.dtype_name == "int16"
+                w = (_dequantize(var, scale, "cpu").numpy() if var.dtype_name == "int16"
                      else var.as_float32())
                 q, s = _quantize_per_row(w)
             out["wq"] = self.tensor(q)
             out["scale"] = self.tensor(s, torch.float32)
         elif var.dtype_name in ("int8", "int16"):
-            out["w"] = self.tensor(_dequantize(var, scale).T, self.float_dtype)
+            out["w"] = (_dequantize(var, scale, self.device).t()
+                        .to(self.float_dtype).contiguous())
         else:
             out["w"] = self.float_tensor(var, self.float_dtype, transpose=True)
         bias = self.mf.get(scope + "/bias")
@@ -154,9 +161,9 @@ class ParamsBuilder:
         var = self.mf.get(scope + "/weight")
         if var is None:
             return None
-        w = (_dequantize(var, self.mf.get(scope + "/weight_scale"))
-             if var.dtype_name in ("int8", "int16") else var.as_float32())
-        out = {"w": self.tensor(w, torch.float32)}
+        out = {"w": (_dequantize(var, self.mf.get(scope + "/weight_scale"), self.device)
+                     if var.dtype_name in ("int8", "int16")
+                     else self.tensor(var.as_float32(), torch.float32))}
         bias = self.mf.get(scope + "/bias")
         if bias is not None:
             out["b"] = self.tensor(bias.as_float32(), torch.float32)
@@ -188,7 +195,7 @@ class ParamsBuilder:
             return {"wq": self.tensor(var.array),
                     "scale": self.tensor(s, torch.float32)}
         if var.dtype_name == "int16":
-            return {"w": self.tensor(_dequantize(var, scale), self.float_dtype)}
+            return {"w": _dequantize(var, scale, self.device).to(self.float_dtype)}
         return {"w": self.float_tensor(var, self.float_dtype)}
 
     def _split_linear(self, lin: dict, sizes) -> list:

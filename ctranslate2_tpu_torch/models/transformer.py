@@ -345,6 +345,20 @@ def ring_capacity(arch: ArchSpec) -> int:
     return 2 * wr if wr else 0
 
 
+def check_speculation_window(arch: ArchSpec, speculation_k: int) -> None:
+    """Raises unless a ring-cached model's smallest sliding window holds
+    ``speculation_k`` tokens: a verify chunk reuses ``ring_window_bias``,
+    which holds while a chunk spans at most one window."""
+    if not ring_capacity(arch):
+        return
+    min_window = min((layer.self_attention.sliding_window for layer in arch.decoder.layers
+                      if layer.self_attention.sliding_window > 1), default=0)
+    if min_window and speculation_k > min_window:
+        raise ValueError(
+            f"speculation_k ({speculation_k}) must not exceed the smallest sliding "
+            f"window ({min_window}) of a ring-cached model")
+
+
 def split_prefill_chunks(start: int, length: int, block: int):
     """The absolute position range [start, start + length) split at every
     multiple of ``block`` (the reference's chunked prefill over window-size

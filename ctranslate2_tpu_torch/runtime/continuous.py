@@ -21,15 +21,21 @@ submitted while others decode joins them at the next block.
   flags, come back through pinned host memory behind a CUDA event; no
   step reads the device.
 
-Greedy and sampled decoding emit one token a slot and step. Beam search
+Greedy and sampled decoding emit one token a slot and step. Lossless
+speculation (``speculation_k`` > 1, greedy only) verifies ``speculation_k``
+tokens a slot in one decoder forward of T = ``speculation_k`` and emits the
+matched prefix plus one token: the drafts come from the request's own
+context (prompt lookup) or from a small ``draft_model`` that decodes
+``speculation_k`` steps on the card first. It is host-driven: one dispatch
+at a time, whose ids, scores and fed drafts come back in one pinned copy.
+Beam search
 (``beam_size`` > 1, the reference's serving default, src/decoding.cc:
 411-720) keeps K rows a slot and the whole candidate bookkeeping on the
 device: every step selects each slot's next K beams from its top 2K
 candidates, harvests finished hypotheses into a per-slot store and
 reorders the slot cache through the gather kernel (``cache_gather_rows``).
 
-Not ported yet (each raises ``NotImplementedError``): speculation
-(``speculation_k > 1``, ``draft_model``) and multi-host serving.
+Not ported yet (it raises ``NotImplementedError``): multi-host serving.
 """
 
 from __future__ import annotations
@@ -65,6 +71,24 @@ NEG = -1e10
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _seen_accept(seen, toks, counts):
+    """Marks the first ``counts[s]`` of ``toks`` [S, K] in row s of the
+    presence table ``seen`` [S, V], in place."""
+    K = toks.shape[1]
+    valid = torch.arange(K, device=toks.device)[None, :] < counts[:, None]
+    seen |= proc._scatter_any(seen.shape[0], seen.shape[1], toks, valid)
+
+
+def _hist_accept(hist, toks, counts, gen, cap: int):
+    """Writes the first ``counts[s]`` of ``toks`` [S, K] into row s of the
+    history table ``hist`` [S, cap + 1] at generated indices gen[s] ..., in
+    place; the last column takes the rest."""
+    K = toks.shape[1]
+    j = torch.arange(K, device=toks.device)[None, :]
+    posn = gen[:, None] + j
+    hist.scatter_(1, torch.where((j < counts[:, None]) & (posn < cap), posn, cap), toks)
 
 
 @dataclass
@@ -187,15 +211,22 @@ class ContinuousBatcher:
         # The scheduler loop's three calls, greedy or beam for the batcher's life.
         self._harvest_any, self._dispatch_any, self._consume_any = (
             (self._harvest_beam, self._decode_step_beam, self._consume_beam)
-            if self._beam > 1 else (self._harvest, self._dispatch_block, self._consume_block))
+            if self._beam > 1 else
+            (self._harvest, self._decode_step_spec, self._accept_spec_round)
+            if speculation_k > 1 else
+            (self._harvest, self._dispatch_block, self._consume_block))
         if self._beam > 1 and (speculation_k or draft_model is not None):
             raise NotImplementedError(
                 "speculation requires greedy decoding (beam_size=1): beam serving "
                 "takes no speculation_k or draft_model")
-        if speculation_k > 1:
-            raise NotImplementedError("speculation (speculation_k > 1) is not ported yet")
-        if draft_model is not None:
-            raise NotImplementedError("draft-model speculation is not ported yet")
+        if speculation_k:
+            if not (sampling_topk == 1 and sampling_topp >= 1.0):
+                raise NotImplementedError(
+                    "speculation requires greedy decoding (losslessness of "
+                    "draft verification is only guaranteed under argmax)")
+            T.check_speculation_window(model.arch, speculation_k)
+        if draft_model is not None and speculation_k <= 1:
+            raise ValueError("draft_model requires speculation_k > 1")
         if (torch.distributed.is_available() and torch.distributed.is_initialized()
                 and torch.distributed.get_world_size() > 1):
             raise NotImplementedError("multi-host continuous serving is not ported yet")
@@ -213,6 +244,8 @@ class ContinuousBatcher:
         self._prefill_bucket = prefill_bucket
         # Steps a dispatch: the host frees and admits slots between blocks.
         self._block = max(1, steps_per_sync)
+        # Speculation: each dispatch verifies spec_k tokens a slot.
+        self._spec_k = max(0, int(speculation_k))
         self._topk = sampling_topk
         self._topp = sampling_topp
         self._temperature = sampling_temperature
@@ -261,11 +294,14 @@ class ContinuousBatcher:
             pipeline_depth = int(os.environ.get("CT2TPU_PIPELINE_DEPTH",
                                                 str(DEFAULT_PIPELINE_DEPTH)))
         self._depth = max(1, min(int(pipeline_depth), 4))
+        if self._spec_k > 1:
+            self._depth = 1  # host-driven: each dispatch reads the last one's tokens
         self._ttfts = deque(maxlen=10000)
 
         # Host slot state.
         self._slots: List[Optional[_Request]] = [None] * S
         self._pos = np.zeros(S, np.int32)
+        self._tokens = np.zeros(S, np.int64)  # each slot's last token (speculation)
         self._temps = np.full(S, self._temperature or 1.0, np.float32)
         # topk: 1 = greedy, 0 = the whole vocabulary.
         self._max_topk = max(int(max_sampling_topk), self._topk if 1 < self._topk else 1)
@@ -294,16 +330,72 @@ class ContinuousBatcher:
         self._tokens_out = 0
         self._requests_done = 0
         self._slot_steps = 0
+        self._accepted_tokens = 0  # speculation: tokens emitted
+        self._spec_dispatches = 0  # speculation: slot verify dispatches
         self._started_at = time.monotonic()
         if K > 1:
             self._init_beam()
         else:
-            self._step_fn = self._build_step()
+            self._step_fn = (self._build_spec_step() if self._spec_k > 1
+                             else self._build_step())
+
+        # Draft-model speculation: a small model proposes spec_k - 1 tokens
+        # a slot on the card, the target verifies them in one T = spec_k
+        # forward. The draft's cache needs no rollback: its valid prefix
+        # always equals the target's accepted one, since a draft token is
+        # fed (and cached) at position p + 1 only after the target accepted
+        # the token at p, and a round starts at the accepted position and
+        # overwrites the rest.
+        self._draft_model = None
+        if draft_model is not None:
+            dm = draft_model
+            if isinstance(dm, str):
+                from ..models.loader import load_model
+
+                dm = load_model(dm, compute_type="default", device=self._device)
+            # A task object (Generator, Translator, Whisper) or a loaded model.
+            self._init_draft(getattr(dm, "model", dm))
 
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         self._admitting: Optional[_Request] = None
         self._closed = False
         self._wake = threading.Event()
+
+    def _init_draft(self, dm):
+        """A decoder-only draft model: its own slot cache, prefilled with the
+        prompt at every admit."""
+        if not dm.is_decoder_only:
+            raise ValueError("draft_model must be a decoder-only model")
+        if T.ring_capacity(dm.arch):
+            raise NotImplementedError("sliding-window draft models are not supported")
+        if len(dm.target_vocabulary) != len(self._vocab):
+            raise ValueError(
+                "draft model vocabulary size "
+                f"({len(dm.target_vocabulary)}) must match the target "
+                f"model ({len(self._vocab)})")
+        self._alloc_draft_state(dm)
+
+    def _alloc_draft_state(self, dm):
+        """The draft's slot cache (its KV type fixed here, as the target's)
+        and its per-slot cross-attention memory for an encoder-decoder
+        draft; the draft function."""
+        dm.ensure_consts(self._capacity)
+        self._draft_model = dm
+        self._draft_kv_dtype = dm.kv_dtype
+        self._draft_cache = T.init_self_cache(dm.arch, self._num_slots, self._capacity,
+                                              dtype=self._draft_kv_dtype,
+                                              device=self._device, ring=True)
+        self._draft_mem = None
+        if self._seq2seq:
+            self._draft_mem = []
+            for layer in dm.arch.decoder.layers:
+                a = layer.cross_attention
+                shape = (None if a is None else
+                         (self._num_slots, a.num_heads_kv, self._max_src, a.head_dim))
+                self._draft_mem.append(None if a is None else {
+                    n: torch.zeros(shape, dtype=dm.out_dtype, device=self._device)
+                    for n in ("k", "v")})
+        self._draft_fn = self._build_draft_fn()
 
     def _init_beam(self):
         """The beam state: ``num_slots`` x K rows, the hypothesis store (K
@@ -382,13 +474,13 @@ class ContinuousBatcher:
         if not prompt:
             raise ValueError("The prompt must contain at least one token")
         ids = [self._vocab.to_id(t) if isinstance(t, str) else int(t) for t in prompt]
-        margin = self._block
+        margin = max(self._block, self._spec_k)
         if len(ids) + max_length + margin > self._capacity:
             raise ValueError(
                 f"prompt ({len(ids)}) + max_length ({max_length}) + "
                 f"dispatch margin ({margin}) exceeds the slot "
                 f"capacity ({self._capacity})")
-        self._validate_request_sampling(sampling_topk)
+        self._validate_request_sampling(sampling_topk, sampling_topp)
         self._validate_beam_request(num_hypotheses)
         rep, ngram, sup_ids = self._validate_request_penalties(
             repetition_penalty, no_repeat_ngram_size, suppress_tokens)
@@ -506,8 +598,12 @@ class ContinuousBatcher:
             "mean_slot_occupancy": (
                 self._slot_steps / max(self._step_count * self._num_slots, 1)),
             "uptime_s": dt,
-            "spec_tokens_per_dispatch": None,
-            "spec_draft": None,
+            "spec_tokens_per_dispatch": (
+                self._accepted_tokens / max(self._spec_dispatches, 1)
+                if self._spec_k > 1 else None),
+            "spec_draft": (None if self._spec_k <= 1 else
+                           "model" if self._draft_model is not None
+                           else "prompt-lookup"),
             "num_queued": self._queue.qsize(),
         }
 
@@ -544,12 +640,17 @@ class ContinuousBatcher:
             raise ValueError(f"end_token lists up to {self._end_cols} ids per request")
         return ids
 
-    def _validate_request_sampling(self, topk) -> None:
+    def _validate_request_sampling(self, topk, topp=None) -> None:
         if topk is not None and topk != 0 and not 1 <= topk <= self._max_topk:
             raise ValueError(
                 f"per-request sampling_topk must be 0 (full vocabulary) or "
                 f"in [1, {self._max_topk}] (raise max_sampling_topk at "
                 "construction for larger values)")
+        if self._spec_k > 1 and ((topk is not None and topk != 1)
+                                 or (topp is not None and topp < 1.0)):
+            raise NotImplementedError(
+                "speculation requires greedy decoding; per-request "
+                "sampling overrides must keep topk=1/topp=1")
 
     def _validate_request_penalties(self, rep_penalty, ngram, suppress_tokens) -> tuple:
         """Checks per-request logits-processor overrides; returns
@@ -844,7 +945,7 @@ class ContinuousBatcher:
                 done = True
             elif req.stopped:
                 done = True
-            elif int(self._pos[i]) + self._block > self._capacity:
+            elif int(self._pos[i]) + max(self._block, self._spec_k) > self._capacity:
                 done = True  # slot capacity exhausted
             if done:
                 self._finish(i, req)
@@ -889,15 +990,17 @@ class ContinuousBatcher:
     # Admit: the prompt's prefill into a free slot.
     # ------------------------------------------------------------------
 
-    def _get_cache_prefill(self, padded_len: int):
+    def _get_cache_prefill(self, padded_len: int, draft: bool = False):
         """The prefill of one prompt padded to ``padded_len`` into a cache of
-        that size (``fresh_prefill``, masked at the prompt's length): a
-        function (ids [1, padded_len], length) -> (hidden states, the 1-row
-        cache). A beam admit keeps only the cache."""
-        model = self.model
+        that size (``fresh_prefill``, masked at the prompt's length), by the
+        target or with ``draft`` the draft model: a function (ids [1,
+        padded_len], length) -> (hidden states, the 1-row cache). A beam
+        admit and the draft keep only the cache."""
+        model = self._draft_model if draft else self.model
+        kv_dtype = self._draft_kv_dtype if draft else self._kv_dtype
 
         def prefill(ids, length: int):
-            cache = T.init_self_cache(model.arch, 1, padded_len, dtype=self._kv_dtype,
+            cache = T.init_self_cache(model.arch, 1, padded_len, dtype=kv_dtype,
                                       device=self._device, ring=True)
             return T.decoder_forward(
                 model.arch, model.params, model.consts, ids.to(self._device), 0, cache,
@@ -965,6 +1068,8 @@ class ContinuousBatcher:
         tok, score = self._select_one(slot, logits, req.min_length > 0)
         T.cache_insert_row(self._cache, sub, slot)
         del sub
+        if self._draft_model is not None:
+            self._draft_prefill(slot, ids)
         first = int(tok[0])  # the admit's one wait for the card
         if self._seen.shape[0]:
             self._seen[slot] = False
@@ -974,6 +1079,7 @@ class ContinuousBatcher:
         self._emit(req, first, float(score[0]))
         self._slots[slot] = req
         self._pos[slot] = len(ids)
+        self._tokens[slot] = first
         # The slot's device state: queued after the blocks in flight, so
         # the next block dispatched sees the admitted row.
         self._dstate["tokens"][slot] = first
@@ -1152,6 +1258,209 @@ class ContinuousBatcher:
                     break
                 if len(req.generated) >= req.max_length:
                     break
+
+    # ------------------------------------------------------------------
+    # Speculation: one verify of spec_k tokens a slot a dispatch, drafted
+    # by prompt lookup on the host or by the draft model on the card.
+    # ------------------------------------------------------------------
+
+    def _build_spec_step(self):
+        """The verify step: a function (fed [S, K], positions, generated
+        counts, options, memory, memory bias) -> (ids, scores) [S, K] that
+        runs one decoder forward of T = K from each slot's position; the
+        ids at j are the greedy targets of generated index gen + j, given
+        the fed tokens before it. The penalties see, at each j, the fed
+        drafts before j as generated (what the sequential step would have
+        seen); the penalty tables take the accepted tokens in place."""
+        model = self.model
+        arch, qa = model.arch, model.policy.quantize_activations
+        K, cap = self._spec_k, self._capacity
+
+        def step(fed, pos, gen, opts, mem, mem_bias):
+            logits, self._cache = T.decoder_forward(
+                arch, model.params, model.consts, fed, pos, self._cache, mem, mem_bias,
+                quantize_acts=qa, out_dtype=model.out_dtype)
+            l = logits.float()  # [S, K, V]
+            S, V = l.shape[0], l.shape[-1]
+            dev = l.device
+            seen, hist = self._seen, self._hist
+            pen = seen.shape[0] > 0
+            gl = gen[:, None] + torch.arange(K, device=dev)[None, :]  # [S, K]
+            if pen:
+                # The intra-chunk presence: position j has seen the drafts
+                # fed at 1..j (column V takes the drafts not yet fed).
+                jj = torch.arange(K, device=dev)
+                later = jj[None, :, None] <= torch.arange(K - 1, device=dev)[None, None, :]
+                cols = torch.where(later, V, fed[:, None, 1:])  # [S, K, K-1]
+                intra = torch.zeros((S, K, V + 1), dtype=torch.bool, device=dev)
+                intra.scatter_(2, cols, True)
+                p = opts["rep_pens"][:, None, None]
+                penalized = torch.where(l > 0, l / p, l * p)
+                l = torch.where(seen[:, None, :] | intra[:, :, :V], penalized, l)
+                # The n-gram ban at j over the history with the fed drafts
+                # written at generated indices gen .. gen + j - 1.
+                hist_fed = hist.clone()
+                hist_fed.scatter_(1, torch.clamp(gl[:, :K - 1], max=cap), fed[:, 1:])
+                l = torch.stack([proc.no_repeat_ngram_per_row(
+                    l[:, j], hist_fed[:, :cap], gen + j, opts["ngrams"], self._max_ngram)
+                    for j in range(K)], dim=1)
+            l = proc.disable_tokens(l, self._suppress_ids)
+            if opts["sup_table"].shape[1]:
+                l = torch.where(proc.token_table_mask(opts["sup_table"], V)[:, None, :],
+                                proc.DISABLE, l)
+            ends = proc.token_table_mask(opts["end_table"], V)
+            l = torch.where((gl < opts["min_len"][:, None])[..., None] & ends[:, None, :],
+                            proc.DISABLE, l)
+            ids, scores = greedy_tokens(torch.log_softmax(l, dim=-1))  # [S, K]
+            if self._seq2seq:
+                # Hard target prefixes: forced a position each, scored 0.
+                prefix = opts["prefix"]
+                use = gl < opts["plen"][:, None]
+                ids = torch.where(use, prefix.gather(
+                    1, torch.clamp(gl, max=prefix.shape[1] - 1)), ids)
+                scores = torch.where(use, 0.0, scores)
+            if pen:
+                # The tokens a continuing slot accepts: up to the first draft
+                # that missed its target (a slot that ends inside the chunk
+                # is reset at its next admit).
+                counts = 1 + torch.cumprod((fed[:, 1:] == ids[:, :-1]).long(), dim=1).sum(1)
+                _seen_accept(seen, ids, counts)
+                _hist_accept(hist, ids, counts, gen, cap)
+            return ids, scores
+
+        return step
+
+    def _draft_memory(self, opts):
+        """The draft's (memory K/V, memory bias); None for a decoder-only
+        draft."""
+        if self._draft_mem is None:
+            return None, None
+        return self._draft_mem, attn_ops.length_mask_bias(opts["src_len"], self._max_src)
+
+    def _build_draft_fn(self):
+        """The draft: a function (last tokens [S], positions, generated
+        counts, options, position bound) -> [S, K-1] proposals on the card.
+        It runs K feeds of T = 1 (not K - 1), so the last proposal's K/V is
+        cached too: when the target accepts every draft and its bonus token,
+        the next round starts at pos + K and attends pos + K - 1, which
+        only that feed writes. A forced target prefix is applied inside the
+        loop, so the draft's cache holds the accepted stream."""
+        dm = self._draft_model
+        arch, qa = dm.arch, dm.policy.quantize_activations
+        K = self._spec_k
+
+        def draft(last, pos, gen, opts, pos_bound):
+            mem, mem_bias = self._draft_memory(opts)
+            tok, outs = last, []
+            for j in range(K):
+                logits, self._draft_cache = T.decoder_forward(
+                    arch, dm.params, dm.consts, tok[:, None], pos + j, self._draft_cache,
+                    mem, mem_bias, quantize_acts=qa, out_dtype=dm.out_dtype,
+                    pos_bound=pos_bound + j)
+                # The verifier's global suppressions, so that a suppressed
+                # token never takes a draft position.
+                l = proc.disable_tokens(logits[:, -1].float(), self._suppress_ids)
+                tok = torch.argmax(l, dim=-1)
+                if self._seq2seq:
+                    idx = gen + j
+                    prefix = opts["prefix"]
+                    forced = prefix.gather(
+                        1, torch.clamp(idx, max=prefix.shape[1] - 1)[:, None])[:, 0]
+                    tok = torch.where(idx < opts["plen"], forced, tok)
+                outs.append(tok)
+            return torch.stack(outs[:K - 1], dim=1)
+
+        return draft
+
+    def _draft_prefill(self, slot: int, ids: List[int]):
+        """The draft's prefill of an admitted prompt into its slot row (one
+        small-model forward an admit)."""
+        P = _round_up(len(ids), self._prefill_bucket)
+        _, cache = self._get_cache_prefill(P, draft=True)(self._padded(ids, P), len(ids))
+        T.cache_insert_row(self._draft_cache, cache, slot)
+
+    def _draft_context(self, req) -> List[int]:
+        """The context prompt lookup searches: the prompt and the tokens
+        generated so far."""
+        return req.prompt_ids + req.generated
+
+    def _draft(self, req, k: int) -> List[int]:
+        """Prompt-lookup draft: the continuation of the latest earlier match
+        of the context's last bigram, padded with the last token. The host
+        form of ``device_loop.draft_tokens``: the context is the request's
+        host lists, and the drafts ride the dispatch's one upload."""
+        ctx = self._draft_context(req)
+        draft = []
+        if len(ctx) >= 3:
+            a, b = ctx[-2], ctx[-1]
+            for j in range(len(ctx) - 2, 0, -1):
+                if ctx[j] == b and ctx[j - 1] == a:
+                    draft = ctx[j + 1:j + 1 + k]
+                    break
+        while len(draft) < k:
+            draft.append(ctx[-1])
+        return draft[:k]
+
+    def _decode_step_spec(self, active: List[int]):
+        """Queues one verify dispatch: the fed tokens (the last accepted
+        one and the prompt-lookup drafts), positions and generated counts
+        go up in one copy; a draft model's proposals are made and fed on
+        the card. Returns the handle ``_accept_spec_round`` reads the ids,
+        scores and fed tokens from, in one pinned copy."""
+        S, K, cap = self._num_slots, self._spec_k, self._capacity
+        binding = {i: self._slots[i] for i in active}
+        host = np.zeros((S, K + 2), np.int64)
+        # A finished slot's writes stay inside its row (the admit resets it).
+        pos = np.minimum(self._pos, cap - K)
+        host[:, K] = pos
+        for i in active:
+            req = self._slots[i]
+            host[i, 0] = self._tokens[i]
+            host[i, K + 1] = len(req.generated)
+            if self._draft_model is None:
+                host[i, 1:K] = self._draft(req, K - 1)
+        up = self._upload(host)
+        fed, pos_d, gen_d = up[:, :K], up[:, K], up[:, K + 1]
+        opts = self._device_options()
+        mem, mem_bias = self._memory(opts)
+        if self._draft_model is not None:
+            drafts = self._draft_fn(fed[:, 0], pos_d, gen_d, opts, int(pos.max()))
+            fed = torch.cat([fed[:, :1], drafts], dim=1)
+        ids, scores = self._step_fn(fed, pos_d, gen_d, opts, mem, mem_bias)
+        self._step_count += 1
+        self._blocks += 1
+        self._slot_steps += len(active)
+        return self._to_host(ids, scores, fed) + (binding,)
+
+    def _accept_spec_round(self, handle):
+        """Waits for one verify dispatch and emits each slot's accepted
+        tokens: its greedy targets up to an end or stop condition or the
+        first draft that missed."""
+        ids_h, scores_h, fed_h, done, binding = handle
+        if done is not None:
+            done.synchronize()
+        ids, scores, fed = ids_h.numpy(), scores_h.numpy(), fed_h.numpy()
+        K = self._spec_k
+        for i, req in binding.items():
+            if self._slots[i] is not req:
+                continue
+            emitted = 0
+            for j in range(K):
+                tok = int(ids[i, j])
+                self._emit(req, tok, float(scores[i, j]))
+                self._tokens[i] = tok
+                emitted = j + 1
+                self._accepted_tokens += 1
+                if tok in self._req_end_ids(req) and len(req.generated) > req.min_length:
+                    break
+                if len(req.generated) >= req.max_length or req.stopped:
+                    break
+                # The next fed draft must equal this target, or the verify
+                # of the positions after it read a token never emitted.
+                if j + 1 < K and int(fed[i, j + 1]) != tok:
+                    break
+            self._pos[i] += emitted
+            self._spec_dispatches += 1
 
     # ------------------------------------------------------------------
     # Beam search: K rows a slot, the candidate bookkeeping of the batch
@@ -1513,10 +1822,17 @@ class ContinuousBatcher:
             inflight = deque()
             while True:
                 self._harvest_any()
+                admitted = False
                 for slot, req in self._collect_admits():
                     self._admitting = req  # failed with the rest if the admit raises
                     self._prefill_into_slot(slot, req)
                     self._admitting = None
+                    admitted = True
+                if admitted and self._beam == 1:
+                    # An admit's first token may end its request (an end
+                    # token, max_length 1): it finishes before the next
+                    # dispatch decodes past it.
+                    self._harvest()
                 active = [i for i, s in enumerate(self._slots) if s is not None]
                 if not active and not inflight:
                     if self._closed:
@@ -1655,7 +1971,7 @@ class ContinuousTranslator(ContinuousBatcher):
         if len(prefix_ids) > self._max_prefix:
             raise ValueError(f"target_prefix length {len(prefix_ids)} exceeds "
                              f"max_target_prefix ({self._max_prefix})")
-        self._validate_request_sampling(sampling_topk)
+        self._validate_request_sampling(sampling_topk, sampling_topp)
         self._validate_beam_request(num_hypotheses)
         rep, ngram, sup_ids = self._validate_request_penalties(
             repetition_penalty, no_repeat_ngram_size, suppress_tokens)
@@ -1693,6 +2009,38 @@ class ContinuousTranslator(ContinuousBatcher):
     def _get_encode(self, padded_len: int):
         return self._make_encode_fn(self.model, padded_len)
 
+    def _get_draft_encode(self, padded_len: int):
+        return self._make_encode_fn(self._draft_model, padded_len)
+
+    def _init_draft(self, dm):
+        """An encoder-decoder draft model: per-slot cross-attention memory
+        of its own and a slot cache beside the target's; the admit encodes
+        the same source with it, and it proposes K - 1 target tokens a
+        round."""
+        if not dm.is_sequence_to_sequence:
+            raise ValueError(
+                "the continuous translator's draft_model must be an "
+                "encoder-decoder model")
+        if T.ring_capacity(dm.arch):
+            raise NotImplementedError("sliding-window draft models are not supported")
+        if any(l.self_attention.has_memory_kv for l in dm.arch.decoder.layers):
+            raise NotImplementedError("merged-attention draft models are not supported")
+        if dm.arch.encoder.embeddings.num_features > 1:
+            raise NotImplementedError("source-factor draft models are not supported")
+        if len(dm.target_vocabulary) != len(self._vocab):
+            raise ValueError(
+                "draft model vocabulary size "
+                f"({len(dm.target_vocabulary)}) must match the target "
+                f"model ({len(self._vocab)})")
+        if len(dm.source_vocabularies[0]) != len(self._src_vocab):
+            raise ValueError(
+                "draft model source vocabulary size must match the target model")
+        self._alloc_draft_state(dm)
+
+    def _draft_context(self, req) -> List[int]:
+        # The target side only: the source ids live in another vocabulary.
+        return [req.start_id] + req.generated
+
     def _make_encode_fn(self, model, padded_len: int, speech: bool = False):
         """A function (encoder input, length) -> the per-layer memory K/V of
         one request, [1, Hkv, max_source_len, D] each (zero-padded): source
@@ -1726,6 +2074,10 @@ class ContinuousTranslator(ContinuousBatcher):
         enc_ids = (tuple(pad_ids(f) for f in req.feature_ids)
                    if req.feature_ids is not None else pad_ids(ids))
         self._mem_insert_impl(self._mem, self._get_encode(P)(enc_ids, min(len(ids), P)), slot)
+        if self._draft_model is not None:
+            # A draft takes one feature stream (_init_draft): the main one.
+            self._mem_insert_impl(self._draft_mem, self._get_draft_encode(P)(
+                pad_ids(ids), min(len(ids), P)), slot)
         self._src_len[slot] = min(len(ids), P)
         self._admit_decoder(slot, req, req.start_id)
 
@@ -1735,6 +2087,7 @@ class ContinuousTranslator(ContinuousBatcher):
         score 0, so the first step's candidates expand the beams)."""
         self._slots[slot] = req
         self._pos[slot] = 0
+        self._tokens[slot] = start_id
         self._prefix[slot, :] = 0
         self._prefix[slot, :len(req.prefix_ids)] = req.prefix_ids
         self._plen[slot] = len(req.prefix_ids)
@@ -1799,6 +2152,35 @@ class ContinuousWhisper(ContinuousTranslator):
         self._init_seq2seq_state(max_target_prefix)
         self._start_loop()
 
+    def _init_draft(self, dm):
+        """A speech draft model (a smaller Whisper): the admit encodes the
+        same mel segment into its own per-slot memory; the translator's
+        draft function proposes the tokens."""
+        enc = dm.arch.encoder
+        if enc is None or not enc.num_conv_layers:
+            raise ValueError(
+                "ContinuousWhisper's draft_model must be a Whisper-style speech model")
+        if T.ring_capacity(dm.arch):
+            raise NotImplementedError("sliding-window draft models are not supported")
+        if any(l.self_attention.has_memory_kv for l in dm.arch.decoder.layers):
+            raise NotImplementedError("merged-attention draft models are not supported")
+        if len(dm.target_vocabulary) != len(self._vocab):
+            raise ValueError(
+                "draft model vocabulary size "
+                f"({len(dm.target_vocabulary)}) must match the target "
+                f"model ({len(self._vocab)})")
+        n_mels = self.model.params["encoder"]["convs"][0]["w"].shape[1]
+        d_mels = dm.params["encoder"]["convs"][0]["w"].shape[1]
+        if d_mels != n_mels:
+            raise ValueError(
+                f"draft model expects {d_mels} mel bins, the target model {n_mels}")
+        if dm.params["encoder"]["position_encodings"].shape[0] < self._max_src:
+            raise ValueError("draft model encoder capacity is smaller than the target's")
+        self._alloc_draft_state(dm)
+
+    def _get_draft_speech_encode(self, frames: int):
+        return self._make_encode_fn(self._draft_model, frames, speech=True)
+
     def submit(self, features, prompt: Sequence, *, max_length: int = 256,
                min_length: int = 0,
                sampling_temperature: float = None,
@@ -1825,7 +2207,7 @@ class ContinuousWhisper(ContinuousTranslator):
         if len(ids) - 1 > self._max_prefix:
             raise ValueError(f"prompt length {len(ids)} exceeds max_target_prefix + 1 "
                              f"({self._max_prefix + 1})")
-        if max_length + self._block > self._capacity:
+        if max_length + max(self._block, self._spec_k) > self._capacity:
             raise ValueError("max_length exceeds the slot capacity")
         feats = np.asarray(features, np.float32)
         if feats.ndim != 2:
@@ -1834,10 +2216,17 @@ class ContinuousWhisper(ContinuousTranslator):
         if (feats.shape[-1] + 1) // 2 > self._max_src:
             raise ValueError(f"features length {feats.shape[-1]} exceeds the encoder "
                              f"capacity ({2 * self._max_src} frames)")
-        self._validate_request_sampling(sampling_topk)
+        self._validate_request_sampling(sampling_topk, sampling_topp)
         self._validate_beam_request(num_hypotheses)
         rep, ngram, sup_ids = self._validate_request_penalties(
             repetition_penalty, no_repeat_ngram_size, suppress_tokens)
+        # The rules apply unless the prompt opts out.
+        ts_on = self._wts is not None and ids[-1] != self._wts[1]
+        if ts_on and self._spec_k > 1:
+            raise NotImplementedError(
+                "Whisper timestamp rules are not compatible with "
+                "speculation; use <|notimestamps|> prompts or "
+                "speculation_k=0")
         req = _Request(prompt_ids=[], max_length=max_length,
                        min_length=min_length + (len(ids) - 1),
                        temperature=sampling_temperature or 0.0,
@@ -1847,9 +2236,7 @@ class ContinuousWhisper(ContinuousTranslator):
                        num_hypotheses=num_hypotheses, callback=callback,
                        stop_sequences=self._stop_ids(stop_sequences),
                        start_id=ids[0], prefix_ids=ids[1:], forced_len=len(ids) - 1,
-                       features=feats,
-                       # The rules apply unless the prompt opts out.
-                       ts_on=self._wts is not None and ids[-1] != self._wts[1])
+                       features=feats, ts_on=ts_on)
         return self._enqueue(req)
 
     def _get_speech_encode(self, frames: int):
@@ -1862,5 +2249,8 @@ class ContinuousWhisper(ContinuousTranslator):
     def _prefill_into_slot(self, slot: int, req: _Request):
         feats = torch.as_tensor(req.features[None]).to(self._device)
         self._mem_insert_impl(self._mem, self._get_speech_encode(feats.shape[-1])(feats), slot)
+        if self._draft_model is not None:
+            self._mem_insert_impl(self._draft_mem, self._get_draft_speech_encode(
+                feats.shape[-1])(feats), slot)
         self._src_len[slot] = min((feats.shape[-1] + 1) // 2, self._max_src)
         self._admit_decoder(slot, req, req.start_id)

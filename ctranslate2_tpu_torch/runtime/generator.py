@@ -7,8 +7,8 @@ Runs on one CUDA card by default, or on the CPU when ``device="cpu"``.
 static prompt prefilled once and cached, step callbacks, alternatives and
 vocabulary logits), ``score_batch``, ``forward_batch`` and the streaming
 helpers ``generate_iterable``, ``generate_tokens``,
-``async_generate_tokens`` and ``score_iterable`` are ported;
-``speculation_k`` is not yet.
+``async_generate_tokens`` and ``score_iterable`` are ported, and so is
+lossless prompt-lookup speculation in greedy search (``speculation_k``).
 """
 
 from __future__ import annotations
@@ -123,7 +123,27 @@ class Generator(TaskAPIMixin):
         if any(len(s) == 0 for s in start_tokens):
             raise ValueError("Generator expects at least one start token per example")
         if speculation_k > 1:
-            raise NotImplementedError("not ported yet: speculation_k")
+            # Lossless self-speculation in the greedy device loop: lossless
+            # under the argmax only, and the alive-seq logits processors
+            # need the sequential step order.
+            if beam_size != 1:
+                raise ValueError("speculation_k requires beam_size=1")
+            if not (sampling_topk == 1 and sampling_topp >= 1.0):
+                raise NotImplementedError(
+                    "speculation requires greedy decoding (losslessness of "
+                    "draft verification is only guaranteed under argmax)")
+            if (repetition_penalty != 1.0 or no_repeat_ngram_size
+                    or suppress_sequences):
+                raise NotImplementedError(
+                    "speculation_k is not supported with "
+                    "repetition_penalty/no_repeat_ngram_size/"
+                    "suppress_sequences in generate_batch; use the "
+                    "ContinuousBatcher for those")
+            if callback is not None or return_alternatives:
+                raise ValueError(
+                    "speculation_k is not compatible with callback or "
+                    "return_alternatives")
+            T.check_speculation_window(self.model.arch, speculation_k)
 
         v = self._vocab
         end_ids = self._resolve_end_token(end_token)
@@ -151,6 +171,7 @@ class Generator(TaskAPIMixin):
             return_alternatives=return_alternatives,
             min_alternative_expansion_prob=min_alternative_expansion_prob,
             seed=seed,
+            speculation_k=speculation_k,
         )
 
         def run(rows):
@@ -229,7 +250,9 @@ class Generator(TaskAPIMixin):
         start_step = 0
         max_prompt = max(len(s) for s in start_ids)
         static_len = len(static_prompt) if static_prompt else 0
-        capacity = _round_up(static_len + max_prompt + options.max_length + 1, 64)
+        spec_k = options.speculation_k
+        capacity = _round_up(static_len + max_prompt + options.max_length + 1
+                             + (spec_k if spec_k > 1 else 0), 64)
         model.ensure_consts(capacity)
         rows = B * options.beam_size if options.beam_size > 1 else B
         # Ring KV buffers (O(window) memory) serve one-token greedy steps of

@@ -2195,3 +2195,80 @@ def test_continuous_translator_on_card_matches_cpu(small_seq2seq, beam):
         np.testing.assert_allclose(a.scores, b.scores, atol=1e-3, rtol=0)
     assert counts["gather_rows_fused"] == (steps if beam > 1 else 0)
     assert counts["fused_norm"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draft", [False, True])
+def test_speculative_verify_on_card_launches_no_decode_kernel(small_decoder, monkeypatch,
+                                                              draft):
+    """int8 KV cache, float32: a verify dispatch (T = 4) dequantizes the
+    target's cache for the plain attention, so the decode kernel launches
+    only for the draft model's T = 1 feeds: 4 a draft layer and dispatch,
+    none without a draft; no kernel's plain version runs on the card. The
+    tokens are ``generate_batch``'s."""
+    _card()
+    monkeypatch.setenv("CT2TPU_KV_CACHE", "int8")
+    cs = _chip_smoke()
+    gen = tt.Generator(small_decoder, compute_type="float32")
+    rng = np.random.default_rng(14)
+    prompts = [[f"tok{int(t)}" for t in rng.integers(0, 190, n)] for n in (5, 40, 17)]
+    refs = [gen.generate_batch([p], max_length=12, include_prompt_in_result=False)[0]
+            for p in prompts]
+    kw = dict(draft_model=gen) if draft else {}
+    cb = tt.ContinuousBatcher(gen, num_slots=3, capacity=128, speculation_k=4, **kw)
+    plain = {}
+    try:
+        with cs.plain_calls_on_card(plain):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            steps0 = cb.num_steps
+            out = [f.result(timeout=300) for f in [cb.submit(p, max_length=12)
+                                                   for p in prompts]]
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            steps = cb.num_steps - steps0
+    finally:
+        cb.close()
+    assert [o.sequences_ids for o in out] == [r.sequences_ids for r in refs]
+    layers = len(gen.model.arch.decoder.layers)
+    assert steps > 0
+    assert counts["decode_attention_int8"] == (4 * layers * steps if draft else 0)
+    assert counts["fused_norm"] > 0 and not plain
+
+
+@pytest.mark.cuda
+def test_speculation_on_card_matches_cpu(small_decoder, small_seq2seq):
+    """float32: ``generate_batch(speculation_k=4)``, the batcher with
+    prompt lookup and with a draft, and ``ContinuousTranslator`` with a
+    target prefix give the CPU's tokens on the card, scores within 1e-3."""
+    _card()
+    rng = np.random.default_rng(15)
+    prompts = [[f"tok{int(t)}" for t in rng.integers(0, 190, n)] for n in (5, 40, 17, 3)]
+    prompts[3] = prompts[0] * 4
+    sources = [[f"tok{int(t)}" for t in rng.integers(3, 190, n)] for n in (6, 14, 3)]
+    out = {}
+    for device in ("cuda", "cpu"):
+        gen = tt.Generator(small_decoder, compute_type="float32", device=device)
+        got = [gen.generate_batch(prompts, max_length=16, speculation_k=4,
+                                  return_scores=True)]
+        for kw in (dict(), dict(draft_model=gen)):
+            cb = tt.ContinuousBatcher(gen, num_slots=2, capacity=128, speculation_k=4, **kw)
+            try:
+                got.append([f.result(timeout=300) for f in [
+                    cb.submit(p, max_length=16) for p in prompts]])
+            finally:
+                cb.close()
+        tr = tt.Translator(small_seq2seq, compute_type="float32", device=device)
+        cb = tt.ContinuousTranslator(tr, num_slots=2, capacity=64, max_source_len=16,
+                                     speculation_k=4)
+        try:
+            fs = [cb.submit(s, max_length=12) for s in sources]
+            fs.append(cb.submit(sources[0], max_length=12, target_prefix=["tok4", "tok8"]))
+            got.append([f.result(timeout=300) for f in fs])
+        finally:
+            cb.close()
+        out[device] = got
+    for card, cpu in zip(out["cuda"], out["cpu"]):
+        for a, b in zip(card, cpu):
+            assert a.sequences_ids == b.sequences_ids
+            np.testing.assert_allclose(a.scores, b.scores, atol=1e-3, rtol=0)

@@ -496,14 +496,11 @@ def test_prefill_in_jax_decode_in_port(model_dirs, monkeypatch, kv):
     ids=["static_prompt", "callback", "alternatives", "speculation",
          "logits_vocab"])
 def test_unported_generator_options_raise(model_dirs, option):
-    """``speculation_k`` is still unported and raises; the other options run
-    since the host decode loops came (tests/test_torch_host_loops.py holds
-    them against the JAX package)."""
+    """Each option runs: the host-loop ones since the host decode loops
+    came (tests/test_torch_host_loops.py holds them against the JAX
+    package), ``speculation_k`` since lossless speculation came
+    (tests/test_torch_speculation.py)."""
     tg = tt.Generator(model_dirs["float32"], device="cpu")
-    if "speculation_k" in option:
-        with pytest.raises(NotImplementedError):
-            tg.generate_batch(_prompts(), **option)
-        return
     out = tg.generate_batch(_prompts(), max_length=4, **option)
     assert len(out) == len(_prompts()) and all(r.sequences_ids for r in out)
 

@@ -471,6 +471,13 @@ def test_static_prompt_int8_kv(decoder_dirs, monkeypatch, beam):
 
 
 def test_speculation_k_still_raises(generators):
-    _, pg = generators("float32")
-    with pytest.raises(NotImplementedError, match="speculation_k"):
-        pg.generate_batch(prompts(), speculation_k=4)
+    """Raised until speculation came; now it decodes the JAX package's
+    speculative tokens, which are the plain greedy ones."""
+    jg, pg = generators("float32")
+    kw = dict(max_length=12, return_scores=True)
+    got = pg.generate_batch(prompts(), speculation_k=4, **kw)
+    for ref in (jg.generate_batch(prompts(), speculation_k=4, **kw),
+                pg.generate_batch(prompts(), **kw)):
+        for g, r in zip(got, ref):
+            assert g.sequences_ids == r.sequences_ids
+            assert abs(g.scores[0] - r.scores[0]) < 1e-4

@@ -160,3 +160,52 @@ def test_unported_flash_length_raises_on_card(monkeypatch):
     monkeypatch.setenv("CT2TPU_FLASH", "0")
     assert not TT._flash_eligible(Card(), Card())
     assert not hasattr(TT, "_check_flash")
+
+
+@pytest.fixture(scope="module")
+def int8_at_float32(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("seq2seq_int8_as_float32"))
+    build_seq2seq_model(path, vocab_size=128, num_layers=2, num_heads=4,
+                        d_model=64, d_ff=128, quantization="int8")
+    return (jloader.load_model(path, compute_type="float32"),
+            tloader.load_model(path, compute_type="float32", device="cpu"))
+
+
+def test_int8_file_at_float32_equals_jax_params(int8_at_float32):
+    """An int8 file loaded at float32: the port dequantizes in torch on the
+    model's device, bit for bit as the JAX package does on the host."""
+    jm, tm = int8_at_float32
+    carried = params_from_numpy(jax.tree.map(np.asarray, jm.params), tm.arch)
+    a, b = dict(_leaves(carried)), dict(_leaves(tm.params))
+    assert a.keys() == b.keys()
+    for name in a:
+        assert a[name].dtype == b[name].dtype, name
+        assert torch.equal(a[name], b[name]), name
+
+
+@pytest.mark.parametrize("case", ["per_row", "one_scale", "scalar_scale", "int16_legacy",
+                                  "conv_per_channel"])
+def test_dequantize_equals_numpy_division(case):
+    from ctranslate2_tpu_torch.formats.model_file import make_variable
+    from ctranslate2_tpu_torch.models.params import _dequantize
+
+    rng = np.random.default_rng(3)
+    shape = (5, 3, 4) if case == "conv_per_channel" else (37, 29)
+    dtype = np.int16 if case == "int16_legacy" else np.int8
+    q = rng.integers(-127, 128, shape).astype(dtype)
+    var = make_variable("w", q)
+    s = {"per_row": rng.random(shape[0], np.float32) * 300 + 1,
+         "one_scale": np.array([123.4567], np.float32),
+         "scalar_scale": np.float32(987.654),
+         "int16_legacy": None,
+         "conv_per_channel": rng.random(shape[0], np.float32) * 300 + 1}[case]
+    scale = None if s is None else make_variable("s", s)
+    if s is None:
+        want = q.astype(np.float32) / 1000.0
+    elif np.size(s) == 1:
+        want = q.astype(np.float32) / float(np.reshape(s, ()))
+    else:
+        want = q.astype(np.float32) / s.reshape((-1,) + (1,) * (q.ndim - 1))
+    got = _dequantize(var, scale, "cpu")
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)

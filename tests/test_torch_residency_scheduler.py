@@ -320,18 +320,33 @@ def test_py_queue_bounds_and_close():
 
 
 # ---------------------------------------------------------------------------
-# Serving parts left for later.
+# Serving parts left for later, and speculation since it came.
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(beam_size=2, speculation_k=4), "beam serving"),
-    (dict(speculation_k=4), "speculation"),
-    (dict(speculation_k=4, draft_model="draft"), "speculation"),
-    (dict(draft_model="draft"), "draft-model"),
-])
-def test_unported_serving_parts_raise(paths, kwargs, match):
+@pytest.mark.parametrize("kwargs,error,match", [
+    (dict(beam_size=2, speculation_k=4), NotImplementedError, "beam serving"),
+    (dict(speculation_k=4), None, None),
+    (dict(speculation_k=4, draft_model="draft"), FileNotFoundError, "model.bin"),
+    (dict(draft_model="draft"), ValueError, "draft_model requires speculation_k > 1"),
+], ids=["kwargs0-beam serving", "kwargs1-speculation", "kwargs2-speculation",
+        "kwargs3-draft-model"])
+def test_unported_serving_parts_raise(paths, kwargs, error, match):
+    """Beam serving takes no speculation and still raises. Speculation runs
+    since it was ported (tests/test_torch_speculation.py holds it against
+    the JAX package); the draft cases raise the JAX package's errors: a
+    path that holds no model fails to load, and a draft needs
+    speculation_k > 1."""
     gen = tt.Generator(paths["generator"], device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
+    if error is None:
+        cb = tt.ContinuousBatcher(gen, capacity=64, **kwargs)
+        try:
+            out = cb.submit(["tok3", "tok4"], max_length=4).result(timeout=120)
+        finally:
+            cb.close()
+        assert 0 < len(out.sequences_ids[0]) <= 4
+        assert cb.stats()["spec_draft"] == "prompt-lookup"
+        return
+    with pytest.raises(error, match=match):
         tt.ContinuousBatcher(gen, **kwargs)
 
 
