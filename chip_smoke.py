@@ -9,7 +9,8 @@ NVIDIA H100:
 Phases, one JSON object per line:
 
 1. card: the card's name and power limit, the torch/CUDA versions, and the
-   seconds to build the six CUDA sources from ``ctranslate2_tpu_torch/csrc``;
+   seconds to build the six CUDA sources from ``ctranslate2_tpu_torch/csrc``
+   (and, at the same time, the native host core with g++);
    before it a ``ptxas`` line with the registers, spills and static shared
    memory of every kernel of the two wgmma sources, the decode source, the
    W4 source and the norm source (``PTXAS_REPORT``).
@@ -268,6 +269,33 @@ Phases, one JSON object per line:
    gather at the three slot-cache shapes and the W8A8 and norm shapes no
    earlier path gave (``serving_beam_benches``, ``"summed": false``).
 
+15. The host core, ``host_core_*`` lines, the phase's seconds in
+   ``host_core``: ``host_core_native`` (the native module, built by g++
+   beside the kernels' nvcc in the card phase: its seconds, its file in
+   the port's ``_build/``, its package-qualified name); after
+   ``continuous_translator_spec``, ``host_core_cli`` (``cli.translate.main``
+   in process on the four phase-2 batches, int8, beam 2, with
+   ``--log_throughput`` and then ``--log_profiling``: its file equal to
+   ``translate_file``'s line for line, its tok/s, the profiler's table),
+   ``host_core_scheduler`` (``translation_scheduler`` on the native queue,
+   each batch it formed equal to ``translate_batch`` on that batch) and
+   ``host_core_replicas`` (``Translator(device_index=[0, 0])``: a stream a
+   replica, every hypothesis equal to one replica's, tok/s of one replica,
+   of two workers on one and of two replicas, the busy share, one shared
+   tree out and back; then the Translator's encoder as an ``Encoder`` of
+   two replicas, its card tensors bit-equal to one replica's);
+   ``host_core_load`` (right after the Llama is
+   fabricated: written at ``MAIN_LAYERS`` into the work directory and
+   loaded to the card through the native index over a map of model.bin and
+   through the copying reader, each timed with this process's host memory
+   over the load; the two trees bit-equal on the card).
+
+The rows the kernel phase does not sum into the totals (the W4 crossover,
+Gemma-2-9B's attention and every later path's shapes) are held
+against their plain versions untimed (``untimed()``; their times in the
+lines are null): PERF.md records them from earlier runs. The main paths'
+rows are timed.
+
 The line before the last is ``{"kernels": [...]}`` (times are sums over
 the ``launches`` counted on the main paths), the last
 ``{"ok": true, "device": {...}}``. The script exits non-zero, without
@@ -284,6 +312,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
@@ -463,11 +492,42 @@ FLAN_T5_AB = dict(FLAN_T5_LARGE, d_model=256, heads=4, head_dim=64, d_ff=512, vo
 STARTED = time.perf_counter()
 
 
+def _json_safe(obj):
+    """``obj`` with every NaN (an untimed row's time) as None."""
+    if isinstance(obj, float) and math.isnan(obj):
+        return None
+    if isinstance(obj, dict):
+        return {k: _json_safe(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_json_safe(v) for v in obj]
+    return obj
+
+
 def emit(obj):
     """Prints one JSON line; phase lines carry the script's elapsed seconds."""
     if "phase" in obj:
         obj = dict(obj, elapsed_s=round(time.perf_counter() - STARTED, 1))
-    print(json.dumps(obj), flush=True)
+    print(json.dumps(_json_safe(obj)), flush=True)
+
+
+# Set by ``untimed()``: the benches hold each kernel against its plain
+# version and time nothing.
+_UNTIMED = False
+
+
+@contextlib.contextmanager
+def untimed():
+    """The benches inside run every correctness check they make, but
+    ``cuda_time_ms`` and ``host_us`` call their function once and return
+    NaN (null in the lines): for the rows of shapes whose times earlier
+    runs recorded (PERF.md section 6), which the run's time limit cannot
+    afford to time again."""
+    global _UNTIMED
+    _UNTIMED = True
+    try:
+        yield
+    finally:
+        _UNTIMED = False
 
 
 def free_card():
@@ -512,12 +572,18 @@ def chain_off():
         os.environ.pop("CT2TPU_BEAM_CHAIN")
 
 
+# Guards the shape logs' and plain-call counters' increments: the worker
+# threads of two replicas call the wrappers at once.
+LOG_LOCK = threading.Lock()
+
+
 def shape_log(counts, key):
     """A ``patched`` wrapper that counts the calls per ``key(*args)``."""
     def wrap(orig):
         def wrapped(*args, **kwargs):
             k = key(*args, **kwargs)
-            counts[k] = counts.get(k, 0) + 1
+            with LOG_LOCK:
+                counts[k] = counts.get(k, 0) + 1
             return orig(*args, **kwargs)
         return wrapped
     return wrap
@@ -591,6 +657,9 @@ def cuda_time_ms(fn, iters):
     for kernels of tens of microseconds is slower than the card."""
     import torch
 
+    if _UNTIMED:
+        fn()
+        return math.nan
     global _CAPTURE_STREAM
     if _CAPTURE_STREAM is None:
         _CAPTURE_STREAM = torch.cuda.Stream()
@@ -622,6 +691,8 @@ def host_us(fn, calls=200):
     import torch
 
     fn()
+    if _UNTIMED:
+        return math.nan
     torch.cuda.synchronize()
     start = time.perf_counter()
     for _ in range(calls):
@@ -2318,7 +2389,7 @@ def bench_w4_crossover(checks):
                 plan, times, worst = w4_paths_ms(Q, name, args, packed, fold, ref, bound,
                                                  iters, checks)
                 del ref, bound
-                fastest = min(times, key=times.get)
+                fastest = None if _UNTIMED else min(times, key=times.get)
                 ops_ms = 2 * M * N * K / PEAK_HALF_FLOPS * 1e3
                 emit({"phase": "w4_crossover", "kernel": name, "M": M, "K": K, "N": N,
                       "dtype": "float16", "group": AWQ_GROUP, "plan_path": plan.path,
@@ -2432,7 +2503,8 @@ def plain_calls_on_card(counter):
             def wrapped(x, *args, **kwargs):
                 first = x[0] if isinstance(x, (list, tuple)) else x
                 if first.is_cuda:
-                    counter[name] = counter.get(name, 0) + 1
+                    with LOG_LOCK:
+                        counter[name] = counter.get(name, 0) + 1
                 return orig(x, *args, **kwargs)
             return wrapped
         return outer
@@ -6643,6 +6715,379 @@ def speculation_benches(spec_logs, seen, checks):
     free_card()
 
 
+HOST_CORE_SCHED_SENTENCES = BATCH  # translation_scheduler: one phase-2 batch
+HOST_CORE_REPLICAS = [0, 0]  # two replicas on the one card
+
+
+def proc_status_kb():
+    """VmHWM, VmRSS, RssAnon and RssFile of this process, in kB, those that
+    ``/proc/self/status`` gives (some kernels give VmRSS alone),
+    and ``getrusage``'s peak resident size (``ru_maxrss``)."""
+    import resource
+
+    out = {}
+    with open("/proc/self/status", encoding="ascii") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            if key in ("VmHWM", "VmRSS", "RssAnon", "RssFile"):
+                out[key] = int(value.split()[0])
+    out["ru_maxrss"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return out
+
+
+def host_memory_during(call):
+    """(result, seconds, memory) of ``call()`` with the card synced on
+    either side: the change of VmHWM, VmRSS, RssAnon and RssFile (kB) over
+    the call, and the peak VmRSS above its start, sampled every 5 ms."""
+    import threading
+
+    before = proc_status_kb()
+    peak = [before["VmRSS"]]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.005):
+            peak[0] = max(peak[0], proc_status_kb()["VmRSS"])
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        out, seconds = synced_seconds(call)
+    finally:
+        done.set()
+        sampler.join()
+    after = proc_status_kb()
+    peak[0] = max(peak[0], after["VmRSS"])
+    memory = {f"{k}_delta_kb": after[k] - before[k] for k in before}
+    memory["VmRSS_peak_delta_kb"] = peak[0] - before["VmRSS"]
+    return out, seconds, memory
+
+
+def host_core_native(checks, build_seconds, module_path):
+    """The native core: built from the checkout into the port's ``_build/``
+    and loaded under its package-qualified name (no JAX module in the
+    process)."""
+    from ctranslate2_tpu_torch import native
+    from ctranslate2_tpu_torch.kernels import build
+
+    module = native.load()
+    inside = os.path.dirname(os.path.abspath(module.__file__)) == os.path.abspath(
+        build.build_dir())
+    checks(inside and module.__file__ == module_path,
+           f"host_core: the native module lies in the port's build directory "
+           f"({module.__file__})")
+    checks(module.__name__ == "ctranslate2_tpu_torch.native.ct2tpu_host"
+           and "ct2tpu_host" not in sys.modules and "jax" not in sys.modules,
+           f"host_core: the native module is the port's own ({module.__name__})")
+    emit({"phase": "host_core_native", "build_seconds": build_seconds,
+          "module": os.path.relpath(module.__file__, os.getcwd()),
+          "name": module.__name__})
+
+
+def host_core_load(tt, llama, work, checks):
+    """The int8 Llama at ``MAIN_LAYERS`` written into the work directory and
+    loaded to the card twice, through the native index over a map of
+    model.bin and through the copying reader, each timed with this process's
+    host memory over the load; the two parameter trees must be bit-equal on
+    the card. The card is freed before the first load; the first tree stays
+    on it for the comparison."""
+    import torch
+    from ctranslate2_tpu_torch.formats.model_file import load_model_file_copied
+    from ctranslate2_tpu_torch.models.loader import load_model
+
+    path = os.path.join(work, "llama_int8")
+    _, write_s = synced_seconds(lambda: llama.save(path))
+    file_bytes = os.path.getsize(os.path.join(path, "model.bin"))
+    free_card()
+    out = {"file_bytes": file_bytes, "write_seconds": write_s,
+           "page_cache": "warm (the file was just written)"}
+    mapped, seconds, memory = host_memory_during(
+        lambda: load_model(path, compute_type="int8", device="cuda"))
+    out["mapped"] = {"seconds": seconds, "gbytes_per_s": file_bytes / seconds / 1e9,
+                     **memory}
+    gc.collect()
+    copied, seconds, memory = host_memory_during(
+        lambda: load_model(load_model_file_copied(path), compute_type="int8",
+                           device="cuda"))
+    out["copied"] = {"seconds": seconds, "gbytes_per_s": file_bytes / seconds / 1e9,
+                     **memory}
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            return [x for k, v in tree.items() for x in leaves(v, f"{prefix}/{k}")]
+        if isinstance(tree, (list, tuple)):
+            return [x for i, v in enumerate(tree) for x in leaves(v, f"{prefix}/{i}")]
+        return [(prefix, tree)] if torch.is_tensor(tree) else []
+
+    a, b = leaves(mapped.params), leaves(copied.params)
+    unequal = [name for (name, x), (_, y) in zip(a, b)
+               if not (x.is_cuda and x.dtype == y.dtype and torch.equal(x, y))]
+    checks(len(a) == len(b) and a and not unequal,
+           f"host_core load: the mapped and copied parameter trees are bit-equal on "
+           f"the card ({len(a)} and {len(b)} tensors, unequal: {unequal[:4]})")
+    out["param_tensors"] = len(a)
+    out["param_bytes"] = sum(x.numel() * x.element_size() for _, x in a)
+    out["bit_equal"] = not unequal
+    del mapped, copied, a, b
+    shutil.rmtree(path, ignore_errors=True)
+    free_card()
+    emit({"phase": "host_core_load", "config": dict(LLAMA, layers=MAIN_LAYERS), **out})
+
+
+def host_core_cli(tt, model_dir, batches, work, checks, logs):
+    """``cli.translate.main`` in process on the four phase-2 batches, int8,
+    beam 2, exactly 32 tokens, with ``--log_throughput`` and then also
+    ``--log_profiling``: its file must equal ``translate_file``'s on the same
+    input, line for line; the launch counters zeroed before each run and
+    read after."""
+    import io
+    from ctranslate2_tpu_torch.cli import translate as cli
+
+    sents = [s for b in batches[:4] for s in b]
+    src = os.path.join(work, "cli_src.txt")
+    with open(src, "w", encoding="utf-8") as f:
+        f.write("".join(" ".join(s) + "\n" for s in sents))
+    ref_path = os.path.join(work, "cli_ref.txt")
+    tr = tt.Translator(model_dir, compute_type="int8")
+    opts = {k: v for k, v in OPTS.items() if k != "return_scores"}
+    tr.translate_file(src, ref_path, max_batch_size=BATCH, **opts)
+    with open(ref_path, encoding="utf-8") as f:
+        ref = f.read().splitlines()
+    del tr
+    args = ["--model", model_dir, "--src", src, "--device", "cuda",
+            "--compute_type", "int8", "--beam_size", str(BEAM),
+            "--batch_size", str(BATCH), "--max_decoding_length", str(MAX_DEC),
+            "--min_decoding_length", str(MAX_DEC), "--log_throughput"]
+    out = {}
+    for label, extra in (("plain", []), ("log_profiling", ["--log_profiling"])):
+        path = os.path.join(work, f"cli_out_{label}.txt")
+        err = io.StringIO()
+        plain = {}
+        with watched(logs, plain), contextlib.redirect_stderr(err):
+            (rc, seconds) = synced_seconds(lambda: cli.main([*args, "--out", path, *extra]))
+            counts = tt.launch_counts()
+        check_path(f"host_core cli {label}", counts, ["matmul_w8a8", "fused_norm"],
+                   plain, checks)
+        with open(path, encoding="utf-8") as f:
+            lines = f.read().splitlines()
+        same = sum(a == b for a, b in zip(lines, ref))
+        checks(rc == 0 and len(lines) == len(ref) == len(sents) and same == len(ref),
+               f"host_core cli {label}: {same} of {len(lines)} lines equal to "
+               f"translate_file's ({len(ref)})")
+        text = err.getvalue().splitlines()
+        tok_s = [float(line.split(": ")[1]) for line in text
+                 if line.startswith("Tokens per second: ")]
+        checks(len(tok_s) == 1 and tok_s[0] > 0,
+               f"host_core cli {label}: --log_throughput printed tok/s ({tok_s})")
+        out[label] = {"seconds_with_load": seconds, "tokens_per_s": tok_s[0] if tok_s else None,
+                      "lines_equal": same, "launches": counts}
+        if extra:
+            rows = [line.split() for line in text if line.startswith("Translator.")]
+            checks(any(r[0] == "Translator.translate_batch" and int(r[1]) == 4 for r in rows),
+                   f"host_core cli: --log_profiling printed the scopes table ({rows})")
+            out[label]["profile_rows"] = rows
+    emit({"phase": "host_core_cli", "sentences": len(sents), **out})
+
+
+def host_core_scheduler(tt, model_dir, batches, checks, logs):
+    """``translation_scheduler`` on the native queue: one phase-2 batch
+    submitted a sentence at a time. Each batch the scheduler formed must
+    give what ``translate_batch`` gives on that batch, and each request its
+    row's result; the share equal to one ``translate_batch`` of all 64 is
+    recorded."""
+    from ctranslate2_tpu_torch import native
+
+    tr = tt.Translator(model_dir, compute_type="int8")
+    sents = batches[1][:HOST_CORE_SCHED_SENTENCES]
+    whole = tr.translate_batch(sents, **OPTS)
+
+    class Recorder:
+        def __init__(self):
+            self.calls = []
+
+        def translate_batch(self, examples, prefixes=None, **options):
+            results = tr.translate_batch(examples, prefixes, **options)
+            self.calls.append((list(examples), results))
+            return results
+
+    rec = Recorder()
+    sched = tt.translation_scheduler(rec, max_batch_size=BATCH, batch_timeout_ms=20.0)
+    plain = {}
+    try:
+        checks(type(sched._queue) is native.RequestQueue,
+               f"host_core scheduler: the queue is the native RequestQueue "
+               f"({type(sched._queue)})")
+        with watched(logs, plain):
+            futures, seconds = synced_seconds(
+                lambda: [f.result() for f in [sched.submit(s, **OPTS) for s in sents]])
+            counts = tt.launch_counts()
+    finally:
+        sched.close()
+    check_path("host_core scheduler", counts, ["matmul_w8a8", "fused_norm"], plain, checks)
+    rows = {}
+    for examples, results in rec.calls:
+        for ex, r in zip(examples, results):
+            rows.setdefault(tuple(ex), []).append(r.hypotheses)
+    again = [tr.translate_batch(examples, **OPTS) for examples, _ in rec.calls]
+    same_batch = all([r.hypotheses for r in a] == [r.hypotheses for r in res]
+                     for a, (_, res) in zip(again, rec.calls))
+    routed = all(f.hypotheses in rows.get(tuple(s), []) for f, s in zip(futures, sents))
+    same_whole = sum(f.hypotheses == w.hypotheses for f, w in zip(futures, whole))
+    checks(same_batch and routed and sum(len(e) for e, _ in rec.calls) == len(sents),
+           f"host_core scheduler: each batch equal to translate_batch on it "
+           f"({same_batch}), each request its row's result ({routed})")
+    emit({"phase": "host_core_scheduler", "requests": len(sents),
+          "batches": [len(e) for e, _ in rec.calls], "seconds": seconds,
+          "equal_to_one_translate_batch": same_whole, "launches": counts})
+    del tr
+
+
+def union_ms(intervals):
+    """The length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def host_core_replicas(tt, model_dir, batches, checks, logs):
+    """``Translator(device_index=[0, 0])``: two replicas on the card, one
+    CUDA stream each, the four phase-2 batches submitted at once; every
+    hypothesis must equal the one-replica Translator's on the same batches.
+    Target tok/s of one replica, of one replica with two workers (two
+    threads, one stream) and of two replicas; two batches of the
+    two-replica run profiled (busy share over the union of kernel
+    intervals, and over their sum), the
+    launch counters and shape logs over the run; then ``unload_model(
+    to_cpu=True)`` / ``load_model()`` must free and restore the one shared
+    tree. Last, the same batches through an ``Encoder`` of two replicas:
+    the card tensors its jobs return, read on this thread's stream, must
+    equal one replica's bit for bit."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sents = batches[:4]
+
+    def run(tr, batches=sents):
+        futures = [tr.translate_batch(b, asynchronous=True, **OPTS) for b in batches]
+        return [[r.result() for r in f] for f in futures]
+
+    def tokens(results):
+        return sum(len(r.hypotheses[0]) for res in results for r in res)
+
+    one = tt.Translator(model_dir, compute_type="int8")
+    run(one)  # warm-up
+    ref, one_s = synced_seconds(lambda: run(one))
+    del one
+    # Two workers on one replica (the default stream): what two threads
+    # cost without a second stream.
+    threads = tt.Translator(model_dir, compute_type="int8", inter_threads=2)
+    run(threads, sents[:2])  # warm-up, a batch a worker
+    two_workers, threads_s = synced_seconds(lambda: run(threads))
+    del threads
+    free_card()
+    two = tt.Translator(model_dir, device="cuda", device_index=HOST_CORE_REPLICAS,
+                        compute_type="int8")
+    m0, m1 = two._all_models()
+    streams = two._replica_streams
+    checks(two.num_replicas == 2 and two.num_workers == 2 and m0.params is m1.params
+           and len(streams) == 2 and streams[0] != streams[1],
+           "host_core replicas: two replicas sharing one tree, a stream each")
+    job_streams = {two._pool.submit(lambda: torch.cuda.current_stream().cuda_stream)
+                   .result() for _ in range(8)}
+    checks(job_streams <= {s.cuda_stream for s in streams},
+           f"host_core replicas: jobs run on the replicas' streams ({job_streams})")
+    run(two, sents[:2])  # warm-up, a batch a replica: each stream's workspaces
+    plain, before = {}, {k: sum(v.values()) for k, v in logs.items()}
+    with watched(logs, plain):
+        out, two_s = synced_seconds(lambda: run(two))
+        counts = tt.launch_counts()
+    check_path("host_core replicas", counts, ["matmul_w8a8", "fused_norm"], plain, checks)
+    check_logs_cover(counts, logs, before, "host_core replicas", checks)
+    same = sum(a.hypotheses == b.hypotheses for x, y in zip(out, ref) for a, b in zip(x, y))
+    total = sum(len(b) for b in sents)
+    checks(same == total, f"host_core replicas: {same} of {total} hypotheses equal to "
+                          "the one-replica Translator's")
+    # The device's busy share over two batches, one a replica (kernels
+    # only: the host's ops would multiply the profiler's work).
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        futures = [two.translate_batch(b, asynchronous=True, **OPTS) for b in sents[:2]]
+        [[r.result() for r in f] for f in futures]
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_union = union_ms([(e.time_range.start / 1e3, e.time_range.end / 1e3)
+                           for e in kernels])
+    busy_sum = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+    # Residency over both replicas: one shared tree out and back.
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        if isinstance(tree, (list, tuple)):
+            return [x for v in tree for x in leaves(v)]
+        return [tree] if torch.is_tensor(tree) else []
+
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves(m0.params))
+    torch.cuda.synchronize()
+    loaded = torch.cuda.memory_allocated()
+    _, unload_s = synced_seconds(lambda: two.unload_model(to_cpu=True))
+    unloaded = torch.cuda.memory_allocated()
+    dropped = m0.params is None and m1.params is None
+    _, load_s = synced_seconds(two.load_model)
+    reloaded = torch.cuda.memory_allocated()
+    checks(dropped and loaded - unloaded >= param_bytes and
+           param_bytes <= reloaded - unloaded < 1.5 * param_bytes and
+           two._all_models()[0].params is two._all_models()[1].params,
+           f"host_core replicas: the one shared tree freed ({loaded - unloaded} bytes) and "
+           f"restored once ({reloaded - unloaded} of {param_bytes} bytes)")
+    again = run(two, sents[:2])
+    checks([[r.hypotheses for r in x] for x in again]
+           == [[r.hypotheses for r in x] for x in out[:2]],
+           "host_core replicas: the same hypotheses after the reload")
+    num_replicas = two.num_replicas
+    del two, m0, m1
+    free_card()
+    # Card tensors that a job makes on a replica's stream and the caller
+    # reads on its own: the Translator's encoder, asynchronous batches
+    # through both replicas, bit-equal to one replica's.
+    enc = tt.Encoder(model_dir, compute_type="int8")
+    enc_ref = [enc.forward_batch(b).last_hidden_state for b in sents]
+    del enc
+    encs = tt.Encoder(model_dir, device="cuda", device_index=HOST_CORE_REPLICAS,
+                      compute_type="int8")
+    pending = [encs.forward_batch_async(b) for b in sents]
+    enc_equal = sum(torch.equal(p.result().last_hidden_state, r)
+                    for p, r in zip(pending, enc_ref))
+    checks(encs.num_replicas == 2 and enc_equal == len(sents),
+           f"host_core replicas: {enc_equal} of {len(sents)} Encoder batches through two "
+           "replicas bit-equal to one replica's")
+    del encs, pending, enc_ref
+    emit({"phase": "host_core_replicas", "num_replicas": num_replicas,
+          "device_index": HOST_CORE_REPLICAS, "sentences": total,
+          "one_replica": {"seconds": one_s, "target_tokens_per_s": tokens(ref) / one_s},
+          "one_replica_two_workers": {"seconds": threads_s,
+                                      "target_tokens_per_s": tokens(two_workers) / threads_s},
+          "two_replicas": {"seconds": two_s, "target_tokens_per_s": tokens(out) / two_s},
+          "hypotheses_equal": same, "encoder_batches_equal": enc_equal,
+          "launches": counts,
+          "profiled": {"batches": 2, "wall_ms": wall_ms, "device_busy_union_ms": busy_union,
+                       "device_busy_share": busy_union / wall_ms,
+                       "kernel_ms_summed": busy_sum,
+                       "kernel_launches": len(kernels)},
+          "residency": {"param_bytes": param_bytes, "freed_bytes": loaded - unloaded,
+                        "restored_bytes": reloaded - unloaded,
+                        "unload_seconds": unload_s, "load_seconds": load_s}})
+
+
 def main():
     import torch
 
@@ -6652,6 +7097,7 @@ def main():
     import ctranslate2_tpu_torch as tt
     from ctranslate2_tpu_torch.converters.builder import build_seq2seq_model
     from ctranslate2_tpu_torch.formats.vocabulary import Vocabulary, VocabularyInfo
+    from ctranslate2_tpu_torch import native
     from ctranslate2_tpu_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6662,13 +7108,32 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+    # The native host core (g++) builds while nvcc builds the kernels.
+    native_build = {}
+
+    def build_native():
+        try:
+            t0 = time.perf_counter()
+            native_build["path"] = native.build()
+            native_build["seconds"] = time.perf_counter() - t0
+        except BaseException as e:  # noqa: BLE001 - raised again below
+            native_build["error"] = e
+
+    native_thread = threading.Thread(target=build_native)
+    native_thread.start()
     build_seconds = build.build(ptxas_report=PTXAS_REPORT)
+    native_thread.join()
+    if "error" in native_build:
+        raise native_build["error"]
     emit({"phase": "ptxas", "report": {
         name: ptxas_summary(build.PTXAS_LOG.get(name, "")) for name in PTXAS_REPORT}})
     emit({"phase": "card", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": smi[0] if smi else None, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernels_built": list(build.KERNEL_SOURCES),
-          "kernel_build_seconds": build_seconds})
+          "kernel_build_seconds": build_seconds,
+          "kernel_build_seconds_by_source": dict(build.BUILD_SECONDS),
+          "kernel_build_units": build.KERNEL_UNITS,
+          "native_build_seconds": native_build["seconds"]})
 
     w8a8_memset_check(checks)
     work = tempfile.mkdtemp(prefix="smoke_", dir=build.build_dir())
@@ -6706,6 +7171,17 @@ def main():
         continuous_translator_spec(tt, int8_dir, batches, work, checks, spec_logs, ct_greedy)
         del ct_greedy
         free_card()
+        # ---- the host core: native module, CLI, scheduler, replicas ----
+        core_started = time.perf_counter()
+        core_logs = {}
+        host_core_native(checks, native_build["seconds"], native_build["path"])
+        host_core_cli(tt, int8_dir, batches, work, checks, core_logs)
+        free_card()
+        host_core_scheduler(tt, int8_dir, batches, checks, core_logs)
+        free_card()
+        host_core_replicas(tt, int8_dir, batches, checks, core_logs)
+        free_card()
+        core_seconds = time.perf_counter() - core_started
 
         # ---- main path 2: Generator ----
         t0 = time.perf_counter()
@@ -6718,6 +7194,11 @@ def main():
         emit({"phase": "llama_model", "config": dict(LLAMA, layers=MAIN_LAYERS),
               "int8_weight_bytes": llama_payload_bytes,
               "seconds": time.perf_counter() - t0})
+        # ---- the host core: the zero-copy load of this model ----
+        t0 = time.perf_counter()
+        host_core_load(tt, llama, work, checks)
+        core_seconds += time.perf_counter() - t0
+        emit({"phase": "host_core", "seconds": core_seconds})
         plain_calls = {}
         gen_counts, gen = generator_main_path(tt, llama, llama_vocab, checks, logs,
                                               plain_calls)
@@ -6807,39 +7288,44 @@ def main():
         fl = bench_flash(logs["flash_attention"], checks)
         free_card()
         de = bench_decode(logs["decode_attention_int8"], GEN_PROMPT - 1, GEN_NEW, checks)
-        bench_gemma2_attention(checks)
+        with untimed():
+            bench_gemma2_attention(checks)
         no = bench_norm(logs["fused_norm"], checks, awq_logs.get("fused_norm"))
         feature_checks(checks)
         w4 = bench_w4(awq_logs, checks)
         free_card()
-        bench_w4_crossover(checks)
-        free_card()
-        # The new paths' shapes that no main path gave a kernel: own rows,
-        # not summed into the totals.
-        fresh = new_shapes(new_logs, logs)
-        extra = dict(summed=False, paths="score_generator, score_translator, encoder, "
-                                         "sampling, host_loop_translator, "
-                                         "host_loop_generator, file_helpers")
-        bench_w8a8(fresh.get("matmul_w8a8", {}), checks, **extra)
-        free_card()
-        bench_flash(fresh.get("flash_attention", {}), checks, **extra)
-        free_card()
-        bench_norm(fresh.get("fused_norm", {}), checks, **extra)
-        bench_gather(fresh.get("gather_rows_fused", {}), checks, **extra)
-        bench_decode(fresh.get("decode_attention_int8", {}), GEN_PROMPT - 1, SAMPLE_NEW,
-                     checks, **extra)
-        free_card()
-        seen = {name: {**logs.get(name, {}), **new_logs.get(name, {}),
-                       **awq_logs.get(name, {})}
-                for name in set(logs) | set(new_logs) | set(awq_logs)}
-        seen = arch_benches(arch_logs, seen, checks)
-        seen = arch_benches(speech_logs, seen, checks, prefix="")
-        serving_benches(serve_logs, checks)
-        seen = {name: {**seen.get(name, {}), **serve_logs.get(name, {})}
-                for name in set(seen) | set(serve_logs)}
-        serving_beam_benches(beam_logs, seen, checks)
-        speculation_benches(spec_logs, {name: {**seen.get(name, {}), **beam_logs.get(name, {})}
-                                        for name in set(seen) | set(beam_logs)}, checks)
+        # The rows below (the W4 crossover and the shapes of the
+        # paths after the main ones, not summed into the totals) are held
+        # against their plain versions untimed: PERF.md records their times
+        # from earlier runs, and timing them again took about 140 s.
+        with untimed():
+            bench_w4_crossover(checks)
+            free_card()
+            fresh = new_shapes(new_logs, logs)
+            extra = dict(summed=False, paths="score_generator, score_translator, encoder, "
+                                             "sampling, host_loop_translator, "
+                                             "host_loop_generator, file_helpers")
+            bench_w8a8(fresh.get("matmul_w8a8", {}), checks, **extra)
+            free_card()
+            bench_flash(fresh.get("flash_attention", {}), checks, **extra)
+            free_card()
+            bench_norm(fresh.get("fused_norm", {}), checks, **extra)
+            bench_gather(fresh.get("gather_rows_fused", {}), checks, **extra)
+            bench_decode(fresh.get("decode_attention_int8", {}), GEN_PROMPT - 1, SAMPLE_NEW,
+                         checks, **extra)
+            free_card()
+            seen = {name: {**logs.get(name, {}), **new_logs.get(name, {}),
+                           **awq_logs.get(name, {})}
+                    for name in set(logs) | set(new_logs) | set(awq_logs)}
+            seen = arch_benches(arch_logs, seen, checks)
+            seen = arch_benches(speech_logs, seen, checks, prefix="")
+            serving_benches(serve_logs, checks)
+            seen = {name: {**seen.get(name, {}), **serve_logs.get(name, {})}
+                    for name in set(seen) | set(serve_logs)}
+            serving_beam_benches(beam_logs, seen, checks)
+            speculation_benches(spec_logs, {name: {**seen.get(name, {}),
+                                                   **beam_logs.get(name, {})}
+                                            for name in set(seen) | set(beam_logs)}, checks)
 
         # ---- the other Translator runs ----
         f16_counts = main_path(tt, float_dir, "float16", batches, checks, "float16", {})

@@ -962,6 +962,38 @@ int launch(const DecodeParams& p, int lanes, int gt, cudaStream_t stream) {
 
 }  // namespace
 
+// The kernels of one q dtype each. kernels/build.py compiles this source as
+// three units at once (-DCT2_UNIT=0, 1, 2), unit u holding dtype u's 16
+// instances (and unit 0 the entry point below), and links them into one
+// library.
+#ifndef CT2_UNIT
+#error "build decode_attention_int8.cu with -DCT2_UNIT=0, 1 or 2"
+#endif
+extern "C" int ct2_decode_launch_f32(const void* p, int lanes, int gt, void* stream);
+extern "C" int ct2_decode_launch_f16(const void* p, int lanes, int gt, void* stream);
+extern "C" int ct2_decode_launch_bf16(const void* p, int lanes, int gt, void* stream);
+
+#if CT2_UNIT == 0
+extern "C" int ct2_decode_launch_f32(const void* p, int lanes, int gt, void* stream) {
+  return launch<float>(*static_cast<const DecodeParams*>(p), lanes, gt,
+                       static_cast<cudaStream_t>(stream));
+}
+#endif
+#if CT2_UNIT == 1
+extern "C" int ct2_decode_launch_f16(const void* p, int lanes, int gt, void* stream) {
+  return launch<__half>(*static_cast<const DecodeParams*>(p), lanes, gt,
+                        static_cast<cudaStream_t>(stream));
+}
+#endif
+#if CT2_UNIT == 2
+extern "C" int ct2_decode_launch_bf16(const void* p, int lanes, int gt, void* stream) {
+  return launch<__nv_bfloat16>(*static_cast<const DecodeParams*>(p), lanes, gt,
+                               static_cast<cudaStream_t>(stream));
+}
+#endif
+
+#if CT2_UNIT == 0
+
 // q: [B, Hkv * G, D] of `dtype` (0 float32, 1 float16, 2 bfloat16); k8, v8:
 // int8 [B, Hkv, C, D]; k_scale, v_scale: f32 [B, Hkv, C]; all four 16-byte
 // aligned; lengths: int32 [B]; k_new, v_new: int8 [B, Hkv, D] or null
@@ -1009,9 +1041,9 @@ extern "C" int ct2_decode_attention_int8(
   p.splits = splits;
   p.gtiles = (G + gt - 1) / gt;
   if ((long long)Hkv * p.gtiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, lanes, gt, s);
-  if (dtype == 1) return launch<__half>(p, lanes, gt, s);
-  if (dtype == 2) return launch<__nv_bfloat16>(p, lanes, gt, s);
+  if (dtype == 0) return ct2_decode_launch_f32(&p, lanes, gt, stream);
+  if (dtype == 1) return ct2_decode_launch_f16(&p, lanes, gt, stream);
+  if (dtype == 2) return ct2_decode_launch_bf16(&p, lanes, gt, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+#endif

@@ -28,13 +28,22 @@ where ``str`` = u16 (len+1), utf-8 bytes, single 0x00 terminator.
 
 dtype_id order matches the reference DataType enum
 (reference: include/ctranslate2/types.h, python model_spec.py:280-289).
+
+``load_model_file`` and ``load_model_file_from_files`` read the header with
+the native core's ``parse_model_index`` and map every payload in place:
+each ``Variable.array`` is a view into a copy-on-write ``mmap`` of
+``model.bin`` (or into the in-memory bytes), so loading copies no payload
+on the host. ``_parse_model_bin``, which reads and copies every payload,
+is their plain version (``load_model_file_copied``).
 """
 
 from __future__ import annotations
 
 import json
+import mmap
 import os
 import struct
+import threading
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, Optional, Tuple
 
@@ -128,6 +137,16 @@ class ModelFile:
     aliases: Dict[str, str] = field(default_factory=dict)
     config: dict = field(default_factory=dict)
     path: Optional[str] = None
+    # The copy-on-write map of model.bin that the variables view, if any.
+    mapping: Optional[mmap.mmap] = field(default=None, repr=False, compare=False)
+
+    def release_pages(self) -> None:
+        """Drops the map's resident pages from this process (they stay in
+        the page cache): a variable read later faults its pages in from the
+        file again. Pages this process wrote would be lost, so this is for a
+        map whose payloads nothing wrote, as a load to a card leaves it."""
+        if self.mapping is not None:
+            self.mapping.madvise(mmap.MADV_DONTNEED)
 
     # ---- variable access (alias-aware), mirroring models::Model ----
 
@@ -194,8 +213,15 @@ class ModelFile:
         return num_aliased
 
     def save(self, directory: str) -> None:
+        """Writes ``model.bin`` (and ``config.json``) into ``directory``.
+        ``model.bin`` is written under a temporary name and renamed into
+        place: a model loaded from the old file maps its pages, which a
+        rewrite in place would cut from under it (this very ModelFile's
+        included, when it is saved back where it was loaded from)."""
         os.makedirs(directory, exist_ok=True)
-        with open(os.path.join(directory, "model.bin"), "wb") as f:
+        path = os.path.join(directory, "model.bin")
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        with open(tmp, "wb") as f:
             f.write(struct.pack("<I", CURRENT_BINARY_VERSION))
             _write_str(f, self.spec_name)
             f.write(struct.pack("<I", self.spec_revision))
@@ -213,6 +239,7 @@ class ModelFile:
             for alias, target in self.aliases.items():
                 _write_str(f, alias)
                 _write_str(f, target)
+        os.replace(tmp, path)
         if self.config:
             with open(os.path.join(directory, "config.json"), "w", encoding="utf-8") as f:
                 json.dump(self.config, f, indent=2, sort_keys=True)
@@ -289,15 +316,14 @@ def load_model_file_from_files(name: str, files: Dict[str, object]) -> ModelFile
     """Build a ModelFile from an in-memory ``{filename: content}`` mapping
     (reference: Translator(model_path, files=...) loads a model from
     memory without touching the filesystem — python/tests/
-    test_translator.py test_load_model_from_memory)."""
-    import io
-
+    test_translator.py test_load_model_from_memory). The variables are views
+    into the bytes of ``model.bin``, indexed by the native core."""
     if "model.bin" not in files:
         raise ValueError(
             f"in-memory model {name!r} is missing a model.bin entry")
     data = file_content_bytes(files["model.bin"])
     binary_version, spec_name, spec_revision, variables, aliases = (
-        _parse_model_bin(io.BytesIO(data)))
+        _indexed_model_bin(data))
     config = {}
     if "config.json" in files:
         config = json.loads(file_content_bytes(files["config.json"]))
@@ -312,19 +338,43 @@ def load_model_file_from_files(name: str, files: Dict[str, object]) -> ModelFile
     )
 
 
-def load_model_file(directory: str) -> ModelFile:
-    """Parse ``<directory>/model.bin`` (+ config.json) into a ModelFile."""
-    bin_path = os.path.join(directory, "model.bin")
-    with open(bin_path, "rb") as f:
-        binary_version, spec_name, spec_revision, variables, aliases = (
-            _parse_model_bin(f))
+def _indexed_model_bin(buf):
+    """``_parse_model_bin``'s result for the model.bin bytes in ``buf`` (any
+    buffer), with the header read by the native core's
+    ``parse_model_index`` and every payload a numpy view into ``buf``
+    (read-only or writable as ``buf`` is; not aligned to its item size
+    where the file does not place it so)."""
+    from ..native import parse_model_index
 
+    binary_version, spec_name, spec_revision, index, alias_pairs = (
+        parse_model_index(buf))
+    if binary_version > CURRENT_BINARY_VERSION:
+        raise ValueError(
+            f"unsupported binary version {binary_version} "
+            f"(max supported: {CURRENT_BINARY_VERSION})"
+        )
+    variables: Dict[str, Variable] = {}
+    for name, dtype_id, shape, offset, num_bytes in index:
+        dtype_name = _DTYPE_IDS[dtype_id]
+        dtype = np.dtype(_NUMPY_DTYPES[dtype_name])
+        arr = np.frombuffer(buf, dtype=dtype, count=num_bytes // dtype.itemsize,
+                            offset=offset).reshape(shape)
+        variables[name] = Variable(name, arr, dtype_name)
+    aliases: Dict[str, str] = {}
+    for alias, target in alias_pairs:
+        aliases[alias] = target
+        aliases[alias + "_scale"] = target + "_scale"
+        aliases[alias + "_zero"] = target + "_zero"
+    return binary_version, spec_name, spec_revision, variables, aliases
+
+
+def _directory_model_file(directory: str, parsed, mapping=None) -> ModelFile:
+    binary_version, spec_name, spec_revision, variables, aliases = parsed
     config = {}
     config_path = os.path.join(directory, "config.json")
     if os.path.isfile(config_path):
         with open(config_path, encoding="utf-8") as f:
             config = json.load(f)
-
     return ModelFile(
         spec_name=spec_name,
         spec_revision=spec_revision,
@@ -333,7 +383,26 @@ def load_model_file(directory: str) -> ModelFile:
         aliases=aliases,
         config=config,
         path=directory,
+        mapping=mapping,
     )
+
+
+def load_model_file(directory: str) -> ModelFile:
+    """Parse ``<directory>/model.bin`` (+ config.json) into a ModelFile
+    whose variables are views into a copy-on-write map of the file: the
+    payloads are read from the page cache when first touched, and a write
+    to one (an in-place op on a CPU tensor over it) copies that page for
+    this process alone, never into the file."""
+    with open(os.path.join(directory, "model.bin"), "rb") as f:
+        buf = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+    return _directory_model_file(directory, _indexed_model_bin(buf), buf)
+
+
+def load_model_file_copied(directory: str) -> ModelFile:
+    """``load_model_file``'s plain version: every payload read into an
+    array of its own by ``_parse_model_bin``."""
+    with open(os.path.join(directory, "model.bin"), "rb") as f:
+        return _directory_model_file(directory, _parse_model_bin(f))
 
 
 def make_variable(name: str, value, dtype: Optional[str] = None) -> Variable:

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import copy
 import os
 import threading
 from dataclasses import dataclass, field
@@ -150,20 +151,19 @@ def _legacy_config(mf: ModelFile) -> None:
         cfg.setdefault("eos_token", "</s>")
 
 
-def resolve_device(device: Optional[str] = None, device_index: int = 0
+def resolve_device(device: Optional[str] = None, device_index=0
                    ) -> torch.device:
     """Map a reference device string to a ``torch.device``.
 
     ``None``, ``"auto"`` and ``"cuda"`` select CUDA card ``device_index``
     and raise when CUDA is unavailable: the port never falls back to the
-    CPU on its own. ``"cpu"`` selects the CPU.
+    CPU on its own. ``"cpu"`` selects the CPU. A list of indices (one model
+    replica a listed device, ``resolve_devices``) gives its first device,
+    where replica 0 lives.
     """
-    device = (device or "cuda").lower()
     if isinstance(device_index, (list, tuple)):
-        if len(device_index) != 1:
-            raise NotImplementedError(
-                "one device per model: replicas are not ported yet")
-        device_index = device_index[0]
+        return resolve_devices(device, device_index)[0]
+    device = (device or "cuda").lower()
     if device == "cpu":
         return torch.device("cpu")
     if device not in ("auto", "cuda"):
@@ -177,6 +177,40 @@ def resolve_device(device: Optional[str] = None, device_index: int = 0
             f"device index {device_index} is out of range "
             f"({torch.cuda.device_count()} CUDA device(s) available)")
     return torch.device("cuda", device_index)
+
+
+def resolve_devices(device: Optional[str], device_index) -> List[torch.device]:
+    """The device of each data-parallel replica: one a listed index
+    (reference: ``device_index=[0, 1, ..]`` makes one model replica a
+    device, docs/parallel.md:17-40), a one-element list for a scalar index.
+    An index may repeat: two replicas on one card share its weights. Every
+    CPU index names the CPU, where ``device_index=[0, 1]`` gives two
+    replicas as two CPU devices do in the JAX package."""
+    indices = (list(device_index) if isinstance(device_index, (list, tuple))
+               else [device_index])
+    if not indices:
+        raise ValueError("device index list is empty (pass at least one "
+                         "device index)")
+    return [resolve_device(device, int(i)) for i in indices]
+
+
+def replicate_model(model: LoadedModel, device) -> LoadedModel:
+    """A replica of a loaded model on ``device`` (reference:
+    Model::copy_to a device, src/models/model.cc:786-811). The artifact,
+    vocabularies and spec are shared; the parameters are moved with
+    ``move_tree``, which returns the same tensors on the same device, so
+    replicas on one device share one parameter tree. Each replica has its
+    own position tables (``consts``, the same tensors on the same device
+    until one replica grows its own) and their lock."""
+    from ..runtime.base import move_tree
+
+    replica = copy.copy(model)
+    replica.device = torch.device(device)
+    if replica.device != model.device:
+        replica.params = move_tree(model.params, replica.device)
+    replica.consts = move_tree(model.consts, replica.device)
+    replica._consts_lock = threading.Lock()
+    return replica
 
 
 def load_model(
@@ -201,6 +235,10 @@ def load_model(
     policy = resolve_compute_type(compute_type, _weights_dtype(mf),
                                   device.type)
     params = build_params(mf, arch, policy, device)
+    if path and device.type != "cpu":
+        # The weights are on the card: the host keeps no page of the file
+        # this load mapped (the CPU's parameters would view them).
+        mf.release_pages()
     consts = transformer.make_consts(arch, params, max_positions, device)
 
     if mf.spec_name == "WhisperSpec":

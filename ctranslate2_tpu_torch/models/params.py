@@ -24,6 +24,11 @@ tensors on one device:
   C_in/groups, K], dequantized on load when the artifact stores them in
   int8, as the JAX package keeps them.
 
+The variables are views into ``model.bin``'s map, possibly read-only or
+unaligned: every payload goes through ``utils.transfer.to_device``, which
+uploads a view to the card as it is and copies on the CPU only what
+cannot be shared safely.
+
 ``params_from_numpy`` converts the JAX package's parameter tree (as numpy
 arrays) into the same layout, so both packages can run on identical
 weights (its stacked-layer tree too); ``cache_from_numpy`` does the same
@@ -41,6 +46,7 @@ import torch
 from ..formats.model_file import ModelFile, Variable
 from ..ops.awq import AWQ_GEMM, build_awq_linear_lazy
 from ..utils.dtypes import DTypePolicy
+from ..utils.transfer import to_device
 from .spec import ArchSpec, AttentionSpec, DecoderSpec, EncoderSpec
 
 
@@ -50,7 +56,7 @@ def _dequantize(var: Variable, scale: Optional[Variable], device) -> torch.Tenso
     scale there (an 8B model's int8 projection is 0.5 GB). The divisor is
     always a float32 tensor, which gives numpy's ``q / s`` to the bit: a
     Python-scalar divisor is multiplied by its reciprocal on the card."""
-    q = torch.from_numpy(np.ascontiguousarray(var.array)).to(device).to(torch.float32)
+    q = to_device(var.array, device, torch.float32)
     if scale is None:
         if var.dtype_name != "int16":
             return q
@@ -91,8 +97,7 @@ class ParamsBuilder:
         self.float_dtype = policy.float_weight_torch
 
     def tensor(self, array: np.ndarray, dtype=None) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(array))
-        return t.to(device=self.device, dtype=dtype or t.dtype)
+        return to_device(array, self.device, dtype)
 
     def float_tensor(self, var: Variable, dtype, transpose: bool = False) -> torch.Tensor:
         """A float variable in ``dtype`` on the device. float16 and float32

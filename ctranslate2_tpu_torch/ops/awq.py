@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.transfer import to_device
+
 # Nibble position of logical channel j inside a packed int32
 # (llm-awq pack order; its inverse is [0, 4, 1, 5, 2, 6, 3, 7]).
 AWQ_ORDER = np.array([0, 2, 4, 6, 1, 3, 5, 7])
@@ -227,7 +229,7 @@ def build_awq_linear_lazy(qweight: np.ndarray, scales: np.ndarray,
     tensors on ``device``."""
     device = torch.device(device)
     zeros, s = _zeros_scales_in_out(scales, qzeros, quant_type)
-    qw = torch.from_numpy(np.ascontiguousarray(qweight)).to(device)
+    qw = to_device(qweight, device)
     w4 = _torch_w4_in_out(qw, quant_type)
     del qw
     g_scale = torch.from_numpy(np.ascontiguousarray(s)).to(device)

@@ -27,7 +27,19 @@ def rebatch_input(
     batch_type: str = "examples",
 ) -> List[List[int]]:
     """Return batches of example indices, longest-first within and across
-    batches (reference: src/batch_reader.cc:174-227)."""
+    batches (reference: src/batch_reader.cc:174-227), by the native core's
+    ``rebatch`` (a stable sort: equal lengths keep their order)."""
+    from ..native import rebatch
+
+    return rebatch([int(n) for n in lengths], max_batch_size, batch_type)
+
+
+def rebatch_input_plain(
+    lengths: Sequence[int],
+    max_batch_size: int = 0,
+    batch_type: str = "examples",
+) -> List[List[int]]:
+    """``rebatch_input``'s plain version, in Python."""
     order = sorted(range(len(lengths)), key=lambda i: -lengths[i])
     if max_batch_size <= 0:
         return [order] if order else []

@@ -22,7 +22,6 @@ from ..ops.activations import get_activation
 from ..ops.linear import linear
 from .base import TaskAPIMixin, move_tree
 from .batching import normalize_input_ids, pad_batch
-from .pool import WorkerPool, resolve_max_queued_batches
 from .results import AsyncResult
 
 # The pooler's activation when the model names none: tanh, BERT's.
@@ -63,12 +62,17 @@ class Encoder(TaskAPIMixin):
             raise ValueError(
                 f"The model at {model_path} does not have an encoder")
         self._apply_flash_flag(kwargs)
-        self._pool = WorkerPool(
-            num_workers=max(1, inter_threads),
-            max_queued_batches=resolve_max_queued_batches(
-                kwargs, max_queued_batches),
-            device=self.model.device)
-        self._pooler = self._load_pooler()
+        self._init_replicas(device, device_index)
+        self._start_pool(inter_threads, max_queued_batches, kwargs)
+        pooler = self._load_pooler()
+        self._poolers = [None if pooler is None else
+                         (move_tree(pooler[0], m.device), pooler[1])
+                         for m in self._all_models()]
+
+    @property
+    def _pooler(self):
+        """The calling thread's replica's pooler, or None."""
+        return self._poolers[self._replica_index()]
 
     def _load_pooler(self):
         """(params, activation) of the BERT-style pooler, a dense layer on
@@ -85,16 +89,20 @@ class Encoder(TaskAPIMixin):
 
     def _unload_extra(self, to_cpu: bool) -> None:
         # The pooler's weights live beside the model's params.
-        if self._pooler is not None:
-            params, activation = self._pooler
+        if self._poolers[0] is not None:
+            params, activation = self._poolers[0]
             self._unloaded_pooler = (move_tree(params, "cpu") if to_cpu else None,
                                      activation)
-            self._pooler = None
+            self._poolers = [None] * len(self._poolers)
 
-    def _load_extra(self, device) -> None:
+    def _load_extra(self) -> None:
         kept = getattr(self, "_unloaded_pooler", None)
         if kept is not None:
-            self._pooler = (move_tree(kept[0], device), kept[1])
+            moved = {}
+            for m in self._all_models():
+                if m.device not in moved:
+                    moved[m.device] = (move_tree(kept[0], m.device), kept[1])
+            self._poolers = [moved[m.device] for m in self._all_models()]
             self._unloaded_pooler = None
 
     def forward_batch_async(self, inputs, lengths=None, token_type_ids=None):

@@ -25,7 +25,6 @@ from ..models import transformer as T
 from ..models.loader import LoadedModel, load_model, resolve_device
 from .base import TaskAPIMixin
 from .batching import normalize_input_ids, pad_batch
-from .pool import WorkerPool, resolve_max_queued_batches
 from .results import GenerationResult, GenerationStepResult, ScoringResult
 from .scoring import teacher_forced_logits, teacher_forced_scores
 
@@ -59,14 +58,11 @@ class Generator(TaskAPIMixin):
                 f"The model at {model_path} is not a decoder-only model "
                 "that can be used with Generator")
         self._apply_flash_flag(kwargs)
-        self._pool = WorkerPool(
-            num_workers=max(1, inter_threads),
-            max_queued_batches=resolve_max_queued_batches(
-                kwargs, max_queued_batches),
-            device=self.model.device)
         self.engine = DecodingEngine(self.model)
-        # Prefilled static prompts: (token ids, ring) -> (1-row cache, capacity)
-        # (reference: include/ctranslate2/layers/decoder.h:102-110).
+        self._init_replicas(device, device_index, DecodingEngine)
+        self._start_pool(inter_threads, max_queued_batches, kwargs)
+        # Prefilled static prompts: (token ids, ring, replica) -> (1-row
+        # cache, capacity) (reference: include/ctranslate2/layers/decoder.h:102-110).
         self._static_prompt_cache: Dict[Tuple[Tuple[int, ...], bool], tuple] = {}
         self._static_prompt_lock = threading.Lock()
 
@@ -183,7 +179,8 @@ class Generator(TaskAPIMixin):
         return self._run_batches([None] * len(start_tokens),
                                  list(range(len(start_tokens))),
                                  [len(s) for s in start_tokens], max_batch_size,
-                                 batch_type, run, asynchronous)
+                                 batch_type, run, asynchronous,
+                                 "Generator.generate_batch")
 
     def _resolve_end_token(self, end_token) -> tuple:
         v = self._vocab
@@ -226,7 +223,7 @@ class Generator(TaskAPIMixin):
         there, else a new prefill (cached when ``use_cache``). Never written
         by a decode: callers copy it."""
         model = self.model
-        key = (ids, ring)
+        key = (ids, ring, self._replica_index())
         if use_cache:
             with self._static_prompt_lock:
                 cached = self._static_prompt_cache.get(key)
@@ -362,7 +359,8 @@ class Generator(TaskAPIMixin):
 
         return self._run_batches(results, compute_idx,
                                  [len(tokens[i]) for i in compute_idx],
-                                 max_batch_size, batch_type, run, asynchronous)
+                                 max_batch_size, batch_type, run, asynchronous,
+                                 "Generator.score_batch")
 
     def _score_rows(self, rows, max_input_length, offset):
         v = self._vocab

@@ -8,8 +8,9 @@ bounded queue; a scheduler thread takes up to ``max_batch_size`` of them
 requests that share decoding options and runs each group as one batch
 call. Results resolve per-request futures.
 
-The queue is ``_PyQueue``, the JAX package's pure-Python queue with the
-native ``RequestQueue``'s semantics (the native core is not ported yet).
+The queue is the native core's ``RequestQueue`` (a bounded MPMC queue
+that waits for a batch without the GIL); ``_PyQueue`` is its plain
+version, in Python, with the same semantics.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import threading
 import time
 from concurrent.futures import Future
 from typing import Callable, Dict, List, Optional, Sequence
+
+from .. import native
 
 
 class _PyQueue:
@@ -98,7 +101,7 @@ class ServingScheduler:
         self._run_batch = run_batch
         self._max_batch_size = max_batch_size
         self._timeout_ms = batch_timeout_ms
-        self._queue = _PyQueue(max_queue_size)
+        self._queue = native.RequestQueue(max_queue_size)
         self._active = 0
         self._active_lock = threading.Lock()
         self._closed = False

@@ -35,7 +35,6 @@ from ..ops import attention as attn_ops
 from .base import TaskAPIMixin
 from .batching import (bucket_length, consume_stream, default_read_batch_size,
                        pad_batch)
-from .pool import WorkerPool, resolve_max_queued_batches
 from .results import (AsyncResult, ExecutionStats, GenerationStepResult,
                       ScoringResult, TranslationResult)
 from .scoring import teacher_forced_scores
@@ -95,12 +94,9 @@ class Translator(TaskAPIMixin):
                 f"The model at {model_path} is not an encoder-decoder model "
                 "that can be used with Translator")
         self._apply_flash_flag(kwargs)
-        self._pool = WorkerPool(
-            num_workers=max(1, inter_threads),
-            max_queued_batches=resolve_max_queued_batches(
-                kwargs, max_queued_batches),
-            device=self.model.device)
         self.engine = DecodingEngine(self.model)
+        self._init_replicas(device, device_index, DecodingEngine)
+        self._start_pool(inter_threads, max_queued_batches, kwargs)
         self._vmap = (None if self.model.vmap_lines is None else
                       VocabularyMap.from_lines(self.model.vmap_lines,
                                                self.model.target_vocabulary))
@@ -266,7 +262,8 @@ class Translator(TaskAPIMixin):
 
         return self._run_batches(results, compute_idx,
                                  [len(source[i]) for i in compute_idx],
-                                 max_batch_size, batch_type, run, asynchronous)
+                                 max_batch_size, batch_type, run, asynchronous,
+                                 "Translator.translate_batch")
 
     def _resolve_end_token(self, end_token) -> tuple:
         tv = self._target_vocab
@@ -654,7 +651,8 @@ class Translator(TaskAPIMixin):
 
         return self._run_batches(results, compute_idx,
                                  [len(source[i]) for i in compute_idx],
-                                 max_batch_size, batch_type, run, asynchronous)
+                                 max_batch_size, batch_type, run, asynchronous,
+                                 "Translator.score_batch")
 
     def _score_padded(self, source, target, max_input_length, start_id):
         model = self.model

@@ -21,7 +21,6 @@ from ..ops.conv import conv1d
 from ..ops.linear import linear
 from ..utils.dtypes import resolve_compute_type
 from .base import ModelResidency, TaskAPIMixin
-from .pool import WorkerPool, resolve_max_queued_batches
 
 
 def wav2vec2_forward(arch, params: dict, consts: dict, features,
@@ -83,10 +82,8 @@ class Wav2Vec2(TaskAPIMixin):
         if enc is None or not enc.is_wav2vec2:
             raise ValueError(f"The model at {model_path} is not a Wav2Vec2 model")
         self._apply_flash_flag(kwargs)
-        self._pool = WorkerPool(
-            num_workers=max(1, inter_threads),
-            max_queued_batches=resolve_max_queued_batches(kwargs, max_queued_batches),
-            device=self.model.device)
+        self._init_replicas(device, device_index)
+        self._start_pool(inter_threads, max_queued_batches, kwargs)
 
     def encode(self, features, to_cpu: bool = False):
         """[B, C, T] raw features -> CTC logits [B, T', vocabulary] (or the

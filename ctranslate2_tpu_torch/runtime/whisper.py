@@ -23,7 +23,6 @@ from ..models import transformer as T
 from ..models.loader import LoadedModel, load_model, resolve_device
 from ..ops import attention as attn_ops
 from .base import TaskAPIMixin
-from .pool import WorkerPool, resolve_max_queued_batches
 from .results import AsyncResult
 
 
@@ -115,11 +114,9 @@ class Whisper(TaskAPIMixin):
         if enc is None or not enc.num_conv_layers or self.model.arch.decoder is None:
             raise ValueError(f"The model at {model_path} is not a Whisper model")
         self._apply_flash_flag(kwargs)
-        self._pool = WorkerPool(
-            num_workers=max(1, inter_threads),
-            max_queued_batches=resolve_max_queued_batches(kwargs, max_queued_batches),
-            device=self.model.device)
         self.engine = DecodingEngine(self.model)
+        self._init_replicas(device, device_index, DecodingEngine)
+        self._start_pool(inter_threads, max_queued_batches, kwargs)
 
         v = self.model.target_vocabulary
         self._sot_id = v.bos_id

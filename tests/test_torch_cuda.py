@@ -17,8 +17,9 @@ tolerances below.
 
 It also holds the teacher-forced entry points (``score_batch``,
 ``forward_batch``, the Encoder) and random sampling on the card against the
-port on the CPU, and the sampler's frequencies on the card; and the
-JAX-free helpers other test files share: ``build_bert_model`` (a BERT-style
+port on the CPU, and the sampler's frequencies on the card; the mapped
+model load against the copying reader and two Translator replicas on one
+card, a CUDA stream each; and the JAX-free helpers other test files share: ``build_bert_model`` (a BERT-style
 encoder-only model) and the sampler's expected frequencies.
 """
 
@@ -2272,3 +2273,125 @@ def test_speculation_on_card_matches_cpu(small_decoder, small_seq2seq):
         for a, b in zip(card, cpu):
             assert a.sequences_ids == b.sequences_ids
             np.testing.assert_allclose(a.scores, b.scores, atol=1e-3, rtol=0)
+
+
+def _param_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _param_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _param_leaves(v)]
+    return [tree] if torch.is_tensor(tree) else []
+
+
+@pytest.fixture(scope="module")
+def small_seq2seq_int8(tmp_path_factory):
+    return build_seq2seq_model(str(tmp_path_factory.mktemp("s2s_int8_cuda")),
+                               vocab_size=200, d_model=256, d_ff=512,
+                               quantization="int8")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+def test_mapped_load_to_the_card_equals_the_copying_reader(
+        small_seq2seq, small_seq2seq_int8, quantized):
+    """The native index over a map of model.bin and the copying reader give
+    bit-equal parameters on the card; the map's pages are dropped from the
+    process after the upload and read back from the file on demand."""
+    from ctranslate2_tpu_torch.formats.model_file import (load_model_file,
+                                                          load_model_file_copied)
+    from ctranslate2_tpu_torch.models.loader import load_model
+
+    _card()
+    path = small_seq2seq_int8 if quantized else small_seq2seq
+    mapped = load_model(path, device="cuda")
+    copied = load_model(load_model_file_copied(path), device="cuda")
+    a, b = _param_leaves(mapped.params), _param_leaves(copied.params)
+    assert len(a) == len(b) and a
+    for x, y in zip(a, b):
+        assert x.is_cuda and x.dtype == y.dtype and torch.equal(x, y)
+    assert mapped.mf.mapping is not None and copied.mf.mapping is None
+    plain = load_model_file_copied(path)
+    for name, var in mapped.mf.variables.items():
+        assert var.array.tobytes() == plain.variables[name].array.tobytes()
+    assert load_model_file(path).mapping is not None
+
+
+@pytest.mark.cuda
+def test_two_replicas_on_one_card_with_streams(small_seq2seq_int8):
+    _card()
+    rng = np.random.default_rng(4)
+    source = [[f"tok{i}" for i in rng.integers(0, 190, rng.integers(3, 15))]
+              for _ in range(8)]
+    opts = dict(max_decoding_length=16)
+    one = tt.Translator(small_seq2seq_int8, device="cuda", compute_type="int8")
+    expected = [r.hypotheses for r in one.translate_batch(source, **opts)]
+    t = tt.Translator(small_seq2seq_int8, device="cuda", device_index=[0, 0],
+                      compute_type="int8")
+    assert t.num_replicas == 2 and len(t._replica_streams) == 2
+    streams = {s.cuda_stream for s in t._replica_streams}
+    assert len(streams) == 2
+    assert torch.cuda.default_stream(0).cuda_stream not in streams
+    m0, m1 = t._all_models()
+    assert m0.params is m1.params
+
+    def job_stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    assert {t._pool.submit(job_stream).result() for _ in range(8)} <= streams
+    calls = [t.translate_batch(source, max_batch_size=2, asynchronous=True, **opts)
+             for _ in range(4)]
+    for call in calls:
+        assert [r.result().hypotheses for r in call] == expected
+    t.unload_model(to_cpu=True)
+    assert m0.params is None and m1.params is None
+    t.load_model()
+    m0, m1 = t._all_models()
+    assert m0.params is m1.params
+    assert all(x.is_cuda for x in _param_leaves(m0.params))
+    assert [r.hypotheses for r in t.translate_batch(
+        source, max_batch_size=2, **opts)] == expected
+
+
+@pytest.mark.cuda
+def test_replica_stream_jobs_are_ordered_against_the_submitter():
+    """A job on a replica's stream waits for the work its submitter queued
+    (here a fill behind a spin of the default stream), and a card tensor
+    it returns is complete and recorded on the submitter's stream."""
+    from ctranslate2_tpu_torch.runtime.pool import WorkerPool
+
+    _card()
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.Stream(dev)
+    pool = WorkerPool(num_workers=1, device=[dev], streams=[stream])
+    try:
+        for _ in range(3):
+            x = torch.zeros(1 << 20, device=dev)
+            torch.cuda._sleep(100_000_000)  # tens of ms on the default stream
+            x.fill_(1.0)
+            out = pool.submit(lambda: (x + 1.0, [x * 3.0])).result()
+            assert torch.equal(out[0], torch.full_like(x, 2.0))
+            assert torch.equal(out[1][0], torch.full_like(x, 3.0))
+    finally:
+        pool.close()
+
+
+@pytest.mark.cuda
+def test_encoder_replicas_on_one_card_equal_one_replica(small_bert):
+    """``Encoder(device_index=[0, 0]).forward_batch_async``: card tensors
+    made on the replicas' streams and read on the caller's, bit-equal to
+    one replica's."""
+    _card()
+    rng = np.random.default_rng(12)
+    batches = [[[f"tok{int(t)}" for t in rng.integers(0, 190, n)]
+                for n in rng.integers(3, 90, 4)] for _ in range(6)]
+    one = tt.Encoder(small_bert, compute_type="float32")
+    expected = [one.forward_batch(b) for b in batches]
+    two = tt.Encoder(small_bert, compute_type="float32", device_index=[0, 0])
+    assert two.num_replicas == 2 and two.num_workers == 2
+    for _ in range(2):
+        pending = [two.forward_batch_async(b) for b in batches]
+        for p, ref in zip(pending, expected):
+            out = p.result()
+            assert out.last_hidden_state.is_cuda
+            assert torch.equal(out.last_hidden_state, ref.last_hidden_state)
+            assert torch.equal(out.pooler_output, ref.pooler_output)
