@@ -290,6 +290,28 @@ Phases, one JSON object per line:
    through the copying reader, each timed with this process's host memory
    over the load; the two trees bit-equal on the card).
 
+16. Tensor parallelism (after ``host_core_load``, on its file):
+   ``parallel_one_rank`` (an in-process NCCL group of one rank: the int8
+   Translator on ``PAR_SENTENCES`` phase-2 sentences and the int8 Llama at
+   ``MAIN_LAYERS`` with ``tensor_parallel=True`` bit-equal to the calls
+   without it; the group destroyed after); ``parallel_nccl_probe`` (two
+   ranks of one NCCL communicator on card 0: NCCL refuses them, the line
+   says how); ``parallel_two_ranks`` (two child ranks of this script,
+   ``--tp-rank``, on card 0 over gloo, started through
+   ``parallel/launch.py``: the Translator and the full-width int8 Llama
+   shards, their first-step log-probs fed this process's int8 activations
+   (``ReplayShards``: a row-parallel linear takes its columns) within
+   ``LOGPROB_TOL``; greedy on 2 x 2,049 (flash) and beam 2, a
+   ``ContinuousBatcher`` led by rank 0, their int8 partings from this
+   process's one-rank runs logged, not judged; the 2-layer Llama in float32
+   on the model axis, tokens identical; a 4,096-token ring prefill over a
+   data axis of 2, firing in both layers, tokens identical; the ring
+   against the plain attention at ``FLASH_TOL["float16"]``; ms a decode
+   step at 2 ranks against 1, the collectives' time from the port's scope
+   profiler, each rank's payload and peak memory). The kernel phase holds
+   the shard shapes against the plain versions untimed
+   (``parallel_benches``).
+
 The rows the kernel phase does not sum into the totals (the W4 crossover,
 Gemma-2-9B's attention and every later path's shapes) are held
 against their plain versions untimed (``untimed()``; their times in the
@@ -6785,8 +6807,9 @@ def host_core_native(checks, build_seconds, module_path):
 
 
 def host_core_load(tt, llama, work, checks):
-    """The int8 Llama at ``MAIN_LAYERS`` written into the work directory and
-    loaded to the card twice, through the native index over a map of
+    """The int8 Llama at ``MAIN_LAYERS`` written into the work directory
+    (``llama_int8``, kept for the parallel phases) and loaded to the card
+    twice, through the native index over a map of
     model.bin and through the copying reader, each timed with this process's
     host memory over the load; the two parameter trees must be bit-equal on
     the card. The card is freed before the first load; the first tree stays
@@ -6829,8 +6852,7 @@ def host_core_load(tt, llama, work, checks):
     out["param_bytes"] = sum(x.numel() * x.element_size() for _, x in a)
     out["bit_equal"] = not unequal
     del mapped, copied, a, b
-    shutil.rmtree(path, ignore_errors=True)
-    free_card()
+    free_card()  # the file stays for the parallel phases
     emit({"phase": "host_core_load", "config": dict(LLAMA, layers=MAIN_LAYERS), **out})
 
 
@@ -7088,15 +7110,495 @@ def host_core_replicas(tt, model_dir, batches, checks, logs):
                         "unload_seconds": unload_s, "load_seconds": load_s}})
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism: one in-process NCCL rank, then two ranks on the one
+# card over gloo (children of this script started through
+# ``parallel/launch.py``).
+# ---------------------------------------------------------------------------
+
+# The parallel phases' Llama calls: the first-step check on PAR_ROWS prompts
+# of PAR_SHORT (their int8 activations travel to the ranks through a file),
+# the timed greedy call on PAR_ROWS prompts of GEN_PROMPT (the flash
+# kernel's prefill) with PAR_NEW new tokens, beam 2 on one PAR_SHORT prompt,
+# and PAR_SERVE requests of PAR_SERVE_PROMPT tokens through the batcher.
+PAR_ROWS = 2
+PAR_SHORT = 257
+PAR_NEW = 16
+PAR_SERVE = 4
+PAR_SERVE_PROMPT = 64
+PAR_SENTENCES = 16  # of a phase-2 batch, for the Translator runs
+# The ring prefill: one prompt whose prefill is the ring's threshold, 4,096
+# tokens, over a data axis of 2 (two sequence slices of 2,048).
+PAR_RING_PROMPT = 4097
+PAR_TIMEOUT = 600  # seconds for the two ranks' job
+PAR_PROBE_TIMEOUT = 60  # seconds for the two-rank NCCL probe
+
+
+def par_prompts(vocab):
+    """(short prompts, long prompts, serving prompts, the ring's prompt)."""
+    short = make_prompts(vocab, PAR_SHORT, 11)[:PAR_ROWS]
+    long = make_prompts(vocab, GEN_PROMPT, 12)[:PAR_ROWS]
+    serve = [p[:PAR_SERVE_PROMPT - 3 * i] for i, p in
+             enumerate(make_prompts(vocab, PAR_SERVE_PROMPT, 13) * 2)][:PAR_SERVE]
+    ring = make_prompts(vocab, PAR_RING_PROMPT, 14)[:1]
+    return short, long, serve, ring
+
+
+def param_bytes(params):
+    import torch
+
+    def walk(t):
+        if isinstance(t, dict):
+            return sum(walk(v) for v in t.values())
+        if isinstance(t, (list, tuple)):
+            return sum(walk(v) for v in t)
+        return t.numel() * t.element_size() if torch.is_tensor(t) else 0
+    return walk(params)
+
+
+def par_llama_runs(tt, path, vocab, prompts, fed=None):
+    """The int8 Llama's runs (int8 KV cache) that one rank and two compare:
+    the first step's log-probs on the short prompts (recording the int8
+    activations, or fed ``fed``'s), the timed greedy call on the long
+    prompts with the profiler's time in collectives, beam 2 and the
+    batcher. Returns (results, shape logs, launch counts, plain calls)."""
+    import torch
+    from ctranslate2_tpu_torch.utils import profiler as P
+
+    short, long, serve, _ = prompts
+    out, logs, plain = {}, {}, {}
+    with environ(CT2TPU_KV_CACHE="int8"):
+        gen = make_generator(tt, path, vocab, compute_type="int8",
+                             tensor_parallel=fed is not None)
+        out["param_bytes"] = param_bytes(gen.model.params)
+        out["memory_allocated_after_load"] = torch.cuda.memory_allocated()
+        if fed is None:
+            recorded = []
+            out["logp"] = generator_first_step_logprobs(gen, short, record_quantized(recorded))
+            out["recorded"] = [(q.cpu(), s.cpu()) for q, s in recorded]
+        else:
+            replay = fed
+            out["logp"] = generator_first_step_logprobs(gen, short, replay)
+            out["fed"] = {"calls": replay.calls, "entries": replay.entries,
+                          "differing": replay.differing, "max_step": replay.max_step}
+        with watched(logs, plain):
+            res, seconds, prefill = generate_run(gen, long, PAR_NEW)
+            beam = gen.generate_batch(short[:1], beam_size=2, max_length=PAR_NEW,
+                                      include_prompt_in_result=False)
+            cb = tt.ContinuousBatcher(gen, num_slots=PAR_SERVE, capacity=256, steps_per_sync=4)
+            try:
+                if cb._leader:
+                    futs = [cb.submit(p, max_length=PAR_NEW) for p in serve]
+                    out["serve"] = [f.result(timeout=300).sequences_ids[0] for f in futs]
+            finally:
+                if cb._leader:
+                    cb.close()
+                else:
+                    cb.join(timeout=300)
+                    if cb._thread.is_alive():
+                        raise RuntimeError("the follower's batcher did not reach its close")
+            torch.cuda.synchronize()
+            counts = dict(tt.launch_counts())
+        out["greedy"] = [r.sequences_ids[0] for r in res]
+        out["beam"] = beam[0].sequences_ids[0]
+        out["ms_per_step"] = (seconds - prefill) / (PAR_NEW - 1) * 1e3
+        out["prefill_seconds"] = prefill
+        # The port's scope profiler (it sees the worker thread that runs the
+        # call): its comm:: scopes are the collectives.
+        P.init_profiling()
+        _, seconds_p, _ = generate_run(gen, long, PAR_NEW)
+        comm = {k: v for k, v in P.profiling_totals().items() if k.startswith("comm::")}
+        P.dump_profiling()
+        out["profiled_seconds"] = seconds_p
+        out["collective_ms_per_call"] = sum(v[1] for v in comm.values()) * 1e3
+        out["collective_calls"] = {k: v[2] for k, v in comm.items()}
+        out["peak_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del gen
+    free_card()
+    return out, logs, counts, plain
+
+
+def par_small_runs(tt, path, vocab, prompts, tensor_parallel=False, data_axis=False):
+    """The 2-layer Llama in float32: greedy on the short prompts, and the
+    ring's prompt (over a data axis of 2 with ``data_axis``); the ring
+    prefill's calls counted."""
+    from ctranslate2_tpu_torch.parallel import context as ctx_par
+
+    short, _, _, ring = prompts
+    out = {}
+    calls = []
+
+    def count(orig):
+        def wrapped(*a, **k):
+            calls.append(a[0].shape[2])
+            return orig(*a, **k)
+        return wrapped
+
+    kw = dict(tensor_parallel=True, device_index=[0, 1]) if data_axis else (
+        dict(tensor_parallel=True) if tensor_parallel else {})
+    gen = make_generator(tt, path, vocab, compute_type="float32", **kw)
+    if not data_axis:
+        out["greedy"] = [r.sequences_ids[0] for r in gen.generate_batch(
+            short, max_length=AB_NEW, include_prompt_in_result=False)]
+    with patched(ctx_par, "ring_attention_prefill", count):
+        out["ring"] = gen.generate_batch(ring, max_length=4,
+                                         include_prompt_in_result=False)[0].sequences_ids[0]
+    out["ring_calls"] = calls
+    del gen
+    free_card()
+    return out
+
+
+class ReplayShards(ReplayQuantized):
+    """``ReplayQuantized`` for a rank of a tensor-parallel model: a
+    row-parallel linear quantizes its slice of the input (the whole row's
+    scale, over the model group), so its recorded q is cut to the rank's
+    columns."""
+
+    def __init__(self, recorded, rank):
+        super().__init__(recorded)
+        self.rank = rank
+
+    def __call__(self, orig):
+        inner = super().__call__(orig)
+
+        def wrapped(q, scale, dtype):
+            q_rec, s_rec = self.recorded[self.calls]
+            if q_rec.shape[-1] != q.shape[-1]:
+                k = q.shape[-1]
+                self.recorded[self.calls] = (q_rec[..., self.rank * k:(self.rank + 1) * k],
+                                             s_rec)
+            return inner(q, scale, dtype)
+        return wrapped
+
+
+def ring_kernel_check(comm):
+    """``ring_attention_prefill`` over ``comm`` on random float16 q, k, v of
+    the Llama's heads at the ring's prompt against the plain attention on
+    the same inputs (float32 softmax, the flash rows' float16 tolerance)."""
+    import torch
+    from ctranslate2_tpu_torch.parallel.context import ring_attention_prefill
+
+    T = PAR_RING_PROMPT - 1
+    D = LLAMA["d_model"] // LLAMA["heads"]
+    g = torch.Generator(device="cuda").manual_seed(21)
+    q = torch.randn((1, LLAMA["heads"], T, D), generator=g, device="cuda").half()
+    k = torch.randn((1, LLAMA["heads_kv"], T, D), generator=g, device="cuda").half()
+    v = torch.randn((1, LLAMA["heads_kv"], T, D), generator=g, device="cuda").half()
+    out = ring_attention_prefill(q, k, v, scale=D ** -0.5, comm=comm)
+    G = LLAMA["heads"] // LLAMA["heads_kv"]
+    kk, vv = (t.float().repeat_interleave(G, dim=1) for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * D ** -0.5, kk)
+    s = s.masked_fill(~torch.ones(T, T, dtype=torch.bool, device="cuda").tril(), -1e30)
+    ref = torch.einsum("bhqk,bhkd->bhqd", s.softmax(-1), vv)
+    err = (out.float() - ref).abs().max().item()
+    ok = bool(torch.allclose(out.float(), ref, **FLASH_TOL["float16"]))
+    return {"shape": list(q.shape), "kv_heads": LLAMA["heads_kv"], "max_abs_err": err,
+            "within_tolerance": ok, "tolerance": FLASH_TOL["float16"]}
+
+
+def tp_rank_main(work):
+    """One rank of ``parallel_two_ranks`` (both on card 0, over gloo): the
+    runs of ``par_llama_runs`` and ``par_small_runs`` tensor-parallel, the
+    Translator's, the ring prefill over a data axis of 2 and the ring
+    against the plain attention; results into ``work``."""
+    import torch
+    import ctranslate2_tpu_torch as tt
+    from ctranslate2_tpu_torch.parallel.sharding import initialize_distributed, make_grid
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(backend="gloo")
+    grid = make_grid(1, "cuda")
+    rank = grid.rank
+    ref = torch.load(os.path.join(work, "par_ref.pt"), weights_only=False)
+    vocab = family_vocab(LLAMA["vocab"])
+    prompts = par_prompts(vocab)
+    out = {"rank": rank, "backend": torch.distributed.get_backend(),
+           "device": str(grid.device)}
+    tr = tt.Translator(ref["int8_dir"], compute_type="int8", tensor_parallel=True)
+    sents = ref["sentences"]
+    replay = ReplayShards(list(ref["translator_recorded"]), grid.model_rank)
+    out["translator_logp"] = first_step_logprobs(tr, sents, replay)
+    out["translator_fed"] = {"calls": replay.calls, "entries": replay.entries,
+                             "differing": replay.differing, "max_step": replay.max_step}
+    logs, plain = {}, {}
+    with watched(logs, plain):
+        out["translator"] = [r.hypotheses for r in tr.translate_batch(sents, **OPTS)]
+        torch.cuda.synchronize()
+        out["translator_counts"] = dict(tt.launch_counts())
+    del tr
+    free_card()
+    replay = ReplayShards(list(ref["llama"]["recorded"]), grid.model_rank)
+    llama, llogs, counts, lplain = par_llama_runs(tt, ref["llama_path"], vocab, prompts,
+                                                  fed=replay)
+    out["llama"], out["llama_counts"] = llama, counts
+    out["small"] = par_small_runs(tt, ref["small_path"], vocab, prompts, tensor_parallel=True)
+    out["ring"] = par_small_runs(tt, ref["small_path"], vocab, prompts, data_axis=True)
+    data = make_grid(2, "cuda").data
+    out["ring_kernel"] = ring_kernel_check(data)
+    out["logs"] = {name: {**logs.get(name, {}), **llogs.get(name, {})}
+                   for name in set(logs) | set(llogs)}
+    out["plain_calls"] = {**plain, **lplain}
+    torch.save(out, os.path.join(work, f"par_rank{rank}.pt"))
+    print(f"MP_OK rank={rank} backend={out['backend']} device={out['device']}", flush=True)
+
+
+def nccl_probe_main():
+    """One rank of the NCCL probe: both ranks on card 0 in one NCCL
+    communicator, one all-reduce."""
+    import torch
+    import torch.distributed as dist
+
+    rank = int(os.environ["RANK"])
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", rank=rank, world_size=int(os.environ["WORLD_SIZE"]))
+    t = torch.ones(4, device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    print(f"MP_OK rank={rank} nccl all_reduce={t.tolist()}", flush=True)
+    dist.destroy_process_group()
+
+
+def parallel_one_rank(tt, int8_dir, llama_path, vocab, sentences, checks):
+    """An in-process NCCL group of one rank: ``tensor_parallel=True`` on the
+    int8 Translator and the int8 Llama (``MAIN_LAYERS``) must give the
+    calls without it to the bit; the group is destroyed after."""
+    import torch
+    import torch.distributed as dist
+    from ctranslate2_tpu_torch.parallel.launch import free_port
+    from ctranslate2_tpu_torch.parallel.sharding import shutdown_distributed
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+        runs = []
+        for tp in (False, True):
+            tr = tt.Translator(int8_dir, compute_type="int8", tensor_parallel=tp)
+            res = tr.translate_batch(sentences, **OPTS)
+            runs.append([(r.hypotheses, r.scores) for r in res])
+            del tr
+            free_card()
+        checks(runs[0] == runs[1], "parallel_one_rank: the Translator with "
+               "tensor_parallel=True gives the call without it to the bit")
+        out["translator_bit_equal"] = runs[0] == runs[1]
+        short = make_prompts(vocab, PAR_SHORT, 11)[:PAR_ROWS]
+        runs = []
+        with environ(CT2TPU_KV_CACHE="int8"):
+            for tp in (False, True):
+                gen = make_generator(tt, llama_path, vocab, compute_type="int8",
+                                     tensor_parallel=tp)
+                res = gen.generate_batch(short, max_length=PAR_NEW, return_scores=True,
+                                         include_prompt_in_result=False)
+                runs.append([(r.sequences_ids, r.scores) for r in res])
+                del gen
+                free_card()
+        checks(runs[0] == runs[1], "parallel_one_rank: the Llama with "
+               "tensor_parallel=True gives the call without it to the bit")
+        out["llama_bit_equal"] = runs[0] == runs[1]
+    finally:
+        shutdown_distributed()
+    checks(not dist.is_initialized(), "parallel_one_rank: the group is destroyed")
+    emit({"phase": "parallel_one_rank", "sentences": len(sentences),
+          "llama": dict(LLAMA, layers=MAIN_LAYERS), "prompts": [PAR_ROWS, PAR_SHORT],
+          "new_tokens": PAR_NEW, "seconds": time.perf_counter() - t0, **out})
+
+
+def _partings(a, b):
+    """The rows of two token lists that part, with the step they part at."""
+    out = []
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            step = next((j for j, (s, t) in enumerate(zip(x, y)) if s != t),
+                        min(len(x), len(y)))
+            out.append({"row": i, "step": step})
+    return out
+
+
+def parallel_two_ranks(tt, int8_dir, llama, vocab, sentences, work, checks, logs):
+    """Two ranks on the one card over gloo (NCCL refuses two ranks of one
+    communicator on one device: the probe's line), started through
+    ``parallel/launch.py``, against this process's one-rank runs of the same
+    files: first-step log-probs fed the same int8 activations within
+    ``LOGPROB_TOL`` (Translator and the full-width int8 Llama), float32
+    tokens of the 2-layer Llama identical (the model axis and the ring
+    prefill over a data axis of 2), the ring against the plain attention at
+    the flash rows' float16 tolerance; the full-width int8 tokens'
+    partings logged, not judged. ``logs`` gets the ranks' kernel shapes."""
+    import torch
+    from ctranslate2_tpu_torch.parallel.launch import launch
+
+    t0 = time.perf_counter()
+    script = os.path.abspath(__file__)
+    env = dict(os.environ)
+    probe_dir = os.path.join(work, "nccl_probe")
+    rc, probe_logs = launch([script, "--nccl-probe"], 2, timeout=PAR_PROBE_TIMEOUT,
+                            env=env, log_dir=probe_dir)
+    reason = [line.strip() for log in probe_logs for line in log.splitlines()
+              if "Duplicate GPU" in line or "Error" in line][:2]
+    emit({"phase": "parallel_nccl_probe", "ranks": 2, "card": 0, "rc": rc,
+          "nccl_two_ranks_on_one_card": rc == 0, "first_error_lines": reason})
+
+    llama_path = os.path.join(work, "llama_int8")
+    small_path = os.path.join(work, "llama_small")
+    llama_subset(llama, AB_LAYERS).save(small_path)
+    prompts = par_prompts(vocab)
+    tr = tt.Translator(int8_dir, compute_type="int8")
+    recorded = []
+    tr_logp = first_step_logprobs(tr, sentences, record_quantized(recorded))
+    tr_hyps = [r.hypotheses for r in tr.translate_batch(sentences, **OPTS)]
+    del tr
+    free_card()
+    one, _, one_counts, _ = par_llama_runs(tt, llama_path, vocab, prompts)
+    small = par_small_runs(tt, small_path, vocab, prompts)
+    ref = {"int8_dir": int8_dir, "llama_path": llama_path, "small_path": small_path,
+           "sentences": sentences, "translator_recorded": [(q.cpu(), s.cpu())
+                                                          for q, s in recorded],
+           "llama": {"recorded": one["recorded"]}}
+    torch.save(ref, os.path.join(work, "par_ref.pt"))
+    tr_linears = len(recorded)
+    del ref, recorded
+    free_card()
+    ref_seconds = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    rc, rank_logs = launch([script, "--tp-rank", work], 2, timeout=PAR_TIMEOUT, env=env,
+                           log_dir=os.path.join(work, "tp_ranks"))
+    job_seconds = time.perf_counter() - t1
+    if rc:
+        for r, text in enumerate(rank_logs):
+            print(f"--- parallel rank {r} ---\n{text[-6000:]}", file=sys.stderr)
+    checks(rc == 0, f"parallel_two_ranks: both ranks ran to their end (rc {rc})")
+    if rc:
+        return
+    ranks = [torch.load(os.path.join(work, f"par_rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    fed_first_step = []
+    for r, out in enumerate(ranks):
+        label = f"parallel_two_ranks rank {r}"
+        checks(out["backend"] == "gloo" and out["device"] == "cuda:0",
+               f"{label}: gloo on cuda:0 ({out['backend']}, {out['device']})")
+        diff = (out["translator_logp"] - tr_logp).abs().max().item()
+        fed = out["translator_fed"]
+        checks(fed["calls"] == tr_linears > 0 and diff <= LOGPROB_TOL,
+               f"{label}: Translator first-step log-probs fed the one-rank run's int8 "
+               f"activations within {LOGPROB_TOL} (got {diff})")
+        share = fed["differing"] / max(fed["entries"], 1)
+        checks(fed["max_step"] <= 1 and share < QUANT_DIFF_SHARE,
+               f"{label}: the ranks' own int8 activations are at most one step from the "
+               f"one-rank run's on under {QUANT_DIFF_SHARE} of the entries "
+               f"(max step {fed['max_step']}, share {share})")
+        ldiff = (out["llama"]["logp"] - one["logp"]).abs().max().item()
+        lfed = out["llama"]["fed"]
+        lshare = lfed["differing"] / max(lfed["entries"], 1)
+        checks(lfed["calls"] == len(one["recorded"]) and ldiff <= LOGPROB_TOL,
+               f"{label}: Llama first-step log-probs fed the one-rank run's int8 "
+               f"activations within {LOGPROB_TOL} (got {ldiff}, {lfed['calls']} of "
+               f"{len(one['recorded'])} linears)")
+        fed_first_step.append({"translator_logprob_max_abs_diff": diff,
+                               "translator_int8_share_differing": share,
+                               "llama_logprob_max_abs_diff": ldiff,
+                               "llama_int8_share_differing": lshare,
+                               "llama_int8_max_step": lfed["max_step"]})
+        checks(lfed["max_step"] <= 1 and lshare < QUANT_DIFF_SHARE,
+               f"{label}: the Llama's own int8 activations at most one step from the "
+               f"one-rank run's on under {QUANT_DIFF_SHARE} (max step "
+               f"{lfed['max_step']}, share {lshare})")
+        checks(out["small"]["greedy"] == small["greedy"],
+               f"{label}: float32 2-layer tokens identical to one rank's")
+        checks(out["ring"]["ring"] == small["ring"] and len(out["ring"]["ring_calls"])
+               == AB_LAYERS, f"{label}: the ring prefill fired in every layer "
+               f"({out['ring']['ring_calls']}) and its float32 tokens equal one rank's")
+        checks(out["ring_kernel"]["within_tolerance"],
+               f"{label}: ring attention within the flash rows' float16 tolerance of the "
+               f"plain attention ({out['ring_kernel']['max_abs_err']})")
+        counts = {k: out["llama_counts"].get(k, 0) + out["translator_counts"].get(k, 0)
+                  for k in ("matmul_w8a8", "gather_rows_fused", "flash_attention",
+                            "decode_attention_int8", "fused_norm")}
+        check_path(label, counts, list(counts), out["plain_calls"], checks)
+        half = out["llama"]["param_bytes"] / one["param_bytes"]
+        checks(half <= 0.55, f"{label}: the rank holds about half the one-rank payload "
+               f"({half:.3f} of it)")
+        for name, shapes in out["logs"].items():
+            for key, n in shapes.items():
+                logs.setdefault(name, {})[key] = logs.get(name, {}).get(key, 0) + n
+    lead = ranks[0]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    emit({"phase": "parallel_two_ranks", "card": smi,
+          "label": "two ranks sharing one card over gloo (host-staged collectives): "
+                   "not a deployment, no target",
+          "backends": [out["backend"] for out in ranks],
+          "llama": dict(LLAMA, layers=MAIN_LAYERS), "compute_type": "int8",
+          "kv_cache": "int8",
+          "prompts": {"first_step": [PAR_ROWS, PAR_SHORT], "greedy": [PAR_ROWS, GEN_PROMPT],
+                      "new_tokens": PAR_NEW, "serve": [PAR_SERVE, PAR_SERVE_PROMPT],
+                      "ring": PAR_RING_PROMPT},
+          "fed_first_step": fed_first_step, "tolerance": LOGPROB_TOL,
+          "ms_per_step": {"one_rank": one["ms_per_step"],
+                          "two_ranks": [out["llama"]["ms_per_step"] for out in ranks]},
+          "prefill_seconds": {"one_rank": one["prefill_seconds"],
+                              "two_ranks": [out["llama"]["prefill_seconds"] for out in ranks]},
+          "collective_ms_per_greedy_call": [out["llama"]["collective_ms_per_call"]
+                                            for out in ranks],
+          "profiled_greedy_call_seconds": [out["llama"]["profiled_seconds"] for out in ranks],
+          "collective_calls": lead["llama"]["collective_calls"],
+          "param_bytes": {"one_rank": one["param_bytes"],
+                          "two_ranks": [out["llama"]["param_bytes"] for out in ranks]},
+          "peak_memory_allocated": {"one_rank": one["peak_memory_allocated"],
+                                    "two_ranks": [out["llama"]["peak_memory_allocated"]
+                                                  for out in ranks]},
+          "launches_llama": lead["llama_counts"], "launches_translator":
+              lead["translator_counts"],
+          "partings_int8_not_judged": {
+              "translator": _partings(lead["translator"], tr_hyps),
+              "greedy": _partings(lead["llama"]["greedy"], one["greedy"]),
+              "beam": _partings([lead["llama"]["beam"]], [one["beam"]]),
+              "serve": _partings(lead["llama"]["serve"], one["serve"])},
+          "ring_calls": lead["ring"]["ring_calls"], "ring_kernel": lead["ring_kernel"],
+          "one_rank_launches": one_counts,
+          "reference_seconds": ref_seconds, "job_seconds": job_seconds,
+          "seconds": time.perf_counter() - t0})
+    shutil.rmtree(small_path, ignore_errors=True)
+
+
+def parallel_benches(par_logs, seen, checks):
+    """The shapes the tensor-parallel ranks gave a kernel that no earlier
+    path did (the shards' widths), held against the plain versions
+    untimed, in rows of their own."""
+    fresh = new_shapes(par_logs, seen)
+    extra = dict(summed=False, paths="parallel_two_ranks (the model axis of 2)")
+    bench_w8a8(fresh.get("matmul_w8a8", {}), checks, **extra)
+    free_card()
+    bench_gather(fresh.get("gather_rows_fused", {}), checks, **extra)
+    bench_flash(fresh.get("flash_attention", {}), checks, **extra)
+    free_card()
+    bench_decode(fresh.get("decode_attention_int8", {}), GEN_PROMPT - 1, PAR_NEW, checks,
+                 **extra)
+    bench_norm(fresh.get("fused_norm", {}), checks, **extra)
+    free_card()
+    emit({"phase": "parallel_shapes", "shapes": {name: sorted(map(str, shapes))
+                                                 for name, shapes in fresh.items()}})
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank_main(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--nccl-probe"]:
+        nccl_probe_main()
+        return 0
     import ctranslate2_tpu_torch as tt
     from ctranslate2_tpu_torch.converters.builder import build_seq2seq_model
-    from ctranslate2_tpu_torch.formats.vocabulary import Vocabulary, VocabularyInfo
+    from ctranslate2_tpu_torch.formats.vocabulary import Vocabulary
     from ctranslate2_tpu_torch import native
     from ctranslate2_tpu_torch.kernels import build
 
@@ -7186,9 +7688,7 @@ def main():
         # ---- main path 2: Generator ----
         t0 = time.perf_counter()
         llama = build_llama_modelfile(MAIN_LAYERS)
-        llama_vocab = Vocabulary(
-            ["<unk>", "<s>", "</s>"] + [f"t{i}" for i in range(LLAMA["vocab"] - 3)],
-            VocabularyInfo(unk_token="<unk>", bos_token="<s>", eos_token="</s>"))
+        llama_vocab = family_vocab(LLAMA["vocab"])
         llama_payload_bytes = sum(v.array.nbytes for n, v in llama.variables.items()
                                   if n.endswith("/weight"))
         emit({"phase": "llama_model", "config": dict(LLAMA, layers=MAIN_LAYERS),
@@ -7199,6 +7699,18 @@ def main():
         host_core_load(tt, llama, work, checks)
         core_seconds += time.perf_counter() - t0
         emit({"phase": "host_core", "seconds": core_seconds})
+        # ---- tensor parallelism: one NCCL rank, then two ranks over gloo ----
+        t0 = time.perf_counter()
+        par_sentences = batches[1][:PAR_SENTENCES]
+        parallel_one_rank(tt, int8_dir, os.path.join(work, "llama_int8"), llama_vocab,
+                          par_sentences, checks)
+        free_card()
+        par_logs = {}
+        parallel_two_ranks(tt, int8_dir, llama, llama_vocab, par_sentences, work, checks,
+                           par_logs)
+        shutil.rmtree(os.path.join(work, "llama_int8"), ignore_errors=True)
+        free_card()
+        emit({"phase": "parallel", "seconds": time.perf_counter() - t0})
         plain_calls = {}
         gen_counts, gen = generator_main_path(tt, llama, llama_vocab, checks, logs,
                                               plain_calls)
@@ -7323,9 +7835,12 @@ def main():
             seen = {name: {**seen.get(name, {}), **serve_logs.get(name, {})}
                     for name in set(seen) | set(serve_logs)}
             serving_beam_benches(beam_logs, seen, checks)
-            speculation_benches(spec_logs, {name: {**seen.get(name, {}),
-                                                   **beam_logs.get(name, {})}
-                                            for name in set(seen) | set(beam_logs)}, checks)
+            seen = {name: {**seen.get(name, {}), **beam_logs.get(name, {})}
+                    for name in set(seen) | set(beam_logs)}
+            speculation_benches(spec_logs, seen, checks)
+            seen = {name: {**seen.get(name, {}), **spec_logs.get(name, {})}
+                    for name in set(seen) | set(spec_logs)}
+            parallel_benches(par_logs, seen, checks)
 
         # ---- the other Translator runs ----
         f16_counts = main_path(tt, float_dir, "float16", batches, checks, "float16", {})

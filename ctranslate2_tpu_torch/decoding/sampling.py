@@ -220,7 +220,9 @@ def draw_gumbel(generator: torch.Generator, shape, device):
 def noise_source(seed: int, device):
     """One call's noise: a function (step, shape, device) -> Gumbel noise,
     drawn in step order from one ``torch.Generator`` on ``device`` seeded
-    with ``seed``."""
+    with ``seed``. Under tensor parallelism every rank seeds its own with
+    the call's seed and draws over the same gathered logits, so the ranks
+    draw the same tokens with no broadcast."""
     generator = torch.Generator(device=device)
     generator.manual_seed(int(seed))
 

@@ -46,6 +46,9 @@ class LoadedModel:
     target_vocabulary: Optional[Vocabulary] = None
     # The model's vocabulary map (``vmap.txt``): its lines, or None.
     vmap_lines: Optional[List[str]] = None
+    # Tensor parallelism: the grid of ranks (``parallel/sharding.py``)
+    # whose shard ``params`` holds, and ``arch`` its local heads; else None.
+    grid: Optional[object] = None
     _consts_lock: object = field(default_factory=threading.Lock,
                                  repr=False, compare=False)
 
@@ -219,7 +222,12 @@ def load_model(
     max_positions: int = 2048,
     device="cuda",
     files=None,
+    grid=None,
 ) -> LoadedModel:
+    """The model at ``path`` on ``device``. With ``grid`` (tensor
+    parallelism) the params are built on the host, viewing the mapped file,
+    and only this rank's shard is moved to ``device``: no rank holds another
+    rank's payload on its card."""
     device = torch.device(device)
     if isinstance(path, ModelFile):
         mf = path
@@ -234,7 +242,14 @@ def load_model(
     arch = extract_arch(mf)
     policy = resolve_compute_type(compute_type, _weights_dtype(mf),
                                   device.type)
-    params = build_params(mf, arch, policy, device)
+    if grid is None:
+        params = build_params(mf, arch, policy, device)
+    else:
+        from ..parallel.sharding import apply_tensor_parallel, tree_to
+
+        params, arch = apply_tensor_parallel(
+            build_params(mf, arch, policy, "cpu", target=device), arch, grid)
+        params = tree_to(params, device)
     if path and device.type != "cpu":
         # The weights are on the card: the host keeps no page of the file
         # this load mapped (the CPU's parameters would view them).
@@ -300,4 +315,5 @@ def load_model(
         source_vocabularies=source_vocabularies,
         target_vocabulary=target_vocabulary,
         vmap_lines=vmap_lines,
+        grid=grid,
     )

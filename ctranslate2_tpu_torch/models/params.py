@@ -90,10 +90,14 @@ DECODER_LAYER_NORMS = ("shared_layer_norm",) + ENCODER_LAYER_NORMS + (
 
 
 class ParamsBuilder:
-    def __init__(self, mf: ModelFile, policy: DTypePolicy, device):
+    def __init__(self, mf: ModelFile, policy: DTypePolicy, device, target=None):
         self.mf = mf
         self.policy = policy
         self.device = torch.device(device)
+        # The device the params will run on, where they are built elsewhere
+        # first (tensor parallelism shards on the host): it picks the
+        # layouts that depend on the device.
+        self.target = torch.device(target) if target is not None else self.device
         self.float_dtype = policy.float_weight_torch
 
     def tensor(self, array: np.ndarray, dtype=None) -> torch.Tensor:
@@ -155,7 +159,7 @@ class ParamsBuilder:
         quant_type = int(self.mf.config.get("quantization_type", AWQ_GEMM))
         packed_env = os.environ.get("CT2TPU_W4_PACKED")
         use_packed = (packed_env == "1" if packed_env is not None
-                      else self.device.type == "cuda")
+                      else self.target.type == "cuda")
         # Packed rows split the in-dim in half: it must be even.
         payload_in = var.shape[0] if quant_type == AWQ_GEMM else var.shape[1] * 8
         return build_awq_linear_lazy(
@@ -356,8 +360,8 @@ class ParamsBuilder:
 
 
 def build_params(mf: ModelFile, arch: ArchSpec, policy: DTypePolicy,
-                 device="cpu") -> dict:
-    builder = ParamsBuilder(mf, policy, device)
+                 device="cpu", target=None) -> dict:
+    builder = ParamsBuilder(mf, policy, device, target)
     params: dict = {}
     if arch.encoder is not None:
         params["encoder"] = builder.encoder(arch.encoder)

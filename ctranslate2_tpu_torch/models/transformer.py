@@ -116,8 +116,11 @@ def make_consts(arch: ArchSpec, params: dict, max_positions: int = 4096,
         if rotary_layers:
             side_consts["rotary"] = rotary_layers
         if getattr(spec, "alibi", False):
-            side_consts["alibi_slopes"] = torch.from_numpy(
-                alibi_slopes(spec.num_heads)).to(device)
+            # A tensor-parallel shard carries the slopes of its heads.
+            slopes = params[side].get("alibi_slopes")
+            side_consts["alibi_slopes"] = (
+                slopes.to(device) if slopes is not None
+                else torch.from_numpy(alibi_slopes(spec.num_heads)).to(device))
         consts[side] = side_consts
     return consts
 
@@ -129,7 +132,19 @@ def make_consts(arch: ArchSpec, params: dict, max_positions: int = 4096,
 
 def embed_tokens(emb_params: dict, ids, out_dtype):
     """Gather embedding rows, dequantizing int8 payloads after the gather
-    (reference: src/layers/common.cc:66-81)."""
+    (reference: src/layers/common.cc:66-81). A vocabulary shard (tensor
+    parallelism) looks up the ids it holds, zeroes the others' rows and
+    sums the ranks' rows: exactly one rank adds a nonzero row."""
+    split = emb_params.get("tp")
+    if split is not None:
+        rows = (emb_params["wq"] if "wq" in emb_params else emb_params["w"]).shape[0]
+        local = ids - split.offset
+        inside = (local >= 0) & (local < rows)
+        out = embed_tokens({k: v for k, v in emb_params.items() if k != "tp"},
+                           torch.where(inside, local, torch.zeros_like(local)),
+                           out_dtype)
+        out = torch.where(inside[..., None], out, torch.zeros_like(out))
+        return split.comm.all_sum(out)
     if "wq" in emb_params:
         rows = emb_params["wq"][ids].float()
         scale = emb_params["scale"][ids]
@@ -601,6 +616,19 @@ def self_attention_block(
         k = _cache_write(cache["k"], k, w_off, ring)
         v = _cache_write(cache["v"], v, w_off, ring)
 
+    if (ctx is None and attn_cache is None and causal and T > 1 and extra_free
+            and not spec.sliding_window > 1):
+        # Context-parallel fresh prefill: a long prompt's attention splits
+        # its sequence over the data axis (ring attention), registered by
+        # tensor parallelism; the JAX package's dispatch conditions.
+        from ..parallel import context as ctx_par
+
+        cp = ctx_par.context_parallel_config()
+        if (cp is not None and T >= ctx_par.ring_prefill_min_len()
+                and ctx_par.ring_prefill_eligible(T, cp.size)):
+            ctx = ctx_par.ring_attention_prefill(
+                q, k, v, lengths=flash_lengths, scale=spec.queries_scale, comm=cp)
+
     if ctx is None:
         if attn_cache is None and _flash_eligible(
                 q, k, arch.flash_min_len, alibi_bias=alibi_bias,
@@ -764,6 +792,9 @@ def cross_attention_block(
         H, S = spec.num_heads, weights.shape[-1]
         weights = (weights.reshape(B, H, K, T, S).transpose(1, 2)
                    .reshape(BK, H, T, S))
+        split = ap["o"].get("tp")
+        if split is not None:  # every head's weights on every rank
+            weights = split.comm.all_gather(weights, dim=1)
     else:
         ctx = out
     ctx = attn_ops.combine_heads(ctx).reshape(BK, T, -1)

@@ -28,6 +28,14 @@ Param dict keys:
   ``g_zs``     AWQ per-group zero * scale (in/G, out), with ``w4p``
   ``b``        optional bias (out,)
 
+Under tensor parallelism a param dict may carry a ``"tp"`` entry
+(``parallel/sharding.py``'s ``Split``): a row-parallel linear (``"row"``)
+sums its float32 partial products over the model group before the bias,
+the activation and the residual, and under W8A8 quantizes its input with
+each row's absmax taken over the group, so that every rank's int8 step is
+the whole row's, as in the unsharded product the JAX package computes; the
+vocabulary projection (``"gather"``) gathers its output columns.
+
 An int8 linear also takes its input already quantized, as an
 ``Int8Activations``: the fused norm before it (``ops/norms.py``) quantizes
 its output once for every linear that reads it. Every (q, scale) that feeds
@@ -44,14 +52,19 @@ import torch
 from ..kernels.quant_matmul import matmul_w4a16, matmul_w4p, matmul_w8a8
 
 
-def quantize_per_row(x, round_before_cast: bool = True):
+def quantize_per_row(x, round_before_cast: bool = True, comm=None):
     """Quantize activations to int8 with per-row (last-axis) amax scales.
 
     Returns (q, scale) where ``x ≈ q / scale`` and scale has shape
     ``x.shape[:-1]``. ``torch.round`` rounds half to even, as ``jnp.rint``.
+    With ``comm`` (the model group of a row-parallel linear, whose input
+    rows are split over it) the amax is the whole row's, the maximum of
+    the ranks' amaxes.
     """
     x32 = x.float()
     amax = x32.abs().amax(dim=-1)
+    if comm is not None:
+        amax = comm.all_max(amax)
     # torch's ``scalar / tensor`` multiplies by a reciprocal; dividing two
     # tensors rounds once, as jnp does.
     scale = torch.where(amax > 0, torch.full_like(amax, 127.0) / amax,
@@ -83,9 +96,10 @@ def int8_activations(q, scale, dtype) -> Int8Activations:
     return Int8Activations(q, scale, dtype)
 
 
-def quantize_input(x) -> Int8Activations:
-    """``x`` quantized per row for the int8 linears that read it."""
-    q, scale = quantize_per_row(x)
+def quantize_input(x, comm=None) -> Int8Activations:
+    """``x`` quantized per row for the int8 linears that read it (``comm``:
+    as ``quantize_per_row``)."""
+    q, scale = quantize_per_row(x, comm=comm)
     return int8_activations(q, scale, x.dtype)
 
 
@@ -100,6 +114,8 @@ def linear(
     ``Int8Activations`` feeds an int8 linear as it is."""
     out_dtype = x.dtype
     bias = params.get("b")
+    split = params.get("tp")
+    row = split is not None and split.kind == "row"
     prequantized = isinstance(x, Int8Activations)
     if prequantized and not ("wq" in params and quantize_activations):
         raise ValueError("int8 activations feed only an int8 (W8A8) linear")
@@ -118,7 +134,7 @@ def linear(
         wq = params["wq"]  # [N, K]
         w_scale = params["scale"].float()
         if quantize_activations:
-            a = x if prequantized else quantize_input(x)
+            a = x if prequantized else quantize_input(x, split.comm if row else None)
             N, K = wq.shape
             # The kernel takes contiguous rows: a strided input (a transposed
             # convolution output) quantizes into a strided q.
@@ -131,6 +147,8 @@ def linear(
     else:
         y = torch.matmul(x, params["w"].to(x.dtype)).float()
 
+    if row:
+        y = split.comm.all_sum(y.float())
     if bias is not None:
         y = y + bias.float()
     if activation is not None:
@@ -138,5 +156,7 @@ def linear(
     y = y.to(out_dtype)
     if residual is not None:
         y = y + residual.to(out_dtype)
+    if split is not None and split.kind == "gather":
+        y = split.comm.all_gather(y, dim=-1)
     return y
 

@@ -10,7 +10,16 @@ device share one parameter tree; each has its own position tables, its
 own decoding engine and, on a card, its own CUDA stream. Residency
 (``unload_model`` / ``load_model``, the reference's replica pool detaching
 and setting its model: replica_pool.h:110-116) covers every replica and
-moves a shared tree once. Tensor parallelism is not ported yet.
+moves a shared tree once.
+
+``tensor_parallel=True`` (``_load_model``) loads this rank's shard of the
+model over the ``torch.distributed`` group (``parallel/sharding.py``; one
+process a rank, the group initialised from the launcher's environment
+where none is): a ``device_index`` list sizes the grid's data axis and
+makes no replicas. Every rank runs every call, and the calls must reach
+the ranks in one order, since each issues the model's collectives: one
+worker thread a model (``inter_threads`` > 1 raises). Every rank returns
+the whole result.
 """
 
 from __future__ import annotations
@@ -93,7 +102,7 @@ class ModelResidency:
 
     @property
     def tensor_parallel(self) -> bool:
-        return False
+        return getattr(self, "_tensor_parallel", False)
 
     def unload_model(self, to_cpu: bool = False):
         """Frees the weights' memory on the device(s), keeping one host copy
@@ -174,6 +183,25 @@ class TaskAPIMixin(ModelResidency):
     def engine(self, value):
         self._engine = value
 
+    def _load_model(self, model_path, compute_type, device, device_index,
+                    kwargs):
+        """The model at ``model_path`` on ``device``/``device_index``, or
+        with ``tensor_parallel=True`` this rank's shard of it on the rank's
+        card (its node-local rank modulo the visible cards) or the CPU."""
+        from ..models.loader import load_model, resolve_device
+
+        self._tensor_parallel = bool(kwargs.get("tensor_parallel", False))
+        grid = None
+        if self._tensor_parallel:
+            from ..parallel.sharding import setup_tensor_parallel
+
+            grid = setup_tensor_parallel(device or "cuda", device_index)
+            dev = grid.device
+        else:
+            dev = resolve_device(device, device_index)
+        return load_model(model_path, compute_type=compute_type,
+                          files=kwargs.get("files"), device=dev, grid=grid)
+
     def _all_models(self) -> list:
         if self._replicas:
             return [m for m, _ in self._replicas]
@@ -189,7 +217,10 @@ class TaskAPIMixin(ModelResidency):
         the first device; the others are ``replicate_model`` copies, each
         with an engine from ``engine_factory``. On a card every replica
         gets a CUDA stream of its own, which first waits for the work that
-        made the weights."""
+        made the weights. Under tensor parallelism the list sized the data
+        axis instead: no replicas."""
+        if self.tensor_parallel:
+            return
         devices = resolve_devices(device, device_index)
         if len(devices) < 2:
             return
@@ -208,6 +239,10 @@ class TaskAPIMixin(ModelResidency):
         devices x inter_threads, replica_pool.h:19-300); worker ``i`` runs
         on replica ``i % num_replicas``'s device and stream."""
         models = self._all_models()
+        if self.tensor_parallel and inter_threads > 1:
+            raise ValueError(
+                "tensor_parallel=True runs one worker thread (inter_threads=1): "
+                "every rank must issue the model's collectives in one order")
         self._pool = WorkerPool(
             num_workers=max(1, inter_threads) * len(models),
             max_queued_batches=resolve_max_queued_batches(kwargs,

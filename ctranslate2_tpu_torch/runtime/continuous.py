@@ -35,12 +35,25 @@ device: every step selects each slot's next K beams from its top 2K
 candidates, harvests finished hypotheses into a per-slot store and
 reorders the slot cache through the gather kernel (``cache_gather_rows``).
 
-Not ported yet (it raises ``NotImplementedError``): multi-host serving.
+Multi-process serving (the model loaded with ``tensor_parallel=True`` in
+every rank of a ``torch.distributed`` job): every rank constructs the
+batcher with the same arguments. Rank 0 leads: it owns the queue and the
+host bookkeeping (callbacks, cancellations, finishes) and broadcasts a
+control record before each admit (the slots it freed since the last record
+and the admitted requests, a Whisper admit's features included) and after
+an admit's first token (the slots that token freed). The followers replay
+the records, so every rank queues the same prefills and decode blocks, in
+one order, and the model's collectives meet. The records travel over a
+gloo group (``Grid.control``) in frames of ``parallel.comm.FRAME_BYTES``.
+A follower takes no requests: it serves until the leader closes, which
+``join()`` waits for. A draft model under more than one process raises
+``NotImplementedError``, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import queue
 import threading
 import time
@@ -227,9 +240,20 @@ class ContinuousBatcher:
             T.check_speculation_window(model.arch, speculation_k)
         if draft_model is not None and speculation_k <= 1:
             raise ValueError("draft_model requires speculation_k > 1")
+        self._dist = None  # the control group of a multi-process job
         if (torch.distributed.is_available() and torch.distributed.is_initialized()
                 and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError("multi-host continuous serving is not ported yet")
+            if getattr(model, "grid", None) is None:
+                raise ValueError(
+                    "multi-process continuous serving requires the model to be "
+                    "loaded with tensor_parallel=True")
+            if draft_model is not None:
+                raise NotImplementedError(
+                    "draft-model speculation is not supported in multi-process "
+                    "continuous serving")
+            self._dist = model.grid.control
+        self._leader = self._dist is None or self._dist.rank == 0
+        self._freed: List[int] = []  # the leader's frees not yet broadcast
         if self._beam > 1 and not 1 <= num_hypotheses <= self._beam:
             raise ValueError("num_hypotheses must be in [1, beam_size]")
         self._num_hyp = int(num_hypotheses)
@@ -294,8 +318,10 @@ class ContinuousBatcher:
             pipeline_depth = int(os.environ.get("CT2TPU_PIPELINE_DEPTH",
                                                 str(DEFAULT_PIPELINE_DEPTH)))
         self._depth = max(1, min(int(pipeline_depth), 4))
-        if self._spec_k > 1:
-            self._depth = 1  # host-driven: each dispatch reads the last one's tokens
+        if self._spec_k > 1 or self._dist is not None:
+            # Host-driven speculation reads the last dispatch's tokens; the
+            # ranks of a multi-process job replay one block at a time.
+            self._depth = 1
         self._ttfts = deque(maxlen=10000)
 
         # Host slot state.
@@ -495,6 +521,8 @@ class ContinuousBatcher:
         return self._enqueue(req)
 
     def _enqueue(self, req: _Request) -> Future:
+        if not self._leader:
+            raise RuntimeError("only rank 0 of a multi-process job takes requests")
         self._queue.put(req)
         self._wake.set()
         return req.future
@@ -1810,6 +1838,56 @@ class ContinuousBatcher:
             req.future.set_result(result)
 
     # ------------------------------------------------------------------
+    # Multi-process control records.
+    # ------------------------------------------------------------------
+
+    # The request fields a follower replays (the rest is the leader's).
+    _REPLAY_FIELDS = ("prompt_ids", "max_length", "min_length", "temperature", "topk",
+                      "topp", "seed", "end_ids", "rep_penalty", "ngram", "suppress_ids",
+                      "stop_sequences", "num_hypotheses", "start_id", "prefix_ids",
+                      "forced_len", "feature_ids", "features", "ts_on")
+
+    def _tracked(self, harvest) -> None:
+        """Runs ``harvest``; on the leader of a job, records the slots it
+        freed for the next control record."""
+        before = [s is not None for s in self._slots]
+        harvest()
+        if self._dist is not None:
+            self._freed += [i for i, (b, s) in enumerate(zip(before, self._slots))
+                            if b and s is None]
+
+    def _send(self, admits=(), close: bool = False) -> None:
+        record = {"free": self._freed, "close": close,
+                  "admits": [(slot, {f: getattr(req, f) for f in self._REPLAY_FIELDS})
+                             for slot, req in admits]}
+        self._freed = []
+        self._dist.broadcast_bytes(pickle.dumps(record))
+
+    def _receive(self) -> dict:
+        record = pickle.loads(self._dist.broadcast_bytes(None))
+        for i in record["free"]:
+            if self._beam > 1:
+                self._bstate["active"][i] = False
+                self._b_active_host[i] = False
+            self._slots[i] = None
+        return record
+
+    def _follower_loop(self) -> None:
+        """Replays the leader's records: its frees, its admits and, with
+        the slots both leave active, the same decode blocks."""
+        while True:
+            record = self._receive()
+            if record["close"]:
+                return
+            for slot, fields in record["admits"]:
+                self._prefill_into_slot(slot, _Request(**fields))
+            if record["admits"] and self._beam == 1:
+                self._receive()
+            active = [i for i, s in enumerate(self._slots) if s is not None]
+            if active:
+                self._consume_any(self._dispatch_any(active))
+
+    # ------------------------------------------------------------------
     # Scheduler loop.
     # ------------------------------------------------------------------
 
@@ -1817,13 +1895,19 @@ class ContinuousBatcher:
         try:
             if self._device.type == "cuda":
                 torch.cuda.set_device(self._device)
+            if not self._leader:
+                self._follower_loop()
+                return
             # Up to self._depth blocks in flight: the host reads block N
             # while block N+1 runs on the card.
             inflight = deque()
             while True:
-                self._harvest_any()
+                self._tracked(self._harvest_any)
+                admits = self._collect_admits()
+                if self._dist is not None and (admits or any(self._slots)):
+                    self._send(admits)
                 admitted = False
-                for slot, req in self._collect_admits():
+                for slot, req in admits:
                     self._admitting = req  # failed with the rest if the admit raises
                     self._prefill_into_slot(slot, req)
                     self._admitting = None
@@ -1832,11 +1916,15 @@ class ContinuousBatcher:
                     # An admit's first token may end its request (an end
                     # token, max_length 1): it finishes before the next
                     # dispatch decodes past it.
-                    self._harvest()
+                    self._tracked(self._harvest)
+                    if self._dist is not None:
+                        self._send()
                 active = [i for i, s in enumerate(self._slots) if s is not None]
                 if not active and not inflight:
                     if self._closed:
                         self._fail_pending(RuntimeError("Batcher closed"))
+                        if self._dist is not None:
+                            self._send(close=True)
                         return
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..models import transformer as T
-from ..models.loader import LoadedModel, load_model, resolve_device
+from ..models.loader import LoadedModel
 from ..models.params import ParamsBuilder
 from ..ops.activations import get_activation
 from ..ops.linear import linear
@@ -53,11 +53,8 @@ class Encoder(TaskAPIMixin):
         max_queued_batches: int = 0,
         **kwargs,
     ):
-        if kwargs.get("tensor_parallel"):
-            raise NotImplementedError("tensor parallelism is not ported yet")
-        self.model: LoadedModel = load_model(
-            model_path, compute_type=compute_type, files=kwargs.get("files"),
-            device=resolve_device(device, device_index))
+        self.model: LoadedModel = self._load_model(
+            model_path, compute_type, device, device_index, kwargs)
         if self.model.arch.encoder is None:
             raise ValueError(
                 f"The model at {model_path} does not have an encoder")

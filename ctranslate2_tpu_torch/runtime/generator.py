@@ -22,7 +22,7 @@ import torch
 from ..decoding.engine import DecodingEngine, _round_up
 from ..decoding.options import DecodingOptions
 from ..models import transformer as T
-from ..models.loader import LoadedModel, load_model, resolve_device
+from ..models.loader import LoadedModel
 from .base import TaskAPIMixin
 from .batching import normalize_input_ids, pad_batch
 from .results import GenerationResult, GenerationStepResult, ScoringResult
@@ -48,11 +48,8 @@ class Generator(TaskAPIMixin):
         max_queued_batches: int = 0,
         **kwargs,
     ):
-        if kwargs.get("tensor_parallel"):
-            raise NotImplementedError("tensor parallelism is not ported yet")
-        self.model: LoadedModel = load_model(
-            model_path, compute_type=compute_type, files=kwargs.get("files"),
-            device=resolve_device(device, device_index))
+        self.model: LoadedModel = self._load_model(
+            model_path, compute_type, device, device_index, kwargs)
         if not self.model.is_decoder_only:
             raise ValueError(
                 f"The model at {model_path} is not a decoder-only model "

@@ -30,7 +30,7 @@ from ..decoding.engine import DecodingEngine
 from ..decoding.options import DecodingOptions
 from ..formats.vocabulary_map import VocabularyMap
 from ..models import transformer as T
-from ..models.loader import LoadedModel, load_model, resolve_device
+from ..models.loader import LoadedModel
 from ..ops import attention as attn_ops
 from .base import TaskAPIMixin
 from .batching import (bucket_length, consume_stream, default_read_batch_size,
@@ -84,11 +84,8 @@ class Translator(TaskAPIMixin):
         max_queued_batches: int = 0,
         **kwargs,
     ):
-        if kwargs.get("tensor_parallel"):
-            raise NotImplementedError("tensor parallelism is not ported yet")
-        self.model: LoadedModel = load_model(
-            model_path, compute_type=compute_type, files=kwargs.get("files"),
-            device=resolve_device(device, device_index))
+        self.model: LoadedModel = self._load_model(
+            model_path, compute_type, device, device_index, kwargs)
         if not self.model.is_sequence_to_sequence:
             raise ValueError(
                 f"The model at {model_path} is not an encoder-decoder model "
@@ -318,13 +315,30 @@ class Translator(TaskAPIMixin):
         proj = self.model.params["decoder"]["projection"]
         device = self.model.device
         idx = torch.tensor(ids, dtype=torch.long, device=device)
+        split = proj.get("tp")
+        inside = None
+        if split is not None:
+            # A vocabulary shard (tensor parallelism): the candidates it
+            # holds, zero columns for the others, the ranks' products summed
+            # (a row-parallel linear over a replicated input).
+            rows = proj["wq"].shape[0] if "wq" in proj else proj["w"].shape[1]
+            local = idx - split.offset
+            inside = (local >= 0) & (local < rows)
+            idx = torch.where(inside, local, torch.zeros_like(local))
         if "w" in proj:  # float: w (in, out)
-            new_proj = {"w": proj["w"].index_select(1, idx)}
+            w = proj["w"].index_select(1, idx)
+            new_proj = {"w": w if inside is None else w * inside[None, :].to(w.dtype)}
         else:  # W8A8: wq (out, in), one scale an output
-            new_proj = {"wq": proj["wq"].index_select(0, idx),
+            wq = proj["wq"].index_select(0, idx)
+            new_proj = {"wq": wq if inside is None else wq * inside[:, None].to(wq.dtype),
                         "scale": proj["scale"].index_select(0, idx)}
         bias = (proj["b"].float().index_select(0, idx) if "b" in proj
                 else torch.zeros(len(ids), dtype=torch.float32, device=device))
+        if inside is not None:
+            from ..parallel.sharding import Split
+
+            bias = split.comm.all_sum(torch.where(inside, bias, torch.zeros_like(bias)))
+            new_proj["tp"] = Split("row", split.comm)
         if pad:
             bias[len(ids) - pad:] = -1e10
         new_proj["b"] = bias

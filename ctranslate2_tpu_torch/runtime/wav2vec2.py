@@ -15,7 +15,7 @@ import torch
 from ..formats.model_file import ModelFile, load_model_file
 from ..models import transformer as T
 from ..models import wav2vec2bert as W
-from ..models.loader import LoadedModel, load_model, resolve_device
+from ..models.loader import LoadedModel, resolve_device
 from ..ops.activations import gelu
 from ..ops.conv import conv1d
 from ..ops.linear import linear
@@ -73,11 +73,8 @@ class Wav2Vec2(TaskAPIMixin):
                  compute_type: str = "default", device_index=0,
                  inter_threads: int = 1, intra_threads: int = 0,
                  max_queued_batches: int = 0, **kwargs):
-        if kwargs.get("tensor_parallel"):
-            raise NotImplementedError("tensor parallelism is not ported yet")
-        self.model: LoadedModel = load_model(
-            model_path, compute_type=compute_type, files=kwargs.get("files"),
-            device=resolve_device(device, device_index))
+        self.model: LoadedModel = self._load_model(
+            model_path, compute_type, device, device_index, kwargs)
         enc = self.model.arch.encoder
         if enc is None or not enc.is_wav2vec2:
             raise ValueError(f"The model at {model_path} is not a Wav2Vec2 model")
@@ -106,9 +103,15 @@ class Wav2Vec2Bert(ModelResidency):
 
     def __init__(self, model_path: str, device: Optional[str] = None,
                  compute_type: str = "default", device_index=0, **kwargs):
-        if kwargs.get("tensor_parallel"):
-            raise NotImplementedError("tensor parallelism is not ported yet")
-        self._device = resolve_device(device, device_index)
+        # Under tensor parallelism the conformer runs replicated on every
+        # rank, as the JAX package runs it under its mesh.
+        self._tensor_parallel = bool(kwargs.get("tensor_parallel", False))
+        if self._tensor_parallel:
+            from ..parallel.sharding import setup_tensor_parallel
+
+            self._device = setup_tensor_parallel(device or "cuda", device_index).device
+        else:
+            self._device = resolve_device(device, device_index)
         # A directory, or a ModelFile already in memory (as load_model takes).
         self.mf = (model_path if isinstance(model_path, ModelFile)
                    else load_model_file(model_path))

@@ -20,7 +20,7 @@ import torch
 from ..decoding.engine import DecodingEngine, _round_up
 from ..decoding.options import DecodingOptions
 from ..models import transformer as T
-from ..models.loader import LoadedModel, load_model, resolve_device
+from ..models.loader import LoadedModel
 from ..ops import attention as attn_ops
 from .base import TaskAPIMixin
 from .results import AsyncResult
@@ -105,11 +105,8 @@ class Whisper(TaskAPIMixin):
                  compute_type: str = "default", device_index=0,
                  inter_threads: int = 1, intra_threads: int = 0,
                  max_queued_batches: int = 0, **kwargs):
-        if kwargs.get("tensor_parallel"):
-            raise NotImplementedError("tensor parallelism is not ported yet")
-        self.model: LoadedModel = load_model(
-            model_path, compute_type=compute_type, files=kwargs.get("files"),
-            device=resolve_device(device, device_index))
+        self.model: LoadedModel = self._load_model(
+            model_path, compute_type, device, device_index, kwargs)
         enc = self.model.arch.encoder
         if enc is None or not enc.num_conv_layers or self.model.arch.decoder is None:
             raise ValueError(f"The model at {model_path} is not a Whisper model")

@@ -76,6 +76,12 @@ def profile(name: str):
             entry[2] += 1
 
 
+def profiling_totals() -> dict:
+    """{scope: (self seconds, cumulative seconds, calls)} so far."""
+    with _lock:
+        return {name: tuple(v) for name, v in _totals.items()}
+
+
 def dump_profiling(output: Optional[TextIO] = None) -> str:
     """Stops profiling and returns the table (also written to ``output``)."""
     global _enabled

@@ -354,5 +354,5 @@ def test_multi_host_serving_raises(paths, monkeypatch):
     gen = tt.Generator(paths["generator"], device="cpu")
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="multi-host"):
+    with pytest.raises(ValueError, match="tensor_parallel=True"):
         tt.ContinuousBatcher(gen)

@@ -127,8 +127,8 @@ def test_speech_encoders_want_cuda_by_default(wav2vec2_dirs, w2v_bert_dirs):
         tt.Wav2Vec2(wav2vec2_dirs["float32"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tt.Wav2Vec2Bert(w2v_bert_dirs["float32"])
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        tt.Wav2Vec2(wav2vec2_dirs["float32"], device="cpu", tensor_parallel=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tt.Wav2Vec2(wav2vec2_dirs["float32"], tensor_parallel=True)
 
 
 def test_speech_encoders_reject_other_models(wav2vec2_dirs, w2v_bert_dirs):

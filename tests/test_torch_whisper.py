@@ -104,8 +104,8 @@ def test_whisper_wants_cuda_by_default(dirs):
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tt.Whisper(dirs["float32"])
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        tt.Whisper(dirs["float32"], device="cpu", tensor_parallel=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tt.Whisper(dirs["float32"], tensor_parallel=True)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int8"])
