@@ -304,11 +304,13 @@ Phases, one JSON object per line:
    ``LOGPROB_TOL``; greedy on 2 x 2,049 (flash) and beam 2, a
    ``ContinuousBatcher`` led by rank 0, their int8 partings from this
    process's one-rank runs logged, not judged; the 2-layer Llama in float32
-   on the model axis, tokens identical; a 4,096-token ring prefill over a
-   data axis of 2, firing in both layers, tokens identical; the ring
+   on the model axis, tokens identical, and its 2 prompts split over a
+   data axis of 2 (each rank runs one), tokens identical; a 4,096-token
+   ring prefill over that axis, firing in both layers, tokens identical; the ring
    against the plain attention at ``FLASH_TOL["float16"]``; ms a decode
    step at 2 ranks against 1, the collectives' time from the port's scope
-   profiler, each rank's payload and peak memory). The kernel phase holds
+   profiler, which waits for the card's queued work before each scope,
+   each rank's payload and peak memory). The kernel phase holds
    the shard shapes against the plain versions untimed
    (``parallel_benches``).
 
@@ -3260,17 +3262,18 @@ def host_loop_card_vs_cpu(tt, small_dir, generators, vocab, tvocab, batch, check
     counts = {}
     for name, (pre, extra) in calls.items():
         streams = ([], [])
-        res = []
-        for tr, into in zip((card, cpu), streams):
-            opts = dict(OPTS, **extra)
+        opts = []
+        for into in streams:
+            opts.append(dict(OPTS, **extra))
             if name == "callback":
-                opts["callback"] = lambda r, into=into: into.append(
+                opts[-1]["callback"] = lambda r, into=into: into.append(
                     (r.batch_id, r.step, r.token_id, r.is_last))
-            tt.reset_launches()
-            res.append(tr.translate_batch(sentences, pre, **opts))
-            if tr is card:
-                counts[name] = tt.launch_counts()
-        a, b = res
+        # The CPU reference runs on its worker thread beside the card call.
+        b = cpu.translate_batch(sentences, pre, asynchronous=True, **opts[1])
+        tt.reset_launches()
+        a = card.translate_batch(sentences, pre, **opts[0])
+        counts[name] = tt.launch_counts()
+        b = [r.result() for r in b]
         checks([r.hypotheses for r in a] == [r.hypotheses for r in b]
                and streams[0] == streams[1],
                f"{label} translator {name}: identical hypotheses and callbacks")
@@ -3300,16 +3303,15 @@ def host_loop_card_vs_cpu(tt, small_dir, generators, vocab, tvocab, batch, check
     }
     for name, opts in gen_calls.items():
         streams = ([], [])
-        res = []
-        for g, into in zip((gcard, gcpu), streams):
-            if name == "callback":
-                opts = dict(opts, callback=lambda r, into=into: into.append(
-                    (r.batch_id, r.step, r.token_id, r.is_last)))
-            tt.reset_launches()
-            res.append(g.generate_batch(prompts, **opts))
-            if g is gcard:
-                counts["generator " + name] = tt.launch_counts()
-        a, b = res
+        both = []
+        for into in streams:
+            both.append(dict(opts, callback=lambda r, into=into: into.append(
+                (r.batch_id, r.step, r.token_id, r.is_last))) if name == "callback" else opts)
+        b = gcpu.generate_batch(prompts, asynchronous=True, **both[1])
+        tt.reset_launches()
+        a = gcard.generate_batch(prompts, **both[0])
+        counts["generator " + name] = tt.launch_counts()
+        b = [r.result() for r in b]
         checks([r.sequences_ids for r in a] == [r.sequences_ids for r in b]
                and streams[0] == streams[1],
                f"{label} generator {name}: identical tokens and callbacks")
@@ -4900,8 +4902,9 @@ def speech_card_vs_cpu(tt, work, checks):
             "previous_text_no_speech": (prev, dict(beam_size=5, return_no_speech_prob=True)),
             "greedy_no_timestamps": (no_ts, dict(beam_size=1))}.items():
         opts = dict(max_length=AB_WHISPER_MAX_LENGTH, return_scores=True, **kw)
+        b = cpu.generate(mem_cpu, [prompt] * AB_WHISPER_BATCH, asynchronous=True, **opts)
         a = card.generate(mem, [prompt] * AB_WHISPER_BATCH, **opts)
-        b = cpu.generate(mem_cpu, [prompt] * AB_WHISPER_BATCH, **opts)
+        b = [r.result() for r in b]
         same = [x.sequences_ids for x in a] == [x.sequences_ids for x in b]
         diff = max(abs(x.scores[0] - y.scores[0]) for x, y in zip(a, b))
         ns = max(abs(x.no_speech_prob - y.no_speech_prob) for x, y in zip(a, b))
@@ -5934,18 +5937,21 @@ def continuous_whisper_card_vs_cpu(tt, work, checks):
     _, sot, _, no_ts = whisper_prompts(vocab)
     feats = whisper_features(2, WHISPER_FRAMES, 8)
     segs = [feats[i].cpu().numpy() for i in range(2)]
-    side = {}
     t0 = time.perf_counter()
-    for name, device in (("card", "cuda"), ("cpu", "cpu")):
-        w = tt.Whisper(path, compute_type="float32", device=device)
-        cb = tt.ContinuousWhisper(w, num_slots=2, capacity=64, beam_size=2, steps_per_sync=4)
-        try:
-            side[name] = [f.result(timeout=900) for f in [
-                cb.submit(x, p, max_length=CW_AB_MAX_LENGTH)
-                for x in segs for p in (sot, no_ts)]]
-        finally:
+    # The CPU batcher serves beside the card's, each on its own thread.
+    batchers = {name: tt.ContinuousWhisper(
+                    tt.Whisper(path, compute_type="float32", device=device), num_slots=2,
+                    capacity=64, beam_size=2, steps_per_sync=4)
+                for name, device in (("cpu", "cpu"), ("card", "cuda"))}
+    try:
+        futures = {name: [cb.submit(x, p, max_length=CW_AB_MAX_LENGTH)
+                          for x in segs for p in (sot, no_ts)]
+                   for name, cb in batchers.items()}
+        side = {name: [f.result(timeout=900) for f in fs] for name, fs in futures.items()}
+    finally:
+        for cb in batchers.values():
             cb.close()
-        del w
+    del batchers
     same = [c.sequences_ids == p.sequences_ids for c, p in zip(side["card"], side["cpu"])]
     diff = max(abs(c.scores[0] - p.scores[0]) for c, p in zip(side["card"], side["cpu"]))
     checks(all(same) and diff <= LOGPROB_TOL,
@@ -5985,6 +5991,9 @@ SPEC_REQUESTS = BEAM_SERVE_REQUESTS  # serving_traffic's first 16
 LLAMA_1B = dict(layers=16, d_model=2048, heads=32, heads_kv=8, d_ff=8192,
                 vocab=128256, rotary_base=500000.0)
 LLAMA_1B_SEED = 100000  # the draft's weights come from seeds of their own
+# The serving run's draft keeps half of the 1B's depth (its widths whole),
+# a cut of the script's time on slow hosts.
+LLAMA_1B_SERVE_LAYERS = LLAMA_1B["layers"] // 2
 SPEC_PARTED_LOGGED = 16
 SPEC_AB_NEW = 8
 # generate_batch's card-against-CPU prompts: 6 up to CPU_PROMPT tokens, in
@@ -6279,7 +6288,8 @@ def serving_generator_spec(tt, gen, vocab, checks, logs, greedy):
     ``ContinuousBatcher(speculation_k=4)`` (``SERVE_SLOTS`` slots of
     ``SERVE_CAPACITY``): the first ``SPEC_REQUESTS`` requests of
     ``serving_traffic`` submitted at once, drafted by prompt lookup and by a
-    Llama-3.2-1B-geometry draft (int8 weights and KV cache, its own seeds);
+    Llama-3.2-1B-geometry draft at half its depth (``LLAMA_1B_SERVE_LAYERS``;
+    int8 weights and KV cache, its own seeds);
     each against ``greedy`` (serving_generator_beam's greedy depth-1 run of
     the same requests: its line and tokens) and held to the greedy batcher
     on the verify's attention route (``verify_route``, an untimed run with
@@ -6302,7 +6312,7 @@ def serving_generator_spec(tt, gen, vocab, checks, logs, greedy):
     t1 = time.perf_counter()
     with environ(CT2TPU_KV_CACHE="int8"):
         draft = make_generator(tt, build_llama_modelfile(
-            LLAMA_1B["layers"], LLAMA_1B, LLAMA_1B_SEED, tied=True), vocab,
+            LLAMA_1B_SERVE_LAYERS, LLAMA_1B, LLAMA_1B_SEED, tied=True), vocab,
             compute_type="int8")
     draft_seconds = time.perf_counter() - t1
     draft_layers = len(draft.model.arch.decoder.layers)
@@ -6332,8 +6342,9 @@ def serving_generator_spec(tt, gen, vocab, checks, logs, greedy):
     emit({"phase": "serving_generator_spec", "speculation_k": SPEC_K,
           "compute_type": gen.compute_type, "kv_cache": "int8", "slots": SERVE_SLOTS,
           "capacity": SERVE_CAPACITY, "requests": len(traffic),
-          "draft": dict(LLAMA_1B, compute_type="int8", kv_cache="int8", seed=LLAMA_1B_SEED,
-                        tied_embeddings=True, fabricate_seconds=draft_seconds),
+          "draft": dict(LLAMA_1B, layers=LLAMA_1B_SERVE_LAYERS, compute_type="int8",
+                        kv_cache="int8", seed=LLAMA_1B_SEED, tied_embeddings=True,
+                        fabricate_seconds=draft_seconds),
           **out, "greedy_depth1": {k: g_line[k] for k in (
               "seconds", "tokens_per_s", "time_to_first_token", "request_latency",
               "decode_steps", "ms_per_block")},
@@ -7219,9 +7230,10 @@ def par_llama_runs(tt, path, vocab, prompts, fed=None):
 
 
 def par_small_runs(tt, path, vocab, prompts, tensor_parallel=False, data_axis=False):
-    """The 2-layer Llama in float32: greedy on the short prompts, and the
-    ring's prompt (over a data axis of 2 with ``data_axis``); the ring
-    prefill's calls counted."""
+    """The 2-layer Llama in float32: greedy on the short prompts (split
+    over a data axis of 2 with ``data_axis``: the rows of each share this
+    rank ran counted) and the ring's prompt (whole on each data rank: the
+    ring prefill's calls counted)."""
     from ctranslate2_tpu_torch.parallel import context as ctx_par
 
     short, _, _, ring = prompts
@@ -7237,9 +7249,17 @@ def par_small_runs(tt, path, vocab, prompts, tensor_parallel=False, data_axis=Fa
     kw = dict(tensor_parallel=True, device_index=[0, 1]) if data_axis else (
         dict(tensor_parallel=True) if tensor_parallel else {})
     gen = make_generator(tt, path, vocab, compute_type="float32", **kw)
-    if not data_axis:
-        out["greedy"] = [r.sequences_ids[0] for r in gen.generate_batch(
-            short, max_length=AB_NEW, include_prompt_in_result=False)]
+    generate, shares = gen._generate, []
+
+    def counted_generate(starts, *args):
+        shares.append(len(starts))
+        return generate(starts, *args)
+
+    gen._generate = counted_generate
+    out["greedy"] = [r.sequences_ids[0] for r in gen.generate_batch(
+        short, max_length=AB_NEW, include_prompt_in_result=False)]
+    out["greedy_shares"] = shares
+    gen._generate = generate
     with patched(ctx_par, "ring_attention_prefill", count):
         out["ring"] = gen.generate_batch(ring, max_length=4,
                                          include_prompt_in_result=False)[0].sequences_ids[0]
@@ -7508,6 +7528,11 @@ def parallel_two_ranks(tt, int8_dir, llama, vocab, sentences, work, checks, logs
                f"{lfed['max_step']}, share {lshare})")
         checks(out["small"]["greedy"] == small["greedy"],
                f"{label}: float32 2-layer tokens identical to one rank's")
+        checks(out["ring"]["greedy"] == small["greedy"]
+               and out["ring"]["greedy_shares"] == [PAR_ROWS // 2],
+               f"{label}: float32 2-layer tokens identical to one rank's with the batch "
+               f"split over a data axis of 2 (each rank ran rows "
+               f"{out['ring']['greedy_shares']})")
         checks(out["ring"]["ring"] == small["ring"] and len(out["ring"]["ring_calls"])
                == AB_LAYERS, f"{label}: the ring prefill fired in every layer "
                f"({out['ring']['ring_calls']}) and its float32 tokens equal one rank's")
@@ -7558,6 +7583,7 @@ def parallel_two_ranks(tt, int8_dir, llama, vocab, sentences, work, checks, logs
               "greedy": _partings(lead["llama"]["greedy"], one["greedy"]),
               "beam": _partings([lead["llama"]["beam"]], [one["beam"]]),
               "serve": _partings(lead["llama"]["serve"], one["serve"])},
+          "data_axis_shares": lead["ring"]["greedy_shares"],
           "ring_calls": lead["ring"]["ring_calls"], "ring_kernel": lead["ring_kernel"],
           "one_rank_launches": one_counts,
           "reference_seconds": ref_seconds, "job_seconds": job_seconds,

@@ -137,11 +137,11 @@ def embed_tokens(emb_params: dict, ids, out_dtype):
     sums the ranks' rows: exactly one rank adds a nonzero row."""
     split = emb_params.get("tp")
     if split is not None:
+        from ..parallel.sharding import shard_ids
+
         rows = (emb_params["wq"] if "wq" in emb_params else emb_params["w"]).shape[0]
-        local = ids - split.offset
-        inside = (local >= 0) & (local < rows)
-        out = embed_tokens({k: v for k, v in emb_params.items() if k != "tp"},
-                           torch.where(inside, local, torch.zeros_like(local)),
+        local, inside = shard_ids(split, ids, rows)
+        out = embed_tokens({k: v for k, v in emb_params.items() if k != "tp"}, local,
                            out_dtype)
         out = torch.where(inside[..., None], out, torch.zeros_like(out))
         return split.comm.all_sum(out)

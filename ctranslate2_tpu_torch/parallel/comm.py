@@ -6,8 +6,10 @@ src/devices.cc:141-230, src/ops/nccl_ops_gpu.cu:52-92): a row-parallel
 linear sums its partial products (``all_sum``), a row-parallel W8A8 linear
 takes each row's absmax over the group (``all_max``), the vocabulary-
 sharded projection gathers its logits (``all_gather``), ring attention
-passes K/V shards to the next rank (``ring_exchange``) and the continuous
-engines' leader broadcasts its control records (``broadcast_bytes``).
+passes K/V shards to the next rank (``ring_exchange``), the data axis
+gathers the results of each rank's share of a batch (``all_gather_objects``)
+and the continuous engines' leader broadcasts its control records
+(``broadcast_bytes``).
 
 Every backend difference sits here. NCCL takes card tensors as they are.
 gloo takes CPU tensors; a card tensor given to a gloo group goes through
@@ -24,6 +26,7 @@ collectives.
 
 from __future__ import annotations
 
+import datetime
 import struct
 from contextlib import contextmanager
 from typing import List, Optional
@@ -119,25 +122,40 @@ class Comm:
                     req.wait()
             return buf.to(device=t.device, dtype=t.dtype)
 
-    def broadcast_bytes(self, data: Optional[bytes]) -> bytes:
+    def all_gather_objects(self, obj) -> list:
+        """Every rank's picklable ``obj``, in group order."""
+        if self.size == 1:
+            return [obj]
+        with _scope("all_gather_objects"):
+            out = [None] * self.size
+            dist.all_gather_object(out, obj, group=self.group)
+            return out
+
+    def broadcast_bytes(self, data: Optional[bytes], timeout: Optional[float] = None) -> bytes:
         """``data`` of the group's first rank on every rank, over frames of
         ``FRAME_BYTES``: the first carries the total length (8 bytes) and
         the head of the payload, the rest continue it; every rank derives
         the frame count from the length. Over NCCL the frames are card
-        tensors of the current device."""
+        tensors of the current device. With ``timeout`` (seconds; gloo) a
+        frame that the other ranks do not take within it raises."""
         if self.size == 1:
             return data
         device = (torch.device("cuda", torch.cuda.current_device())
                   if self.backend == "nccl" else torch.device("cpu"))
         root = self.ranks[0]
         leader = self.rank == 0
+
+        def broadcast(wire):
+            work = dist.broadcast(wire, root, group=self.group, async_op=timeout is not None)
+            if work is not None:
+                work.wait(timeout=datetime.timedelta(seconds=timeout))
         with _scope("broadcast_bytes"):
             frame = torch.zeros(FRAME_BYTES, dtype=torch.uint8)
             if leader:
                 head = struct.pack("<Q", len(data)) + data[:FRAME_BYTES - 8]
                 frame[:len(head)] = torch.frombuffer(bytearray(head), dtype=torch.uint8)
             wire = frame.to(device)
-            dist.broadcast(wire, root, group=self.group)
+            broadcast(wire)
             first = wire.cpu().numpy().tobytes()
             total = struct.unpack("<Q", first[:8])[0]
             parts = [first[8:8 + min(total, FRAME_BYTES - 8)]]
@@ -149,7 +167,7 @@ class Comm:
                     frame[:n] = torch.frombuffer(bytearray(data[off:off + n]),
                                                  dtype=torch.uint8)
                 wire = frame.to(device)
-                dist.broadcast(wire, root, group=self.group)
+                broadcast(wire)
                 parts.append(wire.cpu().numpy().tobytes()[:n])
                 off += n
             return data if leader else b"".join(parts)

@@ -9,13 +9,16 @@ package's ``_ring_attention_local`` does; the outputs are gathered back along T.
 Plain PyTorch, as the JAX body is einsums outside any Pallas kernel.
 
 ``tensor_parallel=True`` registers the data axis (``enable_context_
-parallel``); ``CT2TPU_RING_PREFILL=0`` turns the dispatch off and
+parallel``); a call whose batch the axis splits runs no ring
+(``batch_on_data_axis``); ``CT2TPU_RING_PREFILL=0`` turns the dispatch off and
 ``CT2TPU_RING_PREFILL_MIN_LEN`` (4,096) sets the shortest prompt it takes.
 """
 
 from __future__ import annotations
 
 import os
+import threading
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
@@ -26,6 +29,8 @@ NEG_INF = -1e30
 
 # The data axis of the tensor-parallel model of this process (or None).
 _ACTIVE_CP: Optional[Comm] = None
+# Set in a thread whose call has split its batch over the data axis.
+_SPLIT = threading.local()
 
 
 def enable_context_parallel(comm: Comm) -> None:
@@ -38,10 +43,22 @@ def disable_context_parallel() -> None:
     _ACTIVE_CP = None
 
 
+@contextmanager
+def batch_on_data_axis():
+    """Marks the calling thread's work as a share of a batch split over the
+    data axis: the data ranks hold other rows, so no ring runs over it."""
+    _SPLIT.on = True
+    try:
+        yield
+    finally:
+        _SPLIT.on = False
+
+
 def context_parallel_config() -> Optional[Comm]:
     """The data axis when context parallelism is available: registered,
-    of more than one rank, and not turned off by ``CT2TPU_RING_PREFILL=0``."""
-    if _ACTIVE_CP is None or _ACTIVE_CP.size <= 1:
+    of more than one rank, not carrying a split batch, and not turned off
+    by ``CT2TPU_RING_PREFILL=0``."""
+    if _ACTIVE_CP is None or _ACTIVE_CP.size <= 1 or getattr(_SPLIT, "on", False):
         return None
     if os.environ.get("CT2TPU_RING_PREFILL", "1") == "0":
         return None

@@ -24,7 +24,8 @@ it on the model axis:
   T5 bias table and the ALiBi slopes (``alibi_slopes`` in the side's
   params) keep the rank's heads;
 - the KV cache splits on heads: each rank's attention blocks run on its
-  local heads (``local_attention``), so the caches they make hold those heads.
+  local heads (``local_attention``), so the caches they make hold those heads;
+  its batch splits on the data axis (below).
 
 ``fit_spec``'s rule holds at the granularity of a head: an attention block
 whose query heads do not divide the model axis runs replicated; where the
@@ -33,9 +34,16 @@ its query heads read (when they form one GQA group layout, else the block
 runs replicated). A vocabulary or ``d_ff`` that does not divide stays
 whole, as does an AWQ row-parallel weight whose shard would cut a group.
 
-The data axis carries the batch whole on every rank and serves the ring
-prefill (``parallel/context.py``): the JAX package's data axis is idle
-during a single request's prefill, which is where it rides too.
+The data axis splits each batch of a call, as ``cache_specs`` puts the
+batch on it: where the axis divides the batch's rows (``fit_spec``'s rule),
+data rank d runs the d-th contiguous share of them, with the KV cache of
+those rows only, and the shares' results are gathered, so that every rank
+returns the whole batch (``runtime/base.py``, ``_split_over_data``). A batch
+the axis does not divide (a single request) runs whole on every data rank,
+which is where the ring prefill (``parallel/context.py``) splits a long
+prompt's sequence over the axis instead. A sampled call, or one with a
+per-step callback, runs whole too: its draws are taken over the whole
+batch, and the callback sees every row.
 
 Every host decision (an early exit, a beam's finished set, a sampled
 draw) is taken on data identical on every rank, with no broadcast: the
@@ -50,7 +58,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import socket
 from dataclasses import dataclass
 from typing import Optional
 
@@ -61,6 +68,7 @@ import torch.distributed as dist
 from ..models.spec import ArchSpec, AttentionSpec
 from ..ops.positions import alibi_slopes
 from .comm import Comm
+from .launch import free_port
 
 
 @dataclass(frozen=True)
@@ -98,12 +106,6 @@ class Grid:
         return self.model.rank
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def initialize_distributed(backend: Optional[str] = None, device: str = "cuda") -> dict:
     """The process group, initialised from the launcher's environment
     (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) where none
@@ -123,7 +125,7 @@ def initialize_distributed(backend: Optional[str] = None, device: str = "cuda") 
                 raise RuntimeError(
                     "WORLD_SIZE > 1 needs MASTER_ADDR and MASTER_PORT (or an "
                     "initialised torch.distributed process group)")
-            port = str(_free_port())
+            port = str(free_port())
         if backend == "nccl":
             torch.cuda.set_device(_local_card())
         dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}",
@@ -148,17 +150,15 @@ _control: Optional[Comm] = None
 
 
 def _control_comm() -> Comm:
-    """A gloo group over the world (the default group where it is gloo)."""
+    """A gloo group of its own over the world: a control record never
+    shares a group with the model's collectives, so a leader that fails
+    between two of them can still send its last record."""
     global _control
     if _control is None:
         world = dist.get_world_size()
-        if world == 1:
-            _control = Comm(None, [0])
-        elif dist.get_backend() == "gloo":
-            _control = Comm(dist.group.WORLD, list(range(world)))
-        else:
-            _control = Comm(dist.new_group(list(range(world)), backend="gloo"),
-                            list(range(world)))
+        _control = (Comm(None, [0]) if world == 1 else
+                    Comm(dist.new_group(list(range(world)), backend="gloo"),
+                         list(range(world))))
     return _control
 
 
@@ -369,6 +369,16 @@ def shard_ffn(fp: dict, r: int, parts: int, comm: Comm) -> dict:
         out[n] = _cols(fp[n], cols)
     out["linear_1"] = _rows(fp["linear_1"], r, parts, comm)
     return out
+
+
+def shard_ids(split: Split, ids: torch.Tensor, rows: int):
+    """(local ids, inside) of the global vocabulary ``ids`` on a shard of
+    ``rows`` entries from ``split.offset``: the ids it holds, 0 where it
+    holds none, and the mask of those it holds. The caller zeroes what the
+    mask leaves out and sums over ``split.comm``: one rank adds each id."""
+    local = ids - split.offset
+    inside = (local >= 0) & (local < rows)
+    return torch.where(inside, local, torch.zeros_like(local)), inside
 
 
 def shard_embeddings(emb: dict, r: int, parts: int, comm: Comm) -> dict:

@@ -18,8 +18,9 @@ process a rank, the group initialised from the launcher's environment
 where none is): a ``device_index`` list sizes the grid's data axis and
 makes no replicas. Every rank runs every call, and the calls must reach
 the ranks in one order, since each issues the model's collectives: one
-worker thread a model (``inter_threads`` > 1 raises). Every rank returns
-the whole result.
+worker thread a model (``inter_threads`` > 1 raises). A batch that the
+data axis divides is split over it (``_split_over_data``). Every rank
+returns the whole result.
 """
 
 from __future__ import annotations
@@ -270,17 +271,48 @@ class TaskAPIMixin(ModelResidency):
             self.model.arch = dataclasses.replace(
                 self.model.arch, flash_min_len=0)
 
+    def _split_over_data(self, rows: list, run, split: bool = True) -> list:
+        """``run(rows)``: one result a row, in order. Under tensor
+        parallelism with a data axis that divides ``rows`` (and ``split``),
+        data rank d runs the d-th contiguous share of them, so that its KV
+        cache holds those rows only, and the shares' results are gathered
+        over the axis: every rank returns them all. A share that raises
+        raises on every rank. Pass ``split=False`` where the rows depend on
+        one another (draws taken over the whole batch, a per-step
+        callback that sees every row)."""
+        grid = getattr(self.model, "grid", None)
+        n = grid.num_data if grid is not None and split else 1
+        if n == 1 or len(rows) % n:
+            return run(rows)
+        from ..parallel.context import batch_on_data_axis
+
+        share, d = len(rows) // n, grid.data.rank
+        try:
+            with batch_on_data_axis():
+                mine, error = run(rows[d * share:(d + 1) * share]), None
+        except Exception as e:  # noqa: BLE001 - raised on every rank below
+            mine, error = None, e
+        parts = grid.data.all_gather_objects(
+            (mine, None if error is None else f"{type(error).__name__}: {error}"))
+        if error is not None:
+            raise error
+        for i, (_, text) in enumerate(parts):
+            if text is not None:
+                raise RuntimeError(f"data rank {i} failed: {text}")
+        return [r for part, _ in parts for r in part]
+
     def _run_batches(self, results, compute_idx, lengths, max_batch_size,
-                     batch_type, run, asynchronous, scope):
+                     batch_type, run, asynchronous, scope, split: bool = True):
         """Runs ``run(rows)`` on the worker pool for the rows ``compute_idx``
-        of a call (``lengths`` theirs), rebatched longest first; ``run``
-        returns one result a row, in order, in a profiler scope named
-        ``scope``. ``results`` holds one entry a row of the call, those
-        outside ``compute_idx`` done already. Returns ``results`` filled,
-        or one AsyncResult a row when ``asynchronous``."""
+        of a call (``lengths`` theirs), rebatched longest first and each
+        batch split over a tensor-parallel data axis (``_split_over_data``,
+        with ``split``); ``run`` returns one result a row, in order, in a
+        profiler scope named ``scope``. ``results`` holds one entry a row
+        of the call, those outside ``compute_idx`` done already. Returns
+        ``results`` filled, or one AsyncResult a row when ``asynchronous``."""
         def job(rows):
             with profile(scope):
-                return run(rows)
+                return self._split_over_data(rows, run, split)
 
         async_results = [None if r is None else AsyncResult(r) for r in results]
         futures = []

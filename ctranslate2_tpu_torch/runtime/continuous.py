@@ -46,8 +46,15 @@ the records, so every rank queues the same prefills and decode blocks, in
 one order, and the model's collectives meet. The records travel over a
 gloo group (``Grid.control``) in frames of ``parallel.comm.FRAME_BYTES``.
 A follower takes no requests: it serves until the leader closes, which
-``join()`` waits for. A draft model under more than one process raises
-``NotImplementedError``, as in the JAX package.
+``join()`` waits for. A leader whose scheduler fails sends a last record
+with its error, which the followers raise from ``join()``, rather than
+leave them waiting for a record until the group's timeout; a follower's
+own failure (a replayed admit that fails on every rank) it raises there
+too. A rank-local failure between two of the model's collectives (a card
+fault on one rank) leaves the others in that collective until the process
+group's timeout or until the launcher stops the job (``parallel/launch.py``
+stops every rank at the first one's failure). A draft model under more
+than one process raises ``NotImplementedError``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -80,6 +87,8 @@ from .results import GenerationResult, GenerationStepResult
 DEFAULT_PIPELINE_DEPTH = 1
 # A dead beam's running score (the batch engine's).
 NEG = -1e10
+# How long a failed leader waits for the followers to take its last record.
+STOP_SECONDS = 10.0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -384,6 +393,7 @@ class ContinuousBatcher:
 
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         self._admitting: Optional[_Request] = None
+        self._error: Optional[BaseException] = None  # what ended the scheduler
         self._closed = False
         self._wake = threading.Event()
 
@@ -641,8 +651,12 @@ class ContinuousBatcher:
         self._thread.join(timeout=30)
 
     def join(self, timeout: Optional[float] = None) -> None:
-        """Blocks until the scheduler thread exits."""
+        """Blocks until the scheduler thread exits. A follower of a
+        multi-process job, which holds no futures, raises here the error
+        that ended its replay (the leader's, or its own)."""
         self._thread.join(timeout)
+        if not self._leader and self._error is not None:
+            raise self._error
 
     # ------------------------------------------------------------------
     # Per-request options.
@@ -1856,15 +1870,18 @@ class ContinuousBatcher:
             self._freed += [i for i, (b, s) in enumerate(zip(before, self._slots))
                             if b and s is None]
 
-    def _send(self, admits=(), close: bool = False) -> None:
-        record = {"free": self._freed, "close": close,
+    def _send(self, admits=(), close: bool = False, error: Optional[str] = None,
+              timeout: Optional[float] = None) -> None:
+        record = {"free": self._freed, "close": close, "error": error,
                   "admits": [(slot, {f: getattr(req, f) for f in self._REPLAY_FIELDS})
                              for slot, req in admits]}
         self._freed = []
-        self._dist.broadcast_bytes(pickle.dumps(record))
+        self._dist.broadcast_bytes(pickle.dumps(record), timeout=timeout)
 
     def _receive(self) -> dict:
         record = pickle.loads(self._dist.broadcast_bytes(None))
+        if record["error"] is not None:
+            raise RuntimeError(f"the leader's scheduler failed: {record['error']}")
         for i in record["free"]:
             if self._beam > 1:
                 self._bstate["active"][i] = False
@@ -1940,10 +1957,25 @@ class ContinuousBatcher:
                 while len(inflight) >= (depth if active else 1):
                     self._consume_any(inflight.popleft())
         except BaseException as e:  # noqa: BLE001
+            self._error = e
             self._fail_pending(e)
             for s in self._slots + [self._admitting]:
                 if s is not None and not s.future.done():
                     s.future.set_exception(e)
+            if self._dist is not None and self._leader:
+                self._send_error(e)
+
+    def _send_error(self, exc: BaseException) -> None:
+        """The failed leader's last record, which the followers raise from
+        ``join()``. A follower that waits elsewhere (in a model collective
+        the leader left) does not take it within ``STOP_SECONDS``: it waits
+        on until the process group's timeout or until the launcher stops
+        the job."""
+        try:
+            self._send(close=True, error=f"{type(exc).__name__}: {exc}",
+                       timeout=STOP_SECONDS)
+        except Exception:  # noqa: BLE001 - the failure is the leader's own
+            pass
 
 
 class ContinuousTranslator(ContinuousBatcher):

@@ -177,7 +177,8 @@ class Generator(TaskAPIMixin):
                                  list(range(len(start_tokens))),
                                  [len(s) for s in start_tokens], max_batch_size,
                                  batch_type, run, asynchronous,
-                                 "Generator.generate_batch")
+                                 "Generator.generate_batch",
+                                 split=sampling_topk == 1 and callback is None)
 
     def _resolve_end_token(self, end_token) -> tuple:
         v = self._vocab

@@ -260,7 +260,8 @@ class Translator(TaskAPIMixin):
         return self._run_batches(results, compute_idx,
                                  [len(source[i]) for i in compute_idx],
                                  max_batch_size, batch_type, run, asynchronous,
-                                 "Translator.translate_batch")
+                                 "Translator.translate_batch",
+                                 split=sampling_topk == 1 and callback is None)
 
     def _resolve_end_token(self, end_token) -> tuple:
         tv = self._target_vocab
@@ -321,10 +322,10 @@ class Translator(TaskAPIMixin):
             # A vocabulary shard (tensor parallelism): the candidates it
             # holds, zero columns for the others, the ranks' products summed
             # (a row-parallel linear over a replicated input).
+            from ..parallel.sharding import Split, shard_ids
+
             rows = proj["wq"].shape[0] if "wq" in proj else proj["w"].shape[1]
-            local = idx - split.offset
-            inside = (local >= 0) & (local < rows)
-            idx = torch.where(inside, local, torch.zeros_like(local))
+            idx, inside = shard_ids(split, idx, rows)
         if "w" in proj:  # float: w (in, out)
             w = proj["w"].index_select(1, idx)
             new_proj = {"w": w if inside is None else w * inside[None, :].to(w.dtype)}
@@ -335,8 +336,6 @@ class Translator(TaskAPIMixin):
         bias = (proj["b"].float().index_select(0, idx) if "b" in proj
                 else torch.zeros(len(ids), dtype=torch.float32, device=device))
         if inside is not None:
-            from ..parallel.sharding import Split
-
             bias = split.comm.all_sum(torch.where(inside, bias, torch.zeros_like(bias)))
             new_proj["tp"] = Split("row", split.comm)
         if pad:

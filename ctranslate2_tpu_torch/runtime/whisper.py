@@ -183,7 +183,14 @@ class Whisper(TaskAPIMixin):
         """Generate from audio features (reference: whisper.cc:717-740;
         options: include/ctranslate2/models/whisper.h:11-59). With
         ``asynchronous=True`` returns one AsyncResult a prompt."""
-        future = self._pool.submit(self._generate_impl, features, prompts, **options)
+        feats = torch.as_tensor(features)
+
+        def run(rows):  # a contiguous share of the rows (_split_over_data)
+            return self._generate_impl(feats[rows[0]:rows[-1] + 1],
+                                       [prompts[i] for i in rows], **options)
+
+        future = self._pool.submit(self._split_over_data, list(range(len(prompts))), run,
+                                   options.get("sampling_topk", 1) == 1)
         if asynchronous:
             return [AsyncResult(future, i) for i in range(len(prompts))]
         return future.result()

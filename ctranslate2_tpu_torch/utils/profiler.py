@@ -3,9 +3,10 @@
 ``profile("name")`` scopes accumulate wall time into a global table with a
 thread-local parent chain; ``dump_profiling`` prints the self / cumulative
 / % table sorted by self time. A scope that ran while a CUDA card is in use
-waits for the card's work at its end (``torch.cuda.synchronize()``, as the
-reference synchronizes its CUDA stream), so device time lands in the scope
-that queued it. ``trace(log_dir)`` records a ``torch.profiler`` trace of
+waits for the card's work at its start and at its end
+(``torch.cuda.synchronize()``, as the reference synchronizes its CUDA
+stream), so device time lands in the scope that queued it, not in the next
+one to wait for the card (a collective that copies its input to the host). ``trace(log_dir)`` records a ``torch.profiler`` trace of
 the host and the card and writes it as a Chrome trace.
 
 The port's scopes: ``Translator.translate_batch`` / ``score_batch`` and
@@ -57,6 +58,7 @@ def profile(name: str):
     stack = getattr(_tls, "stack", None)
     if stack is None:
         stack = _tls.stack = []
+    _synchronize()
     start = time.perf_counter()
     child_time_box = [0.0]
     stack.append(child_time_box)

@@ -1,4 +1,5 @@
-"""Multi-process continuous serving of the port, on the CPU.
+"""Multi-process continuous serving of the port against the JAX package,
+on the CPU.
 
 Two ranks over gloo (``parallel/launch.py``; the ranks never import JAX)
 load the same models with ``tensor_parallel=True`` and serve mixed traffic
@@ -6,17 +7,32 @@ through ``ContinuousBatcher`` (greedy blocks with per-request penalties
 and stop sequences, prompt-lookup speculation, beam search, streaming
 callbacks with an early stop), ``ContinuousTranslator`` and
 ``ContinuousWhisper``: rank 0 leads, rank 1 replays its control records.
-The leader's results equal the same traffic served by one process without
-tensor parallelism (this test process, which runs the port only): tokens
-identical, scores within ``SCORE_TOL``; the follower reaches every
-phase's close. A draft model under more than one process raises, on every
-rank. One job runs for the module (``served`` fixture), as
-``tools/run_multiprocess.py --continuous`` does for the JAX package.
+This test process serves the same traffic through the JAX package's
+engines, unsharded, and through the port's in one process without tensor
+parallelism. The leader's tokens equal the JAX package's, and the
+one-process port's, with scores within ``SCORE_TOL``; the follower reaches
+every phase's close. A draft model under more than one process raises, on
+every rank. A leader whose scheduler fails sends its error in a last
+record, which the follower raises from ``join`` at once; where the
+replayed admit fails on every rank, each rank raises its own. One job runs
+for the module (``served`` fixture), as ``tools/run_multiprocess.py
+--continuous`` does for the JAX package.
+
+Where requests carry options (the greedy, speculation and translator
+phases), every run suppresses the vocabulary's last id for every request:
+the JAX package's batchers turn their tables' -1 padding into that id
+(ROADMAP queue 3 item 6; its ``ContinuousTranslator`` admit marks it as
+seen, so a repetition penalty moves its score), which the global
+suppression makes moot, as in ``test_torch_continuous.py``. The JAX
+``ContinuousWhisper`` skips the initial-timestamp rule (queue 3 item 9),
+so the timestamped Whisper request is held to the one-process port only.
 """
 
+import importlib
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -36,6 +52,7 @@ TRAFFIC = [
     (["tok5", "tok3"], {"max_length": 7}),
 ]
 PHASES = ["greedy", "spec", "beam", "translator", "streaming", "whisper"]
+FAILURES = ["admit", "prefill"]
 WHISPER_PROMPTS = [
     ["<|startoftranscript|>", "<|en|>", "<|transcribe|>", "<|notimestamps|>"],
     ["<|startoftranscript|>", "<|en|>", "<|transcribe|>"],
@@ -49,13 +66,17 @@ def _results(futures):
             "scores": [list(r.scores) for r in results]}
 
 
-def serve(dirs, tensor_parallel: bool):
-    """Every phase's results (rank 0 or one process), or on a follower the
-    phases it replayed to their close."""
-    import ctranslate2_tpu_torch as tt
-
-    kw = dict(device="cpu", tensor_parallel=tensor_parallel)
+def serve(dirs, tensor_parallel: bool, package: str = "ctranslate2_tpu_torch"):
+    """Every phase's results (rank 0, or one process of the port or of the
+    JAX package, ``package``), or on a follower the phases it replayed to
+    their close."""
+    tt = importlib.import_module(package)
+    kw = (dict(device="cpu", tensor_parallel=tensor_parallel)
+          if package == "ctranslate2_tpu_torch" else {})
     g = tt.Generator(dirs["llama"], **kw)
+    # Where requests carry options, the vocabulary's last id is suppressed
+    # for every request (see the module's docstring).
+    last = dict(suppress_tokens=[f"tok{LLAMA['vocab_size'] - 4}"])
     follower = tensor_parallel and g.model.grid.rank != 0
     out = {}
 
@@ -71,8 +92,8 @@ def serve(dirs, tensor_parallel: bool):
         finally:
             batcher.close()
 
-    phases = [("greedy", {"steps_per_sync": 4}, TRAFFIC),
-              ("spec", {"speculation_k": 3}, TRAFFIC[:3]),
+    phases = [("greedy", dict(last, steps_per_sync=4), TRAFFIC),
+              ("spec", dict(last, speculation_k=3), TRAFFIC[:3]),
               ("beam", {"beam_size": 2}, [(["tok1", "tok2"], {"max_length": 10}),
                                           (["tok3"], {"max_length": 8, "num_hypotheses": 2})])]
     for name, bkw, traffic in phases:
@@ -83,7 +104,8 @@ def serve(dirs, tensor_parallel: bool):
     sources = [(["tok1", "tok2", "tok3"], {}),
                (["tok4"], {"target_prefix": ["tok5", "tok6"]}),
                (["tok2", "tok5"], {"repetition_penalty": 1.3})]
-    run("translator", tt.ContinuousTranslator(t, num_slots=2, capacity=64, max_source_len=16),
+    run("translator", tt.ContinuousTranslator(t, num_slots=2, capacity=64, max_source_len=16,
+                                              **last),
         lambda ct: _results([ct.submit(s, max_length=12, **k) for s, k in sources]))
 
     def streaming(cb):
@@ -118,7 +140,44 @@ def serve(dirs, tensor_parallel: bool):
             out["draft"] = "served"
         except NotImplementedError as e:
             out["draft"] = str(e)
+        for where in FAILURES:  # the last: a record may be left untaken
+            out[f"fails_{where}"] = fail(g, failing_batcher(tt, where))
     return out
+
+
+def failing_batcher(tt, where):
+    """A batcher whose next admit raises: on the leader alone before its
+    control record goes out (``where`` "admit"), or on every rank, the
+    replayed admit too ("prefill")."""
+    class Failing(tt.ContinuousBatcher):
+        def _collect_admits(self):
+            if where == "admit" and self._leader and not self._queue.empty():
+                raise RuntimeError("injected admit failure")
+            return super()._collect_admits()
+
+        def _prefill_into_slot(self, slot, req):
+            if where == "prefill":
+                raise RuntimeError("injected prefill failure")
+            return super()._prefill_into_slot(slot, req)
+    return Failing
+
+
+def fail(g, cls):
+    """This rank's error (the leader's request's, a follower's ``join``'s),
+    whether its scheduler thread still runs, and the seconds it took."""
+    t0 = time.monotonic()
+    cb = cls(g, num_slots=2, capacity=64)
+    error = None
+    try:
+        if cb.model.grid.rank == 0:
+            cb.submit(PROMPTS[0], max_length=4).result(timeout=120)
+        else:
+            cb.join(timeout=120)
+    except Exception as e:  # noqa: BLE001
+        error = f"{type(e).__name__}: {e}"
+    cb._thread.join(timeout=120)
+    return {"error": error, "alive": cb._thread.is_alive(),
+            "seconds": time.monotonic() - t0}
 
 
 def worker(dirs_path, out_dir):
@@ -153,7 +212,8 @@ def dirs(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def served(dirs, tmp_path_factory):
-    """(one process's results, [each rank's]) of the same traffic."""
+    """(the port's results in one process, [each rank's], the JAX
+    package's) of the same traffic."""
     from ctranslate2_tpu_torch.parallel.launch import launch
 
     spec = str(tmp_path_factory.mktemp("spec") / "dirs.json")
@@ -166,13 +226,13 @@ def served(dirs, tmp_path_factory):
     assert "MP_OK rank=0 leader" in logs[0] and "MP_OK rank=1 follower" in logs[1]
     ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
              for r in range(2)]
-    return serve(dirs, tensor_parallel=False), ranks
+    return (serve(dirs, tensor_parallel=False), ranks,
+            serve(dirs, tensor_parallel=False, package="ctranslate2_tpu"))
 
 
-@pytest.mark.parametrize("phase", PHASES)
-def test_leader_equals_one_process(served, phase):
-    single, ranks = served
-    got, want = ranks[0][phase], single[phase]
+def _same_phase(got, want, phase, rows=None):
+    if rows is not None:
+        got, want = ({k: [v[i] for i in rows] for k, v in r.items()} for r in (got, want))
     assert got["seqs"] == want["seqs"]
     np.testing.assert_allclose(np.concatenate(got["scores"]),
                                np.concatenate(want["scores"]), atol=SCORE_TOL, rtol=0)
@@ -182,6 +242,20 @@ def test_leader_equals_one_process(served, phase):
         assert len(got["streamed"][1]) == 3
 
 
+@pytest.mark.parametrize("phase", PHASES)
+def test_leader_equals_jax(served, phase):
+    # The JAX ContinuousWhisper skips the initial-timestamp rule (ROADMAP
+    # queue 3 item 9): its timestamped request is held to the port alone.
+    rows = ([i for i, p in enumerate(WHISPER_PROMPTS) if p[-1] == "<|notimestamps|>"]
+            if phase == "whisper" else None)
+    _same_phase(served[1][0][phase], served[2][phase], phase, rows)
+
+
+@pytest.mark.parametrize("phase", PHASES)
+def test_leader_equals_one_process(served, phase):
+    _same_phase(served[1][0][phase], served[0][phase], phase)
+
+
 def test_follower_replays_every_phase(served):
     assert {p: served[1][1][p] for p in PHASES} == {p: "replayed" for p in PHASES}
 
@@ -189,3 +263,14 @@ def test_follower_replays_every_phase(served):
 def test_draft_model_raises_on_every_rank(served):
     for rank in served[1]:
         assert "draft-model speculation is not supported" in rank["draft"]
+
+
+@pytest.mark.parametrize("where", FAILURES)
+def test_failed_scheduler_ends_every_rank(served, where):
+    leader, follower = (rank[f"fails_{where}"] for rank in served[1])
+    assert leader["error"] == f"RuntimeError: injected {where} failure"
+    assert not leader["alive"] and not follower["alive"]
+    assert follower["seconds"] < 60  # not the process group's 30-minute timeout
+    assert follower["error"] == ("RuntimeError: the leader's scheduler failed: "
+                                 "RuntimeError: injected admit failure"
+                                 if where == "admit" else leader["error"])

@@ -14,8 +14,11 @@ writing every case's result; each test then reads one case:
   ``Whisper``, ``Wav2Vec2``,
   ``Wav2Vec2Bert``, unload and reload, the layer-0 KV cache after a
   prefill, and the row-parallel int8 scale;
-- world 4 (data 2 x model 2): generation over the data axis, the ring
-  prefill (counted) at ``CT2TPU_RING_PREFILL_MIN_LEN=64``, and
+- world 4 (data 2 x model 2): ``Generator``, ``Translator`` and
+  ``Whisper`` batches split over the data axis (each data rank runs its
+  half, counted; a share that fails raises on every rank; a sampled call
+  runs whole and draws as one process does), the ring prefill (counted)
+  of a single prompt at ``CT2TPU_RING_PREFILL_MIN_LEN=64``, and
   ``ring_attention`` against the JAX package's and dense attention.
 
 Every rank's result must equal every other's. Tokens equal the JAX
@@ -168,7 +171,45 @@ def _world4_cases(spec, grid):
     g = tt.Generator(spec["llama"], device="cpu", tensor_parallel=True, device_index=[0, 1])
     out["grid"] = [g.model.grid.num_data, g.model.grid.num_model, g.num_replicas]
     batch = PROMPTS + [["tok5", "tok6"]]
+    generate, ran = g._generate, []
+
+    def counted_generate(starts, *args):  # the rows of each share this rank ran
+        ran.append([tuple(s) for s in starts])
+        return generate(starts, *args)
+
+    g._generate = counted_generate
     out["data_axis"] = _gen(g.generate_batch(batch, max_length=8, return_scores=True))
+    out[f"data_rows_{grid.rank}"] = ran[:]
+    # A sampled call runs its batch whole on every data rank: its draws
+    # equal one process's (the unsharded port in this rank).
+    sample = dict(max_length=8, sampling_topk=5, seed=7, return_scores=True)
+    out["sampled"] = {"tp": _gen(g.generate_batch(batch, **sample)),
+                      "one": _gen(tt.Generator(spec["llama"], device="cpu")
+                                  .generate_batch(batch, **sample)),
+                      "rows": [len(r) for r in ran[1:]]}
+
+    def failing(starts, *args):
+        if grid.data.rank == 1:
+            raise ValueError("injected share failure")
+        return generate(starts, *args)
+
+    g._generate = failing
+    try:
+        g.generate_batch(batch, max_length=8)
+        out[f"share_failure_{grid.rank}"] = None
+    except Exception as e:  # noqa: BLE001
+        out[f"share_failure_{grid.rank}"] = f"{type(e).__name__}: {e}"
+    g._generate = generate
+    t = tt.Translator(spec["s2s"], device="cpu", tensor_parallel=True, device_index=[0, 1])
+    res = t.translate_batch(SOURCES + [["tok6", "tok3"]], beam_size=2, max_decoding_length=10,
+                            return_scores=True)
+    out["data_translator"] = {"seqs": [r.hypotheses for r in res],
+                              "scores": [list(r.scores) for r in res]}
+    w = tt.Whisper(spec["whisper"], device="cpu", tensor_parallel=True, device_index=[0, 1])
+    wr = w.generate(_features(5, (2, 24, 100)), [WHISPER_PROMPT] * 2, beam_size=2,
+                    max_length=24, return_scores=True)
+    out["data_whisper"] = {"seqs": [r.sequences_ids for r in wr],
+                           "scores": [list(r.scores) for r in wr]}
 
     calls = []
     orig = ctx_par.ring_attention_prefill
@@ -615,6 +656,42 @@ def test_data_axis(jobs, jax_generators):
         want = _jax_gen(jax_generators("llama", tp, **{k: tuple(v) for k, v in kw.items()})
                         .generate_batch(batch, max_length=8, return_scores=True))
         _same_gen(_case(jobs, 4, "data_axis"), want)
+
+
+def test_data_axis_splits_the_batch(jobs):
+    """Data rank d (world ranks 2d and 2d + 1) runs the d-th half of the
+    batch, once: the halves are disjoint and make the batch."""
+    rows = [jobs[4][r][f"data_rows_{r}"] for r in range(4)]
+    assert rows[0] == rows[1] and rows[2] == rows[3]
+    assert len(rows[0]) == len(rows[2]) == 1 and len(rows[0][0]) == len(rows[2][0]) == 2
+    assert not set(rows[0][0]) & set(rows[2][0])
+
+
+def test_sampled_call_runs_whole_on_the_data_axis(jobs):
+    got = _case(jobs, 4, "sampled")
+    assert got["rows"] == [4]
+    _same_gen(got["tp"], got["one"])
+
+
+def test_failed_share_raises_on_every_rank(jobs):
+    errors = [jobs[4][r][f"share_failure_{r}"] for r in range(4)]
+    assert errors[2] == errors[3] == "ValueError: injected share failure"
+    assert errors[0] == errors[1] == (
+        "RuntimeError: data rank 1 failed: ValueError: injected share failure")
+
+
+def test_data_axis_translator_and_whisper(jobs, models):
+    import ctranslate2_tpu as ct
+
+    res = ct.Translator(models["s2s"]).translate_batch(
+        SOURCES + [["tok6", "tok3"]], beam_size=2, max_decoding_length=10,
+        return_scores=True)
+    _same_gen(_case(jobs, 4, "data_translator"),
+              {"seqs": [r.hypotheses for r in res], "scores": [r.scores for r in res]})
+    res = ct.Whisper(models["whisper"], device="cpu").generate(
+        _features(5, (2, 24, 100)), [WHISPER_PROMPT] * 2, beam_size=2, max_length=24,
+        return_scores=True)
+    _same_gen(_case(jobs, 4, "data_whisper"), _jax_gen(res))
 
 
 def test_ring_prefill_fires(jobs, jax_generators, monkeypatch):
