@@ -249,14 +249,16 @@ Phases, one JSON object per line:
    int8 Transformer-base behind ``ContinuousTranslator``, ``CT_SLOTS``
    slots, the 256 phase-2 sentences at once, beam 2 and beam 1, exactly
    32 target tokens; target tok/s against ``translate_batch``'s, ms a
-   block, launches a beam step, one profiled block; at least
+   block, launches a beam step, one profiled block on the model at
+   ``HALF_LAYERS`` + ``HALF_LAYERS`` layers; at least
    ``FILE_SAME_SHARE`` of the hypotheses equal to ``translate_batch``'s,
    a parted one logged with its step and the two candidates' log-prob
    gap); ``serving_generator_beam`` (after ``serving_generator``: the
    int8 Llama behind ``ContinuousBatcher(beam_size=4)``, the first 16 of
    ``serving_traffic``, then greedy at depth 1; tok/s, first delivery and
-   latency p50 / p95, ms a block, one profiled block, the gather over the
-   4.8 GB slot cache a step against its bound); ``continuous_whisper``
+   latency p50 / p95, ms a block, one profiled block on the Llama's first
+   ``SIDE_LAYERS`` layers, the gather over the 4.8 GB slot cache a step
+   against its bound); ``continuous_whisper``
    (after ``whisper``: 8 segments of 3,000 frames, 4 slots, beam 5, half
    with timestamp rules; segments/s, ms a block, the share equal to
    ``Whisper.generate``'s, well-formed timestamps);
@@ -279,7 +281,8 @@ Phases, one JSON object per line:
    ``translate_file``'s line for line, its tok/s, the profiler's table),
    ``host_core_scheduler`` (``translation_scheduler`` on the native queue,
    each batch it formed equal to ``translate_batch`` on that batch) and
-   ``host_core_replicas`` (``Translator(device_index=[0, 0])``: a stream a
+   ``host_core_replicas`` (``Translator(device_index=[0, 0])`` on the
+   Translator's widths at ``HALF_LAYERS`` + ``HALF_LAYERS`` layers: a stream a
    replica, every hypothesis equal to one replica's, tok/s of one replica,
    of two workers on one and of two replicas, the busy share, one shared
    tree out and back; then the Translator's encoder as an ``Encoder`` of
@@ -305,7 +308,11 @@ Phases, one JSON object per line:
    ``ContinuousBatcher`` led by rank 0, their int8 partings from this
    process's one-rank runs logged, not judged; the 2-layer Llama in float32
    on the model axis, tokens identical, and its 2 prompts split over a
-   data axis of 2 (each rank runs one), tokens identical; a 4,096-token
+   data axis of 2 (each rank runs one), tokens identical; ``PAR_SERVE``
+   requests served through a ``ContinuousBatcher`` of ``PAR_SERVE`` slots
+   on that axis, each data rank holding and decoding half of the slots:
+   tokens identical to one rank's and each rank's slot cache half of one
+   rank's bytes (``data_axis_slot_bytes``); a 4,096-token
    ring prefill over that axis, firing in both layers, tokens identical; the ring
    against the plain attention at ``FLASH_TOL["float16"]``; ms a decode
    step at 2 ranks against 1, the collectives' time from the port's scope
@@ -313,6 +320,18 @@ Phases, one JSON object per line:
    each rank's payload and peak memory). The kernel phase holds
    the shard shapes against the plain versions untimed
    (``parallel_benches``).
+
+17. Conversion without JAX (``convert_and_run``, after ``card_vs_cpu``): in
+   a subprocess where importing ``jax`` or ``ctranslate2_tpu`` raises, an
+   OpenNMT-py checkpoint and a Marian ``.npz`` at ``CONVERT``'s widths (2
+   layers, d_model 512, 8 heads) fabricated with torch and numpy and
+   converted through the port's ``cli/convert.py`` (OpenNMT-py with
+   ``--quantization int8``); the port's ``Translator`` on the card against
+   the port on the CPU on both directories, beam 2 on
+   ``CONVERT_SENTENCES`` sentences with the chain mask off: the float
+   tokens identical, first-step log-probs within ``LOGPROB_TOL`` (the int8
+   run fed the CPU's int8 activations); W8A8, the norm and the gather
+   launched, no plain version on the card.
 
 The rows the kernel phase does not sum into the totals (the W4 crossover,
 Gemma-2-9B's attention and every later path's shapes) are held
@@ -326,6 +345,7 @@ the ``launches`` counted on the main paths), the last
 those lines, if CUDA is unavailable, any call raises or any check fails.
 """
 
+import atexit
 import contextlib
 import gc
 import json
@@ -382,6 +402,9 @@ W8A8_PROFILED_CALLS = 50
 PROFILED_SHARE = 0.9
 MODEL = dict(vocab_size=32000, num_layers=6, num_heads=8, d_model=512,
              d_ff=2048, seed=7)
+# Its depth in ``host_core_replicas`` and ``continuous_translator``'s
+# profiled block: the run's time limit.
+HALF_LAYERS = MODEL["num_layers"] // 2
 # The Generator's model: Llama-3-8B's geometry at full width and depth.
 LLAMA = dict(layers=32, d_model=4096, heads=32, heads_kv=8, d_ff=14336,
              vocab=128256, rotary_base=500000.0)
@@ -3500,6 +3523,223 @@ def card_vs_cpu(tt, model_dir, batch, checks):
 
 
 # ---------------------------------------------------------------------------
+# Conversion without JAX: checkpoints fabricated with torch and numpy,
+# converted through the port's CLI, loaded on the card.
+# ---------------------------------------------------------------------------
+
+# The converted models: 2 layers at Transformer-base's widths.
+CONVERT = dict(layers=2, d_model=512, heads=8, d_ff=2048, vocab=MODEL["vocab_size"])
+CONVERT_SENTENCES = 8
+CONVERT_TIMEOUT = 300  # seconds for the fabricating and converting subprocess
+# The subprocess's interpreter: ``jax`` and the JAX package fail to import.
+NO_JAX = """
+import sys
+
+class _Blocked:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "ctranslate2_tpu"):
+            raise ImportError(f"{name} is blocked")
+        return None
+
+sys.meta_path.insert(0, _Blocked())
+"""
+# Fabricates an OpenNMT-py checkpoint (torch.save) and a Marian ``.npz``
+# with its vocabulary, and converts both through the port's CLI: OpenNMT-py
+# with ``--quantization int8``, Marian without. Argument: the directory.
+CONVERT_SCRIPT = NO_JAX + """
+import os
+import time
+started = time.perf_counter()
+import numpy as np
+import torch
+import yaml
+from ctranslate2_tpu_torch.cli import convert
+
+work = sys.argv[1]
+L, D, H, FF, V = %(layers)d, %(d_model)d, %(heads)d, %(d_ff)d, %(vocab)d
+rng = np.random.default_rng(31)
+
+def r(*shape):
+    return (rng.standard_normal(shape) * D ** -0.5).astype(np.float32)
+
+def ones():
+    return np.ones(D, np.float32)
+
+def zeros():
+    return np.zeros(D, np.float32)
+
+words = ["<unk>", "<blank>", "<s>", "</s>"] + [f"tok{i}" for i in range(V - 4)]
+model = {}
+for side, layers in (("encoder", "encoder.transformer"), ("decoder", "decoder.transformer_layers")):
+    model[f"{side}.embeddings.make_embedding.emb_luts.0.weight"] = r(V, D)
+    model[f"{side}.embeddings.make_embedding.pe.pe"] = r(1024, 1, D)
+    model[f"{side}.layer_norm.weight"], model[f"{side}.layer_norm.bias"] = ones(), zeros()
+    for i in range(L):
+        scopes = ["self_attn"] + (["context_attn"] if side == "decoder" else [])
+        for a in scopes:
+            for part in ("linear_query", "linear_keys", "linear_values", "final_linear"):
+                model[f"{layers}.{i}.{a}.{part}.weight"] = r(D, D)
+                model[f"{layers}.{i}.{a}.{part}.bias"] = r(D)
+        f = f"{layers}.{i}.feed_forward"
+        model[f"{f}.w_1.weight"], model[f"{f}.w_1.bias"] = r(FF, D), r(FF)
+        model[f"{f}.w_2.weight"], model[f"{f}.w_2.bias"] = r(D, FF), r(D)
+        model[f"{f}.layer_norm.weight"], model[f"{f}.layer_norm.bias"] = ones(), zeros()
+        norms = ["layer_norm"] if side == "encoder" else ["layer_norm_1", "layer_norm_2"]
+        for n in norms:
+            model[f"{layers}.{i}.{n}.weight"], model[f"{layers}.{i}.{n}.bias"] = ones(), zeros()
+onmt = os.path.join(work, "onmt.pt")
+torch.save({"model": {k: torch.from_numpy(v) for k, v in model.items()},
+            "generator": {"weight": torch.from_numpy(r(V, D)), "bias": torch.from_numpy(r(V))},
+            "opt": {"decoder_type": "transformer", "encoder_type": "transformer", "heads": H,
+                    "position_encoding": True, "pos_ffn_activation_fn": "relu"},
+            "vocab": {"src": words, "tgt": words}}, onmt)
+
+config = {"type": "transformer", "transformer-decoder-autoreg": "self-attention",
+          "transformer-no-projection": False, "transformer-ffn-activation": "relu",
+          "transformer-preprocess": "", "transformer-postprocess": "dan",
+          "transformer-postprocess-emb": "d", "transformer-heads": H, "enc-depth": L,
+          "dec-depth": L, "transformer-guided-alignment-layer": "last"}
+arrays = {"special:model.yml": np.frombuffer(yaml.dump(config).encode() + b"\\x00", np.int8),
+          "Wemb": r(V, D), "decoder_ff_logit_out_b": r(1, V)}
+for side in ("encoder", "decoder"):
+    for i in range(1, L + 1):
+        for a in ["self"] + (["context"] if side == "decoder" else []):
+            s = f"{side}_l{i}_{a}"
+            for n in "qkvo":
+                arrays[f"{s}_W{n}"], arrays[f"{s}_b{n}"] = r(D, D), r(1, D)
+            arrays[f"{s}_Wo_ln_scale"], arrays[f"{s}_Wo_ln_bias"] = ones()[None], zeros()[None]
+        s = f"{side}_l{i}_ffn"
+        arrays[f"{s}_W1"], arrays[f"{s}_b1"] = r(D, FF), r(1, FF)
+        arrays[f"{s}_W2"], arrays[f"{s}_b2"] = r(FF, D), r(1, D)
+        arrays[f"{s}_ffn_ln_scale"], arrays[f"{s}_ffn_ln_bias"] = ones()[None], zeros()[None]
+npz, vocab = os.path.join(work, "model.npz"), os.path.join(work, "vocab.yml")
+np.savez(npz, **arrays)
+with open(vocab, "w", encoding="utf-8") as f:
+    f.write("</s>: 0\\n<unk>: 1\\n" + "".join(f"tok{i}: {i}\\n" for i in range(2, V)))
+convert.opennmt_py_main(["--model_path", onmt, "--output_dir", os.path.join(work, "onmt_int8"),
+                         "--quantization", "int8"])
+convert.marian_main(["--model_path", npz, "--vocab_paths", vocab, vocab,
+                     "--output_dir", os.path.join(work, "marian")])
+try:
+    import jax
+    print("JAX_IMPORTED")
+except ImportError:
+    pass
+print("CONVERT_MODULES", sorted(m for m in sys.modules
+                                if m.split(".")[0] in ("jax", "jaxlib", "ctranslate2_tpu")))
+print("CONVERT_SECONDS", time.perf_counter() - started)
+""" % CONVERT
+
+
+def start_conversion():
+    """Starts ``CONVERT_SCRIPT`` in a subprocess of its own over a new
+    directory under the kernels' build directory (it needs no card: the
+    script starts it beside the kernel build). Returns (the process, the
+    directory)."""
+    from ctranslate2_tpu_torch.kernels import build
+
+    os.makedirs(build.build_dir(), exist_ok=True)
+    directory = tempfile.mkdtemp(prefix="convert_", dir=build.build_dir())
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen([sys.executable, "-c", CONVERT_SCRIPT, directory],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+    def stop():  # however the script ends
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        shutil.rmtree(directory, ignore_errors=True)
+
+    atexit.register(stop)
+    return proc, directory
+
+
+def convert_and_run(tt, conversion, checks, logs):
+    """``convert_and_run``: in a subprocess where ``jax`` and
+    ``ctranslate2_tpu`` cannot be imported, an OpenNMT-py checkpoint and a
+    Marian ``.npz`` (``CONVERT``: 2 layers at Transformer-base's widths)
+    fabricated with torch and numpy and converted through the port's
+    ``cli/convert.py`` (OpenNMT-py with ``--quantization int8``); each
+    directory loaded by the port's ``Translator`` on the card and on the
+    CPU, ``translate_batch`` at beam 2 on ``CONVERT_SENTENCES`` sentences
+    with the chain mask off (the beam reorders through the gather kernel).
+    The float Marian model's tokens must be identical and its first-step
+    log-probs within ``LOGPROB_TOL``; the int8 model's first-step log-probs
+    within ``LOGPROB_TOL`` with the card fed the CPU's int8 activations, as
+    ``card_vs_cpu`` holds them. The launch counters, zeroed before the card
+    calls and read after, must show W8A8, the norm and the gather.
+    ``conversion`` is ``start_conversion()``'s process and directory."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    proc, conv = conversion
+    stdout, stderr = proc.communicate(timeout=CONVERT_TIMEOUT)
+    waited = time.perf_counter() - t0
+    if proc.returncode:
+        print(stdout[-3000:], stderr[-6000:], file=sys.stderr)
+    checks(proc.returncode == 0, f"convert_and_run: the converting subprocess ran to its "
+                                 f"end (rc {proc.returncode})")
+    if proc.returncode:
+        return
+    lines = stdout.splitlines()
+    modules = [line for line in lines if line.startswith("CONVERT_MODULES")]
+    checks(modules == ["CONVERT_MODULES []"] and "JAX_IMPORTED" not in lines,
+           f"convert_and_run: the subprocess imported nothing of JAX ({modules})")
+    convert_seconds = float(next(line.split()[1] for line in lines
+                                 if line.startswith("CONVERT_SECONDS")))
+    rng = np.random.default_rng(33)
+    sentences = [[f"tok{int(t)}" for t in rng.integers(4, CONVERT["vocab"] - 4,
+                                                      int(rng.integers(8, 25)))]
+                 for _ in range(CONVERT_SENTENCES)]
+    opts = dict(beam_size=BEAM, max_decoding_length=MAX_DEC)
+    out, plain, counts = {}, {}, {}
+    for name, compute_type in (("marian", "float32"), ("onmt_int8", "int8_float32")):
+        path = os.path.join(conv, name)
+        cpu = tt.Translator(path, device="cpu", compute_type=compute_type)
+        card = tt.Translator(path, device="cuda", compute_type=compute_type)
+        recorded = []
+        logp_cpu = first_step_logprobs(cpu, sentences, record_quantized(recorded))
+        cpu_hyps = [r.hypotheses for r in cpu.translate_batch(sentences, **opts)]
+        with chain_off(), watched(logs, plain):
+            card_hyps = [r.hypotheses for r in card.translate_batch(sentences, **opts)]
+            torch.cuda.synchronize()
+            got = dict(tt.launch_counts())
+        counts = {k: counts.get(k, 0) + got.get(k, 0) for k in set(counts) | set(got)}
+        same = sum(a == b for a, b in zip(card_hyps, cpu_hyps))
+        line = {"compute_type": compute_type, "hypotheses_identical":
+                f"{same}/{len(sentences)}", "launches": got}
+        if recorded:
+            replay = ReplayQuantized(recorded)
+            diff = (first_step_logprobs(card, sentences, replay) - logp_cpu).abs().max().item()
+            checks(replay.calls == len(recorded) > 0 and diff <= LOGPROB_TOL,
+                   f"convert_and_run {name}: first-step log-probs fed the CPU's int8 "
+                   f"activations within {LOGPROB_TOL} (got {diff}; {replay.calls} of "
+                   f"{len(recorded)} linears)")
+            line.update(fed_cpu_int8_logprob_max_abs_diff=diff, int8_linears=len(recorded),
+                        int8_max_step=replay.max_step)
+        else:
+            diff = (first_step_logprobs(card, sentences) - logp_cpu).abs().max().item()
+            checks(diff <= LOGPROB_TOL and same == len(sentences),
+                   f"convert_and_run {name}: tokens identical to the CPU's ({same} of "
+                   f"{len(sentences)}), first-step log-probs within {LOGPROB_TOL} (got "
+                   f"{diff})")
+            line["first_step_logprob_max_abs_diff"] = diff
+        out[name] = line
+        del cpu, card
+        free_card()
+    check_path("convert_and_run", counts, ("matmul_w8a8", "fused_norm", "gather_rows_fused"),
+               plain, checks)
+    emit({"phase": "convert_and_run", "config": CONVERT, "sentences": len(sentences),
+          "beam": BEAM, "max_decoding_length": MAX_DEC, "chain_mask": False,
+          "converted": {"onmt_py": "cli.convert.opennmt_py_main --quantization int8",
+                        "marian": "cli.convert.marian_main"},
+          "tolerance": LOGPROB_TOL, "convert_subprocess_seconds": convert_seconds,
+          "waited_for_the_subprocess_seconds": waited,
+          "seconds": time.perf_counter() - t0, **out})
+
+
+# ---------------------------------------------------------------------------
 # The architecture features at four published families' widths.
 # ---------------------------------------------------------------------------
 
@@ -5587,12 +5827,14 @@ def _check_beam_launches(label, counts, steps, plain, kernels, checks):
            f"{steps} steps)")
 
 
-def continuous_translator(tt, model_dir, batches, checks, logs):
+def continuous_translator(tt, model_dir, batches, checks, logs, half_dir):
     """The int8 Transformer-base behind ``ContinuousTranslator``: the 256
     phase-2 sentences submitted at once to ``CT_SLOTS`` slots, beam 2 and
     beam 1, exactly ``MAX_DEC`` target tokens, against ``translate_batch``
-    (beam 2, batches of 64) on the same sentences; one profiled block.
-    Returns the beam-1 run's line and hypotheses."""
+    (beam 2, batches of 64) on the same sentences; one profiled block, on
+    the model at half its depth (``half_dir``, ``HALF_LAYERS``), and the
+    gather over the whole slot cache. Returns the beam-1 run's line and
+    hypotheses."""
     import torch
     from ctranslate2_tpu_torch.runtime.continuous import _Request
 
@@ -5656,9 +5898,10 @@ def continuous_translator(tt, model_dir, batches, checks, logs):
                         launches_per_beam_step={k: v / steps for k, v in counts.items()})
         out[f"beam{beam}"] = line
         greedy = (line, hyps)
-    cb = tt.ContinuousTranslator(tr, num_slots=CT_SLOTS, capacity=CT_CAPACITY,
-                                 max_source_len=CT_SOURCE, steps_per_sync=CT_STEPS,
-                                 beam_size=BEAM)
+    def batcher(translator):
+        return tt.ContinuousTranslator(translator, num_slots=CT_SLOTS, capacity=CT_CAPACITY,
+                                       max_source_len=CT_SOURCE, steps_per_sync=CT_STEPS,
+                                       beam_size=BEAM)
 
     def admit(cb):
         for slot in range(CT_SLOTS):
@@ -5666,9 +5909,14 @@ def continuous_translator(tt, model_dir, batches, checks, logs):
             cb._prefill_into_slot(slot, _Request(prompt_ids=ids, start_id=cb._start_id, **kw))
         return list(range(CT_SLOTS))
 
-    out["profiled_block"] = _profile_block(cb, admit, "continuous_translator_block", CT_STEPS)
+    cb = batcher(tr)
     out["gather_per_step"] = _gather_ms_per_step(cb, checks, "continuous_translator")
-    del cb
+    cb.close()
+    half = tt.Translator(half_dir, compute_type="int8")
+    out["profiled_block"] = dict(
+        _profile_block(batcher(half), admit, "continuous_translator_block", CT_STEPS),
+        layers=HALF_LAYERS)
+    del cb, half
     emit({"phase": "continuous_translator", "compute_type": "int8", "sentences": len(sents),
           "slots": CT_SLOTS, "capacity": CT_CAPACITY, "max_source_len": CT_SOURCE,
           "steps_per_sync": CT_STEPS, "max_length": MAX_DEC, "beam": BEAM, **out})
@@ -5744,13 +5992,14 @@ def _serve_traffic(tt, cb, gen, traffic, logs, label, checks, decode_per_step=No
             "plain_calls_on_card": plain}, counts, steps, plain, streamed
 
 
-def serving_generator_beam(tt, gen, checks, logs):
+def serving_generator_beam(tt, gen, checks, logs, side_gen):
     """The int8 Llama with the int8 KV cache behind
     ``ContinuousBatcher(beam_size=4)`` (``SERVE_SLOTS`` slots of
     ``SERVE_CAPACITY``, ``SERVE_STEPS`` steps a block): the first
     ``BEAM_SERVE_REQUESTS`` requests of ``serving_traffic`` submitted at
     once, then the same requests greedy at depth 1; one profiled beam
-    block and the gather over the whole slot cache. Returns the greedy
+    block, on ``side_gen`` (``SIDE_LAYERS`` of the Llama's layers), and the
+    gather over the whole slot cache. Returns the greedy
     run's line and its streamed tokens (``serving_generator_spec`` compares
     the speculative runs with them)."""
     traffic = serving_traffic(LLAMA["vocab"])[:BEAM_SERVE_REQUESTS]
@@ -5771,10 +6020,14 @@ def serving_generator_beam(tt, gen, checks, logs):
                plain, checks)
     free_card()
     cb = _serving_batcher(tt, gen, 1, beam_size=BEAM_SERVE_WIDTH)
-    block = _profile_block(cb, lambda cb: _admit_traffic(cb, traffic),
-                           "serving_generator_beam_block", SERVE_STEPS)
     gather = _gather_ms_per_step(cb, checks, "serving_generator_beam")
+    cb.close()
     del cb
+    free_card()
+    block = dict(_profile_block(_serving_batcher(tt, side_gen, 1, beam_size=BEAM_SERVE_WIDTH),
+                                lambda cb: _admit_traffic(cb, traffic),
+                                "serving_generator_beam_block", SERVE_STEPS),
+                 layers=SIDE_LAYERS)
     free_card()
     emit({"phase": "serving_generator_beam", "compute_type": gen.compute_type,
           "kv_cache": "int8", "slots": SERVE_SLOTS, "beam": BEAM_SERVE_WIDTH,
@@ -6047,7 +6300,7 @@ def recorded_picks(module, out, cb=None):
             rec = {"ids": ids, "scores": scores, "top_v": top.values,
                    "top_i": top.indices}
             if cb is not None:
-                rec["owners"] = ([cb._admitting] if log_probs.shape[0] == 1
+                rec["owners"] = (cb._admitting[:1] if log_probs.shape[0] == 1
                                  else list(cb._slots))
             out.append(rec)
             return ids, scores
@@ -6989,7 +7242,9 @@ def union_ms(intervals):
 
 
 def host_core_replicas(tt, model_dir, batches, checks, logs):
-    """``Translator(device_index=[0, 0])``: two replicas on the card, one
+    """``Translator(device_index=[0, 0])`` on ``model_dir`` (the int8
+    Transformer-base at ``HALF_LAYERS`` + ``HALF_LAYERS`` layers, for the
+    run's time limit): two replicas on the card, one
     CUDA stream each, the four phase-2 batches submitted at once; every
     hypothesis must equal the one-replica Translator's on the same batches.
     Target tok/s of one replica, of one replica with two workers (two
@@ -7229,11 +7484,36 @@ def par_llama_runs(tt, path, vocab, prompts, fed=None):
     return out, logs, counts, plain
 
 
+def par_small_serve(tt, gen, serve):
+    """The serving prompts through a ``ContinuousBatcher`` of ``PAR_SERVE``
+    slots (an even count: a data axis of 2 gives each data rank half of
+    them): (the leader's tokens, None on a follower; this rank's slots on
+    the card and their slot-cache bytes)."""
+    cb = tt.ContinuousBatcher(gen, num_slots=PAR_SERVE, capacity=2 * PAR_SERVE_PROMPT,
+                              steps_per_sync=4)
+    tokens, stats = None, cb.stats()
+    try:
+        if cb._leader:
+            futures = [cb.submit(p, max_length=PAR_NEW) for p in serve]
+            tokens = [f.result(timeout=300).sequences_ids[0] for f in futures]
+    finally:
+        if cb._leader:
+            cb.close()
+        else:
+            cb.join(timeout=300)
+            if cb._thread.is_alive():
+                raise RuntimeError("the follower's batcher did not reach its close")
+    return {"tokens": tokens, "local_slots": stats["local_slots"],
+            "slot_cache_bytes": stats["slot_cache_bytes"]}
+
+
 def par_small_runs(tt, path, vocab, prompts, tensor_parallel=False, data_axis=False):
     """The 2-layer Llama in float32: greedy on the short prompts (split
     over a data axis of 2 with ``data_axis``: the rows of each share this
     rank ran counted) and the ring's prompt (whole on each data rank: the
-    ring prefill's calls counted)."""
+    ring prefill's calls counted); without a model axis, the serving
+    prompts through ``par_small_serve`` (with ``data_axis`` each data rank
+    holds and decodes half of the slots)."""
     from ctranslate2_tpu_torch.parallel import context as ctx_par
 
     short, _, _, ring = prompts
@@ -7264,6 +7544,8 @@ def par_small_runs(tt, path, vocab, prompts, tensor_parallel=False, data_axis=Fa
         out["ring"] = gen.generate_batch(ring, max_length=4,
                                          include_prompt_in_result=False)[0].sequences_ids[0]
     out["ring_calls"] = calls
+    if not tensor_parallel:
+        out["serve"] = par_small_serve(tt, gen, prompts[2])
     del gen
     free_card()
     return out
@@ -7536,6 +7818,16 @@ def parallel_two_ranks(tt, int8_dir, llama, vocab, sentences, work, checks, logs
         checks(out["ring"]["ring"] == small["ring"] and len(out["ring"]["ring_calls"])
                == AB_LAYERS, f"{label}: the ring prefill fired in every layer "
                f"({out['ring']['ring_calls']}) and its float32 tokens equal one rank's")
+        serve = out["ring"]["serve"]
+        checks(serve["local_slots"] * 2 == small["serve"]["local_slots"] == PAR_SERVE
+               and serve["slot_cache_bytes"] * 2 == small["serve"]["slot_cache_bytes"],
+               f"{label}: the data rank holds half of the {PAR_SERVE} serving slots "
+               f"({serve['local_slots']}) and half of one rank's slot-cache bytes "
+               f"({serve['slot_cache_bytes']} of {small['serve']['slot_cache_bytes']})")
+        if r == 0:
+            checks(serve["tokens"] == small["serve"]["tokens"],
+                   f"{label}: float32 2-layer served tokens identical to one rank's with "
+                   f"the slots on a data axis of 2")
         checks(out["ring_kernel"]["within_tolerance"],
                f"{label}: ring attention within the flash rows' float16 tolerance of the "
                f"plain attention ({out['ring_kernel']['max_abs_err']})")
@@ -7584,6 +7876,12 @@ def parallel_two_ranks(tt, int8_dir, llama, vocab, sentences, work, checks, logs
               "beam": _partings([lead["llama"]["beam"]], [one["beam"]]),
               "serve": _partings(lead["llama"]["serve"], one["serve"])},
           "data_axis_shares": lead["ring"]["greedy_shares"],
+          "data_axis_slot_bytes": {
+              "slots": PAR_SERVE, "one_rank": small["serve"]["slot_cache_bytes"],
+              "two_ranks": [out["ring"]["serve"]["slot_cache_bytes"] for out in ranks],
+              "local_slots": [out["ring"]["serve"]["local_slots"] for out in ranks],
+              "served_tokens_identical": lead["ring"]["serve"]["tokens"]
+              == small["serve"]["tokens"]},
           "ring_calls": lead["ring"]["ring_calls"], "ring_kernel": lead["ring_kernel"],
           "one_rank_launches": one_counts,
           "reference_seconds": ref_seconds, "job_seconds": job_seconds,
@@ -7649,6 +7947,9 @@ def main():
 
     native_thread = threading.Thread(target=build_native)
     native_thread.start()
+    # The converting subprocess of ``convert_and_run`` needs no card: it
+    # runs beside the builds.
+    conversion = start_conversion()
     build_seconds = build.build(ptxas_report=PTXAS_REPORT)
     native_thread.join()
     if "error" in native_build:
@@ -7669,7 +7970,12 @@ def main():
         t0 = time.perf_counter()
         int8_dir = build_seq2seq_model(os.path.join(work, "int8"), quantization="int8", **MODEL)
         float_dir = build_seq2seq_model(os.path.join(work, "float"), **MODEL)
-        emit({"phase": "models", "config": MODEL, "seconds": time.perf_counter() - t0})
+        # The same widths at half the depth: the replicas and the profiled
+        # serving block (the run's time limit).
+        half_dir = build_seq2seq_model(os.path.join(work, "int8_half"), quantization="int8",
+                                       **dict(MODEL, num_layers=HALF_LAYERS))
+        emit({"phase": "models", "config": MODEL, "half_layers": HALF_LAYERS,
+              "seconds": time.perf_counter() - t0})
 
         # ---- main path 1: Translator ----
         logs = {}
@@ -7693,7 +7999,7 @@ def main():
         residency_translator(tt, int8_dir, batches[1], checks)
         free_card()
         beam_logs = {}
-        ct_greedy = continuous_translator(tt, int8_dir, batches, checks, beam_logs)
+        ct_greedy = continuous_translator(tt, int8_dir, batches, checks, beam_logs, half_dir)
         free_card()
         spec_logs = {}
         continuous_translator_spec(tt, int8_dir, batches, work, checks, spec_logs, ct_greedy)
@@ -7707,7 +8013,7 @@ def main():
         free_card()
         host_core_scheduler(tt, int8_dir, batches, checks, core_logs)
         free_card()
-        host_core_replicas(tt, int8_dir, batches, checks, core_logs)
+        host_core_replicas(tt, half_dir, batches, checks, core_logs)
         free_card()
         core_seconds = time.perf_counter() - core_started
 
@@ -7760,9 +8066,9 @@ def main():
         free_card()
         serve_logs = {}
         serving_generator(tt, side_gen, llama_vocab, checks, serve_logs)
-        del side_gen
         free_card()
-        greedy = serving_generator_beam(tt, gen, checks, beam_logs)
+        greedy = serving_generator_beam(tt, gen, checks, beam_logs, side_gen)
+        del side_gen
         free_card()
         speculation_generator(tt, gen, llama_vocab, checks, spec_logs, plain_calls)
         del plain_calls
@@ -7874,6 +8180,9 @@ def main():
         chain_float32(tt, float_dir, batches[1], checks)
         free_card()
         card_vs_cpu(tt, int8_dir, batches[1], checks)
+        free_card()
+        convert_and_run(tt, conversion, checks, {})
+        free_card()
 
         # ---- the other Generator runs ----
         generator_ab(tt, small_llama, llama_vocab, checks)

@@ -32,6 +32,22 @@ class SpecBuilder:
         self.mf = ModelFile(spec_name=spec_name, spec_revision=spec_revision,
                             binary_version=6)
 
+    @property
+    def spec_name(self):
+        return self.mf.spec_name
+
+    @spec_name.setter
+    def spec_name(self, value):
+        self.mf.spec_name = value
+
+    @property
+    def revision(self):
+        return self.mf.spec_revision
+
+    @revision.setter
+    def revision(self, value):
+        self.mf.spec_revision = value
+
     def add(self, name: str, value, dtype: Optional[str] = None):
         self.mf.variables[name] = make_variable(name, value, dtype)
 
@@ -88,9 +104,6 @@ class SpecBuilder:
                     name + "_scale", np.float32(scale))
             elif quantization in ("float16", "bfloat16"):
                 new_vars[name] = make_variable(name, w, quantization)
-            else:
-                raise NotImplementedError(
-                    f"quantization {quantization!r} is not ported yet")
         self.mf.variables.update(new_vars)
 
     def save(self, directory: str, config: Optional[dict] = None,

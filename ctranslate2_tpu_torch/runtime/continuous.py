@@ -55,6 +55,23 @@ fault on one rank) leaves the others in that collective until the process
 group's timeout or until the launcher stops the job (``parallel/launch.py``
 stops every rank at the first one's failure). A draft model under more
 than one process raises ``NotImplementedError``, as in the JAX package.
+
+The slots on the data axis: where the job's data axis D divides
+``num_slots`` S, data group d owns the contiguous slots [d S/D, (d+1) S/D)
+(as ``P("data")`` places rows, ``ctranslate2_tpu/parallel/sharding.py``
+``shard_cache``) and holds on the card only their state: the slot cache,
+the per-slot cross memory, the beam state and the penalty tables. Every
+rank still takes every record and keeps the host bookkeeping of every
+slot. Only the owner group prefills (or encodes) an admitted slot, with
+no ring prefill over the data axis; the admit's first token, or its
+failure, reaches every rank in one gather over the data axis. Each group
+decodes its own active slots and skips a block in which it has none (so
+it enters no model collective); the block's results (ids and scores, a
+verify's drafts, a beam block's active flags with the finished or
+streamed slots' hypotheses) are gathered over the data axis in one buffer
+before any rank consumes them. Where D does not divide S every data rank
+holds every slot, as ``fit_spec`` leaves an axis that does not divide
+replicated.
 """
 
 from __future__ import annotations
@@ -158,12 +175,15 @@ class _Request:
     # Serving latency: submission time and the first token's.
     t_submit: float = field(default_factory=time.monotonic)
     t_first: Optional[float] = None
+    # Whether the leader streams this request (followers hold no callback).
+    streams: bool = False
     # Rolling per-token scores (stop-sequence trimming refunds them).
     recent_scores: List[float] = field(default_factory=list)
     max_stop_len: int = 0
 
     def __post_init__(self):
         self.max_stop_len = max((len(s) for s in self.stop_sequences), default=0)
+        self.streams = self.streams or self.callback is not None
 
 
 class ContinuousBatcher:
@@ -262,6 +282,16 @@ class ContinuousBatcher:
                     "continuous serving")
             self._dist = model.grid.control
         self._leader = self._dist is None or self._dist.rank == 0
+        # The slots whose state this rank holds on the card: [lo, lo + ns),
+        # a data group's share where the data axis divides num_slots.
+        self._shard = None  # the data axis, in that layout
+        self._lo, self._ns = 0, num_slots
+        grid = getattr(model, "grid", None)
+        if self._dist is not None and grid.num_data > 1 and num_slots % grid.num_data == 0:
+            self._shard = grid.data
+            self._ns = num_slots // grid.num_data
+            self._lo = grid.data.rank * self._ns
+        self._snap = None  # sharded beam: the last block's gathered hypotheses
         self._freed: List[int] = []  # the leader's frees not yet broadcast
         if self._beam > 1 and not 1 <= num_hypotheses <= self._beam:
             raise ValueError("num_hypotheses must be in [1, beam_size]")
@@ -297,7 +327,7 @@ class ContinuousBatcher:
         self._suppress_ids = tuple(v.to_id(t, allow_unk=False) for t in suppress_tokens)
         model.ensure_consts(capacity)
 
-        S, K, V, dev = num_slots, self._beam, len(v), self._device
+        S, K, V, dev = self._ns, self._beam, len(v), self._device  # this rank's slots
         # Penalty tables: [S, V] generated-token presence (repetition
         # penalty) and [S, capacity + 1] generated-token history
         # (no-repeat-ngram; entry t the t-th generated token, the last
@@ -321,6 +351,7 @@ class ContinuousBatcher:
                         "gen": torch.zeros(S, dtype=torch.int32, device=dev)}
         # The host's bound of each slot's device position after every block
         # queued so far: the length-adaptive attention's trip count.
+        S = num_slots  # the host tables cover every slot
         self._dpos = np.zeros(S, np.int64)
 
         if pipeline_depth is None:
@@ -392,7 +423,8 @@ class ContinuousBatcher:
             self._init_draft(getattr(dm, "model", dm))
 
         self._queue: "queue.Queue[_Request]" = queue.Queue()
-        self._admitting: Optional[_Request] = None
+        self._admitting: List[_Request] = []  # an admit round's requests not yet in a slot
+        self._failed_everywhere = False  # an admit failure every rank raised itself
         self._error: Optional[BaseException] = None  # what ended the scheduler
         self._closed = False
         self._wake = threading.Event()
@@ -418,7 +450,7 @@ class ContinuousBatcher:
         dm.ensure_consts(self._capacity)
         self._draft_model = dm
         self._draft_kv_dtype = dm.kv_dtype
-        self._draft_cache = T.init_self_cache(dm.arch, self._num_slots, self._capacity,
+        self._draft_cache = T.init_self_cache(dm.arch, self._ns, self._capacity,
                                               dtype=self._draft_kv_dtype,
                                               device=self._device, ring=True)
         self._draft_mem = None
@@ -427,17 +459,17 @@ class ContinuousBatcher:
             for layer in dm.arch.decoder.layers:
                 a = layer.cross_attention
                 shape = (None if a is None else
-                         (self._num_slots, a.num_heads_kv, self._max_src, a.head_dim))
+                         (self._ns, a.num_heads_kv, self._max_src, a.head_dim))
                 self._draft_mem.append(None if a is None else {
                     n: torch.zeros(shape, dtype=dm.out_dtype, device=self._device)
                     for n in ("k", "v")})
         self._draft_fn = self._build_draft_fn()
 
     def _init_beam(self):
-        """The beam state: ``num_slots`` x K rows, the hypothesis store (K
-        hypotheses a slot, the per-request num_hypotheses ceiling) and the
+        """The beam state: this rank's slots x K rows, the hypothesis store
+        (K hypotheses a slot, the per-request num_hypotheses ceiling) and the
         per-slot beam options."""
-        S, K, L, dev = self._num_slots, self._beam, self._capacity, self._device
+        S, K, L, dev = self._ns, self._beam, self._capacity, self._device
 
         def full(shape, value, dtype):
             return torch.full(shape, value, dtype=dtype, device=dev)
@@ -461,6 +493,7 @@ class ContinuousBatcher:
             "top_fin": full((S,), False, torch.bool),
             "active": full((S,), False, torch.bool),
         }
+        S = self._num_slots  # the host tables cover every slot
         self._b_active_host = np.zeros(S, bool)
         self._max_lens = np.ones(S, np.int32)
         self._nhyps = np.full(S, self._num_hyp, np.int32)
@@ -620,7 +653,8 @@ class ContinuousBatcher:
         """Serving counters since construction: generated tokens, finished
         requests, decode steps and blocks, mean slot occupancy, tokens/s
         and time-to-first-token percentiles (under beam search the first
-        delivery: a streamed commit, else the finish)."""
+        delivery: a streamed commit, else the finish); the slots this rank
+        holds on the card and their slot-cache bytes."""
         dt = max(time.monotonic() - self._started_at, 1e-9)
         tt = np.asarray(self._ttfts, np.float64)
         return {
@@ -643,7 +677,16 @@ class ContinuousBatcher:
                            "model" if self._draft_model is not None
                            else "prompt-lookup"),
             "num_queued": self._queue.qsize(),
+            "local_slots": self._ns,
+            "slot_cache_bytes": self._slot_cache_bytes(),
         }
+
+    def _slot_cache_bytes(self) -> int:
+        """Bytes of this rank's slot cache on the card: the KV cache rows and
+        the encoder-decoder batchers' per-slot cross memory."""
+        bufs = [t for layer in self._cache for t in layer.values()]
+        bufs += [t for m in getattr(self, "_mem", None) or () if m for t in m.values()]
+        return sum(t.numel() * t.element_size() for t in bufs)
 
     def close(self):
         self._closed = True
@@ -817,8 +860,20 @@ class ContinuousBatcher:
             gen = req.generated[:C]
             hist[s, :len(gen)] = gen
             seen[s, gen] = True
-        self._seen = self._upload(seen)
-        self._hist = self._upload(hist)
+        self._seen = self._upload(self._mine(seen))
+        self._hist = self._upload(self._mine(hist))
+
+    def _owns(self, slot: int) -> bool:
+        """Whether this rank holds ``slot``'s state on the card."""
+        return self._lo <= slot < self._lo + self._ns
+
+    def _row(self, slot: int) -> int:
+        """``slot``'s row in this rank's device state."""
+        return slot - self._lo
+
+    def _mine(self, array):
+        """The rows of this rank's slots of a host table over every slot."""
+        return array[self._lo:self._lo + self._ns]
 
     def _upload(self, array):
         """A host array on the device: through pinned memory on a card, so
@@ -832,7 +887,8 @@ class ContinuousBatcher:
         """The per-slot option tables on the device, uploaded again after an
         admit changed them."""
         if self._dopts is None:
-            up = self._upload
+            def up(a):
+                return self._upload(self._mine(a))
             o = {"temps": up(self._temps),
                  "topks": up(self._topks.astype(np.int64)),
                  "topps": up(self._topps),
@@ -916,11 +972,12 @@ class ContinuousBatcher:
         return self._pick(l, [self._gens[slot]], opts)
 
     def _sampling_gens(self, active):
-        """The slots' noise generators (None where a slot keeps to the
-        argmax), or None when no active slot samples."""
+        """This rank's slots' noise generators (None where a slot keeps to
+        the argmax), or None when no slot of ``active`` samples."""
         if not any(self._topks[i] != 1 for i in active):
             return None
-        return [g if self._topks[s] != 1 else None for s, g in enumerate(self._gens)]
+        return self._mine([g if self._topks[s] != 1 else None
+                           for s, g in enumerate(self._gens)])
 
     # ------------------------------------------------------------------
     # Streaming and bookkeeping.
@@ -1101,32 +1158,38 @@ class ContinuousBatcher:
         if self._beam > 1:
             return self._prefill_into_slot_beam(slot, req)
         ids = req.prompt_ids
-        rb = T.ring_block(self.model.arch)
         self._set_slot_sampling(slot, req)
-        if rb and len(ids) > rb:
-            logits, sub = self._prefill_chunked(ids, rb)
-        else:
-            logits, sub = self._prefill_logits(ids)
-        tok, score = self._select_one(slot, logits, req.min_length > 0)
-        T.cache_insert_row(self._cache, sub, slot)
-        del sub
-        if self._draft_model is not None:
-            self._draft_prefill(slot, ids)
-        first = int(tok[0])  # the admit's one wait for the card
-        if self._seen.shape[0]:
-            self._seen[slot] = False
-            self._seen[slot, first] = True
-            self._hist[slot] = 0
-            self._hist[slot, 0] = first
-        self._emit(req, first, float(score[0]))
+
+        def prefill():
+            rb = T.ring_block(self.model.arch)
+            if rb and len(ids) > rb:
+                logits, sub = self._prefill_chunked(ids, rb)
+            else:
+                logits, sub = self._prefill_logits(ids)
+            tok, score = self._select_one(slot, logits, req.min_length > 0)
+            T.cache_insert_row(self._cache, sub, self._row(slot))
+            del sub
+            if self._draft_model is not None:
+                self._draft_prefill(slot, ids)
+            return int(tok[0]), float(score[0])  # the admit's one wait for the card
+
+        first, score = self._on_owner(slot, prefill)
+        if self._owns(slot):
+            r = self._row(slot)
+            if self._seen.shape[0]:
+                self._seen[r] = False
+                self._seen[r, first] = True
+                self._hist[r] = 0
+                self._hist[r, 0] = first
+            # The slot's device state: queued after the blocks in flight, so
+            # the next block dispatched sees the admitted row.
+            self._dstate["tokens"][r] = first
+            self._dstate["pos"][r] = len(ids)
+            self._dstate["gen"][r] = 1
+        self._emit(req, first, score)
         self._slots[slot] = req
         self._pos[slot] = len(ids)
         self._tokens[slot] = first
-        # The slot's device state: queued after the blocks in flight, so
-        # the next block dispatched sees the admitted row.
-        self._dstate["tokens"][slot] = first
-        self._dstate["pos"][slot] = len(ids)
-        self._dstate["gen"][slot] = 1
         self._dpos[slot] = len(ids)
 
     def _prefill_into_slot_beam(self, slot: int, req: _Request):
@@ -1138,7 +1201,10 @@ class ContinuousBatcher:
         ids = req.prompt_ids
         K = self._beam
         pos0 = len(ids) - 1
-        if pos0 > 0:
+
+        def prefill():
+            if pos0 <= 0:
+                return
             rb = T.ring_block(self.model.arch)
             if rb and pos0 > rb:
                 sub = self._beam_cache_chunked(ids[:-1])
@@ -1146,12 +1212,52 @@ class ContinuousBatcher:
                 P = _round_up(pos0, self._prefill_bucket)
                 _, sub = self._get_cache_prefill(P)(self._padded(ids[:-1], P), pos0)
             for k in range(K):
-                T.cache_insert_row(self._cache, sub, slot * K + k)
-            del sub
+                T.cache_insert_row(self._cache, sub, self._row(slot) * K + k)
+
+        self._on_owner(slot, prefill)
         self._set_beam_slot_options(slot, req)
         self._beam_reset_fn(slot, ids[-1], pos0)
         self._slots[slot] = req
         self._pos[slot] = pos0
+
+    def _on_owner(self, slot: int, fn):
+        """``fn()``, the device work of an admit into ``slot``. In the sharded
+        layout only the slot's data group runs it, with no ring prefill (the
+        other groups do not join one), and its result reaches every rank
+        over the data axis; a failure there raises on every rank."""
+        if self._shard is None:
+            return fn()
+        from ..parallel.context import batch_on_data_axis
+
+        out = error = None
+        if self._owns(slot):
+            try:
+                with batch_on_data_axis():
+                    out = fn()
+            except Exception as e:  # noqa: BLE001 - raised on every rank below
+                error = e
+        parts = self._shard.all_gather_objects(
+            (out, None if error is None else f"{type(error).__name__}: {error}"))
+        # Every rank raises here, so the leader sends no error record.
+        self._failed_everywhere = any(text is not None for _, text in parts)
+        if error is not None:
+            raise error
+        for d, (_, text) in enumerate(parts):
+            if text is not None:
+                raise RuntimeError(f"data rank {d} failed: {text}")
+        return parts[slot // self._ns][0]
+
+    def _share_rows(self, tensors, widths):
+        """The [S, w] results of every slot: each data group's ``tensors``
+        ([ns, w] each; None where the group decoded nothing) packed into one
+        float64 buffer, exact for ids and float32 scores, and gathered over
+        the data axis in slot order."""
+        if tensors is None:
+            buf = torch.zeros((self._ns, sum(widths)), dtype=torch.float64,
+                              device=self._device)
+        else:
+            buf = torch.cat([t.reshape(self._ns, -1).double() for t in tensors], dim=1)
+        return torch.split(self._shard.all_gather(buf, dim=0), list(widths), dim=1)
 
     def _build_beam_reset(self):
         """A function (slot, start token, start position) that writes one
@@ -1159,20 +1265,22 @@ class ContinuousBatcher:
         flight): K beams on the start token, beam 0 at score 0 and the rest
         dead, an empty history and store."""
         def reset(slot: int, start_tok: int, pos0: int) -> None:
-            st = self._bstate
-            st["tokens"][slot] = start_tok
-            st["pos"][slot] = pos0
-            st["gen"][slot] = 0
-            st["scores"][slot] = NEG
-            st["scores"][slot, 0] = 0.0
-            for name in ("alive", "alive_sc", "store_seqs", "store_sc", "store_lens",
-                         "store_count"):
-                st[name][slot] = 0
-            st["store_scores"][slot] = -float("inf")
-            st["top_fin"][slot] = False
-            st["active"][slot] = True
             self._b_active_host[slot] = True
             self._dpos[slot] = pos0
+            if not self._owns(slot):
+                return
+            st, r = self._bstate, self._row(slot)
+            st["tokens"][r] = start_tok
+            st["pos"][r] = pos0
+            st["gen"][r] = 0
+            st["scores"][r] = NEG
+            st["scores"][r, 0] = 0.0
+            for name in ("alive", "alive_sc", "store_seqs", "store_sc", "store_lens",
+                         "store_count"):
+                st[name][r] = 0
+            st["store_scores"][r] = -float("inf")
+            st["top_fin"][r] = False
+            st["active"][r] = True
 
         return reset
 
@@ -1185,7 +1293,7 @@ class ContinuousBatcher:
         bounds clamped at ``clamp``), advanced past the block."""
         starts = np.minimum(self._dpos, clamp)
         self._dpos = starts + self._block
-        return int(starts.max())
+        return int(self._mine(starts).max())
 
     def _build_step(self):
         """The greedy and sampled step: a function (tokens, positions,
@@ -1240,26 +1348,35 @@ class ContinuousBatcher:
         after the NEXT block has been queued)."""
         cap, block = self._capacity, self._block
         binding = {i: self._slots[i] for i in active}
-        opts = self._device_options()
-        mem, mem_bias = self._memory(opts)
-        gens = self._sampling_gens(active)
-        tokens, gen = self._dstate["tokens"], self._dstate["gen"]
-        # Overshoot clamp: a slot that finished while a block was in
-        # flight keeps advancing until re-admitted; its writes stay inside
-        # its row (the admit resets it).
-        pos = torch.clamp(self._dstate["pos"], max=cap - block)
+        mine = [i for i in active if self._owns(i)]
         top = self._block_bounds(cap - block)
-        ids_k, scores_k = [], []
-        for i in range(block):
-            ids, scores = self._step_fn(tokens, pos, gen, opts, mem, mem_bias, gens, top + i)
-            ids_k.append(ids)
-            scores_k.append(scores)
-            tokens, pos, gen = ids, pos + 1, gen + 1
-        self._dstate = {"tokens": tokens, "pos": pos, "gen": gen}
+        out = None
+        if mine:
+            opts = self._device_options()
+            mem, mem_bias = self._memory(opts)
+            gens = self._sampling_gens(mine)
+            tokens, gen = self._dstate["tokens"], self._dstate["gen"]
+            # Overshoot clamp: a slot that finished while a block was in
+            # flight keeps advancing until re-admitted; its writes stay
+            # inside its row (the admit resets it).
+            pos = torch.clamp(self._dstate["pos"], max=cap - block)
+            ids_k, scores_k = [], []
+            for i in range(block):
+                ids, scores = self._step_fn(tokens, pos, gen, opts, mem, mem_bias, gens,
+                                            top + i)
+                ids_k.append(ids)
+                scores_k.append(scores)
+                tokens, pos, gen = ids, pos + 1, gen + 1
+            self._dstate = {"tokens": tokens, "pos": pos, "gen": gen}
+            out = torch.stack(ids_k), torch.stack(scores_k)  # [block, ns] each
         self._step_count += block
         self._blocks += 1
         self._slot_steps += len(active) * block
-        return self._to_host(torch.stack(ids_k), torch.stack(scores_k)) + (binding,)
+        if self._shard is not None:
+            ids, scores = self._share_rows(None if out is None else [t.T for t in out],
+                                           (block, block))
+            out = ids.T.long(), scores.T.float()
+        return self._to_host(*out) + (binding,)
 
     def _to_host(self, *tensors):
         """Copies of ``tensors`` that the host can read once the returned
@@ -1419,7 +1536,7 @@ class ContinuousBatcher:
         small-model forward an admit)."""
         P = _round_up(len(ids), self._prefill_bucket)
         _, cache = self._get_cache_prefill(P, draft=True)(self._padded(ids, P), len(ids))
-        T.cache_insert_row(self._draft_cache, cache, slot)
+        T.cache_insert_row(self._draft_cache, cache, self._row(slot))
 
     def _draft_context(self, req) -> List[int]:
         """The context prompt lookup searches: the prompt and the tokens
@@ -1449,30 +1566,37 @@ class ContinuousBatcher:
         go up in one copy; a draft model's proposals are made and fed on
         the card. Returns the handle ``_accept_spec_round`` reads the ids,
         scores and fed tokens from, in one pinned copy."""
-        S, K, cap = self._num_slots, self._spec_k, self._capacity
+        K, cap = self._spec_k, self._capacity
         binding = {i: self._slots[i] for i in active}
-        host = np.zeros((S, K + 2), np.int64)
-        # A finished slot's writes stay inside its row (the admit resets it).
-        pos = np.minimum(self._pos, cap - K)
-        host[:, K] = pos
-        for i in active:
-            req = self._slots[i]
-            host[i, 0] = self._tokens[i]
-            host[i, K + 1] = len(req.generated)
-            if self._draft_model is None:
-                host[i, 1:K] = self._draft(req, K - 1)
-        up = self._upload(host)
-        fed, pos_d, gen_d = up[:, :K], up[:, K], up[:, K + 1]
-        opts = self._device_options()
-        mem, mem_bias = self._memory(opts)
-        if self._draft_model is not None:
-            drafts = self._draft_fn(fed[:, 0], pos_d, gen_d, opts, int(pos.max()))
-            fed = torch.cat([fed[:, :1], drafts], dim=1)
-        ids, scores = self._step_fn(fed, pos_d, gen_d, opts, mem, mem_bias)
+        mine = [i for i in active if self._owns(i)]
+        out = None
+        if mine:
+            host = np.zeros((self._ns, K + 2), np.int64)
+            # A finished slot's writes stay inside its row (the admit resets it).
+            pos = np.minimum(self._mine(self._pos), cap - K)
+            host[:, K] = pos
+            for i in mine:
+                req, r = self._slots[i], self._row(i)
+                host[r, 0] = self._tokens[i]
+                host[r, K + 1] = len(req.generated)
+                if self._draft_model is None:
+                    host[r, 1:K] = self._draft(req, K - 1)
+            up = self._upload(host)
+            fed, pos_d, gen_d = up[:, :K], up[:, K], up[:, K + 1]
+            opts = self._device_options()
+            mem, mem_bias = self._memory(opts)
+            if self._draft_model is not None:
+                drafts = self._draft_fn(fed[:, 0], pos_d, gen_d, opts, int(pos.max()))
+                fed = torch.cat([fed[:, :1], drafts], dim=1)
+            ids, scores = self._step_fn(fed, pos_d, gen_d, opts, mem, mem_bias)
+            out = ids, scores, fed
         self._step_count += 1
         self._blocks += 1
         self._slot_steps += len(active)
-        return self._to_host(ids, scores, fed) + (binding,)
+        if self._shard is not None:
+            ids, scores, fed = self._share_rows(out, (K, K, K))
+            out = ids.long(), scores.float(), fed.long()
+        return self._to_host(*out) + (binding,)
 
     def _accept_spec_round(self, handle):
         """Waits for one verify dispatch and emits each slot's accepted
@@ -1516,7 +1640,7 @@ class ContinuousBatcher:
         bias, noise generators, position bound) -> (cache, state) that runs
         one decode step of every slot's K beams."""
         model = self.model
-        S, K, dev = self._num_slots, self._beam, self._device
+        S, K, dev = self._ns, self._beam, self._device  # this rank's slots
         K2 = 2 * K
 
         def rep(x):  # a slot's value on each of its K rows
@@ -1692,20 +1816,22 @@ class ContinuousBatcher:
         [S] active flags (read back through pinned memory) and the slots'
         requests at dispatch."""
         binding = {i: self._slots[i] for i in active}
-        opts = self._device_options()
-        mem, mem_bias = self._memory(opts)
-        gens = self._sampling_gens(active)
+        mine = [i for i in active if self._owns(i)]
         cap = self._capacity
         top = self._block_bounds(cap - 1)
-        cache, st = self._cache, self._bstate
-        for i in range(self._block):
-            cache, st = self._beam_step_fn(cache, st, opts, mem, mem_bias, gens,
-                                           min(top + i, cap - 1))
-        self._cache, self._bstate = cache, st
+        if mine:
+            opts = self._device_options()
+            mem, mem_bias = self._memory(opts)
+            gens = self._sampling_gens(mine)
+            cache, st = self._cache, self._bstate
+            for i in range(self._block):
+                cache, st = self._beam_step_fn(cache, st, opts, mem, mem_bias, gens,
+                                               min(top + i, cap - 1))
+            self._cache, self._bstate = cache, st
         self._step_count += self._block
         self._blocks += 1
         self._slot_steps += len(active) * self._block
-        return self._to_host(st["active"]) + (binding,)
+        return self._to_host(self._bstate["active"]) + (binding,)
 
     def _consume_beam(self, handle):
         """Reads a block's active flags. A slot admitted after the dispatch
@@ -1714,6 +1840,8 @@ class ContinuousBatcher:
         if done is not None:
             done.synchronize()
         flags = flags.numpy()
+        if self._shard is not None:
+            flags, self._snap = self._share_beam(flags, binding)
         for i, req in binding.items():
             if self._slots[i] is req:
                 self._b_active_host[i] = bool(flags[i])
@@ -1724,10 +1852,35 @@ class ContinuousBatcher:
     def _beam_snapshot(self):
         return {k: self._bstate[k].cpu().numpy() for k in self._BEAM_SNAP_KEYS}
 
+    def _share_beam(self, flags, binding):
+        """The sharded layout's beam block, gathered over the data axis in
+        one buffer: every slot's active flag ([S]) and the hypotheses
+        (``_BEAM_SNAP_KEYS``, by key and slot) of each slot that the block
+        finished or whose request streams, which the harvest reads."""
+        need = [i for i, req in binding.items() if self._owns(i) and self._slots[i] is req
+                and (not flags[self._row(i)] or req.streams)]
+        snaps = {}
+        if need:
+            rows = torch.tensor([self._row(i) for i in need], device=self._device)
+            got = {k: self._bstate[k].index_select(0, rows).cpu().numpy()
+                   for k in self._BEAM_SNAP_KEYS}
+            snaps = {i: {k: got[k][j] for k in got} for j, i in enumerate(need)}
+        parts = self._shard.all_gather_objects((flags, snaps))
+        snap = {k: {} for k in self._BEAM_SNAP_KEYS}
+        for _, got in parts:
+            for i, rec in got.items():
+                for k, a in rec.items():
+                    snap[k][i] = a
+        return np.concatenate([f for f, _ in parts]), snap
+
     def _harvest_beam(self):
-        need = any(r is not None and (r.callback is not None or r.stopped)
-                   for r in self._slots)
-        snap = self._beam_snapshot() if need else None
+        if self._shard is not None:
+            snap = self._snap  # gathered with the last block's flags
+        elif any(r is not None and (r.callback is not None or r.stopped)
+                 for r in self._slots):
+            snap = self._beam_snapshot()
+        else:
+            snap = None
         for i, req in enumerate(self._slots):
             if req is None:
                 continue
@@ -1739,7 +1892,8 @@ class ContinuousBatcher:
             if req.stopped:
                 # A callback's stop (or error): the slot goes inactive and
                 # finishes with its best hypothesis so far.
-                self._bstate["active"][i] = False
+                if self._owns(i):
+                    self._bstate["active"][self._row(i)] = False
                 self._b_active_host[i] = False
                 self._finish_beam(i, req, snap)
 
@@ -1768,7 +1922,7 @@ class ContinuousBatcher:
             lcp = int(dif[0]) if dif.size else m
         if lcp <= req.streamed:
             return
-        cum = snap["alive_sc"][slot, 0]
+        cum = snap["alive_sc"][slot][0]
         v = self._vocab
         if req.t_first is None:
             req.t_first = time.monotonic()
@@ -1801,7 +1955,7 @@ class ContinuousBatcher:
                 return snap[k][slot]
         else:
             def get(k):
-                return self._bstate[k][slot].cpu().numpy()
+                return self._bstate[k][self._row(slot)].cpu().numpy()
         sseq, slen = get("store_seqs"), get("store_lens")
         ssc, s_sc = get("store_scores"), get("store_sc")
         self._slots[slot] = None
@@ -1859,7 +2013,7 @@ class ContinuousBatcher:
     _REPLAY_FIELDS = ("prompt_ids", "max_length", "min_length", "temperature", "topk",
                       "topp", "seed", "end_ids", "rep_penalty", "ngram", "suppress_ids",
                       "stop_sequences", "num_hypotheses", "start_id", "prefix_ids",
-                      "forced_len", "feature_ids", "features", "ts_on")
+                      "forced_len", "feature_ids", "features", "ts_on", "streams")
 
     def _tracked(self, harvest) -> None:
         """Runs ``harvest``; on the leader of a job, records the slots it
@@ -1884,7 +2038,8 @@ class ContinuousBatcher:
             raise RuntimeError(f"the leader's scheduler failed: {record['error']}")
         for i in record["free"]:
             if self._beam > 1:
-                self._bstate["active"][i] = False
+                if self._owns(i):
+                    self._bstate["active"][self._row(i)] = False
                 self._b_active_host[i] = False
             self._slots[i] = None
         return record
@@ -1924,10 +2079,10 @@ class ContinuousBatcher:
                 if self._dist is not None and (admits or any(self._slots)):
                     self._send(admits)
                 admitted = False
+                self._admitting = [req for _, req in admits]  # failed if an admit raises
                 for slot, req in admits:
-                    self._admitting = req  # failed with the rest if the admit raises
                     self._prefill_into_slot(slot, req)
-                    self._admitting = None
+                    self._admitting.pop(0)
                     admitted = True
                 if admitted and self._beam == 1:
                     # An admit's first token may end its request (an end
@@ -1959,10 +2114,10 @@ class ContinuousBatcher:
         except BaseException as e:  # noqa: BLE001
             self._error = e
             self._fail_pending(e)
-            for s in self._slots + [self._admitting]:
+            for s in self._slots + self._admitting:
                 if s is not None and not s.future.done():
                     s.future.set_exception(e)
-            if self._dist is not None and self._leader:
+            if self._dist is not None and self._leader and not self._failed_everywhere:
                 self._send_error(e)
 
     def _send_error(self, exc: BaseException) -> None:
@@ -2030,7 +2185,7 @@ class ContinuousTranslator(ContinuousBatcher):
             if a is None:
                 self._mem.append(None)
                 continue
-            shape = (self._num_slots, a.num_heads_kv, self._max_src, a.head_dim)
+            shape = (self._ns, a.num_heads_kv, self._max_src, a.head_dim)
             self._mem.append({n: torch.zeros(shape, dtype=model.out_dtype,
                                              device=self._device) for n in ("k", "v")})
         self._src_len = np.zeros(self._num_slots, np.int64)
@@ -2113,7 +2268,7 @@ class ContinuousTranslator(ContinuousBatcher):
     def _device_options(self) -> dict:
         if self._dopts is None:
             o = super()._device_options()
-            o["src_len"] = self._upload(self._src_len)
+            o["src_len"] = self._upload(self._mine(self._src_len))
         return self._dopts
 
     @staticmethod
@@ -2191,13 +2346,17 @@ class ContinuousTranslator(ContinuousBatcher):
         def pad_ids(row):
             return self._padded(row[:P], P).to(self._device)
 
-        enc_ids = (tuple(pad_ids(f) for f in req.feature_ids)
-                   if req.feature_ids is not None else pad_ids(ids))
-        self._mem_insert_impl(self._mem, self._get_encode(P)(enc_ids, min(len(ids), P)), slot)
-        if self._draft_model is not None:
-            # A draft takes one feature stream (_init_draft): the main one.
-            self._mem_insert_impl(self._draft_mem, self._get_draft_encode(P)(
-                pad_ids(ids), min(len(ids), P)), slot)
+        def encode():
+            r = self._row(slot)
+            enc_ids = (tuple(pad_ids(f) for f in req.feature_ids)
+                       if req.feature_ids is not None else pad_ids(ids))
+            self._mem_insert_impl(self._mem, self._get_encode(P)(enc_ids, min(len(ids), P)), r)
+            if self._draft_model is not None:
+                # A draft takes one feature stream (_init_draft): the main one.
+                self._mem_insert_impl(self._draft_mem, self._get_draft_encode(P)(
+                    pad_ids(ids), min(len(ids), P)), r)
+
+        self._on_owner(slot, encode)
         self._src_len[slot] = min(len(ids), P)
         self._admit_decoder(slot, req, req.start_id)
 
@@ -2221,13 +2380,16 @@ class ContinuousTranslator(ContinuousBatcher):
             # table (1.0 / 0 penalty rows stay no-ops for the others).
             self._ensure_pen_tables()
         self._set_slot_sampling(slot, req)
-        self._dstate["tokens"][slot] = start_id
-        self._dstate["pos"][slot] = 0
-        self._dstate["gen"][slot] = 0
         self._dpos[slot] = 0
+        if not self._owns(slot):
+            return
+        r = self._row(slot)
+        self._dstate["tokens"][r] = start_id
+        self._dstate["pos"][r] = 0
+        self._dstate["gen"][r] = 0
         if self._seen.shape[0]:
-            self._seen[slot] = False
-            self._hist[slot] = 0
+            self._seen[r] = False
+            self._hist[r] = 0
 
 
 class ContinuousWhisper(ContinuousTranslator):
@@ -2367,10 +2529,16 @@ class ContinuousWhisper(ContinuousTranslator):
         return self._make_encode_fn(self.model, frames, speech=True)
 
     def _prefill_into_slot(self, slot: int, req: _Request):
-        feats = torch.as_tensor(req.features[None]).to(self._device)
-        self._mem_insert_impl(self._mem, self._get_speech_encode(feats.shape[-1])(feats), slot)
-        if self._draft_model is not None:
-            self._mem_insert_impl(self._draft_mem, self._get_draft_speech_encode(
-                feats.shape[-1])(feats), slot)
-        self._src_len[slot] = min((feats.shape[-1] + 1) // 2, self._max_src)
+        frames = req.features.shape[-1]
+
+        def encode():
+            r = self._row(slot)
+            feats = torch.as_tensor(req.features[None]).to(self._device)
+            self._mem_insert_impl(self._mem, self._get_speech_encode(frames)(feats), r)
+            if self._draft_model is not None:
+                self._mem_insert_impl(self._draft_mem,
+                                      self._get_draft_speech_encode(frames)(feats), r)
+
+        self._on_owner(slot, encode)
+        self._src_len[slot] = min((frames + 1) // 2, self._max_src)
         self._admit_decoder(slot, req, req.start_id)

@@ -7,7 +7,8 @@ on the CPU, against the JAX package's.
 - The log level round trip and ``CT2TPU_VERBOSE``; the supported compute
   types; ``contains_model``; the random seed; ``get_cuda_device_count``;
   ``MpiInfo`` and ``get_device_info`` with and without a process group;
-  ``DataType``, ``Device``, ``specs`` and the ``models`` namespace.
+  ``DataType``, ``Device``, ``specs`` and the ``models`` namespace; the
+  converter classes and the converters' console scripts.
 - ``cli.translate.main`` writes the file the JAX package's client writes on
   a builder model (``--device cpu``); ``--log_profiling`` prints the
   profiler's table; without ``--device`` it wants the card.
@@ -87,6 +88,32 @@ def test_package_exports():
         if callable(value):
             assert value.__module__.startswith("ctranslate2_tpu_torch."), n
     assert tt.__version__ == ct.__version__
+
+
+def test_converters_match_the_jax_package():
+    names = {n for n in _public(ct.converters) if n.endswith("Converter")}
+    assert len(names) == 6 and names == {n for n in _public(tt.converters)
+                                         if n.endswith("Converter")}
+    for n in names:
+        assert getattr(tt.converters, n).__module__.startswith(
+            "ctranslate2_tpu_torch.converters."), n
+
+
+def test_converter_console_scripts():
+    """Every converter script of the JAX package has a ``ct2tpu-torch-``
+    twin that points at the same function of the port."""
+    import tomllib
+
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    theirs = {n: v for n, v in scripts.items() if n.endswith("-converter")
+              and not n.startswith("ct2tpu-torch-")}
+    assert len(theirs) == 7
+    for name, target in theirs.items():
+        ours = scripts[name.replace("ct2tpu-", "ct2tpu-torch-", 1)]
+        assert ours == target.replace("ctranslate2_tpu.", "ctranslate2_tpu_torch.", 1)
+        module, func = ours.split(":")
+        assert callable(getattr(__import__(module, fromlist=[func]), func))
 
 
 def test_datatype_and_device():
